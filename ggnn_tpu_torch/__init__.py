@@ -1,0 +1,19 @@
+"""ggnn_tpu_torch — the GGNN framework ported to PyTorch and CUDA for an
+NVIDIA H100 (Hopper, sm_90a).
+
+The JAX package :mod:`ggnn_tpu` stays the reference.  This package imports
+``torch`` and never ``jax``; it reuses the reference's numpy-only modules
+(:mod:`ggnn_tpu.graph`, :mod:`ggnn_tpu.data`, :mod:`ggnn_tpu.oracle`).
+
+Layering, from the serving entry point down:
+
+- :mod:`ggnn_tpu_torch.infer`          — ``Predictor``: batching, layouts, decode
+- :mod:`ggnn_tpu_torch.models`         — config, params, ``forward``,
+  ``propagate``, readout heads
+- :mod:`ggnn_tpu_torch.train`          — checkpoints in the reference format
+- :mod:`ggnn_tpu_torch.ops`            — typed aggregation: plain torch path,
+  typed-pack layout, CUDA kernel wrappers
+- ``ggnn_tpu_torch/ops/csrc``          — the hand-written CUDA kernels
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,439 @@
+"""Typed-pack one-hot aggregation: host layout, CUDA kernels, plain versions.
+
+Counterpart of ``ggnn_tpu/ops/scatter_pallas.py`` for its typed pack in
+block mode, the layout the headline serves with:
+
+- :func:`build_typed_dst_layout` is the reference function ported to numpy,
+  array for array (``with_grad=False``): edges sorted by (dst block, type,
+  src), per-(block, type) groups packed at 16-row alignment, and in block
+  mode ``S8`` slots per dst block whose pack offsets and dst-local rows the
+  kernel reads.  ``gather_idx`` indexes rows of h.
+- :func:`typed_block_scatter` and :func:`typed_block_step_gru` wrap the
+  CUDA kernel ``csrc/typed_block.cu`` (the port of ``_typed_block_kernel``);
+  each has a ``_reference`` plain version with the same rounding points.
+- :func:`aggregate_onehot` is the full typed aggregation: the ``h_pack``
+  gather, the kernel, and the bias Σ_t indeg_t·b_t.
+
+A wrapper takes its plain version only for CPU tensors; for CUDA tensors it
+launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import warnings
+
+import numpy as np
+import torch
+
+from ggnn_tpu_torch.ops import _build
+from ggnn_tpu_torch.ops.gru import (_DTYPE_CODE, _check_cuda_args,
+                                    gru_cell_fwd_reference)
+
+BLOCK_N = 128                  # destination rows per output block
+SMEM_TILE_CAP = 40960          # the reference's per-call tile cap (chunking)
+SPAN_ROW_CAP = 16384           # largest block span block mode accepts
+BLOCK_SLOT_CAP = 160 * 1024    # largest slot array block mode accepts
+
+_PER_TILE = ("block mode declined for this graph (hub-heavy or chunked "
+             "layout): the per-tile kernels typed_onehot_scatter / "
+             "typed_step_gru are not ported yet (ROADMAP Queue 1 item 2)")
+
+
+def _rup_block(x: int) -> int:
+    return ((x + BLOCK_N - 1) // BLOCK_N) * BLOCK_N
+
+
+def _rup(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclasses.dataclass
+class ScatterLayout:
+    """A typed-pack layout: ``meta`` is the reference's static tuple, item
+    for item; ``arrays`` holds numpy arrays (host) or tensors (device)."""
+
+    meta: tuple
+    arrays: dict
+
+    @property
+    def n_blocks(self) -> int:
+        return self.meta[3]
+
+    @property
+    def block_meta(self):
+        """(S8, cmax, span_rows) when block mode engaged, else None."""
+        return self.meta[10]
+
+    def to(self, device) -> "ScatterLayout":
+        """A copy whose arrays are tensors on ``device``."""
+        return ScatterLayout(self.meta, {
+            k: torch.as_tensor(v, device=device)
+            for k, v in self.arrays.items()})
+
+
+def _chunk_blocks(tile_start, cap: int = SMEM_TILE_CAP):
+    """Split blocks at block boundaries so each chunk holds at most ``cap``
+    tiles (the reference's ``_chunk_blocks``)."""
+    ts = np.asarray(tile_start, np.int64)
+    n_blocks = ts.shape[0] - 1
+    if int(ts[-1]) <= cap:
+        return None
+    over = np.flatnonzero(np.diff(ts) > cap)
+    if over.size and cap >= SMEM_TILE_CAP:
+        b = int(over[0])
+        raise ValueError(
+            f"dst block {b} alone holds {int(ts[b + 1] - ts[b])} tiles, "
+            f"over the chunk cap of {cap}; rebuild the layout with a larger "
+            f"tile_e")
+    bounds = []
+    b0 = 0
+    while b0 < n_blocks:
+        b1 = int(np.searchsorted(ts, ts[b0] + cap, side="right")) - 1
+        b1 = min(max(b1, b0 + 1), n_blocks)
+        bounds.append((b0, b1, int(ts[b0]), int(ts[b1])))
+        b0 = b1
+    return tuple(bounds)
+
+
+def build_typed_dst_layout(edge_src, edge_dst, edge_type, edge_mask,
+                           n_nodes_pad: int, n_message_types: int,
+                           tile_e: int | None = None, edge_align: int = 16,
+                           with_grad: bool = False,
+                           grad_tile_e: int | None = None,
+                           smem_tile_cap: int = SMEM_TILE_CAP,
+                           span_mode="auto", block_mode="auto"
+                           ) -> ScatterLayout:
+    """Host layout of the typed pack (the reference function, array for
+    array, ``with_grad=False``).  Block mode ('auto') engages when the
+    T2·cmax slot grid stays bounded; hub-heavy graphs keep the per-tile
+    arrays, which the port does not run yet."""
+    if with_grad:
+        raise NotImplementedError(
+            "with_grad=True (the octet / per-tile grad layouts) comes with "
+            "training (ROADMAP Queue 1 item 1)")
+    del grad_tile_e
+    T2 = n_message_types
+    if n_nodes_pad % BLOCK_N:
+        raise ValueError(f"n_nodes_pad must be a multiple of {BLOCK_N}")
+    if tile_e is None:
+        # size tiles to the average (block, type) group occupancy
+        n_real_e = max(int((np.asarray(edge_mask) > 0).sum()), 1)
+        avg = max(1, n_real_e * BLOCK_N // n_nodes_pad // T2)
+        tile_e = 128
+        while tile_e < min(avg, 2048):
+            tile_e *= 2
+    if tile_e % edge_align:
+        raise ValueError("edge_align must divide tile_e")
+    real = np.asarray(edge_mask) > 0
+    src = np.asarray(edge_src)[real].astype(np.int64)
+    dst = np.asarray(edge_dst)[real].astype(np.int64)
+    typ = np.asarray(edge_type)[real].astype(np.int64)
+    order = np.lexsort((src, typ, dst // BLOCK_N))
+    src, dst, typ = src[order], dst[order], typ[order]
+    n_blocks = n_nodes_pad // BLOCK_N
+    block = dst // BLOCK_N
+    gid = block * T2 + typ
+    n_groups = n_blocks * T2
+    gcnt = np.bincount(gid, minlength=n_groups)
+    A = edge_align
+    gbase = np.zeros(n_groups + 1, np.int64)
+    np.cumsum(-(-gcnt // A) * A, out=gbase[1:])
+    e_pack = int(gbase[-1]) + tile_e      # margin: last tile may overrun
+    blk_start = gbase[np.arange(n_blocks) * T2]
+    blk_end = gbase[np.arange(1, n_blocks + 1) * T2]
+    span_rows = int((blk_end - blk_start).max(initial=0)) + tile_e
+    span_rows = -(-span_rows // 16) * 16
+    gtiles = -(-gcnt // tile_e)
+    n_real = int(gtiles.sum())
+    cmax = max(int(gtiles.max(initial=0)), 1)
+    S8 = _rup(T2 * cmax, 8)
+    n_slots = n_blocks * S8
+    block_ok = ((block_mode is not False) and A == 16
+                and span_rows <= SPAN_ROW_CAP)
+    if block_ok and block_mode == "auto":
+        block_ok = (cmax <= 8 and n_slots <= BLOCK_SLOT_CAP
+                    and n_slots <= 3 * max(n_real, 1) + 8 * n_blocks)
+    if block_mode is True and not block_ok:
+        warnings.warn(
+            "block_mode=True cannot be honored (needs edge_align=16 and "
+            f"max block span {span_rows} <= {SPAN_ROW_CAP}); falling back "
+            "to the per-tile layout", stacklevel=2)
+    if span_mode is True and block_ok:
+        warnings.warn(
+            "span_mode=True is superseded by block mode (engaged); pass "
+            "block_mode=False for the per-tile span layout", stacklevel=2)
+    span_auto = span_mode == "auto"
+    span_mode = ((True if span_auto else bool(span_mode))
+                 and (A == 16) and span_rows <= SPAN_ROW_CAP
+                 and not block_ok)
+    if span_mode or block_ok:
+        e_pack = max(e_pack, int(blk_start.max(initial=0)) + span_rows)
+    grp_idx = np.nonzero(gtiles)[0]
+    reps = gtiles[grp_idx]
+    t_gid = np.repeat(grp_idx, reps)
+    t_k = np.arange(n_real) - np.repeat(np.cumsum(reps) - reps, reps)
+    first_of_g = np.zeros(n_groups, np.int64)
+    first_of_g[1:] = np.cumsum(gcnt)[:-1]
+    rank = np.arange(src.shape[0]) - first_of_g[gid]
+    pos = gbase[gid] + rank
+    gather_idx = np.zeros(e_pack, np.int32)
+    gather_idx[pos] = src.astype(np.int32)
+    arrays = {"gather_idx": gather_idx,
+              "indeg": np.bincount(typ * np.int64(n_nodes_pad) + dst,
+                                   minlength=T2 * n_nodes_pad)
+              .reshape(T2, n_nodes_pad).astype(np.float32)}
+    chunks = None
+    if block_ok:
+        # slot (b, t, c) at b·S8 + t·cmax + c: pack offset / 16 relative to
+        # the block's span start (−1 = empty), and its dst-local row
+        slot_off16 = np.full(n_slots, -1, np.int32)
+        slot_idx = ((t_gid // T2) * S8 + (t_gid % T2) * cmax + t_k)
+        slot_off16[slot_idx] = ((gbase[t_gid] + t_k * tile_e
+                                 - blk_start[t_gid // T2]) // 16)
+        dstl_blk = np.full((n_slots, tile_e), -1, np.int32)
+        e_slot = block * np.int64(S8) + typ * cmax + rank // tile_e
+        dstl_blk[e_slot, rank % tile_e] = dst - block * BLOCK_N
+        arrays["slot_off16"] = slot_off16
+        arrays["dstl_blk"] = dstl_blk
+    else:
+        # per-tile enumeration (+1 dummy tile per empty block)
+        btiles = gtiles.reshape(n_blocks, T2).sum(1)
+        need_dummy = btiles == 0
+        t_block = (t_gid // T2).astype(np.int32)
+        t_type = (t_gid % T2).astype(np.int32)
+        t_off = ((gbase[t_gid] + t_k * tile_e) // A).astype(np.int32)
+        db = np.nonzero(need_dummy)[0].astype(np.int32)
+        all_block = np.concatenate([t_block, db])
+        all_type = np.concatenate([t_type, np.zeros(db.size, np.int32)])
+        all_off = np.concatenate([t_off, np.full(db.size, -1, np.int32)])
+        o2 = np.argsort(all_block, kind="stable")
+        block_of_tile = all_block[o2]
+        tile_type = all_type[o2]
+        tile_msg_off = all_off[o2]            # -1 marks a dummy tile
+        c_off = np.where(o2 < n_real, o2, 0).astype(np.int32)
+        tile_start = np.zeros(n_blocks + 1, np.int32)
+        np.cumsum(np.bincount(block_of_tile, minlength=n_blocks),
+                  out=tile_start[1:])
+        gt_first = np.zeros(n_groups, np.int64)
+        gt_first[grp_idx] = np.cumsum(reps) - reps
+        tile_of_edge = gt_first[gid] + rank // tile_e
+        dstl = np.full((_rup(max(n_real, 1), 8), tile_e), -1, np.int32)
+        dstl[tile_of_edge, rank % tile_e] = dst - block * BLOCK_N
+        arrays.update({"dstl": dstl, "tile_start": tile_start,
+                       "block_of_tile": block_of_tile,
+                       "tile_msg_off": tile_msg_off, "c_off": c_off,
+                       "tile_type": tile_type})
+        chunks = _chunk_blocks(tile_start, smem_tile_cap)
+    if span_mode or block_ok:
+        arrays["blk_off16"] = (blk_start // 16).astype(np.int32)
+    if span_mode and span_auto and chunks is not None:
+        span_mode = False
+        arrays.pop("blk_off16", None)
+    meta = (n_nodes_pad, tile_e, 0, n_blocks, True, None,
+            edge_align, "typed", chunks,
+            span_rows if span_mode else None,
+            (S8, cmax, span_rows) if block_ok else None)
+    return ScatterLayout(meta=meta, arrays=arrays)
+
+
+def _check_block_args(name, h_pack, dstl_blk, slot_off16, blk_off16, msg_w,
+                      n_blocks, tile_e, S8, cmax, span_rows):
+    T2, D = msg_w.shape[0], msg_w.shape[-1]
+    if h_pack.dim() != 2 or h_pack.shape[1] != D or msg_w.shape[1] != D:
+        raise ValueError(f"{name}: h_pack {tuple(h_pack.shape)} and msg_w "
+                         f"{tuple(msg_w.shape)} disagree on D")
+    if tuple(dstl_blk.shape) != (n_blocks * S8, tile_e):
+        raise ValueError(f"{name}: dstl_blk {tuple(dstl_blk.shape)} is not "
+                         f"[n_blocks·S8, tile_e] = [{n_blocks * S8}, "
+                         f"{tile_e}]: layout and arguments disagree")
+    if tuple(slot_off16.shape) != (n_blocks * S8,):
+        raise ValueError(f"{name}: slot_off16 {tuple(slot_off16.shape)} is "
+                         f"not [{n_blocks * S8}]")
+    if tuple(blk_off16.shape) != (n_blocks,):
+        raise ValueError(f"{name}: blk_off16 {tuple(blk_off16.shape)} is not "
+                         f"[{n_blocks}]")
+    if _rup(T2 * cmax, 8) != S8:
+        raise ValueError(f"{name}: msg_w's {T2} types × cmax {cmax} do not "
+                         f"fill the layout's S8 = {S8} slots per block: "
+                         f"msg_w does not belong to this layout")
+    if h_pack.dtype != msg_w.dtype:
+        raise ValueError(f"{name}: h_pack is {h_pack.dtype} but msg_w is "
+                         f"{msg_w.dtype}; both must be the compute dtype")
+    if h_pack.shape[0] < span_rows:
+        raise ValueError(f"{name}: h_pack has {h_pack.shape[0]} rows, fewer "
+                         f"than one block span ({span_rows}): it was not "
+                         f"gathered with this layout")
+    for arg, t in (("dstl_blk", dstl_blk), ("slot_off16", slot_off16),
+                   ("blk_off16", blk_off16)):
+        if t.dtype != torch.int32:
+            raise ValueError(f"{name}: {arg} must be int32, got {t.dtype}")
+
+
+def typed_block_scatter_reference(h_pack, dstl_blk, slot_off16, blk_off16,
+                                  msg_w, n_blocks: int, tile_e: int, S8: int,
+                                  cmax: int, span_rows: int = 0):
+    """Plain version of :func:`typed_block_scatter`: per type t, the slot
+    one-hot products in f32 by ``index_add_``, rounded to ``msg_w``'s dtype
+    per slot, then times W_t in f32."""
+    del span_rows
+    T2, D = msg_w.shape[0], msg_w.shape[-1]
+    dev = h_pack.device
+    out = torch.zeros(n_blocks * BLOCK_N, D, dtype=torch.float32, device=dev)
+    if n_blocks == 0:
+        return out
+    dl = dstl_blk.reshape(n_blocks, S8, tile_e).long()
+    off = slot_off16.reshape(n_blocks, S8).long()
+    base = (blk_off16.long()[:, None] + off) * 16               # [B, S8]
+    cols = torch.arange(tile_e, device=dev)
+    slot_id = (torch.arange(n_blocks, device=dev)[:, None, None] * cmax
+               + torch.arange(cmax, device=dev)[None, :, None])   # [B, c, 1]
+    for t in range(T2):
+        sl = slice(t * cmax, (t + 1) * cmax)
+        d = dl[:, sl]                                          # [B, c, tile_e]
+        valid = (d >= 0) & (off[:, sl, None] >= 0)
+        rows = (base[:, sl, None] + cols)[valid]
+        tgt = ((slot_id * BLOCK_N).expand_as(d) + d)[valid]
+        p = torch.zeros(n_blocks * cmax * BLOCK_N, D, dtype=torch.float32,
+                        device=dev)
+        p.index_add_(0, tgt, h_pack.index_select(0, rows).float())
+        p = p.to(msg_w.dtype).float() @ msg_w[t].float()
+        out += p.reshape(n_blocks, cmax, BLOCK_N, D).sum(1).reshape(-1, D)
+    return out
+
+
+def typed_block_step_gru_reference(h_pack, dstl_blk, slot_off16, blk_off16,
+                                   msg_w, init, hstate, wa, b3, uzr, uh,
+                                   n_blocks: int, tile_e: int, S8: int,
+                                   cmax: int, span_rows: int = 0):
+    """Plain version of :func:`typed_block_step_gru`: the scatter started
+    from ``init``, then the GRU cell with matmul inputs in ``wa``'s dtype."""
+    a = init.float() + typed_block_scatter_reference(
+        h_pack, dstl_blk, slot_off16, blk_off16, msg_w, n_blocks, tile_e,
+        S8, cmax, span_rows)
+    return gru_cell_fwd_reference(hstate, a, wa, b3, uzr, uh, mdt=wa.dtype)[0]
+
+
+def _launch_block(name, fused, h_pack, dstl_blk, slot_off16, blk_off16,
+                  msg_w, n_blocks, tile_e, S8, cmax, init=None, hstate=None,
+                  wa=None, b3=None, uzr=None, uh=None):
+    D = msg_w.shape[-1]
+    if h_pack.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{name}: dtype {h_pack.dtype} not in "
+                         f"{list(_DTYPE_CODE)}")
+    named = [("h_pack", h_pack), ("dstl_blk", dstl_blk),
+             ("slot_off16", slot_off16), ("blk_off16", blk_off16),
+             ("msg_w", msg_w)]
+    if fused:
+        named += [("init", init), ("hstate", hstate), ("wa", wa),
+                  ("b3", b3), ("uzr", uzr), ("uh", uh)]
+    for arg, t in named[4:]:
+        want = (torch.float32 if arg in ("init", "hstate", "b3")
+                else h_pack.dtype)
+        if t.dtype != want:
+            raise ValueError(f"{name}: {arg} must be {want}, got {t.dtype}")
+    _check_cuda_args(name, named, D)
+    out = torch.empty(n_blocks * BLOCK_N, D, dtype=torch.float32,
+                      device=h_pack.device)
+    p = _build.ptr
+    _build.launch(
+        _build.library().ggnn_typed_block, name, h_pack.device,
+        _DTYPE_CODE[h_pack.dtype], int(fused), p(h_pack), h_pack.shape[0],
+        p(dstl_blk), p(slot_off16), p(blk_off16), p(msg_w), n_blocks,
+        msg_w.shape[0], cmax, S8, tile_e, p(init), p(hstate), p(wa), p(b3),
+        p(uzr), p(uh), p(out))
+    return out
+
+
+def typed_block_scatter(h_pack, dstl_blk, slot_off16, blk_off16, msg_w,
+                        n_blocks: int, tile_e: int, S8: int, cmax: int,
+                        span_rows: int):
+    """Per-block typed-pack scatter: out[b·128:(b+1)·128] =
+    Σ_{t,c} bf16(onehot(b,t,c) @ H_chunk) · W_t  → [n_blocks·128, D] f32.
+
+    ``h_pack`` [E_pack, D] and ``msg_w`` [T2, D, D] in the compute dtype;
+    the int32 layout arrays as :func:`build_typed_dst_layout` made them."""
+    _check_block_args("typed_block_scatter", h_pack, dstl_blk, slot_off16,
+                      blk_off16, msg_w, n_blocks, tile_e, S8, cmax, span_rows)
+    if h_pack.device.type == "cpu":
+        return typed_block_scatter_reference(
+            h_pack, dstl_blk, slot_off16, blk_off16, msg_w, n_blocks, tile_e,
+            S8, cmax, span_rows)
+    out = _launch_block("typed_block_scatter", False, h_pack, dstl_blk,
+                        slot_off16, blk_off16, msg_w, n_blocks, tile_e, S8,
+                        cmax)
+    typed_block_scatter.launches += 1
+    return out
+
+
+def typed_block_step_gru(h_pack, dstl_blk, slot_off16, blk_off16, msg_w,
+                         init, hstate, wa, b3, uzr, uh, n_blocks: int,
+                         tile_e: int, S8: int, cmax: int, span_rows: int):
+    """Fused per-block typed aggregation + GRU step: ``init``
+    [n_blocks·128, D] f32 is the Σ_t indeg_t·b_t bias, ``hstate`` the padded
+    f32 node state, ``wa``/``uzr``/``uh`` in the compute dtype and ``b3``
+    [1, 3D] f32; returns h' [n_blocks·128, D] f32."""
+    _check_block_args("typed_block_step_gru", h_pack, dstl_blk, slot_off16,
+                      blk_off16, msg_w, n_blocks, tile_e, S8, cmax, span_rows)
+    D = msg_w.shape[-1]
+    rows = n_blocks * BLOCK_N
+    for arg, t, shape in (("init", init, (rows, D)),
+                          ("hstate", hstate, (rows, D)),
+                          ("wa", wa, (D, 3 * D)), ("uzr", uzr, (D, 2 * D)),
+                          ("uh", uh, (D, D))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"typed_block_step_gru: {arg} "
+                             f"{tuple(t.shape)} is not {shape}")
+    if b3.numel() != 3 * D:
+        raise ValueError(f"typed_block_step_gru: b3 has {b3.numel()} "
+                         f"entries, expected {3 * D}")
+    if h_pack.device.type == "cpu":
+        return typed_block_step_gru_reference(
+            h_pack, dstl_blk, slot_off16, blk_off16, msg_w, init, hstate, wa,
+            b3, uzr, uh, n_blocks, tile_e, S8, cmax, span_rows)
+    out = _launch_block("typed_block_step_gru", True, h_pack, dstl_blk,
+                        slot_off16, blk_off16, msg_w, n_blocks, tile_e, S8,
+                        cmax, init, hstate, wa, b3.reshape(-1), uzr, uh)
+    typed_block_step_gru.launches += 1
+    return out
+
+
+typed_block_scatter.launches = 0
+typed_block_step_gru.launches = 0
+
+
+def block_args(layout: ScatterLayout) -> dict:
+    """The kernel arguments a block-mode layout supplies, or raise where the
+    layout needs kernels the port does not have yet."""
+    meta = layout.meta
+    if len(meta) < 11 or meta[7] != "typed":
+        raise NotImplementedError(
+            "only the typed pack is ported; the legacy table-gather layout "
+            "(build_dst_block_layout / layout_for_batch) and its kernels are "
+            "ROADMAP Queue 1 item 3")
+    if meta[10] is None:
+        raise NotImplementedError(_PER_TILE)
+    S8, cmax, span_rows = meta[10]
+    arrs = layout.arrays
+    return dict(dstl_blk=arrs["dstl_blk"], slot_off16=arrs["slot_off16"],
+                blk_off16=arrs["blk_off16"], n_blocks=meta[3],
+                tile_e=meta[1], S8=S8, cmax=cmax, span_rows=span_rows)
+
+
+def bias_rows(layout: ScatterLayout, msg_b):
+    """Σ_t indeg_t(v)·b_t for every dst row of the layout, f32 [n_rows, D]."""
+    return torch.einsum("tn,td->nd", layout.arrays["indeg"], msg_b.float())
+
+
+def aggregate_onehot(h, layout: ScatterLayout, msg_w, msg_b):
+    """Typed aggregation a_v = Σ_{(u,t,v)} h_u·W_t + b_t through the typed
+    block kernel.  ``h`` [N, D] and ``msg_w``/``msg_b`` in the compute
+    dtype; returns [N, D] f32."""
+    kw = block_args(layout)
+    N = h.shape[0]
+    h_pack = h.index_select(0, layout.arrays["gather_idx"])
+    out = typed_block_scatter(h_pack, kw.pop("dstl_blk"),
+                              kw.pop("slot_off16"), kw.pop("blk_off16"),
+                              msg_w, **kw)
+    return (out + bias_rows(layout, msg_b))[:N]
+
