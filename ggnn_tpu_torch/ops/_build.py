@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 The sources under ``ops/csrc`` are compiled at first use by ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, and loaded with
-ctypes.  The library lands in ``ggnn_tpu_torch/_build/`` under a name that
+``sm_90a`` (one compiler process per source, run in parallel) and linked into
+one shared library with a plain C interface, loaded with ctypes.  The library
+lands in ``ggnn_tpu_torch/_build/`` under a name that
 hashes the sources and flags, so an edited source rebuilds and an unchanged
 one is reused.  Nothing here runs at import time: this module imports on a
 machine without CUDA, and the CPU tests import every module.
@@ -25,7 +26,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,6 +39,14 @@ _SIGNATURES = {
                          _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     # dtype, h, a, wa, b3, uzr, uh, out_h, z, r, ht, n_blocks, stream
     "ggnn_gru_cell": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+    # dtype, da_narrow, g, h, a, z, r, ht, wa, uzr, uh, dh, da, gates, dbp,
+    # ws, dwa, db, duzr, duh, n_blocks, stream
+    "ggnn_gru_cell_bwd": [_I, _I] + [_P] * 18 + [_I, _P],
+    "ggnn_gru_bwd_chunks": [_I],
+    # g_dtype, out_dtype, G, n_G, dstl_oct, slot_off16, oblk16, n_oct,
+    # g_tile, C, R8, out, stream
+    "ggnn_grad_octet": [_I, _I, _P, ctypes.c_longlong, _P, _P, _P, _I, _I,
+                        _I, _I, _P, _P],
     "ggnn_error_string": [_I],
 }
 
@@ -62,7 +72,7 @@ def _nvcc() -> str:
 def library() -> ctypes.CDLL:
     """The compiled kernel library (built on first call, then cached)."""
     sources = sorted(CSRC.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for p in sorted(CSRC.iterdir()):
         if p.suffix in (".cu", ".cuh"):
             digest.update(p.name.encode() + p.read_bytes())
@@ -71,13 +81,28 @@ def library() -> ctypes.CDLL:
     BuildInfo.compiled = not so.exists()
     if BuildInfo.compiled:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+        # one nvcc per source, all started together, then one link
+        objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
+        cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(sources, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        logs = [p.communicate()[0] for p in procs]
+        for cmd, p, log in zip(cmds, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{log}")
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        cmd = [_nvcc(), *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]
         res = subprocess.run(cmd, capture_output=True, text=True)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
                                f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-        BuildInfo.log = res.stdout + res.stderr
+        BuildInfo.log = "".join(logs) + res.stdout + res.stderr
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():

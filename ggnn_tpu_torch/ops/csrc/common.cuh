@@ -64,6 +64,18 @@ __device__ __forceinline__ void load_wt(T* Bt, const T* __restrict__ W,
   }
 }
 
+// Bt[n][k] = W[n][col0 + k] for n, k in [0, 128): the tile for a product
+// with the TRANSPOSE of W[:, col0 : col0 + 128] (the backward's x·Wᵀ).
+template <typename T>
+__device__ __forceinline__ void load_w_rows(T* Bt, const T* __restrict__ W,
+                                            int ldw, int col0) {
+  constexpr int ld = Smem<T>::ld;
+  for (int idx = threadIdx.x; idx < kD * kD; idx += kThreads) {
+    const int n = idx / kD, k = idx % kD;
+    Bt[n * ld + k] = W[size_t(n) * ldw + col0 + k];
+  }
+}
+
 __device__ __forceinline__ void zero_acc(float (&acc)[kNT][4]) {
 #pragma unroll
   for (int nt = 0; nt < kNT; ++nt)
@@ -219,6 +231,67 @@ __device__ __forceinline__ void stage_rows(T* dst, const float* __restrict__ src
   for (int idx = threadIdx.x; idx < kRows * kD; idx += kThreads) {
     const int r = idx / kD, c = idx % kD;
     dst[r * ld + c] = from_f<T>(src[idx]);
+  }
+}
+
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  v[0] = x.x;
+  v[1] = x.y;
+  v[2] = x.z;
+  v[3] = x.w;
+}
+
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 x = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&x.x);
+  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&x.y);
+  v[0] = __low2float(lo);
+  v[1] = __high2float(lo);
+  v[2] = __low2float(hi);
+  v[3] = __high2float(hi);
+}
+
+// S[d][:] += h_pack[base + j] for every column j of the slot with dst id
+// d = drow[j] >= 0.  Lane l carries features 4l..4l+3, kept at S columns
+// i·32 + l (i = 0..3) so each of the four atomics of a warp is bank-free.
+template <typename T>
+__device__ __forceinline__ void segment_sum(float* S,
+                                            const T* __restrict__ h_pack,
+                                            long long n_pack, long long base,
+                                            const int* __restrict__ drow,
+                                            int tile_e) {
+  constexpr int U = 16;  // rows in flight per warp
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int j0 = warp * 32; j0 < tile_e; j0 += kThreads) {
+    const int j = j0 + lane;
+    int d = -1;
+    if (j < tile_e) {
+      d = drow[j];
+      const long long row = base + j;
+      if (unsigned(d) >= unsigned(kRows) || row < 0 || row >= n_pack) d = -1;
+    }
+#pragma unroll
+    for (int q0 = 0; q0 < 32; q0 += U) {
+      int dq[U];
+      float v[U][4];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        dq[u] = __shfl_sync(0xffffffffu, d, q0 + u);
+        if (dq[u] >= 0)
+          load4(h_pack + (base + j0 + q0 + u) * kD + 4 * lane, v[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (dq[u] >= 0) {
+          float* p = S + dq[u] * kD + lane;
+          atomicAdd(p, v[u][0]);
+          atomicAdd(p + 32, v[u][1]);
+          atomicAdd(p + 64, v[u][2]);
+          atomicAdd(p + 96, v[u][3]);
+        }
+      }
+    }
   }
 }
 

@@ -4,15 +4,19 @@ Counterpart of ``ggnn_tpu/ops/scatter_pallas.py`` for its typed pack in
 block mode, the layout the headline serves with:
 
 - :func:`build_typed_dst_layout` is the reference function ported to numpy,
-  array for array (``with_grad=False``): edges sorted by (dst block, type,
-  src), per-(block, type) groups packed at 16-row alignment, and in block
-  mode ``S8`` slots per dst block whose pack offsets and dst-local rows the
-  kernel reads.  ``gather_idx`` indexes rows of h.
+  array for array: edges sorted by (dst block, type, src), per-(block, type)
+  groups packed at 16-row alignment, and in block mode ``S8`` slots per dst
+  block whose pack offsets and dst-local rows the kernel reads.
+  ``gather_idx`` indexes rows of h.  ``with_grad=True`` adds the octet grad
+  layout of the backward (``g_*`` arrays, ``meta[5]``).
 - :func:`typed_block_scatter` and :func:`typed_block_step_gru` wrap the
   CUDA kernel ``csrc/typed_block.cu`` (the port of ``_typed_block_kernel``);
-  each has a ``_reference`` plain version with the same rounding points.
+  :func:`typed_grad_octet_scatter` wraps ``csrc/grad_octet.cu`` (the port
+  of ``_grad_octet_kernel``).  Each has a ``_reference`` plain version with
+  the same rounding points.
 - :func:`aggregate_onehot` is the full typed aggregation: the ``h_pack``
-  gather, the kernel, and the bias Σ_t indeg_t·b_t.
+  gather, the kernel, and the bias Σ_t indeg_t·b_t, with the reference's
+  custom backward (:class:`AggregateOnehot`, :func:`aggregate_bwd`).
 
 A wrapper takes its plain version only for CPU tensors; for CUDA tensors it
 launches the kernel or raises.
@@ -96,6 +100,79 @@ def _chunk_blocks(tile_start, cap: int = SMEM_TILE_CAP):
     return tuple(bounds)
 
 
+def _octet_grad_layout(arrays, src, dst, typ, T2, n_nodes_pad, grad_tile_e,
+                       block_mode):
+    """The reference's octet grad layout (``scatter_pallas.py:1304-1380``):
+    edges regrouped by block-major table row grow(u, t) = (u // 128)·T2·128
+    + t·128 + u % 128 into 128-row grad blocks, 8 contiguous blocks to an
+    octet.  Adds the ``g_*`` arrays to ``arrays`` and returns ``grad_meta``;
+    raises where the reference would take its legacy grad layout."""
+    grow = (src // 128) * (T2 * 128) + typ * 128 + src % 128
+    n_rows_grad = _rup_block(T2 * n_nodes_pad)
+    if grad_tile_e is None:
+        avg = max(1, src.shape[0] * BLOCK_N // max(n_rows_grad, 1))
+        grad_tile_e = 128
+        while grad_tile_e < min(avg, 2048):
+            grad_tile_e *= 2
+    octet_ok = block_mode is not False
+    if octet_ok:
+        gb = (grow // BLOCK_N).astype(np.int64)
+        B_g = n_rows_grad // BLOCK_N
+        gcnt_g = np.bincount(gb, minlength=B_g)
+        gchunks = -(-gcnt_g // grad_tile_e)
+        C_g = max(int(gchunks.max(initial=0)), 1)
+        n_oct = -(-B_g // 8)
+        R8 = _rup(8 * C_g, 8)
+        gb_base = np.zeros(B_g + 1, np.int64)
+        np.cumsum(-(-gcnt_g // 16) * 16, out=gb_base[1:])
+        oct_start = gb_base[np.minimum(np.arange(n_oct) * 8, B_g)]
+        oct_end = gb_base[np.minimum(np.arange(1, n_oct + 1) * 8, B_g)]
+        span8 = _rup(int((oct_end - oct_start).max(initial=0))
+                     + grad_tile_e, 16)
+        n_real_g = int(gchunks.sum())
+        octet_ok = (C_g <= 8 and n_oct * 8 * C_g <= BLOCK_SLOT_CAP
+                    and span8 <= SPAN_ROW_CAP
+                    and n_oct * 8 * C_g <= 3 * max(n_real_g, 1) + 8 * B_g)
+    if not octet_ok:
+        raise NotImplementedError(
+            "the octet grad layout declines for this graph (block_mode=False "
+            "or hub-heavy grad blocks); the reference then builds its legacy "
+            "grad layout (build_dst_block_layout, ROADMAP Queue 1 item 3) "
+            "reduced by window_block_spmm_mono (Queue 1 item 5), neither "
+            "ported yet")
+    order_g = np.lexsort((dst, gb))
+    g_dst = dst[order_g]
+    ggb = gb[order_g]
+    g_local = (grow % BLOCK_N)[order_g]
+    first_g = np.zeros(B_g + 1, np.int64)
+    first_g[1:] = np.cumsum(gcnt_g)
+    rank_g = np.arange(g_dst.shape[0]) - first_g[ggb]
+    pos_g = gb_base[ggb] + rank_g
+    e_pack_g = max(int(gb_base[-1]) + grad_tile_e,
+                   int(oct_start.max(initial=0)) + span8)
+    g_gather = np.zeros(e_pack_g, np.int32)
+    g_gather[pos_g] = g_dst.astype(np.int32)
+    # slot (grad block, chunk) → pack offset / 16 relative to the octet's
+    # span start; −1 = no chunk
+    slot_off = np.full(n_oct * 8 * C_g, -1, np.int32)
+    nz = np.nonzero(gchunks)[0]
+    reps_g = gchunks[nz]
+    t_gb = np.repeat(nz, reps_g)
+    t_c = (np.arange(int(reps_g.sum()))
+           - np.repeat(np.cumsum(reps_g) - reps_g, reps_g))
+    slot_off[t_gb * C_g + t_c] = ((gb_base[t_gb] + t_c * grad_tile_e
+                                   - oct_start[t_gb // 8]) // 16)
+    g_dstl = np.full((n_oct * R8, grad_tile_e), -1, np.int32)
+    g_dstl[(ggb // 8) * R8 + (ggb % 8) * C_g + rank_g // grad_tile_e,
+           rank_g % grad_tile_e] = g_local
+    arrays["g_gather_idx"] = g_gather
+    arrays["g_slot_off16"] = slot_off
+    arrays["g_dstl_oct"] = g_dstl
+    arrays["g_oblk16"] = (oct_start // 16).astype(np.int32)
+    arrays["g_indeg"] = arrays["indeg"]
+    return ("octet", B_g, grad_tile_e, C_g, R8, span8, n_oct)
+
+
 def build_typed_dst_layout(edge_src, edge_dst, edge_type, edge_mask,
                            n_nodes_pad: int, n_message_types: int,
                            tile_e: int | None = None, edge_align: int = 16,
@@ -105,14 +182,11 @@ def build_typed_dst_layout(edge_src, edge_dst, edge_type, edge_mask,
                            span_mode="auto", block_mode="auto"
                            ) -> ScatterLayout:
     """Host layout of the typed pack (the reference function, array for
-    array, ``with_grad=False``).  Block mode ('auto') engages when the
-    T2·cmax slot grid stays bounded; hub-heavy graphs keep the per-tile
-    arrays, which the port does not run yet."""
-    if with_grad:
-        raise NotImplementedError(
-            "with_grad=True (the octet / per-tile grad layouts) comes with "
-            "training (ROADMAP Queue 1 item 1)")
-    del grad_tile_e
+    array).  Block mode ('auto') engages when the T2·cmax slot grid stays
+    bounded; hub-heavy graphs keep the per-tile arrays, which the port does
+    not run yet.  ``with_grad`` adds the octet grad layout of the backward's
+    reverse scatter (:func:`typed_grad_octet_scatter`); where the reference
+    would fall back to its legacy grad layout this raises."""
     T2 = n_message_types
     if n_nodes_pad % BLOCK_N:
         raise ValueError(f"n_nodes_pad must be a multiple of {BLOCK_N}")
@@ -227,10 +301,14 @@ def build_typed_dst_layout(edge_src, edge_dst, edge_type, edge_mask,
         chunks = _chunk_blocks(tile_start, smem_tile_cap)
     if span_mode or block_ok:
         arrays["blk_off16"] = (blk_start // 16).astype(np.int32)
+    grad_meta = None
+    if with_grad:
+        grad_meta = _octet_grad_layout(arrays, src, dst, typ, T2, n_nodes_pad,
+                                       grad_tile_e, block_mode)
     if span_mode and span_auto and chunks is not None:
         span_mode = False
         arrays.pop("blk_off16", None)
-    meta = (n_nodes_pad, tile_e, 0, n_blocks, True, None,
+    meta = (n_nodes_pad, tile_e, 0, n_blocks, True, grad_meta,
             edge_align, "typed", chunks,
             span_rows if span_mode else None,
             (S8, cmax, span_rows) if block_ok else None)
@@ -425,10 +503,9 @@ def bias_rows(layout: ScatterLayout, msg_b):
     return torch.einsum("tn,td->nd", layout.arrays["indeg"], msg_b.float())
 
 
-def aggregate_onehot(h, layout: ScatterLayout, msg_w, msg_b):
-    """Typed aggregation a_v = Σ_{(u,t,v)} h_u·W_t + b_t through the typed
-    block kernel.  ``h`` [N, D] and ``msg_w``/``msg_b`` in the compute
-    dtype; returns [N, D] f32."""
+def aggregate_forward(h, layout: ScatterLayout, msg_w, msg_b):
+    """The aggregation's value alone (no autograd graph through the
+    kernel): the ``h_pack`` gather, the typed block kernel and the bias."""
     kw = block_args(layout)
     N = h.shape[0]
     h_pack = h.index_select(0, layout.arrays["gather_idx"])
@@ -436,4 +513,180 @@ def aggregate_onehot(h, layout: ScatterLayout, msg_w, msg_b):
                               kw.pop("slot_off16"), kw.pop("blk_off16"),
                               msg_w, **kw)
     return (out + bias_rows(layout, msg_b))[:N]
+
+
+class AggregateOnehot(torch.autograd.Function):
+    """The reference's ``_aggregate_onehot`` custom VJP: the forward runs
+    the typed block kernel; the backward is :func:`aggregate_bwd`.  It saves
+    h (in the compute dtype, as given) and ``msg_w``, not ``h_pack``."""
+
+    @staticmethod
+    def forward(ctx, h, msg_w, msg_b, layout):
+        if any(ctx.needs_input_grad[:3]):
+            grad_meta(layout)           # refuse a layout with no grad half
+        ctx.layout = layout
+        ctx.save_for_backward(h, msg_w)
+        return aggregate_forward(h, layout, msg_w, msg_b)
+
+    @staticmethod
+    def backward(ctx, da):
+        h, msg_w = ctx.saved_tensors
+        dh, dW, db = aggregate_bwd(ctx.layout, h, msg_w, da.float())
+        return dh, dW, db, None
+
+
+def aggregate_onehot(h, layout: ScatterLayout, msg_w, msg_b):
+    """Typed aggregation a_v = Σ_{(u,t,v)} h_u·W_t + b_t through the typed
+    block kernel, differentiable through :class:`AggregateOnehot` (the
+    layout must then be built ``with_grad=True``).  ``h`` [N, D] and
+    ``msg_w``/``msg_b`` in the compute dtype; returns [N, D] f32."""
+    return AggregateOnehot.apply(h, msg_w, msg_b, layout)
+
+
+def grad_meta(layout: ScatterLayout) -> tuple:
+    """The octet grad layout's static meta, or raise if the layout was
+    built without its grad half."""
+    gm = layout.meta[5] if len(layout.meta) > 5 else None
+    if gm is None:
+        raise ValueError(
+            "the onehot backward needs the grad half of the typed layout: "
+            "build it with build_typed_dst_layout(..., with_grad=True)")
+    if gm[0] != "octet":
+        raise NotImplementedError(
+            "only the octet grad layout is ported; the legacy grad layout "
+            "and window_block_spmm_mono are ROADMAP Queue 1 items 3 and 5")
+    return gm
+
+
+def _check_octet_args(name, G, dstl_oct, slot_off16, oblk16, n_oct, g_tile,
+                      C, R8, span8):
+    if G.dim() != 2:
+        raise ValueError(f"{name}: G must be [E_pack, D], got "
+                         f"{tuple(G.shape)}")
+    if R8 < 8 * C:
+        raise ValueError(f"{name}: R8 {R8} < 8·C = {8 * C}")
+    if tuple(dstl_oct.shape) != (n_oct * R8, g_tile):
+        raise ValueError(f"{name}: dstl_oct {tuple(dstl_oct.shape)} is not "
+                         f"[n_oct·R8, g_tile] = [{n_oct * R8}, {g_tile}]: "
+                         f"layout and arguments disagree")
+    if tuple(slot_off16.shape) != (n_oct * 8 * C,):
+        raise ValueError(f"{name}: slot_off16 {tuple(slot_off16.shape)} is "
+                         f"not [n_oct·8·C] = [{n_oct * 8 * C}]: layout and "
+                         f"arguments disagree")
+    if tuple(oblk16.shape) != (n_oct,):
+        raise ValueError(f"{name}: oblk16 {tuple(oblk16.shape)} is not "
+                         f"[{n_oct}]: layout and arguments disagree")
+    if G.shape[0] < span8:
+        raise ValueError(f"{name}: G has {G.shape[0]} rows, fewer than one "
+                         f"octet span ({span8}): it was not gathered with "
+                         f"this layout")
+    for arg, t in (("dstl_oct", dstl_oct), ("slot_off16", slot_off16),
+                   ("oblk16", oblk16)):
+        if t.dtype != torch.int32:
+            raise ValueError(f"{name}: {arg} must be int32, got {t.dtype}")
+
+
+def typed_grad_octet_scatter_reference(G, dstl_oct, slot_off16, oblk16,
+                                       n_oct: int, g_tile: int, C: int,
+                                       R8: int, span8: int = 0,
+                                       out_dtype=None):
+    """Plain version of :func:`typed_grad_octet_scatter`: every slot's rows
+    summed into their grad block's rows by ``index_add_`` in f32, then
+    rounded to ``out_dtype``."""
+    del span8
+    D, dev = G.shape[-1], G.device
+    Y = torch.zeros(n_oct * 8 * BLOCK_N, D, dtype=torch.float32, device=dev)
+    off = slot_off16.reshape(n_oct, 8, C).long()
+    dl = (dstl_oct.reshape(n_oct, R8, g_tile)[:, :8 * C]
+          .reshape(n_oct, 8, C, g_tile).long())
+    rows = (((oblk16.long()[:, None, None] + off) * 16)[..., None]
+            + torch.arange(g_tile, device=dev))
+    valid = (dl >= 0) & (off[..., None] >= 0)
+    blk = torch.arange(n_oct * 8, device=dev).reshape(n_oct, 8, 1, 1)
+    Y.index_add_(0, (blk * BLOCK_N + dl)[valid],
+                 G.index_select(0, rows[valid]).float())
+    return Y.to(torch.float32 if out_dtype is None else out_dtype)
+
+
+def typed_grad_octet_scatter(G, dstl_oct, slot_off16, oblk16, n_oct: int,
+                             g_tile: int, C: int, R8: int, span8: int,
+                             out_dtype=None):
+    """Y[row] = Σ_{edges packed to row} G[e] over the octet grad layout →
+    [n_oct·8·128, D] in ``out_dtype`` (default f32), summed in f32.
+
+    ``G`` [E_pack_g, D] is the cotangent gathered by ``g_gather_idx``; the
+    int32 arrays and the ints are the layout's ``g_*`` arrays and
+    ``grad_meta``.  A CPU tensor takes the plain version; a CUDA tensor
+    launches ``csrc/grad_octet.cu`` or raises."""
+    name = "typed_grad_octet_scatter"
+    _check_octet_args(name, G, dstl_oct, slot_off16, oblk16, n_oct, g_tile,
+                      C, R8, span8)
+    if G.device.type == "cpu":
+        return typed_grad_octet_scatter_reference(
+            G, dstl_oct, slot_off16, oblk16, n_oct, g_tile, C, R8, span8,
+            out_dtype)
+    out_dtype = torch.float32 if out_dtype is None else out_dtype
+    for what, dt in (("G", G.dtype), ("out_dtype", out_dtype)):
+        if dt not in _DTYPE_CODE:
+            raise ValueError(f"{name}: {what} {dt} not in {list(_DTYPE_CODE)}")
+    D = G.shape[-1]
+    _check_cuda_args(name, [("G", G), ("dstl_oct", dstl_oct),
+                            ("slot_off16", slot_off16), ("oblk16", oblk16)],
+                     D)
+    out = torch.empty(n_oct * 8 * BLOCK_N, D, dtype=out_dtype,
+                      device=G.device)
+    p = _build.ptr
+    _build.launch(
+        _build.library().ggnn_grad_octet, name, G.device,
+        _DTYPE_CODE[G.dtype], _DTYPE_CODE[out_dtype], p(G), G.shape[0],
+        p(dstl_oct), p(slot_off16), p(oblk16), n_oct, g_tile, C, R8, p(out))
+    typed_grad_octet_scatter.launches += 1
+    return out
+
+
+typed_grad_octet_scatter.launches = 0
+
+
+def typed_reverse_scatter(layout: ScatterLayout, da, n_rows: int, out_dtype):
+    """Y_flat[row(u, t)] = Σ_{(u,t,v)} da[v] over the octet grad layout (the
+    octet branch of the reference's ``_typed_reverse_scatter``): ``da`` is
+    cast to ``out_dtype`` BEFORE the gather, as the reference does.
+    Returns the first ``n_rows`` rows, block-major (b, t, s)."""
+    _, _, g_tile, C, R8, span8, n_oct = grad_meta(layout)
+    arrs = layout.arrays
+    G = da.to(out_dtype).index_select(0, arrs["g_gather_idx"])
+    Y_flat = typed_grad_octet_scatter(
+        G, arrs["g_dstl_oct"], arrs["g_slot_off16"], arrs["g_oblk16"],
+        n_oct=n_oct, g_tile=g_tile, C=C, R8=R8, span8=span8,
+        out_dtype=out_dtype)
+    return Y_flat[:n_rows]
+
+
+def aggregate_bwd(layout: ScatterLayout, h, msg_w, da):
+    """Cotangents (dh, dW, db) of :func:`aggregate_forward` for the output
+    cotangent ``da`` [N, D] f32 (the reference's ``_aggregate_bwd``, typed
+    pack, block-major rows).  Y is flushed in h's dtype; dh comes back in
+    h's dtype, dW and db in ``msg_w``'s."""
+    T2, D = msg_w.shape[0], msg_w.shape[-1]
+    N = h.shape[0]
+    if N % BLOCK_N:
+        raise ValueError(f"the onehot backward needs h's row count to be a "
+                         f"multiple of {BLOCK_N} (block-major grad rows), "
+                         f"got {N}: pad the batch to the 128-row grid")
+    Y_flat = typed_reverse_scatter(layout, da, T2 * N, out_dtype=h.dtype)
+    # db as one [T2, N]·[N, D] product with the per-(type, dst) edge counts
+    g_indeg = layout.arrays["g_indeg"]
+    n_dst = g_indeg.shape[1]
+    da_db = (torch.nn.functional.pad(da, (0, 0, 0, n_dst - da.shape[0]))
+             if da.shape[0] < n_dst else da[:n_dst])
+    db = torch.einsum("tn,nd->td", g_indeg, da_db.float()).to(msg_w.dtype)
+    # the block-major products: inputs in the compute dtype, f32 sums, one
+    # rounding to the output dtype (on the card, cuBLAS may reduce split-K
+    # partials of a bf16 product in bf16 unless torch.backends.cuda.matmul
+    # .allow_bf16_reduced_precision_reduction is off)
+    Yb = Y_flat.reshape(N // BLOCK_N, T2, BLOCK_N, D)
+    dh = torch.einsum("btsf,tdf->bsd", Yb, msg_w.to(Yb.dtype)).reshape(N, D)
+    dW = torch.einsum("bsd,btsf->tdf", h.reshape(N // BLOCK_N, BLOCK_N, D),
+                      Yb)
+    return dh.to(h.dtype), dW.to(msg_w.dtype), db
 

@@ -37,3 +37,47 @@ def typed_aggregate(h, edge_src, edge_dst, edge_type, edge_mask, msg_w,
     messages = messages * edge_mask.float()[:, None]
     out = torch.zeros(n_pad, D, dtype=torch.float32, device=h.device)
     return out.index_add_(0, dst, messages)
+
+
+def masked_segment_max(scores, segment_ids, num_segments: int, mask):
+    """(scores with padding entries (mask 0) at the dtype's lowest value,
+    the max of each segment; −inf for a segment with no entry)."""
+    neg = torch.finfo(scores.dtype).min
+    masked = torch.where(mask > 0, scores, torch.full_like(scores, neg))
+    seg_max = torch.full((num_segments,), float("-inf"), dtype=scores.dtype,
+                         device=scores.device)
+    return masked, seg_max.scatter_reduce(0, segment_ids.long(), masked,
+                                          "amax")
+
+
+def _segment_shift(scores, segment_ids, num_segments: int, mask):
+    """(shifted scores, exp of them, normalizer) per segment: padding
+    entries sit at the dtype's lowest value and add nothing to the
+    normalizer."""
+    neg = torch.finfo(scores.dtype).min
+    valid = mask > 0
+    seg = segment_ids.long()
+    masked, seg_max = masked_segment_max(scores, seg, num_segments, mask)
+    seg_max = torch.where(torch.isfinite(seg_max), seg_max,
+                          torch.zeros_like(seg_max))
+    shifted = torch.where(valid, masked - seg_max[seg],
+                          torch.full_like(scores, neg))
+    expd = torch.exp(shifted) * valid
+    denom = torch.zeros(num_segments, dtype=scores.dtype,
+                        device=scores.device).index_add(0, seg, expd)
+    return shifted, expd, denom.clamp_min(1e-30)
+
+
+def segment_softmax(scores, segment_ids, num_segments: int, mask):
+    """Numerically stable softmax within segments (per graph over nodes);
+    padding entries (mask 0) get probability 0 and do not affect the
+    normalizer.  Counterpart of ``ggnn_tpu/ops/segment.py``."""
+    _, expd, denom = _segment_shift(scores, segment_ids, num_segments, mask)
+    return expd / denom[segment_ids.long()]
+
+
+def segment_log_softmax(scores, segment_ids, num_segments: int, mask):
+    """log of :func:`segment_softmax` without the intermediate division."""
+    shifted, _, denom = _segment_shift(scores, segment_ids, num_segments,
+                                       mask)
+    return shifted - torch.log(denom)[segment_ids.long()]

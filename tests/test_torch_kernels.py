@@ -321,3 +321,56 @@ def test_kernels_match_reference_on_card(dtype):
     for name, g, rr in zip(("h", "z", "r", "htil"), got, ref):
         emax, _, _ = err(g, rr)
         assert emax <= (BF16_ULP if bf16 else 1e-4), (name, emax)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_backward_kernels_match_reference_on_card(dtype):
+    """gru_cell_bwd and typed_grad_octet_scatter against their plain
+    versions on the card, on a layout with B_g % 8 != 0 and empty grad
+    blocks.  Criteria of chip_smoke.py: reverse scatter max ≤ 2e-5·max(1,
+    max|plain|) in f32 and one bf16 ulp, 2**-7·max(1, max|plain|), flushed
+    to bf16 (a last-bit f32 difference can round a sum the other way);
+    empty grad blocks exactly 0; GRU backward relative Frobenius error per
+    output ≤ 1e-5 (f32) and 2**-8 (bf16: gate gradients rounded before the
+    products, flips rare and unsystematic)."""
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tdt = DTYPES[dtype][1]
+    bf16 = dtype == "bfloat16"
+    N, T2 = 640, 6
+    src, dst, typ, mask = _graph(13, N, 4000, T2)
+    src = src % 256                       # grad blocks of 3 src blocks empty
+    lay = S.build_typed_dst_layout(src, dst, typ, mask, N, T2,
+                                   with_grad=True).to(dev)
+    _, B_g, g_tile, C, R8, span8, n_oct = S.grad_meta(lay)
+    assert B_g % 8 != 0
+    arrs = (lay.arrays["g_dstl_oct"], lay.arrays["g_slot_off16"],
+            lay.arrays["g_oblk16"])
+    kw = dict(n_oct=n_oct, g_tile=g_tile, C=C, R8=R8, span8=span8,
+              out_dtype=tdt)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    Gp = torch.randn(lay.arrays["g_gather_idx"].shape[0], D, device=dev,
+                     generator=gen).to(tdt)
+    got = S.typed_grad_octet_scatter(Gp, *arrs, **kw)
+    ref = S.typed_grad_octet_scatter_reference(Gp, *arrs, **kw)
+    scale = max(1.0, ref.float().abs().max().item())
+    assert (got.float() - ref.float()).abs().max().item() <= (
+        2.0 ** -7 if bf16 else 2e-5) * scale
+    empty = (lay.arrays["g_slot_off16"].reshape(n_oct * 8, C) < 0).all(1)
+    assert empty.any()
+    assert (got.reshape(n_oct * 8, 128, D)[empty] == 0).all()
+    h = torch.rand(N, D, device=dev, generator=gen) * 2 - 1
+    a = torch.randn(N, D, device=dev, generator=gen)
+    g = torch.randn(N, D, device=dev, generator=gen)
+    w = [(torch.rand(D, k * D, device=dev, generator=gen) * 2 - 1) * D ** -0.5
+         for k in (3, 2, 1)]
+    b3 = torch.zeros(3 * D, device=dev)
+    _, z, r, ht = G.gru_cell_fwd_reference(h, a, w[0], b3, w[1], w[2],
+                                           mdt=tdt)
+    args = (g, h.to(tdt), a.to(tdt), z, r, ht, *w)
+    for o, rr in zip(G.gru_cell_bwd(*args, mdt=tdt),
+                     G.gru_cell_bwd_reference(*args, mdt=tdt)):
+        err = ((o.double() - rr.double()).norm()
+               / rr.double().norm().clamp_min(1e-30)).item()
+        assert err <= (2.0 ** -8 if bf16 else 1e-5), err

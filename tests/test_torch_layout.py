@@ -81,9 +81,16 @@ def test_layout_declined_block_mode_raises_in_aggregate():
 
 
 def test_layout_with_grad_raises():
+    """with_grad=True builds the octet grad layout where the reference
+    does (tests/test_torch_train_ops.py holds it array for array); where
+    the reference falls back to its legacy grad layout (block_mode=False),
+    the port raises naming the unported fallback."""
     edges = _graph(0, 256, 500, 4)
-    with pytest.raises(NotImplementedError, match="training"):
-        S.build_typed_dst_layout(*edges, 256, 4, with_grad=True)
+    lay = S.build_typed_dst_layout(*edges, 256, 4, with_grad=True)
+    assert lay.meta[5][0] == "octet"
+    with pytest.raises(NotImplementedError, match="window_block_spmm_mono"):
+        S.build_typed_dst_layout(*edges, 256, 4, with_grad=True,
+                                 block_mode=False)
 
 
 def test_layout_to_device_keeps_meta_and_dtypes():
