@@ -2,8 +2,10 @@
 NVIDIA H100 (Hopper, sm_90a).
 
 The JAX package :mod:`ggnn_tpu` stays the reference.  This package imports
-``torch`` and never ``jax``; it reuses the reference's numpy-only modules
-(:mod:`ggnn_tpu.graph`, :mod:`ggnn_tpu.data`, :mod:`ggnn_tpu.oracle`).
+``torch`` and never ``jax``, and nothing of the JAX package: it keeps its
+own copies of the numpy-only modules it needs (:mod:`ggnn_tpu_torch.graph`,
+:mod:`ggnn_tpu_torch.data`).  Its entry points run on the card unless the
+caller asks for the CPU.
 
 Layering, from the serving entry point down:
 

@@ -1,13 +1,17 @@
 """Inference / serving API: load a checkpoint, predict on graphs.
 
 Counterpart of ``ggnn_tpu/infer.py``: static-shape padded batching with a
-fixed :class:`~ggnn_tpu.graph.PaddingSpec` and task-level decoding (argmax
-node / per-node classes / graph class).
+fixed :class:`~ggnn_tpu_torch.graph.PaddingSpec` and task-level decoding
+(argmax node / per-node classes / graph class).
 
-For ``backend='onehot'`` each batch gets the typed block layout over the
-dst space rounded up to the 128-row grid, the layout the headline serves
-with; it computes the same function as the JAX Predictor's legacy
+For ``backend='onehot'`` each batch gets the typed-pack layout over the dst
+space rounded up to the 128-row grid: the per-block kernels where block mode
+engages, the per-tile kernels where it declines (hub-heavy and power-law
+graphs).  It computes the same function as the JAX Predictor's legacy
 table-gather layout, whose kernels are still to be ported.
+
+The model runs on the card unless the caller asks for ``device="cpu"``;
+without a CUDA device the default raises.
 """
 
 from __future__ import annotations
@@ -15,11 +19,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ggnn_tpu.data.babi import TASKS
-from ggnn_tpu.graph import PaddingSpec, batch_graphs
+from ggnn_tpu_torch.data.babi import TASKS
+from ggnn_tpu_torch.graph import PaddingSpec, batch_graphs
 from ggnn_tpu_torch.models.api import forward
 from ggnn_tpu_torch.models.config import ModelConfig, model_config_for_task
-from ggnn_tpu_torch.models.init import init_params, params_from_numpy
+from ggnn_tpu_torch.models.init import (device_or_raise, init_params,
+                                        params_from_numpy)
 from ggnn_tpu_torch.ops.scatter import _rup_block, build_typed_dst_layout
 from ggnn_tpu_torch.train.checkpoint import load_checkpoint
 
@@ -39,10 +44,10 @@ class Predictor:
     """
 
     def __init__(self, cfg: ModelConfig, spec: PaddingSpec, params=None,
-                 checkpoint_path: str | None = None, device="cpu"):
+                 checkpoint_path: str | None = None, device="cuda"):
         self.cfg = cfg
         self.spec = spec
-        self.device = torch.device(device)
+        self.device = device_or_raise(device)
         if params is None:
             params = init_params(cfg, torch.Generator().manual_seed(0),
                                  self.device)
@@ -57,7 +62,7 @@ class Predictor:
     @classmethod
     def for_task(cls, task_id: int, checkpoint_path: str | None = None,
                  batch_size: int = 10, max_nodes: int = 16,
-                 max_edges: int = 40, device="cpu",
+                 max_edges: int = 40, device="cuda",
                  **model_kw) -> "Predictor":
         task = TASKS[task_id]
         cfg = model_config_for_task(task, **model_kw)

@@ -14,9 +14,10 @@ the same dtype decisions:
   whatever ``gru_matmul_compute`` says, as the reference does.
 
 Backends: ``xla`` (plain :func:`ggnn_tpu_torch.ops.segment.typed_aggregate`)
-and ``onehot`` through the typed-block CUDA kernel, fused (GRU in the
-kernel's epilogue) or not.  The other backends raise ``NotImplementedError``
-naming their ROADMAP item.
+and ``onehot`` through the typed-pack CUDA kernels (per block, or per tile
+where block mode declines), fused (GRU in the kernel's epilogue) or not.
+The other backends raise ``NotImplementedError`` naming their ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -33,7 +34,8 @@ from ggnn_tpu_torch.ops.scatter import (BLOCK_N, ScatterLayout,
                                         aggregate_bwd, aggregate_forward,
                                         aggregate_onehot, bias_rows,
                                         block_args, build_typed_dst_layout,
-                                        grad_meta, typed_block_step_gru)
+                                        grad_meta, tile_args,
+                                        typed_block_step_gru, typed_step_gru)
 from ggnn_tpu_torch.ops.segment import typed_aggregate
 
 
@@ -146,16 +148,23 @@ class GruCoreKernel(torch.autograd.Function):
 def typed_fused_step(layout: ScatterLayout, h, msg_w, msg_b, w_a, b_all,
                      u_zr, uh, cdt):
     """One fused typed-pack step (aggregation + GRU in the kernel's
-    epilogue): the ``h_pack`` gather and the bias stay torch ops."""
-    kw = block_args(layout)
+    epilogue): the ``h_pack`` gather and the bias stay torch ops.  The
+    per-block kernel where block mode engaged, the per-tile one where it
+    declined."""
     N = h.shape[0]
-    n_rows = kw["n_blocks"] * BLOCK_N
+    n_rows = layout.n_blocks * BLOCK_N
     h_pack = h.to(cdt).index_select(0, layout.arrays["gather_idx"])
     h_pad = F.pad(h.float(), (0, 0, 0, n_rows - N))
-    out = typed_block_step_gru(
-        h_pack, kw.pop("dstl_blk"), kw.pop("slot_off16"), kw.pop("blk_off16"),
-        msg_w.to(cdt), bias_rows(layout, msg_b), h_pad, w_a.to(cdt),
-        b_all[None, :].float(), u_zr.to(cdt), uh.to(cdt), **kw)
+    gru = dict(init=bias_rows(layout, msg_b), hstate=h_pad, wa=w_a.to(cdt),
+               b3=b_all[None, :].float(), uzr=u_zr.to(cdt), uh=uh.to(cdt))
+    if layout.block_meta is None:
+        out = typed_step_gru(h_pack, msg_w=msg_w.to(cdt), **gru,
+                             **tile_args(layout))
+    else:
+        kw = block_args(layout)
+        out = typed_block_step_gru(
+            h_pack, kw.pop("dstl_blk"), kw.pop("slot_off16"),
+            kw.pop("blk_off16"), msg_w.to(cdt), **gru, **kw)
     return out[:N]
 
 

@@ -16,6 +16,18 @@ import torch
 from ggnn_tpu_torch.models.config import ModelConfig
 
 
+def device_or_raise(device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device without a card raises
+    (the entry points default to the card and never fall back to the
+    CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(device)!r} requested but no CUDA "
+                           "device is available (torch.cuda.is_available() "
+                           "is false); pass device='cpu' to run on the CPU")
+    return device
+
+
 def torch_dtype(name) -> torch.dtype:
     """torch dtype for a config dtype name ('float32', 'bfloat16', ...)."""
     if isinstance(name, torch.dtype):

@@ -47,6 +47,20 @@ _SIGNATURES = {
     # g_tile, C, R8, out, stream
     "ggnn_grad_octet": [_I, _I, _P, ctypes.c_longlong, _P, _P, _P, _I, _I,
                         _I, _I, _P, _P],
+    # dtype, fused, h_pack, n_pack, dstl, n_dstl, tile_start, tile_msg_off,
+    # c_off, tile_type, msg_w, T2, n_blocks, tile_e, align, item_first,
+    # pbase, n_items, n_partial, init, hstate, wa, b3, uzr, uh, ws, out,
+    # stream
+    "ggnn_typed_tile": [_I, _I, _P, ctypes.c_longlong, _P, ctypes.c_longlong,
+                        _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _I,
+                        _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "ggnn_tile_split": [],
+    # table_dtype, out_dtype, dstl, table, n_table, c_stream, n_c,
+    # tile_start, win_of_tile, c_off, n_blocks, window, stride, item_first,
+    # pbase, n_items, n_partial, ws, out, stream
+    "ggnn_window_mono": [_I, _I, _I, _P, ctypes.c_longlong, _P,
+                         ctypes.c_longlong, _P, _P, _P, _I, _I, _I, _P, _P,
+                         _I, _I, _P, _P, _P],
     "ggnn_error_string": [_I],
 }
 

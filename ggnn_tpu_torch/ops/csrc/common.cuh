@@ -252,46 +252,188 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
   v[3] = __high2float(hi);
 }
 
-// S[d][:] += h_pack[base + j] for every column j of the slot with dst id
-// d = drow[j] >= 0.  Lane l carries features 4l..4l+3, kept at S columns
-// i·32 + l (i = 0..3) so each of the four atomics of a warp is bank-free.
+// The rows of a tile (a slot) that one pass of segment_sum_ordered stages
+// in shared memory (16 KB for f32, 32 KB for bf16).
 template <typename T>
-__device__ __forceinline__ void segment_sum(float* S,
-                                            const T* __restrict__ h_pack,
-                                            long long n_pack, long long base,
-                                            const int* __restrict__ drow,
-                                            int tile_e) {
-  constexpr int U = 16;  // rows in flight per warp
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int j0 = warp * 32; j0 < tile_e; j0 += kThreads) {
-    const int j = j0 + lane;
-    int d = -1;
-    if (j < tile_e) {
-      d = drow[j];
-      const long long row = base + j;
-      if (unsigned(d) >= unsigned(kRows) || row < 0 || row >= n_pack) d = -1;
+struct Stage {
+  static constexpr int rows = sizeof(T) == 2 ? 128 : 32;
+  static constexpr size_t bytes = size_t(rows) * kD * sizeof(T);
+};
+
+// S[d][:] += run for the calling warp's lane (features 4l..4l+3).
+__device__ __forceinline__ void add_run(float* S, int d, const float (&run)[4]) {
+  float4* p = reinterpret_cast<float4*>(S + d * kD) + (threadIdx.x & 31);
+  float4 s = *p;
+  s.x += run[0];
+  s.y += run[1];
+  s.z += run[2];
+  s.w += run[3];
+  *p = s;
+}
+
+// The one-hot product of every scatter kernel (the TPU kernels' one-hot MXU
+// product is a segment sum here), in a fixed order and without atomics:
+// S[d][:] += h_pack[base + j] for j = 0 .. tile_e − 1 in turn, for each j
+// whose dst id d = drow[j] lies in [0, 128) and whose pack row lies in
+// [0, n_pack).  S is [128][kD] f32, row-major.  The CTA stages
+// Stage<T>::rows rows of the tile at a time in H_s (16-byte loads); warp w
+// then adds the staged rows bound for its own dst rows [16w, 16w + 16),
+// lane l features 4l..4l+3, so every element of S has one writer and sees
+// its terms in the order of j: the same sums on every run.  A run of rows
+// with one dst id is summed in registers and added to S once.  Warp w's
+// strip of S is its own: the caller zeroes it and reads it back with no
+// CTA barrier.  A hub row's tile (all rows to one dst) falls to one warp;
+// its rows come from shared memory, 8 loads in flight, so that warp waits
+// on no global load.
+template <typename T>
+__device__ void segment_sum_ordered(float* S, T* H_s,
+                                    const T* __restrict__ h_pack,
+                                    long long n_pack, long long base,
+                                    const int* __restrict__ drow,
+                                    int tile_e) {
+  constexpr int R = Stage<T>::rows;
+  constexpr int VPR = kD * sizeof(T) / 16;  // 16-byte vectors per row
+  constexpr int PER = R * VPR / kThreads;   // vectors per thread per pass
+  static_assert(R * VPR % kThreads == 0, "a pass is whole vectors/thread");
+  const int lane = threadIdx.x & 31, lo = (threadIdx.x >> 5) * 16;
+  int cur = -1;
+  float run[4] = {0.f, 0.f, 0.f, 0.f};
+  // the next pass's rows are loaded into registers while the warps scan
+  // the current one, all PER loads of a thread in flight at once
+  uint4 x[PER];
+  auto fetch = [&](int j0) {
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int idx = threadIdx.x + i * kThreads;
+      const int r = idx / VPR;
+      const long long row = base + j0 + r;
+      x[i] = make_uint4(0u, 0u, 0u, 0u);
+      if (j0 + r < tile_e && row >= 0 && row < n_pack)
+        x[i] = reinterpret_cast<const uint4*>(h_pack + row * kD)[idx % VPR];
     }
+  };
+  fetch(0);
+  for (int j0 = 0; j0 < tile_e; j0 += R) {
+    const int n = min(R, tile_e - j0);
+    __syncthreads();  // every warp is done with the previous rows of H_s
 #pragma unroll
-    for (int q0 = 0; q0 < 32; q0 += U) {
-      int dq[U];
-      float v[U][4];
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        dq[u] = __shfl_sync(0xffffffffu, d, q0 + u);
-        if (dq[u] >= 0)
-          load4(h_pack + (base + j0 + q0 + u) * kD + 4 * lane, v[u]);
+    for (int i = 0; i < PER; ++i) {
+      const int idx = threadIdx.x + i * kThreads;
+      reinterpret_cast<uint4*>(H_s + (idx / VPR) * kD)[idx % VPR] = x[i];
+    }
+    __syncthreads();
+    if (j0 + R < tile_e) fetch(j0 + R);
+    for (int q0 = 0; q0 < n; q0 += 32) {
+      int d = -1;
+      if (q0 + lane < n) {
+        const long long row = base + j0 + q0 + lane;
+        if (row >= 0 && row < n_pack) d = drow[j0 + q0 + lane];
       }
+      unsigned mine = __ballot_sync(0xffffffffu, d >= lo && d < lo + 16);
+      while (mine) {  // this warp's rows, in the order of j, U in flight
+        constexpr int U = 8;
+        int dq[U];
+        float v[U][4];
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
-        if (dq[u] >= 0) {
-          float* p = S + dq[u] * kD + lane;
-          atomicAdd(p, v[u][0]);
-          atomicAdd(p + 32, v[u][1]);
-          atomicAdd(p + 64, v[u][2]);
-          atomicAdd(p + 96, v[u][3]);
+        for (int u = 0; u < U; ++u) {
+          const int q = mine ? __ffs(mine) - 1 : -1;
+          mine &= mine - 1;
+          dq[u] = __shfl_sync(0xffffffffu, d, q < 0 ? 0 : q);
+          if (q < 0) dq[u] = -1;
+          else load4(H_s + (q0 + q) * kD + 4 * lane, v[u]);
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (dq[u] < 0) break;
+          if (dq[u] != cur) {
+            if (cur >= 0) add_run(S, cur, run);
+            cur = dq[u];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) run[i] = 0.f;
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) run[i] += v[u][i];
         }
       }
     }
+  }
+  if (cur >= 0) add_run(S, cur, run);
+}
+
+// The calling warp's 16-row strip of the f32 sums S [128][kD], rounded to T
+// into its strip of the [128][ld] operand A_s (the per-slot or per-tile
+// rounding point of the scatter kernels).
+template <typename T>
+__device__ __forceinline__ void round_strip(T* A_s, const float* S) {
+  constexpr int ld = Smem<T>::ld;
+  const int row0 = (threadIdx.x >> 5) * 16;
+  __syncwarp();
+  for (int idx = threadIdx.x & 31; idx < 16 * kD; idx += 32)
+    A_s[(row0 + idx / kD) * ld + idx % kD] = from_f<T>(S[row0 * kD + idx]);
+  __syncwarp();
+}
+
+// Zeroes the calling warp's 16-row strip of a [128][kD] f32 buffer.
+__device__ __forceinline__ void zero_strip(float* S) {
+  float4* p = reinterpret_cast<float4*>(S + (threadIdx.x >> 5) * 16 * kD);
+  for (int i = threadIdx.x & 31; i < 16 * kD / 4; i += 32)
+    p[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// The hub split of the per-tile kernels (typed_tile.cu, window_mono.cu).
+// Each output block's tile list [tile_start[b], tile_start[b + 1]) is cut
+// into work items of at most kSplit tiles, one CTA per item, so a hub block
+// that holds a third of all tiles spreads over the whole card instead of
+// one SM.  item_first[b] .. item_first[b + 1] are block b's items (at least
+// one, also for an empty block).  A block with one item writes its rows
+// itself; a block with more writes one f32 partial per item to a workspace
+// slot (pbase[b] + k for its item k), and a second kernel sums them in item
+// order.  With segment_sum_ordered inside the items, no float atomics
+// anywhere: the same result on every run.
+constexpr int kSplit = 32;
+
+// The block of work item `item` (the largest b with item_first[b] <= item),
+// found by thread 0 and broadcast; every thread of the CTA must call it.
+__device__ __forceinline__ int item_block(const int* __restrict__ item_first,
+                                          int n_blocks, int item) {
+  __shared__ int blk;
+  if (threadIdx.x == 0) {
+    int lo = 0, hi = n_blocks - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (item_first[mid] <= item) lo = mid; else hi = mid - 1;
+    }
+    blk = lo;
+  }
+  __syncthreads();
+  const int b = blk;
+  __syncthreads();
+  return b;
+}
+
+// A [128, D] f32 partial in fragment order: element (nt, e) of thread tid at
+// slot[(nt·kThreads + tid)·4 + e], so a CTA's stores and loads are float4s
+// on consecutive addresses.
+constexpr int kSlot = kRows * kD;  // floats per workspace slot
+
+__device__ __forceinline__ void store_frag(float* __restrict__ slot,
+                                           const float (&acc)[kNT][4]) {
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt)
+    reinterpret_cast<float4*>(slot)[nt * kThreads + threadIdx.x] =
+        make_float4(acc[nt][0], acc[nt][1], acc[nt][2], acc[nt][3]);
+}
+
+__device__ __forceinline__ void add_frag(float (&acc)[kNT][4],
+                                         const float* __restrict__ slot) {
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt) {
+    const float4 v = reinterpret_cast<const float4*>(slot)[nt * kThreads +
+                                                           threadIdx.x];
+    acc[nt][0] += v.x;
+    acc[nt][1] += v.y;
+    acc[nt][2] += v.z;
+    acc[nt][3] += v.w;
   }
 }
 

@@ -20,9 +20,9 @@
 //   global atomics and every row of Y is written exactly once (rows of an
 //   octet past the last grad block, and blocks with no slot, come out 0);
 // - the block's rows are summed into a [128, D] f32 shared-memory buffer by
-//   the segment sum of common.cuh (a warp per packed row, 16 rows in flight,
-//   swizzled columns so a warp's atomics hit 32 banks), then flushed once in
-//   the output dtype.
+//   the fixed-order segment sum of common.cuh (segment_sum_ordered: each
+//   warp adds the rows of its own 16 output rows in row order; no atomics,
+//   the same result on every run), then flushed once in the output dtype.
 // Empty slots are skipped and −1 dstl entries dropped, so both add exactly
 // 0.  Rows outside [0, n_G) and dst ids outside [0, 128) are dropped too, so
 // a layout that does not belong to G cannot address memory outside it.
@@ -37,25 +37,22 @@ __global__ void __launch_bounds__(kThreads) grad_octet_kernel(
     int g_tile, int C, int R8, TO* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* S = reinterpret_cast<float*>(smem);
+  TG* H_s = reinterpret_cast<TG*>(smem + kRows * kD * sizeof(float));
   const int gb = blockIdx.x;  // grad block: octet gb / 8, block gb % 8
   const int o = gb >> 3, j = gb & 7;
-  float4* S4 = reinterpret_cast<float4*>(S);
-  for (int i = threadIdx.x; i < kRows * kD / 4; i += kThreads)
-    S4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  __syncthreads();
+  zero_strip(S);
   const long long span0 = (long long)oblk16[o] * 16;
   for (int c = 0; c < C; ++c) {
     const int off = slot_off16[size_t(gb) * C + c];
     if (off < 0) continue;
-    segment_sum(S, G, n_G, span0 + (long long)off * 16,
-                dstl_oct + (size_t(o) * R8 + j * C + c) * g_tile, g_tile);
+    segment_sum_ordered(S, H_s, G, n_G, span0 + (long long)off * 16,
+                        dstl_oct + (size_t(o) * R8 + j * C + c) * g_tile,
+                        g_tile);
   }
   __syncthreads();
   TO* dst = out + size_t(gb) * kRows * kD;
-  for (int idx = threadIdx.x; idx < kRows * kD; idx += kThreads) {
-    const int r = idx / kD, f = idx % kD;
-    dst[idx] = from_f<TO>(S[r * kD + (f & 3) * 32 + (f >> 2)]);
-  }
+  for (int idx = threadIdx.x; idx < kRows * kD; idx += kThreads)
+    dst[idx] = from_f<TO>(S[idx]);
 }
 
 template <typename TG, typename TO>
@@ -63,7 +60,7 @@ static int launch_grad_octet(const void* G, long long n_G, const void* dstl,
                              const void* slot, const void* oblk, int n_oct,
                              int g_tile, int C, int R8, void* out,
                              cudaStream_t stream) {
-  const size_t smem = size_t(kRows) * kD * sizeof(float);
+  const size_t smem = size_t(kRows) * kD * sizeof(float) + Stage<TG>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       grad_octet_kernel<TG, TO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(smem));

@@ -20,11 +20,12 @@
 //   global memory and no second pass;
 // - the TPU kernel's resident W bank (512 KB) and block span (1.2 MB) do
 //   not fit in shared memory, so W_t is loaded once per type (t outer,
-//   chunk inner, as the TPU loop order allows) and the rows are read
-//   straight from global memory, a warp per row, 16 rows in flight per warp;
-// - the one-hot product is a segment sum with shared-memory f32 atomics
-//   into a [128, D] buffer whose columns are swizzled so a warp's 32 lanes
-//   hit 32 different banks;
+//   chunk inner, as the TPU loop order allows) and each slot's rows are
+//   staged through shared memory;
+// - the one-hot product is the fixed-order segment sum of common.cuh
+//   (segment_sum_ordered: each warp adds the rows of its own 16 dst rows in
+//   row order into a [128, D] f32 buffer; no atomics, the same result on
+//   every run);
 // - the rounded sums go through mma.sync (bf16) or FMA loops (f32) into a
 //   register accumulator that never leaves the SM until the block is done.
 // Empty slots (offset −1) are skipped; they would add exactly zero.  Rows
@@ -37,8 +38,10 @@ namespace ggnn {
 template <typename T>
 struct BlockSmem {
   static constexpr size_t sums = size_t(kRows) * kD * sizeof(float);
-  // region 0 holds the f32 sums, later the staged h of the GRU epilogue
-  static constexpr size_t r0 = sums > Smem<T>::tile ? sums : Smem<T>::tile;
+  // region 0 holds the f32 sums and the staged slot rows, later the staged
+  // h of the GRU epilogue
+  static constexpr size_t work = sums + Stage<T>::bytes;
+  static constexpr size_t r0 = work > Smem<T>::tile ? work : Smem<T>::tile;
   static constexpr size_t bytes = r0 + 2 * Smem<T>::tile;
 };
 
@@ -54,6 +57,7 @@ __global__ void __launch_bounds__(kThreads, 1) typed_block_kernel(
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int ld = Smem<T>::ld;
   float* S = reinterpret_cast<float*>(smem);
+  T* H_s = reinterpret_cast<T*>(smem + BlockSmem<T>::sums);
   T* A_s = reinterpret_cast<T*>(smem + BlockSmem<T>::r0);
   T* W_s = reinterpret_cast<T*>(smem + BlockSmem<T>::r0 + Smem<T>::tile);
   const int b = blockIdx.x;
@@ -79,23 +83,16 @@ __global__ void __launch_bounds__(kThreads, 1) typed_block_kernel(
     for (int c = 0; c < cmax; ++c) any |= slots[t * cmax + c] >= 0;
     if (!any) continue;
     __syncthreads();  // every warp is done with the previous W_s
+    // every warp sees the new W_s after the segment sum's barriers
     load_wt(W_s, msg_w + size_t(t) * kD * kD, kD, 0);
     for (int c = 0; c < cmax; ++c) {
       const int s = t * cmax + c;
       const int off = slots[s];
       if (off < 0) continue;
-      float4* S4 = reinterpret_cast<float4*>(S);
-      for (int i = threadIdx.x; i < kRows * kD / 4; i += kThreads)
-        S4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-      __syncthreads();
-      segment_sum(S, h_pack, n_pack, span0 + (long long)off * 16,
-                  dstl_blk + (size_t(b) * S8 + s) * tile_e, tile_e);
-      __syncthreads();
-      for (int idx = threadIdx.x; idx < kRows * kD; idx += kThreads) {
-        const int r = idx / kD, f = idx % kD;
-        A_s[r * ld + f] = from_f<T>(S[r * kD + (f & 3) * 32 + (f >> 2)]);
-      }
-      __syncthreads();
+      zero_strip(S);
+      segment_sum_ordered(S, H_s, h_pack, n_pack, span0 + (long long)off * 16,
+                          dstl_blk + (size_t(b) * S8 + s) * tile_e, tile_e);
+      round_strip(A_s, S);  // the slot's sums, rounded to T per slot
       warp_gemm(acc, A_s + row0 * ld, W_s);
     }
   }

@@ -1,22 +1,32 @@
 """Typed-pack one-hot aggregation: host layout, CUDA kernels, plain versions.
 
-Counterpart of ``ggnn_tpu/ops/scatter_pallas.py`` for its typed pack in
-block mode, the layout the headline serves with:
+Counterpart of ``ggnn_tpu/ops/scatter_pallas.py`` for its typed pack:
 
 - :func:`build_typed_dst_layout` is the reference function ported to numpy,
   array for array: edges sorted by (dst block, type, src), per-(block, type)
-  groups packed at 16-row alignment, and in block mode ``S8`` slots per dst
-  block whose pack offsets and dst-local rows the kernel reads.
-  ``gather_idx`` indexes rows of h.  ``with_grad=True`` adds the octet grad
-  layout of the backward (``g_*`` arrays, ``meta[5]``).
+  groups packed at 16-row alignment; in block mode ``S8`` slots per dst
+  block, else (hub-heavy and power-law graphs) the per-tile arrays.
+  ``gather_idx`` indexes rows of h.  ``with_grad=True`` adds the grad layout
+  of the backward (``g_*`` arrays, ``meta[5]``): the octet layout, or where
+  it declines the legacy one of :func:`ggnn_tpu_torch.ops.legacy.
+  build_dst_block_layout`.
 - :func:`typed_block_scatter` and :func:`typed_block_step_gru` wrap the
   CUDA kernel ``csrc/typed_block.cu`` (the port of ``_typed_block_kernel``);
-  :func:`typed_grad_octet_scatter` wraps ``csrc/grad_octet.cu`` (the port
-  of ``_grad_octet_kernel``).  Each has a ``_reference`` plain version with
-  the same rounding points.
+  :func:`typed_onehot_scatter` and :func:`typed_step_gru` wrap
+  ``csrc/typed_tile.cu`` (the ports of ``_typed_onehot_kernel`` and
+  ``_typed_step_kernel``); :func:`typed_grad_octet_scatter` wraps
+  ``csrc/grad_octet.cu`` (the port of ``_grad_octet_kernel``), and the
+  legacy grad layout goes through
+  :func:`ggnn_tpu_torch.ops.window.window_block_spmm_mono`.  Each has a
+  ``_reference`` plain version with the same rounding points.
 - :func:`aggregate_onehot` is the full typed aggregation: the ``h_pack``
   gather, the kernel, and the bias Σ_t indeg_t·b_t, with the reference's
   custom backward (:class:`AggregateOnehot`, :func:`aggregate_bwd`).
+
+The reference splits per-tile layouts into chunks (``meta[8]``) and reads
+block spans (span mode, ``meta[9]``) to fit the TPU's SMEM and VMEM; the
+chunks give the same sums as one call, so the port builds both arrays as the
+reference does and launches once over all blocks.
 
 A wrapper takes its plain version only for CPU tensors; for CUDA tensors it
 launches the kernel or raises.
@@ -33,16 +43,13 @@ import torch
 from ggnn_tpu_torch.ops import _build
 from ggnn_tpu_torch.ops.gru import (_DTYPE_CODE, _check_cuda_args,
                                     gru_cell_fwd_reference)
+from ggnn_tpu_torch.ops.window import (host_ints, split_plan,
+                                       window_block_spmm_mono)
 
 BLOCK_N = 128                  # destination rows per output block
 SMEM_TILE_CAP = 40960          # the reference's per-call tile cap (chunking)
 SPAN_ROW_CAP = 16384           # largest block span block mode accepts
 BLOCK_SLOT_CAP = 160 * 1024    # largest slot array block mode accepts
-
-_PER_TILE = ("block mode declined for this graph (hub-heavy or chunked "
-             "layout): the per-tile kernels typed_onehot_scatter / "
-             "typed_step_gru are not ported yet (ROADMAP Queue 1 item 2)")
-
 
 def _rup_block(x: int) -> int:
     return ((x + BLOCK_N - 1) // BLOCK_N) * BLOCK_N
@@ -100,13 +107,16 @@ def _chunk_blocks(tile_start, cap: int = SMEM_TILE_CAP):
     return tuple(bounds)
 
 
-def _octet_grad_layout(arrays, src, dst, typ, T2, n_nodes_pad, grad_tile_e,
-                       block_mode):
-    """The reference's octet grad layout (``scatter_pallas.py:1304-1380``):
-    edges regrouped by block-major table row grow(u, t) = (u // 128)·T2·128
-    + t·128 + u % 128 into 128-row grad blocks, 8 contiguous blocks to an
-    octet.  Adds the ``g_*`` arrays to ``arrays`` and returns ``grad_meta``;
-    raises where the reference would take its legacy grad layout."""
+def _grad_layout(arrays, src, dst, typ, T2, n_nodes_pad, grad_tile_e,
+                 block_mode, smem_tile_cap=SMEM_TILE_CAP):
+    """The reference's grad layout (``scatter_pallas.py:1304-1404``): edges
+    regrouped by block-major table row grow(u, t) = (u // 128)·T2·128
+    + t·128 + u % 128 into 128-row grad blocks.  The octet layout puts 8
+    contiguous blocks to an octet; where it declines (``block_mode=False``
+    or hub-heavy grad blocks) the legacy layout of
+    :func:`~ggnn_tpu_torch.ops.legacy.build_dst_block_layout` takes its
+    place.  Adds the ``g_*`` arrays to ``arrays`` and returns
+    ``grad_meta``."""
     grow = (src // 128) * (T2 * 128) + typ * 128 + src % 128
     n_rows_grad = _rup_block(T2 * n_nodes_pad)
     if grad_tile_e is None:
@@ -134,12 +144,26 @@ def _octet_grad_layout(arrays, src, dst, typ, T2, n_nodes_pad, grad_tile_e,
                     and span8 <= SPAN_ROW_CAP
                     and n_oct * 8 * C_g <= 3 * max(n_real_g, 1) + 8 * B_g)
     if not octet_ok:
-        raise NotImplementedError(
-            "the octet grad layout declines for this graph (block_mode=False "
-            "or hub-heavy grad blocks); the reference then builds its legacy "
-            "grad layout (build_dst_block_layout, ROADMAP Queue 1 item 3) "
-            "reduced by window_block_spmm_mono (Queue 1 item 5), neither "
-            "ported yet")
+        from ggnn_tpu_torch.ops.legacy import build_dst_block_layout
+        g = build_dst_block_layout(
+            edge_src=dst, edge_dst=grow, edge_type=np.zeros_like(typ),
+            edge_mask=np.ones(dst.shape[0], np.float32),
+            n_nodes_pad=n_rows_grad, tile_e=grad_tile_e, onehot_stream=True,
+            n_src_rows=n_nodes_pad,
+            edge_align=(16 if grad_tile_e % 16 == 0 else None),
+            dstl_stream=grad_tile_e % 16 == 0)
+        arrays["g_gather_idx"] = g.gather_idx
+        arrays["g_tile_start"] = g.tile_start
+        arrays["g_block_of_tile"] = g.block_of_tile
+        if g.dstl is not None:
+            arrays["g_dstl"] = g.dstl
+        else:
+            arrays["g_onehot"] = g.onehot
+        if g.tile_msg_off is not None:
+            arrays["g_tile_msg_off"] = g.tile_msg_off
+        arrays["g_indeg"] = arrays["indeg"]
+        return (g.n_blocks, g.max_tiles, g.tile_e, g.onehot is not None,
+                g.edge_align, _chunk_blocks(g.tile_start, smem_tile_cap))
     order_g = np.lexsort((dst, gb))
     g_dst = dst[order_g]
     ggb = gb[order_g]
@@ -183,10 +207,12 @@ def build_typed_dst_layout(edge_src, edge_dst, edge_type, edge_mask,
                            ) -> ScatterLayout:
     """Host layout of the typed pack (the reference function, array for
     array).  Block mode ('auto') engages when the T2·cmax slot grid stays
-    bounded; hub-heavy graphs keep the per-tile arrays, which the port does
-    not run yet.  ``with_grad`` adds the octet grad layout of the backward's
-    reverse scatter (:func:`typed_grad_octet_scatter`); where the reference
-    would fall back to its legacy grad layout this raises."""
+    bounded; hub-heavy graphs keep the per-tile arrays
+    (:func:`typed_onehot_scatter`, :func:`typed_step_gru`).  ``with_grad``
+    adds the grad layout of the backward's reverse scatter: the octet
+    layout (:func:`typed_grad_octet_scatter`) where it engages, else the
+    legacy one (:func:`~ggnn_tpu_torch.ops.window.window_block_spmm_mono`).
+    """
     T2 = n_message_types
     if n_nodes_pad % BLOCK_N:
         raise ValueError(f"n_nodes_pad must be a multiple of {BLOCK_N}")
@@ -303,8 +329,8 @@ def build_typed_dst_layout(edge_src, edge_dst, edge_type, edge_mask,
         arrays["blk_off16"] = (blk_start // 16).astype(np.int32)
     grad_meta = None
     if with_grad:
-        grad_meta = _octet_grad_layout(arrays, src, dst, typ, T2, n_nodes_pad,
-                                       grad_tile_e, block_mode)
+        grad_meta = _grad_layout(arrays, src, dst, typ, T2, n_nodes_pad,
+                                 grad_tile_e, block_mode, smem_tile_cap)
     if span_mode and span_auto and chunks is not None:
         span_mode = False
         arrays.pop("blk_off16", None)
@@ -480,17 +506,268 @@ typed_block_scatter.launches = 0
 typed_block_step_gru.launches = 0
 
 
-def block_args(layout: ScatterLayout) -> dict:
-    """The kernel arguments a block-mode layout supplies, or raise where the
-    layout needs kernels the port does not have yet."""
+def _check_tile_args(name, h_pack, dstl, tile_start, block_of_tile,
+                     tile_msg_off, c_off, tile_type, msg_w, n_blocks, tile_e):
+    T2, D = msg_w.shape[0], msg_w.shape[-1]
+    if h_pack.dim() != 2 or h_pack.shape[1] != D or msg_w.shape[1] != D:
+        raise ValueError(f"{name}: h_pack {tuple(h_pack.shape)} and msg_w "
+                         f"{tuple(msg_w.shape)} disagree on D")
+    if h_pack.dtype != msg_w.dtype:
+        raise ValueError(f"{name}: h_pack is {h_pack.dtype} but msg_w is "
+                         f"{msg_w.dtype}; both must be the compute dtype")
+    if dstl.dim() != 2 or dstl.shape[1] != tile_e:
+        raise ValueError(f"{name}: dstl {tuple(dstl.shape)} is not "
+                         f"[rows, tile_e={tile_e}]: layout and arguments "
+                         f"disagree")
+    if tuple(tile_start.shape) != (n_blocks + 1,):
+        raise ValueError(f"{name}: tile_start {tuple(tile_start.shape)} is "
+                         f"not [n_blocks + 1] = [{n_blocks + 1}]: layout and "
+                         f"arguments disagree")
+    n_tiles = block_of_tile.shape[0]
+    for arg, t in (("block_of_tile", block_of_tile),
+                   ("tile_msg_off", tile_msg_off), ("c_off", c_off),
+                   ("tile_type", tile_type)):
+        if tuple(t.shape) != (n_tiles,):
+            raise ValueError(f"{name}: {arg} {tuple(t.shape)} is not "
+                             f"[n_tiles] = [{n_tiles}]: layout and arguments "
+                             f"disagree")
+    for arg, t in (("dstl", dstl), ("tile_start", tile_start),
+                   ("block_of_tile", block_of_tile),
+                   ("tile_msg_off", tile_msg_off), ("c_off", c_off),
+                   ("tile_type", tile_type)):
+        if t.dtype != torch.int32:
+            raise ValueError(f"{name}: {arg} must be int32, got {t.dtype}")
+
+
+def _tile_data_checks(name, h_pack, dstl, tile_start, block_of_tile,
+                      tile_msg_off, c_off, tile_type, T2, n_blocks, tile_e,
+                      align, extra=()):
+    """The layout arrays against one another and against the pack: the
+    tile counts agree, real tiles address dstl rows, types and blocks that
+    exist, and every tile's rows lie inside ``h_pack`` (one copy to the
+    host, with ``extra`` 0-d tensors appended)."""
+    n_tiles = block_of_tile.shape[0]
+    stats = [tile_start[0], tile_start[-1]]
+    if n_tiles:
+        real = tile_msg_off >= 0
+        zero = torch.zeros_like(tile_msg_off)
+        for t in (tile_msg_off, c_off, tile_type, block_of_tile):
+            v = torch.where(real, t, zero)
+            stats += [v.min(), v.max()]
+    else:
+        stats += [0] * 8
+    ts0, ts1, _, off_max, c_min, c_max, ty_min, ty_max, b_min, b_max, \
+        *rest = host_ints(*stats, *extra)
+    if ts0 != 0 or ts1 != n_tiles:
+        raise ValueError(f"{name}: tile_start runs from {ts0} to {ts1}, not "
+                         f"over the {n_tiles} tiles: layout and arguments "
+                         f"disagree")
+    if c_min < 0 or (n_tiles and c_max >= dstl.shape[0]):
+        raise ValueError(f"{name}: tiles address dstl rows [{c_min}, "
+                         f"{c_max}] of {dstl.shape[0]}: layout and arguments "
+                         f"disagree")
+    if ty_min < 0 or ty_max >= T2:
+        raise ValueError(f"{name}: tile types [{ty_min}, {ty_max}] outside "
+                         f"msg_w's {T2} types: msg_w does not belong to this "
+                         f"layout")
+    if b_min < 0 or b_max >= n_blocks:
+        raise ValueError(f"{name}: tiles name blocks [{b_min}, {b_max}] of "
+                         f"{n_blocks}: layout and arguments disagree")
+    end = off_max * align + tile_e
+    if n_tiles and end > h_pack.shape[0]:
+        raise ValueError(f"{name}: h_pack has {h_pack.shape[0]} rows, fewer "
+                         f"than the last tile reads ({end}): it was not "
+                         f"gathered with this layout")
+    return rest
+
+
+def typed_onehot_scatter_reference(h_pack, dstl, tile_start, block_of_tile,
+                                   tile_msg_off, c_off, tile_type, msg_w,
+                                   n_blocks: int, tile_e: int, align: int):
+    """Plain version of :func:`typed_onehot_scatter`: per type t, each real
+    tile's one-hot product in f32 by ``index_add_``, rounded to ``msg_w``'s
+    dtype per tile, then times W_t in f32 and added to its block."""
+    del tile_start
+    T2, D = msg_w.shape[0], msg_w.shape[-1]
+    dev = h_pack.device
+    out = torch.zeros(n_blocks * BLOCK_N, D, dtype=torch.float32, device=dev)
+    real = tile_msg_off >= 0
+    cols = torch.arange(tile_e, device=dev)
+    rows128 = torch.arange(BLOCK_N, device=dev)
+    for t in range(T2):
+        sel = torch.nonzero(real & (tile_type == t)).flatten()
+        n = sel.numel()
+        if n == 0:
+            continue
+        d = dstl.long()[c_off.long()[sel]]                      # [n, tile_e]
+        valid = d >= 0
+        src = (tile_msg_off.long()[sel, None] * align + cols)[valid]
+        tgt = (torch.arange(n, device=dev)[:, None] * BLOCK_N + d)[valid]
+        p = torch.zeros(n * BLOCK_N, D, dtype=torch.float32, device=dev)
+        p.index_add_(0, tgt, h_pack.index_select(0, src).float())
+        p = p.to(msg_w.dtype).float() @ msg_w[t].float()
+        out.index_add_(0, (block_of_tile.long()[sel, None] * BLOCK_N
+                           + rows128).reshape(-1), p)
+    return out
+
+
+def typed_step_gru_reference(h_pack, dstl, tile_start, block_of_tile,
+                             tile_msg_off, c_off, tile_type, msg_w, init,
+                             hstate, wa, b3, uzr, uh, n_blocks: int,
+                             tile_e: int, align: int):
+    """Plain version of :func:`typed_step_gru`: the per-tile scatter
+    started from ``init``, then the GRU cell with matmul inputs in ``wa``'s
+    dtype."""
+    a = init.float() + typed_onehot_scatter_reference(
+        h_pack, dstl, tile_start, block_of_tile, tile_msg_off, c_off,
+        tile_type, msg_w, n_blocks, tile_e, align)
+    return gru_cell_fwd_reference(hstate, a, wa, b3, uzr, uh, mdt=wa.dtype)[0]
+
+
+def _launch_tile(name, fused, h_pack, dstl, tile_start, block_of_tile,
+                 tile_msg_off, c_off, tile_type, msg_w, n_blocks, tile_e,
+                 align, init=None, hstate=None, wa=None, b3=None, uzr=None,
+                 uh=None):
+    T2, D = msg_w.shape[0], msg_w.shape[-1]
+    if h_pack.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{name}: dtype {h_pack.dtype} not in "
+                         f"{list(_DTYPE_CODE)}")
+    named = [("h_pack", h_pack), ("dstl", dstl), ("tile_start", tile_start),
+             ("tile_msg_off", tile_msg_off), ("c_off", c_off),
+             ("tile_type", tile_type), ("msg_w", msg_w)]
+    if fused:
+        named += [("init", init), ("hstate", hstate), ("wa", wa),
+                  ("b3", b3), ("uzr", uzr), ("uh", uh)]
+        for arg, t in named[7:]:
+            want = (torch.float32 if arg in ("init", "hstate", "b3")
+                    else h_pack.dtype)
+            if t.dtype != want:
+                raise ValueError(f"{name}: {arg} must be {want}, got "
+                                 f"{t.dtype}")
+    _check_cuda_args(name, named, D)
+    item_first, pbase, n_items, n_part = split_plan(tile_start, n_blocks)
+    n_items, n_part = _tile_data_checks(
+        name, h_pack, dstl, tile_start, block_of_tile, tile_msg_off, c_off,
+        tile_type, T2, n_blocks, tile_e, align, (n_items, n_part))
+    dev = h_pack.device
+    ws = torch.empty(max(n_part, 1), BLOCK_N, D, dtype=torch.float32,
+                     device=dev)
+    out = torch.empty(n_blocks * BLOCK_N, D, dtype=torch.float32, device=dev)
+    p = _build.ptr
+    _build.launch(
+        _build.library().ggnn_typed_tile, name, dev, _DTYPE_CODE[h_pack.dtype],
+        int(fused), p(h_pack), h_pack.shape[0], p(dstl), dstl.shape[0],
+        p(tile_start), p(tile_msg_off), p(c_off), p(tile_type), p(msg_w), T2,
+        n_blocks, tile_e, align, p(item_first), p(pbase), n_items, n_part,
+        p(init), p(hstate), p(wa), p(b3), p(uzr), p(uh), p(ws), p(out))
+    return out
+
+
+def typed_onehot_scatter(h_pack, dstl, tile_start, block_of_tile,
+                         tile_msg_off, c_off, tile_type, msg_w,
+                         n_blocks: int, tile_e: int, align: int):
+    """Per-tile typed-pack scatter: out[b·128:(b+1)·128] =
+    Σ_{tiles t of b} bf16(onehot(dstl[c_off[t]]) @ H_t) · W[type[t]]
+    → [n_blocks·128, D] f32, H_t the ``tile_e`` rows of ``h_pack`` from
+    tile_msg_off[t]·align (−1: a dummy tile, adding 0).
+
+    ``h_pack`` [E_pack, D] and ``msg_w`` [T2, D, D] in the compute dtype;
+    the int32 layout arrays as :func:`build_typed_dst_layout` made them.
+    (The TPU kernel's DMA ring depth and span mode do not change the sums;
+    the port has neither.)  A CPU tensor takes the plain version; a CUDA
+    tensor launches ``csrc/typed_tile.cu`` or raises."""
+    name = "typed_onehot_scatter"
+    _check_tile_args(name, h_pack, dstl, tile_start, block_of_tile,
+                     tile_msg_off, c_off, tile_type, msg_w, n_blocks, tile_e)
+    if h_pack.device.type == "cpu":
+        _tile_data_checks(name, h_pack, dstl, tile_start, block_of_tile,
+                          tile_msg_off, c_off, tile_type, msg_w.shape[0],
+                          n_blocks, tile_e, align)
+        return typed_onehot_scatter_reference(
+            h_pack, dstl, tile_start, block_of_tile, tile_msg_off, c_off,
+            tile_type, msg_w, n_blocks, tile_e, align)
+    out = _launch_tile(name, False, h_pack, dstl, tile_start, block_of_tile,
+                       tile_msg_off, c_off, tile_type, msg_w, n_blocks,
+                       tile_e, align)
+    typed_onehot_scatter.launches += 1
+    return out
+
+
+def typed_step_gru(h_pack, dstl, tile_start, block_of_tile, tile_msg_off,
+                   c_off, tile_type, msg_w, init, hstate, wa, b3, uzr, uh,
+                   n_blocks: int, tile_e: int, align: int):
+    """Fused per-tile typed aggregation + GRU step: ``init``
+    [n_blocks·128, D] f32 is the Σ_t indeg_t·b_t bias, ``hstate`` the padded
+    f32 node state, ``wa``/``uzr``/``uh`` in the compute dtype and ``b3``
+    [1, 3D] f32; returns h' [n_blocks·128, D] f32.  The other arguments are
+    those of :func:`typed_onehot_scatter`."""
+    name = "typed_step_gru"
+    _check_tile_args(name, h_pack, dstl, tile_start, block_of_tile,
+                     tile_msg_off, c_off, tile_type, msg_w, n_blocks, tile_e)
+    D = msg_w.shape[-1]
+    rows = n_blocks * BLOCK_N
+    for arg, t, shape in (("init", init, (rows, D)),
+                          ("hstate", hstate, (rows, D)),
+                          ("wa", wa, (D, 3 * D)), ("uzr", uzr, (D, 2 * D)),
+                          ("uh", uh, (D, D))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {arg} {tuple(t.shape)} is not {shape}")
+    if b3.numel() != 3 * D:
+        raise ValueError(f"{name}: b3 has {b3.numel()} entries, expected "
+                         f"{3 * D}")
+    if h_pack.device.type == "cpu":
+        _tile_data_checks(name, h_pack, dstl, tile_start, block_of_tile,
+                          tile_msg_off, c_off, tile_type, msg_w.shape[0],
+                          n_blocks, tile_e, align)
+        return typed_step_gru_reference(
+            h_pack, dstl, tile_start, block_of_tile, tile_msg_off, c_off,
+            tile_type, msg_w, init, hstate, wa, b3, uzr, uh, n_blocks,
+            tile_e, align)
+    out = _launch_tile(name, True, h_pack, dstl, tile_start, block_of_tile,
+                       tile_msg_off, c_off, tile_type, msg_w, n_blocks,
+                       tile_e, align, init, hstate, wa, b3.reshape(-1), uzr,
+                       uh)
+    typed_step_gru.launches += 1
+    return out
+
+
+typed_onehot_scatter.launches = 0
+typed_step_gru.launches = 0
+
+
+def tile_args(layout: ScatterLayout) -> dict:
+    """The kernel arguments a per-tile layout (block mode declined)
+    supplies."""
+    meta = _typed_meta(layout)
+    if meta[10] is not None:
+        raise ValueError("block mode engaged for this layout: it goes to "
+                         "typed_block_scatter / typed_block_step_gru "
+                         "(block_args)")
+    arrs = layout.arrays
+    return dict(dstl=arrs["dstl"], tile_start=arrs["tile_start"],
+                block_of_tile=arrs["block_of_tile"],
+                tile_msg_off=arrs["tile_msg_off"], c_off=arrs["c_off"],
+                tile_type=arrs["tile_type"], n_blocks=meta[3],
+                tile_e=meta[1], align=meta[6])
+
+
+def _typed_meta(layout: ScatterLayout) -> tuple:
     meta = layout.meta
     if len(meta) < 11 or meta[7] != "typed":
         raise NotImplementedError(
             "only the typed pack is ported; the legacy table-gather layout "
             "(build_dst_block_layout / layout_for_batch) and its kernels are "
             "ROADMAP Queue 1 item 3")
+    return meta
+
+
+def block_args(layout: ScatterLayout) -> dict:
+    """The kernel arguments a block-mode layout supplies."""
+    meta = _typed_meta(layout)
     if meta[10] is None:
-        raise NotImplementedError(_PER_TILE)
+        raise ValueError("block mode declined for this layout: its per-tile "
+                         "arrays go to typed_onehot_scatter / typed_step_gru "
+                         "(tile_args)")
     S8, cmax, span_rows = meta[10]
     arrs = layout.arrays
     return dict(dstl_blk=arrs["dstl_blk"], slot_off16=arrs["slot_off16"],
@@ -505,13 +782,17 @@ def bias_rows(layout: ScatterLayout, msg_b):
 
 def aggregate_forward(h, layout: ScatterLayout, msg_w, msg_b):
     """The aggregation's value alone (no autograd graph through the
-    kernel): the ``h_pack`` gather, the typed block kernel and the bias."""
-    kw = block_args(layout)
+    kernel): the ``h_pack`` gather, the typed block kernel (or, where block
+    mode declined, the per-tile kernel) and the bias."""
     N = h.shape[0]
     h_pack = h.index_select(0, layout.arrays["gather_idx"])
-    out = typed_block_scatter(h_pack, kw.pop("dstl_blk"),
-                              kw.pop("slot_off16"), kw.pop("blk_off16"),
-                              msg_w, **kw)
+    if _typed_meta(layout)[10] is None:
+        out = typed_onehot_scatter(h_pack, msg_w=msg_w, **tile_args(layout))
+    else:
+        kw = block_args(layout)
+        out = typed_block_scatter(h_pack, kw.pop("dstl_blk"),
+                                  kw.pop("slot_off16"), kw.pop("blk_off16"),
+                                  msg_w, **kw)
     return (out + bias_rows(layout, msg_b))[:N]
 
 
@@ -544,17 +825,14 @@ def aggregate_onehot(h, layout: ScatterLayout, msg_w, msg_b):
 
 
 def grad_meta(layout: ScatterLayout) -> tuple:
-    """The octet grad layout's static meta, or raise if the layout was
-    built without its grad half."""
+    """The grad layout's static meta (the octet layout's, starting with
+    "octet", or the legacy one's 6-tuple), or raise if the layout was built
+    without its grad half."""
     gm = layout.meta[5] if len(layout.meta) > 5 else None
     if gm is None:
         raise ValueError(
             "the onehot backward needs the grad half of the typed layout: "
             "build it with build_typed_dst_layout(..., with_grad=True)")
-    if gm[0] != "octet":
-        raise NotImplementedError(
-            "only the octet grad layout is ported; the legacy grad layout "
-            "and window_block_spmm_mono are ROADMAP Queue 1 items 3 and 5")
     return gm
 
 
@@ -648,17 +926,35 @@ typed_grad_octet_scatter.launches = 0
 
 
 def typed_reverse_scatter(layout: ScatterLayout, da, n_rows: int, out_dtype):
-    """Y_flat[row(u, t)] = Σ_{(u,t,v)} da[v] over the octet grad layout (the
-    octet branch of the reference's ``_typed_reverse_scatter``): ``da`` is
-    cast to ``out_dtype`` BEFORE the gather, as the reference does.
-    Returns the first ``n_rows`` rows, block-major (b, t, s)."""
-    _, _, g_tile, C, R8, span8, n_oct = grad_meta(layout)
+    """Y_flat[row(u, t)] = Σ_{(u,t,v)} da[v] over the grad layout (the
+    reference's ``_typed_reverse_scatter``): ``da`` is cast to
+    ``out_dtype`` BEFORE the gather, as the reference does; the octet
+    layout goes through :func:`typed_grad_octet_scatter`, the legacy one
+    through :func:`window_block_spmm_mono` (one call over every grad block,
+    whatever its chunks).  Returns the first ``n_rows`` rows, block-major
+    (b, t, s)."""
+    gm = grad_meta(layout)
     arrs = layout.arrays
     G = da.to(out_dtype).index_select(0, arrs["g_gather_idx"])
-    Y_flat = typed_grad_octet_scatter(
-        G, arrs["g_dstl_oct"], arrs["g_slot_off16"], arrs["g_oblk16"],
-        n_oct=n_oct, g_tile=g_tile, C=C, R8=R8, span8=span8,
-        out_dtype=out_dtype)
+    if gm[0] == "octet":
+        _, _, g_tile, C, R8, span8, n_oct = gm
+        Y_flat = typed_grad_octet_scatter(
+            G, arrs["g_dstl_oct"], arrs["g_slot_off16"], arrs["g_oblk16"],
+            n_oct=n_oct, g_tile=g_tile, C=C, R8=R8, span8=span8,
+            out_dtype=out_dtype)
+        return Y_flat[:n_rows]
+    g_blocks, _, g_tile, _, g_align = gm[:5]
+    stream = arrs["g_dstl"] if "g_dstl" in arrs else arrs["g_onehot"]
+    if g_align is not None:
+        win = arrs["g_tile_msg_off"]
+    else:
+        # no aligned pack: tile t reads its own g_tile rows of G
+        win = torch.arange(arrs["g_block_of_tile"].shape[0],
+                           dtype=torch.int32, device=G.device)
+    Y_flat = window_block_spmm_mono(
+        G, stream, arrs["g_tile_start"], arrs["g_block_of_tile"], win,
+        n_blocks=g_blocks, window=g_tile, win_stride=g_align,
+        out_rows=BLOCK_N, out_dtype=out_dtype, dstl="g_dstl" in arrs)
     return Y_flat[:n_rows]
 
 

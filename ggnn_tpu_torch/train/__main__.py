@@ -1,13 +1,14 @@
 """CLI experiment runner (counterpart of ``ggnn_tpu/train/__main__.py``)::
 
-    python -m ggnn_tpu_torch.train --config babi4 [--device cpu|cuda]
+    python -m ggnn_tpu_torch.train --config babi4 [--device cuda|cpu]
            [--epochs 100] [--lr 1e-3] [--state_dim 4] [--n_steps 5]
            [--batch_size 10] [--seed 0] [--question_id 0]
            [--data_root babi_data] [--backend xla] [--metrics out.jsonl]
            [--checkpoint_dir d] [--restore ckpt.npz]
 
-``--device cuda`` without a CUDA device raises; nothing falls back to the
-CPU.  Prints the result record as JSON on stdout.
+Trains on the card by default (``--device cuda``); without a CUDA device
+that raises, and nothing falls back to the CPU: pass ``--device cpu`` to
+train on the CPU.  Prints the result record as JSON on stdout.
 """
 
 from __future__ import annotations
@@ -46,9 +47,10 @@ def main(argv=None) -> int:
     ap.add_argument("--metrics", type=str, dest="metrics_path")
     ap.add_argument("--checkpoint_dir", type=str)
     ap.add_argument("--restore", type=str, help="checkpoint to resume from")
-    ap.add_argument("--device", type=str, default="cpu",
-                    choices=["cpu", "cuda"],
-                    help="where to train (cuda without a card raises)")
+    ap.add_argument("--device", type=str, default="cuda",
+                    choices=["cuda", "cpu"],
+                    help="where to train (default cuda; without a card it "
+                         "raises)")
     args = ap.parse_args(argv)
 
     from ggnn_tpu_torch.train.config import build_config

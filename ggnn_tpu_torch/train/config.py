@@ -8,7 +8,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional
 
-from ggnn_tpu.data.babi import TASKS
+from ggnn_tpu_torch.data.babi import TASKS
 from ggnn_tpu_torch.models.config import ModelConfig, model_config_for_task
 
 

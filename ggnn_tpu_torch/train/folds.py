@@ -3,7 +3,7 @@ each fold is an independent resample from the task generator; reports
 per-fold accuracy and their mean and standard deviation::
 
     python -m ggnn_tpu_torch.train.folds --config babi4 [--folds 10]
-           [--device cpu|cuda] [...]
+           [--device cuda|cpu] [...]
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import sys
 import numpy as np
 
 
-def run_folds(config_name: str, n_folds: int = 10, device="cpu",
+def run_folds(config_name: str, n_folds: int = 10, device="cuda",
               **overrides) -> dict:
     from ggnn_tpu_torch.train.config import build_config
     from ggnn_tpu_torch.train.loop import Trainer
@@ -45,8 +45,8 @@ def main(argv=None) -> int:
     ap.add_argument("--epochs", type=int)
     ap.add_argument("--data_root", type=str)
     ap.add_argument("--state_dim", type=int, dest="model_state_dim")
-    ap.add_argument("--device", type=str, default="cpu",
-                    choices=["cpu", "cuda"])
+    ap.add_argument("--device", type=str, default="cuda",
+                    choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
     overrides = {k: v for k, v in vars(args).items()
                  if k not in ("config", "folds", "device") and v is not None}

@@ -16,13 +16,13 @@ from typing import Optional
 
 import torch
 
-from ggnn_tpu.data.babi import TASKS, BabiDataset
-from ggnn_tpu.data.generators import generate_all
-from ggnn_tpu.data.loader import BatchLoader
-from ggnn_tpu.graph import PaddingSpec
+from ggnn_tpu_torch.data.babi import TASKS, BabiDataset
+from ggnn_tpu_torch.data.generators import generate_all
+from ggnn_tpu_torch.data.loader import BatchLoader
+from ggnn_tpu_torch.graph import PaddingSpec
 from ggnn_tpu_torch.models.api import loss_and_metrics
 from ggnn_tpu_torch.models.config import ModelConfig
-from ggnn_tpu_torch.models.init import init_params
+from ggnn_tpu_torch.models.init import device_or_raise, init_params
 from ggnn_tpu_torch.train.checkpoint import (_flatten, load_checkpoint,
                                              save_checkpoint)
 from ggnn_tpu_torch.train.config import TrainConfig
@@ -130,16 +130,12 @@ class Trainer:
         result = t.run()          # trains, evals, checkpoints, logs
         result["test_accuracy"]
 
-    ``device`` is where the model trains ('cpu' or 'cuda'); a 'cuda'
-    request without a card raises."""
+    ``device`` is where the model trains: the card by default, 'cpu' only
+    when asked; a 'cuda' request without a card raises."""
 
     def __init__(self, cfg: TrainConfig,
-                 logger: Optional[MetricsLogger] = None, device="cpu"):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("device 'cuda' requested but no CUDA device "
-                               "is available (torch.cuda.is_available() is "
-                               "false)")
+                 logger: Optional[MetricsLogger] = None, device="cuda"):
+        self.device = device_or_raise(device)
         if cfg.model.head == "ggsnn":
             raise NotImplementedError(
                 f"config {cfg.name!r} trains a GGS-NN (head='ggsnn'), which "

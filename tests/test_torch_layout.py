@@ -69,28 +69,48 @@ def test_layout_matches_reference(case):
 
 
 def test_layout_declined_block_mode_raises_in_aggregate():
-    """Where block mode declines, aggregation names the per-tile kernels
-    that are not ported instead of computing something else."""
-    N, T2 = 1024, 4
+    """Where block mode declines (a hub), aggregation runs the per-tile
+    kernel's path; it used to raise here and now holds the JAX package's
+    ``aggregate_onehot`` (Pallas interpret mode) on the same inputs, in f32
+    (rtol = atol = 1e-5: the same sums in another order) and bf16 (rtol =
+    1e-5, atol = 1e-4: the per-tile one-hot sums are rounded to bf16 at the
+    same points in both, so only the f32 order of the W_t products
+    differs)."""
+    import jax.numpy as jnp
+    N, T2, D = 1024, 4, 128
     edges = _graph(11, N, 6000, T2, hub=True)
+    lay_j = SP.build_typed_dst_layout(*edges, N, T2, tile_e=128)
     lay = S.build_typed_dst_layout(*edges, N, T2, tile_e=128)
-    h = torch.zeros(N, 128)
-    w = torch.zeros(T2, 128, 128)
-    with pytest.raises(NotImplementedError, match="typed_onehot_scatter"):
-        S.aggregate_onehot(h, lay.to("cpu"), w, torch.zeros(T2, 128))
+    assert lay.block_meta is None and lay_j.meta[10] is None
+    r = np.random.default_rng(0)
+    h = r.standard_normal((N, D)).astype(np.float32)
+    w = (r.standard_normal((T2, D, D)) * 0.2).astype(np.float32)
+    b = (r.standard_normal((T2, D)) * 0.1).astype(np.float32)
+    for jdt, tdt, atol in ((jnp.float32, torch.float32, 1e-5),
+                           (jnp.bfloat16, torch.bfloat16, 1e-4)):
+        ref = SP.aggregate_onehot(jnp.asarray(h, jdt), lay_j,
+                                  jnp.asarray(w, jdt), jnp.asarray(b, jdt),
+                                  interpret=True)
+        got = S.aggregate_onehot(torch.tensor(h).to(tdt), lay.to("cpu"),
+                                 torch.tensor(w).to(tdt),
+                                 torch.tensor(b).to(tdt))
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                                   atol=atol, err_msg=str(tdt))
 
 
 def test_layout_with_grad_raises():
     """with_grad=True builds the octet grad layout where the reference
-    does (tests/test_torch_train_ops.py holds it array for array); where
-    the reference falls back to its legacy grad layout (block_mode=False),
-    the port raises naming the unported fallback."""
+    does, and where the reference falls back to its legacy grad layout
+    (block_mode=False) the port, which used to raise there, builds the same
+    legacy arrays: the whole layout array for array (exact)."""
     edges = _graph(0, 256, 500, 4)
     lay = S.build_typed_dst_layout(*edges, 256, 4, with_grad=True)
     assert lay.meta[5][0] == "octet"
-    with pytest.raises(NotImplementedError, match="window_block_spmm_mono"):
-        S.build_typed_dst_layout(*edges, 256, 4, with_grad=True,
-                                 block_mode=False)
+    kw = dict(with_grad=True, block_mode=False)
+    lay_j = SP.build_typed_dst_layout(*edges, 256, 4, **kw)
+    lay_t = S.build_typed_dst_layout(*edges, 256, 4, **kw)
+    _assert_same(lay_j, lay_t)
+    assert lay_t.meta[5][0] != "octet" and "g_dstl" in lay_t.arrays
 
 
 def test_layout_to_device_keeps_meta_and_dtypes():

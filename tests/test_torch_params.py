@@ -81,7 +81,7 @@ def test_jax_checkpoint_loads_into_port_and_back(tmp_path):
     spec = PaddingSpec(n_graphs=2, n_pad=32, e_pad=64, n_edge_types=3,
                        annotation_dim=2)
     pred = Predictor(torch_config.ModelConfig(**kw), spec,
-                     checkpoint_path=path)
+                     checkpoint_path=path, device="cpu")
     want = _leaves(jax.tree.map(np.asarray, params_j))
     got = _leaves(params_to_numpy(pred.params))
     assert sorted(got) == sorted(want)
@@ -98,14 +98,15 @@ def test_jax_checkpoint_loads_into_port_and_back(tmp_path):
 
 
 def test_port_runs_without_jax():
-    """Importing the port and serving on the CPU (both backends) never
-    loads jax."""
+    """Importing the port and serving on the CPU (both backends, onehot on
+    a graph where block mode engages and on a hub graph where it declines)
+    never loads jax, nor any module of the JAX package."""
     code = """
 import sys
 import numpy as np
 import torch
 torch.set_num_threads(1)
-from ggnn_tpu.graph import PaddingSpec
+from ggnn_tpu_torch.graph import PaddingSpec, batch_graphs
 from ggnn_tpu_torch.infer import Predictor
 from ggnn_tpu_torch.models import ModelConfig
 r = np.random.default_rng(0)
@@ -113,17 +114,30 @@ graphs = [dict(n_nodes=9, edges=np.stack([r.integers(0, 9, 12),
                r.integers(0, 3, 12), r.integers(0, 9, 12)], 1),
                annotations=(r.random((9, 2)) < 0.5).astype(np.float32))
           for _ in range(3)]
+hub = [dict(n_nodes=2000, edges=np.stack([r.integers(0, 2000, 8000),
+            r.integers(0, 3, 8000), np.where(r.random(8000) < 0.95, 0,
+            r.integers(0, 2000, 8000))], 1),
+            annotations=(r.random((2000, 2)) < 0.5).astype(np.float32))]
 spec = PaddingSpec(n_graphs=2, n_pad=32, e_pad=64, n_edge_types=3,
                    annotation_dim=2)
+hub_spec = PaddingSpec(n_graphs=1, n_pad=2048, e_pad=16000, n_edge_types=3,
+                       annotation_dim=2)
 for backend, fuse in (("xla", False), ("onehot", False), ("onehot", True)):
     cfg = ModelConfig(state_dim=8, annotation_dim=2, n_edge_types=3,
                       n_steps=2, backend=backend, fuse_gru=fuse,
                       compute_dtype="bfloat16")
-    assert len(Predictor(cfg, spec).predict(graphs)) == 3
-print("jax" in sys.modules)
+    assert len(Predictor(cfg, spec, device="cpu").predict(graphs)) == 3
+    pred = Predictor(cfg, hub_spec, device="cpu")
+    assert len(pred.predict(hub)) == 1
+    if backend == "onehot":      # the hub makes block mode decline
+        lay = pred.layout(batch_graphs(hub, hub_spec))
+        assert lay.block_meta is None
+loaded = sorted(m for m in sys.modules
+                if m == "ggnn_tpu" or m.startswith("ggnn_tpu."))
+print("jax" in sys.modules, loaded)
 """
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=REPO, env=env, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert res.stdout.strip() == "False"
+    assert res.stdout.strip() == "False []"

@@ -158,7 +158,7 @@ def test_predictor_matches_jax(backend, rng):
     graphs = _batch(rng, 7, SPEC)
     pj = JaxPredictor(JaxConfig(**kw), SPEC,
                       params=jax.tree.map(jnp.asarray, params))
-    pt = Predictor(ModelConfig(**kw), SPEC, params=params)
+    pt = Predictor(ModelConfig(**kw), SPEC, params=params, device="cpu")
     assert pt.predict(graphs) == pj.predict(graphs)
     batch = batch_graphs(graphs[:4], SPEC)
     ref = pj._fwd(pj.params, jax.tree.map(jnp.asarray, batch.arrays),
@@ -201,11 +201,13 @@ def test_predictor_for_task_matches_jax():
     from ggnn_tpu.data.babi import TASKS, examples_to_graphs, parse_graph_text
     from ggnn_tpu.data.generators import generate_task_file
     pj = JaxPredictor.for_task(4, batch_size=4)
-    pt = Predictor.for_task(4, batch_size=4)
-    assert pt.spec == pj.spec
+    pt = Predictor.for_task(4, batch_size=4, device="cpu")
+    # the port's PaddingSpec is its own copy of the reference's class
+    assert dataclasses.asdict(pt.spec) == dataclasses.asdict(pj.spec)
     assert dataclasses.asdict(pt.cfg) == dataclasses.asdict(pj.cfg)
     pt = Predictor(pt.cfg, pt.spec, params=jax.tree.map(np.asarray,
-                                                        pj.params))
+                                                        pj.params),
+                   device="cpu")
     task = TASKS[4]
     examples = parse_graph_text(generate_task_file(4, 6, seed=3), task)
     graphs = examples_to_graphs(examples[:6], task)

@@ -94,7 +94,7 @@ def test_trainer_step_matches_jax(data_root):
     and the same parameters after the Adam step."""
     kw = dict(epochs=1, n_train=10, n_test=5, data_root=data_root)
     jt = JaxTrainer(jax_build_config("babi4", **kw), JaxLogger(echo=False))
-    tt = Trainer(build_config("babi4", **kw), _quiet())
+    tt = Trainer(build_config("babi4", **kw), _quiet(), device="cpu")
     init = params_from_numpy(jax.tree.map(np.asarray, jt.params))
     with torch.no_grad():
         for p, v in zip(param_leaves(tt.params), param_leaves(init)):
@@ -122,7 +122,8 @@ def test_babi4_end_to_end(data_root, tmp_path):
     tests/test_train.py holds the JAX package), with parseable metrics."""
     cfg = build_config("babi4", epochs=80, data_root=data_root,
                        metrics_path=str(tmp_path / "m.jsonl"))
-    result = Trainer(cfg, MetricsLogger(cfg.metrics_path, echo=False)).run()
+    result = Trainer(cfg, MetricsLogger(cfg.metrics_path, echo=False),
+                     device="cpu").run()
     assert result["test_accuracy"] >= 0.95
     import json
     lines = [json.loads(line) for line in open(cfg.metrics_path)]
@@ -134,14 +135,14 @@ def test_checkpoint_resume_exact(data_root, tmp_path):
     """save/restore of params and the optimizer state reproduces the exact
     training curve."""
     cfg = build_config("babi4", epochs=6, data_root=data_root)
-    t1 = Trainer(cfg, _quiet())
+    t1 = Trainer(cfg, _quiet(), device="cpu")
     for _ in range(3):
         t1.train_epoch()
     ckpt = str(tmp_path / "ck.npz")
     t1.save(ckpt)
     for _ in range(3):
         t1.train_epoch()
-    t2 = Trainer(cfg, _quiet())
+    t2 = Trainer(cfg, _quiet(), device="cpu")
     with torch.no_grad():                  # another state before restoring
         for p in param_leaves(t2.params):
             p.add_(1.0)
@@ -169,7 +170,7 @@ def test_config_builds_and_steps(name, data_root):
                            data_root=data_root)
     import dataclasses
     assert dataclasses.asdict(cfg) == dataclasses.asdict(ref)
-    t = Trainer(cfg, _quiet())
+    t = Trainer(cfg, _quiet(), device="cpu")
     rec = t.train_epoch()
     assert np.isfinite(rec["loss"])
     assert 0.0 <= t.evaluate()["accuracy"] <= 1.0
@@ -180,21 +181,23 @@ def test_ggsnn_configs_raise(name, data_root):
     cfg = build_config(name, epochs=1, n_train=10, n_test=5,
                        data_root=data_root)
     with pytest.raises(NotImplementedError, match="GGS-NN"):
-        Trainer(cfg, _quiet())
+        Trainer(cfg, _quiet(), device="cpu")
 
 
 def test_unported_training_paths_raise(data_root):
     """The onehot Trainer (the reference batches it with the legacy
-    layout) and a CUDA device without a card raise instead of training
-    something else."""
+    layout) and a CUDA device without a card (the default) raise instead of
+    training something else."""
     cfg = build_config("babi4", epochs=1, n_train=10, n_test=5,
                        data_root=data_root, backend="onehot")
     with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        Trainer(cfg, _quiet())
+        Trainer(cfg, _quiet(), device="cpu")
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            Trainer(build_config("babi4", data_root=data_root), _quiet(),
-                    device="cuda")
+        # the card is the default device: without one, the default raises
+        for kw in ({}, {"device": "cuda"}):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                Trainer(build_config("babi4", data_root=data_root), _quiet(),
+                        **kw)
 
 
 def test_make_train_step_drives_the_typed_pack():

@@ -94,17 +94,40 @@ def test_grad_layout_matches_reference(case):
 @pytest.mark.parametrize("how", ["block_mode_false", "hub_grad_blocks"])
 def test_grad_layout_declined_raises(how):
     """Where the octet layout declines, the reference builds its legacy
-    grad layout; the port names what is missing instead."""
+    grad layout.  The port used to raise here; it now builds the same
+    arrays (exact) and its aggregation backward through
+    window_block_spmm_mono gives the JAX package's (dh, dW, db) for one
+    random cotangent (tolerances of the module docstring)."""
     N, T2 = 1024, 2
     if how == "block_mode_false":
         edges, kw = _graph(0, N, 3000, T2), {"block_mode": False}
     else:
         edges, kw = _graph(0, N, 6000, T2, hub=True), {"grad_tile_e": 128}
     lay_j = SP.build_typed_dst_layout(*edges, N, T2, with_grad=True, **kw)
+    lay_t = S.build_typed_dst_layout(*edges, N, T2, with_grad=True, **kw)
     assert lay_j.meta[5][0] != "octet"
-    with pytest.raises(NotImplementedError,
-                       match="build_dst_block_layout.*window_block_spmm_mono"):
-        S.build_typed_dst_layout(*edges, N, T2, with_grad=True, **kw)
+    assert lay_t.meta == lay_j.meta
+    assert sorted(lay_t.arrays) == sorted(lay_j.arrays)
+    for k, v in lay_j.arrays.items():
+        assert lay_t.arrays[k].dtype == np.asarray(v).dtype, k
+        np.testing.assert_array_equal(lay_t.arrays[k], np.asarray(v),
+                                      err_msg=k)
+    r = np.random.default_rng(6)
+    h = r.standard_normal((N, D)).astype(np.float32)
+    w = (r.standard_normal((T2, D, D)) * 0.1).astype(np.float32)
+    b = (r.standard_normal((T2, D)) * 0.1).astype(np.float32)
+    da = r.standard_normal((N, D)).astype(np.float32)
+    ref, vjp = jax.vjp(
+        lambda h, w, b: SP.aggregate_onehot(h, lay_j, w, b, interpret=True),
+        jnp.asarray(h), jnp.asarray(w), jnp.asarray(b))
+    th, tw, tb = (torch.tensor(x).requires_grad_(True) for x in (h, w, b))
+    got = S.aggregate_onehot(th, lay_t.to("cpu"), tw, tb)
+    got.backward(torch.tensor(da))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref),
+                               rtol=1e-5, atol=1e-5)
+    for name, t, rf in zip(("dh", "dW", "db"), (th, tw, tb),
+                           vjp(jnp.asarray(da))):
+        _assert_close(t.grad, rf, False, name)
 
 
 def _octet_args(lay):
