@@ -33,7 +33,25 @@
    time of the layout.
 5. Runs the ``Trainer`` CLI on bAbI task 4 (``--device cuda``) for a few
    epochs and checks its loss is finite.
-6. ``[scalefree]``: the same headline model on a power-law graph of the
+6. The legacy table-gather path (``ops/legacy.py``) of the same headline
+   model on the same uniform batch.  ``[legacy kernels]``:
+   ``node_table_block_major`` (#10), ``onehot_segment_scatter_flat`` (#8)
+   and ``onehot_segment_scatter`` (#9) against their plain versions, each
+   twice (bit-equal), per element, on fuzz layouts (empty blocks, the
+   all-padding tail of ``pad_tiles_to``, tile_e 128 and 2048, D = 4 and
+   128, f32 and bf16) and on ``layout_for_batch`` of the headline (64,548
+   forward tiles, 95,268 grad tiles; timed), with
+   ``window_block_spmm_mono`` (#11) on its grad half, and #11 at D = 4, 6,
+   8, 16, 128 and 200 on a hub layout.  ``[legacy serve]``: three
+   requests through ``Predictor``'s own layout with a fuse request (it
+   warns and runs unfused: #10, #8 and the GRU cell per step).
+   ``[legacy train]``: 3 unfused Adam steps on
+   ``layout_for_batch(with_grad=True)`` (#10, #8, #11, #3, #4 per step),
+   the first against the plain path, and one forward on the bench's
+   ``--legacy_pack`` layout (#10 and #11 at window 2048).
+   ``[no_stream]``: one step without a one-hot stream (#9 forward and
+   backward).
+7. ``[scalefree]``: the same headline model on a power-law graph of the
    same size (Zipf 1.2 endpoints, nodes numbered by degree rank, made by
    the port's ``synthetic_batch``), where block mode and the octet grad
    layout decline and the per-tile kernels carry the graph.  It holds
@@ -45,7 +63,19 @@
    them, serves three requests fused and unfused (each step against the
    plain step) and trains 3 Adam steps fused and unfused, with the launch
    counts, the first step's loss against the plain path and the
-   aggregation's VJP against its plain version (dh per row off the hub).
+   aggregation's VJP against its plain version (dh per row off the hub);
+   then #8, #9 and #10 on the graph's ``layout_for_batch`` (its hub block
+   holds about 44K tiles).
+8. ``[chunked 1M]``: the reference's large-graph configuration
+   (1,048,576 nodes, 10M logical edges, the headline model) through
+   ``build_chunked_dst_layouts(n_chunks=4, tile_e=2048)``: one forward
+   through ``propagate`` (20 launches of #8), then every step against the
+   plain step from the same state.
+9. The ``Trainer`` CLI again with ``--backend onehot`` (the legacy layout
+   of ``layout_for_batch``; at D = 4 it launches #8 and #11).
+
+The typed-pack phases (2-4, 7) hand ``Predictor.run_batch`` the typed pack
+they build; the Predictor's own layout is the legacy one (phase 6).
 
 Any failed check raises, so the exit code is non-zero.  The last three
 lines are the kernels JSON (each kernel's launches on the main paths, its
@@ -162,6 +192,12 @@ KERNELS = {
                        "ggnn_tpu/ops/scatter_pallas.py:1562"),
     "window_block_spmm_mono": ("ggnn_tpu_torch/ops/csrc/window_mono.cu",
                                "ggnn_tpu/ops/window_pallas.py:787"),
+    "onehot_segment_scatter_flat": ("ggnn_tpu_torch/ops/csrc/window_mono.cu",
+                                    "ggnn_tpu/ops/scatter_pallas.py:618"),
+    "onehot_segment_scatter": ("ggnn_tpu_torch/ops/csrc/window_mono.cu",
+                               "ggnn_tpu/ops/scatter_pallas.py:506"),
+    "node_table_block_major": ("ggnn_tpu_torch/ops/csrc/node_table.cu",
+                               "ggnn_tpu/ops/window_pallas.py:1499"),
 }
 
 
@@ -829,8 +865,8 @@ def scalefree_graph(seed):
 
 
 def plain_scores(pred, batch, layout):
-    """Node scores through the port's plain path on the card: the same
-    onehot step with the kernels' plain versions."""
+    """Node scores of a typed pack through the port's plain path on the
+    card: the same onehot step with the kernels' plain versions."""
     import torch
     import torch.nn.functional as F
     from ggnn_tpu_torch.models.ggnn import fuse_gru, init_state
@@ -912,17 +948,38 @@ def stepwise_check(pred, batch, layout, tag, log):
             h = got
 
 
+def typed_layout(pred, batch):
+    """The typed pack of a request over the dst space rounded up to the
+    128-row grid (block mode where it engages), built by the caller and
+    handed to ``Predictor.run_batch``."""
+    from ggnn_tpu_torch.ops.scatter import _rup_block, build_typed_dst_layout
+    return build_typed_dst_layout(
+        batch.edge_src, batch.edge_dst, batch.edge_type, batch.edge_mask,
+        _rup_block(batch.spec.n_pad),
+        n_message_types=2 * batch.spec.n_edge_types).to("cuda")
+
+
+def plain_run(pred, batch, layout):
+    """Node scores of any layout through the port's plain path on the card:
+    ``Predictor.run_batch`` with every kernel call routed to its plain
+    version."""
+    with plain_versions():
+        return pred.run_batch(batch, layout)
+
+
 def serve(params, fuse, graphs, plain_cache, per_request, tag="serve",
-          stepwise=False):
-    """Three requests through Predictor (host batching, layout, device
-    forward), the launch counts against ``per_request`` (kernel -> launches
-    per request; every other kernel 0) and every request's scores against
-    the plain path.  ``stepwise`` (a power-law graph): a hub row aggregates
-    |a| up to 4e5, so the rounding of its sums moves its state by about
-    1e-3 even in f32, and every node reads the hub in the next step: over
-    5 steps two faithful paths drift apart by percents.  Each request is
-    then checked step by step (:func:`stepwise_check`), and the drift of
-    its scores is reported."""
+          stepwise=False, layout_fn=typed_layout, plain_fn=None,
+          label=None):
+    """Three requests through Predictor (host batching, layout from
+    ``layout_fn``, device forward), the launch counts against
+    ``per_request`` (kernel -> launches per request; every other kernel 0)
+    and every request's scores against the plain path (``plain_fn``, by
+    default :func:`plain_scores` of the typed pack).  ``stepwise`` (a
+    power-law graph): a hub row aggregates |a| up to 4e5, so the rounding
+    of its sums moves its state by about 1e-3 even in f32, and every node
+    reads the hub in the next step: over 5 steps two faithful paths drift
+    apart by percents.  Each request is then checked step by step
+    (:func:`stepwise_check`), and the drift of its scores is reported."""
     import torch
     from ggnn_tpu_torch.graph import PaddingSpec, batch_graphs
     from ggnn_tpu_torch.infer import Predictor
@@ -934,15 +991,14 @@ def serve(params, fuse, graphs, plain_cache, per_request, tag="serve",
     spec = PaddingSpec(n_graphs=1, n_pad=NODES, e_pad=2 * EDGES,
                        n_edge_types=EDGE_TYPES, annotation_dim=ANN)
     pred = Predictor(cfg, spec, params=params, device="cuda")
-    mode = "fused" if fuse else "unfused"
+    plain_fn = plain_fn or plain_scores
+    mode = label or ("fused" if fuse else "unfused")
     results = []
-    wrappers = kernel_wrappers()
-    for fn in wrappers.values():
-        fn.launches = 0
+    zero_counts()
     for seed, g in graphs:
         t0 = time.perf_counter()
         batch = batch_graphs([g], spec)
-        layout = pred.layout(batch)
+        layout = layout_fn(pred, batch)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         scores = pred.run_batch(batch, layout)
@@ -950,18 +1006,16 @@ def serve(params, fuse, graphs, plain_cache, per_request, tag="serve",
         answer = pred.decode(scores, batch, 1)[0]
         results.append((seed, batch, layout, scores, answer, t1 - t0,
                         t2 - t1))
-    launches = {k: fn.launches for k, fn in wrappers.items()}
+    launches = read_counts()
     print(f"[{tag}] {mode}: launches on the serving path {launches}",
           flush=True)
-    n = len(graphs)
-    want = {k: per_request.get(k, 0) * n for k in wrappers}
-    if launches != want:
-        raise AssertionError(f"{mode}: launches {launches}, expected {want}")
+    expect_counts(f"{tag} {mode}", launches,
+                  {k: v * len(graphs) for k, v in per_request.items()})
     for seed, batch, layout, scores, answer, prep_s, dev_s in results:
         if scores.shape != (NODES,) or not np.isfinite(scores).all():
             raise AssertionError(f"request {seed}: bad scores")
         if seed not in plain_cache:
-            plain_cache[seed] = plain_scores(pred, batch, layout)
+            plain_cache[seed] = plain_fn(pred, batch, layout)
         ref = plain_cache[seed]
         d = np.abs(scores - ref)
         emax, emean = float(d.max()), float(d.mean())
@@ -993,9 +1047,11 @@ def serve(params, fuse, graphs, plain_cache, per_request, tag="serve",
 
 
 def kernel_wrappers():
-    """The eight kernel wrappers by name (each counts its launches)."""
+    """The eleven kernel wrappers by name (each counts its launches)."""
     from ggnn_tpu_torch.ops import gru as G
+    from ggnn_tpu_torch.ops import legacy as L
     from ggnn_tpu_torch.ops import scatter as S
+    from ggnn_tpu_torch.ops import table as TB
     from ggnn_tpu_torch.ops import window as W
     return {"typed_block_scatter": S.typed_block_scatter,
             "typed_block_step_gru": S.typed_block_step_gru,
@@ -1003,7 +1059,27 @@ def kernel_wrappers():
             "typed_grad_octet_scatter": S.typed_grad_octet_scatter,
             "typed_onehot_scatter": S.typed_onehot_scatter,
             "typed_step_gru": S.typed_step_gru,
-            "window_block_spmm_mono": W.window_block_spmm_mono}
+            "window_block_spmm_mono": W.window_block_spmm_mono,
+            "onehot_segment_scatter_flat": L.onehot_segment_scatter_flat,
+            "onehot_segment_scatter": L.onehot_segment_scatter,
+            "node_table_block_major": TB.node_table_block_major}
+
+
+def zero_counts():
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {k: fn.launches for k, fn in kernel_wrappers().items()}
+
+
+def expect_counts(tag, launches, want):
+    """Every kernel's launches against ``want`` (kernel -> launches; every
+    other kernel 0)."""
+    full = {k: want.get(k, 0) for k in KERNELS}
+    if launches != full:
+        raise AssertionError(f"{tag}: launches {launches}, expected {full}")
 
 
 @contextlib.contextmanager
@@ -1012,9 +1088,17 @@ def plain_versions():
     function, the same rounding points) for the plain path on the card."""
     from ggnn_tpu_torch.models import ggnn as M
     from ggnn_tpu_torch.ops import gru as G
+    from ggnn_tpu_torch.ops import legacy as L
     from ggnn_tpu_torch.ops import scatter as S
+    from ggnn_tpu_torch.ops import table as TB
     from ggnn_tpu_torch.ops import window as W
-    swaps = [(S, "typed_block_scatter", S.typed_block_scatter_reference),
+    swaps = [(L, "onehot_segment_scatter_flat",
+              L.onehot_segment_scatter_flat_reference),
+             (L, "onehot_segment_scatter", L.onehot_segment_scatter_reference),
+             (L, "window_block_spmm_mono", W.window_block_spmm_mono_reference),
+             (TB, "node_table_block_major",
+              TB.node_table_block_major_reference),
+             (S, "typed_block_scatter", S.typed_block_scatter_reference),
              (S, "typed_grad_octet_scatter",
               S.typed_grad_octet_scatter_reference),
              (S, "typed_onehot_scatter", S.typed_onehot_scatter_reference),
@@ -1052,8 +1136,8 @@ def fresh_params(cfg):
 
 
 def train_headline(batch, layout, modes, tag="train", f32_check=True,
-                   stepwise=False):
-    """Three Adam steps of the headline model per mode through
+                   stepwise=False, steps=3):
+    """``steps`` Adam steps of the headline model per mode through
     make_train_step; ``modes``: mode -> (config fields, kernel -> launches
     per step; every other kernel 0).  The first step is held to the plain
     path.  ``stepwise`` (a power-law graph): a hub row's GRU sees |a| up to
@@ -1072,7 +1156,6 @@ def train_headline(batch, layout, modes, tag="train", f32_check=True,
     target = int(np.random.default_rng(0).integers(0, NODES))
     arrays["targets"] = {"node": torch.tensor([target], dtype=torch.int32,
                                               device="cuda")}
-    wrappers = kernel_wrappers()
     total = dict.fromkeys(KERNELS, 0)
     for mode, (extra, per_step) in modes.items():
         cfg = headline_cfg(compute_dtype="bfloat16", **extra)
@@ -1081,10 +1164,9 @@ def train_headline(batch, layout, modes, tag="train", f32_check=True,
         step = make_train_step(cfg, 1, opt)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for fn in wrappers.values():
-            fn.launches = 0
+        zero_counts()
         events, losses, grads1 = [], [], None
-        for i in range(3):
+        for i in range(steps):
             ev = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
             ev[0].record()
@@ -1096,21 +1178,19 @@ def train_headline(batch, layout, modes, tag="train", f32_check=True,
                 grads1 = {k: p.grad.detach().clone()
                           for k, p in _flatten(params)}
         torch.cuda.synchronize()
-        launches = {k: fn.launches for k, fn in wrappers.items()}
+        launches = read_counts()
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         ms = [a.elapsed_time(b) for a, b in events]
         losses = [float(x) for x in losses]
         print(f"[{tag}] {mode}: losses {[f'{x:.6f}' for x in losses]}; "
               f"step ms {[f'{x:.2f}' for x in ms]} (median "
               f"{statistics.median(ms):.2f}, spread {max(ms) - min(ms):.2f}); "
-              f"peak device memory {peak:.2f} GiB; launches over 3 steps "
-              f"{launches}", flush=True)
+              f"peak device memory {peak:.2f} GiB; launches over {steps} "
+              f"steps {launches}", flush=True)
         if not all(np.isfinite(losses)):
             raise AssertionError(f"train {mode}: non-finite loss {losses}")
-        want = {k: per_step.get(k, 0) * 3 for k in wrappers}
-        if launches != want:
-            raise AssertionError(f"train {mode}: launches {launches}, "
-                                 f"expected {want}")
+        expect_counts(f"{tag} {mode}", launches,
+                      {k: v * steps for k, v in per_step.items()})
         for k in total:
             total[k] += launches[k]
         compare_first_step(f"{tag} {mode}", cfg, arrays, layout, grads1,
@@ -1258,20 +1338,54 @@ def vjp_aggregate_check(mode, cfg, arrays, layout):
                              "with the plain path")
 
 
-def run_trainer():
-    """The Trainer CLI on bAbI task 4 on the card, as a user runs it."""
-    cmd = [sys.executable, "-m", "ggnn_tpu_torch.train", "--config", "babi4",
-           "--device", "cuda", "--epochs", "10"]
+# The Trainer CLI in a child process, as a user runs it, reporting the
+# launch counts of its process on stderr when it ends.
+TRAINER_CHILD = """
+import json, runpy, sys
+sys.argv = ["ggnn_tpu_torch.train"] + sys.argv[1:]
+try:
+    runpy.run_module("ggnn_tpu_torch.train", run_name="__main__")
+finally:
+    from ggnn_tpu_torch.ops import gru, legacy, scatter, table, window
+    fns = [gru.gru_cell_fwd, gru.gru_cell_bwd, legacy.onehot_segment_scatter,
+           legacy.onehot_segment_scatter_flat,
+           table.node_table_block_major, window.window_block_spmm_mono,
+           scatter.typed_block_scatter, scatter.typed_block_step_gru,
+           scatter.typed_grad_octet_scatter, scatter.typed_onehot_scatter,
+           scatter.typed_step_gru]
+    print("LAUNCHES " + json.dumps({f.__name__: f.launches for f in fns}),
+          file=sys.stderr)
+"""
+
+
+def run_trainer(backend="xla", want=()):
+    """``python -m ggnn_tpu_torch.train --config babi4 --device cuda
+    --epochs 10 [--backend ...]`` in a child process (on bAbI task 4, as a
+    user runs it); ``want``: the kernels it must have launched.  Returns
+    the child's launch counts."""
+    args = ["--config", "babi4", "--device", "cuda", "--epochs", "10"]
+    if backend != "xla":
+        args += ["--backend", backend]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    res = subprocess.run([sys.executable, "-c", TRAINER_CHILD, *args],
+                         capture_output=True, text=True, timeout=600)
     if res.returncode != 0:
         raise AssertionError(f"Trainer CLI failed ({res.returncode}):\n"
                              f"{res.stderr[-4000:]}")
     result = json.loads(res.stdout.strip().splitlines()[-1])
-    print(f"[trainer] {' '.join(cmd[1:])}: {result} in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    launches = json.loads(next(
+        line for line in res.stderr.splitlines()
+        if line.startswith("LAUNCHES "))[len("LAUNCHES "):])
+    print(f"[trainer] python -m ggnn_tpu_torch.train {' '.join(args)}: "
+          f"{result} in {time.perf_counter() - t0:.1f} s; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
     if not np.isfinite(result["test_loss"]):
         raise AssertionError("Trainer: non-finite test loss")
+    for k in want:
+        if not launches[k]:
+            raise AssertionError(f"Trainer --backend {backend}: {k} was "
+                                 "never launched")
+    return launches
 
 
 def scalefree_phase(params, log, timings):
@@ -1339,6 +1453,11 @@ def scalefree_phase(params, log, timings):
     check_tile_kernels("scalefree", lay, params, log, timings)
     check_window_kernel("scalefree", lay, log, timings)
     torch.cuda.empty_cache()
+    from ggnn_tpu_torch.ops.legacy import layout_for_batch
+    check_legacy_kernels("scalefree legacy",
+                         layout_for_batch(b, with_grad=False, device="cuda"),
+                         NODES, log, params=params, report_f32=True)
+    torch.cuda.empty_cache()
 
     graphs = [(seed, scalefree_graph(seed)) for seed in (0, 1, 2)]
     plain_cache = {}
@@ -1366,6 +1485,459 @@ def scalefree_phase(params, log, timings):
     del lay, b
     torch.cuda.empty_cache()
     return launched
+
+
+def table_bound(h, w, b, ref, dtype):
+    """The per-element bound of |node_table_block_major − its plain
+    version|: 1e-5 of the element's Σ|h_k·W_kf| + |b_f| (f32 sums in
+    another order), plus in bf16 one ulp of the rounded value,
+    2**-7·|ref|."""
+    import torch
+    from ggnn_tpu_torch.ops import table as TB
+    bound = 1e-5 * TB.node_table_block_major_reference(
+        h.float().abs(), w.float().abs(), b.float().abs())
+    if dtype == torch.bfloat16:
+        bound = bound + BF16_ULP * ref.float().abs()
+    return bound
+
+
+def legacy_targets(arrs, n_blocks, tile_e):
+    """For every row of a legacy layout's message pack, the output row it
+    adds to (n_blocks·128, one past the end, for padding rows)."""
+    import torch
+    dl = arrs["dst_local"].long()
+    e = torch.arange(dl.shape[0], device=dl.device)
+    blk = torch.searchsorted(arrs["tile_start"][1:].contiguous(),
+                             (e // tile_e).int(), right=True)
+    return torch.where(dl >= 0, blk * 128 + dl,
+                       torch.full_like(dl, n_blocks * 128))
+
+
+def f32_atomic_sum(msgs, tgt, n_out):
+    """The legacy scatter's sums as one f32 ``index_add_`` (float atomics
+    into each output row): what the plain versions computed before they
+    summed in f64, reported beside them at a hub."""
+    import torch
+    out = torch.zeros(n_out + 1, msgs.shape[1], device=msgs.device)
+    return out.index_add_(0, tgt, msgs.float())[:n_out]
+
+
+def check_legacy_kernels(tag, lay, n_src, log, params=None, timings=None,
+                         dims=(DIM,), seed=4, T2=2 * EDGE_TYPES,
+                         report_f32=False):
+    """The legacy forward's kernels against their plain versions at a
+    legacy layout's shapes, each twice (bit-equal): the table (#10, where
+    the rows are block-major; else the plain 'type' einsum feeds the
+    scatters), #8 on the one-hot stream where there is one, #9 on the
+    dst-local ids, held per element ('bound').  Blocks with no real edge
+    must come out exactly 0.  ``params``: the model's weights at D = 128
+    (else random); ``timings``: time them in bf16 at D = 128;
+    ``report_f32``: report how far one f32 ``index_add_`` of the same
+    messages lies from the plain version's f64 sums (a hub row)."""
+    import torch
+    from ggnn_tpu_torch.ops import legacy as L
+    from ggnn_tpu_torch.ops import table as TB
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    meta, arrs = lay.meta, lay.arrays
+    _, tile_e, max_tiles, n_blocks, has_onehot, _, _, order = meta
+    n_tiles = arrs["block_of_tile"].shape[0]
+    real = arrs["dst_local"].reshape(n_tiles, tile_e) >= 0
+    per_block = torch.zeros(n_blocks, device=dev).index_add_(
+        0, arrs["block_of_tile"].long(), real.sum(1).float())
+    empty = per_block == 0
+    sizes = arrs["tile_start"][1:] - arrs["tile_start"][:-1]
+    print(f"[legacy kernels] {tag}: tile_e={tile_e} n_blocks={n_blocks} "
+          f"tiles={n_tiles} (max_tiles {max_tiles}, the largest block "
+          f"{int(sizes.max().item())}), {int((~real.any(1)).sum().item())} "
+          f"all-padding tiles, {int(empty.sum().item())} empty blocks, "
+          f"row order {order}, one-hot stream {has_onehot}", flush=True)
+    for D in dims:
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = f"{str(dtype).split('.')[-1]},D={D}"
+            h = (torch.rand(n_src, D, device=dev, generator=gen) * 2
+                 - 1).to(dtype)
+            if params is not None and D == DIM:
+                w = params["prop"]["msg_w"][:T2].detach().to(dtype)
+                b = params["prop"]["msg_b"][:T2].detach().to(dtype)
+            else:
+                w = (torch.randn(T2, D, D, device=dev, generator=gen)
+                     * D ** -0.5).to(dtype)
+                b = (torch.randn(T2, D, device=dev, generator=gen)
+                     * 0.1).to(dtype)
+            if order == "block":
+                tab = TB.node_table_block_major(h, w, b)
+                same_twice("node_table_block_major", f"{tag},{dn}", tab,
+                           TB.node_table_block_major(h, w, b))
+                ref = TB.node_table_block_major_reference(h, w, b)
+                check(f"node_table_block_major[{tag},{dn}]", tab, ref,
+                      "bound", dtype, log,
+                      bound=table_bound(h, w, b, ref, dtype))
+                del ref
+            else:
+                tab = TB.node_table(h, w, b, order)
+            msgs = tab.index_select(0, arrs["gather_idx"])
+            if report_f32 and D == DIM:
+                plain = L.onehot_segment_scatter_reference(
+                    msgs, arrs["dst_local"], arrs["tile_start"], n_blocks,
+                    max_tiles, tile_e)
+                d = (f32_atomic_sum(msgs, legacy_targets(
+                    arrs, n_blocks, tile_e), n_blocks * 128) - plain).abs()
+                i = int(d.argmax().item())
+                print(f"  [{tag},{dn}] one f32 index_add_ (float atomics) "
+                      f"against the plain version's f64 sums: max "
+                      f"{d.max().item():.4e} at row {i // D} (value "
+                      f"{plain.reshape(-1)[i].item():.6e}); mean "
+                      f"{d.mean().item():.3e}", flush=True)
+                del plain, d
+            scat = {}
+            if has_onehot:
+                args = (arrs["onehot"], arrs["tile_start"],
+                        arrs["block_of_tile"], n_blocks, tile_e)
+                scat["onehot_segment_scatter_flat"] = (
+                    lambda m, a=args: L.onehot_segment_scatter_flat(m, *a),
+                    lambda m, a=args: L.onehot_segment_scatter_flat_reference(
+                        m, *a))
+            args = (arrs["dst_local"], arrs["tile_start"], n_blocks,
+                    max_tiles, tile_e)
+            scat["onehot_segment_scatter"] = (
+                lambda m, a=args: L.onehot_segment_scatter(m, *a),
+                lambda m, a=args: L.onehot_segment_scatter_reference(m, *a))
+            for name, (kern, plain) in scat.items():
+                got = kern(msgs)
+                same_twice(name, f"{tag},{dn}", got, kern(msgs))
+                ref = plain(msgs)
+                check(f"{name}[{tag},{dn}]", got, ref, "bound", dtype, log,
+                      bound=flush_bound(plain, msgs, ref, torch.float32))
+                if empty.any():
+                    if (got.reshape(n_blocks, 128, D)[empty] != 0).any():
+                        raise AssertionError(f"{name}[{tag}]: an empty block "
+                                             "is not 0")
+                del got, ref
+            if timings is not None and dtype == torch.bfloat16 and D == DIM:
+                n_real = int(real.sum().item())
+                out_bytes = n_blocks * 128 * D * 4
+                rows = n_real * D * msgs.element_size()
+                t_bound = roofline(
+                    nbytes(h, w, b, tab),
+                    [(2 * n_src * D * T2 * D, BF16_FLOPS)])
+                lib_table = lambda: (
+                    torch.einsum("nd,tdf->ntf", h, w) + b).reshape(
+                        n_src // 128, 128, T2, D).transpose(1, 2).reshape(
+                            -1, D)
+                pairs = {"node_table_block_major": (
+                    lambda: TB.node_table_block_major(h, w, b),
+                    lambda: TB.node_table_block_major_reference(h, w, b),
+                    lib_table, t_bound)}
+                # one PyTorch call computing the same sums: index_add_ of
+                # every message row into its output row, in the pack's
+                # dtype (a yardstick of speed only)
+                lib = reverse_library_call(
+                    msgs, legacy_targets(arrs, n_blocks, tile_e),
+                    n_blocks * 128)
+                stream_bytes = {
+                    "onehot_segment_scatter_flat": nbytes(
+                        arrs["onehot"], arrs["tile_start"],
+                        arrs["block_of_tile"]),
+                    "onehot_segment_scatter": nbytes(arrs["dst_local"],
+                                                     arrs["tile_start"])}
+                for name, (kern, plain) in scat.items():
+                    pairs[name] = (
+                        lambda k=kern: k(msgs), lambda p=plain: p(msgs), lib,
+                        roofline(rows + stream_bytes[name] + out_bytes,
+                                 [(n_real * D, F32_FLOPS)]))
+                time_pairs(pairs, timings)
+            del tab, msgs
+
+
+def check_legacy_grad(tag, lay, log):
+    """window_block_spmm_mono on a legacy layout's grad half as its
+    backward runs it (the int8 count stream at win_stride 16, flushed in
+    the compute dtype)."""
+    import torch
+    from ggnn_tpu_torch.ops import window as W
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    arrs = lay.arrays
+    g_blocks, _, g_tile, _, g_align = lay.meta[5]
+    stream = (arrs["g_onehot"], arrs["g_tile_start"],
+              arrs["g_block_of_tile"], arrs["g_tile_msg_off"])
+    print(f"[legacy kernels] {tag} grad half: {g_blocks} grad blocks, "
+          f"{stream[2].shape[0]} tiles of {g_tile}, edge_align {g_align}",
+          flush=True)
+    for dtype in (torch.bfloat16, torch.float32):
+        G = torch.randn(arrs["g_gather_idx"].shape[0], DIM, device=dev,
+                        generator=gen).to(dtype)
+        kw = dict(n_blocks=g_blocks, window=g_tile, win_stride=g_align,
+                  out_dtype=dtype)
+        got = W.window_block_spmm_mono(G, *stream, **kw)
+        same_twice("window_block_spmm_mono", f"{tag} grad", got,
+                   W.window_block_spmm_mono(G, *stream, **kw))
+        ref = W.window_block_spmm_mono_reference(G, *stream, **kw)
+        check(f"window_block_spmm_mono[{tag} grad,"
+              f"{str(dtype).split('.')[-1]}]", got, ref, "bound", dtype, log,
+              bound=flush_bound(
+                  lambda t: W.window_block_spmm_mono_reference(
+                      t, *stream, **dict(kw, out_dtype=torch.float32)),
+                  G, ref, dtype))
+        del G, got, ref
+
+
+def check_window_widths(log):
+    """window_block_spmm_mono at widths other than 128 (the bAbI models'
+    D = 4 to 16, and 200 over two column panels) and at 128 on the same
+    layouts: a hub layout whose hub blocks split into several work items,
+    with the dst-local and the int8 count streams, f32 and bf16, per
+    element and bit-equal to a second run."""
+    import torch
+    from ggnn_tpu_torch.ops import legacy as L
+    from ggnn_tpu_torch.ops import window as W
+    dev = torch.device("cuda")
+    r = np.random.default_rng(12)
+    N, E = 4096, 60000
+    dst = np.where(r.random(E) < 0.9, r.integers(0, 64, E),
+                   r.integers(0, N, E))
+    src, typ = r.integers(0, N, E), r.integers(0, 3, E)
+    for dstl in (True, False):
+        lay = L.build_dst_block_layout(src, dst, typ, np.ones(E, np.float32),
+                                       N, tile_e=128, n_message_types=3,
+                                       edge_align=16, dstl_stream=dstl)
+        args = [torch.as_tensor(a, device=dev) for a in (
+            lay.dstl if dstl else lay.onehot, lay.tile_start,
+            lay.block_of_tile, lay.tile_msg_off)]
+        if not (np.diff(lay.tile_start) > 32).any():
+            raise AssertionError("widths: no block splits into items")
+        for D in (4, 6, 8, 16, 128, 200):
+            for dtype in (torch.bfloat16, torch.float32):
+                table = torch.randn(lay.gather_idx.shape[0], D,
+                                    device=dev).to(dtype)
+                kw = dict(n_blocks=lay.n_blocks, window=128, win_stride=16,
+                          out_dtype=dtype, dstl=dstl)
+                got = W.window_block_spmm_mono(table, *args, **kw)
+                tag = (f"D={D}, {'dstl' if dstl else 'counts'},"
+                       f"{str(dtype).split('.')[-1]}")
+                same_twice("window_block_spmm_mono", tag, got,
+                           W.window_block_spmm_mono(table, *args, **kw))
+                ref = W.window_block_spmm_mono_reference(table, *args, **kw)
+                check(f"window_block_spmm_mono[{tag}]", got, ref, "bound",
+                      dtype, log, bound=flush_bound(
+                          lambda t: W.window_block_spmm_mono_reference(
+                              t, *args, **dict(kw, out_dtype=torch.float32)),
+                          table, ref, dtype))
+
+
+def legacy_fuzz(log):
+    """[legacy kernels] on small layouts: empty blocks (the upper half of
+    the dst rows has no edge), the all-padding tail of pad_tiles_to,
+    tile_e 128 and 2048, D = 4 and 128, f32 and bf16."""
+    from ggnn_tpu_torch.ops import legacy as L
+    r = np.random.default_rng(13)
+    N, E, T2 = 1024, 6000, 6
+    src, dst = r.integers(0, N, E), r.integers(0, N // 2, E)
+    typ, mask = r.integers(0, T2, E), (r.random(E) < 0.9).astype(np.float32)
+    for tile_e in (128, 2048):
+        lay = L.build_dst_block_layout(
+            src, dst, typ, mask, N, tile_e=tile_e, n_message_types=T2,
+            row_order="block",
+            pad_tiles_to=L.static_tile_budget(E, N, tile_e) + 3)
+        check_legacy_kernels(f"fuzz tile_e={tile_e}", lay.to("cuda"), N, log,
+                             dims=(4, DIM), T2=T2)
+
+
+def legacy_phase(params, b, log, timings):
+    """The legacy table-gather path at the headline (the uniform batch
+    ``b``): [legacy kernels], [legacy serve], [legacy train] with the
+    bench's --legacy_pack forward, and [no_stream].  Returns the launch
+    counts of the main-path runs."""
+    import warnings
+    import torch
+    from ggnn_tpu_torch.models.api import forward
+    from ggnn_tpu_torch.ops import legacy as L
+    from ggnn_tpu_torch.train.loop import batch_arrays
+    launched = dict.fromkeys(KERNELS, 0)
+    legacy_fuzz(log)
+    check_window_widths(log)
+    t0 = time.perf_counter()
+    lay = L.layout_for_batch(b, with_grad=True, device="cuda")
+    torch.cuda.synchronize()
+    print(f"[legacy kernels] headline layout_for_batch(with_grad=True) "
+          f"built and copied in {time.perf_counter() - t0:.2f} s; meta "
+          f"{lay.meta}", flush=True)
+    # the static budgets of a batch of NODES nodes and 2·EDGES directed
+    # edges: 64,548 forward and 95,268 grad tiles at the headline
+    budgets = (L.static_tile_budget(2 * EDGES, NODES, 128),
+               L.static_tile_budget(2 * EDGES, 2 * EDGE_TYPES * NODES, 128))
+    if (lay.arrays["block_of_tile"].shape[0], lay.meta[5][1]) != budgets:
+        raise AssertionError(f"the headline layout's tile counts are not its "
+                             f"static budgets {budgets}")
+    check_legacy_kernels("headline", lay, NODES, log, params=params,
+                         timings=timings)
+    check_legacy_grad("headline", lay, log)
+    torch.cuda.empty_cache()
+
+    # [legacy serve]: the Predictor's own layout, a fuse request
+    graphs = [(seed, request_graph(seed)) for seed in (0, 1, 2)]
+    torch.cuda.reset_peak_memory_stats()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for k, v in serve(params, True, graphs, {}, {
+                "node_table_block_major": STEPS,
+                "onehot_segment_scatter_flat": STEPS,
+                "gru_cell_fwd": STEPS}, tag="legacy serve",
+                layout_fn=lambda pred, batch: pred.layout(batch),
+                plain_fn=plain_run,
+                label="fuse_gru=True requested (legacy layout)").items():
+            launched[k] += v
+    if not any("UNFUSED" in str(w.message) for w in caught):
+        raise AssertionError("legacy serve: the fuse request did not warn")
+    print(f"[legacy serve] the fuse request warned and ran unfused; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB", flush=True)
+    del graphs
+    torch.cuda.empty_cache()
+
+    # [legacy train]: layout_for_batch(with_grad=True), unfused
+    per_step = {"node_table_block_major": STEPS,
+                "onehot_segment_scatter_flat": STEPS,
+                "window_block_spmm_mono": STEPS, "gru_cell_fwd": STEPS,
+                "gru_cell_bwd": STEPS}
+    for k, v in train_headline(b, lay, {
+            "unfused": (dict(fuse_gru=False), per_step)},
+            tag="legacy train", f32_check=False).items():
+        launched[k] += v
+    del lay
+    torch.cuda.empty_cache()
+
+    # one forward with the bench's --legacy_pack layout (bench.py:258-271)
+    t0 = time.perf_counter()
+    lay = L.build_dst_block_layout(
+        b.edge_src, b.edge_dst, b.edge_type, b.edge_mask, b.spec.n_pad,
+        tile_e=2048, n_message_types=2 * EDGE_TYPES, edge_align=16,
+        row_order="block").to("cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    arrays = batch_arrays(b, "cuda")
+    cfg = headline_cfg(compute_dtype="bfloat16")
+    zero_counts()
+    with torch.inference_mode():
+        scores = forward(params, cfg, arrays, 1, scatter_layout=lay)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = read_counts()
+        with plain_versions():
+            ref = forward(params, cfg, arrays, 1, scatter_layout=lay)
+    expect_counts("legacy_pack forward", launches, {
+        "node_table_block_major": STEPS, "window_block_spmm_mono": STEPS,
+        "gru_cell_fwd": STEPS})
+    for k, v in launches.items():
+        launched[k] += v
+    check("legacy_pack forward scores", scores, ref, "flip", torch.bfloat16,
+          {})
+    print(f"[legacy train] --legacy_pack forward (tile_e 2048, edge_align "
+          f"16, block order; {lay.arrays['block_of_tile'].shape[0]} tiles): "
+          f"layout {t1 - t0:.2f} s on the host, forward {1e3 * (t2 - t1):.2f}"
+          f" ms; launches {launches}", flush=True)
+    del lay, scores, ref
+    torch.cuda.empty_cache()
+
+    # [no_stream]: no one-hot stream, dst-local ids both ways
+    t0 = time.perf_counter()
+    lay = L.build_dst_block_layout(
+        b.edge_src, b.edge_dst, b.edge_type, b.edge_mask, b.spec.n_pad,
+        onehot_stream=False, with_grad=True, n_message_types=2 * EDGE_TYPES,
+        row_order="block").to("cuda")
+    torch.cuda.synchronize()
+    print(f"[no_stream] layout with its grad half built in "
+          f"{time.perf_counter() - t0:.2f} s; meta {lay.meta}", flush=True)
+    for k, v in train_headline(b, lay, {"unfused": (dict(fuse_gru=False), {
+            "node_table_block_major": STEPS,
+            "onehot_segment_scatter": 2 * STEPS, "gru_cell_fwd": STEPS,
+            "gru_cell_bwd": STEPS})}, tag="no_stream", f32_check=False,
+            steps=1).items():
+        launched[k] += v
+    del lay
+    torch.cuda.empty_cache()
+    return launched
+
+
+NODES_1M, EDGES_1M = 1_048_576, 10_000_000
+
+
+def chunked_phase(params, log):
+    """[chunked 1M]: the reference's large-graph configuration at full
+    width (examples/large_graph.py: 1,048,576 nodes, 10M logical / 20M
+    directed edges, 8 types, D = 128, T = 5, bf16), through
+    build_chunked_dst_layouts(n_chunks=4, tile_e=2048): one forward
+    through propagate (20 launches of #8), then each step from the same
+    state against the plain step.  Returns its launch counts."""
+    import torch
+    from ggnn_tpu_torch.data.synthetic import synthetic_batch
+    from ggnn_tpu_torch.models.ggnn import (fuse_gru, gru_update, init_state,
+                                            propagate)
+    from ggnn_tpu_torch.ops import legacy as L
+    t0 = time.perf_counter()
+    b = synthetic_batch(NODES_1M, EDGES_1M, EDGE_TYPES, annotation_dim=ANN,
+                        seed=0, node_mult=128)
+    t1 = time.perf_counter()
+    chunks = L.build_chunked_dst_layouts(b.edge_src, b.edge_dst, b.edge_type,
+                                         b.edge_mask, b.spec.n_pad,
+                                         n_chunks=4, tile_e=2048,
+                                         device="cuda")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    tiles = [c.arrays["block_of_tile"].shape[0] for c in chunks]
+    print(f"[chunked 1M] batch ({b.spec.n_pad} nodes, "
+          f"{int(b.edge_mask.sum())} directed edges) made in {t1 - t0:.2f} s;"
+          f" 4 chunk layouts (tiles {tiles}, one-hot "
+          f"{sum(nbytes(c.arrays['onehot']) for c in chunks) / 1e9:.2f} GB) "
+          f"built and copied in {t2 - t1:.2f} s", flush=True)
+    cfg = headline_cfg(compute_dtype="bfloat16")
+    prop = params["prop"]
+    ann = torch.as_tensor(b.annotations, device="cuda")
+    edges = [torch.as_tensor(x) for x in (b.edge_src, b.edge_dst,
+                                          b.edge_type, b.edge_mask)]
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = propagate(prop, cfg, ann, *edges, scatter_layout=chunks)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    expect_counts("chunked 1M", launches, {
+        "onehot_segment_scatter_flat": 4 * STEPS, "gru_cell_fwd": STEPS})
+    if not torch.isfinite(h).all() or tuple(h.shape) != (NODES_1M, DIM):
+        raise AssertionError("chunked 1M: bad states")
+    print(f"[chunked 1M] forward ({STEPS} steps) {1e3 * (t1 - t0):.2f} ms on "
+          f"the card (host clock around it), peak device memory "
+          f"{peak:.2f} GiB; {2 * EDGES_1M * STEPS / (t1 - t0):.4e} "
+          f"directed-edges*T/s; launches {launches}", flush=True)
+    del h
+    # each step from the same state against the plain step
+    cdt = torch.bfloat16
+    fused = fuse_gru(prop["gru"])
+    w, bias = prop["msg_w"].to(cdt), prop["msg_b"].to(cdt)
+    h = init_state(ann, DIM)
+    with torch.inference_mode():
+        for t in range(STEPS):
+            a = L.aggregate_onehot_chunked(h.to(cdt), chunks, w, bias)
+            got = gru_update(prop["gru"], h, a, fused, matmul_dtype=cdt)
+            with plain_versions():
+                a_ref = L.aggregate_onehot_chunked(h.to(cdt), chunks, w,
+                                                   bias)
+                ref = gru_update(prop["gru"], h, a_ref, fused,
+                                 matmul_dtype=cdt)
+            check(f"onehot_segment_scatter_flat[chunked 1M step {t}]", a,
+                  a_ref, "sum", cdt, log)
+            check(f"chunked 1M step {t}", got, ref, "flip_rows", cdt, {},
+                  a_rows=a_ref.abs().amax(1).clamp_min(1.0))
+            h = got
+            del a, a_ref, ref
+    del chunks, b, h
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -1462,13 +2034,24 @@ def main() -> int:
         "fused": (dict(fuse_gru=True), fused),
         "fused+lean": (dict(fuse_gru=True, lean_residuals=True), fused),
         "unfused": (dict(fuse_gru=False), unfused)})
-    del lay, b
+    del lay
     torch.cuda.empty_cache()
     for k, v in trained.items():
         launched[k] += v
     run_trainer()
 
+    for k, v in legacy_phase(params, b, log, timings).items():
+        launched[k] += v
+    del b
+    torch.cuda.empty_cache()
+
     for k, v in scalefree_phase(params, log, timings).items():
+        launched[k] += v
+    for k, v in chunked_phase(params, log).items():
+        launched[k] += v
+    for k, v in run_trainer("onehot", want=(
+            "onehot_segment_scatter_flat",
+            "window_block_spmm_mono")).items():
         launched[k] += v
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

@@ -4,11 +4,12 @@ Counterpart of ``ggnn_tpu/infer.py``: static-shape padded batching with a
 fixed :class:`~ggnn_tpu_torch.graph.PaddingSpec` and task-level decoding
 (argmax node / per-node classes / graph class).
 
-For ``backend='onehot'`` each batch gets the typed-pack layout over the dst
-space rounded up to the 128-row grid: the per-block kernels where block mode
-engages, the per-tile kernels where it declines (hub-heavy and power-law
-graphs).  It computes the same function as the JAX Predictor's legacy
-table-gather layout, whose kernels are still to be ported.
+For ``backend='onehot'`` each batch gets the layout the JAX Predictor
+builds, :func:`~ggnn_tpu_torch.ops.legacy.layout_for_batch` without its grad
+half: the legacy table-gather path (the node-transform table, its gather and
+the one-hot scatter), with the reference's rounding points.  A caller may
+pass a typed pack (``build_typed_dst_layout(...).to(device)``) to
+:meth:`Predictor.run_batch` instead: the same function, rounded elsewhere.
 
 The model runs on the card unless the caller asks for ``device="cpu"``;
 without a CUDA device the default raises.
@@ -25,7 +26,7 @@ from ggnn_tpu_torch.models.api import forward
 from ggnn_tpu_torch.models.config import ModelConfig, model_config_for_task
 from ggnn_tpu_torch.models.init import (device_or_raise, init_params,
                                         params_from_numpy)
-from ggnn_tpu_torch.ops.scatter import _rup_block, build_typed_dst_layout
+from ggnn_tpu_torch.ops.legacy import layout_for_batch
 from ggnn_tpu_torch.train.checkpoint import load_checkpoint
 
 _ARRAY_KEYS = ("annotations", "node_graph", "node_mask", "n_nodes",
@@ -74,18 +75,17 @@ class Predictor:
         return cls(cfg, spec, checkpoint_path=checkpoint_path, device=device)
 
     def layout(self, batch):
-        """The device scatter layout a batch needs (None for ``xla``)."""
+        """The device scatter layout a batch needs, as the reference builds
+        it: ``layout_for_batch(batch, with_grad=False)`` for ``onehot``,
+        None for ``xla``."""
         if self.cfg.backend != "onehot":
             return None
-        spec = batch.spec
-        return build_typed_dst_layout(
-            batch.edge_src, batch.edge_dst, batch.edge_type,
-            batch.edge_mask, _rup_block(spec.n_pad),
-            n_message_types=2 * spec.n_edge_types).to(self.device)
+        return layout_for_batch(batch, with_grad=False, device=self.device)
 
     @torch.inference_mode()
     def run_batch(self, batch, layout=None) -> np.ndarray:
-        """Head outputs for one padded batch, on the host."""
+        """Head outputs for one padded batch, on the host; ``layout`` (any
+        layout ``propagate`` takes) defaults to :meth:`layout`."""
         arrays = {k: torch.as_tensor(getattr(batch, k), device=self.device)
                   for k in _ARRAY_KEYS}
         if layout is None:

@@ -22,8 +22,8 @@ def _ggsnn_unported():
 def forward(params: dict, cfg: ModelConfig, arrays: dict, n_graphs: int,
             scatter_layout=None):
     """Head outputs: node scores [N] / per-node logits [N, C] / graph
-    logits [B, C].  ``scatter_layout`` (a device ScatterLayout) selects the
-    typed-block kernels when ``cfg.backend == 'onehot'``."""
+    logits [B, C].  ``scatter_layout`` is any layout ``propagate`` takes for
+    ``cfg.backend == 'onehot'`` (None: the reference's default)."""
     if cfg.head == "ggsnn":
         raise _ggsnn_unported()
     ann = arrays["annotations"]

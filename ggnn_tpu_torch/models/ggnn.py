@@ -14,13 +14,17 @@ the same dtype decisions:
   whatever ``gru_matmul_compute`` says, as the reference does.
 
 Backends: ``xla`` (plain :func:`ggnn_tpu_torch.ops.segment.typed_aggregate`)
-and ``onehot`` through the typed-pack CUDA kernels (per block, or per tile
-where block mode declines), fused (GRU in the kernel's epilogue) or not.
-The other backends raise ``NotImplementedError`` naming their ROADMAP
-item.
+and ``onehot``: through the typed-pack CUDA kernels (per block, or per tile
+where block mode declines), fused (GRU in the kernel's epilogue) or not;
+through the legacy table-gather layout (``ops/legacy.py``: the table
+kernel, then its scatter), which never fuses; or, forward only, through a
+list of chunked legacy layouts.  The other backends raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
+
+import warnings
 
 import torch
 import torch.nn.functional as F
@@ -30,11 +34,13 @@ from ggnn_tpu_torch.models.config import ModelConfig
 from ggnn_tpu_torch.models.init import torch_dtype
 from ggnn_tpu_torch.ops.gru import (_mm, gru_cell_bwd, gru_cell_fwd,
                                     gru_cell_fwd_reference)
+from ggnn_tpu_torch.ops.legacy import (DstBlockLayout,
+                                       aggregate_onehot_chunked,
+                                       build_dst_block_layout)
 from ggnn_tpu_torch.ops.scatter import (BLOCK_N, ScatterLayout,
                                         aggregate_bwd, aggregate_forward,
                                         aggregate_onehot, bias_rows,
-                                        block_args, build_typed_dst_layout,
-                                        grad_meta, tile_args,
+                                        block_args, grad_meta, tile_args,
                                         typed_block_step_gru, typed_step_gru)
 from ggnn_tpu_torch.ops.segment import typed_aggregate
 
@@ -233,12 +239,23 @@ def propagate(prop: dict, cfg: ModelConfig, annotations, edge_src, edge_dst,
     """Run T propagation steps; returns the final h [N, D] f32 (and, with
     ``collect_states``, the per-step states stacked to [T, N, D]).
 
-    ``scatter_layout`` is a device :class:`ScatterLayout` from
-    :func:`build_typed_dst_layout` for ``backend='onehot'`` (built here from
-    the edges when None, with its grad half when grad mode is on); training
-    needs it built ``with_grad=True``.  ``cfg.remat`` recomputes each step
-    in the backward (``torch.utils.checkpoint``) instead of keeping its
-    residuals, except with ``collect_states``, as the reference does."""
+    ``scatter_layout`` for ``backend='onehot'``, as the reference takes it:
+
+    - a typed pack (:func:`~ggnn_tpu_torch.ops.scatter.
+      build_typed_dst_layout`, on the device), fused or not; training needs
+      it built ``with_grad=True``;
+    - a legacy layout (:func:`~ggnn_tpu_torch.ops.legacy.layout_for_batch`,
+      or a :class:`~ggnn_tpu_torch.ops.legacy.DstBlockLayout`, moved to h's
+      device here), always unfused: ``fuse_gru`` warns, as the reference;
+    - a list of chunked legacy layouts (:func:`~ggnn_tpu_torch.ops.legacy.
+      build_chunked_dst_layouts`), forward only, unfused;
+    - None: the reference's default, the legacy layout built here from the
+      edges over h's rows (a multiple of 128), in type order with 128-edge
+      tiles and no grad half (its backward sums over ``dst_global``).
+
+    ``cfg.remat`` recomputes each step in the backward
+    (``torch.utils.checkpoint``) instead of keeping its residuals, except
+    with ``collect_states``, as the reference does."""
     if cfg.edge_gates:
         raise _unported("edge_gates (the SDDMM gates)")
     h = init_state(annotations, cfg.state_dim)
@@ -251,28 +268,45 @@ def propagate(prop: dict, cfg: ModelConfig, annotations, edge_src, edge_dst,
 
     if cfg.backend == "onehot":
         if isinstance(scatter_layout, (list, tuple)):
-            raise _unported("the chunked onehot layout")
-        if scatter_layout is None:
-            scatter_layout = build_typed_dst_layout(
-                edge_src.cpu().numpy(), edge_dst.cpu().numpy(),
-                edge_type.cpu().numpy(), edge_mask.cpu().numpy(),
-                -(-h.shape[0] // BLOCK_N) * BLOCK_N,
-                cfg.n_message_types,
-                with_grad=torch.is_grad_enabled()).to(h.device)
-        if cfg.fuse_gru:
-            # gate matmuls in the compute dtype on this path, whatever
-            # gru_matmul_compute says (as the reference)
-            mdt_f = cdt if cdt != torch.float32 else None
+            chunks = list(scatter_layout)
 
             def step(h):
-                return TypedFusedStep.apply(h, msg_w_c, msg_b_c, *fused, uh,
-                                            scatter_layout, mdt_f,
-                                            cfg.lean_residuals)
-        else:
-            def step(h):
-                a = aggregate_onehot(h.to(cdt), scatter_layout, msg_w_c,
-                                     msg_b_c)
+                a = aggregate_onehot_chunked(h.to(cdt), chunks, msg_w_c,
+                                             msg_b_c)
                 return gru_update(prop["gru"], h, a, fused, matmul_dtype=gmm)
+        else:
+            if scatter_layout is None:
+                scatter_layout = build_dst_block_layout(
+                    edge_src.cpu().numpy(), edge_dst.cpu().numpy(),
+                    edge_type.cpu().numpy(), edge_mask.cpu().numpy(),
+                    h.shape[0])
+            if isinstance(scatter_layout, DstBlockLayout):
+                scatter_layout = scatter_layout.to(h.device)
+            layout = scatter_layout
+            if cfg.fuse_gru and layout.typed:
+                # gate matmuls in the compute dtype on this path, whatever
+                # gru_matmul_compute says (as the reference)
+                mdt_f = cdt if cdt != torch.float32 else None
+
+                def step(h):
+                    return TypedFusedStep.apply(h, msg_w_c, msg_b_c, *fused,
+                                                uh, layout, mdt_f,
+                                                cfg.lean_residuals)
+            else:
+                if cfg.fuse_gru:
+                    # as the reference: a fuse request never silently
+                    # measures the unfused path
+                    warnings.warn(
+                        "fuse_gru requested with backend='onehot' but the "
+                        "scatter layout is not a typed pack (legacy "
+                        "table-gather / chunked layouts cannot fuse); "
+                        "running the UNFUSED step. Build the layout with "
+                        "build_typed_dst_layout(...) to fuse.", stacklevel=2)
+
+                def step(h):
+                    a = aggregate_onehot(h.to(cdt), layout, msg_w_c, msg_b_c)
+                    return gru_update(prop["gru"], h, a, fused,
+                                      matmul_dtype=gmm)
     elif cfg.backend == "xla":
         def step(h):
             a = typed_aggregate(h.to(cdt), edge_src, edge_dst, edge_type,

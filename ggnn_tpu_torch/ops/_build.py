@@ -55,12 +55,23 @@ _SIGNATURES = {
                         _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _I,
                         _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "ggnn_tile_split": [],
-    # table_dtype, out_dtype, dstl, table, n_table, c_stream, n_c,
+    # table_dtype, out_dtype, dstl, table, n_table, D, c_stream, n_c,
     # tile_start, win_of_tile, c_off, n_blocks, window, stride, item_first,
     # pbase, n_items, n_partial, ws, out, stream
-    "ggnn_window_mono": [_I, _I, _I, _P, ctypes.c_longlong, _P,
+    "ggnn_window_mono": [_I, _I, _I, _P, ctypes.c_longlong, _I, _P,
                          ctypes.c_longlong, _P, _P, _P, _I, _I, _I, _P, _P,
                          _I, _I, _P, _P, _P],
+    # dtype, msgs, n_msgs, D, onehot / dst_local, n_tiles, tile_start,
+    # n_blocks, tile_e, item_first, pbase, n_items, n_partial, ws, out,
+    # [bad,] stream
+    "ggnn_onehot_flat": [_I, _P, ctypes.c_longlong, _I, _P,
+                         ctypes.c_longlong, _P, _I, _I, _P, _P, _I, _I, _P,
+                         _P, _P, _P],
+    "ggnn_onehot_dstl": [_I, _P, ctypes.c_longlong, _I, _P,
+                         ctypes.c_longlong, _P, _I, _I, _P, _P, _I, _I, _P,
+                         _P, _P],
+    # dtype, h, msg_w, msg_b, n_blocks, D, T2, out, stream
+    "ggnn_node_table": [_I, _P, _P, _P, _I, _I, _I, _P, _P],
     "ggnn_error_string": [_I],
 }
 

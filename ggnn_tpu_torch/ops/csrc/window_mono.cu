@@ -1,14 +1,22 @@
 // Windowed count-matrix SpMM for Hopper (sm_90a): the reverse scatter of the
-// legacy grad layout, the typed pack's backward where the octet layout
-// declines (hub-heavy and power-law graphs).
+// legacy grad layouts, and the forward scatter of the legacy table-gather
+// layout.
 //
 // Replaces ggnn_tpu/ops/window_pallas.py::_window_mono_kernel (run by
 // window_block_spmm_mono) with out_rows = 128 and the unpacked side
-// streams.  For output block b it computes, in f32,
+// streams, and, through entry points of their own, the two legacy one-hot
+// scatters of ggnn_tpu/ops/scatter_pallas.py, which are this product with
+// window = tile_e and win_of_tile = arange (scatter_pallas.py:760-771):
+// - _scatter_stream_flat_kernel (onehot_segment_scatter_flat): the int8
+//   transposed one-hot stream, C_t = rows [t·128, t·128 + 128);
+// - _scatter_kernel (onehot_segment_scatter): the dst-local ids, the DSTL
+//   form below with dstl = dst_local viewed as [n_tiles, tile_e].
+// For output block b it computes, in f32,
 //     out[b·128 : (b+1)·128] = Σ_t C_t · table[win[t]·stride : win[t]·stride + window]
 // over the tiles t in [tile_start[b], tile_start[b + 1]) with win[t] >= 0
-// (a negative window marks a dummy tile, which adds nothing), and rounds
-// once to the output dtype at the flush.  C_t is either
+// (a negative window marks a dummy tile, which adds nothing; a null
+// win_of_tile means win[t] = t), and rounds once to the output dtype at the
+// flush.  C_t is either
 // - DSTL: the one-hot of row c[t] of a [n_c, window] int32 dst-local
 //   stream (−1 = no edge): a segment sum, each window row added to the
 //   output row it names; or
@@ -21,7 +29,9 @@
 // (262,144 nodes, 8M directed edges, Zipf 1.2, 16 message types, D = 128,
 // bf16, g_tile 256) one call reads 8.25M packed rows of G (2.1 GB) and the
 // 62 MB dstl stream and writes Y (4.19M rows, 1.07 GB): ≈ 0.97 ms at
-// 3.35 TB/s.  The grad blocks of the hub's source rows hold ~1,400 tiles
+// 3.35 TB/s; the legacy forward at the uniform headline reads 8M rows of
+// messages (2.05 GB) and the 1.06 GB one-hot stream.  The grad blocks of
+// the hub's source rows hold ~1,400 tiles
 // each against ~2 elsewhere, so one CTA per output block would leave a
 // few SMs with the hub's work.  As in typed_tile.cu, each block's tiles are
 // cut into work items of at most kSplit = 32 tiles (common.cuh), one CTA
@@ -31,6 +41,14 @@
 // shared-memory buffer by segment_sum_ordered (common.cuh: each warp its
 // own 16 output rows, in the order of the rows).  No float atomics: the
 // same result on every run.
+//
+// Widths: D = 128 runs the kernel above.  Any other D in [1, 256] (the
+// bAbI models run D = 4 to 16) runs window_mono_panel_kernel: one CTA per
+// (work item, 128-column panel), the last panel masked, the panel's
+// table rows staged 32 at a time in shared memory and every output element
+// summed by one thread in the order of the window rows.  It is as exact
+// and as deterministic as the D = 128 kernel, and slow: no tensor cores,
+// scalar loads (the widths it serves are small).
 // Rows outside [0, n_table), dst ids outside [0, 128) and side-stream rows
 // outside [0, n_c) are dropped, so a layout that does not belong to its
 // table cannot address memory outside it.
@@ -40,22 +58,31 @@
 
 namespace ggnn {
 
+// The side stream's form: a dst-local stream, an int8 count matrix, or an
+// int8 one-hot matrix (each column at most one entry, a 1), which the
+// kernel decodes into dst-local ids.
+constexpr int kDstl = 0, kCounts = 1, kOnehot = 2;
+
 template <typename TT>
 struct MonoSmem {
   static constexpr size_t sums = size_t(kRows) * kD * sizeof(float);
   static constexpr size_t dstl = sums + Stage<TT>::bytes;
   static constexpr size_t counts = sums + 2 * Smem<TT>::tile;
+  // + the decoded dst ids of one tile, [window] int32
+  static size_t onehot(int window) { return dstl + size_t(window) * 4; }
 };
 
-// One CTA per work item (grid = item_first[n_blocks]).
-template <typename TT, typename TO, bool DSTL>
+// One CTA per work item (grid = item_first[n_blocks]).  MODE kOnehot sets
+// *bad when a column of a tile's one-hot holds more than one entry or an
+// entry other than 1 (the result is then not the product).
+template <typename TT, typename TO, int MODE>
 __global__ void __launch_bounds__(kThreads) window_mono_kernel(
     const TT* __restrict__ table, long long n_table,
     const void* __restrict__ c_stream, long long n_c,
     const int* __restrict__ tile_start, const int* __restrict__ win_of_tile,
     const int* __restrict__ c_off, int n_blocks, int window, int stride,
     const int* __restrict__ item_first, const int* __restrict__ pbase,
-    float* __restrict__ ws, TO* __restrict__ out) {
+    float* __restrict__ ws, TO* __restrict__ out, int* __restrict__ bad) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* S = reinterpret_cast<float*>(smem);
   const int item = blockIdx.x;
@@ -64,17 +91,51 @@ __global__ void __launch_bounds__(kThreads) window_mono_kernel(
   const int n_items = item_first[b + 1] - item_first[b];
   const int t0 = tile_start[b] + k * kSplit;
   const int t1 = min(t0 + kSplit, tile_start[b + 1]);
+  zero_strip(S);
 
-  if constexpr (DSTL) {
+  if constexpr (MODE == kDstl) {
     const int* dstl = static_cast<const int*>(c_stream);
     TT* H_s = reinterpret_cast<TT*>(smem + MonoSmem<TT>::sums);
-    zero_strip(S);
     for (int t = t0; t < t1; ++t) {
-      const int w = win_of_tile[t];
+      const int w = win_of_tile ? win_of_tile[t] : t;
       const int c = c_off ? c_off[t] : t;
       if (w < 0 || c < 0 || c >= n_c) continue;
       segment_sum_ordered(S, H_s, table, n_table, (long long)w * stride,
                           dstl + size_t(c) * window, window);
+    }
+  } else if constexpr (MODE == kOnehot) {
+    // Decode each tile's one-hot into d_s[j] = its row (−1: no entry), then
+    // the same ordered segment sum as the dst-local stream: exact f32 adds
+    // in the order of the window rows, whatever a hub row's length.
+    const int8_t* onehot = static_cast<const int8_t*>(c_stream);
+    TT* H_s = reinterpret_cast<TT*>(smem + MonoSmem<TT>::sums);
+    int* d_s = reinterpret_cast<int*>(smem + MonoSmem<TT>::dstl);
+    for (int t = t0; t < t1; ++t) {
+      const int w = win_of_tile ? win_of_tile[t] : t;
+      const int c = c_off ? c_off[t] : t;
+      if (w < 0 || c < 0 || c >= n_c) continue;
+      __syncthreads();  // every warp is done with the previous tile's ids
+      for (int j = threadIdx.x; j < window; j += kThreads) d_s[j] = -1;
+      __syncthreads();
+      // 16 bytes of the [128, window] tile per load (128·window is a
+      // multiple of 16); a nonzero byte names its (row, column)
+      const int4* C = reinterpret_cast<const int4*>(
+          onehot + size_t(c) * kRows * window);
+      for (int q = threadIdx.x; q < kRows * window / 16; q += kThreads) {
+        const int4 v = C[q];
+        if ((v.x | v.y | v.z | v.w) == 0) continue;
+        const int words[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const int byte = (words[i >> 2] >> (8 * (i & 3))) & 0xff;
+          if (byte == 0) continue;
+          const int pos = q * 16 + i, r = pos / window, j = pos % window;
+          if (byte != 1 || atomicCAS(&d_s[j], -1, r) != -1) *bad = 1;
+        }
+      }
+      __syncthreads();
+      segment_sum_ordered(S, H_s, table, n_table, (long long)w * stride,
+                          d_s, window);
     }
   } else {
     constexpr int ld = Smem<TT>::ld;
@@ -86,7 +147,7 @@ __global__ void __launch_bounds__(kThreads) window_mono_kernel(
     float acc[kNT][4];
     zero_acc(acc);
     for (int t = t0; t < t1; ++t) {
-      const int w = win_of_tile[t];
+      const int w = win_of_tile ? win_of_tile[t] : t;
       const int c = c_off ? c_off[t] : t;
       if (w < 0 || c < 0 || c >= n_c) continue;
       const long long base = (long long)w * stride;
@@ -156,26 +217,171 @@ __global__ void __launch_bounds__(kThreads) window_mono_reduce_kernel(
   }
 }
 
-template <typename TT, typename TO, bool DSTL>
-static int launch_window_mono(const void* table, long long n_table,
+// Any width D != 128: one CTA per (work item, panel of 128 columns); the
+// panel holds columns [c0, c0 + w), w = min(128, D − c0).  Each thread owns
+// the elements idx = threadIdx.x + k·kThreads of the panel's [128, w] rows
+// and sums their terms in the order of the window rows, kPanelRows staged
+// rows at a time (a staged chunk's terms in a register, then added to the
+// element's sum).
+constexpr int kPanelRows = 32;
+constexpr int kOwn = kRows * kRows / kThreads;  // elements a thread owns
+
+template <typename TT, typename TO, int MODE>
+__global__ void __launch_bounds__(kThreads) window_mono_panel_kernel(
+    const TT* __restrict__ table, long long n_table, int D,
+    const void* __restrict__ c_stream, long long n_c,
+    const int* __restrict__ tile_start, const int* __restrict__ win_of_tile,
+    const int* __restrict__ c_off, int n_blocks, int window, int stride,
+    const int* __restrict__ item_first, const int* __restrict__ pbase,
+    float* __restrict__ ws, TO* __restrict__ out, int* __restrict__ bad) {
+  constexpr bool DSTL = MODE == kDstl;
+  __shared__ float T_s[kPanelRows][kRows];
+  __shared__ float C_s[kRows][kPanelRows + 1];
+  __shared__ int d_s[kPanelRows];
+  const int item = blockIdx.x;
+  const int b = item_block(item_first, n_blocks, item);
+  const int k = item - item_first[b];
+  const int n_items = item_first[b + 1] - item_first[b];
+  const int t0 = tile_start[b] + k * kSplit;
+  const int t1 = min(t0 + kSplit, tile_start[b + 1]);
+  const int c0 = blockIdx.y * kRows;
+  const int w = min(kRows, D - c0);
+  float acc[kOwn];
+#pragma unroll
+  for (int q = 0; q < kOwn; ++q) acc[q] = 0.0f;
+  for (int t = t0; t < t1; ++t) {
+    const int wt = win_of_tile ? win_of_tile[t] : t;
+    const int c = c_off ? c_off[t] : t;
+    if (wt < 0 || c < 0 || c >= n_c) continue;
+    const long long base = (long long)wt * stride;
+    for (int j0 = 0; j0 < window; j0 += kPanelRows) {
+      const int nj = min(kPanelRows, window - j0);
+      __syncthreads();  // every thread is done with the previous chunk
+      for (int idx = threadIdx.x; idx < kPanelRows * w; idx += kThreads) {
+        const int jr = idx / w, col = idx % w;
+        const long long row = base + j0 + jr;
+        T_s[jr][col] = (jr < nj && row >= 0 && row < n_table)
+                           ? to_f(table[row * D + c0 + col])
+                           : 0.0f;
+      }
+      if constexpr (DSTL) {
+        const int* dstl = static_cast<const int*>(c_stream) + size_t(c) * window;
+        for (int jr = threadIdx.x; jr < kPanelRows; jr += kThreads) {
+          const long long row = base + j0 + jr;
+          d_s[jr] = (jr < nj && row >= 0 && row < n_table) ? dstl[j0 + jr] : -1;
+        }
+      } else {
+        const int8_t* C = static_cast<const int8_t*>(c_stream) +
+                          size_t(c) * kRows * window;
+        for (int idx = threadIdx.x; idx < kRows * kPanelRows; idx += kThreads) {
+          const int r = idx / kPanelRows, jr = idx % kPanelRows;
+          C_s[r][jr] = jr < nj ? float(C[size_t(r) * window + j0 + jr]) : 0.0f;
+        }
+      }
+      __syncthreads();
+      if constexpr (MODE == kOnehot) {
+        // a one-hot column holds at most one entry, a 1
+        if (blockIdx.y == 0 && threadIdx.x < nj) {
+          int n = 0;
+          for (int r = 0; r < kRows; ++r) {
+            const float cv = C_s[r][threadIdx.x];
+            n += cv != 0.0f;
+            if (cv != 0.0f && cv != 1.0f) *bad = 1;
+          }
+          if (n > 1) *bad = 1;
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kOwn; ++q) {
+        const int idx = threadIdx.x + q * kThreads;
+        if (idx >= kRows * w) break;
+        const int r = idx / w, col = idx % w;
+        float s = 0.0f;
+        for (int jr = 0; jr < nj; ++jr) {
+          if constexpr (DSTL) {
+            if (d_s[jr] == r) s += T_s[jr][col];
+          } else {
+            const float cv = C_s[r][jr];
+            if (cv != 0.0f) s = fmaf(cv, T_s[jr][col], s);
+          }
+        }
+        acc[q] += s;
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kOwn; ++q) {
+    const int idx = threadIdx.x + q * kThreads;
+    if (idx >= kRows * w) break;
+    const int r = idx / w, col = idx % w;
+    if (n_items > 1)
+      ws[(size_t(pbase[b] + k) * kRows + r) * D + c0 + col] = acc[q];
+    else
+      out[(size_t(b) * kRows + r) * D + c0 + col] = from_f<TO>(acc[q]);
+  }
+}
+
+// The partial sums of window_mono_panel_kernel's split blocks, in item
+// order: one CTA per output block, slots of [128, D] f32.
+template <typename TO>
+__global__ void __launch_bounds__(kThreads) window_mono_panel_reduce_kernel(
+    const int* __restrict__ item_first, const int* __restrict__ pbase, int D,
+    const float* __restrict__ ws, TO* __restrict__ out) {
+  const int b = blockIdx.x;
+  const int n_items = item_first[b + 1] - item_first[b];
+  if (n_items <= 1) return;
+  const size_t slot = size_t(kRows) * D;
+  const float* p = ws + size_t(pbase[b]) * slot;
+  TO* dst = out + size_t(b) * slot;
+  for (size_t i = threadIdx.x; i < slot; i += kThreads) {
+    float s = p[i];
+    for (int k = 1; k < n_items; ++k) s += p[size_t(k) * slot + i];
+    dst[i] = from_f<TO>(s);
+  }
+}
+
+template <typename TT, typename TO, int MODE>
+static int launch_window_mono(const void* table, long long n_table, int D,
                               const void* c_stream, long long n_c,
                               const void* tile_start, const void* win_of_tile,
                               const void* c_off, int n_blocks, int window,
                               int stride, const void* item_first,
                               const void* pbase, int n_items, int n_partial,
-                              void* ws, void* out, cudaStream_t stream) {
-  const size_t smem = DSTL ? MonoSmem<TT>::dstl : MonoSmem<TT>::counts;
+                              void* ws, void* out, void* bad,
+                              cudaStream_t stream) {
+  if (D < 1 || D > 2 * kRows) return int(cudaErrorInvalidValue);
+  if (MODE == kOnehot && (bad == nullptr || (window % 16 != 0 && D == kD)))
+    return int(cudaErrorInvalidValue);
+  if (D != kD) {
+    const dim3 grid(n_items, (D + kRows - 1) / kRows);
+    window_mono_panel_kernel<TT, TO, MODE><<<grid, kThreads, 0, stream>>>(
+        static_cast<const TT*>(table), n_table, D, c_stream, n_c,
+        static_cast<const int*>(tile_start),
+        static_cast<const int*>(win_of_tile), static_cast<const int*>(c_off),
+        n_blocks, window, stride, static_cast<const int*>(item_first),
+        static_cast<const int*>(pbase), static_cast<float*>(ws),
+        static_cast<TO*>(out), static_cast<int*>(bad));
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess || n_partial == 0) return int(err);
+    window_mono_panel_reduce_kernel<TO><<<n_blocks, kThreads, 0, stream>>>(
+        static_cast<const int*>(item_first), static_cast<const int*>(pbase),
+        D, static_cast<const float*>(ws), static_cast<TO*>(out));
+    return int(cudaGetLastError());
+  }
+  const size_t smem = MODE == kDstl     ? MonoSmem<TT>::dstl
+                      : MODE == kCounts ? MonoSmem<TT>::counts
+                                        : MonoSmem<TT>::onehot(window);
   cudaError_t err = cudaFuncSetAttribute(
-      window_mono_kernel<TT, TO, DSTL>,
+      window_mono_kernel<TT, TO, MODE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
-  window_mono_kernel<TT, TO, DSTL><<<n_items, kThreads, smem, stream>>>(
+  window_mono_kernel<TT, TO, MODE><<<n_items, kThreads, smem, stream>>>(
       static_cast<const TT*>(table), n_table, c_stream, n_c,
       static_cast<const int*>(tile_start),
       static_cast<const int*>(win_of_tile), static_cast<const int*>(c_off),
       n_blocks, window, stride, static_cast<const int*>(item_first),
       static_cast<const int*>(pbase), static_cast<float*>(ws),
-      static_cast<TO*>(out));
+      static_cast<TO*>(out), static_cast<int*>(bad));
   err = cudaGetLastError();
   if (err != cudaSuccess || n_partial == 0) return int(err);
   window_mono_reduce_kernel<TO><<<n_blocks, kThreads, 0, stream>>>(
@@ -188,13 +394,14 @@ static int launch_window_mono(const void* table, long long n_table,
 
 // table_dtype, out_dtype: 0 = float32, 1 = bfloat16; dstl = 1: c_stream is
 // the int32 [n_c, window] dst-local stream, else the int8 [n_c·128, window]
-// count matrix; c_off may be null (tile t reads side-stream entry t).
-// item_first [n_blocks + 1] and pbase [n_blocks] are the hub split (see
-// common.cuh); ws holds n_partial [128, 128] f32 slots.  out is
-// [n_blocks·128, 128].  Returns the cudaError_t of the launches.
+// count matrix; win_of_tile and c_off may be null (tile t reads window t,
+// side-stream entry t).  item_first [n_blocks + 1] and pbase [n_blocks] are
+// the hub split (see common.cuh); ws holds n_partial [128, D] f32 slots.
+// table is [n_table, D], out [n_blocks·128, D], 1 <= D <= 256.  Returns the
+// cudaError_t of the launches.
 extern "C" int ggnn_window_mono(
     int table_dtype, int out_dtype, int dstl, const void* table,
-    long long n_table, const void* c_stream, long long n_c,
+    long long n_table, int D, const void* c_stream, long long n_c,
     const void* tile_start, const void* win_of_tile, const void* c_off,
     int n_blocks, int window, int stride, const void* item_first,
     const void* pbase, int n_items, int n_partial, void* ws, void* out,
@@ -203,9 +410,9 @@ extern "C" int ggnn_window_mono(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define GGNN_LAUNCH(TT, TO, DS)                                              \
   return ggnn::launch_window_mono<TT, TO, DS>(                               \
-      table, n_table, c_stream, n_c, tile_start, win_of_tile, c_off,         \
+      table, n_table, D, c_stream, n_c, tile_start, win_of_tile, c_off,      \
       n_blocks, window, stride, item_first, pbase, n_items, n_partial, ws,   \
-      out, s)
+      out, nullptr, s)
 #define GGNN_DTYPES(DS)                                                      \
   if (table_dtype == 1 && out_dtype == 1)                                    \
     GGNN_LAUNCH(__nv_bfloat16, __nv_bfloat16, DS);                           \
@@ -213,11 +420,63 @@ extern "C" int ggnn_window_mono(
   if (table_dtype == 0 && out_dtype == 1) GGNN_LAUNCH(float, __nv_bfloat16, DS); \
   if (table_dtype == 0 && out_dtype == 0) GGNN_LAUNCH(float, float, DS)
   if (dstl) {
-    GGNN_DTYPES(true);
+    GGNN_DTYPES(ggnn::kDstl);
   } else {
-    GGNN_DTYPES(false);
+    GGNN_DTYPES(ggnn::kCounts);
   }
 #undef GGNN_DTYPES
 #undef GGNN_LAUNCH
+  return int(cudaErrorInvalidValue);
+}
+
+// onehot_segment_scatter_flat: msgs [n_tiles·tile_e, D] (dtype 0 = float32,
+// 1 = bfloat16), the int8 transposed one-hot stream [n_tiles·128, tile_e],
+// tile_start [n_blocks + 1]; out [n_blocks·128, D] f32.  Tile t reads
+// message rows [t·tile_e, (t + 1)·tile_e) and one-hot rows [t·128,
+// (t + 1)·128), decoded into dst-local ids (D = 128: tile_e % 16 == 0).
+// *bad (int32, zeroed by the caller) is set when a column holds more than
+// one entry or an entry other than 1.  The hub split and ws as in
+// ggnn_window_mono.
+extern "C" int ggnn_onehot_flat(
+    int dtype, const void* msgs, long long n_msgs, int D, const void* onehot,
+    long long n_tiles, const void* tile_start, int n_blocks, int tile_e,
+    const void* item_first, const void* pbase, int n_items, int n_partial,
+    void* ws, void* out, void* bad, void* stream) {
+  if (n_blocks <= 0 || n_items <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return ggnn::launch_window_mono<__nv_bfloat16, float, ggnn::kOnehot>(
+        msgs, n_msgs, D, onehot, n_tiles, tile_start, nullptr, nullptr,
+        n_blocks, tile_e, tile_e, item_first, pbase, n_items, n_partial, ws,
+        out, bad, s);
+  if (dtype == 0)
+    return ggnn::launch_window_mono<float, float, ggnn::kOnehot>(
+        msgs, n_msgs, D, onehot, n_tiles, tile_start, nullptr, nullptr,
+        n_blocks, tile_e, tile_e, item_first, pbase, n_items, n_partial, ws,
+        out, bad, s);
+  return int(cudaErrorInvalidValue);
+}
+
+// onehot_segment_scatter: msgs [n_tiles·tile_e, D], dst_local int32
+// [n_tiles·tile_e] (−1 = padding), tile_start [n_blocks + 1]; out
+// [n_blocks·128, D] f32.  Edge e of tile t = e / tile_e adds msgs[e] to row
+// dst_local[e] of its block.  The hub split and ws as in ggnn_window_mono.
+extern "C" int ggnn_onehot_dstl(
+    int dtype, const void* msgs, long long n_msgs, int D,
+    const void* dst_local, long long n_tiles, const void* tile_start,
+    int n_blocks, int tile_e, const void* item_first, const void* pbase,
+    int n_items, int n_partial, void* ws, void* out, void* stream) {
+  if (n_blocks <= 0 || n_items <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return ggnn::launch_window_mono<__nv_bfloat16, float, ggnn::kDstl>(
+        msgs, n_msgs, D, dst_local, n_tiles, tile_start, nullptr, nullptr,
+        n_blocks, tile_e, tile_e, item_first, pbase, n_items, n_partial, ws,
+        out, nullptr, s);
+  if (dtype == 0)
+    return ggnn::launch_window_mono<float, float, ggnn::kDstl>(
+        msgs, n_msgs, D, dst_local, n_tiles, tile_start, nullptr, nullptr,
+        n_blocks, tile_e, tile_e, item_first, pbase, n_items, n_partial, ws,
+        out, nullptr, s);
   return int(cudaErrorInvalidValue);
 }

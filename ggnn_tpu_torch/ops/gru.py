@@ -16,6 +16,7 @@ import torch
 from ggnn_tpu_torch.ops import _build
 
 KERNEL_WIDTH = 128      # the state width D the CUDA kernels take
+MAX_WIDTH = 256         # the widest D of the kernels that take any width
 BLOCK = 128             # rows per CTA
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -44,7 +45,9 @@ def gru_cell_fwd_reference(h, a, w_a, b_all, u_zr, uh, mdt=torch.bfloat16):
     return out.to(h.dtype), z.to(mdt), r.to(mdt), htil.to(mdt)
 
 
-def _check_cuda_args(name, tensors, D):
+def _check_cuda_args(name, tensors, D, any_width=False):
+    """Device, contiguity and alignment of every tensor, and the width D:
+    128, or with ``any_width`` any D in [1, 256]."""
     dev = tensors[0][1].device
     for arg, t in tensors:
         if t.device != dev:
@@ -53,7 +56,11 @@ def _check_cuda_args(name, tensors, D):
             raise ValueError(f"{name}: {arg} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} must be 16-byte aligned")
-    if D != KERNEL_WIDTH:
+    if any_width:
+        if not 1 <= D <= MAX_WIDTH:
+            raise ValueError(f"{name}: the CUDA kernel takes 1 <= D <= "
+                             f"{MAX_WIDTH}, got D={D}")
+    elif D != KERNEL_WIDTH:
         raise ValueError(f"{name}: the CUDA kernel takes D={KERNEL_WIDTH}, "
                          f"got D={D} (other widths: ROADMAP Queue 2)")
 

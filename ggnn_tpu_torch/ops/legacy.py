@@ -1,14 +1,31 @@
-"""The legacy table-gather scatter layout, ported to numpy array for array.
+"""The legacy table-gather onehot path: layouts, kernels, aggregation.
 
-Counterpart of ``ggnn_tpu/ops/scatter_pallas.py``'s
-:class:`DstBlockLayout` and :func:`build_dst_block_layout`: real directed
-edges grouped by 128-row destination block, each block's edges packed into
-``tile_e``-edge tiles.  The typed pack's backward builds its grad layout
-with it where the octet layout declines (``ops/scatter.py``), reduced by
-:func:`ggnn_tpu_torch.ops.window.window_block_spmm_mono`.  The legacy
-forward path that also reads it (``layout_for_batch``,
-``aggregate_onehot_chunked``, the device form of this layout and its
-scatter kernels) is ROADMAP Queue 1 item 3.
+Counterpart of ``ggnn_tpu/ops/scatter_pallas.py``'s legacy layout and its
+scatters, array for array and rounding point for rounding point:
+
+- :class:`DstBlockLayout` and :func:`build_dst_block_layout` (host, numpy):
+  real directed edges grouped by 128-row destination block, each block's
+  edges packed into ``tile_e``-edge tiles; :meth:`DstBlockLayout.to` is the
+  reference's ``to_device``, a :class:`~ggnn_tpu_torch.ops.scatter.
+  ScatterLayout` with its 8-tuple ``meta``.  The typed pack's backward
+  builds its grad layout with it where the octet layout declines.
+- :func:`layout_for_batch` (the static-budget layout the reference's
+  ``Predictor`` and ``Trainer`` build for ``backend='onehot'``) and
+  :func:`build_chunked_dst_layouts` (contiguous dst ranges, so that the
+  messages of one range exist at a time: how a 1M-node graph fits).
+- :func:`onehot_segment_scatter_flat` (the int8 one-hot stream) and
+  :func:`onehot_segment_scatter` (dst-local ids), the two scatters of the
+  table-gather forward, wrapping entry points of ``csrc/window_mono.cu``:
+  each is :func:`~ggnn_tpu_torch.ops.window.window_block_spmm_mono` with
+  ``window = tile_e`` and tile t reading its own messages, as the reference
+  says of them; :func:`onehot_segment_scatter_mono` is that kernel itself.
+- :func:`legacy_forward` (``_aggregate_impl``'s table-gather branch: the
+  node-transform table of ``ops/table.py``, the gather, then the scatter
+  the layout carries) and :func:`aggregate_onehot_chunked` (forward only,
+  as in the reference).  The backward is ``ops/scatter.py::aggregate_bwd``.
+
+A wrapper takes its plain version only for CPU tensors; for CUDA tensors it
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -16,8 +33,15 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
-from ggnn_tpu_torch.ops.scatter import BLOCK_N, _rup, _rup_block
+from ggnn_tpu_torch.ops import _build
+from ggnn_tpu_torch.ops.gru import _DTYPE_CODE, _check_cuda_args
+from ggnn_tpu_torch.ops.scatter import (BLOCK_N, ScatterLayout, _rup,
+                                        _rup_block)
+from ggnn_tpu_torch.ops.table import node_table
+from ggnn_tpu_torch.ops.window import (host_ints, split_plan,
+                                       window_block_spmm_mono)
 
 
 @dataclasses.dataclass
@@ -58,6 +82,36 @@ class DstBlockLayout:
     @property
     def n_blocks(self) -> int:
         return self.n_nodes_pad // BLOCK_N
+
+    def to(self, device) -> ScatterLayout:
+        """The device form, the reference's ``to_device``: the same array
+        keys (the grad half's under ``g_``) as tensors on ``device``, and
+        ``meta`` = (n_nodes_pad, tile_e, max_tiles, n_blocks, has_onehot,
+        grad_meta, edge_align, row_order), ``grad_meta`` = (n_blocks,
+        max_tiles, tile_e, has_onehot, edge_align) of the grad half or
+        None."""
+        arrays = {"gather_idx": self.gather_idx,
+                  "tile_start": self.tile_start,
+                  "block_of_tile": self.block_of_tile,
+                  "dst_local": self.dst_local, "dst_global": self.dst_global}
+        for key in ("onehot", "dstl", "tile_msg_off"):
+            if getattr(self, key) is not None:
+                arrays[key] = getattr(self, key)
+        grad_meta = None
+        g = self.grad
+        if g is not None:
+            for key in ("gather_idx", "tile_start", "block_of_tile",
+                        "dst_local", "onehot", "dstl", "tile_msg_off",
+                        "indeg"):
+                if getattr(g, key) is not None:
+                    arrays[f"g_{key}"] = getattr(g, key)
+            grad_meta = (g.n_blocks, g.max_tiles, g.tile_e,
+                         g.onehot is not None, g.edge_align)
+        meta = (self.n_nodes_pad, self.tile_e, self.max_tiles, self.n_blocks,
+                self.onehot is not None, grad_meta, self.edge_align,
+                self.row_order)
+        return ScatterLayout(meta, {k: torch.as_tensor(v, device=device)
+                                    for k, v in arrays.items()})
 
 
 def static_tile_budget(e_pad: int, n_rows_pad: int, tile_e: int) -> int:
@@ -232,3 +286,328 @@ def build_dst_block_layout(edge_src, edge_dst, edge_type, edge_mask,
         block_of_tile=block_of_tile, dst_global=dst_global,
         onehot=onehot, grad=grad, tile_msg_off=tile_msg_off,
         edge_align=edge_align, row_order=row_order, dstl=dstl)
+
+
+def layout_for_batch(batch, tile_e: int = 128, with_grad: bool = True,
+                     device="cuda") -> ScatterLayout:
+    """The static-shape layout of a :class:`~ggnn_tpu_torch.graph.
+    GraphBatch` (the reference function), on ``device``: tile counts padded
+    to the :func:`static_tile_budget` of the batch's PaddingSpec, so every
+    batch of a run has the same shapes; block-major table rows where
+    ``spec.n_pad % 128 == 0``; with ``with_grad`` the grad half at
+    ``tile_e`` 128, its own budget and 16-row alignment."""
+    spec = batch.spec
+    t2 = 2 * spec.n_edge_types
+    # dst rows pad up to the 128-row block grid; the table's source rows
+    # stay spec.n_pad (h's row count)
+    n_dst = _rup_block(spec.n_pad)
+    g_rows = _rup_block(t2 * spec.n_pad)
+    return build_dst_block_layout(
+        batch.edge_src, batch.edge_dst, batch.edge_type, batch.edge_mask,
+        n_dst, tile_e=tile_e, with_grad=with_grad, n_message_types=t2,
+        n_src_rows=spec.n_pad,
+        pad_tiles_to=static_tile_budget(spec.e_pad, n_dst, tile_e),
+        grad_tile_e=128 if with_grad else None,
+        grad_pad_tiles_to=(static_tile_budget(spec.e_pad, g_rows, 128)
+                           if with_grad else None),
+        row_order="block" if spec.n_pad % 128 == 0 else "type").to(device)
+
+
+def build_chunked_dst_layouts(edge_src, edge_dst, edge_type, edge_mask,
+                              n_nodes_pad: int, n_chunks: int,
+                              tile_e: int = 2048, onehot_stream: bool = True,
+                              device="cuda") -> list:
+    """The layout cut into ``n_chunks`` contiguous dst ranges (the reference
+    function), each on ``device``, so that the messages of one range exist
+    at a time (peak memory / n_chunks).  Gather rows stay global
+    (t·N + src of the whole table); only destinations are chunk-local."""
+    if n_nodes_pad % (BLOCK_N * n_chunks):
+        raise ValueError("n_nodes_pad must divide into n_chunks×128 blocks")
+    rows_per_chunk = n_nodes_pad // n_chunks
+    real = np.asarray(edge_mask) > 0
+    src = np.asarray(edge_src)[real]
+    dst = np.asarray(edge_dst)[real]
+    typ = np.asarray(edge_type)[real]
+    chunk_of = dst // rows_per_chunk
+    layouts = []
+    for c in range(n_chunks):
+        sel = chunk_of == c
+        layouts.append(build_dst_block_layout(
+            src[sel], dst[sel] - c * rows_per_chunk, typ[sel],
+            np.ones(int(sel.sum()), np.float32), rows_per_chunk,
+            tile_e=tile_e, onehot_stream=onehot_stream,
+            n_src_rows=n_nodes_pad).to(device))
+    return layouts
+
+
+def _check_scatter_args(name, messages, stream, tile_start, n_blocks,
+                        tile_e, n_tiles, stream_shape, stream_dtype):
+    if messages.dim() != 2:
+        raise ValueError(f"{name}: messages must be [E_pack, D], got "
+                         f"{tuple(messages.shape)}")
+    if tuple(stream.shape) != stream_shape or stream.dtype != stream_dtype:
+        raise ValueError(f"{name}: the side stream must be {stream_dtype} "
+                         f"{list(stream_shape)}, got {stream.dtype} "
+                         f"{list(stream.shape)}: layout and arguments "
+                         f"disagree")
+    if tuple(tile_start.shape) != (n_blocks + 1,):
+        raise ValueError(f"{name}: tile_start {tuple(tile_start.shape)} is "
+                         f"not [n_blocks + 1] = [{n_blocks + 1}]: layout and "
+                         f"arguments disagree")
+    if tile_start.dtype != torch.int32:
+        raise ValueError(f"{name}: tile_start must be int32, got "
+                         f"{tile_start.dtype}")
+    if messages.shape[0] < n_tiles * tile_e:
+        raise ValueError(f"{name}: messages has {messages.shape[0]} rows, "
+                         f"fewer than the layout's {n_tiles} tiles of "
+                         f"{tile_e} ({n_tiles * tile_e}): it was not gathered "
+                         f"with this layout")
+
+
+def _scatter_data_checks(name, tile_start, n_tiles, block_of_tile=None,
+                         max_tiles=None, extra=()):
+    """tile_start runs from 0, never down, to at most the stream's tiles
+    (exactly its tiles with ``block_of_tile``, which must name the same
+    block for every tile), and no block holds more than ``max_tiles``
+    (one copy to the host, with ``extra`` 0-d tensors appended)."""
+    counts = tile_start[1:] - tile_start[:-1]
+    stats = [tile_start[0], tile_start[-1], counts.min(), counts.max()]
+    if block_of_tile is not None:
+        tiles = torch.arange(n_tiles, dtype=torch.int32,
+                             device=tile_start.device)
+        want = torch.searchsorted(tile_start[1:].contiguous(), tiles,
+                                  right=True)
+        stats.append((want != block_of_tile).sum())
+    ts0, ts1, c_min, c_max, *rest = host_ints(*stats, *extra)
+    if block_of_tile is not None:
+        bad, *rest = rest
+        if bad:
+            raise ValueError(f"{name}: block_of_tile names another block "
+                             f"than tile_start for {bad} tiles: layout and "
+                             f"arguments disagree")
+    if ts0 != 0 or c_min < 0 or ts1 > n_tiles or (
+            block_of_tile is not None and ts1 != n_tiles):
+        raise ValueError(f"{name}: tile_start runs from {ts0} to {ts1} "
+                         f"(least count {c_min}) over a stream of {n_tiles} "
+                         f"tiles: layout and arguments disagree")
+    if max_tiles is not None and c_max > max_tiles:
+        raise ValueError(f"{name}: a block holds {c_max} tiles, more than "
+                         f"max_tiles={max_tiles}: layout and arguments "
+                         f"disagree")
+    return rest
+
+
+def _launch_scatter(entry, name, messages, stream, n_c, tile_start,
+                    n_blocks, tile_e, checks, bad=None):
+    """Launch a legacy scatter entry point of ``csrc/window_mono.cu`` over
+    the hub split; ``checks(extra)`` runs the data checks with the split's
+    totals appended and returns them; ``bad``: the int32 flag the one-hot
+    entry point sets on a malformed side stream (its last argument before
+    the CUDA stream)."""
+    if messages.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{name}: dtype {messages.dtype} not in "
+                         f"{list(_DTYPE_CODE)}")
+    D = messages.shape[-1]
+    _check_cuda_args(name, [("messages", messages), ("stream", stream),
+                            ("tile_start", tile_start)], D, any_width=True)
+    item_first, pbase, n_items, n_part = split_plan(tile_start, n_blocks)
+    n_items, n_part = checks((n_items, n_part))
+    dev = messages.device
+    ws = torch.empty(max(n_part, 1), BLOCK_N, D, dtype=torch.float32,
+                     device=dev)
+    out = torch.empty(n_blocks * BLOCK_N, D, dtype=torch.float32, device=dev)
+    p = _build.ptr
+    _build.launch(entry, name, dev, _DTYPE_CODE[messages.dtype], p(messages),
+                  messages.shape[0], D, p(stream), n_c, p(tile_start),
+                  n_blocks, tile_e, p(item_first), p(pbase), n_items, n_part,
+                  p(ws), p(out), *([] if bad is None else [p(bad)]))
+    return out
+
+
+def onehot_segment_scatter_flat_reference(messages, onehot_i8, tile_start,
+                                          block_of_tile, n_blocks: int,
+                                          tile_e: int):
+    """Plain version of :func:`onehot_segment_scatter_flat`: every nonzero
+    (tile i, row r, column j) of the one-hot stream adds count · message
+    row i·tile_e + j to row r of block block_of_tile[i], by ``index_add_``
+    in f64, rounded once to f32.  (A hub row sums millions of terms: float
+    atomics into one f32 row drift by ~2.6e-3 of its value on the card,
+    where the kernel's ordered f32 sums stay within 2.1e-6 of the exact
+    sum; see PERF.md, PR 4.)"""
+    del tile_start
+    D, dev = messages.shape[-1], messages.device
+    out = torch.zeros(n_blocks * BLOCK_N, D, dtype=torch.float64, device=dev)
+    C = onehot_i8.reshape(-1, BLOCK_N, tile_e)
+    i, r, j = torch.nonzero(C, as_tuple=True)
+    out.index_add_(0, block_of_tile.long()[i] * BLOCK_N + r,
+                   messages.index_select(0, i * tile_e + j).double()
+                   * C[i, r, j].double()[:, None])
+    return out.float()
+
+
+def onehot_segment_scatter_flat(messages, onehot_i8, tile_start,
+                                block_of_tile, n_blocks: int,
+                                tile_e: int = 2048):
+    """out[b·128:(b+1)·128] = Σ_{tiles i of b} onehot_iᵀ · messages_i →
+    [n_blocks·128, D] f32: tile i's messages are rows [i·tile_e,
+    (i+1)·tile_e), its one-hot the int8 rows [i·128, (i+1)·128) of the
+    stream (stored transposed, [n_tiles·128, tile_e]: each column at most
+    one entry, a 1, as the builders make it); ``block_of_tile`` and
+    ``tile_start`` (int32) must agree.  ``messages`` in the compute dtype,
+    1 <= D <= 256.  A CPU tensor takes the plain version; a CUDA tensor
+    launches ``ggnn_onehot_flat`` of ``csrc/window_mono.cu`` (which decodes
+    each tile's one-hot into dst ids and sums them in order, as
+    :func:`onehot_segment_scatter` does) or raises, also after the launch
+    when the kernel found a column that is not one-hot."""
+    name = "onehot_segment_scatter_flat"
+    n_tiles = block_of_tile.shape[0]
+    _check_scatter_args(name, messages, onehot_i8, tile_start, n_blocks,
+                        tile_e, n_tiles, (n_tiles * BLOCK_N, tile_e),
+                        torch.int8)
+    if block_of_tile.dtype != torch.int32:
+        raise ValueError(f"{name}: block_of_tile must be int32, got "
+                         f"{block_of_tile.dtype}")
+    checks = lambda extra=(): _scatter_data_checks(
+        name, tile_start, n_tiles, block_of_tile=block_of_tile, extra=extra)
+    if messages.device.type == "cpu":
+        checks()
+        return onehot_segment_scatter_flat_reference(
+            messages, onehot_i8, tile_start, block_of_tile, n_blocks, tile_e)
+    if messages.shape[-1] == BLOCK_N and tile_e % 16:
+        raise ValueError(f"{name}: the CUDA kernel at D = {BLOCK_N} reads "
+                         f"the one-hot in 16-byte rows: tile_e % 16 == 0, "
+                         f"got tile_e={tile_e}")
+    bad = torch.zeros(1, dtype=torch.int32, device=messages.device)
+    out = _launch_scatter(_build.library().ggnn_onehot_flat, name, messages,
+                          onehot_i8, n_tiles, tile_start, n_blocks, tile_e,
+                          checks, bad)
+    onehot_segment_scatter_flat.launches += 1
+    if bad.item():
+        raise ValueError(f"{name}: a column of the one-hot stream holds more "
+                         f"than one entry or an entry other than 1: not a "
+                         f"one-hot layout")
+    return out
+
+
+onehot_segment_scatter_flat.launches = 0
+
+
+def onehot_segment_scatter_reference(messages, dst_local, tile_start,
+                                     n_blocks: int, max_tiles: int,
+                                     tile_e: int = 128):
+    """Plain version of :func:`onehot_segment_scatter`: every edge e of a
+    tile that belongs to a block, with dst_local[e] in [0, 128), adds
+    messages[e] to that row of its block, by ``index_add_`` in f64, rounded
+    once to f32 (as :func:`onehot_segment_scatter_flat_reference`)."""
+    del max_tiles
+    D, dev = messages.shape[-1], messages.device
+    out = torch.zeros(n_blocks * BLOCK_N, D, dtype=torch.float64, device=dev)
+    e = torch.arange(dst_local.shape[0], device=dev)
+    blk = torch.searchsorted(tile_start[1:].contiguous(),
+                             (e // tile_e).to(tile_start.dtype), right=True)
+    d = dst_local.long()
+    sel = torch.nonzero((d >= 0) & (d < BLOCK_N) & (blk < n_blocks)).flatten()
+    out.index_add_(0, blk[sel] * BLOCK_N + d[sel],
+                   messages.index_select(0, sel).double())
+    return out.float()
+
+
+def onehot_segment_scatter(messages, dst_local, tile_start, n_blocks: int,
+                           max_tiles: int, tile_e: int = 128):
+    """The same scatter from dst-local ids: edge e of tile e // tile_e of
+    block b (``tile_start``) adds messages[e] to row b·128 + dst_local[e];
+    −1 adds nothing → [n_blocks·128, D] f32.  ``messages`` [E_pack, D] in
+    the compute dtype (1 <= D <= 256), ``dst_local`` int32 [E_pack].  (The
+    reference's grid runs max_tiles steps per block and clamps; the port
+    checks that no block holds more.)  A CPU tensor takes the plain
+    version; a CUDA tensor launches ``ggnn_onehot_dstl`` of
+    ``csrc/window_mono.cu`` or raises."""
+    name = "onehot_segment_scatter"
+    E = dst_local.shape[0]
+    if E % tile_e:
+        raise ValueError(f"{name}: dst_local has {E} entries, not whole "
+                         f"tiles of {tile_e}: layout and arguments disagree")
+    n_tiles = E // tile_e
+    _check_scatter_args(name, messages, dst_local, tile_start, n_blocks,
+                        tile_e, n_tiles, (E,), torch.int32)
+    checks = lambda extra=(): _scatter_data_checks(
+        name, tile_start, n_tiles, max_tiles=max_tiles, extra=extra)
+    if messages.device.type == "cpu":
+        checks()
+        return onehot_segment_scatter_reference(
+            messages, dst_local, tile_start, n_blocks, max_tiles, tile_e)
+    out = _launch_scatter(_build.library().ggnn_onehot_dstl, name, messages,
+                          dst_local, n_tiles, tile_start, n_blocks, tile_e,
+                          checks)
+    onehot_segment_scatter.launches += 1
+    return out
+
+
+onehot_segment_scatter.launches = 0
+
+
+def onehot_segment_scatter_mono(messages, onehot_t, tile_start,
+                                block_of_tile, n_blocks: int,
+                                tile_e: int = 2048, out_dtype=None):
+    """The reference's mono variant of :func:`onehot_segment_scatter_flat`:
+    :func:`~ggnn_tpu_torch.ops.window.window_block_spmm_mono` with each
+    tile reading its own ``tile_e`` message rows (``win_of_tile`` =
+    arange), flushed in ``out_dtype``."""
+    n_tiles = onehot_t.shape[0] // BLOCK_N
+    win = torch.arange(n_tiles, dtype=torch.int32, device=messages.device)
+    return window_block_spmm_mono(
+        messages, onehot_t, tile_start, block_of_tile, win,
+        n_blocks=n_blocks, window=tile_e, out_dtype=out_dtype)
+
+
+def _scatter(msgs, layout):
+    """The forward scatter a legacy layout carries: the aligned pack
+    through window_block_spmm_mono at win_stride = edge_align, the one-hot
+    stream through onehot_segment_scatter_flat, else the dst-local ids."""
+    _, tile_e, max_tiles, n_blocks, has_onehot, _, edge_align, _ = \
+        layout.meta
+    arrs = layout.arrays
+    if edge_align is not None:
+        use_dstl = "dstl" in arrs
+        return window_block_spmm_mono(
+            msgs, arrs["dstl"] if use_dstl else arrs["onehot"],
+            arrs["tile_start"], arrs["block_of_tile"], arrs["tile_msg_off"],
+            n_blocks=n_blocks, window=tile_e, win_stride=edge_align,
+            out_rows=BLOCK_N, dstl=use_dstl)
+    if has_onehot:
+        return onehot_segment_scatter_flat(
+            msgs, arrs["onehot"], arrs["tile_start"], arrs["block_of_tile"],
+            n_blocks=n_blocks, tile_e=tile_e)
+    return onehot_segment_scatter(msgs, arrs["dst_local"], arrs["tile_start"],
+                                  n_blocks=n_blocks, max_tiles=max_tiles,
+                                  tile_e=tile_e)
+
+
+def legacy_forward(h, layout: ScatterLayout, msg_w, msg_b):
+    """The table-gather aggregation of a legacy layout (the reference's
+    ``_aggregate_impl``): the node-transform table in the layout's row
+    order (bias inside, rounded to h's dtype), its rows gathered by
+    ``gather_idx``, then the scatter → [N, D] f32."""
+    table = node_table(h, msg_w, msg_b, layout.meta[7])
+    msgs = table.index_select(0, layout.arrays["gather_idx"])
+    del table
+    return _scatter(msgs, layout)[:h.shape[0]]
+
+
+def aggregate_onehot_chunked(h, chunk_layouts: list, msg_w, msg_b):
+    """The aggregation over the dst ranges of
+    :func:`build_chunked_dst_layouts`, one range's messages at a time (the
+    reference function): the type-order table, then per chunk the gather
+    and its scatter → [N, D] f32.  Forward only, as the reference: a
+    request for gradients raises (large-scale training shards instead)."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (h, msg_w, msg_b)):
+        raise ValueError("aggregate_onehot_chunked is forward only; train "
+                         "with layout_for_batch(with_grad=True)")
+    table = node_table(h, msg_w, msg_b, "type")
+    outs = []
+    for lay in chunk_layouts:
+        msgs = table.index_select(0, lay.arrays["gather_idx"])
+        outs.append(_scatter(msgs, lay))
+        del msgs
+    return torch.cat(outs, dim=0)[:h.shape[0]]

@@ -19,9 +19,12 @@ Counterpart of ``ggnn_tpu/ops/scatter_pallas.py`` for its typed pack:
   legacy grad layout goes through
   :func:`ggnn_tpu_torch.ops.window.window_block_spmm_mono`.  Each has a
   ``_reference`` plain version with the same rounding points.
-- :func:`aggregate_onehot` is the full typed aggregation: the ``h_pack``
-  gather, the kernel, and the bias Σ_t indeg_t·b_t, with the reference's
-  custom backward (:class:`AggregateOnehot`, :func:`aggregate_bwd`).
+- :func:`aggregate_onehot` is the full aggregation with the reference's
+  custom backward (:class:`AggregateOnehot`, :func:`aggregate_bwd`,
+  :func:`reverse_scatter`): for the typed pack the ``h_pack`` gather, the
+  kernel and the bias Σ_t indeg_t·b_t; for a legacy layout
+  (:class:`ScatterLayout` with ``meta[7]`` its table row order) the
+  table-gather forward of ``ops/legacy.py``.
 
 The reference splits per-tile layouts into chunks (``meta[8]``) and reads
 block spans (span mode, ``meta[9]``) to fit the TPU's SMEM and VMEM; the
@@ -61,8 +64,10 @@ def _rup(x: int, m: int) -> int:
 
 @dataclasses.dataclass
 class ScatterLayout:
-    """A typed-pack layout: ``meta`` is the reference's static tuple, item
-    for item; ``arrays`` holds numpy arrays (host) or tensors (device)."""
+    """A scatter layout: ``meta`` is the reference's static tuple, item for
+    item (the typed pack's 11-tuple, ``meta[7] == 'typed'``, or the legacy
+    layout's 8-tuple, ``meta[7]`` its table row order); ``arrays`` holds
+    numpy arrays (host) or tensors (device)."""
 
     meta: tuple
     arrays: dict
@@ -72,9 +77,14 @@ class ScatterLayout:
         return self.meta[3]
 
     @property
+    def typed(self) -> bool:
+        return self.meta[7] == "typed"
+
+    @property
     def block_meta(self):
-        """(S8, cmax, span_rows) when block mode engaged, else None."""
-        return self.meta[10]
+        """(S8, cmax, span_rows) when the typed pack's block mode engaged,
+        else None."""
+        return self.meta[10] if self.typed else None
 
     def to(self, device) -> "ScatterLayout":
         """A copy whose arrays are tensors on ``device``."""
@@ -752,13 +762,13 @@ def tile_args(layout: ScatterLayout) -> dict:
 
 
 def _typed_meta(layout: ScatterLayout) -> tuple:
-    meta = layout.meta
-    if len(meta) < 11 or meta[7] != "typed":
-        raise NotImplementedError(
-            "only the typed pack is ported; the legacy table-gather layout "
-            "(build_dst_block_layout / layout_for_batch) and its kernels are "
-            "ROADMAP Queue 1 item 3")
-    return meta
+    if not layout.typed:
+        raise ValueError(
+            "a legacy table-gather layout (build_dst_block_layout / "
+            "layout_for_batch) has no typed-pack kernel arguments: it goes "
+            "to aggregate_onehot, whose forward is ops/legacy.py::"
+            "legacy_forward")
+    return layout.meta
 
 
 def block_args(layout: ScatterLayout) -> dict:
@@ -782,8 +792,12 @@ def bias_rows(layout: ScatterLayout, msg_b):
 
 def aggregate_forward(h, layout: ScatterLayout, msg_w, msg_b):
     """The aggregation's value alone (no autograd graph through the
-    kernel): the ``h_pack`` gather, the typed block kernel (or, where block
-    mode declined, the per-tile kernel) and the bias."""
+    kernel).  Typed pack: the ``h_pack`` gather, the typed block kernel (or,
+    where block mode declined, the per-tile kernel) and the bias.  Legacy
+    layout: :func:`ggnn_tpu_torch.ops.legacy.legacy_forward`."""
+    if not layout.typed:
+        from ggnn_tpu_torch.ops.legacy import legacy_forward
+        return legacy_forward(h, layout, msg_w, msg_b)
     N = h.shape[0]
     h_pack = h.index_select(0, layout.arrays["gather_idx"])
     if _typed_meta(layout)[10] is None:
@@ -797,13 +811,14 @@ def aggregate_forward(h, layout: ScatterLayout, msg_w, msg_b):
 
 
 class AggregateOnehot(torch.autograd.Function):
-    """The reference's ``_aggregate_onehot`` custom VJP: the forward runs
-    the typed block kernel; the backward is :func:`aggregate_bwd`.  It saves
-    h (in the compute dtype, as given) and ``msg_w``, not ``h_pack``."""
+    """The reference's ``_aggregate_onehot`` custom VJP: the forward is
+    :func:`aggregate_forward` (typed pack or legacy layout); the backward
+    is :func:`aggregate_bwd`.  It saves h (in the compute dtype, as given)
+    and ``msg_w``, not the gathered pack."""
 
     @staticmethod
     def forward(ctx, h, msg_w, msg_b, layout):
-        if any(ctx.needs_input_grad[:3]):
+        if any(ctx.needs_input_grad[:3]) and layout.typed:
             grad_meta(layout)           # refuse a layout with no grad half
         ctx.layout = layout
         ctx.save_for_backward(h, msg_w)
@@ -818,8 +833,10 @@ class AggregateOnehot(torch.autograd.Function):
 
 def aggregate_onehot(h, layout: ScatterLayout, msg_w, msg_b):
     """Typed aggregation a_v = Σ_{(u,t,v)} h_u·W_t + b_t through the typed
-    block kernel, differentiable through :class:`AggregateOnehot` (the
-    layout must then be built ``with_grad=True``).  ``h`` [N, D] and
+    pack's kernels or a legacy layout's, differentiable through
+    :class:`AggregateOnehot` (a typed pack must then be built
+    ``with_grad=True``; a legacy layout without its grad half takes the
+    reference's segment sum over ``dst_global``).  ``h`` [N, D] and
     ``msg_w``/``msg_b`` in the compute dtype; returns [N, D] f32."""
     return AggregateOnehot.apply(h, msg_w, msg_b, layout)
 
@@ -925,16 +942,31 @@ def typed_grad_octet_scatter(G, dstl_oct, slot_off16, oblk16, n_oct: int,
 typed_grad_octet_scatter.launches = 0
 
 
-def typed_reverse_scatter(layout: ScatterLayout, da, n_rows: int, out_dtype):
+def reverse_scatter(layout: ScatterLayout, da, n_rows: int, out_dtype):
     """Y_flat[row(u, t)] = Σ_{(u,t,v)} da[v] over the grad layout (the
-    reference's ``_typed_reverse_scatter``): ``da`` is cast to
-    ``out_dtype`` BEFORE the gather, as the reference does; the octet
-    layout goes through :func:`typed_grad_octet_scatter`, the legacy one
-    through :func:`window_block_spmm_mono` (one call over every grad block,
-    whatever its chunks).  Returns the first ``n_rows`` rows, block-major
-    (b, t, s)."""
-    gm = grad_meta(layout)
+    reference's ``_typed_reverse_scatter``), in the layout's table-row
+    order; returns the first ``n_rows`` rows.  ``da`` is cast to
+    ``out_dtype`` BEFORE the gather, as the reference does, and:
+
+    - the octet layout goes through :func:`typed_grad_octet_scatter`;
+    - a legacy grad layout packed at ``edge_align`` through
+      :func:`window_block_spmm_mono` (one call over every grad block,
+      whatever its chunks), one without alignment through its one-hot
+      stream (``onehot_segment_scatter_mono``, the same kernel) or, with no
+      stream, its dst-local ids (``onehot_segment_scatter``, f32 out);
+    - a legacy layout with no grad half sums f32 ``da`` rows over
+      ``dst_global`` into ``gather_idx``'s rows (the reference's segment
+      sum; a torch op, no kernel)."""
+    gm = layout.meta[5]
     arrs = layout.arrays
+    if gm is None:
+        if layout.typed:
+            grad_meta(layout)           # raises: the typed pack needs it
+        dg = arrs["dst_global"]
+        G = da.index_select(0, dg.clamp_min(0)) * (dg >= 0)[:, None]
+        Y = torch.zeros(n_rows, da.shape[-1], dtype=da.dtype,
+                        device=da.device)
+        return Y.index_add_(0, arrs["gather_idx"], G)
     G = da.to(out_dtype).index_select(0, arrs["g_gather_idx"])
     if gm[0] == "octet":
         _, _, g_tile, C, R8, span8, n_oct = gm
@@ -943,46 +975,72 @@ def typed_reverse_scatter(layout: ScatterLayout, da, n_rows: int, out_dtype):
             n_oct=n_oct, g_tile=g_tile, C=C, R8=R8, span8=span8,
             out_dtype=out_dtype)
         return Y_flat[:n_rows]
-    g_blocks, _, g_tile, _, g_align = gm[:5]
-    stream = arrs["g_dstl"] if "g_dstl" in arrs else arrs["g_onehot"]
+    from ggnn_tpu_torch.ops import legacy
+    g_blocks, g_max_tiles, g_tile, g_has_onehot, g_align = gm[:5]
     if g_align is not None:
-        win = arrs["g_tile_msg_off"]
+        use_dstl = "g_dstl" in arrs
+        Y_flat = window_block_spmm_mono(
+            G, arrs["g_dstl"] if use_dstl else arrs["g_onehot"],
+            arrs["g_tile_start"], arrs["g_block_of_tile"],
+            arrs["g_tile_msg_off"], n_blocks=g_blocks, window=g_tile,
+            win_stride=g_align, out_rows=BLOCK_N, out_dtype=out_dtype,
+            dstl=use_dstl)
+    elif g_has_onehot:
+        Y_flat = legacy.onehot_segment_scatter_mono(
+            G, arrs["g_onehot"], arrs["g_tile_start"],
+            arrs["g_block_of_tile"], n_blocks=g_blocks, tile_e=g_tile,
+            out_dtype=out_dtype)
     else:
-        # no aligned pack: tile t reads its own g_tile rows of G
-        win = torch.arange(arrs["g_block_of_tile"].shape[0],
-                           dtype=torch.int32, device=G.device)
-    Y_flat = window_block_spmm_mono(
-        G, stream, arrs["g_tile_start"], arrs["g_block_of_tile"], win,
-        n_blocks=g_blocks, window=g_tile, win_stride=g_align,
-        out_rows=BLOCK_N, out_dtype=out_dtype, dstl="g_dstl" in arrs)
+        Y_flat = legacy.onehot_segment_scatter(
+            G, arrs["g_dst_local"], arrs["g_tile_start"], n_blocks=g_blocks,
+            max_tiles=g_max_tiles, tile_e=g_tile)
     return Y_flat[:n_rows]
 
 
 def aggregate_bwd(layout: ScatterLayout, h, msg_w, da):
     """Cotangents (dh, dW, db) of :func:`aggregate_forward` for the output
-    cotangent ``da`` [N, D] f32 (the reference's ``_aggregate_bwd``, typed
-    pack, block-major rows).  Y is flushed in h's dtype; dh comes back in
-    h's dtype, dW and db in ``msg_w``'s."""
+    cotangent ``da`` [N, D] f32 (the reference's ``_aggregate_bwd``): Y of
+    :func:`reverse_scatter`, flushed in h's dtype where a kernel flushes
+    it; db from the grad half's per-(type, dst) edge counts, or summed from
+    Y; dh and dW from Y's block-major rows (the typed pack, a legacy layout
+    with ``row_order='block'``) or type-major ones.  dh comes back in h's
+    dtype, dW and db in ``msg_w``'s."""
     T2, D = msg_w.shape[0], msg_w.shape[-1]
     N = h.shape[0]
-    if N % BLOCK_N:
+    block = layout.meta[7] in ("typed", "block")
+    if block and N % BLOCK_N:
         raise ValueError(f"the onehot backward needs h's row count to be a "
                          f"multiple of {BLOCK_N} (block-major grad rows), "
                          f"got {N}: pad the batch to the 128-row grid")
-    Y_flat = typed_reverse_scatter(layout, da, T2 * N, out_dtype=h.dtype)
-    # db as one [T2, N]·[N, D] product with the per-(type, dst) edge counts
-    g_indeg = layout.arrays["g_indeg"]
-    n_dst = g_indeg.shape[1]
-    da_db = (torch.nn.functional.pad(da, (0, 0, 0, n_dst - da.shape[0]))
-             if da.shape[0] < n_dst else da[:n_dst])
-    db = torch.einsum("tn,nd->td", g_indeg, da_db.float()).to(msg_w.dtype)
-    # the block-major products: inputs in the compute dtype, f32 sums, one
-    # rounding to the output dtype (on the card, cuBLAS may reduce split-K
-    # partials of a bf16 product in bf16 unless torch.backends.cuda.matmul
-    # .allow_bf16_reduced_precision_reduction is off)
-    Yb = Y_flat.reshape(N // BLOCK_N, T2, BLOCK_N, D)
-    dh = torch.einsum("btsf,tdf->bsd", Yb, msg_w.to(Yb.dtype)).reshape(N, D)
-    dW = torch.einsum("bsd,btsf->tdf", h.reshape(N // BLOCK_N, BLOCK_N, D),
-                      Yb)
+    Y_flat = reverse_scatter(layout, da, T2 * N, out_dtype=h.dtype)
+    db = None
+    if "g_indeg" in layout.arrays:
+        # db as one [T2, N]·[N, D] product with the per-(type, dst) edge
+        # counts
+        g_indeg = layout.arrays["g_indeg"]
+        n_dst = g_indeg.shape[1]
+        da_db = (torch.nn.functional.pad(da, (0, 0, 0, n_dst - da.shape[0]))
+                 if da.shape[0] < n_dst else da[:n_dst])
+        db = torch.einsum("tn,nd->td", g_indeg, da_db.float()).to(
+            msg_w.dtype)
+    # the products: inputs in Y's dtype (the compute dtype where a kernel
+    # flushed Y, f32 where Y stayed f32, as the reference promotes), f32
+    # sums, one rounding to the output dtype (on the card, cuBLAS may
+    # reduce split-K partials of a bf16 product in bf16 unless
+    # torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction is
+    # off)
+    w, hy = msg_w.to(Y_flat.dtype), h.to(Y_flat.dtype)
+    if block:
+        Yb = Y_flat.reshape(N // BLOCK_N, T2, BLOCK_N, D)
+        dh = torch.einsum("btsf,tdf->bsd", Yb, w).reshape(N, D)
+        dW = torch.einsum("bsd,btsf->tdf",
+                          hy.reshape(N // BLOCK_N, BLOCK_N, D), Yb)
+        if db is None:
+            db = Yb.float().sum((0, 2)).to(msg_w.dtype)
+    else:
+        Y = Y_flat.reshape(T2, N, D)
+        dh = torch.einsum("tnf,tdf->nd", Y, w)
+        dW = torch.einsum("nd,tnf->tdf", hy, Y)
+        if db is None:
+            db = Y.float().sum(1).to(msg_w.dtype)
     return dh.to(h.dtype), dW.to(msg_w.dtype), db
-

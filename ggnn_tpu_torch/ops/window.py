@@ -2,13 +2,15 @@
 
 Counterpart of ``ggnn_tpu/ops/window_pallas.py`` for
 :func:`window_block_spmm_mono`, the kernel that reduces the legacy grad
-layout of the typed pack's backward (``ops/scatter.py``,
-``typed_reverse_scatter``) where the octet layout declines.  The port takes
-its unpacked forms: the int32 dst-local stream (``dstl=True``) and the int8
-count matrix, any ``win_stride``, ``c_off`` or a dense stream, dummy tiles,
-f32 or bf16 output, ``out_rows = 128``.  The int4-packed stream, other
-output heights and the window layouts' other kernels are ROADMAP Queue 1
-item 5.
+layouts (``ops/scatter.py::reverse_scatter``: the typed pack's backward
+where the octet layout declines, and the legacy table-gather layout's
+backward) and the legacy forward of an ``edge_align`` pack
+(``ops/legacy.py``).  The port takes its unpacked forms: the int32
+dst-local stream (``dstl=True``) and the int8 count matrix, any
+``win_stride``, ``c_off`` or a dense stream, dummy tiles, f32 or bf16
+output, ``out_rows = 128``, any width D in [1, 256].  The int4-packed
+stream, other output heights and the window layouts' other kernels are
+ROADMAP Queue 1 item 5.
 
 The kernel (``csrc/window_mono.cu``) and the per-tile typed kernels
 (``csrc/typed_tile.cu``) share the hub split of :func:`split_plan`: each
@@ -174,7 +176,7 @@ def window_block_spmm_mono(table, c_stream, tile_start, block_of_tile,
     table[win[t]·stride : win[t]·stride + window] → [n_blocks·128, D] in
     ``out_dtype`` (default f32), summed in f32 and rounded once.
 
-    ``table`` [R, D] in the compute dtype; ``c_stream`` the int32 dst-local
+    ``table`` [R, D] in the compute dtype, 1 <= D <= 256; ``c_stream`` the int32 dst-local
     stream [rows, window] (``dstl=True``) or the int8 count matrix
     [n·128, window], addressed per tile by ``c_off`` (None: tile t reads
     entry t); ``win_of_tile`` < 0 marks a dummy tile.  (The TPU kernel's
@@ -202,7 +204,7 @@ def window_block_spmm_mono(table, c_stream, tile_start, block_of_tile,
              ("tile_start", tile_start), ("win_of_tile", win_of_tile)]
     if c_off is not None:
         named.append(("c_off", c_off))
-    _check_cuda_args(name, named, D)
+    _check_cuda_args(name, named, D, any_width=True)
     item_first, pbase, n_items, n_part = split_plan(tile_start, n_blocks)
     n_items, n_part = _mono_data_checks(name, table, c_stream, win_of_tile,
                                         window, stride, c_off, dstl,
@@ -215,7 +217,7 @@ def window_block_spmm_mono(table, c_stream, tile_start, block_of_tile,
     p = _build.ptr
     _build.launch(
         _build.library().ggnn_window_mono, name, dev, _DTYPE_CODE[table.dtype],
-        _DTYPE_CODE[out_dtype], int(dstl), p(table), table.shape[0],
+        _DTYPE_CODE[out_dtype], int(dstl), p(table), table.shape[0], D,
         p(c_stream), n_c, p(tile_start), p(win_of_tile), p(c_off), n_blocks,
         window, stride, p(item_first), p(pbase), n_items, n_part, p(ws),
         p(out))

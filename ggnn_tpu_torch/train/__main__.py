@@ -8,7 +8,9 @@
 
 Trains on the card by default (``--device cuda``); without a CUDA device
 that raises, and nothing falls back to the CPU: pass ``--device cpu`` to
-train on the CPU.  Prints the result record as JSON on stdout.
+train on the CPU.  ``--backend onehot`` batches with the legacy layout
+(``layout_for_batch``) as the reference's Trainer does.  Prints the result
+record as JSON on stdout.
 """
 
 from __future__ import annotations

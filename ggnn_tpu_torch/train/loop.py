@@ -23,14 +23,13 @@ from ggnn_tpu_torch.graph import PaddingSpec
 from ggnn_tpu_torch.models.api import loss_and_metrics
 from ggnn_tpu_torch.models.config import ModelConfig
 from ggnn_tpu_torch.models.init import device_or_raise, init_params
+from ggnn_tpu_torch.ops.legacy import layout_for_batch
 from ggnn_tpu_torch.train.checkpoint import (_flatten, load_checkpoint,
                                              save_checkpoint)
 from ggnn_tpu_torch.train.config import TrainConfig
 from ggnn_tpu_torch.train.metrics import MetricsLogger
 
 _UNPORTED_BACKENDS = {
-    "onehot": "the Trainer's onehot backend batches with the legacy onehot "
-              "layout (layout_for_batch), ROADMAP Queue 1 item 3",
     "pallas": "the pallas backend (packed_messages), ROADMAP Queue 1 item 6",
     "window": "the window backend, ROADMAP Queue 1 item 5",
 }
@@ -193,6 +192,15 @@ class Trainer:
         self.epoch = 0
         self._eval_cache = None
 
+    def _layout(self, batch, with_grad: bool = True):
+        """The static-budget scatter layout of the onehot backend, as the
+        reference batches it (``layout_for_batch``), on the Trainer's
+        device; None for the other backends."""
+        if self.cfg.model.backend != "onehot":
+            return None
+        return layout_for_batch(batch, with_grad=with_grad,
+                                device=self.device)
+
     # -- checkpointing ----------------------------------------------------
     def _ckpt_tree(self):
         return {"params": self.params,
@@ -221,7 +229,8 @@ class Trainer:
         t0 = time.perf_counter()
         for batch in self.train_loader.epoch_batches(self.epoch):
             m = self.train_step(self.params,
-                                batch_arrays(batch, self.device))
+                                batch_arrays(batch, self.device),
+                                self._layout(batch))
             self.step += 1
             edges += float(batch.edge_mask.sum())
             for k in sums:
@@ -238,11 +247,14 @@ class Trainer:
     def evaluate(self) -> dict:
         sums = {"loss_sum": 0.0, "correct": 0.0, "count": 0.0}
         if self._eval_cache is None:
-            # test topologies are fixed (no shuffle): convert them once
-            self._eval_cache = [batch_arrays(b, self.device)
-                                for b in self.test_loader.epoch_batches(0)]
-        for arrays in self._eval_cache:
-            m = self.eval_step(self.params, arrays)
+            # test topologies are fixed (no shuffle): convert them and
+            # build their layouts once, without the grad half eval never
+            # uses
+            self._eval_cache = [
+                (batch_arrays(b, self.device), self._layout(b, False))
+                for b in self.test_loader.epoch_batches(0)]
+        for arrays, layout in self._eval_cache:
+            m = self.eval_step(self.params, arrays, layout)
             for k in sums:
                 sums[k] += float(m[k])
         n = max(sums["count"], 1.0)

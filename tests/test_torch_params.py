@@ -98,9 +98,10 @@ def test_jax_checkpoint_loads_into_port_and_back(tmp_path):
 
 
 def test_port_runs_without_jax():
-    """Importing the port and serving on the CPU (both backends, onehot on
-    a graph where block mode engages and on a hub graph where it declines)
-    never loads jax, nor any module of the JAX package."""
+    """Importing the port and serving on the CPU (both backends; onehot
+    through the Predictor's legacy layout, and on the hub graph also
+    through a typed pack, whose block mode declines there) never loads
+    jax, nor any module of the JAX package."""
     code = """
 import sys
 import numpy as np
@@ -109,6 +110,7 @@ torch.set_num_threads(1)
 from ggnn_tpu_torch.graph import PaddingSpec, batch_graphs
 from ggnn_tpu_torch.infer import Predictor
 from ggnn_tpu_torch.models import ModelConfig
+from ggnn_tpu_torch.ops.scatter import build_typed_dst_layout
 r = np.random.default_rng(0)
 graphs = [dict(n_nodes=9, edges=np.stack([r.integers(0, 9, 12),
                r.integers(0, 3, 12), r.integers(0, 9, 12)], 1),
@@ -129,9 +131,14 @@ for backend, fuse in (("xla", False), ("onehot", False), ("onehot", True)):
     assert len(Predictor(cfg, spec, device="cpu").predict(graphs)) == 3
     pred = Predictor(cfg, hub_spec, device="cpu")
     assert len(pred.predict(hub)) == 1
-    if backend == "onehot":      # the hub makes block mode decline
-        lay = pred.layout(batch_graphs(hub, hub_spec))
-        assert lay.block_meta is None
+    if backend == "onehot":
+        batch = batch_graphs(hub, hub_spec)
+        assert pred.layout(batch).meta[7] == "block"     # layout_for_batch
+        typed = build_typed_dst_layout(
+            batch.edge_src, batch.edge_dst, batch.edge_type,
+            batch.edge_mask, 2048, 6).to("cpu")
+        assert typed.block_meta is None       # the hub: block mode declines
+        assert pred.run_batch(batch, typed).shape == (2048,)
 loaded = sorted(m for m in sys.modules
                 if m == "ggnn_tpu" or m.startswith("ggnn_tpu."))
 print("jax" in sys.modules, loaded)

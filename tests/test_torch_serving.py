@@ -10,7 +10,9 @@ gate inputs land on the other side of a rounding boundary; the oracle runs
 in f64 and the f32 paths meet it at 1e-4 over three steps.
 """
 
+import contextlib
 import dataclasses
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -149,9 +151,10 @@ def test_forward_heads_match_jax(head, rng):
 
 @pytest.mark.parametrize("backend", ["xla", "onehot"])
 def test_predictor_matches_jax(backend, rng):
-    """The same params serve the same answers through both Predictors (the
-    JAX one builds its legacy onehot layout, the port the typed pack: the
-    same function)."""
+    """The same params serve the same answers through both Predictors;
+    for onehot both build the legacy table-gather layout
+    (``layout_for_batch``), at f32 and D = 8 here (bf16 at D = 128:
+    test_predictor_legacy_layout_matches_jax_bf16)."""
     kw = dict(state_dim=8, annotation_dim=2, n_edge_types=3, n_steps=3,
               head="node_select", backend=backend)
     params = _np_params(kw, seed=4)
@@ -165,6 +168,61 @@ def test_predictor_matches_jax(backend, rng):
                   pj._layout(batch))
     np.testing.assert_allclose(pt.run_batch(batch), np.asarray(ref),
                                rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("fuse", [False, True])
+def test_predictor_legacy_layout_matches_jax_bf16(fuse):
+    """Serving in bf16 at D = 128 over 512 padded nodes: the port's
+    Predictor builds the reference's layout (layout_for_batch, block-major
+    table rows: the table kernel) and rounds where the JAX Predictor
+    rounds, so its scores agree within one bf16 ulp of their magnitude,
+    2**-7·max|ref|, and its answers are equal.  A fuse request runs
+    unfused with the reference's warning in both packages.  (The typed
+    pack rounds each slot's sum of h rows before W_t instead: the same
+    function, other bf16 rounding points.)"""
+    kw = dict(state_dim=128, annotation_dim=2, n_edge_types=3, n_steps=3,
+              head="node_select", backend="onehot", compute_dtype="bfloat16",
+              fuse_gru=fuse)
+    spec = PaddingSpec(n_graphs=4, n_pad=512, e_pad=3200, n_edge_types=3,
+                       annotation_dim=2)
+    r = np.random.default_rng(6)
+    graphs = [dict(n_nodes=120, edges=np.stack(
+        [r.integers(0, 120, 360), r.integers(0, 3, 360),
+         r.integers(0, 120, 360)], axis=1),
+        annotations=(r.random((120, 2)) < 0.5).astype(np.float32))
+        for _ in range(4)]
+    params = _np_params(kw, seed=4)
+    pj = JaxPredictor(JaxConfig(**kw), spec,
+                      params=jax.tree.map(jnp.asarray, params))
+    pt = Predictor(ModelConfig(**kw), spec, params=params, device="cpu")
+    batch = batch_graphs(graphs, spec)
+    assert pt.layout(batch).meta[7] == "block"
+    warn = (pytest.warns(UserWarning, match="UNFUSED") if fuse
+            else contextlib.nullcontext())
+    with warn:
+        ref = np.asarray(pj._fwd(pj.params,
+                                 jax.tree.map(jnp.asarray, batch.arrays),
+                                 pj._layout(batch)))
+    with warn:
+        got = pt.run_batch(batch)
+    tol = BF16_ULP * np.abs(ref).max()
+    assert np.abs(got - ref).max() <= tol
+    # the typed pack through run_batch: the same function, rounded
+    # elsewhere (printed with -s: the two paths' distance to the reference)
+    typed = build_typed_dst_layout(batch.edge_src, batch.edge_dst,
+                                   batch.edge_type, batch.edge_mask, 512,
+                                   6).to("cpu")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        other = pt.run_batch(batch, typed)
+    assert np.abs(other - ref).max() <= tol
+    print(f"bf16 D=128 scores vs the JAX Predictor: legacy layout max|d| "
+          f"{np.abs(got - ref).max():.4e} ({int((got != ref).sum())} of "
+          f"{ref.size} differ), typed pack {np.abs(other - ref).max():.4e} "
+          f"({int((other != ref).sum())} differ), tolerance {tol:.4e}")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        assert pt.predict(graphs) == pj.predict(graphs)
 
 
 @pytest.mark.parametrize("strategy", ["node_transform", "edge_gather"])

@@ -117,6 +117,53 @@ def test_trainer_step_matches_jax(data_root):
                                    atol=1e-6, err_msg=key)
 
 
+def test_onehot_trainer_steps_match_jax(data_root):
+    """The onehot Trainer batches with the legacy layout
+    (layout_for_batch, with its grad half) as the reference's does: three
+    train steps of both Trainers on the same bAbI-4 batches, the port
+    starting from the JAX Trainer's initial parameters, give the same
+    metrics (rtol 1e-5) and the same parameters (as
+    test_trainer_step_matches_jax holds them)."""
+    kw = dict(epochs=1, n_train=30, n_test=5, data_root=data_root,
+              backend="onehot")
+    jt = JaxTrainer(jax_build_config("babi4", **kw), JaxLogger(echo=False))
+    tt = Trainer(build_config("babi4", **kw), _quiet(), device="cpu")
+    init = params_from_numpy(jax.tree.map(np.asarray, jt.params))
+    with torch.no_grad():
+        for p, v in zip(param_leaves(tt.params), param_leaves(init)):
+            p.copy_(v)
+    jparams, jstate = jt.params, jt.opt_state
+    batches = list(jt.train_loader.epoch_batches(0))[:3]
+    assert len(batches) == 3
+    for batch in batches:
+        layout = tt._layout(batch)
+        assert layout.meta[5] is not None       # the grad half
+        jparams, jstate, jm = jt.train_step(jparams, jstate, batch.arrays,
+                                            jt._layout(batch))
+        tm = tt.train_step(tt.params, batch_arrays(batch, "cpu"), layout)
+        for k in ("loss_sum", "correct", "count"):
+            np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-5,
+                                       err_msg=k)
+    ref = params_from_numpy(jax.tree.map(np.asarray, jparams))
+    for (key, p), (_, v) in zip(_flatten(tt.params), _flatten(ref)):
+        if key == "head/b2":
+            start = _flat(init)[key]
+            assert (p.detach() - start).abs().max() <= 3e-3 * (1 + 1e-5)
+            continue
+        np.testing.assert_allclose(p.detach().numpy(), v.numpy(), rtol=1e-5,
+                                   atol=1e-6, err_msg=key)
+
+
+def test_babi4_onehot_end_to_end(data_root):
+    """The onehot Trainer (legacy layout: the table, the one-hot scatter,
+    the reverse scatter of the grad half) trains bAbI task 4 to ≥ 95 % test
+    accuracy on the CPU, as the xla one does."""
+    cfg = build_config("babi4", epochs=80, data_root=data_root,
+                       backend="onehot")
+    result = Trainer(cfg, _quiet(), device="cpu").run()
+    assert result["test_accuracy"] >= 0.95
+
+
 def test_babi4_end_to_end(data_root, tmp_path):
     """The port trains bAbI task 4 to ≥ 95 % test accuracy on the CPU (as
     tests/test_train.py holds the JAX package), with parseable metrics."""
@@ -185,12 +232,12 @@ def test_ggsnn_configs_raise(name, data_root):
 
 
 def test_unported_training_paths_raise(data_root):
-    """The onehot Trainer (the reference batches it with the legacy
-    layout) and a CUDA device without a card (the default) raise instead of
-    training something else."""
+    """A backend whose kernels are not ported (pallas) and a CUDA device
+    without a card (the default) raise instead of training something
+    else."""
     cfg = build_config("babi4", epochs=1, n_train=10, n_test=5,
-                       data_root=data_root, backend="onehot")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+                       data_root=data_root, backend="pallas")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         Trainer(cfg, _quiet(), device="cpu")
     if not torch.cuda.is_available():
         # the card is the default device: without one, the default raises
