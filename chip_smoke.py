@@ -73,15 +73,34 @@
    plain step from the same state.
 9. The ``Trainer`` CLI again with ``--backend onehot`` (the legacy layout
    of ``layout_for_batch``; at D = 4 it launches #8 and #11).
+10. The window backend (``ops/window.py``, ``ops/window_step.py``) on
+   community graphs (bench.py:457-523: nodes in communities of 512, each
+   edge inside its community with probability 0.95).  ``[window
+   kernels]``: #11 (int8 and int4 counts, 128-, 256- and 512-row blocks),
+   #12 ``window_block_spmm_ondemand``, #13 ``window_step_gru`` (bf16/f32
+   table, q8, on-demand; with and without init) and #15
+   ``node_table_block_major_q8`` against their plain versions, each twice
+   (bit-equal), on fuzz layouts (W 128/256/512 with block_rows
+   128/256/512, a block without a real tile, ``pad_tiles_to`` padding,
+   dummy-first blocks; f32 and bf16) and on the community headline's two
+   bench layouts (262,144 nodes, 8M directed edges, W 512, block_rows 512,
+   the XW spill: on-demand, and the q8 record's table), timed.  ``[window
+   serve]``: three requests through the window ``Predictor`` (its own
+   ``window_layout_for_batch``, fused), then the bench's window_community
+   (on-demand) and window_community_q8 layouts through ``run_batch`` fused,
+   and each unfused, with launch counts and scores against the plain path.
+   ``[window 1m]``: bench.py's window_community_1m (1,000,192 nodes, 20M
+   directed edges, a bf16 table, the legacy spill, block_rows 256): one
+   5-step fused forward, then each step against the plain step.
 
 The typed-pack phases (2-4, 7) hand ``Predictor.run_batch`` the typed pack
 they build; the Predictor's own layout is the legacy one (phase 6).
 
 Any failed check raises, so the exit code is non-zero.  The last three
-lines are the kernels JSON (each kernel's launches on the main paths, its
-largest error against its plain version, its time and its plain
-version's, its bound from the bytes and operations of the timed inputs at
-the card's published peaks, and the time of one PyTorch call computing
+lines are the kernels JSON (fourteen kernels; each kernel's launches on
+the main paths, its largest error against its plain version, its time and
+its plain version's, its bound from the bytes and operations of the timed
+inputs at the card's published peaks, and the time of one PyTorch call computing
 the same function where there is one), the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
 before printing any result.
@@ -172,7 +191,7 @@ TOL_BOUND_MEAN, TOL_SAME, HUB_TERMS = 0.1, 1e-6, 64
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense), for each
 # kernel's bound: the larger of bytes / HBM rate and operations / the rate
 # of their type.
-HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
+HBM_BPS, BF16_FLOPS, F32_FLOPS, INT8_OPS = 3.35e12, 989e12, 67e12, 1979e12
 
 KERNELS = {
     # name: (source, the TPU kernel body it replaces)
@@ -198,6 +217,12 @@ KERNELS = {
                                "ggnn_tpu/ops/scatter_pallas.py:506"),
     "node_table_block_major": ("ggnn_tpu_torch/ops/csrc/node_table.cu",
                                "ggnn_tpu/ops/window_pallas.py:1499"),
+    "window_block_spmm_ondemand": ("ggnn_tpu_torch/ops/csrc/window_ondemand.cu",
+                                   "ggnn_tpu/ops/window_pallas.py:1017"),
+    "window_step_gru": ("ggnn_tpu_torch/ops/csrc/window_step.cu",
+                        "ggnn_tpu/ops/window_pallas.py:1666"),
+    "node_table_block_major_q8": ("ggnn_tpu_torch/ops/csrc/node_table_q8.cu",
+                                  "ggnn_tpu/ops/window_pallas.py:1555"),
 }
 
 
@@ -959,17 +984,17 @@ def typed_layout(pred, batch):
         n_message_types=2 * batch.spec.n_edge_types).to("cuda")
 
 
-def plain_run(pred, batch, layout):
+def plain_run(pred, batch, layout, keep=()):
     """Node scores of any layout through the port's plain path on the card:
     ``Predictor.run_batch`` with every kernel call routed to its plain
-    version."""
-    with plain_versions():
+    version (but those named in ``keep``)."""
+    with plain_versions(keep):
         return pred.run_batch(batch, layout)
 
 
 def serve(params, fuse, graphs, plain_cache, per_request, tag="serve",
           stepwise=False, layout_fn=typed_layout, plain_fn=None,
-          label=None):
+          label=None, cfg_kw=None):
     """Three requests through Predictor (host batching, layout from
     ``layout_fn``, device forward), the launch counts against
     ``per_request`` (kernel -> launches per request; every other kernel 0)
@@ -984,10 +1009,10 @@ def serve(params, fuse, graphs, plain_cache, per_request, tag="serve",
     from ggnn_tpu_torch.graph import PaddingSpec, batch_graphs
     from ggnn_tpu_torch.infer import Predictor
     from ggnn_tpu_torch.models.config import ModelConfig
-    cfg = ModelConfig(state_dim=DIM, annotation_dim=ANN,
-                      n_edge_types=EDGE_TYPES, n_steps=STEPS,
-                      head="node_select", backend="onehot",
-                      compute_dtype="bfloat16", fuse_gru=fuse)
+    cfg = ModelConfig(**{**dict(
+        state_dim=DIM, annotation_dim=ANN, n_edge_types=EDGE_TYPES,
+        n_steps=STEPS, head="node_select", backend="onehot",
+        compute_dtype="bfloat16", fuse_gru=fuse), **(cfg_kw or {})})
     spec = PaddingSpec(n_graphs=1, n_pad=NODES, e_pad=2 * EDGES,
                        n_edge_types=EDGE_TYPES, annotation_dim=ANN)
     pred = Predictor(cfg, spec, params=params, device="cuda")
@@ -1022,8 +1047,8 @@ def serve(params, fuse, graphs, plain_cache, per_request, tag="serve",
         norm = max(float(np.linalg.norm(ref)), 1e-30)
         rf = float(np.linalg.norm(scores - ref)) / norm
         if stepwise:
-            stepwise_check(pred, batch, layout, f"{tag} {mode} seed={seed}",
-                           {})
+            (stepwise if callable(stepwise) else stepwise_check)(
+                pred, batch, layout, f"{tag} {mode} seed={seed}", {})
             ok = ok_answer = True
             crit = "reported only; checked step by step"
         else:
@@ -1047,7 +1072,7 @@ def serve(params, fuse, graphs, plain_cache, per_request, tag="serve",
 
 
 def kernel_wrappers():
-    """The eleven kernel wrappers by name (each counts its launches)."""
+    """The fourteen kernel wrappers by name (each counts its launches)."""
     from ggnn_tpu_torch.ops import gru as G
     from ggnn_tpu_torch.ops import legacy as L
     from ggnn_tpu_torch.ops import scatter as S
@@ -1062,7 +1087,10 @@ def kernel_wrappers():
             "window_block_spmm_mono": W.window_block_spmm_mono,
             "onehot_segment_scatter_flat": L.onehot_segment_scatter_flat,
             "onehot_segment_scatter": L.onehot_segment_scatter,
-            "node_table_block_major": TB.node_table_block_major}
+            "node_table_block_major": TB.node_table_block_major,
+            "window_block_spmm_ondemand": W.window_block_spmm_ondemand,
+            "window_step_gru": W.window_step_gru,
+            "node_table_block_major_q8": TB.node_table_block_major_q8}
 
 
 def zero_counts():
@@ -1083,9 +1111,10 @@ def expect_counts(tag, launches, want):
 
 
 @contextlib.contextmanager
-def plain_versions():
+def plain_versions(keep=()):
     """Route the model's kernel calls to their plain versions (the same
-    function, the same rounding points) for the plain path on the card."""
+    function, the same rounding points) for the plain path on the card;
+    the kernels named in ``keep`` stay."""
     from ggnn_tpu_torch.models import ggnn as M
     from ggnn_tpu_torch.ops import gru as G
     from ggnn_tpu_torch.ops import legacy as L
@@ -1105,7 +1134,15 @@ def plain_versions():
              (S, "window_block_spmm_mono",
               W.window_block_spmm_mono_reference),
              (M, "gru_cell_fwd", G.gru_cell_fwd_reference),
-             (M, "gru_cell_bwd", G.gru_cell_bwd_reference)]
+             (M, "gru_cell_bwd", G.gru_cell_bwd_reference),
+             (W, "window_block_spmm_mono",
+              W.window_block_spmm_mono_reference),
+             (W, "window_block_spmm_ondemand",
+              W.window_block_spmm_ondemand_reference),
+             (W, "window_step_gru", W.window_step_gru_reference),
+             (TB, "node_table_block_major_q8",
+              TB.node_table_block_major_q8_reference)]
+    swaps = [x for x in swaps if x[1] not in keep]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     try:
         for mod, name, fn in swaps:
@@ -1940,12 +1977,621 @@ def chunked_phase(params, log):
     return launches
 
 
-def main() -> int:
+
+# --- the window backend (PR 5): [window kernels], [window serve], [window 1m]
+
+WINDOW, COMMUNITY = 512, 512      # bench.py: window 512, nodes // 512
+NODES_W1M, EDGES_W1M, COMMUNITIES_W1M = 1_000_000, 10_000_000, 4096
+
+
+def community_graph(seed):
+    """One serving request of the community headline (bench.py:457-466):
+    262,144 nodes in 512 communities of 512, 4M logical edges, each inside
+    its community with probability 0.95, drawn as the port's
+    synthetic_batch(n_communities=512, p_intra=0.95) draws them."""
+    r = np.random.default_rng(seed)
+    n_com = NODES // COMMUNITY
+    com = r.integers(0, n_com, EDGES)
+    intra = r.random(EDGES) < 0.95
+    src = r.integers(0, COMMUNITY, EDGES) + com * COMMUNITY
+    dst_in = r.integers(0, COMMUNITY, EDGES) + com * COMMUNITY
+    dst = np.where(intra, dst_in, r.integers(0, NODES, EDGES))
+    typ = r.integers(0, EDGE_TYPES, EDGES)
+    ann = (r.random((NODES, ANN)) < 0.1).astype(np.float32)
+    return dict(n_nodes=NODES, edges=np.stack([src, typ, dst], axis=1),
+                annotations=ann)
+
+
+def bench_window_layout(b, block_rows, on_demand, typed_spill,
+                        pack=False):
+    """bench.py's window layout (bench.py:209-244): window 512,
+    min_edges_per_tile 32, block-major rows, the spill tile from the
+    spill's density."""
+    from ggnn_tpu_torch.ops import window as W
+    return W.build_window_layout(
+        b.edge_src, b.edge_dst, b.edge_type, b.edge_mask, b.spec.n_pad,
+        window=WINDOW, n_message_types=2 * EDGE_TYPES, block_rows=block_rows,
+        pack_counts=pack, typed_spill=typed_spill, on_demand=on_demand,
+        row_major="block")
+
+
+def window_weights(params, dtype, T2=2 * EDGE_TYPES):
+    from ggnn_tpu_torch.models.ggnn import fuse_gru
+    prop = params["prop"]
+    w_a, b_all, u_zr = fuse_gru(prop["gru"])
+    return (prop["msg_w"][:T2].detach().to(dtype),
+            prop["msg_b"][:T2].detach().to(dtype),
+            dict(wa=w_a.detach().to(dtype),
+                 b3=b_all[None, :].detach().float(),
+                 uzr=u_zr.detach().to(dtype),
+                 uh=prop["gru"]["uh"].detach().to(dtype)))
+
+
+def check_q8_table(tag, h, w, b, window, log):
+    """#15 against its plain version and the exact values, in chunks of
+    source blocks; two runs bit-equal.
+    - Exponents: equal to the plain version's except where its argument of
+      ceil lies within 1e-6 of an integer (those counted).
+    - Rounding: x = v/2^e with v = h·W_t + b_t in f64, and slack = (D + 2)
+      ·2^-24·(|h|·|W_t| + |b_t|)/2^e, which bounds the error of any f32
+      evaluation of v in quanta.  Every q lies within 0.5 + slack of x (a
+      kernel that truncated or floored would be up to one quantum off).
+    - q equals the plain version's q element for element, except in a
+      window whose exponents differ, or where x lies within slack of a
+      half-integer (the two f32 values may round to either side there;
+      those counted)."""
     import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
-              "false); nothing was run", file=sys.stderr)
-        return 2
+    from ggnn_tpu_torch.ops import table as TB
+    tq, sc = TB.node_table_block_major_q8(h, w, b, window)
+    same_twice("node_table_block_major_q8", tag, tq,
+               TB.node_table_block_major_q8(h, w, b, window)[0])
+    N, D = h.shape
+    T2, gt = w.shape[0], window // 128
+    wpb = T2 // gt                        # windows per 128-row source block
+    w64, b64 = w.double(), b.double()
+    gam = (D + 2) * 2.0 ** -24
+    rep = lambda s_: s_[:, None].expand(-1, window).reshape(-1, 1)
+    n_e = n_near = n_tie = 0
+    err_x = err_x_raw = err_p = abs_p = 0.0
+    step = 256                            # source blocks per chunk
+    for i0 in range(0, N // 128, step):
+        i1 = min(i0 + step, N // 128)
+        nb, hb = i1 - i0, h[i0 * 128:i1 * 128]
+        rq, rs = TB.node_table_block_major_q8_reference(hb, w, b, window)
+        kq = tq[i0 * T2 * 128:i1 * T2 * 128]
+        ks, rs = sc[i0 * wpb:i1 * wpb, 0], rs[:, 0]
+        # the plain version's argument of ceil, as it computes it (f32)
+        m = (torch.einsum("nd,tdf->ntf", hb.float(), w.float())
+             + b.float()[None]).reshape(nb, 128, wpb, gt, D).abs().amax(
+                 dim=(1, 3, 4)).reshape(-1)
+        arg = torch.log2(m.clamp_min(1e-30)) - 6.9886
+        near = (arg - torch.round(arg)).abs() < 1e-6
+        diff_e = ks != rs
+        if (diff_e & ~near).any():
+            raise AssertionError(f"node_table_block_major_q8[{tag}]: "
+                                 f"{int((diff_e & ~near).sum())} exponents "
+                                 f"differ away from an integer boundary")
+        n_e += int(diff_e.sum())
+        n_near += int(near.sum())
+        block_major = lambda x: x.reshape(nb, 128, T2, D).permute(
+            0, 2, 1, 3).reshape(-1, D)
+        scale = rep(ks.double())
+        x = block_major(torch.einsum("nd,tdf->ntf", hb.double(), w64)
+                        + b64[None]) / scale
+        slack = gam * block_major(torch.einsum(
+            "nd,tdf->ntf", hb.double().abs(), w64.abs())
+            + b64.abs()[None]) / scale
+        dq = (kq.double() - x).abs()
+        err_x = max(err_x, (dq - slack).max().item())
+        err_x_raw = max(err_x_raw, dq.max().item())
+        tie = ((x - torch.floor(x)) - 0.5).abs() <= slack
+        n_tie += int((tie & ~rep(diff_e)).sum())
+        differ = (kq != rq) & ~tie & ~rep(diff_e)
+        if differ.any():
+            raise AssertionError(f"node_table_block_major_q8[{tag}]: "
+                                 f"{int(differ.sum())} elements differ from "
+                                 f"the plain version's away from a "
+                                 f"half-integer")
+        dd = (kq.float() * rep(ks) - rq.float() * rep(rs)).abs()
+        abs_p = max(abs_p, dd.max().item())
+        err_p = max(err_p, (dd / torch.maximum(rep(ks), rep(rs))).max()
+                    .item())
+        del x, slack, dq, tie, differ, dd
+    ok = err_x <= 0.5
+    print(f"  node_table_block_major_q8[{tag}]: {n_e} of {sc.shape[0]} "
+          f"exponents differ ({n_near} arguments within 1e-6 of an integer); "
+          f"|q - v/2^e| at most {err_x_raw:.6f} quantum, less the f32 slack "
+          f"{err_x:.6f} (tol 0.5); q equal to the plain version's away from "
+          f"{n_tie} elements within the slack of a half-integer; |deq - "
+          f"deq_plain| at most {err_p:.3f} quantum "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"node_table_block_major_q8[{tag}]: q is over "
+                             f"half a quantum from v")
+    log.setdefault("node_table_block_major_q8", []).append(abs_p)
+    return tq, sc
+
+
+def window_sums_bound(table, lay_args, window, out_rows, scales=None,
+                      msg_w=None, msg_b=None, flip=False):
+    """The per-element bound of a window sum against its plain version:
+    2e-5 of Σ|count·row| (f32 sums in another order), plus with ``flip``
+    (on-demand windows: each window row is a bf16 rounding of an f32 sum
+    the kernel adds in another order, so it may land one ulp away) one
+    bf16 ulp of every term, 2**-7·Σ|count·row|."""
+    from ggnn_tpu_torch.ops import table as TB
+    from ggnn_tpu_torch.ops import window as W
+    c_stream, block_of_tile, win_of_tile, c_off, n_blocks, packed = lay_args
+    if msg_w is not None:
+        table = TB.node_table_block_major_reference(
+            table, msg_w.to(table.dtype), msg_b)
+    s = W.window_sums_reference(table.abs(), c_stream, block_of_tile,
+                                win_of_tile, c_off, n_blocks, window,
+                                out_rows, packed, scales=scales).float()
+    return (2e-5 + (BF16_ULP if flip else 0.0)) * s
+
+
+def check_window_layout(tag, lay, params, log, dtypes=(None,), timings=None,
+                        q8=True):
+    """The window kernels at one layout's shapes, each against its plain
+    version and a second run of itself: #11 (table layouts: the int8 or
+    int4 counts at out_rows = block_rows), #12 (on-demand layouts), #13
+    (every table source the layout takes: a bf16/f32 table, q8, on-demand;
+    with and without init) and #15.  Blocks with no real tile give exactly
+    init (sums) or the GRU of init.  ``timings``: time #12, #13, #15 in
+    bf16 (and #11's window form, printed)."""
+    import torch
+    from ggnn_tpu_torch.ops import table as TB
+    from ggnn_tpu_torch.ops import window as W
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    a = lay.arrays
+    W_, rows, nb = lay.window, lay.block_rows, lay.n_blocks
+    n_rows = nb * rows
+    N = lay.n_nodes_pad
+    packed, ondemand = lay.packed[0], lay.on_demand
+    real = a["win_of_tile"] >= 0
+    n_real = int(real.sum().item())
+    sizes = (a["tile_start"][1:] - a["tile_start"][:-1])
+    per_block = torch.zeros(nb, device=dev).index_add_(
+        0, a["block_of_tile"].long(), real.float())
+    empty = per_block == 0
+    stream = (a["c_stream"], a["tile_start"], a["block_of_tile"],
+              a["win_of_tile"])
+    lay_args = (a["c_stream"], a["block_of_tile"], a["win_of_tile"],
+                a["c_off"], nb, packed)
+    print(f"[window kernels] {tag}: W={W_} block_rows={rows} blocks={nb} "
+          f"tiles={lay.n_tiles} (real {n_real}, largest block "
+          f"{int(sizes.max().item())}), {int(empty.sum().item())} blocks "
+          f"without a real tile, packed {packed}, on-demand {ondemand}, "
+          f"stream {a['c_stream'].numel() / 1e9:.3f} GB, spill "
+          f"{None if lay.spill_meta is None else lay.spill_meta[:2]}",
+          flush=True)
+    for dt in dtypes:
+        dtype = dt or torch.bfloat16
+        dn = str(dtype).split(".")[-1]
+        w, b, gw = window_weights(params, dtype)
+        h = torch.rand(N, DIM, device=dev, generator=gen) * 2 - 1
+        hc = h.to(dtype)
+        init = torch.randn(n_rows, DIM, device=dev, generator=gen) * 0.3
+        hp = h[:n_rows] if N >= n_rows else torch.nn.functional.pad(
+            h, (0, 0, 0, n_rows - N))
+        sk = dict(n_blocks=nb, window=W_, out_rows=rows, packed=packed,
+                  c_off=a["c_off"])
+        sources = {}
+        if ondemand:
+            sources["ondemand"] = (hc, dict(msg_w=w, msg_b=b), {})
+            got = W.window_block_spmm_ondemand(hc, w, b, *stream,
+                                               a["c_off"], nb, W_, rows)
+            same_twice("window_block_spmm_ondemand", f"{tag},{dn}", got,
+                       W.window_block_spmm_ondemand(hc, w, b, *stream,
+                                                    a["c_off"], nb, W_,
+                                                    rows))
+            ref = W.window_block_spmm_ondemand_reference(
+                hc, w, b, *stream, a["c_off"], nb, W_, rows)
+            check(f"window_block_spmm_ondemand[{tag},{dn}]", got, ref,
+                  "bound", dtype, log, bound=window_sums_bound(
+                      hc, lay_args, W_, rows, msg_w=w, msg_b=b,
+                      flip=dtype == torch.bfloat16))
+            if empty.any() and (got.reshape(nb, rows, DIM)[empty] != 0).any():
+                raise AssertionError(f"window_block_spmm_ondemand[{tag}]: a "
+                                     f"block without tiles is not 0")
+            del got, ref
+        else:
+            table = TB.node_table(hc, w, b, "block")
+            sources["table"] = (table, {}, {})
+            got = W.window_block_spmm_mono(table, *stream, **sk)
+            same_twice("window_block_spmm_mono", f"{tag},{dn}", got,
+                       W.window_block_spmm_mono(table, *stream, **sk))
+            ref = W.window_block_spmm_mono_reference(table, *stream, **sk)
+            check(f"window_block_spmm_mono[{tag},{dn}]", got, ref, "bound",
+                  dtype, log, bound=window_sums_bound(table, lay_args, W_,
+                                                      rows))
+            if empty.any() and (got.reshape(nb, rows, DIM)[empty] != 0).any():
+                raise AssertionError(f"window_block_spmm_mono[{tag}]: a "
+                                     f"block without tiles is not 0")
+            del got, ref
+            if q8 and not packed and dtype == torch.bfloat16:
+                tq, sc = check_q8_table(f"{tag},{dn}", hc, w, b, W_, log)
+                sources["q8"] = (tq, dict(scales=sc[:, 0]),
+                                 dict(scales=sc[:, 0]))
+        for src, (tab, kw, bkw) in sources.items():
+            for has_init in (True, False):
+                args = (tab, *stream, init, hp, gw["wa"], gw["b3"],
+                        gw["uzr"], gw["uh"])
+                got = W.window_step_gru(*args, has_init=has_init, **sk, **kw)
+                same_twice("window_step_gru", f"{tag},{src},{dn}", got,
+                           W.window_step_gru(*args, has_init=has_init, **sk,
+                                             **kw))
+                ref = W.window_step_gru_reference(*args, has_init=has_init,
+                                                  **sk, **kw)
+                a_ref = W.window_sums_reference(
+                    tab, *lay_args[:4], nb, W_, rows, packed,
+                    init=init if has_init else None, **kw).float()
+                check(f"window_step_gru[{tag},{src},{dn},init={has_init}]",
+                      got, ref, "flip_rows", dtype, log,
+                      a_rows=a_ref.abs().amax(1).clamp_min(1.0))
+                del got, ref, a_ref
+        if timings is not None and dtype == torch.bfloat16:
+            time_window_kernels(tag, lay, hc, w, b, gw, init, hp, sources,
+                                stream, sk, n_real, timings)
+
+
+def time_window_kernels(tag, lay, hc, w, b, gw, init, hp, sources, stream,
+                        sk, n_real, timings):
+    """#12, #13 and #15 at the headline in bf16, kernel and plain version
+    in turns, with their bounds: the count stream's real tiles, the h
+    blocks or table windows they read, init, h and h' (#13), the table and
+    scales (#15); products of the nonzero counts, of the on-demand windows
+    (each real tile's once) and of the GRU, at the card's peak for their
+    type.  (No single PyTorch call builds windows, quantizes per window or
+    runs a GRU epilogue on a sparse product: library_ms is null.)"""
+    import torch
+    from ggnn_tpu_torch.ops import table as TB
+    from ggnn_tpu_torch.ops import window as W
+    a = lay.arrays
+    W_, rows, nb = lay.window, lay.block_rows, lay.n_blocks
+    n_rows = nb * rows
+    ccols = a["c_stream"].shape[1]
+    count_bytes = n_real * rows * ccols
+    nnz = int((a["c_stream"] != 0).sum().item())
+    row_bytes = n_rows * DIM * 4
+    pairs = {}
+    if "ondemand" in sources:
+        win_ops = (2 * n_real * W_ * DIM * DIM, BF16_FLOPS)
+        pairs["window_block_spmm_ondemand"] = (
+            lambda: W.window_block_spmm_ondemand(
+                hc, w, b, *stream, a["c_off"], nb, W_, rows),
+            lambda: W.window_block_spmm_ondemand_reference(
+                hc, w, b, *stream, a["c_off"], nb, W_, rows), None,
+            roofline(count_bytes + n_real * 128 * DIM * 2 + row_bytes
+                     + nbytes(w, b, a["win_of_tile"], a["c_off"]),
+                     [(2 * nnz * DIM, BF16_FLOPS), win_ops]))
+    for src in ("ondemand", "q8"):
+        if (src not in sources or "window_step_gru" in pairs
+                or "window_step_gru" in timings):
+            continue
+        tab, kw, _ = sources[src]
+        args = (tab, *stream, init, hp, gw["wa"], gw["b3"], gw["uzr"],
+                gw["uh"])
+        read = (n_real * 128 * DIM * 2 if src == "ondemand"
+                else n_real * W_ * DIM)
+        ops = [(2 * nnz * DIM, INT8_OPS if src == "q8" else BF16_FLOPS),
+               (12 * n_rows * DIM * DIM, BF16_FLOPS)]
+        if src == "ondemand":
+            ops.append((2 * n_real * W_ * DIM * DIM, BF16_FLOPS))
+        pairs["window_step_gru"] = (
+            lambda args=args, kw=kw: W.window_step_gru(*args, **sk, **kw),
+            lambda args=args, kw=kw: W.window_step_gru_reference(*args, **sk,
+                                                                 **kw),
+            None, roofline(count_bytes + read + 3 * row_bytes
+                           + nbytes(*gw.values(), a["win_of_tile"],
+                                    a["c_off"]), ops))
+        print(f"  window_step_gru is timed with the {src} table source",
+              flush=True)
+    if "q8" in sources:
+        N, T2 = hc.shape[0], w.shape[0]
+        pairs["node_table_block_major_q8"] = (
+            lambda: TB.node_table_block_major_q8(hc, w, b, W_),
+            lambda: TB.node_table_block_major_q8_reference(hc, w, b, W_),
+            None, roofline(nbytes(hc, w, b) + N * T2 * DIM
+                           + N * T2 // W_ * 4,
+                           [(2 * N * T2 * DIM * DIM, BF16_FLOPS)]))
+    local = {}
+    time_pairs(pairs, local)
+    for k, v in local.items():
+        if k not in timings:
+            timings[k] = v
+    if "table" in sources or "q8" in sources:
+        time_window_mono(tag, lay, TB.node_table(hc, w, b, "block"))
+
+
+def time_window_mono(tag, lay, table):
+    """#11's window form (the unfused table path) at one layout, bf16:
+    its time and its bound (the real tiles' counts, their table windows,
+    the output), printed."""
+    from ggnn_tpu_torch.ops import window as W
+    a = lay.arrays
+    W_, rows = lay.window, lay.block_rows
+    stream = (a["c_stream"], a["tile_start"], a["block_of_tile"],
+              a["win_of_tile"])
+    sk = dict(n_blocks=lay.n_blocks, window=W_, out_rows=rows,
+              packed=lay.packed[0], c_off=a["c_off"])
+    n_real = int((a["win_of_tile"] >= 0).sum().item())
+    nnz = int((W.unpack_counts(a["c_stream"], lay.packed[0]) != 0)
+              .sum().item())
+    mono_ms = cuda_ms(lambda: W.window_block_spmm_mono(table, *stream, **sk),
+                      10)
+    print(f"  time window_block_spmm_mono [{tag}, W {W_}, out_rows {rows}, "
+          f"{'int4 packed' if sk['packed'] else 'int8'} counts]: "
+          f"{mono_ms:.3f} ms; bound", flush=True)
+    roofline(n_real * rows * a["c_stream"].shape[1] + n_real * W_ * DIM * 2
+             + lay.n_blocks * rows * DIM * 4, [(2 * nnz * DIM, BF16_FLOPS)])
+
+
+def window_fuzz(params, log):
+    """[window kernels] on small layouts: W 128/256/512 with block_rows
+    128/256/512, int8 and int4 counts, on-demand, a last block without a
+    real tile, pad_tiles_to padding, blocks whose first tile is a dummy;
+    f32 and bf16."""
+    import torch
+    from ggnn_tpu_torch.ops import window as W
+    r = np.random.default_rng(22)
+    N, T2 = 2048, 2 * EDGE_TYPES
+    for W_, rows in ((128, 128), (256, 256), (512, 512)):
+        E = 40_000
+        dst = r.integers(0, N - rows, E)
+        src = np.where(r.random(E) < 0.9,
+                       (dst // 256) * 256 + r.integers(0, 256, E),
+                       r.integers(0, N, E)) % N
+        edges = (src, dst, r.integers(0, T2, E), np.ones(E, np.float32))
+        for mode in ("table", "packed", "ondemand"):
+            if mode == "packed" and W_ < 256:
+                continue
+            kw = dict(window=W_, block_rows=rows, n_message_types=T2,
+                      row_major="block", min_edges_per_tile=4,
+                      pack_counts=mode == "packed")
+            if mode == "ondemand":
+                kw.update(on_demand=True, typed_spill=True)
+            lay = W.build_window_layout(*edges, N, **kw)
+            lay = W.build_window_layout(*edges, N, **kw,
+                                        pad_tiles_to=lay.n_tiles + 300)
+            a = lay.arrays
+            if not (a["win_of_tile"][a["tile_start"][:-1]] < 0).any():
+                raise AssertionError("window fuzz: no dummy-first block")
+            check_window_layout(f"fuzz W{W_} rows{rows} {mode}",
+                                lay.to("cuda"), params, log,
+                                dtypes=(None, torch.float32))
+
+
+def window_kernels_phase(params, log, timings):
+    """[window kernels]: the fuzz layouts, then the community headline's
+    two bench layouts (bench.py:466-488: on-demand with the XW spill, and
+    the q8 record's table with the XW spill; W 512, block_rows 512),
+    checked and timed."""
+    import torch
+    from ggnn_tpu_torch.data.synthetic import synthetic_batch
+    window_fuzz(params, log)
+    t0 = time.perf_counter()
+    b = synthetic_batch(NODES, EDGES, EDGE_TYPES, annotation_dim=ANN, seed=0,
+                        node_mult=128, n_communities=NODES // COMMUNITY,
+                        p_intra=0.95)
+    print(f"[window kernels] community batch made in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    layouts = {}
+    for name, on_demand in (("on-demand", True), ("q8 table", False)):
+        t1 = time.perf_counter()
+        lay = bench_window_layout(b, 512, on_demand, True)
+        t2 = time.perf_counter()
+        layouts[name] = lay.to("cuda")
+        torch.cuda.synchronize()
+        print(f"[window kernels] headline {name} layout built on the host in "
+              f"{t2 - t1:.2f} s, copied in {time.perf_counter() - t2:.2f} s; "
+              f"stats {lay.stats}", flush=True)
+    for name, lay in layouts.items():
+        check_window_layout(f"headline {name}", lay, params, log,
+                            timings=timings)
+    del layouts
+    torch.cuda.empty_cache()
+    # #11 on the bench's --pack layout (int4 counts, the legacy spill)
+    t1 = time.perf_counter()
+    lay = bench_window_layout(b, 512, False, False, pack=True).to("cuda")
+    torch.cuda.synchronize()
+    print(f"[window kernels] headline packed layout built and copied in "
+          f"{time.perf_counter() - t1:.2f} s; stats {lay.stats}", flush=True)
+    w, bias, _ = window_weights(params, torch.bfloat16)
+    h = (torch.rand(NODES, DIM, device="cuda") * 2 - 1).to(torch.bfloat16)
+    from ggnn_tpu_torch.ops import table as TB
+    time_window_mono("headline packed", lay, TB.node_table(h, w, bias,
+                                                           "block"))
+    del lay, b
+    torch.cuda.empty_cache()
+
+
+def window_serve_phase(params):
+    """[window serve]: three community requests through the window
+    Predictor (its own window_layout_for_batch: static budgets, the legacy
+    spill, block_rows 128), fused, bf16; then the bench's window_community
+    layout (on-demand, XW spill, block_rows 512) and window_community_q8
+    layout (q8 table, XW spill) through run_batch, fused, and each of the
+    two unfused (#12; #10 and #11's 512-row counts), one request each.
+    Every request's scores against the port's plain path on the card (the
+    q8 request's plain path keeps the kernel's q8 table, which #15's own
+    check holds against its plain version: a table element one quantum
+    apart moves a sum by count·2^e, far past a bf16 ulp).  Returns the
+    launch counts."""
+    import torch
+    from ggnn_tpu_torch.graph import batch_graphs
+    launched = dict.fromkeys(KERNELS, 0)
+    spill = {"window_block_spmm_mono": STEPS}
+    torch.cuda.reset_peak_memory_stats()
+    # one request at a time: each static-budget layout holds a 16.5 GB
+    # count stream on the card
+    for seed in (0, 1, 2):
+        for k, v in serve(params, True, [(seed, community_graph(seed))], {},
+                          dict(spill, node_table_block_major=STEPS,
+                               window_step_gru=STEPS),
+                          tag="window serve", layout_fn=lambda pred, batch:
+                          pred.layout(batch), plain_fn=plain_run,
+                          label="fused (Predictor.layout: "
+                                "window_layout_for_batch)",
+                          cfg_kw=dict(backend="window")).items():
+            launched[k] += v
+        torch.cuda.empty_cache()
+    print(f"[window serve] peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    one = [(0, community_graph(0))]
+    from ggnn_tpu_torch.graph import PaddingSpec
+    spec = PaddingSpec(n_graphs=1, n_pad=NODES, e_pad=2 * EDGES,
+                       n_edge_types=EDGE_TYPES, annotation_dim=ANN)
+    bb = batch_graphs([one[0][1]], spec)
+    t0 = time.perf_counter()
+    lay_od = bench_window_layout(bb, 512, True, True).to("cuda")
+    t1 = time.perf_counter()
+    lay_q8 = bench_window_layout(bb, 512, False, True).to("cuda")
+    torch.cuda.synchronize()
+    print(f"[window serve] bench layouts of request 0: on-demand "
+          f"{t1 - t0:.2f} s, q8 table {time.perf_counter() - t1:.2f} s "
+          f"(host build and copy)", flush=True)
+    runs = (
+        ("window_community (on-demand, XW spill, fused)", lay_od,
+         dict(fuse_gru=True), dict(spill, window_step_gru=STEPS), ()),
+        ("window_community_q8 (q8 table, XW spill, fused)", lay_q8,
+         dict(fuse_gru=True, quantized_table=True),
+         dict(spill, node_table_block_major_q8=STEPS, window_step_gru=STEPS),
+         ("node_table_block_major_q8",)),
+        ("on-demand, unfused", lay_od, dict(fuse_gru=False),
+         dict(window_block_spmm_ondemand=STEPS, window_block_spmm_mono=STEPS,
+              gru_cell_fwd=STEPS), ()),
+        ("bf16 table, unfused", lay_q8, dict(fuse_gru=False),
+         dict(node_table_block_major=STEPS, window_block_spmm_mono=2 * STEPS,
+              gru_cell_fwd=STEPS), ()),
+    )
+    for label, lay, kw, want, keep in runs:
+        fuse = kw.pop("fuse_gru")
+        for k, v in serve(params, fuse, one, {}, want, tag="window serve",
+                          layout_fn=lambda pred, batch, lay=lay: lay,
+                          plain_fn=lambda pred, batch, layout, keep=keep:
+                          plain_run(pred, batch, layout, keep),
+                          label=label, stepwise=(window_stepwise(keep)
+                                                 if keep else False),
+                          cfg_kw=dict(backend="window", **kw)).items():
+            launched[k] += v
+    del lay_od, lay_q8
+    torch.cuda.empty_cache()
+    return launched
+
+
+def window_stepwise(keep):
+    """Each fused window step of a served request against the plain step
+    from the same input state (the plain path keeping the kernels named in
+    ``keep``): per row within 8 bf16 ulps of max(1, max|a_row|), mean within
+    1e-3.  A q8 request is checked so: the int8 table of each step is a
+    function of that step's h, so two paths whose h differ in last bits
+    quantize a few elements a quantum apart from the next step on, and
+    their states drift apart by more than their rounding over the steps
+    (the drift of the scores is reported)."""
+    def run(pred, batch, layout, tag, log):
+        import torch
+        from ggnn_tpu_torch.models.ggnn import init_state
+        from ggnn_tpu_torch.ops import window_step as WS
+        cfg, prop = pred.cfg, pred.params["prop"]
+        cdt = torch.bfloat16
+        w, b = prop["msg_w"].to(cdt), prop["msg_b"].to(cdt)
+        ann = torch.as_tensor(batch.annotations, device="cuda")
+        h = init_state(ann, cfg.state_dim)
+        with torch.inference_mode():
+            for t in range(cfg.n_steps):
+                got = WS.gru_window_step(h, layout, w, b, prop["gru"],
+                                         quantized=cfg.quantized_table)
+                with plain_versions(keep):
+                    ref = WS.gru_window_step(h, layout, w, b, prop["gru"],
+                                             quantized=cfg.quantized_table)
+                    a_ref = WS.aggregate_window(h.to(cdt), layout, w, b)
+                check(f"{tag} step {t}", got, ref, "flip_rows", cdt, log,
+                      a_rows=a_ref.abs().amax(1).clamp_min(1.0))
+                h = got
+    return run
+
+
+def window_1m_phase(params, log):
+    """[window 1m]: bench.py's window_community_1m (bench.py:508-523):
+    1,000,000 nodes (1,000,192 padded) in 4,096 communities, 10M logical /
+    20M directed edges, the headline model, a prebuilt bf16 table, the
+    legacy spill, block_rows 256, W 512: one 5-step fused forward through
+    propagate, then each step from the same state against the plain step.
+    Returns its launch counts."""
+    import torch
+    from ggnn_tpu_torch.data.synthetic import synthetic_batch
+    from ggnn_tpu_torch.models.ggnn import init_state, propagate
+    from ggnn_tpu_torch.ops import window_step as WS
+    t0 = time.perf_counter()
+    b = synthetic_batch(NODES_W1M, EDGES_W1M, EDGE_TYPES, annotation_dim=ANN,
+                        seed=0, node_mult=256,
+                        n_communities=COMMUNITIES_W1M, p_intra=0.95)
+    t1 = time.perf_counter()
+    lay = bench_window_layout(b, 256, False, False)
+    t2 = time.perf_counter()
+    lay = lay.to("cuda")
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    print(f"[window 1m] batch ({b.spec.n_pad} nodes, "
+          f"{int(b.edge_mask.sum())} directed edges) made in {t1 - t0:.2f} s;"
+          f" layout built on the host in {t2 - t1:.2f} s and copied in "
+          f"{t3 - t2:.2f} s; stats {lay.stats}; spill meta "
+          f"{lay.spill_meta[:2]}", flush=True)
+    cfg = headline_cfg(compute_dtype="bfloat16", fuse_gru=True)
+    cfg = type(cfg)(**{**cfg.__dict__, "backend": "window"})
+    prop = params["prop"]
+    ann = torch.as_tensor(b.annotations, device="cuda")
+    edges = [torch.as_tensor(x) for x in (b.edge_src, b.edge_dst,
+                                          b.edge_type, b.edge_mask)]
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = propagate(prop, cfg, ann, *edges, scatter_layout=lay)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    spill_kernel = ("window_block_spmm_mono" if lay.spill_meta[6] is not None
+                    else "onehot_segment_scatter_flat")
+    expect_counts("window 1m", launches, {
+        "node_table_block_major": STEPS, "window_step_gru": STEPS,
+        spill_kernel: STEPS})
+    if not torch.isfinite(h).all() or tuple(h.shape) != (b.spec.n_pad, DIM):
+        raise AssertionError("window 1m: bad states")
+    print(f"[window 1m] forward ({STEPS} steps) {1e3 * (t1 - t0):.2f} ms on "
+          f"the card (host clock around it), peak device memory "
+          f"{peak:.2f} GiB; {2 * EDGES_W1M * STEPS / (t1 - t0):.4e} "
+          f"directed-edges*T/s; launches {launches}", flush=True)
+    del h
+    cdt = torch.bfloat16
+    w, bias = prop["msg_w"].to(cdt), prop["msg_b"].to(cdt)
+    h = init_state(ann, DIM)
+    with torch.inference_mode():
+        for t in range(STEPS):
+            got = WS.gru_window_step(h, lay, w, bias, prop["gru"])
+            with plain_versions():
+                a_ref = WS.aggregate_window(h.to(cdt), lay, w, bias)
+                ref = WS.gru_window_step(h, lay, w, bias, prop["gru"])
+            check(f"window 1m step {t}", got, ref, "flip_rows", cdt, log,
+                  a_rows=a_ref.abs().amax(1).clamp_min(1.0))
+            h = got
+            del a_ref, ref
+    del lay, b, h
+    torch.cuda.empty_cache()
+    return launches
+
+
+def setup():
+    """Print the card and the software, build the port's kernels from the
+    checkout (nvcc seconds per source, ptxas's register and spill lines),
+    and make the headline model's random weights (seed 0) on the card.
+    Returns (the nvidia-smi line, the params)."""
+    import torch
     card = card_line()
     print(f"card: {card}")
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -1953,15 +2599,14 @@ def main() -> int:
           flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in f32
     torch.backends.cudnn.allow_tf32 = False
-    from ggnn_tpu_torch.data.synthetic import synthetic_batch
     from ggnn_tpu_torch.models.config import ModelConfig
     from ggnn_tpu_torch.models.init import init_params
     from ggnn_tpu_torch.ops import _build
-    from ggnn_tpu_torch.ops.scatter import build_typed_dst_layout
 
     _build.library()
     print(f"[build] {'compiled' if _build.BuildInfo.compiled else 'loaded'}"
-          f" {_build.BuildInfo.path} in {_build.BuildInfo.seconds:.1f} s")
+          f" {_build.BuildInfo.path} in {_build.BuildInfo.seconds:.1f} s; "
+          f"nvcc seconds per source {_build.BuildInfo.per_source}")
     for line in _build.BuildInfo.log.splitlines():
         if any(w in line for w in ("entry function", "registers", "spill")):
             print(f"  ptxas: {line.strip()}")
@@ -1970,7 +2615,18 @@ def main() -> int:
                       n_edge_types=EDGE_TYPES, n_steps=STEPS,
                       head="node_select", backend="onehot",
                       compute_dtype="bfloat16", fuse_gru=True)
-    params = init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+    return card, init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "false); nothing was run", file=sys.stderr)
+        return 2
+    from ggnn_tpu_torch.data.synthetic import synthetic_batch
+    from ggnn_tpu_torch.ops.scatter import build_typed_dst_layout
+    card, params = setup()
 
     log, timings = {}, {}
     r = np.random.default_rng(7)
@@ -2053,6 +2709,11 @@ def main() -> int:
             "onehot_segment_scatter_flat",
             "window_block_spmm_mono")).items():
         launched[k] += v
+    window_kernels_phase(params, log, timings)
+    for phase in (lambda: window_serve_phase(params),
+                  lambda: window_1m_phase(params, log)):
+        for k, v in phase().items():
+            launched[k] += v
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     if any(m == "ggnn_tpu" or m.startswith("ggnn_tpu.") for m in sys.modules):

@@ -10,6 +10,10 @@ half: the legacy table-gather path (the node-transform table, its gather and
 the one-hot scatter), with the reference's rounding points.  A caller may
 pass a typed pack (``build_typed_dst_layout(...).to(device)``) to
 :meth:`Predictor.run_batch` instead: the same function, rounded elsewhere.
+For ``backend='window'`` each batch gets the reference's
+:func:`~ggnn_tpu_torch.ops.window.window_layout_for_batch` (static tile
+budgets, the legacy spill); any other window layout goes through
+:meth:`Predictor.run_batch`.
 
 The model runs on the card unless the caller asks for ``device="cpu"``;
 without a CUDA device the default raises.
@@ -27,6 +31,7 @@ from ggnn_tpu_torch.models.config import ModelConfig, model_config_for_task
 from ggnn_tpu_torch.models.init import (device_or_raise, init_params,
                                         params_from_numpy)
 from ggnn_tpu_torch.ops.legacy import layout_for_batch
+from ggnn_tpu_torch.ops.window import window_layout_for_batch
 from ggnn_tpu_torch.train.checkpoint import load_checkpoint
 
 _ARRAY_KEYS = ("annotations", "node_graph", "node_mask", "n_nodes",
@@ -77,7 +82,10 @@ class Predictor:
     def layout(self, batch):
         """The device scatter layout a batch needs, as the reference builds
         it: ``layout_for_batch(batch, with_grad=False)`` for ``onehot``,
-        None for ``xla``."""
+        ``window_layout_for_batch(batch)`` for ``window``, None for
+        ``xla``."""
+        if self.cfg.backend == "window":
+            return window_layout_for_batch(batch).to(self.device)
         if self.cfg.backend != "onehot":
             return None
         return layout_for_batch(batch, with_grad=False, device=self.device)

@@ -18,8 +18,12 @@ and ``onehot``: through the typed-pack CUDA kernels (per block, or per tile
 where block mode declines), fused (GRU in the kernel's epilogue) or not;
 through the legacy table-gather layout (``ops/legacy.py``: the table
 kernel, then its scatter), which never fuses; or, forward only, through a
-list of chunked legacy layouts.  The other backends raise
-``NotImplementedError`` naming their ROADMAP item.
+list of chunked legacy layouts.  ``window``, serving only: the window
+layouts of ``ops/window.py`` through ``ops/window_step.py``, fused (kernel
+#13 over a bf16/f32 table, a q8 table or on-demand windows) or not
+(``aggregate_window`` then the GRU cell).  The other backends, and
+gradients through ``window``, raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -43,6 +47,8 @@ from ggnn_tpu_torch.ops.scatter import (BLOCK_N, ScatterLayout,
                                         block_args, grad_meta, tile_args,
                                         typed_block_step_gru, typed_step_gru)
 from ggnn_tpu_torch.ops.segment import typed_aggregate
+from ggnn_tpu_torch.ops.window_step import (aggregate_window,
+                                            gru_window_step, refuse_grad)
 
 
 def init_state(annotations, state_dim: int):
@@ -253,6 +259,14 @@ def propagate(prop: dict, cfg: ModelConfig, annotations, edge_src, edge_dst,
       edges over h's rows (a multiple of 128), in type order with 128-edge
       tiles and no grad half (its backward sums over ``dst_global``).
 
+    ``scatter_layout`` for ``backend='window'``: a
+    :class:`~ggnn_tpu_torch.ops.window.DeviceWindowLayout` (host or device
+    form; moved to h's device here), required as in the reference.  Fused
+    steps go to ``gru_window_step`` (``quantized=cfg.quantized_table``),
+    unfused ones to ``aggregate_window`` then the GRU cell.  Serving only:
+    with a parameter that requires grad under autograd it raises
+    (ROADMAP Queue 1 item 5b).
+
     ``cfg.remat`` recomputes each step in the backward
     (``torch.utils.checkpoint``) instead of keeping its residuals, except
     with ``collect_states``, as the reference does."""
@@ -307,6 +321,24 @@ def propagate(prop: dict, cfg: ModelConfig, annotations, edge_src, edge_dst,
                     a = aggregate_onehot(h.to(cdt), layout, msg_w_c, msg_b_c)
                     return gru_update(prop["gru"], h, a, fused,
                                       matmul_dtype=gmm)
+    elif cfg.backend == "window":
+        if scatter_layout is None:
+            raise ValueError(
+                "backend='window' needs a precomputed layout: "
+                "build_window_layout(...) (or window_layout_for_batch), "
+                "passed as scatter_layout")
+        refuse_grad("propagate(backend='window')", annotations,
+                    prop["msg_w"], prop["msg_b"], *prop["gru"].values())
+        layout = scatter_layout.to(h.device)
+        if cfg.fuse_gru:
+            def step(h):
+                return gru_window_step(h, layout, msg_w_c, msg_b_c,
+                                       prop["gru"],
+                                       quantized=cfg.quantized_table)
+        else:
+            def step(h):
+                a = aggregate_window(h.to(cdt), layout, msg_w_c, msg_b_c)
+                return gru_update(prop["gru"], h, a, fused, matmul_dtype=gmm)
     elif cfg.backend == "xla":
         def step(h):
             a = typed_aggregate(h.to(cdt), edge_src, edge_dst, edge_type,

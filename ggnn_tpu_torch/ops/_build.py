@@ -21,6 +21,7 @@ import hashlib
 import os
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -55,12 +56,20 @@ _SIGNATURES = {
                         _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _I,
                         _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "ggnn_tile_split": [],
-    # table_dtype, out_dtype, dstl, table, n_table, D, c_stream, n_c,
-    # tile_start, win_of_tile, c_off, n_blocks, window, stride, item_first,
-    # pbase, n_items, n_partial, ws, out, stream
-    "ggnn_window_mono": [_I, _I, _I, _P, ctypes.c_longlong, _I, _P,
+    # table_dtype, out_dtype, dstl, packed, table, n_table, D, c_stream,
+    # n_c, tile_start, win_of_tile, c_off, n_blocks, out_rows, window,
+    # stride, item_first, pbase, n_items, n_partial, ws, out, stream
+    "ggnn_window_mono": [_I, _I, _I, _I, _P, ctypes.c_longlong, _I, _P,
+                         ctypes.c_longlong, _P, _P, _P, _I, _I, _I, _I, _P,
+                         _P, _I, _I, _P, _P, _P],
+    # src, dtype, fused, packed, table, n_table, counts, n_c, tile_start,
+    # win_of_tile, c_off, n_blocks, out_rows, window, scales, wbank, bbank,
+    # T2, init, hstate, wa, b3, uzr, uh, out, stream
+    "ggnn_window_step": [_I, _I, _I, _I, _P, ctypes.c_longlong, _P,
                          ctypes.c_longlong, _P, _P, _P, _I, _I, _I, _P, _P,
-                         _I, _I, _P, _P, _P],
+                         _P, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    # dtype, h, msg_w, msg_b, n_blocks, T2, gtypes, out, scales, stream
+    "ggnn_node_table_q8": [_I, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     # dtype, msgs, n_msgs, D, onehot / dst_local, n_tiles, tile_start,
     # n_blocks, tile_e, item_first, pbase, n_items, n_partial, ws, out,
     # [bad,] stream
@@ -77,9 +86,11 @@ _SIGNATURES = {
 
 
 class BuildInfo:
-    """What the last build or load did: library path, seconds, ptxas log."""
+    """What the last build or load did: library path, seconds, ptxas log,
+    each source's compile seconds."""
 
     path: str = ""
+    per_source: dict = {}
     seconds: float = 0.0
     compiled: bool = False
     log: str = ""
@@ -111,14 +122,22 @@ def library() -> ctypes.CDLL:
         objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
         cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
                 for src, obj in zip(sources, objs)]
-        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True)
-                 for cmd in cmds]
-        logs = [p.communicate()[0] for p in procs]
-        for cmd, p, log in zip(cmds, procs, logs):
-            if p.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
-                                   f"{' '.join(cmd)}\n{log}")
+
+        def compile_one(cmd):
+            t = time.perf_counter()
+            res = subprocess.run(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+            return res, time.perf_counter() - t
+
+        with ThreadPoolExecutor(len(cmds)) as pool:
+            done = list(pool.map(compile_one, cmds))
+        BuildInfo.per_source = {src.name: round(sec, 1)
+                                for src, (_, sec) in zip(sources, done)}
+        logs = [res.stdout for res, _ in done]
+        for cmd, (res, _) in zip(cmds, done):
+            if res.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{res.stdout}")
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]
         res = subprocess.run(cmd, capture_output=True, text=True)

@@ -380,6 +380,16 @@ __device__ __forceinline__ void zero_strip(float* S) {
     p[i] = make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
+// Count (row, column j) of a window layout's count matrix, from the row's
+// bytes: int8 counts, or with `packed` int4 pairs (byte w holds column w in
+// its low nibble and column w + window/2 in its high nibble).
+__device__ __forceinline__ int count_at(const int8_t* __restrict__ crow,
+                                        int j, int window, bool packed) {
+  if (!packed) return crow[j];
+  const int half = window >> 1;
+  return j < half ? (crow[j] & 15) : ((crow[j - half] >> 4) & 15);
+}
+
 // The hub split of the per-tile kernels (typed_tile.cu, window_mono.cu).
 // Each output block's tile list [tile_start[b], tile_start[b + 1]) is cut
 // into work items of at most kSplit tiles, one CTA per item, so a hub block

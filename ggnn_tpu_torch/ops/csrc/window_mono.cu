@@ -3,16 +3,16 @@
 // layout.
 //
 // Replaces ggnn_tpu/ops/window_pallas.py::_window_mono_kernel (run by
-// window_block_spmm_mono) with out_rows = 128 and the unpacked side
-// streams, and, through entry points of their own, the two legacy one-hot
-// scatters of ggnn_tpu/ops/scatter_pallas.py, which are this product with
-// window = tile_e and win_of_tile = arange (scatter_pallas.py:760-771):
+// window_block_spmm_mono), and, through entry points of their own, the two
+// legacy one-hot scatters of ggnn_tpu/ops/scatter_pallas.py, which are this
+// product with window = tile_e and win_of_tile = arange
+// (scatter_pallas.py:760-771):
 // - _scatter_stream_flat_kernel (onehot_segment_scatter_flat): the int8
 //   transposed one-hot stream, C_t = rows [t·128, t·128 + 128);
 // - _scatter_kernel (onehot_segment_scatter): the dst-local ids, the DSTL
 //   form below with dstl = dst_local viewed as [n_tiles, tile_e].
 // For output block b it computes, in f32,
-//     out[b·128 : (b+1)·128] = Σ_t C_t · table[win[t]·stride : win[t]·stride + window]
+//     out[b·R : (b+1)·R] = Σ_t C_t · table[win[t]·stride : win[t]·stride + window]
 // over the tiles t in [tile_start[b], tile_start[b + 1]) with win[t] >= 0
 // (a negative window marks a dummy tile, which adds nothing; a null
 // win_of_tile means win[t] = t), and rounds once to the output dtype at the
@@ -20,10 +20,15 @@
 // - DSTL: the one-hot of row c[t] of a [n_c, window] int32 dst-local
 //   stream (−1 = no edge): a segment sum, each window row added to the
 //   output row it names; or
-// - counts: rows [c[t]·128, c[t]·128 + 128) of an int8 [n_c·128, window]
-//   count matrix: a matrix product, counts converted to the table's type
-//   (exact for int8) through mma.sync (bf16) or FMA loops (f32),
-// with c[t] = c_off[t], or t where c_off is null (a dense stream).
+// - counts: rows [c[t]·R, c[t]·R + R) of an int8 [n_c·R, window] count
+//   matrix: a matrix product, counts converted to the table's type (exact)
+//   through mma.sync (bf16) or FMA loops (f32),
+// with c[t] = c_off[t], or t where c_off is null (a dense stream).  Here R
+// = out_rows = 128.  The window layouts' other count forms, the int4 pairs
+// [n_c·R, window/2] (`packed`) and R = 256 or 512, are at D = 128 the sums
+// of the window step (window_step.cuh, instantiated without the GRU in
+// window_step.cu), which ops/window.py launches for them; the panel kernel
+// below takes them at every other D.
 //
 // Bound on this card: HBM bytes.  At the scale-free headline's grad layout
 // (262,144 nodes, 8M directed edges, Zipf 1.2, 16 message types, D = 128,
@@ -43,7 +48,8 @@
 // same result on every run.
 //
 // Widths: D = 128 runs the kernel above.  Any other D in [1, 256] (the
-// bAbI models run D = 4 to 16) runs window_mono_panel_kernel: one CTA per
+// bAbI models run D = 4 to 16) runs window_mono_panel_kernel
+// (window_mono_panel.cuh, compiled in parallel with this file): one CTA per
 // (work item, 128-column panel), the last panel masked, the panel's
 // table rows staged 32 at a time in shared memory and every output element
 // summed by one thread in the order of the window rows.  It is as exact
@@ -54,14 +60,11 @@
 // table cannot address memory outside it.
 #include <stdint.h>
 
-#include "common.cuh"
+#include "window_mono.cuh"
+
+GGNN_MONO_PANEL_EXTERN
 
 namespace ggnn {
-
-// The side stream's form: a dst-local stream, an int8 count matrix, or an
-// int8 one-hot matrix (each column at most one entry, a 1), which the
-// kernel decodes into dst-local ids.
-constexpr int kDstl = 0, kCounts = 1, kOnehot = 2;
 
 template <typename TT>
 struct MonoSmem {
@@ -217,132 +220,10 @@ __global__ void __launch_bounds__(kThreads) window_mono_reduce_kernel(
   }
 }
 
-// Any width D != 128: one CTA per (work item, panel of 128 columns); the
-// panel holds columns [c0, c0 + w), w = min(128, D − c0).  Each thread owns
-// the elements idx = threadIdx.x + k·kThreads of the panel's [128, w] rows
-// and sums their terms in the order of the window rows, kPanelRows staged
-// rows at a time (a staged chunk's terms in a register, then added to the
-// element's sum).
-constexpr int kPanelRows = 32;
-constexpr int kOwn = kRows * kRows / kThreads;  // elements a thread owns
-
-template <typename TT, typename TO, int MODE>
-__global__ void __launch_bounds__(kThreads) window_mono_panel_kernel(
-    const TT* __restrict__ table, long long n_table, int D,
-    const void* __restrict__ c_stream, long long n_c,
-    const int* __restrict__ tile_start, const int* __restrict__ win_of_tile,
-    const int* __restrict__ c_off, int n_blocks, int window, int stride,
-    const int* __restrict__ item_first, const int* __restrict__ pbase,
-    float* __restrict__ ws, TO* __restrict__ out, int* __restrict__ bad) {
-  constexpr bool DSTL = MODE == kDstl;
-  __shared__ float T_s[kPanelRows][kRows];
-  __shared__ float C_s[kRows][kPanelRows + 1];
-  __shared__ int d_s[kPanelRows];
-  const int item = blockIdx.x;
-  const int b = item_block(item_first, n_blocks, item);
-  const int k = item - item_first[b];
-  const int n_items = item_first[b + 1] - item_first[b];
-  const int t0 = tile_start[b] + k * kSplit;
-  const int t1 = min(t0 + kSplit, tile_start[b + 1]);
-  const int c0 = blockIdx.y * kRows;
-  const int w = min(kRows, D - c0);
-  float acc[kOwn];
-#pragma unroll
-  for (int q = 0; q < kOwn; ++q) acc[q] = 0.0f;
-  for (int t = t0; t < t1; ++t) {
-    const int wt = win_of_tile ? win_of_tile[t] : t;
-    const int c = c_off ? c_off[t] : t;
-    if (wt < 0 || c < 0 || c >= n_c) continue;
-    const long long base = (long long)wt * stride;
-    for (int j0 = 0; j0 < window; j0 += kPanelRows) {
-      const int nj = min(kPanelRows, window - j0);
-      __syncthreads();  // every thread is done with the previous chunk
-      for (int idx = threadIdx.x; idx < kPanelRows * w; idx += kThreads) {
-        const int jr = idx / w, col = idx % w;
-        const long long row = base + j0 + jr;
-        T_s[jr][col] = (jr < nj && row >= 0 && row < n_table)
-                           ? to_f(table[row * D + c0 + col])
-                           : 0.0f;
-      }
-      if constexpr (DSTL) {
-        const int* dstl = static_cast<const int*>(c_stream) + size_t(c) * window;
-        for (int jr = threadIdx.x; jr < kPanelRows; jr += kThreads) {
-          const long long row = base + j0 + jr;
-          d_s[jr] = (jr < nj && row >= 0 && row < n_table) ? dstl[j0 + jr] : -1;
-        }
-      } else {
-        const int8_t* C = static_cast<const int8_t*>(c_stream) +
-                          size_t(c) * kRows * window;
-        for (int idx = threadIdx.x; idx < kRows * kPanelRows; idx += kThreads) {
-          const int r = idx / kPanelRows, jr = idx % kPanelRows;
-          C_s[r][jr] = jr < nj ? float(C[size_t(r) * window + j0 + jr]) : 0.0f;
-        }
-      }
-      __syncthreads();
-      if constexpr (MODE == kOnehot) {
-        // a one-hot column holds at most one entry, a 1
-        if (blockIdx.y == 0 && threadIdx.x < nj) {
-          int n = 0;
-          for (int r = 0; r < kRows; ++r) {
-            const float cv = C_s[r][threadIdx.x];
-            n += cv != 0.0f;
-            if (cv != 0.0f && cv != 1.0f) *bad = 1;
-          }
-          if (n > 1) *bad = 1;
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < kOwn; ++q) {
-        const int idx = threadIdx.x + q * kThreads;
-        if (idx >= kRows * w) break;
-        const int r = idx / w, col = idx % w;
-        float s = 0.0f;
-        for (int jr = 0; jr < nj; ++jr) {
-          if constexpr (DSTL) {
-            if (d_s[jr] == r) s += T_s[jr][col];
-          } else {
-            const float cv = C_s[r][jr];
-            if (cv != 0.0f) s = fmaf(cv, T_s[jr][col], s);
-          }
-        }
-        acc[q] += s;
-      }
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < kOwn; ++q) {
-    const int idx = threadIdx.x + q * kThreads;
-    if (idx >= kRows * w) break;
-    const int r = idx / w, col = idx % w;
-    if (n_items > 1)
-      ws[(size_t(pbase[b] + k) * kRows + r) * D + c0 + col] = acc[q];
-    else
-      out[(size_t(b) * kRows + r) * D + c0 + col] = from_f<TO>(acc[q]);
-  }
-}
-
-// The partial sums of window_mono_panel_kernel's split blocks, in item
-// order: one CTA per output block, slots of [128, D] f32.
-template <typename TO>
-__global__ void __launch_bounds__(kThreads) window_mono_panel_reduce_kernel(
-    const int* __restrict__ item_first, const int* __restrict__ pbase, int D,
-    const float* __restrict__ ws, TO* __restrict__ out) {
-  const int b = blockIdx.x;
-  const int n_items = item_first[b + 1] - item_first[b];
-  if (n_items <= 1) return;
-  const size_t slot = size_t(kRows) * D;
-  const float* p = ws + size_t(pbase[b]) * slot;
-  TO* dst = out + size_t(b) * slot;
-  for (size_t i = threadIdx.x; i < slot; i += kThreads) {
-    float s = p[i];
-    for (int k = 1; k < n_items; ++k) s += p[size_t(k) * slot + i];
-    dst[i] = from_f<TO>(s);
-  }
-}
-
 template <typename TT, typename TO, int MODE>
 static int launch_window_mono(const void* table, long long n_table, int D,
                               const void* c_stream, long long n_c,
+                              bool packed, int out_rows,
                               const void* tile_start, const void* win_of_tile,
                               const void* c_off, int n_blocks, int window,
                               int stride, const void* item_first,
@@ -352,22 +233,18 @@ static int launch_window_mono(const void* table, long long n_table, int D,
   if (D < 1 || D > 2 * kRows) return int(cudaErrorInvalidValue);
   if (MODE == kOnehot && (bad == nullptr || (window % 16 != 0 && D == kD)))
     return int(cudaErrorInvalidValue);
-  if (D != kD) {
-    const dim3 grid(n_items, (D + kRows - 1) / kRows);
-    window_mono_panel_kernel<TT, TO, MODE><<<grid, kThreads, 0, stream>>>(
-        static_cast<const TT*>(table), n_table, D, c_stream, n_c,
-        static_cast<const int*>(tile_start),
-        static_cast<const int*>(win_of_tile), static_cast<const int*>(c_off),
-        n_blocks, window, stride, static_cast<const int*>(item_first),
-        static_cast<const int*>(pbase), static_cast<float*>(ws),
-        static_cast<TO*>(out), static_cast<int*>(bad));
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess || n_partial == 0) return int(err);
-    window_mono_panel_reduce_kernel<TO><<<n_blocks, kThreads, 0, stream>>>(
-        static_cast<const int*>(item_first), static_cast<const int*>(pbase),
-        D, static_cast<const float*>(ws), static_cast<TO*>(out));
-    return int(cudaGetLastError());
-  }
+  // the dst-local and one-hot forms address 128-row blocks; the panel
+  // kernel's counts any multiple of 128, int8 or int4 pairs; the D = 128
+  // kernel's 128-row blocks of int8 counts (the window step takes the rest)
+  if (out_rows % kRows || (MODE != kCounts && out_rows != kRows) ||
+      (packed && (MODE != kCounts || window % 2)) ||
+      (D == kD && (packed || out_rows != kRows)))
+    return int(cudaErrorInvalidValue);
+  if (D != kD)
+    return launch_window_mono_panel<TT, TO, MODE>(
+        table, n_table, D, c_stream, n_c, packed, out_rows, tile_start,
+        win_of_tile, c_off, n_blocks, window, stride, item_first, pbase,
+        n_items, n_partial, ws, out, bad, stream);
   const size_t smem = MODE == kDstl     ? MonoSmem<TT>::dstl
                       : MODE == kCounts ? MonoSmem<TT>::counts
                                         : MonoSmem<TT>::onehot(window);
@@ -393,26 +270,29 @@ static int launch_window_mono(const void* table, long long n_table, int D,
 }  // namespace ggnn
 
 // table_dtype, out_dtype: 0 = float32, 1 = bfloat16; dstl = 1: c_stream is
-// the int32 [n_c, window] dst-local stream, else the int8 [n_c·128, window]
-// count matrix; win_of_tile and c_off may be null (tile t reads window t,
-// side-stream entry t).  item_first [n_blocks + 1] and pbase [n_blocks] are
-// the hub split (see common.cuh); ws holds n_partial [128, D] f32 slots.
-// table is [n_table, D], out [n_blocks·128, D], 1 <= D <= 256.  Returns the
-// cudaError_t of the launches.
+// the int32 [n_c, window] dst-local stream (out_rows = 128), else the int8
+// [n_c·out_rows, window] count matrix, or with packed = 1 its int4 pairs
+// [n_c·out_rows, window/2] (D = 128: int8 counts and out_rows = 128 only);
+// win_of_tile and c_off may be null (tile t reads window t, side-stream
+// entry t).  item_first [n_blocks + 1] and pbase [n_blocks] are the hub
+// split (see common.cuh); ws holds n_partial·out_rows/128 [128, D] f32
+// slots.  table is [n_table, D], out [n_blocks·out_rows, D] with out_rows a
+// multiple of 128, 1 <= D <= 256.
+// Returns the cudaError_t of the launches.
 extern "C" int ggnn_window_mono(
-    int table_dtype, int out_dtype, int dstl, const void* table,
+    int table_dtype, int out_dtype, int dstl, int packed, const void* table,
     long long n_table, int D, const void* c_stream, long long n_c,
     const void* tile_start, const void* win_of_tile, const void* c_off,
-    int n_blocks, int window, int stride, const void* item_first,
-    const void* pbase, int n_items, int n_partial, void* ws, void* out,
-    void* stream) {
+    int n_blocks, int out_rows, int window, int stride,
+    const void* item_first, const void* pbase, int n_items, int n_partial,
+    void* ws, void* out, void* stream) {
   if (n_blocks <= 0 || n_items <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define GGNN_LAUNCH(TT, TO, DS)                                              \
   return ggnn::launch_window_mono<TT, TO, DS>(                               \
-      table, n_table, D, c_stream, n_c, tile_start, win_of_tile, c_off,      \
-      n_blocks, window, stride, item_first, pbase, n_items, n_partial, ws,   \
-      out, nullptr, s)
+      table, n_table, D, c_stream, n_c, packed != 0, out_rows, tile_start,   \
+      win_of_tile, c_off, n_blocks, window, stride, item_first, pbase,       \
+      n_items, n_partial, ws, out, nullptr, s)
 #define GGNN_DTYPES(DS)                                                      \
   if (table_dtype == 1 && out_dtype == 1)                                    \
     GGNN_LAUNCH(__nv_bfloat16, __nv_bfloat16, DS);                           \
@@ -446,12 +326,14 @@ extern "C" int ggnn_onehot_flat(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
     return ggnn::launch_window_mono<__nv_bfloat16, float, ggnn::kOnehot>(
-        msgs, n_msgs, D, onehot, n_tiles, tile_start, nullptr, nullptr,
+        msgs, n_msgs, D, onehot, n_tiles, false, ggnn::kRows, tile_start,
+        nullptr, nullptr,
         n_blocks, tile_e, tile_e, item_first, pbase, n_items, n_partial, ws,
         out, bad, s);
   if (dtype == 0)
     return ggnn::launch_window_mono<float, float, ggnn::kOnehot>(
-        msgs, n_msgs, D, onehot, n_tiles, tile_start, nullptr, nullptr,
+        msgs, n_msgs, D, onehot, n_tiles, false, ggnn::kRows, tile_start,
+        nullptr, nullptr,
         n_blocks, tile_e, tile_e, item_first, pbase, n_items, n_partial, ws,
         out, bad, s);
   return int(cudaErrorInvalidValue);
@@ -470,12 +352,14 @@ extern "C" int ggnn_onehot_dstl(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
     return ggnn::launch_window_mono<__nv_bfloat16, float, ggnn::kDstl>(
-        msgs, n_msgs, D, dst_local, n_tiles, tile_start, nullptr, nullptr,
+        msgs, n_msgs, D, dst_local, n_tiles, false, ggnn::kRows, tile_start,
+        nullptr, nullptr,
         n_blocks, tile_e, tile_e, item_first, pbase, n_items, n_partial, ws,
         out, nullptr, s);
   if (dtype == 0)
     return ggnn::launch_window_mono<float, float, ggnn::kDstl>(
-        msgs, n_msgs, D, dst_local, n_tiles, tile_start, nullptr, nullptr,
+        msgs, n_msgs, D, dst_local, n_tiles, false, ggnn::kRows, tile_start,
+        nullptr, nullptr,
         n_blocks, tile_e, tile_e, item_first, pbase, n_items, n_partial, ws,
         out, nullptr, s);
   return int(cudaErrorInvalidValue);

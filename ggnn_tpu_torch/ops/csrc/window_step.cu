@@ -1,0 +1,99 @@
+// The window backend's fused step and on-demand windows for Hopper (sm_90a).
+//
+// Replaces two kernels of ggnn_tpu/ops/window_pallas.py:
+// - _window_step_kernel (run by window_step_gru, #13): per dst block, the
+//   aggregation a = init + Σ_tiles C_tile · window, then the GRU epilogue on
+//   a, serving form (no emit_res), from three table sources (SRC):
+//   kTable    a bf16/f32 table [R, D]; window w = rows [w·W, w·W + W); the
+//             counts int8 or int4 pairs (`packed`);
+//   kQ8       the int8 values-only table of node_table_block_major_q8 with
+//             one power-of-2 scale per window: each tile's product is
+//             exact in int32 (mma.sync s8·s8 → s32) and joins a as
+//             float(product) · scales[w], as the TPU kernel's int8 MXU dot;
+//   kOnDemand no table: window w of a block-major table is built on the
+//             chip from the 128-row h block (w / wpb)·128 of the h source,
+//             rows [j·128, (j+1)·128) = T(h_blk · W_{tbase+j} + b_{tbase+j})
+//             (f32 products and bias, one rounding to T, as
+//             node_table_block_major rounds), tbase = (w % wpb)·W/128,
+//             wpb = T2·128 / W;
+// - _window_ondemand_kernel (run by window_block_spmm_ondemand, #12): the
+//   kOnDemand sums without the epilogue, written as f32 (FUSED = false);
+// and, as kTable without the epilogue, the window layouts' count forms of
+// _window_mono_kernel (#11) at D = 128 that window_mono.cu leaves out: the
+// int4-packed counts and the 256- and 512-row dst blocks.
+// A tile with win < 0 is a dummy (zero-init or padding) and adds nothing.
+// The GRU epilogue is common.cuh::gru_block<T, false>, #2's: gate products
+// on a and h rounded to T, r⊙h rounded to T before U_h, f32 gates and h.
+//
+// Design.  The TPU kernel keeps a dst block of up to 512 rows and its f32
+// accumulator in VMEM, and walks the block's tiles with a DMA ring.  A 512-
+// row f32 accumulator alone (256 KB) exceeds a CTA's 227 KB of shared
+// memory, so here each dst block is cut into 128-row slices: one CTA per
+// (block, slice), 8 warps of 16 rows, the accumulator in registers in the
+// mma.sync fragment layout (common.cuh).  The slice walks its block's tiles
+// in order (so the sums run in one fixed order: the same bits on every
+// run), and each tile in K-chunks of 128 window rows: the chunk's [128, 128]
+// counts (converted to T, exact) and its [128, 128] window rows staged in
+// shared memory, then one warp_gemm.  The block's tile list is scanned 256
+// entries at a time for real tiles (__syncthreads_or), so a static budget's
+// padding tiles (hundreds of thousands on the last block of a serving
+// layout) cost a read of their win_of_tile and nothing else.
+//
+// Bound on this card: HBM bytes, the count stream.  At the community
+// headline (262,144 nodes, 16 message types, D = 128, W 512, block_rows 512,
+// on-demand) one step reads 2.15 GB of counts, the h blocks of 8,192 real
+// tiles (0.27 GB), and h, init and h' (0.40 GB).  What this first version
+// does not do: the count matrices are ~99.6 % zeros and are staged densely
+// (the dense product is 0.55 TFLOP); the table window is re-read (kTable,
+// kQ8) or rebuilt (kOnDemand: 4× the table transform's 0.137 TFLOP at
+// block_rows 512) by each of a block's slices; no TMA, no wgmma.  These are
+// Queue 2 items; the sums and their order would not change.
+#include "window_step.cuh"
+
+GGNN_WINDOW_STEP_INSTANTIATE(ggnn::kTable, true)
+GGNN_WINDOW_STEP_INSTANTIATE(ggnn::kTable, false)
+GGNN_WINDOW_STEP_EXTERN(ggnn::kQ8, true)
+GGNN_WINDOW_STEP_EXTERN(ggnn::kOnDemand, true)
+GGNN_WINDOW_STEP_EXTERN(ggnn::kOnDemand, false)
+
+// src: 0 = table, 1 = q8, 2 = on-demand; dtype (the table's, or for q8 the
+// GRU weights'; wbank's for on-demand): 0 = float32, 1 = bfloat16; fused: 1
+// = the GRU epilogue (#13), 0 = the sums only (table: #11's window forms;
+// on-demand: #12).  table [n_table,
+// 128] (q8: int8; on-demand: the h source [n_table, 128]); counts int8
+// [n_c·out_rows, window] (packed: [n_c·out_rows, window/2]); tile_start
+// [n_blocks + 1], win_of_tile and c_off (or null: tile t reads entry t)
+// [n_tiles]; scales [n_wins] f32 (q8); wbank [T2, 128, 128], bbank [T2, 128]
+// f32 (on-demand); init (or null: zero) and hstate f32 [n_blocks·out_rows,
+// 128]; wa [128, 384], b3 [384] f32, uzr [128, 256], uh [128, 128]; out f32
+// [n_blocks·out_rows, 128].  Returns the cudaError_t of the launch.
+extern "C" int ggnn_window_step(
+    int src, int dtype, int fused, int packed, const void* table,
+    long long n_table, const void* counts, long long n_c,
+    const void* tile_start, const void* win_of_tile, const void* c_off,
+    int n_blocks, int out_rows, int window, const void* scales,
+    const void* wbank, const void* bbank, int T2, const void* init,
+    const void* hstate, const void* wa, const void* b3, const void* uzr,
+    const void* uh, void* out, void* stream) {
+  if (n_blocks <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define GGNN_LAUNCH(T, SRC, FUSED)                                           \
+  return ggnn::launch_window_step<T, SRC, FUSED>(                            \
+      table, n_table, counts, n_c, packed != 0, tile_start, win_of_tile,     \
+      c_off, n_blocks, out_rows, window, scales, wbank, bbank, T2, init,     \
+      hstate, wa, b3, uzr, uh, out, s)
+#define GGNN_DTYPES(SRC, FUSED)                                              \
+  if (dtype == 1) GGNN_LAUNCH(__nv_bfloat16, SRC, FUSED);                    \
+  if (dtype == 0) GGNN_LAUNCH(float, SRC, FUSED)
+  if (fused) {
+    if (src == ggnn::kTable) { GGNN_DTYPES(ggnn::kTable, true); }
+    if (src == ggnn::kQ8) { GGNN_DTYPES(ggnn::kQ8, true); }
+    if (src == ggnn::kOnDemand) { GGNN_DTYPES(ggnn::kOnDemand, true); }
+  } else {
+    if (src == ggnn::kTable) { GGNN_DTYPES(ggnn::kTable, false); }
+    if (src == ggnn::kOnDemand) { GGNN_DTYPES(ggnn::kOnDemand, false); }
+  }
+#undef GGNN_DTYPES
+#undef GGNN_LAUNCH
+  return int(cudaErrorInvalidValue);
+}

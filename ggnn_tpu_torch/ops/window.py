@@ -1,36 +1,455 @@
-"""Windowed count-matrix SpMM: the CUDA kernel and its plain version.
+"""The window backend: its layout, and the windowed count-matrix kernels.
 
-Counterpart of ``ggnn_tpu/ops/window_pallas.py`` for
-:func:`window_block_spmm_mono`, the kernel that reduces the legacy grad
-layouts (``ops/scatter.py::reverse_scatter``: the typed pack's backward
-where the octet layout declines, and the legacy table-gather layout's
-backward) and the legacy forward of an ``edge_align`` pack
-(``ops/legacy.py``).  The port takes its unpacked forms: the int32
-dst-local stream (``dstl=True``) and the int8 count matrix, any
-``win_stride``, ``c_off`` or a dense stream, dummy tiles, f32 or bf16
-output, ``out_rows = 128``, any width D in [1, 256].  The int4-packed
-stream, other output heights and the window layouts' other kernels are
-ROADMAP Queue 1 item 5.
+Counterpart of ``ggnn_tpu/ops/window_pallas.py`` (the clustered-graph fast
+path: the edges into one destination block that read one ``window``-row
+range of the node-transform table collapse into one count matrix C, and
+out[block] = Σ_win C · table[win·W : win·W + W]):
 
-The kernel (``csrc/window_mono.cu``) and the per-tile typed kernels
-(``csrc/typed_tile.cu``) share the hub split of :func:`split_plan`: each
-output block's tiles are cut into work items of at most ``K`` tiles
-(``ggnn_tile_split()`` of the library, 32), one CTA per item, with f32
-partials summed in item order by a second kernel.
+- :class:`DeviceWindowLayout` (the same 11-tuple ``meta`` and array keys
+  as the reference, numpy on the host, tensors after :meth:`.to
+  <DeviceWindowLayout.to>`), :func:`build_window_layout` (the reference's
+  numpy path, every option of the forward), :func:`window_layout_for_batch`
+  (the static-budget layout of the reference's ``Predictor``),
+  :func:`prefer_xw_spill`.  The training half (``with_grad``,
+  ``grad_quant``) is ROADMAP Queue 1 item 5b and raises.
+- #11 :func:`window_block_spmm_mono` (``csrc/window_mono.cu``): the
+  dst-local stream (the legacy grad layouts' reverse scatter and the
+  window layouts' spill) and the int8 or int4-packed count matrix with
+  output blocks of any multiple of 128 rows.  The per-tile kernels
+  (``csrc/typed_tile.cu``) share its hub split :func:`split_plan`.
+- #12 :func:`window_block_spmm_ondemand` (``csrc/window_ondemand.cu``) and
+  #13 :func:`window_step_gru` (``csrc/window_step.cu``, ``_q8.cu``,
+  ``_ondemand.cu``; one template, ``csrc/window_step.cuh``): table
+  windows built from h blocks on the chip, and the fused step
+  (aggregation + GRU epilogue) over a bf16/f32 table, a q8 table with
+  power-of-2 window scales, or on-demand windows.
 
-A wrapper takes its plain version only for CPU tensors; for CUDA tensors it
-launches the kernel or raises.
+Each kernel has a ``_reference`` plain version with the same rounding
+points; the plain sums run in f64 and round once.  A wrapper takes its
+plain version only for CPU tensors; for CUDA tensors it launches the kernel
+or raises.  The compositions (spill, ``aggregate_window``,
+``gru_window_step``) are in ``ops/window_step.py``.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
 from ggnn_tpu_torch.ops import _build
-from ggnn_tpu_torch.ops.gru import BLOCK, _DTYPE_CODE, _check_cuda_args
+from ggnn_tpu_torch.ops.gru import (BLOCK, KERNEL_WIDTH, _DTYPE_CODE,
+                                    _check_cuda_args, gru_cell_fwd_reference)
+from ggnn_tpu_torch.ops.table import node_table_block_major_reference
 
-_QUEUE_ITEM_5 = "ROADMAP Queue 1 item 5 (the window backend)"
+QUEUE_ITEM_5B = ("ROADMAP Queue 1 item 5b (the window backend's training "
+                 "half)")
+_NONZERO_CHUNK = 1 << 26      # count entries one pass of a plain sum decodes
 
+
+# --- the layout --------------------------------------------------------------
+
+@dataclasses.dataclass
+class DeviceWindowLayout:
+    """The windowed layout (the reference's class): ``meta`` = (n_nodes_pad,
+    window, n_tiles, n_blocks, spill_meta, row_major, grad_meta, block_rows,
+    (pack_fwd, pack_bwd), on_demand, grad_quant); ``arrays``: c_stream,
+    tile_start, block_of_tile, win_of_tile, c_off and the spill's ``s_*``
+    (and ``sx_src`` for the XW spill), numpy on the host or tensors on a
+    device; ``stats``: tile count, stream bytes, spill fraction."""
+
+    meta: tuple
+    arrays: dict
+    stats: dict | None = dataclasses.field(default=None, compare=False)
+
+    @property
+    def n_nodes_pad(self):
+        return self.meta[0]
+
+    @property
+    def window(self):
+        return self.meta[1]
+
+    @property
+    def n_tiles(self):
+        return self.meta[2]
+
+    @property
+    def n_blocks(self):
+        return self.meta[3]
+
+    @property
+    def spill_meta(self):
+        return self.meta[4]
+
+    @property
+    def row_major(self):
+        return self.meta[5]
+
+    @property
+    def grad_meta(self):
+        return self.meta[6]
+
+    @property
+    def block_rows(self):
+        return self.meta[7]
+
+    @property
+    def packed(self):
+        """(fwd, bwd) int4 count-packing flags."""
+        return self.meta[8]
+
+    @property
+    def on_demand(self):
+        """Table windows built on the chip from h blocks (no [T2·N, D]
+        table): :func:`window_block_spmm_ondemand`."""
+        return self.meta[9]
+
+    def to(self, device) -> "DeviceWindowLayout":
+        """A copy whose arrays are tensors on ``device`` (the host arrays
+        are copied as they are: the padded count stream of a static budget
+        too)."""
+        return DeviceWindowLayout(self.meta, {
+            k: torch.as_tensor(v, device=device)
+            for k, v in self.arrays.items()}, self.stats)
+
+
+def _pack_nibbles(c: np.ndarray) -> np.ndarray:
+    """[R, W] int8 counts in 0..15 → [R, W/2] bytes: low nibble = column w,
+    high nibble = column w + W/2."""
+    half = c.shape[1] // 2
+    out = c[:, half:].astype(np.uint8)
+    out <<= 4
+    np.bitwise_or(out, c[:, :half].view(np.uint8), out=out)
+    return out.view(np.int8)
+
+
+# The reference's measured per-row gather cliff of the TPU, which its spill
+# heuristic keys on (window_pallas.py:114-121); kept so that the port picks
+# the same spill as the reference for the same graph.
+GATHER_CLIFF_BYTES = 100e6
+
+
+def prefer_xw_spill(n_nodes_pad: int, state_dim: int, *,
+                    quantized: bool = False,
+                    on_demand: bool = False) -> bool:
+    """The reference's spill heuristic: the XW (no-table) spill for
+    on-demand layouts (they have no table) and for q8 tables while h's bf16
+    bytes stay under :data:`GATHER_CLIFF_BYTES`; the legacy table-gather
+    spill otherwise."""
+    if on_demand:
+        return True
+    if not quantized:
+        return False
+    return n_nodes_pad * state_dim * 2 <= GATHER_CLIFF_BYTES
+
+
+def _type_buckets(spt, t2, spill_bwd_bucket):
+    """Per-type padded bucket offsets of the XW spill (the reference's
+    rule: a multiple of 8 per type, uniform where that costs at most 2×)."""
+    cnt = np.bincount(spt, minlength=t2)
+    if spill_bwd_bucket is not None:
+        if int(cnt.max(initial=0)) > spill_bwd_bucket:
+            raise ValueError(
+                f"spill_bwd_bucket={spill_bwd_bucket} < max "
+                f"per-type spill count {int(cnt.max())}")
+        padded = np.full(t2, spill_bwd_bucket, np.int64)
+    else:
+        padded = np.maximum(-(-cnt // 8) * 8, 8)
+        pmax = int(padded.max())
+        if t2 * pmax <= max(2 * int(padded.sum()), 4096):
+            padded = np.full(t2, pmax, np.int64)
+    offs = np.zeros(t2 + 1, np.int64)
+    np.cumsum(padded, out=offs[1:])
+    return cnt, offs
+
+
+def _spill_tile(dst_spilled, n_nodes_pad):
+    """The spill tile size from the spill's density: the median block's
+    spilled edges, rounded up to a power of two in [128, 2048]."""
+    n_spill = dst_spilled.shape[0]
+    cnts = np.bincount((dst_spilled // BLOCK).astype(np.int64),
+                       minlength=n_nodes_pad // BLOCK)
+    med = int(np.median(cnts)) if n_spill else 0
+    tile = 128
+    while tile < min(med, 2048):
+        tile *= 2
+    return tile
+
+
+def build_window_layout(edge_src, edge_dst, edge_type, edge_mask,
+                        n_nodes_pad: int, window: int = 512,
+                        min_edges_per_tile: int = 32,
+                        n_src_rows: int | None = None,
+                        spill_tile_e: int | None = None,
+                        n_message_types: int | None = None,
+                        row_major: str = "src",
+                        with_grad: bool = False,
+                        pad_tiles_to: int | None = None,
+                        spill_pad_tiles_to: int | None = None,
+                        force_spill: bool = False,
+                        block_rows: int = BLOCK,
+                        pack_counts: bool = False,
+                        use_native: bool | None = None,
+                        gt_pad_tiles_to: int | None = None,
+                        spill_bwd_bucket: int | None = None,
+                        spill_bwd_tile_e: int | None = None,
+                        spill_bwd_pad_tiles_to: int | None = None,
+                        typed_spill: bool = False,
+                        spill_dst_order: bool = False,
+                        on_demand: bool = False,
+                        grad_quant: bool = False) -> DeviceWindowLayout:
+    """The reference's host build (numpy), array for array: real edges
+    grouped by (dst block of ``block_rows`` rows, ``window``-row window of
+    the table); tiles with fewer than ``min_edges_per_tile`` edges, and
+    (dst, table row) pairs repeated more than 127 times (15 packed), spill
+    to a per-edge layout.  Returns the host form (numpy arrays);
+    ``.to(device)`` moves it.
+
+    - ``row_major``: the table's row order, 'block' (row = (src // 128)·
+      T2·128 + t·128 + src % 128), 'src' (src·T2 + t) or 'type'
+      (t·n_src_rows + src);
+    - ``pack_counts``: int4 pairs (column w low, w + W/2 high; W ≥ 256);
+    - ``typed_spill``: the XW spill (h rows gathered into type buckets,
+      transformed there, then scattered; ``spill_dst_order`` keeps the
+      dst order inside a type); otherwise the spill gathers table rows;
+    - ``on_demand``: no table (needs 'block', W % 128 == 0, unpacked, the
+      XW spill, (T2·128) % W == 0);
+    - ``pad_tiles_to`` / ``spill_pad_tiles_to``: static tile budgets (the
+      padding tiles go to the last block, the stream is padded too).
+
+    ``use_native`` is accepted and ignored: the numpy path always runs (the
+    reference's native plan gives the same arrays).  The training half
+    (``with_grad``, ``grad_quant``) raises ``NotImplementedError``; its
+    pins (``gt_pad_tiles_to``, ``spill_bwd_tile_e``,
+    ``spill_bwd_pad_tiles_to``) shape only that half and are ignored;
+    ``spill_bwd_bucket`` pins the XW spill's buckets, as in the reference."""
+    del use_native, gt_pad_tiles_to, spill_bwd_tile_e, spill_bwd_pad_tiles_to
+    if with_grad or grad_quant:
+        raise NotImplementedError(
+            f"build_window_layout(with_grad={with_grad}, grad_quant="
+            f"{grad_quant}): the window backend's backward is not ported "
+            f"yet ({QUEUE_ITEM_5B})")
+    from ggnn_tpu_torch.ops.legacy import build_dst_block_layout
+    if block_rows % BLOCK:
+        raise ValueError(f"block_rows must be a multiple of {BLOCK}")
+    if n_nodes_pad % block_rows:
+        raise ValueError("n_nodes_pad must be a multiple of block_rows")
+    if row_major not in ("block", "src", "type"):
+        raise ValueError(
+            f"row_major must be 'block', 'src' or 'type': {row_major!r}")
+    pack_fwd = pack_counts and window >= 256
+    pack_bwd = pack_counts and block_rows >= 256
+    if pack_counts and not pack_fwd:
+        raise ValueError("pack_counts needs window >= 256 (a packed row "
+                         "of window/2 bytes must fill the 128-lane tile)")
+    if on_demand:
+        if row_major != "block" or window % 128 or pack_counts:
+            raise ValueError("on_demand needs row_major='block', "
+                             "window % 128 == 0, unpacked counts")
+        if not typed_spill:
+            raise ValueError("on_demand needs typed_spill=True (no table "
+                             "exists for the spill to gather)")
+    if n_src_rows is None:
+        n_src_rows = n_nodes_pad
+    real = np.asarray(edge_mask) > 0
+    src = np.asarray(edge_src)[real].astype(np.int64)
+    dst = np.asarray(edge_dst)[real].astype(np.int64)
+    typ = np.asarray(edge_type)[real].astype(np.int64)
+    n_edges = src.shape[0]
+
+    t2 = (n_message_types if n_message_types is not None
+          else int(typ.max(initial=0)) + 1)
+    if row_major == "block":
+        if n_src_rows % 128:
+            raise ValueError("row_major='block' needs n_src_rows % 128 == 0")
+        rows = (src // 128) * (t2 * 128) + typ * 128 + src % 128
+    elif row_major == "src":
+        rows = src * t2 + typ
+    else:
+        rows = typ * n_src_rows + src
+    n_wins = -(-t2 * n_src_rows // window)
+    win = rows // window
+    block = dst // block_rows
+    n_blocks = n_nodes_pad // block_rows
+    key = block * n_wins + win
+    max_count = 15 if pack_fwd else 127
+
+    _, inv, counts = np.unique(key, return_inverse=True, return_counts=True)
+    keep = (counts >= min_edges_per_tile)[inv.reshape(-1)]
+    # (dst, table row) pairs past the count's range spill: the per-edge
+    # path takes duplicates as they come
+    pair = rows * np.int64(n_nodes_pad) + dst
+    _, pinv, pcounts = np.unique(pair, return_inverse=True,
+                                 return_counts=True)
+    keep &= pcounts[pinv.reshape(-1)] <= max_count
+
+    def decode_rows(r):
+        """table row → (type, src) for this row_major."""
+        if row_major == "block":
+            rpb = t2 * 128
+            return (r % rpb) // 128, (r // rpb) * 128 + r % 128
+        if row_major == "src":
+            return r % t2, r // t2
+        return r // n_src_rows, r % n_src_rows
+
+    spill = None
+    xw_state = None
+    spill_frac = 1.0 - (float(keep.sum()) / max(n_edges, 1))
+    if typed_spill and ((~keep).any() or force_spill):
+        # the XW spill: h rows gathered into type-major buckets (slot =
+        # the edge's bucket row), transformed there, then scattered by the
+        # ordinary block layout whose "source row" is that slot
+        if pack_counts:
+            raise ValueError("typed_spill is incompatible with pack_counts")
+        n_spill = int((~keep).sum())
+        sp_t, sp_u = decode_rows(rows[~keep])
+        sp_d = dst[~keep]
+        if spill_dst_order:
+            order = np.argsort(sp_t, kind="stable")
+        else:
+            order = np.argsort(sp_t * np.int64(n_src_rows) + sp_u,
+                               kind="stable")
+        spt, spu, spd = sp_t[order], sp_u[order], sp_d[order]
+        cnt, offs = _type_buckets(spt, t2, spill_bwd_bucket)
+        tot = int(offs[-1])
+        first_of_t = np.zeros(t2, np.int64)
+        first_of_t[1:] = np.cumsum(cnt)[:-1]
+        slot = offs[spt] + (np.arange(n_spill) - first_of_t[spt])
+        x_src = np.full(tot, n_src_rows, np.int64)   # pad slots → masked
+        x_src[slot] = spu
+        xw_state = (tuple(int(o) for o in offs), x_src)
+        if spill_tile_e is None:
+            spill_tile_e = _spill_tile(spd, n_nodes_pad)
+        spill = build_dst_block_layout(
+            slot, spd, np.zeros(n_spill, np.int64),
+            np.ones(n_spill, np.float32), n_nodes_pad,
+            tile_e=spill_tile_e, n_src_rows=tot,
+            pad_tiles_to=spill_pad_tiles_to,
+            edge_align=(16 if spill_tile_e % 16 == 0 else None),
+            dstl_stream=spill_tile_e % 16 == 0)
+    elif (~keep).any() or force_spill:
+        # the legacy spill gathers the rows of the same table the windows
+        # read (edge_type 0, n_src_rows = the table's rows)
+        n_spill = int((~keep).sum())
+        if spill_tile_e is None:
+            spill_tile_e = _spill_tile(dst[~keep], n_nodes_pad)
+        spill = build_dst_block_layout(
+            rows[~keep], dst[~keep], np.zeros(n_spill, np.int64),
+            np.ones(n_spill, np.float32), n_nodes_pad,
+            tile_e=spill_tile_e, n_src_rows=t2 * n_src_rows,
+            pad_tiles_to=spill_pad_tiles_to,
+            edge_align=(16 if spill_tile_e % 16 == 0 else None),
+            dstl_stream=spill_tile_e % 16 == 0)
+
+    # the dense tiles, plus one dummy tile (win = −1) per block so that an
+    # empty block has a tile; the count stream holds the real tiles only,
+    # addressed through c_off
+    real_keys = np.unique(key[keep])
+    dummy = np.arange(n_blocks, dtype=np.int64) * n_wins
+    uniq_t = np.unique(np.concatenate([real_keys, dummy]))
+    n_tiles = uniq_t.shape[0]
+    n_real = real_keys.shape[0]
+    is_real = np.isin(uniq_t, real_keys, assume_unique=True)
+    block_of_tile = (uniq_t // n_wins).astype(np.int32)
+    win_of_tile = np.where(is_real, uniq_t % n_wins, -1).astype(np.int32)
+    c_off = np.zeros(n_tiles, np.int32)
+    c_off[is_real] = np.arange(n_real, dtype=np.int32)
+    tile_counts = np.bincount(block_of_tile, minlength=n_blocks)
+    tile_start = np.zeros(n_blocks + 1, np.int32)
+    np.cumsum(tile_counts, out=tile_start[1:])
+
+    if pad_tiles_to is not None:
+        extra = pad_tiles_to - n_tiles
+        if extra < 0:
+            raise ValueError(f"pad_tiles_to={pad_tiles_to} < {n_tiles}")
+        if extra:
+            block_of_tile = np.concatenate(
+                [block_of_tile, np.full(extra, n_blocks - 1, np.int32)])
+            win_of_tile = np.concatenate(
+                [win_of_tile, np.full(extra, -1, np.int32)])
+            c_off = np.concatenate([c_off, np.zeros(extra, np.int32)])
+            tile_start[-1] += extra
+            n_tiles = pad_tiles_to
+
+    # a static budget pads the stream too (its rows are never read)
+    stream_tiles = (pad_tiles_to if pad_tiles_to is not None
+                    else max(n_real, 1))
+    tile_of_edge = np.searchsorted(real_keys, key[keep])
+    c = np.zeros((stream_tiles * block_rows, window), np.int8)
+    np.add.at(c, (tile_of_edge * block_rows
+                  + (dst[keep] - block[keep] * block_rows),
+                  rows[keep] % window), 1)
+    # (a static budget's padding rows are never written: the real tiles'
+    # rows hold every count)
+    if int(c[:max(n_real, 1) * block_rows].sum(dtype=np.int64)) \
+            != int(keep.sum()):
+        raise ValueError("count-matrix overflow: >127 duplicate edges "
+                         "for one (dst, table-row) pair within a tile")
+    if pack_fwd:
+        c = _pack_nibbles(c)
+
+    arrays = {"c_stream": c, "tile_start": tile_start,
+              "block_of_tile": block_of_tile, "win_of_tile": win_of_tile,
+              "c_off": c_off}
+    spill_meta = None
+    if spill is not None:
+        sdev = spill.to("cpu")
+        for k, v in sdev.arrays.items():
+            arrays["s_" + k] = v.numpy()
+        spill_meta = sdev.meta
+        if xw_state is not None:
+            # a 9th spill_meta element, the type buckets' offsets, marks
+            # the XW spill; sx_src is each bucket slot's src (pad slots
+            # hold n_src_rows and read a zero row)
+            arrays["sx_src"] = xw_state[1].astype(np.int32)
+            spill_meta = sdev.meta + (xw_state[0],)
+    if on_demand and (t2 * 128) % window:
+        raise ValueError("on_demand needs (T2*128) % window == 0")
+    lay = DeviceWindowLayout(
+        meta=(n_nodes_pad, window, n_tiles, n_blocks, spill_meta, row_major,
+              None, block_rows, (pack_fwd, pack_bwd), on_demand, False),
+        arrays=arrays)
+    lay.stats = {
+        "n_tiles": int(n_tiles), "n_edges": int(n_edges),
+        "spill_frac": spill_frac, "window": window,
+        "stream_gb": int(c.shape[0]) * c.shape[1] * 1e-9,
+        "table_reads_gb": n_real * window * 2 * 1e-9,
+        "spill_pack": (int(arrays["s_gather_idx"].shape[0])
+                       if "s_gather_idx" in arrays else 0),
+    }
+    return lay
+
+
+def window_layout_for_batch(batch, window: int = 512,
+                            min_edges_per_tile: int = 32,
+                            spill_tile_e: int = 128,
+                            block_rows: int = BLOCK,
+                            pack_counts: bool = False) -> DeviceWindowLayout:
+    """The static-budget layout of a :class:`~ggnn_tpu_torch.graph.
+    GraphBatch` (the reference function; host form): at most e_pad /
+    min_edges dense tiles plus one dummy per block, and the legacy spill at
+    its static tile budget, so every batch of one padding spec has the same
+    shapes.  Block-major table rows where ``spec.n_pad % 128 == 0``, else
+    src-major.  Forward only."""
+    from ggnn_tpu_torch.ops.legacy import static_tile_budget
+    spec = batch.spec
+    t2 = 2 * spec.n_edge_types
+    n_dst = -(-spec.n_pad // block_rows) * block_rows
+    budget = spec.e_pad // min_edges_per_tile + n_dst // block_rows
+    row_major = "block" if spec.n_pad % 128 == 0 else "src"
+    return build_window_layout(
+        batch.edge_src, batch.edge_dst, batch.edge_type, batch.edge_mask,
+        n_dst, window=window, min_edges_per_tile=min_edges_per_tile,
+        spill_tile_e=spill_tile_e, n_message_types=t2, row_major=row_major,
+        n_src_rows=spec.n_pad, block_rows=block_rows,
+        pad_tiles_to=budget, force_spill=True, pack_counts=pack_counts,
+        spill_pad_tiles_to=static_tile_budget(spec.e_pad, n_dst,
+                                              spill_tile_e))
+
+
+# --- shared by the kernels' wrappers -----------------------------------------
 
 def split_plan(tile_start, n_blocks: int):
     """The hub split on the device: ``item_first`` [n_blocks + 1] (block b's
@@ -58,19 +477,65 @@ def host_ints(*scalars) -> list:
                         for s in scalars]).tolist()
 
 
+def unpack_counts(c_stream, packed: bool):
+    """The count matrix as int8 [rows, window]: an int4-packed stream's
+    byte w holds column w (low nibble) and w + W/2 (high nibble)."""
+    if not packed:
+        return c_stream
+    c = c_stream.to(torch.int32)
+    return torch.cat([c & 15, (c >> 4) & 15], dim=1).to(torch.int8)
+
+
+def _count_terms(C, tiles, chunk_rows):
+    """Nonzero count entries of tiles ``tiles`` (indices into the first
+    axis of C [n, rows, W]) in chunks of about :data:`_NONZERO_CHUNK`
+    entries: yields (i, r, j, count), i indexing ``tiles``."""
+    per = max(1, _NONZERO_CHUNK // max(chunk_rows, 1))
+    for i0 in range(0, tiles.shape[0], per):
+        sub = C[tiles[i0:i0 + per]]
+        i, r, j = torch.nonzero(sub, as_tuple=True)
+        yield i + i0, r, j, sub[i, r, j]
+
+
+def window_counts_sum(rows_of, c_stream, block_of_tile, win_of_tile, c_off,
+                      n_blocks, window, out_rows, packed, stride, D,
+                      scales=None, init=None):
+    """f64 Σ over every real tile's nonzero counts: count · table row
+    (``rows_of(idx)`` → the rows as f64) into its block's output rows, times
+    ``scales[win]`` where given, from ``init`` (f32) or zero →
+    [n_blocks·out_rows, D] f64."""
+    dev = c_stream.device
+    Y = torch.zeros(n_blocks * out_rows, D, dtype=torch.float64, device=dev)
+    if init is not None:
+        Y += init.double()
+    real = torch.nonzero(win_of_tile >= 0).flatten()
+    c = real if c_off is None else c_off.long()[real]
+    base = win_of_tile.long()[real] * stride
+    blk = block_of_tile.long()[real] * out_rows
+    C = unpack_counts(c_stream, packed).reshape(-1, out_rows, window)
+    for i, r, j, cnt in _count_terms(C, c, out_rows * window):
+        terms = rows_of(base[i] + j) * cnt.double()[:, None]
+        if scales is not None:
+            terms *= scales.double()[win_of_tile.long()[real][i]][:, None]
+        Y.index_add_(0, blk[i] + r, terms)
+    return Y
+
+
+# --- #11 window_block_spmm_mono ----------------------------------------------
+
 def _check_mono_args(name, table, c_stream, tile_start, block_of_tile,
                      win_of_tile, n_blocks, window, out_rows, packed,
                      win_stride, c_off, dstl):
     if dstl and packed:
         raise ValueError("dstl and packed are mutually exclusive")
-    if packed:
-        raise NotImplementedError(
-            f"{name}: the int4-packed count stream is not ported yet "
-            f"({_QUEUE_ITEM_5})")
-    if out_rows != BLOCK:
-        raise NotImplementedError(
-            f"{name}: out_rows={out_rows}; the port takes out_rows={BLOCK} "
-            f"(the transposed window pass is {_QUEUE_ITEM_5})")
+    if out_rows <= 0 or out_rows % BLOCK:
+        raise ValueError(f"{name}: out_rows={out_rows}; the port takes "
+                         f"output blocks of a multiple of {BLOCK} rows")
+    if dstl and out_rows != BLOCK:
+        raise ValueError(f"{name}: the dst-local stream takes out_rows="
+                         f"{BLOCK}, got {out_rows}")
+    if packed and window % 2:
+        raise ValueError(f"{name}: a packed stream needs an even window")
     if table.dim() != 2:
         raise ValueError(f"{name}: table must be [R, D], got "
                          f"{tuple(table.shape)}")
@@ -87,10 +552,12 @@ def _check_mono_args(name, table, c_stream, tile_start, block_of_tile,
             raise ValueError(f"{name}: {arg} {tuple(t.shape)} is not "
                              f"[n_tiles] = [{n_tiles}] like win_of_tile")
     want = torch.int32 if dstl else torch.int8
-    if c_stream.dim() != 2 or c_stream.shape[1] != window \
+    cols = window // 2 if packed else window
+    if c_stream.dim() != 2 or c_stream.shape[1] != cols \
             or c_stream.dtype != want:
         raise ValueError(f"{name}: the side stream must be {want} "
-                         f"[rows, window={window}], got {c_stream.dtype} "
+                         f"[rows, {'window/2' if packed else 'window'}="
+                         f"{cols}], got {c_stream.dtype} "
                          f"{tuple(c_stream.shape)}")
     if not dstl and c_stream.shape[0] % out_rows:
         raise ValueError(f"{name}: the count matrix's rows "
@@ -103,12 +570,13 @@ def _check_mono_args(name, table, c_stream, tile_start, block_of_tile,
             raise ValueError(f"{name}: {arg} must be int32, got {t.dtype}")
 
 
-def _mono_data_checks(name, table, c_stream, win_of_tile, window, stride,
-                      c_off, dstl, extra=()):
-    """Refuse windows past the table and side-stream rows past the stream
-    (one copy to the host, with ``extra`` 0-d tensors appended)."""
+def _mono_data_checks(name, n_table, c_stream, win_of_tile, window, stride,
+                      c_off, dstl, out_rows=BLOCK, extra=()):
+    """Refuse windows past the table (``n_table`` rows) and side-stream
+    entries past the stream (one copy to the host, with ``extra`` 0-d
+    tensors appended)."""
     n_tiles = win_of_tile.shape[0]
-    n_c = c_stream.shape[0] if dstl else c_stream.shape[0] // BLOCK
+    n_c = c_stream.shape[0] if dstl else c_stream.shape[0] // out_rows
     if n_tiles:
         real = win_of_tile >= 0
         zero = torch.zeros_like(win_of_tile)
@@ -121,10 +589,10 @@ def _mono_data_checks(name, table, c_stream, win_of_tile, window, stride,
             torch.where(real, c, zero).min(), *extra)
     else:
         w_max, c_max, c_min, *rest = host_ints(0, 0, 0, *extra)
-    if w_max * stride + window > table.shape[0]:
+    if w_max * stride + window > n_table:
         raise ValueError(f"{name}: window {w_max} reaches row "
                          f"{w_max * stride + window} of a table of "
-                         f"{table.shape[0]} rows: it was not gathered with "
+                         f"{n_table} rows: it was not gathered with "
                          f"this layout")
     if c_min < 0 or (n_tiles and c_max >= n_c):
         raise ValueError(f"{name}: the tiles address side-stream entries "
@@ -142,28 +610,27 @@ def window_block_spmm_mono_reference(table, c_stream, tile_start,
                                      c_off=None, out_dtype=None,
                                      dstl: bool = False):
     """Plain version of :func:`window_block_spmm_mono`: every nonzero of
-    each real tile's C (the one-hot of its dstl row, or its int8 counts)
-    adds count·table row to its output row by ``index_add_`` in f32; one
-    rounding to ``out_dtype`` at the end."""
-    del tile_start, packed
+    each real tile's C (the one-hot of its dstl row, or its int8 / int4
+    counts) adds count·table row to its output row by ``index_add_`` in
+    f64; one rounding to ``out_dtype`` at the end."""
+    del tile_start
     D, dev = table.shape[-1], table.device
     stride = window if win_stride is None else win_stride
-    Y = torch.zeros(n_blocks * out_rows, D, dtype=torch.float32, device=dev)
+    rows_of = lambda idx: table.index_select(0, idx).double()
+    if not dstl:
+        Y = window_counts_sum(rows_of, c_stream, block_of_tile, win_of_tile,
+                              c_off, n_blocks, window, out_rows, packed,
+                              stride, D)
+        return Y.to(torch.float32 if out_dtype is None else out_dtype)
+    Y = torch.zeros(n_blocks * out_rows, D, dtype=torch.float64, device=dev)
     real = torch.nonzero(win_of_tile >= 0).flatten()
     c = real if c_off is None else c_off.long()[real]
     base = win_of_tile.long()[real] * stride
     blk = block_of_tile.long()[real] * out_rows
-    if dstl:
-        rows = c_stream.long()[c]                           # [n, window]
-        valid = rows >= 0
-        src = (base[:, None] + torch.arange(window, device=dev))[valid]
-        Y.index_add_(0, (blk[:, None] + rows)[valid],
-                     table.index_select(0, src).float())
-    else:
-        C = c_stream.reshape(-1, out_rows, window)[c]       # [n, rows, window]
-        i, r, j = torch.nonzero(C, as_tuple=True)
-        Y.index_add_(0, blk[i] + r, table.index_select(0, base[i] + j).float()
-                     * C[i, r, j].float()[:, None])
+    rows = c_stream.long()[c]                               # [n, window]
+    valid = rows >= 0
+    src = (base[:, None] + torch.arange(window, device=dev))[valid]
+    Y.index_add_(0, (blk[:, None] + rows)[valid], rows_of(src))
     return Y.to(torch.float32 if out_dtype is None else out_dtype)
 
 
@@ -172,25 +639,30 @@ def window_block_spmm_mono(table, c_stream, tile_start, block_of_tile,
                            out_rows: int = BLOCK, packed: bool = False,
                            win_stride: int | None = None, c_off=None,
                            out_dtype=None, dstl: bool = False):
-    """out[b·128:(b+1)·128] = Σ_{tiles t of b, win ≥ 0} C_t ·
-    table[win[t]·stride : win[t]·stride + window] → [n_blocks·128, D] in
-    ``out_dtype`` (default f32), summed in f32 and rounded once.
+    """out[b·R:(b+1)·R] = Σ_{tiles t of b, win ≥ 0} C_t ·
+    table[win[t]·stride : win[t]·stride + window] with R = ``out_rows`` →
+    [n_blocks·R, D] in ``out_dtype`` (default f32), summed in f32 and
+    rounded once.
 
-    ``table`` [R, D] in the compute dtype, 1 <= D <= 256; ``c_stream`` the int32 dst-local
-    stream [rows, window] (``dstl=True``) or the int8 count matrix
-    [n·128, window], addressed per tile by ``c_off`` (None: tile t reads
-    entry t); ``win_of_tile`` < 0 marks a dummy tile.  (The TPU kernel's
+    ``table`` [rows, D] in the compute dtype, 1 <= D <= 256; ``c_stream``
+    the int32 dst-local stream [rows, window] (``dstl=True``, R = 128), the
+    int8 count matrix [n·R, window], or with ``packed`` its int4 pairs
+    [n·R, window/2]; tile t reads entry ``c_off[t]`` (None: t);
+    ``win_of_tile`` < 0 marks a dummy tile.  R is a multiple of 128 (the
+    window layouts' 128-, 256- and 512-row dst blocks).  (The TPU kernel's
     grid split and DMA ring depth do not change the sums; the port has
     neither.)  A CPU tensor takes the plain version; a CUDA tensor launches
-    ``csrc/window_mono.cu`` or raises."""
+    ``csrc/window_mono.cu`` (at D = 128 with int4 counts or R > 128: the
+    window step's sums of ``csrc/window_step.cu``, then one rounding to
+    ``out_dtype``) or raises."""
     name = "window_block_spmm_mono"
     _check_mono_args(name, table, c_stream, tile_start, block_of_tile,
                      win_of_tile, n_blocks, window, out_rows, packed,
                      win_stride, c_off, dstl)
     stride = window if win_stride is None else win_stride
     if table.device.type == "cpu":
-        _mono_data_checks(name, table, c_stream, win_of_tile, window, stride,
-                          c_off, dstl)
+        _mono_data_checks(name, table.shape[0], c_stream, win_of_tile,
+                          window, stride, c_off, dstl, out_rows)
         return window_block_spmm_mono_reference(
             table, c_stream, tile_start, block_of_tile, win_of_tile,
             n_blocks, window, out_rows, packed, win_stride, c_off, out_dtype,
@@ -205,24 +677,276 @@ def window_block_spmm_mono(table, c_stream, tile_start, block_of_tile,
     if c_off is not None:
         named.append(("c_off", c_off))
     _check_cuda_args(name, named, D, any_width=True)
+    if not dstl and D == KERNEL_WIDTH and (packed or out_rows != BLOCK):
+        # the window layouts' int4 and tall count forms: the window step's
+        # sums without the GRU (csrc/window_step.cu)
+        if stride != window:
+            raise ValueError(f"{name}: int4 counts or out_rows={out_rows} "
+                             f"take windows at stride {window}, got "
+                             f"win_stride={stride}")
+        out = _launch_step(name, _SRC_TABLE, False, table, c_stream,
+                           tile_start, win_of_tile, c_off, n_blocks, window,
+                           out_rows, packed)
+        window_block_spmm_mono.launches += 1
+        return out if out_dtype == torch.float32 else out.to(out_dtype)
     item_first, pbase, n_items, n_part = split_plan(tile_start, n_blocks)
-    n_items, n_part = _mono_data_checks(name, table, c_stream, win_of_tile,
-                                        window, stride, c_off, dstl,
-                                        (n_items, n_part))
+    n_items, n_part = _mono_data_checks(name, table.shape[0], c_stream,
+                                        win_of_tile, window, stride, c_off,
+                                        dstl, out_rows, (n_items, n_part))
     dev = table.device
-    ws = torch.empty(max(n_part, 1), BLOCK, D, dtype=torch.float32,
+    slices = out_rows // BLOCK
+    ws = torch.empty(max(n_part * slices, 1), BLOCK, D, dtype=torch.float32,
                      device=dev)
-    out = torch.empty(n_blocks * BLOCK, D, dtype=out_dtype, device=dev)
-    n_c = c_stream.shape[0] if dstl else c_stream.shape[0] // BLOCK
+    out = torch.empty(n_blocks * out_rows, D, dtype=out_dtype, device=dev)
+    n_c = c_stream.shape[0] if dstl else c_stream.shape[0] // out_rows
     p = _build.ptr
     _build.launch(
         _build.library().ggnn_window_mono, name, dev, _DTYPE_CODE[table.dtype],
-        _DTYPE_CODE[out_dtype], int(dstl), p(table), table.shape[0], D,
-        p(c_stream), n_c, p(tile_start), p(win_of_tile), p(c_off), n_blocks,
-        window, stride, p(item_first), p(pbase), n_items, n_part, p(ws),
-        p(out))
+        _DTYPE_CODE[out_dtype], int(dstl), int(packed), p(table),
+        table.shape[0], D, p(c_stream), n_c, p(tile_start), p(win_of_tile),
+        p(c_off), n_blocks, out_rows, window, stride, p(item_first),
+        p(pbase), n_items, n_part, p(ws), p(out))
     window_block_spmm_mono.launches += 1
     return out
 
 
 window_block_spmm_mono.launches = 0
+
+
+# --- #12 window_block_spmm_ondemand and #13 window_step_gru ------------------
+
+_SRC_TABLE, _SRC_Q8, _SRC_ONDEMAND = 0, 1, 2
+
+
+def _check_step_args(name, table, c_stream, tile_start, block_of_tile,
+                     win_of_tile, c_off, n_blocks, window, out_rows, packed,
+                     q8, ondemand, msg_w, msg_b):
+    if q8 and packed or ondemand and (q8 or packed):
+        raise ValueError("q8 / packed / ondemand are mutually exclusive")
+    if table.dim() != 2:
+        raise ValueError(f"{name}: table must be [R, D], got "
+                         f"{tuple(table.shape)}")
+    R, D = table.shape
+    if ondemand:
+        if window % 128:
+            raise ValueError("ondemand needs window % 128 == 0")
+        t2 = msg_w.shape[0]
+        if (t2 * 128) % window or R % 128:
+            raise ValueError("ondemand needs (T2*128) % window == 0 and "
+                             "h rows % 128 == 0")
+        if tuple(msg_w.shape) != (t2, D, D) or tuple(msg_b.shape) != (t2, D):
+            raise ValueError(f"{name}: msg_w {tuple(msg_w.shape)} / msg_b "
+                             f"{tuple(msg_b.shape)} are not [T2, D, D] / "
+                             f"[T2, D] with h's D = {D}")
+    elif R % window:
+        raise ValueError("table rows must be a multiple of window")
+    # (an on-demand h source's rows need not be whole windows: its windows
+    # are 128-row h blocks, hence the stride 128 for this check)
+    _check_mono_args(name, table, c_stream, tile_start, block_of_tile,
+                     win_of_tile, n_blocks, window, out_rows, packed,
+                     None if not ondemand else 128, c_off, False)
+
+
+def window_sums_reference(table, c_stream, block_of_tile, win_of_tile, c_off,
+                          n_blocks, window, out_rows, packed, scales=None,
+                          msg_w=None, msg_b=None, init=None):
+    """The f64 window sums of #12 and #13, a before the GRU (from ``init``
+    where given): the table's rows (int8 values times ``scales[win]`` for
+    q8), or with ``msg_w`` the on-demand windows of the h source
+    ``table``."""
+    if msg_w is not None:
+        # the windows' rows: a block-major table in the h source's dtype
+        table = node_table_block_major_reference(table,
+                                                 msg_w.to(table.dtype), msg_b)
+    rows_of = lambda idx: table.index_select(0, idx).double()
+    return window_counts_sum(rows_of, c_stream, block_of_tile, win_of_tile,
+                             c_off, n_blocks, window, out_rows, packed,
+                             window, table.shape[-1], scales=scales,
+                             init=init)
+
+
+def window_block_spmm_ondemand_reference(h, msg_w, msg_b, c_stream,
+                                         tile_start, block_of_tile,
+                                         win_of_tile, c_off, n_blocks: int,
+                                         window: int, out_rows: int = BLOCK):
+    """Plain version of :func:`window_block_spmm_ondemand`: the windows'
+    rows, h·W_t + b_t rounded to h's dtype (the block-major table of
+    :func:`~ggnn_tpu_torch.ops.table.node_table_block_major_reference`),
+    then the count products summed in f64 and rounded once to f32."""
+    del tile_start
+    return window_sums_reference(h, c_stream, block_of_tile, win_of_tile,
+                                 c_off, n_blocks, window, out_rows, False,
+                                 msg_w=msg_w, msg_b=msg_b).float()
+
+
+def _launch_step(name, src_mode, fused, table, c_stream, tile_start,
+                 win_of_tile, c_off, n_blocks, window, out_rows, packed,
+                 scales=None, wbank=None, bbank=None, init=None, hstate=None,
+                 wa=None, b3=None, uzr=None, uh=None):
+    """Launch ``ggnn_window_step`` of ``csrc/window_step.cu`` after the
+    device checks; returns the [n_blocks·out_rows, 128] f32 output."""
+    D = table.shape[-1]
+    cdt = table.dtype if src_mode != _SRC_Q8 else wa.dtype
+    if cdt not in _DTYPE_CODE:
+        raise ValueError(f"{name}: dtype {cdt} not in {list(_DTYPE_CODE)}")
+    if src_mode == _SRC_Q8 and table.dtype != torch.int8:
+        raise ValueError(f"{name}: a q8 table is int8, got {table.dtype}")
+    named = [("table", table), ("c_stream", c_stream),
+             ("tile_start", tile_start), ("win_of_tile", win_of_tile)]
+    for arg, t in (("c_off", c_off), ("scales", scales), ("msg_w", wbank),
+                   ("msg_b", bbank), ("init", init), ("h", hstate),
+                   ("wa", wa), ("b3", b3), ("uzr", uzr), ("uh", uh)):
+        if t is not None:
+            named.append((arg, t))
+    _check_cuda_args(name, named, D)
+    n_rows = n_blocks * out_rows
+    for arg, t in (("init", init), ("h", hstate)):
+        if t is not None and (tuple(t.shape) != (n_rows, D)
+                              or t.dtype != torch.float32):
+            raise ValueError(f"{name}: {arg} must be f32 [n_blocks·out_rows, "
+                             f"D] = [{n_rows}, {D}], got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    for arg, t, shape in (("wa", wa, (D, 3 * D)), ("uzr", uzr, (D, 2 * D)),
+                          ("uh", uh, (D, D))):
+        if t is not None and (tuple(t.shape) != shape or t.dtype != cdt):
+            raise ValueError(f"{name}: {arg} must be {cdt} {list(shape)}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+    n_table = table.shape[0]
+    if src_mode == _SRC_ONDEMAND:
+        # windows of the block-major row space of the h source
+        n_table = n_table * wbank.shape[0]
+    if scales is not None and scales.shape[0] * window != n_table:
+        raise ValueError(f"{name}: {scales.shape[0]} scales for a table of "
+                         f"{n_table} rows in windows of {window}: the table "
+                         f"and its scales do not belong together")
+    _mono_data_checks(name, n_table, c_stream, win_of_tile, window, window,
+                      c_off, False, out_rows)
+    out = torch.empty(n_rows, D, dtype=torch.float32, device=table.device)
+    p = _build.ptr
+    _build.launch(
+        _build.library().ggnn_window_step, name, table.device, src_mode,
+        _DTYPE_CODE[cdt], int(fused), int(packed), p(table), table.shape[0],
+        p(c_stream), c_stream.shape[0] // out_rows, p(tile_start),
+        p(win_of_tile), p(c_off), n_blocks, out_rows, window, p(scales),
+        p(wbank), p(bbank), 0 if wbank is None else wbank.shape[0], p(init),
+        p(hstate), p(wa), p(b3), p(uzr), p(uh), p(out))
+    return out
+
+
+def window_block_spmm_ondemand(h, msg_w, msg_b, c_stream, tile_start,
+                               block_of_tile, win_of_tile, c_off,
+                               n_blocks: int, window: int,
+                               out_rows: int = BLOCK):
+    """#11 with the table windows built on the chip: window w is rows
+    [j·128, (j+1)·128) = h[(w // wpb)·128 : +128]·W_{tbase+j} + b_{tbase+j}
+    rounded to h's dtype (j < W/128, tbase = (w % wpb)·W/128, wpb =
+    T2·128/W), the windows of a block-major table that never exists →
+    [n_blocks·out_rows, D] f32.
+
+    ``h`` [N, D] (N % 128 == 0) in the compute dtype, ``msg_w`` [T2, D, D]
+    (cast to h's dtype), ``msg_b`` [T2, D] (added in f32); the counts int8
+    [n·out_rows, W].  A CPU tensor takes the plain version; a CUDA tensor
+    launches ``csrc/window_ondemand.cu`` (D = 128) or raises."""
+    name = "window_block_spmm_ondemand"
+    N, D = h.shape
+    T2 = msg_w.shape[0]
+    if window % 128 or (T2 * 128) % window:
+        raise ValueError("on-demand windows need W % 128 == 0 and "
+                         "(T2*128) % W == 0")
+    if N % 128:
+        raise ValueError("on-demand windows need N % 128 == 0")
+    _check_step_args(name, h, c_stream, tile_start, block_of_tile,
+                     win_of_tile, c_off, n_blocks, window, out_rows, False,
+                     False, True, msg_w, msg_b)
+    if h.device.type == "cpu":
+        _mono_data_checks(name, N * T2, c_stream, win_of_tile, window,
+                          window, c_off, False, out_rows)
+        return window_block_spmm_ondemand_reference(
+            h, msg_w, msg_b, c_stream, tile_start, block_of_tile,
+            win_of_tile, c_off, n_blocks, window, out_rows)
+    out = _launch_step(name, _SRC_ONDEMAND, False, h, c_stream, tile_start,
+                       win_of_tile, c_off, n_blocks, window, out_rows, False,
+                       wbank=msg_w.to(h.dtype).contiguous(),
+                       bbank=msg_b.float().contiguous())
+    window_block_spmm_ondemand.launches += 1
+    return out
+
+
+window_block_spmm_ondemand.launches = 0
+
+
+def window_step_gru_reference(table, c_stream, tile_start, block_of_tile,
+                              win_of_tile, init, h, wa, b3, uzr, uh,
+                              n_blocks: int, window: int,
+                              out_rows: int = BLOCK, packed: bool = False,
+                              has_init: bool = True, scales=None,
+                              c_off=None, msg_w=None, msg_b=None):
+    """Plain version of :func:`window_step_gru`: a = init + Σ tiles in f64,
+    rounded once to f32; then the GRU cell with its matmul inputs (a, h,
+    r⊙h) rounded to the weights' dtype, f32 products and gates
+    (:func:`~ggnn_tpu_torch.ops.gru.gru_cell_fwd_reference`)."""
+    del tile_start
+    a = window_sums_reference(
+        table, c_stream, block_of_tile, win_of_tile, c_off, n_blocks, window,
+        out_rows, packed, scales=scales, msg_w=msg_w, msg_b=msg_b,
+        init=init if has_init else None).float()
+    return gru_cell_fwd_reference(h, a, wa, b3, uzr, uh, mdt=wa.dtype)[0]
+
+
+def window_step_gru(table, c_stream, tile_start, block_of_tile, win_of_tile,
+                    init, h, wa, b3, uzr, uh, n_blocks: int, window: int,
+                    out_rows: int = BLOCK, packed: bool = False,
+                    has_init: bool = True, emit_res: bool = False,
+                    scales=None, c_off=None, msg_w=None, msg_b=None):
+    """One fused window step → h' [n_blocks·out_rows, D] f32: each dst
+    block's aggregation a, from ``init`` (the spill's partial, f32) when
+    ``has_init`` else zero, plus every real tile's C·window, then the GRU
+    epilogue on a with the reference's rounding points (a, h and r⊙h
+    rounded to the weights' dtype for the gate products; h kept in f32).
+
+    The table source: ``table`` [R, D] in the compute dtype (the counts
+    int8 or, with ``packed``, int4 pairs); with ``scales`` [n_wins] f32 the
+    int8 values-only table of :func:`~ggnn_tpu_torch.ops.table.
+    node_table_block_major_q8` (an exact int8 product times the window's
+    scale); with ``msg_w``/``msg_b`` the h source of on-demand windows (as
+    :func:`window_block_spmm_ondemand`).  ``h`` f32 [n_blocks·out_rows, D];
+    ``wa`` [D, 3D], ``uzr`` [D, 2D], ``uh`` [D, D] in the compute dtype,
+    ``b3`` [1, 3D] f32.  ``emit_res`` (the training residuals) is ROADMAP
+    Queue 1 item 5b and raises.  A CPU tensor takes the plain version (any
+    D); a CUDA tensor launches ``csrc/window_step.cu`` (D = 128) or
+    raises."""
+    name = "window_step_gru"
+    q8 = scales is not None
+    ondemand = msg_w is not None
+    if emit_res:
+        raise NotImplementedError(f"{name}(emit_res=True): the fused step's "
+                                  f"training residuals are not ported yet "
+                                  f"({QUEUE_ITEM_5B})")
+    _check_step_args(name, table, c_stream, tile_start, block_of_tile,
+                     win_of_tile, c_off, n_blocks, window, out_rows, packed,
+                     q8, ondemand, msg_w, msg_b)
+    if table.device.type == "cpu":
+        n_table = table.shape[0] * (msg_w.shape[0] if ondemand else 1)
+        _mono_data_checks(name, n_table, c_stream, win_of_tile, window,
+                          window, c_off, False, out_rows)
+        return window_step_gru_reference(
+            table, c_stream, tile_start, block_of_tile, win_of_tile, init, h,
+            wa, b3, uzr, uh, n_blocks, window, out_rows, packed, has_init,
+            scales, c_off, msg_w, msg_b)
+    if table.shape[-1] != KERNEL_WIDTH:
+        raise ValueError(f"{name}: the CUDA kernel takes D={KERNEL_WIDTH}, "
+                         f"got D={table.shape[-1]}")
+    src_mode = _SRC_Q8 if q8 else _SRC_ONDEMAND if ondemand else _SRC_TABLE
+    out = _launch_step(
+        name, src_mode, True, table, c_stream, tile_start, win_of_tile,
+        c_off, n_blocks, window, out_rows, packed,
+        scales=scales.float().contiguous() if q8 else None,
+        wbank=msg_w.to(table.dtype).contiguous() if ondemand else None,
+        bbank=msg_b.float().contiguous() if ondemand else None,
+        init=init if has_init else None, hstate=h, wa=wa,
+        b3=b3.reshape(-1).float().contiguous(), uzr=uzr, uh=uh)
+    window_step_gru.launches += 1
+    return out
+
+
+window_step_gru.launches = 0

@@ -31,7 +31,8 @@ from ggnn_tpu_torch.train.metrics import MetricsLogger
 
 _UNPORTED_BACKENDS = {
     "pallas": "the pallas backend (packed_messages), ROADMAP Queue 1 item 6",
-    "window": "the window backend, ROADMAP Queue 1 item 5",
+    "window": ("training through the window backend (its backward, kernel "
+               "#14), ROADMAP Queue 1 item 5b"),
 }
 
 
