@@ -92,12 +92,30 @@
    ``[window 1m]``: bench.py's window_community_1m (1,000,192 nodes, 20M
    directed edges, a bf16 table, the legacy spill, block_rows 256): one
    5-step fused forward, then each step against the plain step.
+11. ``[window train]``: the window backend's training path.  #14
+   ``window_bwd_fused`` (exact and int8 ā) and #13's ``emit_res`` form
+   against their plain versions, each twice (bit-equal), on fuzz layouts
+   built ``with_grad`` (dummy-first and empty windows, a hub window, W and
+   block_rows 128 to 512, on-demand, f32 and bf16) and the Y path where
+   the fused backward does not apply (odd T2, 'src' rows at W 192 and
+   512, int4 transposed counts: #11 on ``ct_stream``); then bench.py's
+   window_community_train and window_community_train_q8g (the community
+   headline, its layout built ``with_grad``, on-demand, the XW spill): #14
+   and #13 ``emit_res`` timed, the unfused aggregation's VJP against the
+   plain path, and 3 Adam steps through ``make_train_step`` (launch
+   counts, the first step against the plain path, step times, peak
+   memory, the layout's host seconds).
+12. ``[widths]``: every kernel at D = 4, 8, 16 (zero-padded to the D = 128
+   kernels) and 128 against its plain version, twice bit-equal; #10 at 200
+   and 256; the wider states the kernels do not take raise (ROADMAP Queue
+   3); and the reference's ``test_predictor_backends_agree`` at D = 8:
+   xla, onehot and window (fused and unfused) Predictors predict alike.
 
 The typed-pack phases (2-4, 7) hand ``Predictor.run_batch`` the typed pack
 they build; the Predictor's own layout is the legacy one (phase 6).
 
 Any failed check raises, so the exit code is non-zero.  The last three
-lines are the kernels JSON (fourteen kernels; each kernel's launches on
+lines are the kernels JSON (sixteen kernels; each kernel's launches on
 the main paths, its largest error against its plain version, its time and
 its plain version's, its bound from the bytes and operations of the timed
 inputs at the card's published peaks, and the time of one PyTorch call computing
@@ -187,6 +205,16 @@ SYMMETRIC_LEAVES, TOL_SYMMETRIC = ("head/b2",), 1e-6
 #   them): each row's relative error ≤ TOL_TRAIN and the rows' relative
 #   Frobenius error ≤ TOL_RELF (rare flips of the bf16 flush).
 TOL_BOUND_MEAN, TOL_SAME, HUB_TERMS = 0.1, 1e-6, 64
+# - int8 gradients (window_community_train_q8g), the first step's gradient
+#   leaves against the plain path: each path quantizes its own ā to 255
+#   levels of its block's power-of-2 scale, and the two ā differ in the
+#   last bits of their bf16 roundings, so some percent of the elements land
+#   on the neighbouring level, one quantum (1/127 of the block's largest
+#   |ā|) apart; over 5 steps these differences reach every leaf as the
+#   quantization noise itself does.  The bound is 2**-4 per leaf (the loss,
+#   computed before any quantization, keeps its 1e-3); #14's int8 form is
+#   held per element on the same int8 ā in its own check.
+TOL_Q8G = 2.0 ** -4
 
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense), for each
 # kernel's bound: the larger of bytes / HBM rate and operations / the rate
@@ -223,6 +251,10 @@ KERNELS = {
                         "ggnn_tpu/ops/window_pallas.py:1666"),
     "node_table_block_major_q8": ("ggnn_tpu_torch/ops/csrc/node_table_q8.cu",
                                   "ggnn_tpu/ops/window_pallas.py:1555"),
+    "window_step_gru[emit_res]": ("ggnn_tpu_torch/ops/csrc/window_step_res.cu",
+                                  "ggnn_tpu/ops/window_pallas.py:1666"),
+    "window_bwd_fused": ("ggnn_tpu_torch/ops/csrc/window_bwd.cu",
+                         "ggnn_tpu/ops/window_pallas.py:1204"),
 }
 
 
@@ -303,7 +335,9 @@ def check(name, got, ref, kind, dtype, log, a_rows=None, bound=None):
           flush=True)
     if not ok:
         raise AssertionError(f"{name}: error over tolerance")
-    log.setdefault(name.split("[")[0], []).append(emax)
+    key = max((k for k in KERNELS if name.startswith(k + "[")), key=len,
+              default=name.split("[")[0])
+    log.setdefault(key, []).append(emax)
 
 
 def same_twice(name, tag, got, again):
@@ -442,7 +476,7 @@ def tile_bound(x, kw, dtype):
         src = (kw["tile_msg_off"].long()[sel, None] * kw["align"]
                + cols)[valid]
         tgt = (torch.arange(n, device=dev)[:, None] * 128 + d)[valid]
-        p = torch.zeros(n * 128, DIM, device=dev)
+        p = torch.zeros(n * 128, h_pack.shape[1], device=dev)
         p.index_add_(0, tgt, h_pack.index_select(0, src).float())
         cnt = torch.zeros(n * 128, device=dev)
         cnt.index_add_(0, tgt, torch.ones(tgt.shape[0], device=dev))
@@ -1072,7 +1106,9 @@ def serve(params, fuse, graphs, plain_cache, per_request, tag="serve",
 
 
 def kernel_wrappers():
-    """The fourteen kernel wrappers by name (each counts its launches)."""
+    """The kernel wrappers by name (each counts its launches in
+    ``.launches``; #13's emit_res form in ``window_step_gru.res_launches``,
+    read through :func:`counter`)."""
     from ggnn_tpu_torch.ops import gru as G
     from ggnn_tpu_torch.ops import legacy as L
     from ggnn_tpu_torch.ops import scatter as S
@@ -1090,16 +1126,24 @@ def kernel_wrappers():
             "node_table_block_major": TB.node_table_block_major,
             "window_block_spmm_ondemand": W.window_block_spmm_ondemand,
             "window_step_gru": W.window_step_gru,
-            "node_table_block_major_q8": TB.node_table_block_major_q8}
+            "node_table_block_major_q8": TB.node_table_block_major_q8,
+            "window_step_gru[emit_res]": W.window_step_gru,
+            "window_bwd_fused": W.window_bwd_fused}
+
+
+def counter(name):
+    """The attribute of the wrapper that counts kernel ``name``."""
+    return "res_launches" if name.endswith("[emit_res]") else "launches"
 
 
 def zero_counts():
-    for fn in kernel_wrappers().values():
-        fn.launches = 0
+    for k, fn in kernel_wrappers().items():
+        setattr(fn, counter(k), 0)
 
 
 def read_counts():
-    return {k: fn.launches for k, fn in kernel_wrappers().items()}
+    return {k: getattr(fn, counter(k))
+            for k, fn in kernel_wrappers().items()}
 
 
 def expect_counts(tag, launches, want):
@@ -1121,6 +1165,7 @@ def plain_versions(keep=()):
     from ggnn_tpu_torch.ops import scatter as S
     from ggnn_tpu_torch.ops import table as TB
     from ggnn_tpu_torch.ops import window as W
+    from ggnn_tpu_torch.ops import window_step as WS
     swaps = [(L, "onehot_segment_scatter_flat",
               L.onehot_segment_scatter_flat_reference),
              (L, "onehot_segment_scatter", L.onehot_segment_scatter_reference),
@@ -1140,6 +1185,8 @@ def plain_versions(keep=()):
              (W, "window_block_spmm_ondemand",
               W.window_block_spmm_ondemand_reference),
              (W, "window_step_gru", W.window_step_gru_reference),
+             (W, "window_bwd_fused", W.window_bwd_fused_reference),
+             (WS, "gru_cell_bwd", G.gru_cell_bwd_reference),
              (TB, "node_table_block_major_q8",
               TB.node_table_block_major_q8_reference)]
     swaps = [x for x in swaps if x[1] not in keep]
@@ -1155,9 +1202,10 @@ def plain_versions(keep=()):
 
 def headline_cfg(**kw):
     from ggnn_tpu_torch.models.config import ModelConfig
+    kw.setdefault("backend", "onehot")
     return ModelConfig(state_dim=DIM, annotation_dim=ANN,
                        n_edge_types=EDGE_TYPES, n_steps=STEPS,
-                       head="node_select", backend="onehot", **kw)
+                       head="node_select", **kw)
 
 
 def fresh_params(cfg):
@@ -1173,7 +1221,7 @@ def fresh_params(cfg):
 
 
 def train_headline(batch, layout, modes, tag="train", f32_check=True,
-                   stepwise=False, steps=3):
+                   stepwise=False, steps=3, grad_tol=None):
     """``steps`` Adam steps of the headline model per mode through
     make_train_step; ``modes``: mode -> (config fields, kernel -> launches
     per step; every other kernel 0).  The first step is held to the plain
@@ -1231,7 +1279,7 @@ def train_headline(batch, layout, modes, tag="train", f32_check=True,
         for k in total:
             total[k] += launches[k]
         compare_first_step(f"{tag} {mode}", cfg, arrays, layout, grads1,
-                           losses[0], strict=not stepwise)
+                           losses[0], strict=not stepwise, tol=grad_tol)
         if stepwise:
             vjp_aggregate_check(f"{tag} {mode}", cfg, arrays, layout)
         del params, opt, step, grads1
@@ -1252,10 +1300,11 @@ def train_headline(batch, layout, modes, tag="train", f32_check=True,
 
 
 def compare_first_step(mode, cfg, arrays, layout, grads, loss_k,
-                       strict=True):
+                       strict=True, tol=None):
     """The first step's loss and gradient leaves against the same step
     through the kernels' plain versions on the card (``strict=False``: the
-    loss is held to its bound, the gradients reported only)."""
+    loss is held to its bound, the gradients reported only; ``tol``: the
+    leaves' bound in place of TOL_TRAIN's)."""
     import torch
     from ggnn_tpu_torch.models.api import loss_and_metrics
     from ggnn_tpu_torch.train.checkpoint import _flatten
@@ -1266,7 +1315,8 @@ def compare_first_step(mode, cfg, arrays, layout, grads, loss_k,
                                    scatter_layout=layout)
         gp = torch.autograd.grad(loss, param_leaves(params))
     loss = float(loss.detach())
-    tol, tol_loss = TOL_TRAIN[cfg.compute_dtype]
+    tol_leaf, tol_loss = TOL_TRAIN[cfg.compute_dtype]
+    tol = tol_leaf if tol is None else tol
     dl = abs(loss_k - loss) / max(abs(loss), 1e-30)
     total = torch.stack([g.double().norm() for g in gp]).norm().item()
     errs, sym = [], 0.0
@@ -2003,16 +2053,17 @@ def community_graph(seed):
 
 
 def bench_window_layout(b, block_rows, on_demand, typed_spill,
-                        pack=False):
+                        pack=False, with_grad=False, grad_quant=False):
     """bench.py's window layout (bench.py:209-244): window 512,
     min_edges_per_tile 32, block-major rows, the spill tile from the
-    spill's density."""
+    spill's density; the train records build it ``with_grad`` (and
+    ``grad_quant`` for window_community_train_q8g)."""
     from ggnn_tpu_torch.ops import window as W
     return W.build_window_layout(
         b.edge_src, b.edge_dst, b.edge_type, b.edge_mask, b.spec.n_pad,
         window=WINDOW, n_message_types=2 * EDGE_TYPES, block_rows=block_rows,
         pack_counts=pack, typed_spill=typed_spill, on_demand=on_demand,
-        row_major="block")
+        row_major="block", with_grad=with_grad, grad_quant=grad_quant)
 
 
 def window_weights(params, dtype, T2=2 * EDGE_TYPES):
@@ -2586,6 +2637,665 @@ def window_1m_phase(params, log):
     return launches
 
 
+# --- [window train]: the window backend's training path (#13 emit_res, #14) --
+
+def bwd_inputs(lay, dtype, seed, D=DIM):
+    """The fused backward's inputs at a with_grad layout's shapes: the
+    transposed cotangent āᵀ (and its int8 form with scales), h and W."""
+    import torch
+    from ggnn_tpu_torch.ops import window as W
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n_rows = lay.n_blocks * lay.block_rows
+    n_wins = lay.grad_meta[0]
+    T2 = n_wins * lay.window // lay.n_nodes_pad
+    da = torch.randn(n_rows, D, device=dev, generator=gen)
+    q, sc = W.quantize_grad_pow2(da, lay.block_rows)
+    h = (torch.rand(lay.n_nodes_pad, D, device=dev, generator=gen) * 2
+         - 1).to(dtype)
+    w = (torch.randn(T2, D, D, device=dev, generator=gen)
+         * D ** -0.5).to(dtype)
+    a = lay.arrays
+    gt = (a["c_stream"], a["gt_tile_start"], a["gt_block_of_tile"],
+          a["gt_win_of_tile"], a["gt_c_off"])
+    kw = dict(n_wins=n_wins, window=lay.block_rows, out_rows=lay.window,
+              t2=T2)
+    return dict(exact=(da.to(dtype).t().contiguous(), None),
+                int8=(q.t().contiguous(), sc)), gt, w, h, kw
+
+
+def check_window_bwd(tag, lay, log, dtype, timings=None, D=DIM):
+    """#14 against its plain version on a layout whose backward takes the
+    fused path, exact and with int8 ā, per element: 2e-5 of the plain
+    version on |ā|, |W|, |h| (f32 sums in another order), plus in bf16 one
+    ulp of every slab value (Y rounds to bf16 from the kernel's f32 sum
+    and the plain version's f64 one), mean ≤ 0.1 of it; each twice,
+    bit-equal.  ``timings``: time the exact form (bf16) against its plain
+    version, with its bound."""
+    import torch
+    from ggnn_tpu_torch.ops import window as W
+    forms, gt, w, h, kw = bwd_inputs(lay, dtype, 41, D)
+    dn = str(dtype).split(".")[-1]
+    flip = BF16_ULP if dtype == torch.bfloat16 else 0.0
+    for form, (da_t, sc) in forms.items():
+        if form == "int8" and dtype != torch.bfloat16:
+            continue
+        args = (da_t, *gt, w, h)
+        got = W.window_bwd_fused(*args, da_scales=sc, **kw)
+        again = W.window_bwd_fused(*args, da_scales=sc, **kw)
+        for part, x, y in zip(("dhT", "dWT"), got, again):
+            same_twice("window_bwd_fused", f"{tag},{form},{dn},{part}", x, y)
+        ref = W.window_bwd_fused_reference(*args, da_scales=sc, **kw)
+        mag = W.window_bwd_fused_reference(
+            da_t.abs(), *gt, w.abs(), h.abs(), da_scales=sc, **kw)
+        for part, x, r, m in zip(("dhT", "dWT"), got, ref, mag):
+            check(f"window_bwd_fused[{tag},{form},{dn},{part}]", x, r,
+                  "bound", dtype, log, bound=(2e-5 + flip) * m)
+        del got, again, ref, mag
+    if timings is None:
+        return
+    a = lay.arrays
+    real = a["gt_win_of_tile"] >= 0
+    n_real = int(real.sum().item())
+    nnz = int((a["c_stream"] != 0).sum().item())
+    wins = torch.zeros(kw["n_wins"], device="cuda").index_add_(
+        0, a["gt_block_of_tile"].long(), real.float())
+    S = lay.window // 128
+    slabs = int((wins > 0).sum().item()) * S
+    for form, (da_t, sc) in forms.items():
+        args = (da_t, *gt, w, h)
+        bound = roofline(
+            n_real * lay.block_rows * lay.window + nbytes(da_t, w, h)
+            + (0 if sc is None else nbytes(sc))
+            + nbytes(*gt[1:]) + D * h.shape[0] * 4 + nbytes(w) * 2,
+            [(2 * nnz * D, BF16_FLOPS if sc is None else INT8_OPS),
+             (4 * slabs * 128 * D * D, BF16_FLOPS)])
+        local = {}
+        time_pairs({"window_bwd_fused": (
+            lambda args=args, sc=sc: W.window_bwd_fused(*args, da_scales=sc,
+                                                        **kw),
+            lambda args=args, sc=sc: W.window_bwd_fused_reference(
+                *args, da_scales=sc, **kw), None, bound)}, local)
+        print(f"  window_bwd_fused [{tag}, {form} ā] timed above "
+              f"(no PyTorch call sums a count-matrix product into a fused "
+              f"dh/dW epilogue: library_ms null)", flush=True)
+        if form == "exact":
+            timings["window_bwd_fused"] = local["window_bwd_fused"]
+        else:
+            timings["window_bwd_fused"]["int8_ms"] = \
+                local["window_bwd_fused"]["ms"]
+
+
+def check_emit_res(tag, lay, params, log, dtype, timings=None):
+    """#13's emit_res form against its plain version (the same epilogue,
+    rounding point for rounding point) at a layout's shapes: h' per row
+    within 8 ulps of max(1, max|a_row|) (a rounds to T before the gate
+    products), the residual a likewise, z, r, h̃ within 8 ulps at 1.0 and
+    1e-3 on average; both outputs twice, bit-equal; the residuals' h' is
+    the serving kernel's h', bit for bit."""
+    import torch
+    from ggnn_tpu_torch.ops import table as TB
+    from ggnn_tpu_torch.ops import window as W
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(43)
+    a = lay.arrays
+    nb, rows, W_ = lay.n_blocks, lay.block_rows, lay.window
+    n_rows = nb * rows
+    w, b, gw = window_weights(params, dtype)
+    h = torch.rand(n_rows, DIM, device=dev, generator=gen) * 2 - 1
+    hc = h[:lay.n_nodes_pad].to(dtype)
+    init = torch.randn(n_rows, DIM, device=dev, generator=gen) * 0.3
+    if lay.on_demand:
+        tab, kw = hc, dict(msg_w=w, msg_b=b)
+    else:
+        tab, kw = TB.node_table(hc, w, b, "block"), {}
+    sk = dict(n_blocks=nb, window=W_, out_rows=rows, packed=lay.packed[0],
+              c_off=a["c_off"], **kw)
+    args = (tab, a["c_stream"], a["tile_start"], a["block_of_tile"],
+            a["win_of_tile"], init, h, gw["wa"], gw["b3"], gw["uzr"],
+            gw["uh"])
+    dn = str(dtype).split(".")[-1]
+    got, res = W.window_step_gru(*args, emit_res=True, **sk)
+    got2, res2 = W.window_step_gru(*args, emit_res=True, **sk)
+    same_twice("window_step_gru[emit_res]", f"{tag},{dn},h", got, got2)
+    same_twice("window_step_gru[emit_res]", f"{tag},{dn},resid", res, res2)
+    serving = W.window_step_gru(*args, **sk)
+    if not torch.equal(serving, got):
+        raise AssertionError(f"window_step_gru[emit_res][{tag}]: h' differs "
+                             f"from the serving kernel's")
+    ref, rres = W.window_step_gru_reference(*args, emit_res=True, **sk)
+    a_rows = rres[:, :DIM].float().abs().amax(1).clamp_min(1.0)
+    name = f"window_step_gru[emit_res][{tag},{dn}"
+    check(f"{name},h]", got, ref, "flip_rows", dtype, log, a_rows=a_rows)
+    check(f"{name},a]", res[:, :DIM], rres[:, :DIM], "flip_rows", dtype, log,
+          a_rows=a_rows)
+    check(f"{name},zrh]", res[:, DIM:], rres[:, DIM:], "flip", dtype, log)
+    del got2, res2, serving, ref, rres
+    if timings is None:
+        return
+    real = a["win_of_tile"] >= 0
+    n_real = int(real.sum().item())
+    nnz = int((a["c_stream"] != 0).sum().item())
+    read = n_real * 128 * DIM * 2 if lay.on_demand else n_real * W_ * DIM * 2
+    ops = [(2 * nnz * DIM, BF16_FLOPS), (12 * n_rows * DIM * DIM, BF16_FLOPS)]
+    if lay.on_demand:
+        ops.append((2 * n_real * W_ * DIM * DIM, BF16_FLOPS))
+    bound = roofline(n_real * rows * W_ + read + 3 * n_rows * DIM * 4
+                     + nbytes(res) + nbytes(*gw.values(), a["win_of_tile"],
+                                            a["c_off"]), ops)
+    time_pairs({"window_step_gru[emit_res]": (
+        lambda: W.window_step_gru(*args, emit_res=True, **sk),
+        lambda: W.window_step_gru_reference(*args, emit_res=True, **sk),
+        None, bound)}, timings)
+
+
+def check_y_path(tag, lay, log):
+    """The backward's Y path (a layout whose fused backward does not
+    apply): #11 over the transposed count stream ``ct_stream`` with roles
+    swapped (out_rows = W, window = block_rows, int4 with pack_bwd), Y in
+    bf16, against its plain version per element (flush_bound), twice
+    bit-equal."""
+    import torch
+    from ggnn_tpu_torch.ops import window as W
+    a = lay.arrays
+    gen = torch.Generator(device="cuda").manual_seed(44)
+    n_rows = lay.n_blocks * lay.block_rows
+    da = torch.randn(n_rows, DIM, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    args = (a["ct_stream"], a["gt_tile_start"], a["gt_block_of_tile"],
+            a["gt_win_of_tile"])
+    kw = dict(n_blocks=lay.grad_meta[0], window=lay.block_rows,
+              out_rows=lay.window, packed=lay.packed[1], c_off=a["gt_c_off"],
+              out_dtype=torch.bfloat16)
+    print(f"[window train] Y path {tag}: row_major {lay.row_major}, W "
+          f"{lay.window}, block_rows {lay.block_rows}, packed "
+          f"{lay.packed[1]}, {lay.grad_meta[1]} transposed tiles",
+          flush=True)
+    got = W.window_block_spmm_mono(da, *args, **kw)
+    same_twice("window_block_spmm_mono", f"Y {tag}", got,
+               W.window_block_spmm_mono(da, *args, **kw))
+    ref = W.window_block_spmm_mono_reference(da, *args, **kw)
+    check(f"window_block_spmm_mono[Y {tag}]", got, ref, "bound",
+          torch.bfloat16, log, bound=flush_bound(
+              lambda t: W.window_block_spmm_mono_reference(
+                  t, *args, **dict(kw, out_dtype=torch.float32)),
+              da, ref, torch.bfloat16))
+
+
+def window_grad_fuzz(params, log):
+    """[window train] on small layouts built with their grad half: #14 on
+    layouts whose windows start with their dummy tile, with empty windows
+    and a hub window (every dst block reads source block 0), at W 128,
+    256, 512 and block_rows 128, 256, 512, bf16 and f32, exact and int8;
+    #13's emit_res (table and on-demand); the Y path where the fused
+    backward does not apply: odd T2 (3, W 256: windows straddle source
+    blocks), 'src' rows with W 192 (a last slice of 64 rows) and 512, and
+    int4 transposed counts (pack_bwd)."""
+    import torch
+    from ggnn_tpu_torch.ops import window as W
+    r = np.random.default_rng(23)
+    N, T2 = 2048, 2 * EDGE_TYPES
+    for W_, rows in ((128, 128), (256, 256), (512, 512), (512, 256)):
+        E = 40_000
+        dst = r.integers(0, N - rows, E)
+        src = np.where(r.random(E) < 0.95,
+                       (dst // 256) * 256 + r.integers(0, 256, E),
+                       r.integers(0, N, E)) % N
+        hub = r.random(E) < 0.02
+        src[hub] = r.integers(0, 128, int(hub.sum()))
+        edges = (src, dst, r.integers(0, T2, E), np.ones(E, np.float32))
+        for ondemand in (False, True):
+            kw = dict(window=W_, block_rows=rows, n_message_types=T2,
+                      row_major="block", min_edges_per_tile=16,
+                      with_grad=True)
+            if ondemand:
+                kw.update(on_demand=True, typed_spill=True)
+            lay = W.build_window_layout(*edges, N, **kw)
+            a = lay.arrays
+            first = a["gt_tile_start"][:-1]
+            if not ((a["gt_win_of_tile"][first] < 0)
+                    & (np.diff(a["gt_tile_start"]) > 1)).any():
+                raise AssertionError("window grad fuzz: no dummy-first window")
+            if not lay.grad_meta[4]:
+                raise AssertionError("window grad fuzz: not the fused path")
+            lay = lay.to("cuda")
+            tag = f"fuzz W{W_} rows{rows}{' on-demand' if ondemand else ''}"
+            for dtype in (torch.bfloat16, torch.float32):
+                if not ondemand:
+                    check_window_bwd(tag, lay, log, dtype)
+                check_emit_res(tag, lay, params, log, dtype)
+    Nm = 32_768
+    E = 400_000
+    dst = r.integers(0, Nm, E)
+    src = ((dst // 512) * 512 + r.integers(0, 512, E)) % Nm
+    for name, T2_, kw in (
+            ("odd T2", 3, dict(window=256, block_rows=256,
+                               row_major="block")),
+            ("src W192", T2, dict(window=192, row_major="src")),
+            ("src W512", T2, dict(window=512, row_major="src")),
+            ("packed", T2, dict(window=512, block_rows=256, pack_counts=True,
+                                row_major="block"))):
+        edges = (src, dst, r.integers(0, T2_, E), np.ones(E, np.float32))
+        lay = W.build_window_layout(*edges, Nm, n_message_types=T2_,
+                                    min_edges_per_tile=4, with_grad=True,
+                                    **kw)
+        if lay.grad_meta[4] or "ct_stream" not in lay.arrays:
+            raise AssertionError(f"{name}: expected the Y path")
+        check_y_path(name, lay.to("cuda"), log)
+
+
+def window_vjp_check(tag, lay, params, log):
+    """The unfused window step's aggregation VJP (the Y path or #14, the
+    spill backward) against its plain version on the card, from a random
+    state and cotangent: dh, dW, db within TOL_TRAIN's relative Frobenius
+    bound."""
+    import torch
+    from ggnn_tpu_torch.ops import window_step as WS
+    gen = torch.Generator(device="cuda").manual_seed(45)
+    w, b, _ = window_weights(params, torch.bfloat16)
+    h = (torch.rand(lay.n_nodes_pad, DIM, device="cuda", generator=gen) * 2
+         - 1).to(torch.bfloat16)
+    da = torch.randn(lay.n_nodes_pad, DIM, device="cuda", generator=gen)
+
+    def grads():
+        xs = [t.detach().requires_grad_(True) for t in (h, w, b)]
+        out = WS.aggregate_window(xs[0], lay, xs[1], xs[2])
+        return torch.autograd.grad((out * da).sum(), xs)
+
+    got = grads()
+    with plain_versions():
+        ref = grads()
+    tol = TOL_TRAIN["bfloat16"][0]
+    errs = [(relfro(x, y), k) for k, x, y in zip(("dh", "dW", "db"), got,
+                                                  ref)]
+    ok = max(errs)[0] <= tol and all(torch.isfinite(x).all() for x in got)
+    print(f"[window train] {tag} the aggregation's VJP vs plain path: "
+          f"rel_frobenius " + ", ".join(f"{k} {e:.3e}" for e, k in errs)
+          + f" (tol {tol:.3e}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{tag}: the window VJP disagrees with the "
+                             "plain path")
+
+
+def time_wide_kernels(lay):
+    """#3, #4, #13 (on-demand, and its emit_res form) and #15 at D = 256
+    on the community headline's shapes (the window_community_train layout,
+    262,144 rows), bf16, each against its plain version in turns (plain,
+    kernel, kernel, plain), printed with its bound: the wide kernels' times
+    for PERF.md (the kernels JSON holds the D = 128 ones)."""
+    import torch
+    from ggnn_tpu_torch.ops import gru as G
+    from ggnn_tpu_torch.ops import table as TB
+    from ggnn_tpu_torch.ops import window as W
+    D, dt = 256, torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(46)
+    rn = lambda *s_, sc=1.0: torch.randn(*s_, device="cuda",
+                                         generator=gen) * sc
+    a = lay.arrays
+    nb, rows, W_ = lay.n_blocks, lay.block_rows, lay.window
+    n = nb * rows
+    T2 = 2 * EDGE_TYPES
+    h = torch.rand(n, D, device="cuda", generator=gen) * 2 - 1
+    av = rn(n, D)
+    wa, uzr, uh = (rn(D, k * D, sc=D ** -0.5).to(dt) for k in (3, 2, 1))
+    b3 = rn(3 * D, sc=0.1)
+    w, b = rn(T2, D, D, sc=D ** -0.5).to(dt), rn(T2, D, sc=0.1).to(dt)
+    _, z, r, ht = G.gru_cell_fwd_reference(h, av, wa, b3, uzr, uh, mdt=dt)
+    bargs = (rn(n, D), h.to(dt), av.to(dt), z, r, ht, wa, uzr, uh)
+    sargs = (h.to(dt), a["c_stream"], a["tile_start"], a["block_of_tile"],
+             a["win_of_tile"], rn(n, D, sc=0.3), h, wa, b3[None], uzr, uh)
+    sk = dict(n_blocks=nb, window=W_, out_rows=rows, c_off=a["c_off"],
+              msg_w=w, msg_b=b)
+    real = int((a["win_of_tile"] >= 0).sum().item())
+    nnz = int((a["c_stream"] != 0).sum().item())
+    step_bytes = (real * rows * W_ + real * 128 * D * 2 + 3 * n * D * 4
+                  + nbytes(wa, uzr, uh, w))
+    step_ops = [(2 * nnz * D, BF16_FLOPS), (2 * real * W_ * D * D, BF16_FLOPS),
+                (12 * n * D * D, BF16_FLOPS)]
+    pairs = {
+        "gru_cell_fwd": (
+            lambda: G.gru_cell_fwd(h, av, wa, b3, uzr, uh, mdt=dt),
+            lambda: G.gru_cell_fwd_reference(h, av, wa, b3, uzr, uh, mdt=dt),
+            None, roofline(2 * n * D * 4 + n * D * 4 + 3 * n * D * 2
+                           + nbytes(wa, uzr, uh),
+                           [(12 * n * D * D, BF16_FLOPS)])),
+        "gru_cell_bwd": (
+            lambda: G.gru_cell_bwd(*bargs, mdt=dt),
+            lambda: G.gru_cell_bwd_reference(*bargs, mdt=dt), None,
+            roofline(n * D * 4 + 5 * n * D * 2 + 2 * n * D * 4
+                     + 2 * nbytes(wa, uzr, uh),
+                     [(24 * n * D * D, BF16_FLOPS)])),
+        "window_step_gru": (
+            lambda: W.window_step_gru(*sargs, **sk),
+            lambda: W.window_step_gru_reference(*sargs, **sk), None,
+            roofline(step_bytes, step_ops)),
+        "window_step_gru[emit_res]": (
+            lambda: W.window_step_gru(*sargs, emit_res=True, **sk),
+            lambda: W.window_step_gru_reference(*sargs, emit_res=True, **sk),
+            None, roofline(step_bytes + n * 4 * D * 2, step_ops)),
+        "node_table_block_major_q8": (
+            lambda: TB.node_table_block_major_q8(h.to(dt), w, b, W_),
+            lambda: TB.node_table_block_major_q8_reference(h.to(dt), w, b,
+                                                           W_), None,
+            roofline(n * D * 2 + nbytes(w, b) + n * T2 * D + n * T2 // W_ * 4,
+                     [(2 * n * T2 * D * D, BF16_FLOPS)]))}
+    print(f"[window train] the wide kernels at D = {D}, {n} rows (timed "
+          f"for PERF.md; the JSON line holds D = 128):", flush=True)
+    time_pairs(pairs, {})
+
+
+def window_train_phase(params, log, timings):
+    """[window train]: the window backend's training path.  The fuzz
+    layouts (:func:`window_grad_fuzz`), then bench.py's two window train
+    records on the community headline (bench.py:495-535, its layout built
+    with_grad: W 512, block_rows 512, on-demand, the XW spill, block-major
+    rows): window_community_train (exact bf16 gradients, #14) and
+    window_community_train_q8g (grad_quant: int8 ā).  For each: #14 and
+    #13's emit_res against their plain versions at its shapes (timed), the
+    unfused step's aggregation VJP against the plain path, then 3 Adam
+    steps of the headline model through make_train_step (fused: per step
+    and T, #13 emit_res, #4 on its residuals, #14, the spill's #11 forward
+    and backward), the first against the plain path on the card.  Returns
+    the launch counts of the train steps."""
+    import torch
+    from ggnn_tpu_torch.data.synthetic import synthetic_batch
+    window_grad_fuzz(params, log)
+    t0 = time.perf_counter()
+    b = synthetic_batch(NODES, EDGES, EDGE_TYPES, annotation_dim=ANN, seed=0,
+                        node_mult=128, n_communities=NODES // COMMUNITY,
+                        p_intra=0.95)
+    print(f"[window train] community batch made in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    launched = dict.fromkeys(KERNELS, 0)
+    for name, gq in (("window_community_train", False),
+                     ("window_community_train_q8g", True)):
+        t1 = time.perf_counter()
+        lay = bench_window_layout(b, 512, True, True, with_grad=True,
+                                  grad_quant=gq)
+        t2 = time.perf_counter()
+        lay = lay.to("cuda")
+        torch.cuda.synchronize()
+        print(f"[window train] {name}: with_grad layout built on the host in "
+              f"{t2 - t1:.2f} s, copied in {time.perf_counter() - t2:.2f} s; "
+              f"grad_meta {lay.grad_meta[:3]} fused {lay.grad_meta[4]} "
+              f"grad_quant {lay.meta[10]}; stats {lay.stats}", flush=True)
+        if not lay.grad_meta[4] or lay.meta[10] != gq:
+            raise AssertionError(f"{name}: not the fused backward")
+        if not gq:
+            check_window_bwd("headline", lay, log, torch.bfloat16, timings)
+            check_emit_res("headline on-demand", lay, params, log,
+                           torch.bfloat16, timings)
+            window_vjp_check(name, lay, params, log)
+            time_wide_kernels(lay)
+        spill = ("window_block_spmm_mono" if lay.spill_meta[6] is not None
+                 else "onehot_segment_scatter_flat")
+        sb = ("window_block_spmm_mono" if lay.grad_meta[3][6] is not None
+              else "onehot_segment_scatter_flat")
+        per_step = {"window_step_gru[emit_res]": STEPS,
+                    "gru_cell_bwd": STEPS, "window_bwd_fused": STEPS}
+        for k in (spill, sb):
+            per_step[k] = per_step.get(k, 0) + STEPS
+        got = train_headline(b, lay, {name: (
+            dict(fuse_gru=True, backend="window"), per_step)},
+            tag="window train", f32_check=False,
+            grad_tol=TOL_Q8G if gq else None)
+        for k, v in got.items():
+            launched[k] += v
+        del lay
+        torch.cuda.empty_cache()
+    del b
+    return launched
+
+
+def check_kernel_widths(log):
+    """Every kernel at the widths the reference takes: #1-#7, #10, #12, #13
+    (and emit_res) at D = 4, 8, 16, 128, 200 and 256, #14 up to 128, #15 at
+    128 and 256, bf16 and f32, against their plain versions and a second
+    run of themselves (bit-equal), with the tolerances of the D = 128
+    checks.  D < 128 runs the D = 128 kernels zero-padded
+    (ops/gru.py::pad_width), 256 the wide forms (the GRU cell's panels,
+    the window sums' column panels, the typed scatters' panels), 200
+    padded to 256.  #14 above 128 and every kernel above 256 raise (ROADMAP
+    Queue 3)."""
+    import torch
+    from ggnn_tpu_torch.ops import gru as G
+    from ggnn_tpu_torch.ops import scatter as S
+    from ggnn_tpu_torch.ops import table as TB
+    from ggnn_tpu_torch.ops import window as W
+    dev = torch.device("cuda")
+    r = np.random.default_rng(31)
+    N, E, T2 = 640, 9000, 6
+    edges = (r.integers(0, N, E), r.integers(0, N, E), r.integers(0, T2, E),
+             (r.random(E) < 0.9).astype(np.float32))
+    lay_b = S.build_typed_dst_layout(*edges, N, T2, with_grad=True).to(dev)
+    lay_t = S.build_typed_dst_layout(*edges, N, T2, block_mode=False).to(dev)
+    kb = S.block_args(lay_b)
+    arrs = (kb.pop("dstl_blk"), kb.pop("slot_off16"), kb.pop("blk_off16"))
+    kt = S.tile_args(lay_t)
+    _, _, g_tile, C, R8, span8, n_oct = S.grad_meta(lay_b)
+    octs = (lay_b.arrays["g_dstl_oct"], lay_b.arrays["g_slot_off16"],
+            lay_b.arrays["g_oblk16"])
+    okw = dict(n_oct=n_oct, g_tile=g_tile, C=C, R8=R8, span8=span8)
+    Nw = 2048
+    dst = r.integers(0, Nw - 256, 40_000)
+    src = np.where(r.random(40_000) < 0.9,
+                   (dst // 256) * 256 + r.integers(0, 256, 40_000),
+                   r.integers(0, Nw, 40_000)) % Nw
+    wedges = (src, dst, r.integers(0, 8, 40_000), np.ones(40_000, np.float32))
+    lay_w = W.build_window_layout(*wedges, Nw, window=256, block_rows=256,
+                                  n_message_types=8, row_major="block",
+                                  min_edges_per_tile=4, with_grad=True,
+                                  on_demand=True, typed_spill=True).to(dev)
+    aw = lay_w.arrays
+    wstream = (aw["c_stream"], aw["tile_start"], aw["block_of_tile"],
+               aw["win_of_tile"])
+    wsk = dict(n_blocks=lay_w.n_blocks, window=256, out_rows=256,
+               c_off=aw["c_off"])
+
+    def run(name, tag, kern, plain, kind, dtype, **ck):
+        got = kern()
+        again = kern()
+        got = got if isinstance(got, tuple) else (got,)
+        again = again if isinstance(again, tuple) else (again,)
+        ref = plain()
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        for i, (x, y, z) in enumerate(zip(got, again, ref)):
+            part = f"{tag},{i}" if len(got) > 1 else tag
+            same_twice(name, part, x, y)
+            k = kind[i] if isinstance(kind, tuple) else kind
+            c = {kk: (v[i] if isinstance(v, tuple) else v)
+                 for kk, v in ck.items()}
+            check(f"{name}[widths {part}]", x, z, k, dtype, log, **c)
+
+    for D in (4, 8, 16, 128, 200, 256):
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[-1]
+            tag = f"D={D},{dn}"
+            gen = torch.Generator(device=dev).manual_seed(D)
+            rn = lambda *s, sc=1.0: torch.randn(*s, device=dev,
+                                                generator=gen) * sc
+            w = rn(T2, D, D, sc=D ** -0.5).to(dtype)
+            gw = dict(wa=rn(D, 3 * D, sc=D ** -0.5).to(dtype),
+                      b3=rn(1, 3 * D, sc=0.1),
+                      uzr=rn(D, 2 * D, sc=D ** -0.5).to(dtype),
+                      uh=rn(D, D, sc=D ** -0.5).to(dtype))
+            gargs = (gw["wa"], gw["b3"], gw["uzr"], gw["uh"])
+            # #1, #2
+            hp = rn(lay_b.arrays["gather_idx"].shape[0], D).to(dtype)
+            nr = kb["n_blocks"] * 128
+            init = rn(nr, D, sc=0.1)
+            hs = torch.rand(nr, D, device=dev, generator=gen) * 2 - 1
+            run("typed_block_scatter", tag,
+                lambda: S.typed_block_scatter(hp, *arrs, w, **kb),
+                lambda: S.typed_block_scatter_reference(hp, *arrs, w, **kb),
+                "sum", dtype)
+            run("typed_block_step_gru", tag,
+                lambda: S.typed_block_step_gru(hp, *arrs, w, init, hs,
+                                               *gargs, **kb),
+                lambda: S.typed_block_step_gru_reference(
+                    hp, *arrs, w, init, hs, *gargs, **kb), "flip", dtype)
+            # #3, #4
+            a = rn(nr, D)
+            run("gru_cell_fwd", tag,
+                lambda: G.gru_cell_fwd(hs, a, gw["wa"], gw["b3"][0],
+                                       gw["uzr"], gw["uh"], mdt=dtype),
+                lambda: G.gru_cell_fwd_reference(hs, a, gw["wa"],
+                                                 gw["b3"][0], gw["uzr"],
+                                                 gw["uh"], mdt=dtype),
+                "cell", dtype)
+            _, z, rg, ht = G.gru_cell_fwd_reference(
+                hs, a, gw["wa"], gw["b3"][0], gw["uzr"], gw["uh"], mdt=dtype)
+            bargs = (rn(nr, D), hs.to(dtype), a.to(dtype), z, rg, ht,
+                     gw["wa"], gw["uzr"], gw["uh"])
+            run("gru_cell_bwd", tag,
+                lambda: G.gru_cell_bwd(*bargs, mdt=dtype),
+                lambda: G.gru_cell_bwd_reference(*bargs, mdt=dtype),
+                "relfro", dtype)
+            # #5
+            Gp = rn(lay_b.arrays["g_gather_idx"].shape[0], D).to(dtype)
+            run("typed_grad_octet_scatter", tag,
+                lambda: S.typed_grad_octet_scatter(Gp, *octs, **okw,
+                                                   out_dtype=dtype),
+                lambda: S.typed_grad_octet_scatter_reference(
+                    Gp, *octs, **okw, out_dtype=dtype), "flush", dtype)
+            # #6, #7
+            ht_ = rn(lay_t.arrays["gather_idx"].shape[0], D).to(dtype)
+            nt = kt["n_blocks"] * 128
+            x = dict(h_pack=ht_, msg_w=w)
+            run("typed_onehot_scatter", tag,
+                lambda: S.typed_onehot_scatter(ht_, msg_w=w, **kt),
+                lambda: S.typed_onehot_scatter_reference(ht_, msg_w=w, **kt),
+                "bound", dtype, bound=tile_bound(x, kt, dtype))
+            init_t = rn(nt, D, sc=0.1)
+            hs_t = torch.rand(nt, D, device=dev, generator=gen) * 2 - 1
+            a_t = init_t + S.typed_onehot_scatter_reference(ht_, msg_w=w,
+                                                            **kt)
+            run("typed_step_gru", tag,
+                lambda: S.typed_step_gru(ht_, msg_w=w, init=init_t,
+                                         hstate=hs_t, wa=gw["wa"],
+                                         b3=gw["b3"], uzr=gw["uzr"],
+                                         uh=gw["uh"], **kt),
+                lambda: S.typed_step_gru_reference(
+                    ht_, msg_w=w, init=init_t, hstate=hs_t, wa=gw["wa"],
+                    b3=gw["b3"], uzr=gw["uzr"], uh=gw["uh"], **kt),
+                "flip_rows", dtype,
+                a_rows=a_t.abs().amax(1).clamp_min(1.0))
+            # #10
+            hn = (torch.rand(Nw, D, device=dev, generator=gen) * 2
+                  - 1).to(dtype)
+            w8, b8 = rn(8, D, D, sc=D ** -0.5).to(dtype), rn(8, D,
+                                                             sc=0.1).to(dtype)
+            run("node_table_block_major", tag,
+                lambda: TB.node_table_block_major(hn, w8, b8),
+                lambda: TB.node_table_block_major_reference(hn, w8, b8),
+                "flush", dtype)
+            # #12, #13 (and emit_res) on-demand, #14
+            lay_args = (aw["c_stream"], aw["block_of_tile"],
+                        aw["win_of_tile"], aw["c_off"], lay_w.n_blocks, False)
+            run("window_block_spmm_ondemand", tag,
+                lambda: W.window_block_spmm_ondemand(hn, w8, b8, *wstream,
+                                                     **wsk),
+                lambda: W.window_block_spmm_ondemand_reference(
+                    hn, w8, b8, *wstream, **wsk), "bound", dtype,
+                bound=window_sums_bound(hn, lay_args, 256, 256, msg_w=w8,
+                                        msg_b=b8,
+                                        flip=dtype == torch.bfloat16))
+            nr_w = lay_w.n_blocks * 256
+            init_w = rn(nr_w, D, sc=0.3)
+            hs_w = torch.rand(nr_w, D, device=dev, generator=gen) * 2 - 1
+            sargs = (hn, *wstream, init_w, hs_w, *gargs)
+            a_w = W.window_sums_reference(
+                hn, *lay_args[:4], lay_w.n_blocks, 256, 256, False,
+                msg_w=w8, msg_b=b8, init=init_w).float()
+            a_rows = a_w.abs().amax(1).clamp_min(1.0)
+            run("window_step_gru", tag,
+                lambda: W.window_step_gru(*sargs, msg_w=w8, msg_b=b8, **wsk),
+                lambda: W.window_step_gru_reference(*sargs, msg_w=w8,
+                                                    msg_b=b8, **wsk),
+                "flip_rows", dtype, a_rows=a_rows)
+            run("window_step_gru[emit_res]", tag,
+                lambda: W.window_step_gru(*sargs, msg_w=w8, msg_b=b8,
+                                          emit_res=True, **wsk),
+                lambda: W.window_step_gru_reference(
+                    *sargs, msg_w=w8, msg_b=b8, emit_res=True, **wsk),
+                ("flip_rows", "flip"), dtype, a_rows=(a_rows, None))
+            if D <= 128:
+                check_window_bwd(f"widths D={D}", lay_w, log, dtype, D=D)
+            if D in (128, 256) and dtype == torch.bfloat16:
+                check_q8_table(f"widths D={D}", hn, w8, b8, 256, log)
+    # what the kernels do not take raises, naming ROADMAP Queue 3
+    for D, name in ((256, "window_bwd_fused"), (384, "gru_cell_fwd")):
+        if name == "window_bwd_fused":
+            forms, gt, w, h, kw = bwd_inputs(lay_w, torch.bfloat16, 3, D)
+            fn = lambda: W.window_bwd_fused(forms["exact"][0], *gt, w, h,
+                                            **kw)
+        else:
+            h = torch.rand(1024, D, device=dev) * 2 - 1
+            gw = [torch.randn(D, k * D, device=dev) * D ** -0.5
+                  for k in (3, 2, 1)]
+            fn = lambda: G.gru_cell_fwd(h, h, gw[0],
+                                        torch.zeros(3 * D, device=dev),
+                                        gw[1], gw[2])
+        try:
+            fn()
+        except ValueError as e:
+            if "Queue 3" not in str(e):
+                raise
+            print(f"  {name} at D={D}: raises, as ROADMAP Queue 3 records "
+                  f"({e})", flush=True)
+        else:
+            raise AssertionError(f"{name} ran at D={D}: update the width "
+                                 "checks and ROADMAP Queue 3")
+
+
+def predictor_widths():
+    """The reference's test_predictor_backends_agree (tests/test_infer.py)
+    on the card: a D = 8 model (random weights from seed 0) serving seven
+    small graphs through the xla, onehot and window (fused: #13 at D = 8
+    through its padded D = 128 kernel, and unfused) Predictors; their
+    predictions must be equal."""
+    import torch
+    from ggnn_tpu_torch.graph import PaddingSpec
+    from ggnn_tpu_torch.infer import Predictor
+    from ggnn_tpu_torch.models.config import ModelConfig
+    from ggnn_tpu_torch.models.init import init_params
+    rng = np.random.default_rng(0)
+    gs = []
+    for _ in range(7):
+        n = int(rng.integers(5, 12))
+        m = int(rng.integers(4, 2 * n))
+        gs.append(dict(n_nodes=n, edges=np.stack(
+            [rng.integers(0, n, m), rng.integers(0, 3, m),
+             rng.integers(0, n, m)], axis=1),
+            annotations=(rng.random((n, 2)) < 0.5).astype(np.float32),
+            targets={}))
+    spec = PaddingSpec(n_graphs=4, n_pad=64, e_pad=96, n_edge_types=3,
+                       annotation_dim=2).round_up()
+    kw = dict(state_dim=8, annotation_dim=2, n_edge_types=3, n_steps=3,
+              head="node_select")
+    params = init_params(ModelConfig(**kw), torch.Generator().manual_seed(0),
+                         "cuda")
+    zero_counts()
+    preds = {}
+    for name, backend, fuse in (("xla", "xla", False),
+                                ("onehot", "onehot", False),
+                                ("window", "window", False),
+                                ("window_fused", "window", True)):
+        cfg = ModelConfig(**kw, backend=backend, fuse_gru=fuse)
+        preds[name] = Predictor(cfg, spec, params=params,
+                                device="cuda").predict(gs)
+    launches = {k: v for k, v in read_counts().items() if v}
+    print(f"[widths] D = 8 Predictors: {preds}; launches {launches}",
+          flush=True)
+    if launches.get("window_step_gru", 0) == 0:
+        raise AssertionError("widths: the fused window Predictor did not "
+                             "launch #13")
+    for name in ("onehot", "window", "window_fused"):
+        if preds[name] != preds["xla"]:
+            raise AssertionError(f"widths: the {name} Predictor's "
+                                 f"predictions differ from xla's")
+
+
 def setup():
     """Print the card and the software, build the port's kernels from the
     checkout (nvcc seconds per source, ptxas's register and spill lines),
@@ -2711,9 +3421,12 @@ def main() -> int:
         launched[k] += v
     window_kernels_phase(params, log, timings)
     for phase in (lambda: window_serve_phase(params),
-                  lambda: window_1m_phase(params, log)):
+                  lambda: window_1m_phase(params, log),
+                  lambda: window_train_phase(params, log, timings)):
         for k, v in phase().items():
             launched[k] += v
+    check_kernel_widths(log)
+    predictor_widths()
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     if any(m == "ggnn_tpu" or m.startswith("ggnn_tpu.") for m in sys.modules):

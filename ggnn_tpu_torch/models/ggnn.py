@@ -18,12 +18,11 @@ and ``onehot``: through the typed-pack CUDA kernels (per block, or per tile
 where block mode declines), fused (GRU in the kernel's epilogue) or not;
 through the legacy table-gather layout (``ops/legacy.py``: the table
 kernel, then its scatter), which never fuses; or, forward only, through a
-list of chunked legacy layouts.  ``window``, serving only: the window
-layouts of ``ops/window.py`` through ``ops/window_step.py``, fused (kernel
-#13 over a bf16/f32 table, a q8 table or on-demand windows) or not
-(``aggregate_window`` then the GRU cell).  The other backends, and
-gradients through ``window``, raise ``NotImplementedError`` naming their
-ROADMAP item.
+list of chunked legacy layouts.  ``window``: the window layouts of
+``ops/window.py`` through ``ops/window_step.py``, fused (kernel #13 over a
+bf16/f32 table, a q8 table or on-demand windows; trainable but for q8) or
+not (``aggregate_window`` then the GRU cell), with their backwards.  The
+other backends raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -47,8 +46,7 @@ from ggnn_tpu_torch.ops.scatter import (BLOCK_N, ScatterLayout,
                                         block_args, grad_meta, tile_args,
                                         typed_block_step_gru, typed_step_gru)
 from ggnn_tpu_torch.ops.segment import typed_aggregate
-from ggnn_tpu_torch.ops.window_step import (aggregate_window,
-                                            gru_window_step, refuse_grad)
+from ggnn_tpu_torch.ops.window_step import aggregate_window, gru_window_step
 
 
 def init_state(annotations, state_dim: int):
@@ -263,9 +261,9 @@ def propagate(prop: dict, cfg: ModelConfig, annotations, edge_src, edge_dst,
     :class:`~ggnn_tpu_torch.ops.window.DeviceWindowLayout` (host or device
     form; moved to h's device here), required as in the reference.  Fused
     steps go to ``gru_window_step`` (``quantized=cfg.quantized_table``),
-    unfused ones to ``aggregate_window`` then the GRU cell.  Serving only:
-    with a parameter that requires grad under autograd it raises
-    (ROADMAP Queue 1 item 5b).
+    unfused ones to ``aggregate_window`` then the GRU cell.  Gradients need
+    a layout built ``with_grad=True`` (and, fused, N and D multiples of
+    128); the q8 table is forward only.
 
     ``cfg.remat`` recomputes each step in the backward
     (``torch.utils.checkpoint``) instead of keeping its residuals, except
@@ -327,8 +325,6 @@ def propagate(prop: dict, cfg: ModelConfig, annotations, edge_src, edge_dst,
                 "backend='window' needs a precomputed layout: "
                 "build_window_layout(...) (or window_layout_for_batch), "
                 "passed as scatter_layout")
-        refuse_grad("propagate(backend='window')", annotations,
-                    prop["msg_w"], prop["msg_b"], *prop["gru"].values())
         layout = scatter_layout.to(h.device)
         if cfg.fuse_gru:
             def step(h):

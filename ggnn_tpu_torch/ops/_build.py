@@ -44,6 +44,12 @@ _SIGNATURES = {
     # ws, dwa, db, duzr, duh, n_blocks, stream
     "ggnn_gru_cell_bwd": [_I, _I] + [_P] * 18 + [_I, _P],
     "ggnn_gru_bwd_chunks": [_I],
+    # dtype, P, h, a, wa, b3, uzr, uh, rh, out_h, z, r, ht, n_blocks, stream
+    "ggnn_gru_cell_wide": [_I, _I] + [_P] * 11 + [_I, _P],
+    "ggnn_gru_wide_bwd_chunks": [_I],
+    # dtype, da_narrow, P, g, h, a, z, r, ht, wa, uzr, uh, dh, da, gates,
+    # dbp, ws, dwa, db, duzr, duh, n_blocks, stream
+    "ggnn_gru_cell_bwd_wide": [_I, _I, _I] + [_P] * 18 + [_I, _P],
     # g_dtype, out_dtype, G, n_G, dstl_oct, slot_off16, oblk16, n_oct,
     # g_tile, C, R8, out, stream
     "ggnn_grad_octet": [_I, _I, _P, ctypes.c_longlong, _P, _P, _P, _I, _I,
@@ -62,14 +68,14 @@ _SIGNATURES = {
     "ggnn_window_mono": [_I, _I, _I, _I, _P, ctypes.c_longlong, _I, _P,
                          ctypes.c_longlong, _P, _P, _P, _I, _I, _I, _I, _P,
                          _P, _I, _I, _P, _P, _P],
-    # src, dtype, fused, packed, table, n_table, counts, n_c, tile_start,
-    # win_of_tile, c_off, n_blocks, out_rows, window, scales, wbank, bbank,
-    # T2, init, hstate, wa, b3, uzr, uh, out, stream
-    "ggnn_window_step": [_I, _I, _I, _I, _P, ctypes.c_longlong, _P,
+    # src, dtype, fused, packed, width, table, n_table, counts, n_c,
+    # tile_start, win_of_tile, c_off, n_blocks, out_rows, window, scales,
+    # wbank, bbank, T2, init, hstate, wa, b3, uzr, uh, out, res, stream
+    "ggnn_window_step": [_I, _I, _I, _I, _I, _P, ctypes.c_longlong, _P,
                          ctypes.c_longlong, _P, _P, _P, _I, _I, _I, _P, _P,
-                         _P, _I, _P, _P, _P, _P, _P, _P, _P, _P],
-    # dtype, h, msg_w, msg_b, n_blocks, T2, gtypes, out, scales, stream
-    "ggnn_node_table_q8": [_I, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+                         _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    # dtype, h, msg_w, msg_b, n_blocks, T2, gtypes, P, out, scales, stream
+    "ggnn_node_table_q8": [_I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     # dtype, msgs, n_msgs, D, onehot / dst_local, n_tiles, tile_start,
     # n_blocks, tile_e, item_first, pbase, n_items, n_partial, ws, out,
     # [bad,] stream
@@ -79,6 +85,12 @@ _SIGNATURES = {
     "ggnn_onehot_dstl": [_I, _P, ctypes.c_longlong, _I, _P,
                          ctypes.c_longlong, _P, _I, _I, _P, _P, _I, _I, _P,
                          _P, _P],
+    # dtype, quant, da_t, scales, n_cols, counts, n_c, gt_start, gt_win,
+    # gt_c_off, n_dst_blocks, BR, W, T2, n_src_blocks, group, msg_w, h, dht,
+    # ws, dwt, stream
+    "ggnn_window_bwd": [_I, _I, _P, _P, ctypes.c_longlong, _P,
+                        ctypes.c_longlong, _P, _P, _P, _I, _I, _I, _I, _I,
+                        _I, _P, _P, _P, _P, _P, _P],
     # dtype, h, msg_w, msg_b, n_blocks, D, T2, out, stream
     "ggnn_node_table": [_I, _P, _P, _P, _I, _I, _I, _P, _P],
     "ggnn_error_string": [_I],

@@ -149,8 +149,9 @@ __device__ __forceinline__ int frag_col(int nt, int e) {
 //   A_s: a rounded to T, [128][ld] smem;  H_s: h rounded to T, [128][ld] smem
 //   (overwritten with r⊙h);  W_s: a [128][ld] smem weight tile;
 //   hrow: the f32 state rows [128, D];  wa [D, 3D], uzr [D, 2D], uh [D, D]
-//   in T;  b3 [3D] f32.  Writes h' (f32) and, if EMIT, z, r, h̃ in T.
-template <typename T, bool EMIT>
+//   in T;  b3 [3D] f32.  Writes h' (f32) and, if EMIT, z, r, h̃ in T, rows
+//   LDR elements apart (the fused window step's residual rows are 4D wide).
+template <typename T, bool EMIT, int LDR = kD>
 __device__ void gru_block(const T* A_s, T* H_s, T* W_s,
                           const float* __restrict__ hrow,
                           const T* __restrict__ wa, const float* __restrict__ b3,
@@ -195,8 +196,8 @@ __device__ void gru_block(const T* A_s, T* H_s, T* W_s,
       zacc[nt][e] = z;
       H_s[r * ld + c] = from_f<T>(rg * hv);
       if (EMIT) {
-        out_z[r * kD + c] = from_f<T>(z);
-        out_r[r * kD + c] = from_f<T>(rg);
+        out_z[r * LDR + c] = from_f<T>(z);
+        out_r[r * LDR + c] = from_f<T>(rg);
       }
     }
   }
@@ -218,7 +219,7 @@ __device__ void gru_block(const T* A_s, T* H_s, T* W_s,
       const float hv = hrow[r * kD + c];
       const float z = zacc[nt][e];
       out_h[r * kD + c] = (1.0f - z) * hv + z * ht;
-      if (EMIT) out_ht[r * kD + c] = from_f<T>(ht);
+      if (EMIT) out_ht[r * LDR + c] = from_f<T>(ht);
     }
   }
 }

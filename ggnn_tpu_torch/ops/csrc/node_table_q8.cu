@@ -22,7 +22,9 @@
 // registers, so the products run twice: a first pass for the max, a second
 // (the same instructions on the same operands: the same bits) that
 // quantizes.  This doubles the products (0.27 TFLOP, still under the
-// bytes' time).
+// bytes' time).  Wider states (D = 128·P) walk 128-column panels: each
+// output panel's products sum over the P K-panels of h and W_t (h's panel
+// staged anew for each), and the window's max covers every panel.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -32,7 +34,7 @@ namespace ggnn {
 template <typename T>
 __global__ void __launch_bounds__(kThreads) node_table_q8_kernel(
     const T* __restrict__ h, const T* __restrict__ w, const T* __restrict__ b,
-    int T2, int gtypes, int8_t* __restrict__ out,
+    int T2, int gtypes, int P, int8_t* __restrict__ out,
     float* __restrict__ scales) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int ld = Smem<T>::ld;
@@ -42,36 +44,45 @@ __global__ void __launch_bounds__(kThreads) node_table_q8_kernel(
   __shared__ float e_s;
   const int i = blockIdx.x, g = blockIdx.y;
   const int row0 = (threadIdx.x >> 5) * 16;
-  const T* hb = h + size_t(i) * kRows * kD;
-  for (int idx = threadIdx.x; idx < kRows * kD; idx += kThreads)
-    A_s[(idx / kD) * ld + idx % kD] = hb[idx];
+  const int D = P * kD;
+  const T* hb = h + size_t(i) * kRows * D;
+  auto stage_h = [&](int kp) {  // K-panel kp of the source block's rows
+    for (int idx = threadIdx.x; idx < kRows * kD; idx += kThreads)
+      A_s[(idx / kD) * ld + idx % kD] =
+          hb[size_t(idx / kD) * D + kp * kD + idx % kD];
+  };
+  if (P == 1) stage_h(0);
 
   float acc[kNT][4];
   float m = 0.0f;
   float inv = 0.0f;
   for (int pass = 0; pass < 2; ++pass) {
-    for (int j = 0; j < gtypes; ++j) {
-      const int t = g * gtypes + j;
-      __syncthreads();  // every warp is done with the previous W_t (and the
-                        // first time: A_s is staged)
-      load_wt(B_s, w + size_t(t) * kD * kD, kD, 0);
-      __syncthreads();
-      zero_acc(acc);
-      warp_gemm(acc, A_s + row0 * ld, B_s);
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = row0 + frag_row(e), col = frag_col(nt, e);
-          const float v = acc[nt][e] + to_f(b[size_t(t) * kD + col]);
-          if (pass == 0) {
-            m = fmaxf(m, fabsf(v));
-          } else {
-            const float q = fminf(fmaxf(rintf(v * inv), -127.0f), 127.0f);
-            out[((size_t(i) * T2 + t) * kRows + r) * kD + col] = int8_t(q);
-          }
+    for (int j = 0; j < gtypes; ++j)
+      for (int qp = 0; qp < P; ++qp) {  // output panel qp of type t
+        const int t = g * gtypes + j;
+        zero_acc(acc);
+        for (int kp = 0; kp < P; ++kp) {
+          __syncthreads();  // every warp is done with the previous W_t (and
+                            // the first time: A_s is staged)
+          if (P > 1) stage_h(kp);
+          load_wt(B_s, w + (size_t(t) * D + kp * kD) * D, D, qp * kD);
+          __syncthreads();
+          warp_gemm(acc, A_s + row0 * ld, B_s);
         }
-    }
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = row0 + frag_row(e), col = qp * kD + frag_col(nt, e);
+            const float v = acc[nt][e] + to_f(b[size_t(t) * D + col]);
+            if (pass == 0) {
+              m = fmaxf(m, fabsf(v));
+            } else {
+              const float q = fminf(fmaxf(rintf(v * inv), -127.0f), 127.0f);
+              out[((size_t(i) * T2 + t) * kRows + r) * D + col] = int8_t(q);
+            }
+          }
+      }
     if (pass == 0) {
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1)
@@ -95,9 +106,9 @@ __global__ void __launch_bounds__(kThreads) node_table_q8_kernel(
 
 template <typename T>
 static int launch_node_table_q8(const void* h, const void* w, const void* b,
-                                int n_blocks, int T2, int gtypes, void* out,
-                                void* scales, cudaStream_t stream) {
-  if (gtypes <= 0 || T2 % gtypes) return int(cudaErrorInvalidValue);
+                                int n_blocks, int T2, int gtypes, int P,
+                                void* out, void* scales, cudaStream_t stream) {
+  if (gtypes <= 0 || T2 % gtypes || P <= 0) return int(cudaErrorInvalidValue);
   const size_t smem = 2 * Smem<T>::tile;
   cudaError_t err = cudaFuncSetAttribute(
       node_table_q8_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -106,28 +117,28 @@ static int launch_node_table_q8(const void* h, const void* w, const void* b,
   const dim3 grid(n_blocks, T2 / gtypes);
   node_table_q8_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(h), static_cast<const T*>(w),
-      static_cast<const T*>(b), T2, gtypes, static_cast<int8_t*>(out),
+      static_cast<const T*>(b), T2, gtypes, P, static_cast<int8_t*>(out),
       static_cast<float*>(scales));
   return int(cudaGetLastError());
 }
 
 }  // namespace ggnn
 
-// dtype: 0 = float32, 1 = bfloat16 (h, msg_w, msg_b).  h [n_blocks·128, 128],
-// msg_w [T2, 128, 128], msg_b [T2, 128]; windows of gtypes types (T2 %
-// gtypes == 0); out int8 [n_blocks·T2·128, 128], scales f32
+// dtype: 0 = float32, 1 = bfloat16 (h, msg_w, msg_b).  h [n_blocks·128, D],
+// msg_w [T2, D, D], msg_b [T2, D] with D = 128·P; windows of gtypes types
+// (T2 % gtypes == 0); out int8 [n_blocks·T2·128, D], scales f32
 // [n_blocks·T2 / gtypes].  Returns the cudaError_t of the launch.
 extern "C" int ggnn_node_table_q8(int dtype, const void* h, const void* msg_w,
                                   const void* msg_b, int n_blocks, int T2,
-                                  int gtypes, void* out, void* scales,
+                                  int gtypes, int P, void* out, void* scales,
                                   void* stream) {
   if (n_blocks <= 0 || T2 <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
     return ggnn::launch_node_table_q8<__nv_bfloat16>(
-        h, msg_w, msg_b, n_blocks, T2, gtypes, out, scales, s);
+        h, msg_w, msg_b, n_blocks, T2, gtypes, P, out, scales, s);
   if (dtype == 0)
     return ggnn::launch_node_table_q8<float>(h, msg_w, msg_b, n_blocks, T2,
-                                             gtypes, out, scales, s);
+                                             gtypes, P, out, scales, s);
   return int(cudaErrorInvalidValue);
 }

@@ -3,7 +3,9 @@
 // Replaces two kernels of ggnn_tpu/ops/window_pallas.py:
 // - _window_step_kernel (run by window_step_gru, #13): per dst block, the
 //   aggregation a = init + Σ_tiles C_tile · window, then the GRU epilogue on
-//   a, serving form (no emit_res), from three table sources (SRC):
+//   a, from three table sources (SRC); with emit_res (RES, kTable and
+//   kOnDemand) also the training residuals (a | z | r | h̃) per row in T,
+//   each rounded from the epilogue's f32 values:
 //   kTable    a bf16/f32 table [R, D]; window w = rows [w·W, w·W + W); the
 //             counts int8 or int4 pairs (`packed`);
 //   kQ8       the int8 values-only table of node_table_block_major_q8 with
@@ -20,7 +22,9 @@
 //   kOnDemand sums without the epilogue, written as f32 (FUSED = false);
 // and, as kTable without the epilogue, the window layouts' count forms of
 // _window_mono_kernel (#11) at D = 128 that window_mono.cu leaves out: the
-// int4-packed counts and the 256- and 512-row dst blocks.
+// int4-packed counts and the 256- and 512-row dst blocks, and the backward's
+// Y = Cᵀ·ā over the transposed count stream (out_rows = W, any width: a
+// last slice of fewer than 128 rows is masked).
 // A tile with win < 0 is a dummy (zero-init or padding) and adds nothing.
 // The GRU epilogue is common.cuh::gru_block<T, false>, #2's: gate products
 // on a and h rounded to T, r⊙h rounded to T before U_h, f32 gates and h.
@@ -50,11 +54,14 @@
 // Queue 2 items; the sums and their order would not change.
 #include "window_step.cuh"
 
-GGNN_WINDOW_STEP_INSTANTIATE(ggnn::kTable, true)
-GGNN_WINDOW_STEP_INSTANTIATE(ggnn::kTable, false)
-GGNN_WINDOW_STEP_EXTERN(ggnn::kQ8, true)
-GGNN_WINDOW_STEP_EXTERN(ggnn::kOnDemand, true)
-GGNN_WINDOW_STEP_EXTERN(ggnn::kOnDemand, false)
+GGNN_WINDOW_STEP_INSTANTIATE(ggnn::kTable, true, false)
+GGNN_WINDOW_STEP_INSTANTIATE(ggnn::kTable, false, false)
+GGNN_WINDOW_STEP_EXTERN(ggnn::kQ8, true, false)
+GGNN_WINDOW_STEP_EXTERN(ggnn::kQ8, false, false)
+GGNN_WINDOW_STEP_EXTERN(ggnn::kOnDemand, true, false)
+GGNN_WINDOW_STEP_EXTERN(ggnn::kOnDemand, false, false)
+GGNN_WINDOW_STEP_EXTERN(ggnn::kTable, true, true)
+GGNN_WINDOW_STEP_EXTERN(ggnn::kOnDemand, true, true)
 
 // src: 0 = table, 1 = q8, 2 = on-demand; dtype (the table's, or for q8 the
 // GRU weights'; wbank's for on-demand): 0 = float32, 1 = bfloat16; fused: 1
@@ -66,32 +73,42 @@ GGNN_WINDOW_STEP_EXTERN(ggnn::kOnDemand, false)
 // [n_tiles]; scales [n_wins] f32 (q8); wbank [T2, 128, 128], bbank [T2, 128]
 // f32 (on-demand); init (or null: zero) and hstate f32 [n_blocks·out_rows,
 // 128]; wa [128, 384], b3 [384] f32, uzr [128, 256], uh [128, 128]; out f32
-// [n_blocks·out_rows, 128].  Returns the cudaError_t of the launch.
+// [n_blocks·out_rows, 128]; res (or null: no residuals; fused table or
+// on-demand only) [n_blocks·out_rows, 512] in the dtype.  Without fused,
+// width = P·128 for wider states (every 128 above becomes the width: the
+// table, h source, wbank [T2, width, width], bbank, init and out).  Returns
+// the cudaError_t of the launch.
 extern "C" int ggnn_window_step(
-    int src, int dtype, int fused, int packed, const void* table,
+    int src, int dtype, int fused, int packed, int width, const void* table,
     long long n_table, const void* counts, long long n_c,
     const void* tile_start, const void* win_of_tile, const void* c_off,
     int n_blocks, int out_rows, int window, const void* scales,
     const void* wbank, const void* bbank, int T2, const void* init,
     const void* hstate, const void* wa, const void* b3, const void* uzr,
-    const void* uh, void* out, void* stream) {
+    const void* uh, void* out, void* res, void* stream) {
   if (n_blocks <= 0) return 0;
+  if (width <= 0 || width % ggnn::kD) return int(cudaErrorInvalidValue);
+  const int P = width / ggnn::kD;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define GGNN_LAUNCH(T, SRC, FUSED)                                           \
-  return ggnn::launch_window_step<T, SRC, FUSED>(                            \
-      table, n_table, counts, n_c, packed != 0, tile_start, win_of_tile,     \
+#define GGNN_LAUNCH(T, SRC, FUSED, RES)                                      \
+  return ggnn::launch_window_step<T, SRC, FUSED, RES>(                       \
+      P, table, n_table, counts, n_c, packed != 0, tile_start, win_of_tile,     \
       c_off, n_blocks, out_rows, window, scales, wbank, bbank, T2, init,     \
-      hstate, wa, b3, uzr, uh, out, s)
-#define GGNN_DTYPES(SRC, FUSED)                                              \
-  if (dtype == 1) GGNN_LAUNCH(__nv_bfloat16, SRC, FUSED);                    \
-  if (dtype == 0) GGNN_LAUNCH(float, SRC, FUSED)
-  if (fused) {
-    if (src == ggnn::kTable) { GGNN_DTYPES(ggnn::kTable, true); }
-    if (src == ggnn::kQ8) { GGNN_DTYPES(ggnn::kQ8, true); }
-    if (src == ggnn::kOnDemand) { GGNN_DTYPES(ggnn::kOnDemand, true); }
-  } else {
-    if (src == ggnn::kTable) { GGNN_DTYPES(ggnn::kTable, false); }
-    if (src == ggnn::kOnDemand) { GGNN_DTYPES(ggnn::kOnDemand, false); }
+      hstate, wa, b3, uzr, uh, out, res, s)
+#define GGNN_DTYPES(SRC, FUSED, RES)                                         \
+  if (dtype == 1) GGNN_LAUNCH(__nv_bfloat16, SRC, FUSED, RES);               \
+  if (dtype == 0) GGNN_LAUNCH(float, SRC, FUSED, RES)
+  if (fused && res) {
+    if (src == ggnn::kTable) { GGNN_DTYPES(ggnn::kTable, true, true); }
+    if (src == ggnn::kOnDemand) { GGNN_DTYPES(ggnn::kOnDemand, true, true); }
+  } else if (fused) {
+    if (src == ggnn::kTable) { GGNN_DTYPES(ggnn::kTable, true, false); }
+    if (src == ggnn::kQ8) { GGNN_DTYPES(ggnn::kQ8, true, false); }
+    if (src == ggnn::kOnDemand) { GGNN_DTYPES(ggnn::kOnDemand, true, false); }
+  } else if (!res) {
+    if (src == ggnn::kTable) { GGNN_DTYPES(ggnn::kTable, false, false); }
+    if (src == ggnn::kQ8) { GGNN_DTYPES(ggnn::kQ8, false, false); }
+    if (src == ggnn::kOnDemand) { GGNN_DTYPES(ggnn::kOnDemand, false, false); }
   }
 #undef GGNN_DTYPES
 #undef GGNN_LAUNCH

@@ -52,7 +52,15 @@ __device__ __forceinline__ void warp_gemm_s8(int (&acc)[kNT][4],
 // [128][ld] tiles of T (buf0: the counts as T, or a W_t operand; buf1: the
 // window chunk, transposed; buf2: the h block of kOnDemand), reused by the
 // epilogue as (A_s, W_s, H_s).  kQ8 views buf0 and buf1 as int8 operands.
-template <typename T, int SRC, bool FUSED>
+// RES (with FUSED): also write the training residuals (a | z | r | h̃) in T,
+// rows of 4·128, to `res` (emit_res of the TPU kernel).  Without FUSED (the
+// sums only, kTable) out_rows need not be a multiple of 128: the last slice
+// of a block computes and writes only its out_rows % 128 rows.  Without
+// FUSED the state may also be P·128 wide (P = gridDim.z): CTA z sums output
+// columns [z·128, z·128 + 128) of rows P·128 wide (table, init, out), and
+// an on-demand window chunk sums its products over the P 128-column panels
+// of the h block and of W_t.
+template <typename T, int SRC, bool FUSED, bool RES>
 __global__ void __launch_bounds__(kThreads) window_step_kernel(
     const void* __restrict__ table, long long n_table,
     const int8_t* __restrict__ counts, long long n_c, bool packed,
@@ -63,7 +71,7 @@ __global__ void __launch_bounds__(kThreads) window_step_kernel(
     const float* __restrict__ init, const float* __restrict__ hstate,
     const T* __restrict__ wa, const float* __restrict__ b3,
     const T* __restrict__ uzr, const T* __restrict__ uh,
-    float* __restrict__ out) {
+    float* __restrict__ out, T* __restrict__ res) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int ld = Smem<T>::ld;
   T* buf0 = reinterpret_cast<T*>(smem);
@@ -74,8 +82,11 @@ __global__ void __launch_bounds__(kThreads) window_step_kernel(
   __shared__ int wl_s[kThreads];  // a chunk of the block's win_of_tile
 
   const int b = blockIdx.x, slice = blockIdx.y;
+  const int P = gridDim.z, ldw = P * kD;   // row length of the wide arrays
+  const int colq = blockIdx.z * kD;        // this CTA's output columns
   const size_t orow0 = size_t(b) * out_rows + size_t(slice) * kRows;
   const int row0 = (threadIdx.x >> 5) * 16;
+  const int nrows = min(kRows, out_rows - slice * kRows);  // rows of slice
   const int ccols = packed ? window / 2 : window;
   const int gtypes = window / kRows;
   const int wpb = SRC == kOnDemand ? T2 / gtypes : 1;
@@ -85,7 +96,7 @@ __global__ void __launch_bounds__(kThreads) window_step_kernel(
   for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e)
-      acc[nt][e] = init ? init[(orow0 + row0 + frag_row(e)) * kD +
+      acc[nt][e] = init ? init[(orow0 + row0 + frag_row(e)) * ldw + colq +
                                frag_col(nt, e)]
                         : 0.0f;
 
@@ -113,15 +124,22 @@ __global__ void __launch_bounds__(kThreads) window_step_kernel(
       }
       long long hb = 0;
       int tbase = 0;
+      // the h block's K-panel kp of an on-demand window, into buf2
+      auto stage_h = [&](int kp) {
+        const T* hsrc = static_cast<const T*>(table);
+        for (int idx = threadIdx.x; idx < kRows * kD; idx += kThreads) {
+          const int r = idx / kD, k = idx % kD;
+          buf2[r * ld + k] = hb + r < n_table
+                                 ? hsrc[(hb + r) * ldw + kp * kD + k]
+                                 : from_f<T>(0.0f);
+        }
+      };
       if constexpr (SRC == kOnDemand) {
         hb = (long long)(w / wpb) * kRows;
         tbase = (w % wpb) * gtypes;
-        const T* hsrc = static_cast<const T*>(table);
-        __syncthreads();  // every warp is done with the previous h block
-        for (int idx = threadIdx.x; idx < kRows * kD; idx += kThreads) {
-          const int r = idx / kD, k = idx % kD;
-          buf2[r * ld + k] = hb + r < n_table ? hsrc[(hb + r) * kD + k]
-                                              : from_f<T>(0.0f);
+        if (P == 1) {
+          __syncthreads();  // every warp is done with the previous h block
+          stage_h(0);
         }
       }
       const long long base = (long long)w * window;
@@ -131,19 +149,23 @@ __global__ void __launch_bounds__(kThreads) window_step_kernel(
           // window chunk j = T(h_blk · W_{tbase+j} + b_{tbase+j}), built
           // in registers and stored transposed into buf1
           const int tj = tbase + j0 / kD;
-          __syncthreads();  // buf0 and buf1 are free
-          load_wt(buf0, wbank + size_t(tj) * kD * kD, kD, 0);
-          __syncthreads();
           float wacc[kNT][4];
           zero_acc(wacc);
-          warp_gemm(wacc, buf2 + row0 * ld, buf0);
+          for (int kp = 0; kp < P; ++kp) {
+            __syncthreads();  // buf0, buf1 (and buf2 when P > 1) are free
+            if (P > 1) stage_h(kp);
+            load_wt(buf0, wbank + (size_t(tj) * ldw + kp * kD) * ldw, ldw,
+                    colq);
+            __syncthreads();
+            warp_gemm(wacc, buf2 + row0 * ld, buf0);
+          }
 #pragma unroll
           for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               const int r = row0 + frag_row(e), col = frag_col(nt, e);
               buf1[col * ld + r] =
-                  from_f<T>(wacc[nt][e] + bbank[size_t(tj) * kD + col]);
+                  from_f<T>(wacc[nt][e] + bbank[size_t(tj) * ldw + colq + col]);
             }
           __syncthreads();  // every warp is done reading W_t from buf0
           for (int idx = threadIdx.x; idx < kRows * kD; idx += kThreads) {
@@ -163,7 +185,7 @@ __global__ void __launch_bounds__(kThreads) window_step_kernel(
             const int kr = idx / kD, nn = idx % kD;
             const long long row = base + j0 + kr;
             B8[nn * kLd8 + kr] =
-                (kr < nk && row < n_table) ? tq[row * kD + nn] : 0;
+                (kr < nk && row < n_table) ? tq[row * ldw + colq + nn] : 0;
           }
           __syncthreads();
           warp_gemm_s8(iacc, A8 + row0 * kLd8, B8);
@@ -173,13 +195,14 @@ __global__ void __launch_bounds__(kThreads) window_step_kernel(
           for (int idx = threadIdx.x; idx < kRows * kD; idx += kThreads) {
             const int r = idx / kD, kk = idx % kD;
             buf0[r * ld + kk] = from_f<T>(
-                kk < nk ? float(count_at(C + size_t(r) * ccols, j0 + kk,
-                                         window, packed))
-                        : 0.0f);
+                kk < nk && r < nrows
+                    ? float(count_at(C + size_t(r) * ccols, j0 + kk, window,
+                                     packed))
+                    : 0.0f);
             const int kr = idx / kD, nn = idx % kD;
             const long long row = base + j0 + kr;
             buf1[nn * ld + kr] = (kr < nk && row < n_table)
-                                     ? tab[row * kD + nn]
+                                     ? tab[row * ldw + colq + nn]
                                      : from_f<T>(0.0f);
           }
           __syncthreads();
@@ -198,34 +221,42 @@ __global__ void __launch_bounds__(kThreads) window_step_kernel(
 
   if constexpr (FUSED) {
     __syncthreads();  // every warp is done with the last tile's operands
-    // a rounded to T (this warp's rows), h rounded to T, then the GRU
-    // (gru_block starts with a barrier)
+    // a rounded to T (this warp's rows; with RES also the residual's a),
+    // h rounded to T, then the GRU (gru_block starts with a barrier)
+    constexpr int kRes = 4 * kD;  // a residual row: a | z | r | h̃
+    T* rrow = RES ? res + orow0 * kRes : nullptr;
 #pragma unroll
     for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        buf0[(row0 + frag_row(e)) * ld + frag_col(nt, e)] =
-            from_f<T>(acc[nt][e]);
+      for (int e = 0; e < 4; ++e) {
+        const int r = row0 + frag_row(e), c = frag_col(nt, e);
+        const T av = from_f<T>(acc[nt][e]);
+        buf0[r * ld + c] = av;
+        if constexpr (RES) rrow[size_t(r) * kRes + c] = av;
+      }
     const float* hrow = hstate + orow0 * kD;
     stage_rows(buf2, hrow);
-    gru_block<T, false>(buf0, buf2, buf1, hrow, wa, b3, uzr, uh,
-                        out + orow0 * kD, nullptr, nullptr, nullptr);
+    gru_block<T, RES, RES ? kRes : kD>(
+        buf0, buf2, buf1, hrow, wa, b3, uzr, uh, out + orow0 * kD,
+        RES ? rrow + kD : nullptr, RES ? rrow + 2 * kD : nullptr,
+        RES ? rrow + 3 * kD : nullptr);
   } else {
 #pragma unroll
     for (int nt = 0; nt < kNT; ++nt) {
       const int c0 = frag_col(nt, 0);
-      const size_t r_lo = orow0 + row0 + frag_row(0);
-      const size_t r_hi = orow0 + row0 + frag_row(2);
-      *reinterpret_cast<float2*>(out + r_lo * kD + c0) =
-          make_float2(acc[nt][0], acc[nt][1]);
-      *reinterpret_cast<float2*>(out + r_hi * kD + c0) =
-          make_float2(acc[nt][2], acc[nt][3]);
+      const int lo = row0 + frag_row(0), hi = row0 + frag_row(2);
+      if (lo < nrows)
+        *reinterpret_cast<float2*>(out + (orow0 + lo) * ldw + colq + c0) =
+            make_float2(acc[nt][0], acc[nt][1]);
+      if (hi < nrows)
+        *reinterpret_cast<float2*>(out + (orow0 + hi) * ldw + colq + c0) =
+            make_float2(acc[nt][2], acc[nt][3]);
     }
   }
 }
 
-template <typename T, int SRC, bool FUSED>
-int launch_window_step(const void* table, long long n_table,
+template <typename T, int SRC, bool FUSED, bool RES>
+int launch_window_step(int P, const void* table, long long n_table,
                               const void* counts, long long n_c, bool packed,
                               const void* tile_start, const void* win_of_tile,
                               const void* c_off, int n_blocks, int out_rows,
@@ -234,8 +265,12 @@ int launch_window_step(const void* table, long long n_table,
                               const void* init, const void* hstate,
                               const void* wa, const void* b3,
                               const void* uzr, const void* uh, void* out,
-                              cudaStream_t stream) {
-  if (out_rows <= 0 || out_rows % kRows || window <= 0)
+                              void* res, cudaStream_t stream) {
+  if (out_rows <= 0 || window <= 0 || P <= 0 || (FUSED && P != 1))
+    return int(cudaErrorInvalidValue);
+  if (out_rows % kRows && (FUSED || SRC != kTable))
+    return int(cudaErrorInvalidValue);
+  if (RES != (res != nullptr) || (RES && (!FUSED || SRC == kQ8)))
     return int(cudaErrorInvalidValue);
   if (packed && (SRC != kTable || window % 2)) return int(cudaErrorInvalidValue);
   if (SRC != kTable && window % kRows) return int(cudaErrorInvalidValue);
@@ -247,11 +282,11 @@ int launch_window_step(const void* table, long long n_table,
     return int(cudaErrorInvalidValue);
   const size_t smem = 3 * Smem<T>::tile;
   cudaError_t err = cudaFuncSetAttribute(
-      window_step_kernel<T, SRC, FUSED>,
+      window_step_kernel<T, SRC, FUSED, RES>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
-  const dim3 grid(n_blocks, out_rows / kRows);
-  window_step_kernel<T, SRC, FUSED><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid(n_blocks, (out_rows + kRows - 1) / kRows, P);
+  window_step_kernel<T, SRC, FUSED, RES><<<grid, kThreads, smem, stream>>>(
       table, n_table, static_cast<const int8_t*>(counts), n_c, packed,
       static_cast<const int*>(tile_start),
       static_cast<const int*>(win_of_tile), static_cast<const int*>(c_off),
@@ -260,34 +295,28 @@ int launch_window_step(const void* table, long long n_table,
       static_cast<const float*>(init), static_cast<const float*>(hstate),
       static_cast<const T*>(wa), static_cast<const float*>(b3),
       static_cast<const T*>(uzr), static_cast<const T*>(uh),
-      static_cast<float*>(out));
+      static_cast<float*>(out), static_cast<T*>(res));
   return int(cudaGetLastError());
 }
 
 }  // namespace ggnn
 
-// The instantiations of one (SRC, FUSED) pair, bf16 and f32.
-#define GGNN_WINDOW_STEP_INSTANTIATE(SRC, FUSED)                             \
-  template int ggnn::launch_window_step<__nv_bfloat16, SRC, FUSED>(        \
-      const void*, long long, const void*, long long, bool, const void*,  \
-      const void*, const void*, int, int, int, const void*, const void*,  \
-      const void*, int, const void*, const void*, const void*,            \
-      const void*, const void*, const void*, void*, cudaStream_t);        \
-  template int ggnn::launch_window_step<float, SRC, FUSED>(                \
-      const void*, long long, const void*, long long, bool, const void*,  \
-      const void*, const void*, int, int, int, const void*, const void*,  \
-      const void*, int, const void*, const void*, const void*,            \
-      const void*, const void*, const void*, void*, cudaStream_t);
+// The instantiations of one (SRC, FUSED, RES) form, bf16 and f32.
+#define GGNN_WINDOW_STEP_SIG                                                 \
+  int, const void*, long long, const void*, long long, bool, const void*,   \
+      const void*, const void*, int, int, int, const void*, const void*,    \
+      const void*, int, const void*, const void*, const void*, const void*, \
+      const void*, const void*, void*, void*, cudaStream_t
+#define GGNN_WINDOW_STEP_INSTANTIATE(SRC, FUSED, RES)                        \
+  template int ggnn::launch_window_step<__nv_bfloat16, SRC, FUSED, RES>(   \
+      GGNN_WINDOW_STEP_SIG);                                                \
+  template int ggnn::launch_window_step<float, SRC, FUSED, RES>(           \
+      GGNN_WINDOW_STEP_SIG);
 
 // The same, declared for the translation units that only call them.
-#define GGNN_WINDOW_STEP_EXTERN(SRC, FUSED)                                  \
-  extern template int ggnn::launch_window_step<__nv_bfloat16, SRC, FUSED>( \
-      const void*, long long, const void*, long long, bool, const void*,  \
-      const void*, const void*, int, int, int, const void*, const void*,  \
-      const void*, int, const void*, const void*, const void*,            \
-      const void*, const void*, const void*, void*, cudaStream_t);        \
-  extern template int ggnn::launch_window_step<float, SRC, FUSED>(         \
-      const void*, long long, const void*, long long, bool, const void*,  \
-      const void*, const void*, int, int, int, const void*, const void*,  \
-      const void*, int, const void*, const void*, const void*,            \
-      const void*, const void*, const void*, void*, cudaStream_t);
+#define GGNN_WINDOW_STEP_EXTERN(SRC, FUSED, RES)                             \
+  extern template int                                                       \
+  ggnn::launch_window_step<__nv_bfloat16, SRC, FUSED, RES>(                 \
+      GGNN_WINDOW_STEP_SIG);                                                \
+  extern template int ggnn::launch_window_step<float, SRC, FUSED, RES>(    \
+      GGNN_WINDOW_STEP_SIG);

@@ -3,4 +3,4 @@
 // nvcc builds the window kernels in parallel (see window_step.cu).
 #include "window_step.cuh"
 
-GGNN_WINDOW_STEP_INSTANTIATE(ggnn::kOnDemand, true)
+GGNN_WINDOW_STEP_INSTANTIATE(ggnn::kOnDemand, true, false)

@@ -3,4 +3,5 @@
 // nvcc builds the window kernels in parallel (see window_step.cu).
 #include "window_step.cuh"
 
-GGNN_WINDOW_STEP_INSTANTIATE(ggnn::kQ8, true)
+GGNN_WINDOW_STEP_INSTANTIATE(ggnn::kQ8, true, false)
+GGNN_WINDOW_STEP_INSTANTIATE(ggnn::kQ8, false, false)

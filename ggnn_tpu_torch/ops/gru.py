@@ -15,8 +15,8 @@ import torch
 
 from ggnn_tpu_torch.ops import _build
 
-KERNEL_WIDTH = 128      # the state width D the CUDA kernels take
-MAX_WIDTH = 256         # the widest D of the kernels that take any width
+KERNEL_WIDTH = 128      # the state width D the CUDA kernels are written for
+MAX_WIDTH = 256         # the widest D the CUDA kernels take
 BLOCK = 128             # rows per CTA
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -45,9 +45,69 @@ def gru_cell_fwd_reference(h, a, w_a, b_all, u_zr, uh, mdt=torch.bfloat16):
     return out.to(h.dtype), z.to(mdt), r.to(mdt), htil.to(mdt)
 
 
-def _check_cuda_args(name, tensors, D, any_width=False):
+def kernel_width(D: int) -> int:
+    """The state width of the kernel that runs a D-wide state: 128 for
+    D ≤ 128, else D rounded up to a multiple of 128 (the wide kernels'
+    128-column panels)."""
+    return max(KERNEL_WIDTH, -(-D // KERNEL_WIDTH) * KERNEL_WIDTH)
+
+
+def pad_width(x, D: int, *, rows: bool = False, groups: int = 1):
+    """x with its state columns zero-padded from D to :func:`kernel_width`
+    (D), so that a CUDA kernel written for D = 128 (or for whole 128-column
+    panels) runs a model of another width.
+
+    The last axis is ``groups`` side-by-side groups of D columns (a fused
+    GRU weight [D, 3D] has three), each padded on its own; with ``rows``
+    the second-to-last axis (a weight's D input rows) is padded too.  The
+    kernel's outputs, cut back with :func:`narrow_width`, are exactly the
+    unpadded function's:
+
+    - every padded column of h, a, the table and the cotangents, and every
+      padded row and column of a weight or bias, is zero, so each product
+      over D only adds exact zeros, and a padded output column is a sum of
+      zeros;
+    - in the GRU a padded column has z = σ(0) = ½ and h̃ = tanh(0) = 0, so
+      h' = ½·0 + ½·0 = 0 there, and it feeds no real column (its weight
+      rows are zero);
+    - in the GRU backward the padded columns of g are zero, so dz, dq, dh
+      and the gate gradients are zero there (whatever z holds), and the
+      parameter gradients' padded rows and columns are sums of zeros;
+    - the q8 table's per-window maximum over |values| is unchanged by zero
+      columns, so its scales and int8 values are the unpadded ones."""
+    Dk = kernel_width(D)
+    pad = Dk - D
+    if pad <= 0:
+        return x
+    if groups > 1:
+        x = x.reshape(*x.shape[:-1], groups, D)
+    x = torch.nn.functional.pad(x, (0, pad))
+    if groups > 1:
+        x = x.reshape(*x.shape[:-2], groups * Dk)
+    if rows:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+    return x.contiguous()
+
+
+def narrow_width(x, D: int, *, rows: bool = False, groups: int = 1):
+    """The inverse of :func:`pad_width`: the first D columns of each of
+    ``groups`` column groups (and, with ``rows``, the first D rows)."""
+    if x.shape[-1] == groups * D:
+        return x
+    if groups > 1:
+        x = x.reshape(*x.shape[:-1], groups, -1)[..., :D]
+        x = x.reshape(*x.shape[:-2], groups * D)
+    else:
+        x = x[..., :D]
+    if rows:
+        x = x[..., :D, :]
+    return x.contiguous()
+
+
+def _check_cuda_args(name, tensors, D, any_width=False, wide=False):
     """Device, contiguity and alignment of every tensor, and the width D:
-    128, or with ``any_width`` any D in [1, 256]."""
+    128 (with ``wide`` also 256), or with ``any_width`` any D in [1,
+    256]."""
     dev = tensors[0][1].device
     for arg, t in tensors:
         if t.device != dev:
@@ -60,9 +120,12 @@ def _check_cuda_args(name, tensors, D, any_width=False):
         if not 1 <= D <= MAX_WIDTH:
             raise ValueError(f"{name}: the CUDA kernel takes 1 <= D <= "
                              f"{MAX_WIDTH}, got D={D}")
-    elif D != KERNEL_WIDTH:
-        raise ValueError(f"{name}: the CUDA kernel takes D={KERNEL_WIDTH}, "
-                         f"got D={D} (other widths: ROADMAP Queue 2)")
+    elif D != KERNEL_WIDTH and not (wide and D == MAX_WIDTH):
+        top = MAX_WIDTH if wide else KERNEL_WIDTH
+        raise ValueError(f"{name}: the CUDA kernel takes D <= {top} "
+                         f"(other widths zero-padded to a multiple of "
+                         f"{KERNEL_WIDTH}), got D={D} (wider states: "
+                         f"ROADMAP Queue 3)")
 
 
 def gru_cell_fwd(h, a, w_a, b_all, u_zr, uh, mdt=torch.bfloat16):
@@ -71,10 +134,19 @@ def gru_cell_fwd(h, a, w_a, b_all, u_zr, uh, mdt=torch.bfloat16):
     ``u_zr`` [D, 2D], ``uh`` [D, D] (cast to ``mdt``); ``b_all`` [3D].
 
     A CPU tensor takes :func:`gru_cell_fwd_reference`; a CUDA tensor
-    launches the kernel or raises."""
+    launches the kernel (``csrc/gru_cell.cu``; at 128 < D ≤ 256
+    ``csrc/gru_cell_wide.cu``; other D through :func:`pad_width`) or
+    raises."""
     if h.device.type == "cpu":
         return gru_cell_fwd_reference(h, a, w_a, b_all, u_zr, uh, mdt)
     N, D = h.shape
+    if D != kernel_width(D) and D <= MAX_WIDTH:
+        P = lambda x, **kw: pad_width(x, D, **kw)
+        out = gru_cell_fwd(P(h), P(a), P(w_a, rows=True, groups=3),
+                           P(b_all.reshape(-1), groups=3),
+                           P(u_zr, rows=True, groups=2), P(uh, rows=True),
+                           mdt)
+        return tuple(narrow_width(x, D) for x in out)
     if N % BLOCK:
         raise ValueError(f"gru_cell_fwd needs N % {BLOCK} == 0, got {N}")
     if mdt not in _DTYPE_CODE:
@@ -91,10 +163,19 @@ def gru_cell_fwd(h, a, w_a, b_all, u_zr, uh, mdt=torch.bfloat16):
         raise ValueError("gru_cell_fwd: weight shapes do not match D")
     _check_cuda_args("gru_cell_fwd", [("h", h), ("a", a), ("w_a", w_a),
                                       ("b_all", b3), ("u_zr", u_zr),
-                                      ("uh", uh)], D)
+                                      ("uh", uh)], D, wide=True)
     out = torch.empty_like(h)
     z, r, htil = (torch.empty((N, D), dtype=mdt, device=h.device)
                   for _ in range(3))
+    p = _build.ptr
+    if D > KERNEL_WIDTH:        # csrc/gru_cell_wide.cu, 128-column panels
+        rh = torch.empty((N, D), dtype=mdt, device=h.device)
+        _build.launch(
+            _build.library().ggnn_gru_cell_wide, "gru_cell_fwd", h.device,
+            _DTYPE_CODE[mdt], D // KERNEL_WIDTH, p(h), p(a), p(w_a), p(b3),
+            p(u_zr), p(uh), p(rh), p(out), p(z), p(r), p(htil), N // BLOCK)
+        gru_cell_fwd.launches += 1
+        return out, z, r, htil
     _build.launch(
         _build.library().ggnn_gru_cell, "gru_cell_fwd", h.device,
         _DTYPE_CODE[mdt], h.data_ptr(), a.data_ptr(), w_a.data_ptr(),
@@ -108,7 +189,7 @@ def gru_cell_bwd_reference(g, h, a, z, r, htil, w_a, u_zr, uh,
                            mdt=torch.bfloat16, da_dtype=torch.float32):
     """Plain version of :func:`gru_cell_bwd` (the TPU kernel's rounding
     points): every matmul input, gate gradients included, rounded to
-    ``mdt``; db summed from the f32 gate gradients."""
+    ``mdt``; db summed from the f32 gate gradients (in f64, rounded once)."""
     D = h.shape[-1]
     g = g.float()
     h, z, r, htil = (x.float() for x in (h, z, r, htil))
@@ -129,7 +210,8 @@ def gru_cell_bwd_reference(g, h, a, z, r, htil, w_a, u_zr, uh,
     dh = (dh + _mm(dpz, u_zr[:, :D].t(), mdt)
           + _mm(dpr, u_zr[:, D:].t(), mdt))
     dwa = torch.cat([mtm(a, dpz), mtm(a, dpr), mtm(a, dq)], dim=1)
-    db = torch.cat([dpz.sum(0), dpr.sum(0), dq.sum(0)])[None, :]
+    # db: column sums in f64, rounded once (the same bits at any width)
+    db = torch.cat([x.double().sum(0) for x in (dpz, dpr, dq)]).float()[None]
     duzr = torch.cat([mtm(h, dpz), mtm(h, dpr)], dim=1)
     duh = mtm(rh, dq)
     return dh, da.to(da_dtype), dwa, db, duzr, duh
@@ -145,11 +227,24 @@ def gru_cell_bwd(g, h, a, z, r, htil, w_a, u_zr, uh, mdt=torch.bfloat16,
     weights are cast to ``mdt``.
 
     A CPU tensor takes :func:`gru_cell_bwd_reference`; a CUDA tensor
-    launches the kernel (``csrc/gru_cell_bwd.cu``) or raises."""
+    launches the kernel (``csrc/gru_cell_bwd.cu``; at 128 < D ≤ 256
+    ``csrc/gru_cell_wide.cu``; other D through :func:`pad_width`) or
+    raises."""
     if g.device.type == "cpu":
         return gru_cell_bwd_reference(g, h, a, z, r, htil, w_a, u_zr, uh,
                                       mdt, da_dtype)
     N, D = h.shape
+    if D != kernel_width(D) and D <= MAX_WIDTH:
+        P = lambda x, **kw: pad_width(x, D, **kw)
+        dh, da, dwa, db, duzr, duh = gru_cell_bwd(
+            *(P(x) for x in (g, h, a, z, r, htil)),
+            P(w_a, rows=True, groups=3), P(u_zr, rows=True, groups=2),
+            P(uh, rows=True), mdt, da_dtype)
+        return (narrow_width(dh, D), narrow_width(da, D),
+                narrow_width(dwa, D, rows=True, groups=3),
+                narrow_width(db, D, groups=3),
+                narrow_width(duzr, D, rows=True, groups=2),
+                narrow_width(duh, D, rows=True))
     if N % BLOCK:
         raise ValueError(f"gru_cell_bwd needs N % {BLOCK} == 0, got {N}")
     if mdt not in _DTYPE_CODE:
@@ -171,10 +266,12 @@ def gru_cell_bwd(g, h, a, z, r, htil, w_a, u_zr, uh, mdt=torch.bfloat16,
         raise ValueError("gru_cell_bwd: weight shapes do not match D")
     _check_cuda_args("gru_cell_bwd", [
         ("g", g), ("h", h), ("a", a), ("z", z), ("r", r), ("htil", htil),
-        ("w_a", w_a), ("u_zr", u_zr), ("uh", uh)], D)
+        ("w_a", w_a), ("u_zr", u_zr), ("uh", uh)], D, wide=True)
     dev, n_blocks = h.device, N // BLOCK
     lib = _build.library()
-    n_chunks = lib.ggnn_gru_bwd_chunks(n_blocks)
+    wide = D > KERNEL_WIDTH          # csrc/gru_cell_wide.cu
+    n_chunks = (lib.ggnn_gru_wide_bwd_chunks if wide
+                else lib.ggnn_gru_bwd_chunks)(n_blocks)
     f32 = dict(dtype=torch.float32, device=dev)
     dh = torch.empty((N, D), **f32)
     da = torch.empty((N, D), dtype=da_dtype, device=dev)
@@ -186,11 +283,15 @@ def gru_cell_bwd(g, h, a, z, r, htil, w_a, u_zr, uh, mdt=torch.bfloat16,
     duzr = torch.empty((D, 2 * D), **f32)
     duh = torch.empty((D, D), **f32)
     p = _build.ptr
+    head = ((lib.ggnn_gru_cell_bwd_wide, "gru_cell_bwd", dev,
+             _DTYPE_CODE[mdt], int(da_dtype != torch.float32),
+             D // KERNEL_WIDTH) if wide else
+            (lib.ggnn_gru_cell_bwd, "gru_cell_bwd", dev, _DTYPE_CODE[mdt],
+             int(da_dtype != torch.float32)))
     _build.launch(
-        lib.ggnn_gru_cell_bwd, "gru_cell_bwd", dev, _DTYPE_CODE[mdt],
-        int(da_dtype != torch.float32), p(g), p(h), p(a), p(z), p(r),
-        p(htil), p(w_a), p(u_zr), p(uh), p(dh), p(da), p(gates), p(dbp),
-        p(ws), p(dwa), p(db), p(duzr), p(duh), n_blocks)
+        *head, p(g), p(h), p(a), p(z), p(r), p(htil), p(w_a), p(u_zr),
+        p(uh), p(dh), p(da), p(gates), p(dbp), p(ws), p(dwa), p(db),
+        p(duzr), p(duh), n_blocks)
     gru_cell_bwd.launches += 1
     return dh, da, dwa, db, duzr, duh
 

@@ -32,7 +32,11 @@ chunks give the same sums as one call, so the port builds both arrays as the
 reference does and launches once over all blocks.
 
 A wrapper takes its plain version only for CPU tensors; for CUDA tensors it
-launches the kernel or raises.
+launches the kernel or raises.  The kernels are written for D = 128: a
+narrower state runs them zero-padded (:func:`~ggnn_tpu_torch.ops.gru.
+pad_width`, exact), D = 256 in 128-column panels (:func:`_panel_scatter`;
+the fused steps then add the GRU cell kernel at that width), and other D ≤
+256 padded to 256.
 """
 
 from __future__ import annotations
@@ -44,7 +48,9 @@ import numpy as np
 import torch
 
 from ggnn_tpu_torch.ops import _build
-from ggnn_tpu_torch.ops.gru import (_DTYPE_CODE, _check_cuda_args,
+from ggnn_tpu_torch.ops.gru import (KERNEL_WIDTH, MAX_WIDTH, _DTYPE_CODE,
+                                    _check_cuda_args, gru_cell_fwd,
+                                    kernel_width, narrow_width, pad_width,
                                     gru_cell_fwd_reference)
 from ggnn_tpu_torch.ops.window import (host_ints, split_plan,
                                        window_block_spmm_mono)
@@ -459,6 +465,34 @@ def _launch_block(name, fused, h_pack, dstl_blk, slot_off16, blk_off16,
     return out
 
 
+def _panel_scatter(kernel, h_pack, msg_w):
+    """A typed scatter Σ bf16(onehot·h_pack)·W_t at D = 128·P through the
+    D = 128 kernel: output panel q = Σ_kp kernel(h_pack[:, kp], W_t[kp, q]),
+    the kp partials added in f32 (the one-hot sums and their rounding are
+    per column, so only the order of the f32 sum over D changes)."""
+    D = msg_w.shape[-1]
+    ps = [slice(q, q + KERNEL_WIDTH) for q in range(0, D, KERNEL_WIDTH)]
+    hp = [h_pack[:, s].contiguous() for s in ps]
+    cols = []
+    for sq in ps:
+        acc = None
+        for kp, sk in enumerate(ps):
+            part = kernel(hp[kp], msg_w[:, sk, sq].contiguous())
+            acc = part if acc is None else acc + part
+        cols.append(acc)
+    return torch.cat(cols, dim=1)
+
+
+def _pad_step(D, msg_w, init, hstate, wa, b3, uzr, uh):
+    """A fused step's weights and state zero-padded to the D = 128 kernel
+    (:func:`~ggnn_tpu_torch.ops.gru.pad_width`)."""
+    return (pad_width(msg_w, D, rows=True), pad_width(init, D),
+            pad_width(hstate, D), pad_width(wa, D, rows=True, groups=3),
+            pad_width(b3.reshape(1, -1), D, groups=3),
+            pad_width(uzr, D, rows=True, groups=2),
+            pad_width(uh, D, rows=True))
+
+
 def typed_block_scatter(h_pack, dstl_blk, slot_off16, blk_off16, msg_w,
                         n_blocks: int, tile_e: int, S8: int, cmax: int,
                         span_rows: int):
@@ -473,6 +507,17 @@ def typed_block_scatter(h_pack, dstl_blk, slot_off16, blk_off16, msg_w,
         return typed_block_scatter_reference(
             h_pack, dstl_blk, slot_off16, blk_off16, msg_w, n_blocks, tile_e,
             S8, cmax, span_rows)
+    D = msg_w.shape[-1]
+    if D != kernel_width(D) and D <= MAX_WIDTH:
+        # the kernel on zero-padded states (ops/gru.py::pad_width)
+        return narrow_width(typed_block_scatter(
+            pad_width(h_pack, D), dstl_blk, slot_off16, blk_off16,
+            pad_width(msg_w, D, rows=True), n_blocks, tile_e, S8, cmax,
+            span_rows), D)
+    if D > KERNEL_WIDTH:
+        return _panel_scatter(lambda hp, w: typed_block_scatter(
+            hp, dstl_blk, slot_off16, blk_off16, w, n_blocks, tile_e, S8,
+            cmax, span_rows), h_pack, msg_w)
     out = _launch_block("typed_block_scatter", False, h_pack, dstl_blk,
                         slot_off16, blk_off16, msg_w, n_blocks, tile_e, S8,
                         cmax)
@@ -505,6 +550,19 @@ def typed_block_step_gru(h_pack, dstl_blk, slot_off16, blk_off16, msg_w,
         return typed_block_step_gru_reference(
             h_pack, dstl_blk, slot_off16, blk_off16, msg_w, init, hstate, wa,
             b3, uzr, uh, n_blocks, tile_e, S8, cmax, span_rows)
+    if D != kernel_width(D) and D <= MAX_WIDTH:
+        return narrow_width(typed_block_step_gru(
+            pad_width(h_pack, D), dstl_blk, slot_off16, blk_off16,
+            *_pad_step(D, msg_w, init, hstate, wa, b3, uzr, uh), n_blocks,
+            tile_e, S8, cmax, span_rows), D)
+    if D > KERNEL_WIDTH:
+        # the scatter's panels plus init, then the GRU cell kernel at this
+        # width: the fused step's function and rounding points
+        a = init + typed_block_scatter(h_pack, dstl_blk, slot_off16,
+                                       blk_off16, msg_w, n_blocks, tile_e,
+                                       S8, cmax, span_rows)
+        return gru_cell_fwd(hstate, a, wa, b3.reshape(-1), uzr, uh,
+                            mdt=wa.dtype)[0]
     out = _launch_block("typed_block_step_gru", True, h_pack, dstl_blk,
                         slot_off16, blk_off16, msg_w, n_blocks, tile_e, S8,
                         cmax, init, hstate, wa, b3.reshape(-1), uzr, uh)
@@ -696,6 +754,16 @@ def typed_onehot_scatter(h_pack, dstl, tile_start, block_of_tile,
         return typed_onehot_scatter_reference(
             h_pack, dstl, tile_start, block_of_tile, tile_msg_off, c_off,
             tile_type, msg_w, n_blocks, tile_e, align)
+    D = msg_w.shape[-1]
+    if D != kernel_width(D) and D <= MAX_WIDTH:
+        return narrow_width(typed_onehot_scatter(
+            pad_width(h_pack, D), dstl, tile_start, block_of_tile,
+            tile_msg_off, c_off, tile_type, pad_width(msg_w, D, rows=True),
+            n_blocks, tile_e, align), D)
+    if D > KERNEL_WIDTH:
+        return _panel_scatter(lambda hp, w: typed_onehot_scatter(
+            hp, dstl, tile_start, block_of_tile, tile_msg_off, c_off,
+            tile_type, w, n_blocks, tile_e, align), h_pack, msg_w)
     out = _launch_tile(name, False, h_pack, dstl, tile_start, block_of_tile,
                        tile_msg_off, c_off, tile_type, msg_w, n_blocks,
                        tile_e, align)
@@ -733,6 +801,19 @@ def typed_step_gru(h_pack, dstl, tile_start, block_of_tile, tile_msg_off,
             h_pack, dstl, tile_start, block_of_tile, tile_msg_off, c_off,
             tile_type, msg_w, init, hstate, wa, b3, uzr, uh, n_blocks,
             tile_e, align)
+    if D != kernel_width(D) and D <= MAX_WIDTH:
+        w, ini, hs, *gw = _pad_step(D, msg_w, init, hstate, wa, b3, uzr, uh)
+        return narrow_width(typed_step_gru(
+            pad_width(h_pack, D), dstl, tile_start, block_of_tile,
+            tile_msg_off, c_off, tile_type, w, ini, hs, *gw, n_blocks,
+            tile_e, align), D)
+    if D > KERNEL_WIDTH:
+        a = init + typed_onehot_scatter(h_pack, dstl, tile_start,
+                                        block_of_tile, tile_msg_off, c_off,
+                                        tile_type, msg_w, n_blocks, tile_e,
+                                        align)
+        return gru_cell_fwd(hstate, a, wa, b3.reshape(-1), uzr, uh,
+                            mdt=wa.dtype)[0]
     out = _launch_tile(name, True, h_pack, dstl, tile_start, block_of_tile,
                        tile_msg_off, c_off, tile_type, msg_w, n_blocks,
                        tile_e, align, init, hstate, wa, b3.reshape(-1), uzr,
@@ -925,6 +1006,15 @@ def typed_grad_octet_scatter(G, dstl_oct, slot_off16, oblk16, n_oct: int,
         if dt not in _DTYPE_CODE:
             raise ValueError(f"{name}: {what} {dt} not in {list(_DTYPE_CODE)}")
     D = G.shape[-1]
+    if D != kernel_width(D) and D <= MAX_WIDTH:
+        return narrow_width(typed_grad_octet_scatter(
+            pad_width(G, D), dstl_oct, slot_off16, oblk16, n_oct, g_tile, C,
+            R8, span8, out_dtype), D)
+    if D > KERNEL_WIDTH:            # column panels: the sums are per column
+        return torch.cat([typed_grad_octet_scatter(
+            G[:, q:q + KERNEL_WIDTH].contiguous(), dstl_oct, slot_off16,
+            oblk16, n_oct, g_tile, C, R8, span8, out_dtype)
+            for q in range(0, D, KERNEL_WIDTH)], dim=1)
     _check_cuda_args(name, [("G", G), ("dstl_oct", dstl_oct),
                             ("slot_off16", slot_off16), ("oblk16", oblk16)],
                      D)

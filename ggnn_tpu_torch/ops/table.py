@@ -158,7 +158,7 @@ def node_table_block_major_q8(h, msg_w, msg_b, window: int):
     ``h`` [N, D], ``msg_w`` [T2, D, D], ``msg_b`` [T2, D] in the compute
     dtype; N % 128 == 0, D % 128 == 0, W % 128 == 0, (T2·128) % W == 0.  A
     CPU tensor takes the plain version; a CUDA tensor launches
-    ``csrc/node_table_q8.cu`` (D = 128) or raises."""
+    ``csrc/node_table_q8.cu`` (D = 128 or 256) or raises."""
     name = "node_table_block_major_q8"
     _check_q8_args(name, h, msg_w, msg_b, window)
     if h.device.type == "cpu":
@@ -168,14 +168,15 @@ def node_table_block_major_q8(h, msg_w, msg_b, window: int):
                          f"{list(_DTYPE_CODE)}")
     N, D = h.shape
     T2 = msg_w.shape[0]
-    _check_cuda_args(name, [("h", h), ("msg_w", msg_w), ("msg_b", msg_b)], D)
+    _check_cuda_args(name, [("h", h), ("msg_w", msg_w), ("msg_b", msg_b)], D,
+                     wide=True)
     out = torch.empty(N * T2, D, dtype=torch.int8, device=h.device)
     scales = torch.empty(N * T2 // window, 1, dtype=torch.float32,
                          device=h.device)
     p = _build.ptr
     _build.launch(_build.library().ggnn_node_table_q8, name, h.device,
                   _DTYPE_CODE[h.dtype], p(h), p(msg_w), p(msg_b), N // BLOCK,
-                  T2, window // 128, p(out), p(scales))
+                  T2, window // 128, D // 128, p(out), p(scales))
     node_table_block_major_q8.launches += 1
     return out, scales
 

@@ -10,8 +10,8 @@ out[block] = Σ_win C · table[win·W : win·W + W]):
   <DeviceWindowLayout.to>`), :func:`build_window_layout` (the reference's
   numpy path, every option of the forward), :func:`window_layout_for_batch`
   (the static-budget layout of the reference's ``Predictor``),
-  :func:`prefer_xw_spill`.  The training half (``with_grad``,
-  ``grad_quant``) is ROADMAP Queue 1 item 5b and raises.
+  :func:`prefer_xw_spill`; ``with_grad`` adds the backward's half
+  (:func:`_grad_half`) and ``grad_quant`` its int8 gradients.
 - #11 :func:`window_block_spmm_mono` (``csrc/window_mono.cu``): the
   dst-local stream (the legacy grad layouts' reverse scatter and the
   window layouts' spill) and the int8 or int4-packed count matrix with
@@ -22,7 +22,13 @@ out[block] = Σ_win C · table[win·W : win·W + W]):
   ``_ondemand.cu``; one template, ``csrc/window_step.cuh``): table
   windows built from h blocks on the chip, and the fused step
   (aggregation + GRU epilogue) over a bf16/f32 table, a q8 table with
-  power-of-2 window scales, or on-demand windows.
+  power-of-2 window scales, or on-demand windows; with ``emit_res`` it also
+  writes the training residuals (``csrc/window_step_res.cu``,
+  ``_ondemand_res.cu``).
+- the backward: :func:`quantize_grad_pow2` (plain torch, as in the
+  reference) and #14 :func:`window_bwd_fused` (``csrc/window_bwd.cu``): dh
+  and dW of the window aggregation from the forward count stream, exact or
+  with int8 ā.
 
 Each kernel has a ``_reference`` plain version with the same rounding
 points; the plain sums run in f64 and round once.  A wrapper takes its
@@ -34,17 +40,18 @@ or raises.  The compositions (spill, ``aggregate_window``,
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
 
 from ggnn_tpu_torch.ops import _build
-from ggnn_tpu_torch.ops.gru import (BLOCK, KERNEL_WIDTH, _DTYPE_CODE,
-                                    _check_cuda_args, gru_cell_fwd_reference)
+from ggnn_tpu_torch.ops.gru import (BLOCK, KERNEL_WIDTH, MAX_WIDTH,
+                                    _DTYPE_CODE, _check_cuda_args,
+                                    gru_cell_fwd, gru_cell_fwd_reference,
+                                    kernel_width, narrow_width, pad_width)
 from ggnn_tpu_torch.ops.table import node_table_block_major_reference
 
-QUEUE_ITEM_5B = ("ROADMAP Queue 1 item 5b (the window backend's training "
-                 "half)")
 _NONZERO_CHUNK = 1 << 26      # count entries one pass of a plain sum decodes
 
 
@@ -165,19 +172,6 @@ def _type_buckets(spt, t2, spill_bwd_bucket):
     return cnt, offs
 
 
-def _spill_tile(dst_spilled, n_nodes_pad):
-    """The spill tile size from the spill's density: the median block's
-    spilled edges, rounded up to a power of two in [128, 2048]."""
-    n_spill = dst_spilled.shape[0]
-    cnts = np.bincount((dst_spilled // BLOCK).astype(np.int64),
-                       minlength=n_nodes_pad // BLOCK)
-    med = int(np.median(cnts)) if n_spill else 0
-    tile = 128
-    while tile < min(med, 2048):
-        tile *= 2
-    return tile
-
-
 def build_window_layout(edge_src, edge_dst, edge_type, edge_mask,
                         n_nodes_pad: int, window: int = 512,
                         min_edges_per_tile: int = 32,
@@ -219,18 +213,16 @@ def build_window_layout(edge_src, edge_dst, edge_type, edge_mask,
     - ``pad_tiles_to`` / ``spill_pad_tiles_to``: static tile budgets (the
       padding tiles go to the last block, the stream is padded too).
 
+    - ``with_grad``: the backward's half (:func:`_grad_half`): transposed
+      tiles, the in-degrees of the bias gradient, the spill backward's
+      buckets; ``gt_pad_tiles_to``, ``spill_bwd_bucket``,
+      ``spill_bwd_tile_e`` and ``spill_bwd_pad_tiles_to`` pin its shapes;
+    - ``grad_quant``: int8 gradients in the fused backward (``meta[10]``;
+      it warns and stays exact where the fused backward does not apply).
+
     ``use_native`` is accepted and ignored: the numpy path always runs (the
-    reference's native plan gives the same arrays).  The training half
-    (``with_grad``, ``grad_quant``) raises ``NotImplementedError``; its
-    pins (``gt_pad_tiles_to``, ``spill_bwd_tile_e``,
-    ``spill_bwd_pad_tiles_to``) shape only that half and are ignored;
-    ``spill_bwd_bucket`` pins the XW spill's buckets, as in the reference."""
-    del use_native, gt_pad_tiles_to, spill_bwd_tile_e, spill_bwd_pad_tiles_to
-    if with_grad or grad_quant:
-        raise NotImplementedError(
-            f"build_window_layout(with_grad={with_grad}, grad_quant="
-            f"{grad_quant}): the window backend's backward is not ported "
-            f"yet ({QUEUE_ITEM_5B})")
+    reference's native plan gives the same arrays)."""
+    del use_native
     from ggnn_tpu_torch.ops.legacy import build_dst_block_layout
     if block_rows % BLOCK:
         raise ValueError(f"block_rows must be a multiple of {BLOCK}")
@@ -319,9 +311,9 @@ def build_window_layout(edge_src, edge_dst, edge_type, edge_mask,
         slot = offs[spt] + (np.arange(n_spill) - first_of_t[spt])
         x_src = np.full(tot, n_src_rows, np.int64)   # pad slots → masked
         x_src[slot] = spu
-        xw_state = (tuple(int(o) for o in offs), x_src)
+        xw_state = (tuple(int(o) for o in offs), slot, spd, x_src)
         if spill_tile_e is None:
-            spill_tile_e = _spill_tile(spd, n_nodes_pad)
+            spill_tile_e = _median_tile(spd, n_nodes_pad)
         spill = build_dst_block_layout(
             slot, spd, np.zeros(n_spill, np.int64),
             np.ones(n_spill, np.float32), n_nodes_pad,
@@ -334,7 +326,7 @@ def build_window_layout(edge_src, edge_dst, edge_type, edge_mask,
         # read (edge_type 0, n_src_rows = the table's rows)
         n_spill = int((~keep).sum())
         if spill_tile_e is None:
-            spill_tile_e = _spill_tile(dst[~keep], n_nodes_pad)
+            spill_tile_e = _median_tile(dst[~keep], n_nodes_pad)
         spill = build_dst_block_layout(
             rows[~keep], dst[~keep], np.zeros(n_spill, np.int64),
             np.ones(n_spill, np.float32), n_nodes_pad,
@@ -403,13 +395,33 @@ def build_window_layout(edge_src, edge_dst, edge_type, edge_mask,
             # a 9th spill_meta element, the type buckets' offsets, marks
             # the XW spill; sx_src is each bucket slot's src (pad slots
             # hold n_src_rows and read a zero row)
-            arrays["sx_src"] = xw_state[1].astype(np.int32)
+            arrays["sx_src"] = xw_state[3].astype(np.int32)
             spill_meta = sdev.meta + (xw_state[0],)
+    grad_meta = None
+    if with_grad:
+        grad_meta = _grad_half(
+            arrays, win=win, block=block, keep=keep, rows=rows, dst=dst,
+            typ=typ, real_keys=real_keys, n_wins=n_wins, n_blocks=n_blocks,
+            t2=t2, window=window, block_rows=block_rows,
+            n_nodes_pad=n_nodes_pad, n_src_rows=n_src_rows,
+            row_major=row_major, pack_counts=pack_counts, pack_bwd=pack_bwd,
+            spill=spill, xw_state=xw_state, decode_rows=decode_rows,
+            gt_pad_tiles_to=gt_pad_tiles_to,
+            spill_bwd_bucket=spill_bwd_bucket,
+            spill_bwd_tile_e=spill_bwd_tile_e,
+            spill_bwd_pad_tiles_to=spill_bwd_pad_tiles_to)
     if on_demand and (t2 * 128) % window:
         raise ValueError("on_demand needs (T2*128) % window == 0")
+    if grad_quant and not (with_grad and grad_meta is not None
+                           and grad_meta[4]):
+        warnings.warn("grad_quant needs with_grad=True and the fused "
+                      "backward stream; running exact bf16 gradients",
+                      stacklevel=2)
+        grad_quant = False
     lay = DeviceWindowLayout(
         meta=(n_nodes_pad, window, n_tiles, n_blocks, spill_meta, row_major,
-              None, block_rows, (pack_fwd, pack_bwd), on_demand, False),
+              grad_meta, block_rows, (pack_fwd, pack_bwd), on_demand,
+              grad_quant),
         arrays=arrays)
     lay.stats = {
         "n_tiles": int(n_tiles), "n_edges": int(n_edges),
@@ -420,6 +432,143 @@ def build_window_layout(edge_src, edge_dst, edge_type, edge_mask,
                        if "s_gather_idx" in arrays else 0),
     }
     return lay
+
+
+def _median_tile(ids, n_rows):
+    """The spill tile size rule on ``ids`` (rows of ``n_rows``): the median
+    128-row block's count, rounded up to a power of two in [128, 2048]."""
+    cnts = np.bincount((ids // BLOCK).astype(np.int64),
+                       minlength=n_rows // BLOCK)
+    med = int(np.median(cnts)) if ids.shape[0] else 0
+    tile = 128
+    while tile < min(med, 2048):
+        tile *= 2
+    return tile
+
+
+def _grad_half(arrays, *, win, block, keep, rows, dst, typ, real_keys,
+               n_wins, n_blocks, t2, window, block_rows, n_nodes_pad,
+               n_src_rows, row_major, pack_counts, pack_bwd, spill, xw_state,
+               decode_rows, gt_pad_tiles_to, spill_bwd_bucket,
+               spill_bwd_tile_e, spill_bwd_pad_tiles_to):
+    """The reference's ``with_grad`` half (``window_pallas.py:476-649``),
+    added to ``arrays``; returns ``grad_meta`` = (n_wins, n_gt_tiles,
+    spill_bwd_offsets, spill_bwd_meta, bwd_fwd_stream).
+
+    The transposed tiles ``gt_*`` of Y = Cᵀ·ā: output blocks are the
+    W-row table windows (each keeps at least a dummy tile), inputs the dst
+    blocks.  Where the fused backward applies (block-major rows, unpacked
+    counts, W % 128 == 0 and (T2·128) % W == 0) ``gt_c_off`` points into
+    the forward stream; otherwise a transposed stream ``ct_stream`` [n·W,
+    block_rows] (int4 pairs with ``pack_bwd``).  ``gt_indeg`` [T2, N] f32
+    counts every real edge per (type, dst) for the bias gradient.  The
+    spill backward's type-major buckets ``s_bwd_src`` / ``s_bwd_dst``
+    (the XW spill's own, where it has them) and, for n_src_rows % 128 ==
+    0, the ``sb_*`` layout that scatters the per-edge dh rows to their
+    source rows."""
+    from ggnn_tpu_torch.ops.legacy import build_dst_block_layout
+    real_t = np.unique(win[keep] * n_blocks + block[keep])
+    uniq_gt = np.unique(np.concatenate(
+        [real_t, np.arange(n_wins, dtype=np.int64) * n_blocks]))
+    n_gt = uniq_gt.shape[0]
+    n_gt_real = real_t.shape[0]
+    is_real_t = np.isin(uniq_gt, real_t, assume_unique=True)
+    gt_block = (uniq_gt // n_blocks).astype(np.int32)    # out: window
+    gt_win = np.where(is_real_t, uniq_gt % n_blocks,     # in: dst block
+                      -1).astype(np.int32)
+    gt_counts = np.bincount(gt_block, minlength=n_wins)
+    gt_start = np.zeros(n_wins + 1, np.int32)
+    np.cumsum(gt_counts, out=gt_start[1:])
+    bwd_fwd_stream = (row_major == "block" and not pack_counts
+                      and window % 128 == 0 and (t2 * 128) % window == 0)
+    gt_c_off = np.zeros(n_gt, np.int32)
+    if bwd_fwd_stream:
+        # the backward tile (w, B) is the forward tile (B, w) transposed:
+        # its offset is the forward real tile's
+        fwd_keys = ((real_t % n_blocks) * np.int64(n_wins)
+                    + real_t // n_blocks)
+        gt_c_off[is_real_t] = np.searchsorted(real_keys,
+                                              fwd_keys).astype(np.int32)
+    else:
+        gt_c_off[is_real_t] = np.arange(n_gt_real, dtype=np.int32)
+        key_t = win[keep] * n_blocks + block[keep]
+        gt_of_edge = np.searchsorted(real_t, key_t)
+        ct = np.zeros((max(n_gt_real, 1) * window, block_rows), np.int8)
+        np.add.at(ct, (gt_of_edge * window + rows[keep] % window,
+                       dst[keep] - block[keep] * block_rows), 1)
+        if pack_bwd:
+            ct = _pack_nibbles(ct)
+        if gt_pad_tiles_to is not None:
+            want = gt_pad_tiles_to * window
+            if ct.shape[0] < want:
+                ct = np.concatenate(
+                    [ct, np.zeros((want - ct.shape[0], ct.shape[1]),
+                                  np.int8)])
+        arrays["ct_stream"] = ct
+    if gt_pad_tiles_to is not None:
+        extra = gt_pad_tiles_to - n_gt
+        if extra < 0:
+            raise ValueError(
+                f"gt_pad_tiles_to={gt_pad_tiles_to} < required {n_gt}")
+        if extra:
+            # dummies on the last window, never a window's first tile
+            gt_block = np.concatenate(
+                [gt_block, np.full(extra, n_wins - 1, np.int32)])
+            gt_win = np.concatenate([gt_win, np.full(extra, -1, np.int32)])
+            gt_c_off = np.concatenate([gt_c_off, np.zeros(extra, np.int32)])
+            gt_start[-1] += extra
+            n_gt = gt_pad_tiles_to
+    arrays.update(gt_tile_start=gt_start, gt_block_of_tile=gt_block,
+                  gt_win_of_tile=gt_win, gt_c_off=gt_c_off)
+    indeg = np.bincount(typ * np.int64(n_nodes_pad) + dst,
+                        minlength=t2 * n_nodes_pad)
+    arrays["gt_indeg"] = indeg.reshape(t2, n_nodes_pad).astype(np.float32)
+    spill_bwd_offsets = spill_bwd_meta = None
+    if spill is not None:
+        if xw_state is not None:
+            # the XW spill's buckets, reused as they are
+            offs_t, slot, sp_dst, e_src = xw_state
+            offs = np.asarray(offs_t, np.int64)
+            tot = int(offs[-1])
+            n_sp = slot.shape[0]
+            sp_u = e_src[slot]
+            e_dst = np.zeros(tot, np.int64)
+            e_dst[slot] = sp_dst
+        else:
+            sp_dst = dst[~keep]
+            sp_t, sp_u = decode_rows(rows[~keep])
+            order = np.argsort(sp_t * np.int64(n_src_rows) + sp_u,
+                               kind="stable")
+            sp_t, sp_u, sp_dst = sp_t[order], sp_u[order], sp_dst[order]
+            n_sp = sp_t.shape[0]
+            cnt, offs = _type_buckets(sp_t, t2, spill_bwd_bucket)
+            tot = int(offs[-1])
+            first_of_t = np.zeros(t2, np.int64)
+            first_of_t[1:] = np.cumsum(cnt)[:-1]
+            slot = offs[sp_t] + (np.arange(n_sp) - first_of_t[sp_t])
+            e_dst = np.zeros(tot, np.int64)     # padding: row 0, masked h
+            e_src = np.full(tot, n_src_rows, np.int64)
+            e_dst[slot] = sp_dst
+            e_src[slot] = sp_u
+        arrays["s_bwd_dst"] = e_dst.astype(np.int32)
+        arrays["s_bwd_src"] = e_src.astype(np.int32)
+        spill_bwd_offsets = tuple(int(o) for o in offs)
+        if n_src_rows % BLOCK == 0:
+            sb_tile = (spill_bwd_tile_e if spill_bwd_tile_e is not None
+                       else _median_tile(sp_u, n_src_rows))
+            mask = np.zeros(tot, np.float32)
+            mask[slot] = 1.0
+            sb = build_dst_block_layout(
+                np.arange(tot, dtype=np.int64), e_src,
+                np.zeros(tot, np.int64), mask, n_src_rows, tile_e=sb_tile,
+                n_src_rows=tot, pad_tiles_to=spill_bwd_pad_tiles_to,
+                edge_align=(16 if sb_tile % 16 == 0 else None),
+                dstl_stream=sb_tile % 16 == 0).to("cpu")
+            for k, v in sb.arrays.items():
+                arrays["sb_" + k] = v.numpy()
+            spill_bwd_meta = sb.meta
+    return (n_wins, int(n_gt), spill_bwd_offsets, spill_bwd_meta,
+            bwd_fwd_stream)
 
 
 def window_layout_for_batch(batch, window: int = 512,
@@ -528,9 +677,8 @@ def _check_mono_args(name, table, c_stream, tile_start, block_of_tile,
                      win_stride, c_off, dstl):
     if dstl and packed:
         raise ValueError("dstl and packed are mutually exclusive")
-    if out_rows <= 0 or out_rows % BLOCK:
-        raise ValueError(f"{name}: out_rows={out_rows}; the port takes "
-                         f"output blocks of a multiple of {BLOCK} rows")
+    if out_rows <= 0:
+        raise ValueError(f"{name}: out_rows={out_rows}")
     if dstl and out_rows != BLOCK:
         raise ValueError(f"{name}: the dst-local stream takes out_rows="
                          f"{BLOCK}, got {out_rows}")
@@ -648,8 +796,9 @@ def window_block_spmm_mono(table, c_stream, tile_start, block_of_tile,
     the int32 dst-local stream [rows, window] (``dstl=True``, R = 128), the
     int8 count matrix [n·R, window], or with ``packed`` its int4 pairs
     [n·R, window/2]; tile t reads entry ``c_off[t]`` (None: t);
-    ``win_of_tile`` < 0 marks a dummy tile.  R is a multiple of 128 (the
-    window layouts' 128-, 256- and 512-row dst blocks).  (The TPU kernel's
+    ``win_of_tile`` < 0 marks a dummy tile.  R: the window layouts'
+    128-, 256- and 512-row dst blocks, or for the backward's Y = Cᵀ·ā the
+    W-row table windows (any R > 0).  (The TPU kernel's
     grid split and DMA ring depth do not change the sums; the port has
     neither.)  A CPU tensor takes the plain version; a CUDA tensor launches
     ``csrc/window_mono.cu`` (at D = 128 with int4 counts or R > 128: the
@@ -677,6 +826,17 @@ def window_block_spmm_mono(table, c_stream, tile_start, block_of_tile,
     if c_off is not None:
         named.append(("c_off", c_off))
     _check_cuda_args(name, named, D, any_width=True)
+    if not dstl and out_rows % BLOCK and D != KERNEL_WIDTH:
+        # output blocks of no multiple of 128 rows (the backward's Y over
+        # windows of W % 128 ≠ 0): the D = 128 route, zero-padded
+        if D > KERNEL_WIDTH:
+            raise ValueError(f"{name}: out_rows={out_rows} (not a multiple "
+                             f"of {BLOCK}) takes D <= {KERNEL_WIDTH}, got "
+                             f"D={D} (ROADMAP Queue 3)")
+        return narrow_width(window_block_spmm_mono(
+            pad_width(table, D), c_stream, tile_start, block_of_tile,
+            win_of_tile, n_blocks, window, out_rows, packed, win_stride,
+            c_off, out_dtype, dstl), D)
     if not dstl and D == KERNEL_WIDTH and (packed or out_rows != BLOCK):
         # the window layouts' int4 and tall count forms: the window step's
         # sums without the GRU (csrc/window_step.cu)
@@ -782,9 +942,10 @@ def window_block_spmm_ondemand_reference(h, msg_w, msg_b, c_stream,
 def _launch_step(name, src_mode, fused, table, c_stream, tile_start,
                  win_of_tile, c_off, n_blocks, window, out_rows, packed,
                  scales=None, wbank=None, bbank=None, init=None, hstate=None,
-                 wa=None, b3=None, uzr=None, uh=None):
+                 wa=None, b3=None, uzr=None, uh=None, res=None):
     """Launch ``ggnn_window_step`` of ``csrc/window_step.cu`` after the
-    device checks; returns the [n_blocks·out_rows, 128] f32 output."""
+    device checks; returns the [n_blocks·out_rows, D] f32 output (the sums
+    take D = 256 in two 128-column panels, the fused step D = 128)."""
     D = table.shape[-1]
     cdt = table.dtype if src_mode != _SRC_Q8 else wa.dtype
     if cdt not in _DTYPE_CODE:
@@ -795,10 +956,11 @@ def _launch_step(name, src_mode, fused, table, c_stream, tile_start,
              ("tile_start", tile_start), ("win_of_tile", win_of_tile)]
     for arg, t in (("c_off", c_off), ("scales", scales), ("msg_w", wbank),
                    ("msg_b", bbank), ("init", init), ("h", hstate),
-                   ("wa", wa), ("b3", b3), ("uzr", uzr), ("uh", uh)):
+                   ("wa", wa), ("b3", b3), ("uzr", uzr), ("uh", uh),
+                   ("res", res)):
         if t is not None:
             named.append((arg, t))
-    _check_cuda_args(name, named, D)
+    _check_cuda_args(name, named, D, wide=not fused)
     n_rows = n_blocks * out_rows
     for arg, t in (("init", init), ("h", hstate)):
         if t is not None and (tuple(t.shape) != (n_rows, D)
@@ -825,11 +987,11 @@ def _launch_step(name, src_mode, fused, table, c_stream, tile_start,
     p = _build.ptr
     _build.launch(
         _build.library().ggnn_window_step, name, table.device, src_mode,
-        _DTYPE_CODE[cdt], int(fused), int(packed), p(table), table.shape[0],
+        _DTYPE_CODE[cdt], int(fused), int(packed), D, p(table), table.shape[0],
         p(c_stream), c_stream.shape[0] // out_rows, p(tile_start),
         p(win_of_tile), p(c_off), n_blocks, out_rows, window, p(scales),
         p(wbank), p(bbank), 0 if wbank is None else wbank.shape[0], p(init),
-        p(hstate), p(wa), p(b3), p(uzr), p(uh), p(out))
+        p(hstate), p(wa), p(b3), p(uzr), p(uh), p(out), p(res))
     return out
 
 
@@ -846,7 +1008,8 @@ def window_block_spmm_ondemand(h, msg_w, msg_b, c_stream, tile_start,
     ``h`` [N, D] (N % 128 == 0) in the compute dtype, ``msg_w`` [T2, D, D]
     (cast to h's dtype), ``msg_b`` [T2, D] (added in f32); the counts int8
     [n·out_rows, W].  A CPU tensor takes the plain version; a CUDA tensor
-    launches ``csrc/window_ondemand.cu`` (D = 128) or raises."""
+    launches ``csrc/window_ondemand.cu`` (D = 128 or 256; other D ≤ 256
+    zero-padded, :func:`~ggnn_tpu_torch.ops.gru.pad_width`) or raises."""
     name = "window_block_spmm_ondemand"
     N, D = h.shape
     T2 = msg_w.shape[0]
@@ -864,6 +1027,11 @@ def window_block_spmm_ondemand(h, msg_w, msg_b, c_stream, tile_start,
         return window_block_spmm_ondemand_reference(
             h, msg_w, msg_b, c_stream, tile_start, block_of_tile,
             win_of_tile, c_off, n_blocks, window, out_rows)
+    if D != kernel_width(D) and D <= MAX_WIDTH:
+        return narrow_width(window_block_spmm_ondemand(
+            pad_width(h, D), pad_width(msg_w, D, rows=True),
+            pad_width(msg_b, D), c_stream, tile_start, block_of_tile,
+            win_of_tile, c_off, n_blocks, window, out_rows), D)
     out = _launch_step(name, _SRC_ONDEMAND, False, h, c_stream, tile_start,
                        win_of_tile, c_off, n_blocks, window, out_rows, False,
                        wbank=msg_w.to(h.dtype).contiguous(),
@@ -879,18 +1047,24 @@ def window_step_gru_reference(table, c_stream, tile_start, block_of_tile,
                               win_of_tile, init, h, wa, b3, uzr, uh,
                               n_blocks: int, window: int,
                               out_rows: int = BLOCK, packed: bool = False,
-                              has_init: bool = True, scales=None,
-                              c_off=None, msg_w=None, msg_b=None):
+                              has_init: bool = True, emit_res: bool = False,
+                              scales=None, c_off=None, msg_w=None,
+                              msg_b=None):
     """Plain version of :func:`window_step_gru`: a = init + Σ tiles in f64,
     rounded once to f32; then the GRU cell with its matmul inputs (a, h,
     r⊙h) rounded to the weights' dtype, f32 products and gates
-    (:func:`~ggnn_tpu_torch.ops.gru.gru_cell_fwd_reference`)."""
+    (:func:`~ggnn_tpu_torch.ops.gru.gru_cell_fwd_reference`); with
+    ``emit_res`` also (a | z | r | h̃) in the weights' dtype."""
     del tile_start
     a = window_sums_reference(
         table, c_stream, block_of_tile, win_of_tile, c_off, n_blocks, window,
         out_rows, packed, scales=scales, msg_w=msg_w, msg_b=msg_b,
         init=init if has_init else None).float()
-    return gru_cell_fwd_reference(h, a, wa, b3, uzr, uh, mdt=wa.dtype)[0]
+    out, z, r, htil = gru_cell_fwd_reference(h, a, wa, b3, uzr, uh,
+                                             mdt=wa.dtype)
+    if not emit_res:
+        return out
+    return out, torch.cat([a.to(wa.dtype), z, r, htil], dim=1)
 
 
 def window_step_gru(table, c_stream, tile_start, block_of_tile, win_of_tile,
@@ -911,17 +1085,20 @@ def window_step_gru(table, c_stream, tile_start, block_of_tile, win_of_tile,
     scale); with ``msg_w``/``msg_b`` the h source of on-demand windows (as
     :func:`window_block_spmm_ondemand`).  ``h`` f32 [n_blocks·out_rows, D];
     ``wa`` [D, 3D], ``uzr`` [D, 2D], ``uh`` [D, D] in the compute dtype,
-    ``b3`` [1, 3D] f32.  ``emit_res`` (the training residuals) is ROADMAP
-    Queue 1 item 5b and raises.  A CPU tensor takes the plain version (any
-    D); a CUDA tensor launches ``csrc/window_step.cu`` (D = 128) or
-    raises."""
+    ``b3`` [1, 3D] f32.  ``emit_res`` (the training residuals; table and
+    on-demand sources) returns ``(h', resid)``, resid [n_blocks·out_rows,
+    4D] = (a | z | r | h̃) in the compute dtype, each rounded from the
+    epilogue's f32 values.  A CPU tensor takes the plain version (any D);
+    a CUDA tensor launches ``csrc/window_step.cu`` (``_res.cu``,
+    ``_ondemand_res.cu`` with ``emit_res``) at D = 128, at D = 256 its sums
+    in two 128-column panels and then the wide GRU cell kernel, at other D
+    ≤ 256 through :func:`~ggnn_tpu_torch.ops.gru.pad_width`, or raises."""
     name = "window_step_gru"
     q8 = scales is not None
     ondemand = msg_w is not None
-    if emit_res:
-        raise NotImplementedError(f"{name}(emit_res=True): the fused step's "
-                                  f"training residuals are not ported yet "
-                                  f"({QUEUE_ITEM_5B})")
+    if emit_res and q8:
+        raise ValueError("emit_res (training) and q8 (serving quant) are "
+                         "mutually exclusive")
     _check_step_args(name, table, c_stream, tile_start, block_of_tile,
                      win_of_tile, c_off, n_blocks, window, out_rows, packed,
                      q8, ondemand, msg_w, msg_b)
@@ -932,11 +1109,44 @@ def window_step_gru(table, c_stream, tile_start, block_of_tile, win_of_tile,
         return window_step_gru_reference(
             table, c_stream, tile_start, block_of_tile, win_of_tile, init, h,
             wa, b3, uzr, uh, n_blocks, window, out_rows, packed, has_init,
-            scales, c_off, msg_w, msg_b)
-    if table.shape[-1] != KERNEL_WIDTH:
-        raise ValueError(f"{name}: the CUDA kernel takes D={KERNEL_WIDTH}, "
-                         f"got D={table.shape[-1]}")
+            emit_res, scales, c_off, msg_w, msg_b)
+    D = table.shape[-1]
+    if D != kernel_width(D) and D <= MAX_WIDTH:
+        P = lambda x, **kw: pad_width(x, D, **kw)
+        res = window_step_gru(
+            P(table), c_stream, tile_start, block_of_tile, win_of_tile,
+            P(init) if has_init else init, P(h), P(wa, rows=True, groups=3),
+            P(b3, groups=3), P(uzr, rows=True, groups=2), P(uh, rows=True),
+            n_blocks, window, out_rows, packed, has_init, emit_res, scales,
+            c_off, P(msg_w, rows=True) if ondemand else None,
+            P(msg_b) if ondemand else None)
+        if not emit_res:
+            return narrow_width(res, D)
+        return narrow_width(res[0], D), narrow_width(res[1], D, groups=4)
     src_mode = _SRC_Q8 if q8 else _SRC_ONDEMAND if ondemand else _SRC_TABLE
+    if D > KERNEL_WIDTH:
+        # a = init + the window sums (the step's sums without its epilogue,
+        # in 128-column panels), then the GRU cell kernel at this width
+        # (csrc/gru_cell_wide.cu): the same function and rounding points
+        a = _launch_step(
+            name, src_mode, False, table, c_stream, tile_start, win_of_tile,
+            c_off, n_blocks, window, out_rows, packed,
+            scales=scales.float().contiguous() if q8 else None,
+            wbank=msg_w.to(table.dtype).contiguous() if ondemand else None,
+            bbank=msg_b.float().contiguous() if ondemand else None,
+            init=init if has_init else None)
+        out, z, r, ht = gru_cell_fwd(h, a, wa, b3.reshape(-1), uzr, uh,
+                                     mdt=wa.dtype)
+        if emit_res:
+            window_step_gru.res_launches += 1
+            return out, torch.cat([a.to(wa.dtype), z, r, ht], dim=1)
+        window_step_gru.launches += 1
+        return out
+    resid = None
+    if emit_res:
+        cdt = table.dtype
+        resid = torch.empty(n_blocks * out_rows, 4 * D, dtype=cdt,
+                            device=table.device)
     out = _launch_step(
         name, src_mode, True, table, c_stream, tile_start, win_of_tile,
         c_off, n_blocks, window, out_rows, packed,
@@ -944,9 +1154,173 @@ def window_step_gru(table, c_stream, tile_start, block_of_tile, win_of_tile,
         wbank=msg_w.to(table.dtype).contiguous() if ondemand else None,
         bbank=msg_b.float().contiguous() if ondemand else None,
         init=init if has_init else None, hstate=h, wa=wa,
-        b3=b3.reshape(-1).float().contiguous(), uzr=uzr, uh=uh)
+        b3=b3.reshape(-1).float().contiguous(), uzr=uzr, uh=uh, res=resid)
+    if emit_res:
+        window_step_gru.res_launches += 1
+        return out, resid
     window_step_gru.launches += 1
     return out
 
 
 window_step_gru.launches = 0
+window_step_gru.res_launches = 0      # the emit_res form's launches
+
+
+# --- the backward: quantize_grad_pow2 and #14 window_bwd_fused ---------------
+
+def quantize_grad_pow2(da_pad, block_rows: int):
+    """The aggregation's cotangent in int8, one power-of-2 scale per
+    ``block_rows``-row ā block (the reference function; plain torch, no
+    kernel in either package): e = ceil(log2(max|ā_block| / 127)) clipped
+    to [−126, 126], q = round(ā·2^−e) (half to even) clipped to ±127.
+    Returns (q int8 [R, D], scales f32 [R / block_rows])."""
+    R, D = da_pad.shape
+    b = da_pad.float().reshape(R // block_rows, block_rows * D)
+    m = b.abs().amax(dim=1)
+    e = torch.ceil(torch.log2(m.clamp_min(1e-30) / 127.0)).clamp(-126.0,
+                                                                 126.0)
+    q = torch.round(b * torch.exp2(-e)[:, None]).clamp(-127, 127)
+    return q.to(torch.int8).reshape(R, D), torch.exp2(e)
+
+
+def window_bwd_fused_reference(da_t, c_stream, tile_start, block_of_tile,
+                               win_of_tile, c_off, msg_w, h, n_wins: int,
+                               window: int, out_rows: int, t2: int,
+                               da_scales=None):
+    """Plain version of :func:`window_bwd_fused`: Y = Σ over every real
+    backward tile of C_tileᵀ·ā_block (int8 ā times its block's scale) in
+    f64, rounded once to h's dtype; then dhᵀ = Σ_t W_t·Y_tᵀ and dWᵀ_t =
+    Y_tᵀ·h, f32 products of the rounded values."""
+    del tile_start
+    D, n_cols = da_t.shape
+    N = h.shape[0]
+    BR, W = window, out_rows
+    cdt = h.dtype
+    da = da_t.double().t()                              # [n_cols, D]
+    if da_scales is not None:
+        da = da * da_scales.double().repeat_interleave(BR)[:, None]
+    Y = torch.zeros(n_wins * W, D, dtype=torch.float64, device=h.device)
+    real = torch.nonzero(win_of_tile >= 0).flatten()
+    src_blk = win_of_tile.long()[real] * BR             # the ā block
+    dst_win = block_of_tile.long()[real] * W            # the Y window
+    C = c_stream.reshape(-1, BR, W)
+    for i, r, j, cnt in _count_terms(C, c_off.long()[real], BR * W):
+        Y.index_add_(0, dst_win[i] + j, da[src_blk[i] + r] * cnt.double()[:, None])
+    Yb = Y.to(cdt).float().reshape(N // 128, t2, 128, D)
+    w = msg_w.to(cdt).float()
+    dht = torch.einsum("btsf,tdf->dbs", Yb, w).reshape(D, N)
+    dwt = torch.einsum("btsf,bsd->tfd", Yb,
+                       h.float().reshape(N // 128, 128, D))
+    return dht, dwt
+
+
+def window_bwd_fused(da_t, c_stream, tile_start, block_of_tile, win_of_tile,
+                     c_off, msg_w, h, n_wins: int, window: int, out_rows: int,
+                     t2: int, da_scales=None):
+    """The fused backward of the window aggregation (kernel #14, the
+    reference's ``window_bwd_fused``): (dhᵀ [D, N] f32, dWᵀ [T2, D, D]
+    f32) without the [T2·N, D] Y in device memory.
+
+    ``da_t`` the transposed cotangent [D, n_blocks·window] in h's dtype,
+    or int8 with ``da_scales`` [n_blocks] f32 (:func:`quantize_grad_pow2`);
+    ``c_stream`` the FORWARD count stream [n·window, out_rows] int8, read
+    through ``c_off``; the backward tiles ``tile_start`` [n_wins + 1],
+    ``block_of_tile`` (their window), ``win_of_tile`` (their dst block, < 0
+    for a dummy), ``c_off``; ``window`` = the layout's block_rows,
+    ``out_rows`` = its W (a multiple of 128 dividing T2·128); ``msg_w``
+    [T2, D, D] (cast to h's dtype), ``h`` [N, D] in the compute dtype,
+    block-major rows.  A window with no real tile contributes exactly
+    zero.  A CPU tensor takes the plain version; a CUDA tensor launches
+    ``csrc/window_bwd.cu`` (D < 128 through
+    :func:`~ggnn_tpu_torch.ops.gru.pad_width`) or raises."""
+    name = "window_bwd_fused"
+    N, D = h.shape
+    quant = da_scales is not None
+    if (t2 * 128) % out_rows or out_rows % 128:
+        raise ValueError("fused backward needs (T2*128) % W == 0, "
+                         "W % 128 == 0")
+    if n_wins != (t2 * N) // out_rows:
+        raise ValueError("n_wins inconsistent with T2*N/W")
+    if N % 128 or window % 128:
+        raise ValueError(f"{name}: h rows ({N}) and block_rows ({window}) "
+                         f"must be multiples of 128")
+    if da_t.dim() != 2 or da_t.shape[0] != D or da_t.shape[1] % window:
+        raise ValueError(f"{name}: da_t must be [D, n_blocks·block_rows] = "
+                         f"[{D}, k·{window}], got {tuple(da_t.shape)}")
+    want = torch.int8 if quant else h.dtype
+    if da_t.dtype != want:
+        raise ValueError(f"{name}: da_t must be {want}, got {da_t.dtype}")
+    n_dst = da_t.shape[1] // window
+    if quant and tuple(da_scales.shape) != (n_dst,):
+        raise ValueError(f"{name}: da_scales must be [{n_dst}], got "
+                         f"{tuple(da_scales.shape)}")
+    if tuple(msg_w.shape) != (t2, D, D):
+        raise ValueError(f"{name}: msg_w must be [{t2}, {D}, {D}], got "
+                         f"{tuple(msg_w.shape)}")
+    if c_stream.dim() != 2 or c_stream.shape[1] != out_rows \
+            or c_stream.shape[0] % window or c_stream.dtype != torch.int8:
+        raise ValueError(f"{name}: c_stream must be the forward int8 stream "
+                         f"[n·{window}, {out_rows}], got {c_stream.dtype} "
+                         f"{tuple(c_stream.shape)}")
+    if tuple(tile_start.shape) != (n_wins + 1,):
+        raise ValueError(f"{name}: tile_start {tuple(tile_start.shape)} is "
+                         f"not [n_wins + 1] = [{n_wins + 1}]")
+    if h.device.type == "cpu":
+        return window_bwd_fused_reference(
+            da_t, c_stream, tile_start, block_of_tile, win_of_tile, c_off,
+            msg_w, h, n_wins, window, out_rows, t2, da_scales)
+    if D < KERNEL_WIDTH:
+        P = lambda x, **kw: pad_width(x, D, **kw)
+        dht, dwt = window_bwd_fused(
+            P(da_t.t()).t().contiguous(), c_stream, tile_start,
+            block_of_tile, win_of_tile, c_off, P(msg_w, rows=True), P(h),
+            n_wins, window, out_rows, t2, da_scales)
+        return dht[:D].contiguous(), narrow_width(dwt, D, rows=True)
+    if h.dtype not in _DTYPE_CODE or (quant and h.dtype != torch.bfloat16):
+        raise ValueError(f"{name}: h {h.dtype}: the kernel takes bf16 or "
+                         f"f32, and bf16 with int8 gradients")
+    msg_w = msg_w.to(h.dtype).contiguous()
+    named = [("da_t", da_t), ("c_stream", c_stream),
+             ("tile_start", tile_start), ("win_of_tile", win_of_tile),
+             ("c_off", c_off), ("msg_w", msg_w), ("h", h)]
+    if quant:
+        da_scales = da_scales.float().contiguous()
+        named.append(("da_scales", da_scales))
+    _check_cuda_args(name, named, D)
+    for arg, t in (("tile_start", tile_start), ("win_of_tile", win_of_tile),
+                   ("c_off", c_off)):
+        if t.dtype != torch.int32:
+            raise ValueError(f"{name}: {arg} must be int32, got {t.dtype}")
+    n_c = c_stream.shape[0] // window
+    if win_of_tile.shape[0]:
+        real = win_of_tile >= 0
+        zero = torch.zeros_like(win_of_tile)
+        b_max, c_max, c_min, t_end = host_ints(
+            torch.where(real, win_of_tile, zero).max(),
+            torch.where(real, c_off, zero).max(),
+            torch.where(real, c_off, zero).min(), tile_start[-1])
+        if b_max >= n_dst or c_min < 0 or c_max >= n_c \
+                or t_end > win_of_tile.shape[0]:
+            raise ValueError(f"{name}: the tiles address dst block {b_max} "
+                             f"of {n_dst} and stream tiles [{c_min}, "
+                             f"{c_max}] of {n_c}: layout and arguments "
+                             f"disagree")
+    n_src = N // 128
+    sms = torch.cuda.get_device_properties(h.device).multi_processor_count
+    group = -(-n_src // (2 * sms))
+    n_groups = -(-n_src // group)
+    dev = h.device
+    dht = torch.empty(D, N, dtype=torch.float32, device=dev)
+    dwt = torch.empty(t2, D, D, dtype=torch.float32, device=dev)
+    ws = torch.zeros(n_groups, t2, D, D, dtype=torch.float32, device=dev)
+    p = _build.ptr
+    _build.launch(
+        _build.library().ggnn_window_bwd, name, dev, _DTYPE_CODE[h.dtype],
+        int(quant), p(da_t), p(da_scales), da_t.shape[1], p(c_stream), n_c,
+        p(tile_start), p(win_of_tile), p(c_off), n_dst, window, out_rows,
+        t2, n_src, group, p(msg_w), p(h), p(dht), p(ws), p(dwt))
+    window_bwd_fused.launches += 1
+    return dht, dwt
+
+
+window_bwd_fused.launches = 0

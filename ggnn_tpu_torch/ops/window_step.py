@@ -1,8 +1,8 @@
-"""The window backend's serving path: its spill, ``aggregate_window`` and
-the fused step ``gru_window_step``.
+"""The window backend's compositions: its spill, ``aggregate_window`` and
+the fused step ``gru_window_step``, with their backwards.
 
-Counterpart of ``ggnn_tpu/ops/window_pallas.py:2004-2320``, forward half,
-rounding point for rounding point:
+Counterpart of ``ggnn_tpu/ops/window_pallas.py:2004-2487``, rounding point
+for rounding point:
 
 - the spill (edges in tiles too sparse for a count matrix): the legacy
   spill gathers table rows (:func:`_spill_scatter`), the XW spill gathers
@@ -13,11 +13,15 @@ rounding point for rounding point:
   and #11, or on-demand windows (#12), plus the spill → a [N, D] f32;
 - :func:`gru_window_step`: the spill's partial as the init of #13, which
   adds the windows and runs the GRU epilogue, over a bf16/f32 table, a
-  q8 table (#15) or on-demand windows.
-
-The backward (``_aggregate_window_bwd``, the fused step's VJP, kernel #14)
-is ROADMAP Queue 1 item 5b: under autograd both raise
-``NotImplementedError``.
+  q8 table (#15, forward only) or on-demand windows;
+- the backward (:func:`aggregate_window_bwd`, needs a layout built
+  ``with_grad=True``): the bias gradient from ``gt_indeg``; dh and dW from
+  the fused kernel #14 on the forward count stream (``grad_meta[4]``; int8
+  gradients with ``meta[10]``) or from Y = Cᵀ·ā through #11 on the
+  transposed stream and the row order's einsums; plus the spill backward
+  (:func:`_spill_backward`).  The fused step's VJP (:class:`FusedWindowStep`)
+  runs #13 with ``emit_res`` under autograd, then #4 on its residuals and
+  :func:`aggregate_window_bwd`.
 """
 
 from __future__ import annotations
@@ -28,16 +32,8 @@ import torch.nn.functional as F
 from ggnn_tpu_torch.ops import legacy as L
 from ggnn_tpu_torch.ops import table as TB
 from ggnn_tpu_torch.ops import window as W
-from ggnn_tpu_torch.ops.window import QUEUE_ITEM_5B, DeviceWindowLayout
-
-
-def refuse_grad(name, *tensors):
-    """Raise where autograd would need the window backend's backward."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
-        raise NotImplementedError(f"{name}: gradients through the window "
-                                  f"backend are not ported yet "
-                                  f"({QUEUE_ITEM_5B})")
+from ggnn_tpu_torch.ops.gru import gru_cell_bwd
+from ggnn_tpu_torch.ops.window import DeviceWindowLayout
 
 
 def _spill_scatter_msgs(msgs, arrs, spill_meta, prefix="s_"):
@@ -122,20 +118,146 @@ def _agg_window_impl(h, layout: DeviceWindowLayout, msg_w, msg_b):
     return out[:h.shape[0]]
 
 
+def rows_sum(vals, rows, n_rows):
+    """out[rows[i]] += vals[i] → f32 [n_rows, D], rows ≥ n_rows dropped:
+    the rows sorted (stably), summed by one f64 prefix sum and rounded once,
+    so the sums run in one fixed order (no float atomics on the card)."""
+    keep = rows < n_rows
+    rows, vals = rows[keep], vals[keep]
+    out = torch.zeros(n_rows, vals.shape[1], dtype=torch.float32,
+                      device=vals.device)
+    if rows.shape[0] == 0:
+        return out
+    order = torch.argsort(rows, stable=True)
+    rows = rows[order]
+    cs = torch.cumsum(vals[order].double(), 0)
+    last = torch.ones_like(rows, dtype=torch.bool)
+    last[:-1] = rows[1:] != rows[:-1]
+    ends = cs[last]
+    out[rows[last]] = (ends - F.pad(ends, (0, 0, 1, 0))[:-1]).float()
+    return out
+
+
+def _spill_backward(arrs, sp_offs, sb_meta, h, da, msg_w):
+    """dh and dW of the spilled edges (the reference's ``_spill_backward``;
+    db comes from ``gt_indeg``): per-edge cotangent rows in the type-major
+    buckets (``s_bwd_dst``, cast to h's dtype before the gather), then
+    batched einsums (uniform buckets) or one product per type, f32
+    products of the compute-dtype values; the per-edge dh rows rounded to
+    h's dtype and scattered by the ``sb_`` layout (#11 or #8), or, where
+    the layout has none (n_src_rows % 128 ≠ 0), by :func:`rows_sum`."""
+    N, D = h.shape
+    T2 = msg_w.shape[0]
+    src = arrs["s_bwd_src"].long()
+    tot = src.shape[0]
+    G = da.to(h.dtype).index_select(0, arrs["s_bwd_dst"].long()).float()
+    Hsp = torch.where((src < N)[:, None], h[src.clamp(max=N - 1)],
+                      torch.zeros((), dtype=h.dtype, device=h.device)).float()
+    w = msg_w.float()
+    strides = {sp_offs[t + 1] - sp_offs[t] for t in range(T2)}
+    if len(strides) == 1:
+        P = strides.pop()
+        Gb = G.reshape(T2, P, D)
+        dh_e = torch.einsum("tpf,tdf->tpd", Gb, w).reshape(tot, D)
+        dW_sp = torch.einsum("tpd,tpf->tdf", Hsp.reshape(T2, P, D), Gb)
+    else:
+        sl = [slice(sp_offs[t], sp_offs[t + 1]) for t in range(T2)]
+        dh_e = torch.cat([G[s] @ w[t].t() for t, s in enumerate(sl)])
+        dW_sp = torch.stack([Hsp[s].t() @ G[s] for s in sl])
+    if sb_meta is not None:
+        msgs = dh_e.to(h.dtype).index_select(0, arrs["sb_gather_idx"])
+        dh_sp = _spill_scatter_msgs(msgs, arrs, sb_meta, prefix="sb_")[:N]
+    else:
+        dh_sp = rows_sum(dh_e, src, N)
+    return dh_sp, dW_sp
+
+
+def aggregate_window_bwd(layout: DeviceWindowLayout, h, msg_w, da):
+    """The backward of :func:`aggregate_window` (the reference's
+    ``_aggregate_window_bwd``) → (dh in h's dtype, dW and db in msg_w's).
+    ``h`` [N, D] the aggregation's input (compute dtype), ``da`` [≤ n_rows,
+    D] its cotangent (f32, or the compute dtype from the fused step's
+    VJP).  db = gt_indeg · ā (f32, every real edge); dh and dW from #14
+    where ``grad_meta[4]`` holds (int8 ā with ``meta[10]``), else from Y =
+    Cᵀ·ā (#11 on ``ct_stream``, Y in h's dtype) and the row order's
+    einsums; plus :func:`_spill_backward`."""
+    meta, arrs = layout.meta, layout.arrays
+    n_blocks, W_, block_rows = layout.n_blocks, layout.window, \
+        layout.block_rows
+    if layout.grad_meta is None:
+        raise ValueError("aggregate_window backward needs a layout built "
+                         "with_grad=True")
+    n_wins, _, sp_offs, sb_meta, fwd_stream = layout.grad_meta
+    N, D = h.shape
+    T2 = msg_w.shape[0]
+    da_f = F.pad(da, (0, 0, 0, n_blocks * block_rows - da.shape[0]))
+    da_pad = da_f.to(h.dtype)
+    dh_sp = dW_sp = None
+    if layout.spill_meta is not None:
+        dh_sp, dW_sp = _spill_backward(arrs, sp_offs, sb_meta, h, da_f,
+                                       msg_w)
+    indeg = arrs["gt_indeg"]
+    db = indeg @ da_f[:indeg.shape[1]].float()
+    if fwd_stream:
+        if N % 128 or n_wins != (T2 * N) // W_:
+            raise ValueError(
+                f"fused-backward layout mismatch: h has {N} rows but the "
+                f"layout was built for {n_wins * W_ // T2}")
+        gt = (arrs["c_stream"], arrs["gt_tile_start"],
+              arrs["gt_block_of_tile"], arrs["gt_win_of_tile"],
+              arrs["gt_c_off"], msg_w, h)
+        kw = dict(n_wins=n_wins, window=block_rows, out_rows=W_, t2=T2)
+        if meta[10]:
+            da_q, da_scl = W.quantize_grad_pow2(da_f, block_rows)
+            dht, dWt = W.window_bwd_fused(da_q.t().contiguous(), *gt,
+                                          da_scales=da_scl, **kw)
+        else:
+            dht, dWt = W.window_bwd_fused(da_pad.t().contiguous(), *gt,
+                                          **kw)
+        dh, dW = dht.t(), dWt.transpose(1, 2)
+    else:
+        Y = W.window_block_spmm_mono(
+            da_pad, arrs["ct_stream"], arrs["gt_tile_start"],
+            arrs["gt_block_of_tile"], arrs["gt_win_of_tile"],
+            n_blocks=n_wins, window=block_rows, out_rows=W_,
+            packed=layout.packed[1], c_off=arrs["gt_c_off"],
+            out_dtype=h.dtype)[:T2 * N].float()
+        w, hf = msg_w.float(), h.float()
+        if layout.row_major == "block":
+            Yb = Y.reshape(N // 128, T2, 128, D)
+            dh = torch.einsum("btsf,tdf->bsd", Yb, w).reshape(N, D)
+            dW = torch.einsum("bsd,btsf->tdf", hf.reshape(N // 128, 128, D),
+                              Yb)
+        elif layout.row_major == "src":
+            Yr = Y.reshape(N, T2, D)
+            dh = torch.einsum("ntf,tdf->nd", Yr, w)
+            dW = torch.einsum("nd,ntf->tdf", hf, Yr)
+        else:
+            Yr = Y.reshape(T2, N, D)
+            dh = torch.einsum("tnf,tdf->nd", Yr, w)
+            dW = torch.einsum("nd,tnf->tdf", hf, Yr)
+    if dh_sp is not None:
+        dh = dh + dh_sp
+        dW = dW + dW_sp
+    return dh.to(h.dtype), dW.to(msg_w.dtype), db.to(msg_w.dtype)
+
+
 class AggregateWindow(torch.autograd.Function):
     """:func:`aggregate_window` as an autograd node: the forward runs the
-    kernels; the backward (the reference's ``_aggregate_window_bwd`` and
-    kernel #14) is ROADMAP Queue 1 item 5b and raises, so autograd never
-    differentiates the plain versions instead."""
+    kernels, the backward :func:`aggregate_window_bwd` (so autograd never
+    differentiates the plain versions)."""
 
     @staticmethod
     def forward(ctx, h, msg_w, msg_b, layout):
+        ctx.layout = layout
+        ctx.save_for_backward(h, msg_w)
         return _agg_window_impl(h, layout, msg_w, msg_b)
 
     @staticmethod
     def backward(ctx, g):
-        raise NotImplementedError(f"aggregate_window: the backward is not "
-                                  f"ported yet ({QUEUE_ITEM_5B})")
+        h, msg_w = ctx.saved_tensors
+        dh, dW, db = aggregate_window_bwd(ctx.layout, h, msg_w, g)
+        return dh, dW, db, None
 
 
 def aggregate_window(h, layout: DeviceWindowLayout, msg_w, msg_b):
@@ -154,88 +276,173 @@ def _gru_weights(gru: dict, cdt):
     return wa, b3, uzr, gru["uh"].to(cdt)
 
 
-def _with_extra(init, extra, n_rows):
-    """init plus the external partial ``extra`` [R ≤ n_rows, D] (f32)."""
-    if extra is None or extra.shape[0] == 0:
-        return init
-    return init + F.pad(extra.float(), (0, 0, 0, n_rows - extra.shape[0]))
-
-
 def gru_window_step(h, layout: DeviceWindowLayout, msg_w, msg_b, gru: dict,
                     quantized: bool = False, extra_init=None):
     """One propagation step h → h' [N, D] f32 through the fused kernel #13
-    (the reference's ``gru_window_step``, forward): the table (#10 or the
-    einsum for 'src' rows; #15 with ``quantized``; none on-demand), the
-    spill's partial as the kernel's init, then the windows and the GRU
-    epilogue with its gate products in ``msg_w``'s dtype.
+    (the reference's ``gru_window_step``): the table (#10 or the einsum for
+    'src' rows; #15 with ``quantized``; none on-demand), the spill's
+    partial as the kernel's init, then the windows and the GRU epilogue
+    with its gate products in ``msg_w``'s dtype.
 
-    ``quantized``: the q8 table (int8, power-of-2 window scales); its spill
-    is the XW spill (exact, from h) or the legacy one dequantizing the
-    gathered int8 rows by ``scales[row // W]``.  ``extra_init`` [R ≤ N, D]:
-    an external partial aggregation added to the init.  Serving only:
-    under autograd it raises (the fused step's VJP is ROADMAP Queue 1
-    item 5b)."""
-    refuse_grad("gru_window_step", h, msg_w, msg_b, extra_init,
-                *gru.values())
+    Trainable (:class:`FusedWindowStep`): under autograd the kernel also
+    writes the (a | z | r | h̃) residuals, and the backward is #4 on them
+    plus :func:`aggregate_window_bwd` (a layout built ``with_grad=True``,
+    N % 128 == 0 and D % 128 == 0).  Serving launches it without them.
+
+    ``quantized``: the q8 table (int8, power-of-2 window scales), forward
+    only; its spill is the XW spill (exact, from h) or the legacy one
+    dequantizing the gathered int8 rows by ``scales[row // W]``.
+    ``extra_init`` [R ≤ N, D]: an external partial aggregation added to
+    the init (differentiable: its cotangent is da's leading rows)."""
     if extra_init is not None and extra_init.shape[0] > h.shape[0]:
         raise ValueError(
             f"extra_init has {extra_init.shape[0]} rows > h's "
             f"{h.shape[0]}; the fused step's cotangent for extra_init "
             "is a leading slice of da [N, D]")
-    W_, n_blocks, spill_meta = layout.window, layout.n_blocks, \
-        layout.spill_meta
-    row_major, block_rows = layout.row_major, layout.block_rows
-    pack_fwd, on_demand = layout.packed[0], layout.on_demand
-    if on_demand and quantized:
+    if layout.on_demand and quantized:
         raise ValueError("on_demand and quantized_table are mutually "
                          "exclusive serving modes")
-    if row_major not in ("block", "src"):
+    if layout.row_major not in ("block", "src"):
         raise ValueError("gru_window_step needs a row_major='block' or "
                          "'src' layout")
+    N, D = h.shape
+    if quantized:
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad
+                for t in (h, msg_w, msg_b, extra_init, *gru.values())):
+            raise ValueError("quantized=True is a serving mode (a forward-"
+                             "only int8 table); train with quantized_table="
+                             "False")
+        return _quantized_step(h, layout, msg_w, msg_b, gru, extra_init)
+    wa = torch.cat([gru["wz"], gru["wr"], gru["wh"]], dim=1)
+    b3 = torch.cat([gru["bz"], gru["br"], gru["bh"]])[None, :]
+    uzr = torch.cat([gru["uz"], gru["ur"]], dim=1)
+    if extra_init is None:
+        extra_init = torch.zeros(0, D, dtype=torch.float32, device=h.device)
+    return FusedWindowStep.apply(h, msg_w, msg_b, wa, b3, uzr, gru["uh"],
+                                 extra_init, layout)[:N]
+
+
+def _init_stream(init, extra, n_rows, D, device, has_init):
+    """The kernel's init: the spill's partial plus the external partial
+    ``extra`` [R ≤ n_rows, D] (f32), or None without either."""
+    if not has_init:
+        return None
+    if init is None:
+        init = torch.zeros(n_rows, D, dtype=torch.float32, device=device)
+    if extra is None or extra.shape[0] == 0:
+        return init
+    return init + F.pad(extra.float(), (0, 0, 0, n_rows - extra.shape[0]))
+
+
+def _quantized_step(h, layout, msg_w, msg_b, gru, extra_init):
+    """The q8 serving step (int8 table, #15, then #13's q8 form)."""
+    W_, n_blocks, spill_meta = layout.window, layout.n_blocks, \
+        layout.spill_meta
+    if layout.row_major != "block":
+        raise ValueError("quantized serving needs row_major='block'")
+    if layout.packed[0]:
+        raise ValueError("quantized serving is incompatible with "
+                         "pack_counts (int8 MXU consumes raw counts)")
     arrs = layout.arrays
     N, D = h.shape
     cdt = msg_w.dtype
     wa, b3, uzr, uh = _gru_weights(gru, cdt)
-    n_rows = n_blocks * block_rows
+    n_rows = n_blocks * layout.block_rows
+    hc = h.to(cdt)
+    table, scales = TB.node_table_block_major_q8(hc, msg_w, msg_b, window=W_)
+    scales = scales[:, 0]
+    if spill_meta is not None and len(spill_meta) > 8:
+        init = _spill_partial(hc, None, arrs, spill_meta, msg_w, msg_b)
+    elif spill_meta is not None:
+        idx = arrs["s_gather_idx"]
+        msgs = (table.index_select(0, idx).float()
+                * scales[idx.long() // W_][:, None]).to(cdt)
+        init = _spill_scatter_msgs(msgs, arrs, spill_meta)
+    else:
+        init = None
     has_init = spill_meta is not None or (
         extra_init is not None and extra_init.shape[0] > 0)
-    hc = h.to(cdt)
-    scales = step_w = step_b = None
-    if quantized:
-        if row_major != "block":
-            raise ValueError("quantized serving needs row_major='block'")
-        if pack_fwd:
-            raise ValueError("quantized serving is incompatible with "
-                             "pack_counts (int8 MXU consumes raw counts)")
-        table, scales = TB.node_table_block_major_q8(hc, msg_w, msg_b,
-                                                     window=W_)
-        scales = scales[:, 0]
-        if spill_meta is not None and len(spill_meta) > 8:
-            init = _spill_partial(hc, None, arrs, spill_meta, msg_w, msg_b)
-        elif spill_meta is not None:
-            idx = arrs["s_gather_idx"]
-            msgs = (table.index_select(0, idx).float()
-                    * scales[idx.long() // W_][:, None]).to(cdt)
-            init = _spill_scatter_msgs(msgs, arrs, spill_meta)
-        else:
-            init = None
-    else:
-        if on_demand:
-            table, step_w, step_b = hc, msg_w, msg_b
-        else:
-            table = _table_for(hc, layout, msg_w, msg_b)
-        init = (_spill_partial(hc, table, arrs, spill_meta, msg_w, msg_b)
-                if spill_meta is not None else None)
-    if has_init:
-        if init is None:
-            init = torch.zeros(n_rows, D, dtype=torch.float32,
-                               device=h.device)
-        init = _with_extra(init, extra_init, n_rows)
+    init = _init_stream(init, extra_init, n_rows, D, h.device, has_init)
     h_pad = F.pad(h.float(), (0, 0, 0, n_rows - N))
     h_new = W.window_step_gru(
         table, arrs["c_stream"], arrs["tile_start"], arrs["block_of_tile"],
         arrs["win_of_tile"], init, h_pad, wa, b3, uzr, uh,
-        n_blocks=n_blocks, window=W_, out_rows=block_rows, packed=pack_fwd,
-        has_init=has_init, scales=scales, c_off=arrs.get("c_off"),
-        msg_w=step_w, msg_b=step_b)
+        n_blocks=n_blocks, window=W_, out_rows=layout.block_rows,
+        packed=False, has_init=has_init, scales=scales,
+        c_off=arrs.get("c_off"))
     return h_new[:N]
+
+
+def _fused_step_impl(layout, h, msg_w, msg_b, wa, b3, uzr, uh, extra,
+                     emit_res):
+    """#13 over the layout's table (or on-demand windows) with the spill's
+    partial plus ``extra`` as init → h' [n_rows, D] (and the residuals)."""
+    arrs, W_ = layout.arrays, layout.window
+    N, D = h.shape
+    cdt = msg_w.dtype
+    hc = h.to(cdt)
+    if layout.on_demand:
+        table, step_w, step_b = hc, msg_w, msg_b
+    else:
+        table, step_w, step_b = _table_for(hc, layout, msg_w, msg_b), None, \
+            None
+    n_rows = layout.n_blocks * layout.block_rows
+    spill_meta = layout.spill_meta
+    has_init = spill_meta is not None or extra.shape[0] > 0
+    init = (_spill_partial(hc, table, arrs, spill_meta, msg_w, msg_b)
+            if spill_meta is not None else None)
+    init = _init_stream(init, extra, n_rows, D, h.device, has_init)
+    h_pad = F.pad(h.float(), (0, 0, 0, n_rows - N))
+    return W.window_step_gru(
+        table, arrs["c_stream"], arrs["tile_start"], arrs["block_of_tile"],
+        arrs["win_of_tile"], init, h_pad, wa.to(cdt).contiguous(),
+        b3.float().contiguous(), uzr.to(cdt).contiguous(),
+        uh.to(cdt).contiguous(), n_blocks=layout.n_blocks, window=W_,
+        out_rows=layout.block_rows, packed=layout.packed[0],
+        has_init=has_init, emit_res=emit_res, c_off=arrs.get("c_off"),
+        msg_w=step_w, msg_b=step_b)
+
+
+class FusedWindowStep(torch.autograd.Function):
+    """The trainable fused step (the reference's ``_fused_gru_step`` and
+    its VJP).  Serving (no input needs a gradient) launches #13 without
+    residuals.  Under grad the forward launches #13 with ``emit_res`` and
+    saves h in the compute dtype and the residuals; the backward runs #4
+    (``gru_cell_bwd``, da in the compute dtype) on them, then
+    :func:`aggregate_window_bwd`; extra's cotangent is da's leading rows."""
+
+    @staticmethod
+    def forward(ctx, h, msg_w, msg_b, wa, b3, uzr, uh, extra, layout):
+        if not any(ctx.needs_input_grad[:8]):
+            return _fused_step_impl(layout, h, msg_w, msg_b, wa, b3, uzr, uh,
+                                    extra, emit_res=False)
+        h_new, resid = _fused_step_impl(layout, h, msg_w, msg_b, wa, b3,
+                                        uzr, uh, extra, emit_res=True)
+        ctx.layout, ctx.dtypes = layout, (h.dtype, wa.dtype, b3.dtype,
+                                          uzr.dtype, uh.dtype, extra.dtype)
+        ctx.n_extra = extra.shape[0]
+        ctx.save_for_backward(h.to(msg_w.dtype), msg_w, wa, uzr, uh, resid)
+        return h_new
+
+    @staticmethod
+    def backward(ctx, g):
+        hc, msg_w, wa, uzr, uh, resid = ctx.saved_tensors
+        N, D = hc.shape
+        if N % 128 or D % 128:
+            raise ValueError("the fused window+GRU step takes gradients only "
+                             f"for N % 128 == 0 and D % 128 == 0 (got "
+                             f"{N}×{D}); use the unfused path "
+                             "(cfg.fuse_gru=False)")
+        cdt = msg_w.dtype
+        a, z, r, htil = (resid[:N, k * D:(k + 1) * D].contiguous()
+                         for k in range(4))
+        dh1, da, dwa, db3, duzr, duh = gru_cell_bwd(
+            g[:N].float().contiguous(), hc, a, z, r, htil, wa, uzr, uh,
+            mdt=cdt, da_dtype=cdt)
+        dh2, dW, dbm = aggregate_window_bwd(ctx.layout, hc, msg_w, da)
+        h_dt, wa_dt, b3_dt, uzr_dt, uh_dt, e_dt = ctx.dtypes
+        dh = (dh1 + dh2.float()).to(h_dt)
+        d_extra = da[:ctx.n_extra].to(e_dt)
+        return (dh, dW, dbm, dwa.to(wa_dt), db3.reshape(1, -1).to(b3_dt),
+                duzr.to(uzr_dt), duh.to(uh_dt), d_extra, None)

@@ -30,9 +30,8 @@ from ggnn_tpu_torch.train.config import TrainConfig
 from ggnn_tpu_torch.train.metrics import MetricsLogger
 
 _UNPORTED_BACKENDS = {
-    "pallas": "the pallas backend (packed_messages), ROADMAP Queue 1 item 6",
-    "window": ("training through the window backend (its backward, kernel "
-               "#14), ROADMAP Queue 1 item 5b"),
+    "pallas": ("the pallas backend (packed_messages and sddmm_pallas, "
+               "kernels #16 and #17), ROADMAP Queue 1"),
 }
 
 
@@ -52,8 +51,11 @@ def make_optimizer(params, lr: float, weight_decay: float = 0.0):
 
 
 def opt_state_tree(optimizer, params) -> dict:
-    """The optimizer's state as a tree for the checkpoint: the step count
-    and the first and second moments shaped like ``params``."""
+    """The optimizer's state as a tree for the checkpoint, in the layout of
+    optax's ``adam``/``adamw`` state (``ScaleByAdamState`` first in the
+    chain): ``0/.count`` (int32, the steps taken), ``0/.mu`` and ``0/.nu``
+    (the first and second moments, shaped like ``params``), the keys the
+    JAX ``Trainer`` writes."""
     def moments(tree, key):
         if isinstance(tree, dict):
             return {k: moments(v, key) for k, v in tree.items()}
@@ -63,17 +65,23 @@ def opt_state_tree(optimizer, params) -> dict:
     steps = [float(st["step"]) for st in optimizer.state.values()
              if "step" in st]
     count = int(steps[0]) if steps else 0
-    return {"count": torch.tensor(count, dtype=torch.int32),
-            "mu": moments(params, "exp_avg"),
-            "nu": moments(params, "exp_avg_sq")}
+    return {"0": {".count": torch.tensor(count, dtype=torch.int32),
+                  ".mu": moments(params, "exp_avg"),
+                  ".nu": moments(params, "exp_avg_sq")}}
+
+
+# the layout this package wrote before it took optax's: opt_state/count, /mu
+# and /nu
+_OLD_OPT_KEYS = {"count": ".count", "mu": ".mu", "nu": ".nu"}
 
 
 def load_opt_state(optimizer, params, tree) -> None:
     """Put a tree of :func:`opt_state_tree`'s shape back into the
     optimizer (exact: the moments are copied bit for bit)."""
-    count = int(tree["count"])
-    mus = param_leaves(tree["mu"])
-    nus = param_leaves(tree["nu"])
+    st = tree["0"]
+    count = int(st[".count"])
+    mus = param_leaves(st[".mu"])
+    nus = param_leaves(st[".nu"])
     for p, m, v in zip(param_leaves(params), mus, nus):
         if count == 0:
             optimizer.state.pop(p, None)
@@ -139,7 +147,7 @@ class Trainer:
         if cfg.model.head == "ggsnn":
             raise NotImplementedError(
                 f"config {cfg.name!r} trains a GGS-NN (head='ggsnn'), which "
-                "is not ported yet (ROADMAP.md Queue 1 item 7)")
+                "is not ported yet (ROADMAP.md Queue 1 item 4)")
         if cfg.model.backend in _UNPORTED_BACKENDS:
             raise NotImplementedError(
                 f"backend={cfg.model.backend!r} is not ported for training: "
@@ -212,8 +220,19 @@ class Trainer:
                         epoch=self.epoch, extra={"config": self.cfg.name})
 
     def restore(self, path: str) -> None:
-        """Resume from a checkpoint this package wrote (exact)."""
-        tree, meta = load_checkpoint(path, self._ckpt_tree())
+        """Resume from a checkpoint of this package or of the JAX
+        ``Trainer`` (the same keys; exact within this package).  A
+        checkpoint in this package's older optimizer layout loads too."""
+        template = self._ckpt_tree()
+        try:
+            tree, meta = load_checkpoint(path, template)
+        except KeyError:
+            st = template["opt_state"]["0"]
+            template["opt_state"] = {k: st[v]
+                                     for k, v in _OLD_OPT_KEYS.items()}
+            tree, meta = load_checkpoint(path, template)
+            tree["opt_state"] = {"0": {v: tree["opt_state"][k]
+                                       for k, v in _OLD_OPT_KEYS.items()}}
         with torch.no_grad():
             for p, v in zip(param_leaves(self.params),
                             param_leaves(tree["params"])):

@@ -1,7 +1,7 @@
 """The short first check of the window kernels on one NVIDIA GPU (H100),
 after one of them changes.
 
-    python3 scripts/torch_window_bringup.py [--headline]
+    python3 scripts/torch_window_bringup.py [--headline] [--train]
 
 Builds the port's CUDA library and runs chip_smoke.py's window kernel
 checks on its fuzz layouts: #11 (int8 and int4 counts, 128-, 256- and
@@ -9,7 +9,11 @@ checks on its fuzz layouts: #11 (int8 and int4 counts, 128-, 256- and
 and #15, each against its plain version and a second run of itself.  With
 ``--headline`` it runs the whole ``[window kernels]`` phase instead: the
 fuzz layouts, then the community headline's bench layouts, checked and
-timed.  The checks, tolerances, bounds and timings are chip_smoke.py's own.
+timed.  ``--train`` runs the training path's checks instead: #14 and
+#13's emit_res on the grad fuzz layouts, the Y path, every kernel's
+widths and the D = 8 Predictors (with ``--headline``: the whole ``[window
+train]`` phase, the two train records included).  The checks, tolerances,
+bounds and timings are chip_smoke.py's own.
 """
 
 import argparse
@@ -28,13 +32,21 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--headline", action="store_true",
                     help="also check and time the community headline")
+    ap.add_argument("--train", action="store_true",
+                    help="the training path's kernels (#13 emit_res, #14)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_window_bringup: no CUDA device", file=sys.stderr)
         return 2
     card, params = chip_smoke.setup()
     log, timings = {}, {}
-    if args.headline:
+    if args.train and args.headline:
+        chip_smoke.window_train_phase(params, log, timings)
+    elif args.train:
+        chip_smoke.window_grad_fuzz(params, log)
+        chip_smoke.check_kernel_widths(log)
+        chip_smoke.predictor_widths()
+    elif args.headline:
         chip_smoke.window_kernels_phase(params, log, timings)
     else:
         chip_smoke.window_fuzz(params, log)

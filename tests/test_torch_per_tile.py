@@ -308,17 +308,17 @@ def test_window_block_spmm_mono_matches_jax(mode, dtype):
 
 def test_window_block_spmm_mono_refuses_unported_modes():
     """A packed request on an unpacked stream (the packed stream is
-    [rows, window/2]), output heights that are no multiple of the
-    kernels' 128-row slices, a window past the table and a c_off past the
-    stream are refused (the packed stream and 256/512-row blocks are
-    tested in tests/test_torch_window.py)."""
+    [rows, window/2]), an empty output height, a window past the table and
+    a c_off past the stream are refused (the packed stream, 256/512-row
+    blocks and the backward's W-row output blocks of any height are tested
+    in tests/test_torch_window.py and tests/test_torch_window_train.py)."""
     R, stream, ts, bot, win, kw = _mono_inputs("counts")
     args = (torch.zeros(R, D), torch.tensor(stream), torch.tensor(ts),
             torch.tensor(bot), torch.tensor(win))
     with pytest.raises(ValueError, match="window/2"):
         W.window_block_spmm_mono(*args, **kw, packed=True)
-    with pytest.raises(ValueError, match="multiple of 128"):
-        W.window_block_spmm_mono(*args, **kw, out_rows=64)
+    with pytest.raises(ValueError, match="out_rows=0"):
+        W.window_block_spmm_mono(*args, **kw, out_rows=0)
     with pytest.raises(ValueError, match="not gathered with this layout"):
         W.window_block_spmm_mono(torch.zeros(R // 2, D), *args[1:], **kw)
     with pytest.raises(ValueError, match="layout and arguments disagree"):

@@ -93,3 +93,71 @@ def test_q8_error_growth_on_the_port(trained):
           f"T=8 {errs[8]:.4f}")
     assert errs[5] <= 0.02, errs
     assert errs[8] <= 0.04, errs
+
+
+def test_q8_grads_training_accuracy_on_the_port(trained):
+    """The reference's int8-gradient training gate
+    (test_q8_accuracy.py::test_q8_grads_training_accuracy) on the port:
+    the fused window step trained 60 Adam steps (3e-3) from the JAX
+    package's initial student, with exact bf16 gradients and with int8
+    ā (grad_quant: quantize_grad_pow2 and #14's int8 form), on the
+    reference's graph and labels.  Its thresholds: median relative loss
+    gap over the first 20 steps ≤ 5 %, final accuracy delta ≤ 2 % with
+    both ≥ 0.9, the q8 final loss ≤ 2.5× the exact one."""
+    import jax
+    from ggnn_tpu.models import ModelConfig as JaxConfig
+    from ggnn_tpu.models import init_params as jax_init
+    from ggnn_tpu_torch.models.heads import per_node_loss
+    from ggnn_tpu_torch.train.loop import make_optimizer, param_leaves
+    ref, batch, labels, _ = trained
+    kw = dict(window=256, n_message_types=2 * ref.ETYPES, block_rows=128,
+              row_major="block", with_grad=True)
+    edges_np = (batch.edge_src, batch.edge_dst, batch.edge_type,
+                batch.edge_mask)
+    lay = build_window_layout(*edges_np, batch.spec.n_pad, **kw)
+    lay_q = build_window_layout(*edges_np, batch.spec.n_pad, **kw,
+                                grad_quant=True)
+    assert lay_q.meta[10] and lay.grad_meta[4]
+    mk = dict(state_dim=ref.D, annotation_dim=ref.A, n_edge_types=ref.ETYPES,
+              n_steps=5, head="per_node", n_classes=ref.CLASSES,
+              compute_dtype="bfloat16", backend="window", fuse_gru=True)
+    init = jax.tree.map(np.asarray, jax_init(jax.random.PRNGKey(0),
+                                             JaxConfig(**mk)))
+    ann = torch.as_tensor(batch.annotations)
+    edges = [torch.as_tensor(np.asarray(x)) for x in edges_np]
+    y = torch.tensor(np.array(labels)).long()
+    mask = torch.ones(ref.N)
+
+    def train(layout, steps=60):
+        params = params_from_numpy(init)
+        for p in param_leaves(params):
+            p.requires_grad_(True)
+        opt = make_optimizer(params, 3e-3)
+        losses = []
+        for _ in range(steps):
+            opt.zero_grad(set_to_none=True)
+            h = propagate(params["prop"], ModelConfig(**mk), ann, *edges,
+                          scatter_layout=layout)
+            loss = per_node_loss(per_node_logits(params["head"], h, ann), y,
+                                 mask)[0]
+            loss.backward()
+            opt.step()
+            losses.append(loss.item())
+        with torch.no_grad():
+            h = propagate(params["prop"], ModelConfig(**mk), ann, *edges,
+                          scatter_layout=layout)
+            pred = per_node_logits(params["head"], h, ann).argmax(-1)
+        return np.asarray(losses), float((pred.numpy() == labels).mean())
+
+    losses_e, acc_e = train(lay)
+    losses_q, acc_q = train(lay_q)
+    gap = np.abs(losses_q - losses_e) / (np.abs(losses_e) + 1e-6)
+    print(f"\nport: exact acc={acc_e:.4f} q8grad acc={acc_q:.4f} early "
+          f"median loss gap={np.median(gap[:20]):.4f} final losses "
+          f"{losses_e[-1]:.4f}/{losses_q[-1]:.4f}")
+    assert acc_e >= 0.9, f"exact-grad training failed to learn: {acc_e}"
+    assert acc_q >= 0.9, f"q8-grad training failed to learn: {acc_q}"
+    assert abs(acc_q - acc_e) <= 0.02, (acc_q, acc_e)
+    assert np.median(gap[:20]) <= 0.05, np.median(gap[:20])
+    assert losses_q[-1] <= 2.5 * losses_e[-1] + 1e-3, (losses_q[-1],
+                                                       losses_e[-1])

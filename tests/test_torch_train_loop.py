@@ -205,6 +205,79 @@ def test_checkpoint_resume_exact(data_root, tmp_path):
         assert float(s1["step"]) == float(s2["step"])
 
 
+def _assert_params_close(got, ref, steps, lr=1e-3):
+    """Parameters of the two packages at rtol 1e-5, atol 1e-6; head/b2,
+    whose gradient vanishes by symmetry (Adam turns its rounding noise into
+    steps of up to lr), within steps·lr of each other."""
+    for (key, p), (_, v) in zip(_flatten(got), _flatten(ref)):
+        p = p.detach()
+        if key == "head/b2":
+            assert (p - v).abs().max() <= 2 * steps * lr * (1 + 1e-5)
+            continue
+        np.testing.assert_allclose(p.numpy(), v.numpy(), rtol=1e-5,
+                                   atol=1e-6, err_msg=key)
+
+
+def _jax_params(jt):
+    return params_from_numpy(jax.tree.map(np.asarray, jt.params))
+
+
+@pytest.mark.parametrize("weight_decay", [0.0, 0.01])
+def test_resume_jax_checkpoint(data_root, tmp_path, weight_decay):
+    """A JAX Trainer's checkpoint (params and optax's adam/adamw state:
+    opt_state/0/.count, /.mu, /.nu) resumes in the port's Trainer, and one
+    more epoch there matches the JAX Trainer's own continuation; and the
+    port's checkpoint, with the same keys, resumes in the JAX Trainer."""
+    kw = dict(epochs=3, n_train=10, n_test=5, data_root=data_root,
+              weight_decay=weight_decay)
+    jt = JaxTrainer(jax_build_config("babi4", **kw), JaxLogger(echo=False))
+    jt.train_epoch()
+    ck = str(tmp_path / "jax.npz")
+    jt.save(ck)
+    keys = set(np.load(ck).files)
+    assert {"opt_state/0/.count", "opt_state/0/.mu/head/w1",
+            "opt_state/0/.nu/prop/msg_w"} <= keys
+    tt = Trainer(build_config("babi4", **kw), _quiet(), device="cpu")
+    tt.restore(ck)
+    assert (tt.epoch, tt.step) == (jt.epoch, jt.step)
+    _assert_params_close(tt.params, _jax_params(jt), 0)
+    jt.train_epoch()
+    tt.train_epoch()
+    steps = jt.step
+    _assert_params_close(tt.params, _jax_params(jt), steps)
+    # the port's checkpoint, resumed by the JAX Trainer
+    ck2 = str(tmp_path / "port.npz")
+    tt.save(ck2)
+    assert set(np.load(ck2).files) == set(np.load(ck).files)
+    jt2 = JaxTrainer(jax_build_config("babi4", **kw), JaxLogger(echo=False))
+    jt2.restore(ck2)
+    assert int(jt2.opt_state[0].count) == tt.step
+    jt2.train_epoch()
+    tt.train_epoch()
+    _assert_params_close(tt.params, _jax_params(jt2), steps + jt2.step)
+
+
+def test_restore_reads_the_old_optimizer_layout(data_root, tmp_path):
+    """A checkpoint in the layout this package wrote before (opt_state/
+    count, /mu, /nu) still resumes exactly."""
+    from ggnn_tpu_torch.train.checkpoint import save_checkpoint
+    cfg = build_config("babi4", epochs=2, n_train=10, n_test=5,
+                       data_root=data_root)
+    t1 = Trainer(cfg, _quiet(), device="cpu")
+    t1.train_epoch()
+    st = t1._ckpt_tree()["opt_state"]["0"]
+    old = {"params": t1.params, "opt_state": {
+        "count": st[".count"], "mu": st[".mu"], "nu": st[".nu"]}}
+    ck = str(tmp_path / "old.npz")
+    save_checkpoint(ck, old, step=t1.step, epoch=t1.epoch)
+    t2 = Trainer(cfg, _quiet(), device="cpu")
+    t2.restore(ck)
+    t1.train_epoch()
+    t2.train_epoch()
+    for a, b in zip(param_leaves(t1.params), param_leaves(t2.params)):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("name", ["babi4", "babi15", "babi16", "babi18"])
 def test_config_builds_and_steps(name, data_root):
     """Every registered config the port can train constructs and takes one
@@ -234,11 +307,20 @@ def test_ggsnn_configs_raise(name, data_root):
 def test_unported_training_paths_raise(data_root):
     """A backend whose kernels are not ported (pallas) and a CUDA device
     without a card (the default) raise instead of training something
-    else."""
+    else; the window backend raises what the reference's Trainer raises
+    (its batches get no layout, and propagate needs one)."""
     cfg = build_config("babi4", epochs=1, n_train=10, n_test=5,
                        data_root=data_root, backend="pallas")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="pallas backend"):
         Trainer(cfg, _quiet(), device="cpu")
+    kw = dict(epochs=1, n_train=10, n_test=5, data_root=data_root,
+              backend="window")
+    jt = JaxTrainer(jax_build_config("babi4", **kw), JaxLogger(echo=False))
+    with pytest.raises(ValueError, match="needs a precomputed layout"):
+        jt.train_epoch()
+    tt = Trainer(build_config("babi4", **kw), _quiet(), device="cpu")
+    with pytest.raises(ValueError, match="needs a precomputed layout"):
+        tt.train_epoch()
     if not torch.cuda.is_available():
         # the card is the default device: without one, the default raises
         for kw in ({}, {"device": "cuda"}):

@@ -200,8 +200,7 @@ ERROR_CASES = {
 
 @pytest.mark.parametrize("case", sorted(ERROR_CASES))
 def test_build_window_layout_errors_match_reference(case):
-    """Every ValueError of the reference, with its message; the training
-    half raises NotImplementedError naming ROADMAP item 5b."""
+    """Every ValueError of the reference, with its message."""
     kw = dict(window=128, min_edges_per_tile=4, n_message_types=6)
     kw.update(ERROR_CASES[case])
     edges = _edges(2, N_L, E_L, 3)
@@ -213,13 +212,23 @@ def test_build_window_layout_errors_match_reference(case):
 
 
 def test_window_training_half_raises():
+    """The training half raises what the reference raises: a
+    gt_pad_tiles_to below the tile count, emit_res with the q8 table;
+    grad_quant without with_grad warns and stays exact."""
     edges = _edges(2, N_L, E_L, 6)
-    for kw in (dict(with_grad=True), dict(grad_quant=True)):
-        with pytest.raises(NotImplementedError, match="item 5b"):
-            W.build_window_layout(*edges, N_L, window=128, **kw)
-    with pytest.raises(NotImplementedError, match="item 5b"):
+    kw = dict(window=128, min_edges_per_tile=4, n_message_types=6,
+              with_grad=True, gt_pad_tiles_to=3)
+    with pytest.raises(ValueError) as ref:
+        WP.build_window_layout(*edges, N_L, use_native=False, **kw)
+    with pytest.raises(ValueError) as got:
+        W.build_window_layout(*edges, N_L, **kw)
+    assert str(got.value) == str(ref.value)
+    with pytest.warns(UserWarning, match="grad_quant needs with_grad"):
+        lay = W.build_window_layout(*edges, N_L, window=128, grad_quant=True)
+    assert lay.meta[6] is None and lay.meta[10] is False
+    with pytest.raises(ValueError, match="mutually exclusive"):
         W.window_step_gru(*[None] * 11, n_blocks=1, window=128,
-                          emit_res=True)
+                          emit_res=True, scales=torch.ones(1))
 
 
 # --- the kernels' plain versions against the JAX kernels --------------------
@@ -606,28 +615,40 @@ def test_predictor_window_matches_jax():
 
 
 def test_window_under_autograd_raises():
-    """Gradients through the window backend are ROADMAP item 5b: propagate
-    with a parameter that requires grad, aggregate_window's backward and
-    the fused step under autograd raise instead of differentiating the
-    plain versions."""
-    lay, _, h, w, b = _agg_inputs("block-min4")
+    """Under autograd the window backend raises what the reference
+    raises: a layout without its grad half refuses the backward, the q8
+    step is forward only, propagate needs a layout; with a with_grad
+    layout, propagate's gradient of msg_w is the JAX package's."""
+    lay, jlay, h, w, b = _agg_inputs("block-min4")
     wt = torch.tensor(w, requires_grad=True)
     a = WS.aggregate_window(torch.tensor(h), lay.to("cpu"), wt,
                             torch.tensor(b))
-    with pytest.raises(NotImplementedError, match="item 5b"):
+    with pytest.raises(ValueError, match="with_grad=True"):
         a.sum().backward()
     gru = {k: torch.tensor(v) for k, v in _gru_np(16, 32).items()}
-    with pytest.raises(NotImplementedError, match="item 5b"):
+    with pytest.raises(ValueError, match="serving mode"):
         WS.gru_window_step(torch.tensor(h), lay.to("cpu"), wt,
-                           torch.tensor(b), gru)
+                           torch.tensor(b), gru, quantized=True)
     kw = dict(state_dim=32, annotation_dim=4, n_edge_types=3, n_steps=2,
               backend="window")
-    params = params_from_numpy(_np_params(kw)["prop"])
+    np_prop = _np_params(kw)["prop"]
+    params = params_from_numpy(np_prop)
     params["msg_w"].requires_grad_(True)
     edges = _edges(0, 256, 600, 6)
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        propagate(params, ModelConfig(**kw), torch.zeros(256, 4),
-                  *map(torch.tensor, edges), scatter_layout=lay)
     with pytest.raises(ValueError, match="precomputed layout"):
         propagate(params, ModelConfig(**kw), torch.zeros(256, 4),
                   *map(torch.tensor, edges))
+    glay = W.build_window_layout(*edges, 256, n_message_types=6,
+                                 with_grad=True, **AGG_CASES["block-min4"][0])
+    ann = (np.random.default_rng(3).random((256, 4)) < 0.4).astype(np.float32)
+    out = propagate(params, ModelConfig(**kw), torch.tensor(ann),
+                    *map(torch.tensor, edges), scatter_layout=glay)
+    (out ** 2).sum().backward()
+    jglay = WP.DeviceWindowLayout(
+        meta=glay.meta, arrays={k: _j(v) for k, v in glay.arrays.items()})
+    ref = jax.grad(lambda p: jnp.sum(jax_propagate(
+        p, JaxConfig(**kw), jnp.asarray(ann), *map(jnp.asarray, edges),
+        scatter_layout=jglay) ** 2))(jax.tree.map(jnp.asarray, np_prop))
+    np.testing.assert_allclose(params["msg_w"].grad.numpy(),
+                               np.asarray(ref["msg_w"]), rtol=3e-4,
+                               atol=3e-5)
