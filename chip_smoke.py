@@ -19,10 +19,10 @@
    backward kernels: ``gru_cell_bwd`` and ``typed_grad_octet_scatter``.
 3. Serves: a ``Predictor`` for the headline model (node_select head,
    onehot backend, bf16, T = 5 steps, random weights from seed 0) answers
-   three requests of one 262,144-node graph each (seeds 0, 1, 2), fused
-   and unfused.  It checks the kernels' launch counts on that path and
-   holds every request's node scores against the port's plain path on the
-   card.
+   two requests of 262,144-node graphs (seeds 0 and 1;
+   ``SERVE_REQUESTS``), fused and unfused.  It checks the kernels' launch
+   counts on that path and holds every request's node scores against the
+   port's plain path on the card.
 4. Trains the headline model (the same configuration, typed layout built
    ``with_grad=True``, node_select loss on a target node from seed 0,
    ``torch.optim.Adam(1e-3)`` over every parameter) for 3 steps through
@@ -42,8 +42,8 @@
    128, f32 and bf16) and on ``layout_for_batch`` of the headline (64,548
    forward tiles, 95,268 grad tiles; timed), with
    ``window_block_spmm_mono`` (#11) on its grad half, and #11 at D = 4, 6,
-   8, 16, 128 and 200 on a hub layout.  ``[legacy serve]``: three
-   requests through ``Predictor``'s own layout with a fuse request (it
+   8, 16, 128 and 200 on a hub layout.  ``[legacy serve]``: one
+   request through ``Predictor``'s own layout with a fuse request (it
    warns and runs unfused: #10, #8 and the GRU cell per step).
    ``[legacy train]``: 3 unfused Adam steps on
    ``layout_for_batch(with_grad=True)`` (#10, #8, #11, #3, #4 per step),
@@ -60,7 +60,7 @@
    five fuzz layouts (uniform with block mode off, span mode, a small
    chunk cap, empty blocks, a hub, the hub again with |a| ≤ 1), per
    element, and each against a second run of itself (bit-equal), times
-   them, serves three requests fused and unfused (each step against the
+   them, serves one request fused and unfused (each step against the
    plain step) and trains 3 Adam steps fused and unfused, with the launch
    counts, the first step's loss against the plain path and the
    aggregation's VJP against its plain version (dh per row off the hub);
@@ -85,7 +85,7 @@
    dummy-first blocks; f32 and bf16) and on the community headline's two
    bench layouts (262,144 nodes, 8M directed edges, W 512, block_rows 512,
    the XW spill: on-demand, and the q8 record's table), timed.  ``[window
-   serve]``: three requests through the window ``Predictor`` (its own
+   serve]``: one request through the window ``Predictor`` (its own
    ``window_layout_for_batch``, fused), then the bench's window_community
    (on-demand) and window_community_q8 layouts through ``run_batch`` fused,
    and each unfused, with launch counts and scores against the plain path.
@@ -106,16 +106,32 @@
    counts, the first step against the plain path, step times, peak
    memory, the layout's host seconds).
 12. ``[widths]``: every kernel at D = 4, 8, 16 (zero-padded to the D = 128
-   kernels) and 128 against its plain version, twice bit-equal; #10 at 200
-   and 256; the wider states the kernels do not take raise (ROADMAP Queue
-   3); and the reference's ``test_predictor_backends_agree`` at D = 8:
-   xla, onehot and window (fused and unfused) Predictors predict alike.
+   kernels), 128, 200 (padded to 256) and 256 against its plain version,
+   twice bit-equal, #14 (exact and int8 ā) among them; the wider states the
+   kernels do not take raise (ROADMAP Queue 3); one fused window train
+   step at D = 256 (#13 emit_res, the wide #4, #14) against the plain path;
+   and the reference's ``test_predictor_backends_agree`` at D = 8: xla,
+   onehot and window (fused and unfused) Predictors predict alike.
+13. The ``pallas`` backend and the SDDMM edge gates (``ops/spmm.py``), run
+   after phase 6 on its uniform headline batch.  ``[pallas kernels]``: #16
+   ``packed_messages`` and #17 ``sddmm_pallas`` against their plain
+   versions, per element and twice bit-equal, on fuzz layouts (tile_e 8,
+   32, 128; empty types; a type ending on a tile boundary; holes and
+   all-padding tail tiles; a hub; f32 and bf16; #16 at D = 4 to 256, #17
+   at G = 5, 64, 128 with E not a multiple of 128), then at the headline's
+   packed layout (bench.py --backend pallas: 62,516 tiles of 128), timed.
+   ``[pallas serve]``: three requests through ``Predictor(backend=
+   'pallas')``, ungated and gated, then the headline batch through
+   ``run_batch`` (launch counts, device ms, peak memory, each step against
+   the plain step).  ``[pallas train]``: 3 Adam steps ungated and gated,
+   the first against the plain path.  Then the ``Trainer`` CLI with
+   ``--backend pallas`` (it must launch #16).
 
 The typed-pack phases (2-4, 7) hand ``Predictor.run_batch`` the typed pack
 they build; the Predictor's own layout is the legacy one (phase 6).
 
 Any failed check raises, so the exit code is non-zero.  The last three
-lines are the kernels JSON (sixteen kernels; each kernel's launches on
+lines are the kernels JSON (eighteen kernels; each kernel's launches on
 the main paths, its largest error against its plain version, its time and
 its plain version's, its bound from the bytes and operations of the timed
 inputs at the card's published peaks, and the time of one PyTorch call computing
@@ -137,6 +153,12 @@ import numpy as np
 
 NODES, EDGES, EDGE_TYPES, DIM, STEPS, ANN = 262_144, 4_000_000, 8, 128, 5, 8
 ZIPF = 1.2             # the scale-free graph's power law
+# The request seeds of the serving phases before [pallas serve], which
+# serves three: [serve] keeps two, so that one Predictor serving different
+# graphs in a row stays checked on the typed pack; the others serve one
+# each, which keeps the whole run near half its time limit.
+SERVE_REQUESTS = (0, 1)
+EARLIER_REQUESTS = (0,)
 BF16_ULP = 2.0 ** -7   # one bf16 ulp at 1.0
 
 # Tolerances, checked against |kernel − plain| on the same inputs:
@@ -255,6 +277,10 @@ KERNELS = {
                                   "ggnn_tpu/ops/window_pallas.py:1666"),
     "window_bwd_fused": ("ggnn_tpu_torch/ops/csrc/window_bwd.cu",
                          "ggnn_tpu/ops/window_pallas.py:1204"),
+    "packed_messages": ("ggnn_tpu_torch/ops/csrc/packed_messages.cu",
+                        "ggnn_tpu/ops/spmm_pallas.py:82"),
+    "sddmm_pallas": ("ggnn_tpu_torch/ops/csrc/sddmm.cu",
+                     "ggnn_tpu/ops/spmm_pallas.py:129"),
 }
 
 
@@ -1029,7 +1055,7 @@ def plain_run(pred, batch, layout, keep=()):
 def serve(params, fuse, graphs, plain_cache, per_request, tag="serve",
           stepwise=False, layout_fn=typed_layout, plain_fn=None,
           label=None, cfg_kw=None):
-    """Three requests through Predictor (host batching, layout from
+    """Requests through Predictor (host batching, layout from
     ``layout_fn``, device forward), the launch counts against
     ``per_request`` (kernel -> launches per request; every other kernel 0)
     and every request's scores against the plain path (``plain_fn``, by
@@ -1112,6 +1138,7 @@ def kernel_wrappers():
     from ggnn_tpu_torch.ops import gru as G
     from ggnn_tpu_torch.ops import legacy as L
     from ggnn_tpu_torch.ops import scatter as S
+    from ggnn_tpu_torch.ops import spmm as SP
     from ggnn_tpu_torch.ops import table as TB
     from ggnn_tpu_torch.ops import window as W
     return {"typed_block_scatter": S.typed_block_scatter,
@@ -1128,7 +1155,9 @@ def kernel_wrappers():
             "window_step_gru": W.window_step_gru,
             "node_table_block_major_q8": TB.node_table_block_major_q8,
             "window_step_gru[emit_res]": W.window_step_gru,
-            "window_bwd_fused": W.window_bwd_fused}
+            "window_bwd_fused": W.window_bwd_fused,
+            "packed_messages": SP.packed_messages,
+            "sddmm_pallas": SP.sddmm_pallas}
 
 
 def counter(name):
@@ -1163,10 +1192,13 @@ def plain_versions(keep=()):
     from ggnn_tpu_torch.ops import gru as G
     from ggnn_tpu_torch.ops import legacy as L
     from ggnn_tpu_torch.ops import scatter as S
+    from ggnn_tpu_torch.ops import spmm as SP
     from ggnn_tpu_torch.ops import table as TB
     from ggnn_tpu_torch.ops import window as W
     from ggnn_tpu_torch.ops import window_step as WS
-    swaps = [(L, "onehot_segment_scatter_flat",
+    swaps = [(SP, "packed_messages", SP.packed_messages_reference),
+             (SP, "sddmm_pallas", SP.sddmm_pallas_reference),
+             (L, "onehot_segment_scatter_flat",
               L.onehot_segment_scatter_flat_reference),
              (L, "onehot_segment_scatter", L.onehot_segment_scatter_reference),
              (L, "window_block_spmm_mono", W.window_block_spmm_mono_reference),
@@ -1433,13 +1465,13 @@ sys.argv = ["ggnn_tpu_torch.train"] + sys.argv[1:]
 try:
     runpy.run_module("ggnn_tpu_torch.train", run_name="__main__")
 finally:
-    from ggnn_tpu_torch.ops import gru, legacy, scatter, table, window
+    from ggnn_tpu_torch.ops import gru, legacy, scatter, spmm, table, window
     fns = [gru.gru_cell_fwd, gru.gru_cell_bwd, legacy.onehot_segment_scatter,
            legacy.onehot_segment_scatter_flat,
            table.node_table_block_major, window.window_block_spmm_mono,
            scatter.typed_block_scatter, scatter.typed_block_step_gru,
            scatter.typed_grad_octet_scatter, scatter.typed_onehot_scatter,
-           scatter.typed_step_gru]
+           scatter.typed_step_gru, spmm.packed_messages, spmm.sddmm_pallas]
     print("LAUNCHES " + json.dumps({f.__name__: f.launches for f in fns}),
           file=sys.stderr)
 """
@@ -1447,10 +1479,10 @@ finally:
 
 def run_trainer(backend="xla", want=()):
     """``python -m ggnn_tpu_torch.train --config babi4 --device cuda
-    --epochs 10 [--backend ...]`` in a child process (on bAbI task 4, as a
+    --epochs 3 [--backend ...]`` in a child process (on bAbI task 4, as a
     user runs it); ``want``: the kernels it must have launched.  Returns
     the child's launch counts."""
-    args = ["--config", "babi4", "--device", "cuda", "--epochs", "10"]
+    args = ["--config", "babi4", "--device", "cuda", "--epochs", "3"]
     if backend != "xla":
         args += ["--backend", backend]
     t0 = time.perf_counter()
@@ -1479,7 +1511,7 @@ def scalefree_phase(params, log, timings):
     """[scalefree]: the headline model on a power-law graph of the headline
     size, where block mode and the octet grad layout decline: the per-tile
     kernels and the window kernel against their plain versions (fuzz
-    layouts and the headline), timed; three requests served fused and
+    layouts and the headline), timed; one request served fused and
     unfused; 3 Adam steps trained fused and unfused.  Returns the launch
     counts of the serving and training runs."""
     import torch
@@ -1546,7 +1578,7 @@ def scalefree_phase(params, log, timings):
                          NODES, log, params=params, report_f32=True)
     torch.cuda.empty_cache()
 
-    graphs = [(seed, scalefree_graph(seed)) for seed in (0, 1, 2)]
+    graphs = [(seed, scalefree_graph(seed)) for seed in EARLIER_REQUESTS]
     plain_cache = {}
     launched = dict.fromkeys(KERNELS, 0)
     torch.cuda.reset_peak_memory_stats()
@@ -1863,7 +1895,7 @@ def legacy_phase(params, b, log, timings):
     torch.cuda.empty_cache()
 
     # [legacy serve]: the Predictor's own layout, a fuse request
-    graphs = [(seed, request_graph(seed)) for seed in (0, 1, 2)]
+    graphs = [(seed, request_graph(seed)) for seed in EARLIER_REQUESTS]
     torch.cuda.reset_peak_memory_stats()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -2460,7 +2492,7 @@ def window_kernels_phase(params, log, timings):
 
 
 def window_serve_phase(params):
-    """[window serve]: three community requests through the window
+    """[window serve]: one community request through the window
     Predictor (its own window_layout_for_batch: static budgets, the legacy
     spill, block_rows 128), fused, bf16; then the bench's window_community
     layout (on-demand, XW spill, block_rows 512) and window_community_q8
@@ -2478,7 +2510,7 @@ def window_serve_phase(params):
     torch.cuda.reset_peak_memory_stats()
     # one request at a time: each static-budget layout holds a 16.5 GB
     # count stream on the card
-    for seed in (0, 1, 2):
+    for seed in EARLIER_REQUESTS:
         for k, v in serve(params, True, [(seed, community_graph(seed))], {},
                           dict(spill, node_table_block_major=STEPS,
                                window_step_gru=STEPS),
@@ -2664,6 +2696,28 @@ def bwd_inputs(lay, dtype, seed, D=DIM):
                 int8=(q.t().contiguous(), sc)), gt, w, h, kw
 
 
+def window_bwd_bound(lay, kw, da_t, sc, gt, w, h):
+    """#14's bound on a layout: the count stream's real tiles, āᵀ (and its
+    scales), W, h, the backward tile arrays and the outputs once; the
+    nonzero counts' products (int8 with ``sc``) and the four [128, D]·[D,
+    D] products of every non-empty slab."""
+    import torch
+    a = lay.arrays
+    D = h.shape[1]
+    real = a["gt_win_of_tile"] >= 0
+    n_real = int(real.sum().item())
+    nnz = int((a["c_stream"] != 0).sum().item())
+    wins = torch.zeros(kw["n_wins"], device="cuda").index_add_(
+        0, a["gt_block_of_tile"].long(), real.float())
+    slabs = int((wins > 0).sum().item()) * (lay.window // 128)
+    return roofline(
+        n_real * lay.block_rows * lay.window + nbytes(da_t, w, h)
+        + (0 if sc is None else nbytes(sc))
+        + nbytes(*gt[1:]) + D * h.shape[0] * 4 + nbytes(w) * 2,
+        [(2 * nnz * D, BF16_FLOPS if sc is None else INT8_OPS),
+         (4 * slabs * 128 * D * D, BF16_FLOPS)])
+
+
 def check_window_bwd(tag, lay, log, dtype, timings=None, D=DIM):
     """#14 against its plain version on a layout whose backward takes the
     fused path, exact and with int8 ā, per element: 2e-5 of the plain
@@ -2694,22 +2748,9 @@ def check_window_bwd(tag, lay, log, dtype, timings=None, D=DIM):
         del got, again, ref, mag
     if timings is None:
         return
-    a = lay.arrays
-    real = a["gt_win_of_tile"] >= 0
-    n_real = int(real.sum().item())
-    nnz = int((a["c_stream"] != 0).sum().item())
-    wins = torch.zeros(kw["n_wins"], device="cuda").index_add_(
-        0, a["gt_block_of_tile"].long(), real.float())
-    S = lay.window // 128
-    slabs = int((wins > 0).sum().item()) * S
     for form, (da_t, sc) in forms.items():
         args = (da_t, *gt, w, h)
-        bound = roofline(
-            n_real * lay.block_rows * lay.window + nbytes(da_t, w, h)
-            + (0 if sc is None else nbytes(sc))
-            + nbytes(*gt[1:]) + D * h.shape[0] * 4 + nbytes(w) * 2,
-            [(2 * nnz * D, BF16_FLOPS if sc is None else INT8_OPS),
-             (4 * slabs * 128 * D * D, BF16_FLOPS)])
+        bound = window_bwd_bound(lay, kw, da_t, sc, gt, w, h)
         local = {}
         time_pairs({"window_bwd_fused": (
             lambda args=args, sc=sc: W.window_bwd_fused(*args, da_scales=sc,
@@ -2918,11 +2959,12 @@ def window_vjp_check(tag, lay, params, log):
 
 
 def time_wide_kernels(lay):
-    """#3, #4, #13 (on-demand, and its emit_res form) and #15 at D = 256
-    on the community headline's shapes (the window_community_train layout,
-    262,144 rows), bf16, each against its plain version in turns (plain,
-    kernel, kernel, plain), printed with its bound: the wide kernels' times
-    for PERF.md (the kernels JSON holds the D = 128 ones)."""
+    """#3, #4, #13 (on-demand, and its emit_res form), #14 (exact ā) and
+    #15 at D = 256 on the community headline's shapes (the
+    window_community_train layout, 262,144 rows), bf16, each against its
+    plain version in turns (plain, kernel, kernel, plain), printed with its
+    bound: the wide kernels' times for PERF.md (the kernels JSON holds the
+    D = 128 ones)."""
     import torch
     from ggnn_tpu_torch.ops import gru as G
     from ggnn_tpu_torch.ops import table as TB
@@ -2979,6 +3021,12 @@ def time_wide_kernels(lay):
                                                            W_), None,
             roofline(n * D * 2 + nbytes(w, b) + n * T2 * D + n * T2 // W_ * 4,
                      [(2 * n * T2 * D * D, BF16_FLOPS)]))}
+    forms, gt, wb, hb, bkw = bwd_inputs(lay, dt, 48, D)
+    bargs14 = (forms["exact"][0], *gt, wb, hb)
+    pairs["window_bwd_fused"] = (
+        lambda: W.window_bwd_fused(*bargs14, **bkw),
+        lambda: W.window_bwd_fused_reference(*bargs14, **bkw), None,
+        window_bwd_bound(lay, bkw, forms["exact"][0], None, gt, wb, hb))
     print(f"[window train] the wide kernels at D = {D}, {n} rows (timed "
           f"for PERF.md; the JSON line holds D = 128):", flush=True)
     time_pairs(pairs, {})
@@ -3047,16 +3095,416 @@ def window_train_phase(params, log, timings):
     return launched
 
 
+def pallas_fuzz_edges(r, N, E, T2, empty=(), boundary=None, hub=0.0,
+                      masked=0.1):
+    """Type-sorted random edges (as graph.py sorts them) and their type
+    offsets over every edge slot: the types in ``empty`` hold none, type
+    ``boundary`` = (t, tile_e) holds a whole number of tiles, a share
+    ``hub`` of the edges leaves node 0 and another enters node 1, and a
+    share ``masked`` is masked (holes in their tiles)."""
+    typ = r.integers(0, T2, E)
+    for t in empty:
+        typ[typ == t] = (t + 1) % T2
+    if boundary is not None:
+        t, tile_e = boundary
+        sel = np.nonzero(typ == t)[0]
+        keep = max(len(sel) // tile_e, 1) * tile_e
+        if len(sel) >= keep:
+            typ[sel[keep:]] = (t + 1) % T2
+        else:
+            typ[np.nonzero(typ != t)[0][:keep - len(sel)]] = t
+    typ = np.sort(typ)
+    src, dst = r.integers(0, N, E), r.integers(0, N, E)
+    src[r.random(E) < hub] = 0
+    dst[r.random(E) < hub] = 1
+    mask = (r.random(E) >= masked).astype(np.float32)
+    offs = np.concatenate([[0], np.cumsum(np.bincount(typ, minlength=T2))])
+    return (src.astype(np.int32), dst.astype(np.int32), typ.astype(np.int32),
+            mask, offs.astype(np.int32))
+
+
+def check_packed_messages(tag, h, lay, w, b, log):
+    """#16 against its plain version per element: 2e-5 of the plain version
+    on |h|, |W|, |b| (the same f32 products of the same values, summed in
+    another order), mean ≤ 0.1 of it; twice, bit-equal; every padding slot
+    exactly zero."""
+    from ggnn_tpu_torch.ops import spmm as SP
+    args = (lay["src"], lay["mask"], lay["tile_type"])
+    got = SP.packed_messages(h, *args, w, b, lay["tile_e"])
+    same_twice("packed_messages", tag, got,
+               SP.packed_messages(h, *args, w, b, lay["tile_e"]))
+    ref = SP.packed_messages_reference(h, *args, w, b, lay["tile_e"])
+    mag = SP.packed_messages_reference(h.abs(), lay["src"],
+                                       lay["mask"].abs(), lay["tile_type"],
+                                       w.abs(), b.abs(), lay["tile_e"])
+    check(f"packed_messages[{tag}]", got, ref, "bound", h.dtype, log,
+          bound=2e-5 * mag)
+    if (got[lay["mask"] == 0] != 0).any():
+        raise AssertionError(f"packed_messages[{tag}]: a padding slot "
+                             "holds a nonzero message")
+
+
+def check_sddmm(tag, p, q, log, **kw):
+    """#17 against its plain version per element: 2e-5 of Σ|p||q| (f32
+    sums in another order), mean ≤ 0.1 of it; twice, bit-equal."""
+    import torch
+    from ggnn_tpu_torch.ops import spmm as SP
+    got = SP.sddmm_pallas(p, q, **kw)
+    same_twice("sddmm_pallas", tag, got, SP.sddmm_pallas(p, q, **kw))
+    ref = SP.sddmm_pallas_reference(p, q, **kw)
+    mag = SP.sddmm_pallas_reference(
+        p.abs(), q.abs(), **{k: (v.abs() if k == "mask" else v)
+                             for k, v in kw.items()})
+    check(f"sddmm_pallas[{tag}]", got, ref, "bound", torch.float32, log,
+          bound=2e-5 * mag)
+
+
+def pallas_kernels_phase(b, log, timings):
+    """[pallas kernels]: #16 ``packed_messages`` and #17 ``sddmm_pallas``
+    against their plain versions, per element and twice bit-equal, on fuzz
+    layouts (tile_e 8, 32 and 128; empty types; a type segment ending on a
+    tile boundary; holes and all-padding tail tiles; a hub; f32 and bf16;
+    #16 at D = 4, 8, 128, 200 and 256; #17 at G = 5, 64 and 128 with E not
+    a multiple of 128, with and without index arrays and mask), then both
+    at the uniform headline's packed layout (bench.py --backend pallas:
+    62,516 tiles of 128), timed against their plain versions and one
+    PyTorch call each."""
+    import torch
+    from ggnn_tpu_torch.ops import spmm as SP
+    dev = torch.device("cuda")
+    r = np.random.default_rng(17)
+    fuzz = {
+        # tag: (N, E, T2, tile_e, empty types, boundary type, hub share,
+        #       masked share)
+        "tile_e8": (300, 2000, 6, 8, (2,), None, 0.0, 0.1),
+        "tile_e32 boundary": (500, 5000, 8, 32, (), 1, 0.0, 0.0),
+        "tile_e128 hub": (1000, 20_000, 16, 128, (5, 15), None, 0.3, 0.1),
+        "tile_e128 masked": (700, 6000, 4, 128, (0,), 2, 0.05, 0.6),
+    }
+    for tag, (N, E, T2, tile_e, empty, bnd, hub, masked) in fuzz.items():
+        cols = pallas_fuzz_edges(r, N, E, T2, empty,
+                                 None if bnd is None else (bnd, tile_e),
+                                 hub, masked)
+        if bnd is not None and (cols[4][bnd + 1] - cols[4][bnd]) % tile_e:
+            raise AssertionError(f"{tag}: type {bnd} does not end on a tile "
+                                 "boundary")
+        lay = SP.pack_type_tiles(*(torch.as_tensor(c, device=dev)
+                                   for c in cols), T2, tile_e)
+        live = lay["mask"].reshape(-1, tile_e).sum(1)
+        print(f"[pallas kernels] fuzz {tag}: {lay['n_tiles']} tiles of "
+              f"{tile_e}, {int((live == 0).sum().item())} without a real "
+              f"edge; tile types {lay['tile_type'].tolist()[:40]}",
+              flush=True)
+        for D in (4, 8, 128, 200, 256):
+            for dtype in (torch.bfloat16, torch.float32):
+                gen = torch.Generator(device=dev).manual_seed(D)
+                h = (torch.rand(N, D, device=dev, generator=gen) * 2
+                     - 1).to(dtype)
+                w = (torch.randn(T2, D, D, device=dev, generator=gen)
+                     * D ** -0.5).to(dtype)
+                bb = (torch.randn(T2, D, device=dev, generator=gen)
+                      * 0.1).to(dtype)
+                dn = str(dtype).split(".")[-1]
+                check_packed_messages(f"{tag},D={D},{dn}", h, lay, w, bb,
+                                      log)
+    E = 10_000 + 37                 # not a multiple of 128
+    for G in (5, 64, 128):
+        gen = torch.Generator(device=dev).manual_seed(G)
+        Np = 900
+        p = torch.randn(Np, G, device=dev, generator=gen)
+        q = torch.randn(Np, G, device=dev, generator=gen)
+        src = torch.randint(0, Np, (E,), device=dev, generator=gen,
+                            dtype=torch.int32)
+        src[:E // 3] = 0            # a hub row
+        dst = torch.randint(0, Np, (E,), device=dev, generator=gen,
+                            dtype=torch.int32)
+        mask = (torch.rand(E, device=dev, generator=gen) < 0.8).float()
+        check_sddmm(f"G={G},indexed", p, q, log, src=src, dst=dst)
+        check_sddmm(f"G={G},indexed,masked", p, q, log, src=src, dst=dst,
+                    mask=mask)
+        check_sddmm(f"G={G},gathered", p.index_select(0, src.long()),
+                    q.index_select(0, dst.long()), log)
+
+    t0 = time.perf_counter()
+    T2 = 2 * EDGE_TYPES
+    cols = [torch.as_tensor(x, device=dev) for x in (
+        b.edge_src, b.edge_dst, b.edge_type, b.edge_mask, b.type_offsets)]
+    lay = SP.pack_type_tiles(*cols, T2)
+    torch.cuda.synchronize()
+    P_ = lay["src"].shape[0]
+    n_real = int((lay["mask"] > 0).sum().item())
+    budget = SP.tiles_budget(b.spec.e_pad, T2)
+    print(f"[pallas kernels] headline: {lay['n_tiles']} tiles of "
+          f"{lay['tile_e']} (tiles_budget {budget}), {n_real} real edges "
+          f"in {P_} slots, packed on the card in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    if lay["n_tiles"] != budget or n_real != int(b.edge_mask.sum()):
+        raise AssertionError("headline: not the bench's packed layout")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    h = (torch.rand(b.spec.n_pad, DIM, device=dev, generator=gen) * 2
+         - 1).to(torch.bfloat16)
+    w = (torch.randn(T2, DIM, DIM, device=dev, generator=gen)
+         * DIM ** -0.5).to(torch.bfloat16)
+    bb = (torch.randn(T2, DIM, device=dev, generator=gen) * 0.1).to(
+        torch.bfloat16)
+    check_packed_messages("headline,bf16", h, lay, w, bb, log)
+    torch.cuda.empty_cache()
+    args = (lay["src"], lay["mask"], lay["tile_type"])
+    hs = h.index_select(0, lay["src"].long()).reshape(lay["n_tiles"],
+                                                      lay["tile_e"], DIM)
+    wg = w.index_select(0, lay["tile_type"].long())
+    time_pairs({"packed_messages": (
+        lambda: SP.packed_messages(h, *args, w, bb),
+        lambda: SP.packed_messages_reference(h, *args, w, bb),
+        lambda: torch.bmm(hs, wg),
+        roofline(nbytes(h, *args, w, bb) + P_ * DIM * 4,
+                 [(2 * n_real * DIM * DIM, BF16_FLOPS)]))}, timings)
+    print("  packed_messages library call: torch.bmm of the tile-viewed "
+          "h[src] with W[tile_type] (both gathered beforehand; bf16 out, "
+          "no bias, no mask)", flush=True)
+    del hs, wg
+    torch.cuda.empty_cache()
+    p = torch.randn(b.spec.n_pad, DIM, device=dev, generator=gen) * 0.1
+    q = torch.randn(b.spec.n_pad, DIM, device=dev, generator=gen) * 0.1
+    kw = dict(src=lay["src"], dst=lay["dst"])
+    check_sddmm("headline", p, q, log, **kw)
+    pg = p.index_select(0, lay["src"].long())
+    qg = q.index_select(0, lay["dst"].long())
+    time_pairs({"sddmm_pallas": (
+        lambda: SP.sddmm_pallas(p, q, **kw),
+        lambda: SP.sddmm_pallas_reference(p, q, **kw),
+        lambda: torch.einsum("eg,eg->e", pg, qg),
+        roofline(nbytes(p, q, lay["src"], lay["dst"]) + P_ * 4,
+                 [(2 * P_ * DIM, F32_FLOPS)]))}, timings)
+    print("  sddmm_pallas library call: torch.einsum('eg,eg->e') on the "
+          "rows gathered beforehand", flush=True)
+    del pg, qg, lay
+    torch.cuda.empty_cache()
+
+
+def pallas_stepwise(tag, cfg, prop, arrays, log):
+    """Each step of propagate(backend='pallas') on a batch against the
+    plain step from the same input state: per row within 8 bf16 ulps of
+    max(1, max|a_row|) (the aggregation rounds to bf16 before the gate
+    products), mean within 1e-3."""
+    import dataclasses
+    import torch
+    from ggnn_tpu_torch.models.ggnn import propagate
+    from ggnn_tpu_torch.models.init import torch_dtype
+    from ggnn_tpu_torch.ops import spmm as SP
+    one = dataclasses.replace(cfg, n_steps=1)
+    cdt = torch_dtype(cfg.compute_dtype)
+    edges = [arrays[k] for k in ("edge_src", "edge_dst", "edge_type",
+                                 "edge_mask")]
+    lay = SP.pack_type_tiles(*edges, arrays["type_offsets"],
+                             cfg.n_message_types)
+    h = arrays["annotations"].float()
+    h = torch.nn.functional.pad(h, (0, cfg.state_dim - h.shape[1]))
+    with torch.inference_mode():
+        for t in range(cfg.n_steps):
+            got = propagate(prop, one, h, *edges, tiles_layout=lay)
+            with plain_versions():
+                ref = propagate(prop, one, h, *edges, tiles_layout=lay)
+                mask = None
+                if cfg.edge_gates:
+                    score = SP.sddmm_pallas_reference(
+                        h @ prop["gate_p"].float(),
+                        h @ prop["gate_q"].float(), lay["src"], lay["dst"])
+                    mask = lay["mask"] * torch.sigmoid(score)
+                a = SP.typed_aggregate_tiled(
+                    h.to(cdt), lay, prop["msg_w"].to(cdt),
+                    prop["msg_b"].to(cdt), mask=mask)
+            check(f"{tag} step {t}", got, ref, "flip_rows", cdt, log,
+                  a_rows=a.abs().amax(1).clamp_min(1.0))
+            h = got
+
+
+def pallas_serve_phase(b, log):
+    """[pallas serve]: three requests (uniform graphs of the headline size)
+    through ``Predictor(backend='pallas')``, ungated and with the edge
+    gates (gate_dim 0: G = 128), the launch counts and the scores against
+    the plain path; then the uniform headline batch through ``run_batch``:
+    the launch counts of #16, #17 and #3, the device forward, the peak
+    memory, and each step against the plain step.  Returns the launches."""
+    import torch
+    from ggnn_tpu_torch.graph import PaddingSpec
+    from ggnn_tpu_torch.infer import Predictor
+    from ggnn_tpu_torch.models.api import forward
+    from ggnn_tpu_torch.models.init import init_params
+    from ggnn_tpu_torch.train.loop import batch_arrays
+    launched = dict.fromkeys(KERNELS, 0)
+    graphs = [(seed, request_graph(seed)) for seed in (0, 1, 2)]
+    spec = PaddingSpec(n_graphs=1, n_pad=NODES, e_pad=2 * EDGES,
+                       n_edge_types=EDGE_TYPES, annotation_dim=ANN)
+    for gated in (False, True):
+        label = "gated" if gated else "ungated"
+        cfg = headline_cfg(backend="pallas", edge_gates=gated,
+                           compute_dtype="bfloat16")
+        params = init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+        per = {"packed_messages": STEPS, "gru_cell_fwd": STEPS}
+        if gated:
+            per["sddmm_pallas"] = STEPS
+        torch.cuda.reset_peak_memory_stats()
+        got = serve(params, False, graphs, {}, per, tag="pallas serve",
+                    layout_fn=lambda pred, batch: None,
+                    plain_fn=lambda pred, batch, layout: plain_run(
+                        pred, batch, None),
+                    label=label, cfg_kw=dict(backend="pallas",
+                                             edge_gates=gated))
+        for k, v in got.items():
+            launched[k] += v
+        print(f"[pallas serve] {label}: peak device memory over the "
+              f"requests {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        pred = Predictor(cfg, spec, params=params, device="cuda")
+        zero_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        scores = pred.run_batch(b)
+        t1 = time.perf_counter()
+        launches = read_counts()
+        expect_counts(f"pallas serve {label} run_batch", launches, per)
+        for k, v in launches.items():
+            launched[k] += v
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        arrays = batch_arrays(b, "cuda")
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        with torch.inference_mode():
+            ev[0].record()
+            forward(params, cfg, arrays, 1)
+            ev[1].record()
+        torch.cuda.synchronize()
+        if scores.shape != (b.spec.n_pad,) or not np.isfinite(scores).all():
+            raise AssertionError(f"pallas serve {label}: bad scores")
+        print(f"[pallas serve] {label} headline batch through run_batch: "
+              f"{t1 - t0:.3f} s on the host clock (copies in and out "
+              f"included), device forward {ev[0].elapsed_time(ev[1]):.2f} "
+              f"ms (CUDA events, a second forward); peak device memory "
+              f"{peak:.2f} GiB; launches {launches}", flush=True)
+        pallas_stepwise(f"pallas serve {label}", cfg, params["prop"],
+                        arrays, log)
+        del pred, params, arrays
+        torch.cuda.empty_cache()
+    return launched
+
+
+def pallas_train_phase(b):
+    """[pallas train]: 3 Adam steps of the headline model through
+    make_train_step on the uniform headline batch, backend='pallas',
+    ungated and gated (per step: #16 T times in the forward and, gated, T
+    more in the backward for dmask; #17 T times in a gated forward; #3
+    and #4 T times each), the first step against the plain path.  Returns
+    the launches."""
+    per = {"packed_messages": STEPS, "gru_cell_fwd": STEPS,
+           "gru_cell_bwd": STEPS}
+    gated = dict(per, packed_messages=2 * STEPS, sddmm_pallas=STEPS)
+    return train_headline(b, None, {
+        "pallas": (dict(backend="pallas"), per),
+        "pallas gated": (dict(backend="pallas", edge_gates=True), gated)},
+        tag="pallas train", f32_check=False)
+
+
+def pallas_phases(b, log, timings, serve_and_train=True):
+    """Phase 13 on the uniform headline batch ``b``: ``[pallas kernels]``,
+    then (with ``serve_and_train``) ``[pallas serve]``, ``[pallas
+    train]`` and the Trainer CLI with ``--backend pallas``.  Returns the
+    launches of the serving and training paths."""
+    pallas_kernels_phase(b, log, timings)
+    launched = {}
+    if serve_and_train:
+        for phase in (lambda: pallas_serve_phase(b, log),
+                      lambda: pallas_train_phase(b),
+                      lambda: run_trainer("pallas",
+                                          want=("packed_messages",))):
+            for k, v in phase().items():
+                launched[k] = launched.get(k, 0) + v
+    return launched
+
+
+def widths_phase(log):
+    """``[widths]``: :func:`check_kernel_widths`, then the fused window
+    train step at D = 256 (:func:`window_step_d256`)."""
+    check_kernel_widths(log)
+    window_step_d256()
+
+
+def window_step_d256():
+    """One fused window train step at D = 256 (FusedWindowStep: #13's
+    emit_res form, i.e. its sums then the wide cell; the wide #4; then #14
+    in two 128-column panels) on a grad fuzz layout, its gradients against
+    the plain path from the same state and cotangent: every leaf within
+    the bf16 first-step bound (relative Frobenius, TOL_TRAIN)."""
+    import torch
+    from ggnn_tpu_torch.ops import window as W
+    from ggnn_tpu_torch.ops import window_step as WS
+    dev = torch.device("cuda")
+    r = np.random.default_rng(29)
+    N, E, T2, D = 2048, 40_000, 8, 256
+    dst = r.integers(0, N - 256, E)
+    src = np.where(r.random(E) < 0.9,
+                   (dst // 256) * 256 + r.integers(0, 256, E),
+                   r.integers(0, N, E)) % N
+    lay = W.build_window_layout(src, dst, r.integers(0, T2, E),
+                                np.ones(E, np.float32), N, window=256,
+                                block_rows=256, n_message_types=T2,
+                                row_major="block", min_edges_per_tile=4,
+                                with_grad=True, on_demand=True,
+                                typed_spill=True).to(dev)
+    if not lay.grad_meta[4]:
+        raise AssertionError("window D=256 step: not the fused backward")
+    gen = torch.Generator(device=dev).manual_seed(47)
+    rn = lambda *s, sc=1.0: torch.randn(*s, device=dev, generator=gen) * sc
+    h0 = torch.rand(N, D, device=dev, generator=gen) * 2 - 1
+    w0, b0 = rn(T2, D, D, sc=D ** -0.5), rn(T2, D, sc=0.1)
+    gru0 = {k: rn(D, D, sc=D ** -0.5) for k in ("wz", "wr", "wh", "uz",
+                                                "ur", "uh")}
+    gru0.update({k: rn(D, sc=0.1) for k in ("bz", "br", "bh")})
+    cot = rn(N, D)
+
+    def grads():
+        leaves = {k: v.clone().requires_grad_(True) for k, v in
+                  {"h": h0, "msg_w": w0, "msg_b": b0, **gru0}.items()}
+        gru = {k: leaves[k] for k in gru0}
+        out = WS.gru_window_step(leaves["h"], lay,
+                                 leaves["msg_w"].to(torch.bfloat16),
+                                 leaves["msg_b"].to(torch.bfloat16), gru)
+        g = torch.autograd.grad((out * cot).sum(), list(leaves.values()))
+        return dict(zip(leaves, g))
+
+    zero_counts()
+    got = grads()
+    launches = {k: v for k, v in read_counts().items() if v}
+    for k in ("window_step_gru[emit_res]", "gru_cell_bwd",
+              "window_bwd_fused"):
+        if not launches.get(k):
+            raise AssertionError(f"window D=256 step: {k} not launched "
+                                 f"({launches})")
+    with plain_versions():
+        ref = grads()
+    tol = TOL_TRAIN["bfloat16"][0]
+    errs = sorted(((relfro(got[k], ref[k]), k) for k in got), reverse=True)
+    ok = errs[0][0] <= tol and all(torch.isfinite(x).all()
+                                   for x in got.values())
+    print(f"[widths] a fused window train step at D = {D} (launches "
+          f"{launches}) vs the plain path: worst leaves (rel_frobenius) "
+          + ", ".join(f"{k} {e:.3e}" for e, k in errs[:4])
+          + f" (tol {tol:.3e}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("window D=256 step: gradients disagree with "
+                             "the plain path")
+
+
 def check_kernel_widths(log):
     """Every kernel at the widths the reference takes: #1-#7, #10, #12, #13
-    (and emit_res) at D = 4, 8, 16, 128, 200 and 256, #14 up to 128, #15 at
-    128 and 256, bf16 and f32, against their plain versions and a second
-    run of themselves (bit-equal), with the tolerances of the D = 128
-    checks.  D < 128 runs the D = 128 kernels zero-padded
+    (and emit_res) and #14 (exact and int8 ā) at D = 4, 8, 16, 128, 200 and
+    256, #15 at 128 and 256, bf16 and f32, against their plain versions
+    and a second run of themselves (bit-equal), with the tolerances of the
+    D = 128 checks.  D < 128 runs the D = 128 kernels zero-padded
     (ops/gru.py::pad_width), 256 the wide forms (the GRU cell's panels,
-    the window sums' column panels, the typed scatters' panels), 200
-    padded to 256.  #14 above 128 and every kernel above 256 raise (ROADMAP
-    Queue 3)."""
+    the window sums' and #14's column panels, the typed scatters'
+    panels), 200 padded to 256.  Every kernel above 256 raises (ROADMAP
+    Queue 3).  (#16 and #17 take their widths in [pallas kernels].)"""
     import torch
     from ggnn_tpu_torch.ops import gru as G
     from ggnn_tpu_torch.ops import scatter as S
@@ -3219,12 +3667,11 @@ def check_kernel_widths(log):
                 lambda: W.window_step_gru_reference(
                     *sargs, msg_w=w8, msg_b=b8, emit_res=True, **wsk),
                 ("flip_rows", "flip"), dtype, a_rows=(a_rows, None))
-            if D <= 128:
-                check_window_bwd(f"widths D={D}", lay_w, log, dtype, D=D)
+            check_window_bwd(f"widths D={D}", lay_w, log, dtype, D=D)
             if D in (128, 256) and dtype == torch.bfloat16:
                 check_q8_table(f"widths D={D}", hn, w8, b8, 256, log)
     # what the kernels do not take raises, naming ROADMAP Queue 3
-    for D, name in ((256, "window_bwd_fused"), (384, "gru_cell_fwd")):
+    for D, name in ((384, "window_bwd_fused"), (384, "gru_cell_fwd")):
         if name == "window_bwd_fused":
             forms, gt, w, h, kw = bwd_inputs(lay_w, torch.bfloat16, 3, D)
             fn = lambda: W.window_bwd_fused(forms["exact"][0], *gt, w, h,
@@ -3379,7 +3826,7 @@ def main() -> int:
     check_grad_kernels("headline", lay, log, timings)
     torch.cuda.empty_cache()
 
-    graphs = [(seed, request_graph(seed)) for seed in (0, 1, 2)]
+    graphs = [(seed, request_graph(seed)) for seed in SERVE_REQUESTS]
     plain_cache = {}
     torch.cuda.reset_peak_memory_stats()
     launched = dict.fromkeys(KERNELS, 0)
@@ -3408,6 +3855,9 @@ def main() -> int:
 
     for k, v in legacy_phase(params, b, log, timings).items():
         launched[k] += v
+    torch.cuda.empty_cache()
+    for k, v in pallas_phases(b, log, timings).items():
+        launched[k] += v
     del b
     torch.cuda.empty_cache()
 
@@ -3425,7 +3875,7 @@ def main() -> int:
                   lambda: window_train_phase(params, log, timings)):
         for k, v in phase().items():
             launched[k] += v
-    check_kernel_widths(log)
+    widths_phase(log)
     predictor_widths()
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

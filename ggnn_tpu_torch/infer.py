@@ -13,7 +13,9 @@ pass a typed pack (``build_typed_dst_layout(...).to(device)``) to
 For ``backend='window'`` each batch gets the reference's
 :func:`~ggnn_tpu_torch.ops.window.window_layout_for_batch` (static tile
 budgets, the legacy spill); any other window layout goes through
-:meth:`Predictor.run_batch`.
+:meth:`Predictor.run_batch`.  For ``backend='pallas'`` (and ``xla``) a
+batch needs no host layout: ``propagate`` packs the type tiles on the device
+from the batch's ``type_offsets``.
 
 The model runs on the card unless the caller asks for ``device="cpu"``;
 without a CUDA device the default raises.
@@ -35,7 +37,8 @@ from ggnn_tpu_torch.ops.window import window_layout_for_batch
 from ggnn_tpu_torch.train.checkpoint import load_checkpoint
 
 _ARRAY_KEYS = ("annotations", "node_graph", "node_mask", "n_nodes",
-               "edge_src", "edge_dst", "edge_type", "edge_mask")
+               "edge_src", "edge_dst", "edge_type", "edge_mask",
+               "type_offsets")
 
 
 class Predictor:
@@ -83,7 +86,8 @@ class Predictor:
         """The device scatter layout a batch needs, as the reference builds
         it: ``layout_for_batch(batch, with_grad=False)`` for ``onehot``,
         ``window_layout_for_batch(batch)`` for ``window``, None for
-        ``xla``."""
+        ``xla`` and ``pallas`` (its tiles are packed inside
+        ``propagate``)."""
         if self.cfg.backend == "window":
             return window_layout_for_batch(batch).to(self.device)
         if self.cfg.backend != "onehot":

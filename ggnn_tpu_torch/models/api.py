@@ -23,13 +23,15 @@ def forward(params: dict, cfg: ModelConfig, arrays: dict, n_graphs: int,
             scatter_layout=None):
     """Head outputs: node scores [N] / per-node logits [N, C] / graph
     logits [B, C].  ``scatter_layout`` is any layout ``propagate`` takes for
-    ``cfg.backend == 'onehot'`` (None: the reference's default)."""
+    ``cfg.backend == 'onehot'`` (None: the reference's default); the
+    ``pallas`` backend packs its tiles from ``arrays["type_offsets"]``."""
     if cfg.head == "ggsnn":
         raise _ggsnn_unported()
     ann = arrays["annotations"]
     h = propagate(params["prop"], cfg, ann, arrays["edge_src"],
                   arrays["edge_dst"], arrays["edge_type"],
-                  arrays["edge_mask"], scatter_layout=scatter_layout)
+                  arrays["edge_mask"], type_offsets=arrays.get("type_offsets"),
+                  scatter_layout=scatter_layout)
     if cfg.head == "node_select":
         return H.node_select_scores(params["head"], h, ann)
     if cfg.head == "per_node":

@@ -21,8 +21,17 @@ kernel, then its scatter), which never fuses; or, forward only, through a
 list of chunked legacy layouts.  ``window``: the window layouts of
 ``ops/window.py`` through ``ops/window_step.py``, fused (kernel #13 over a
 bf16/f32 table, a q8 table or on-demand windows; trainable but for q8) or
-not (``aggregate_window`` then the GRU cell), with their backwards.  The
-other backends raise ``NotImplementedError`` naming their ROADMAP item.
+not (``aggregate_window`` then the GRU cell), with their backwards.
+``pallas``: the type-tiled layout of ``ops/spmm.py`` (built once, outside
+the step loop), kernel #16's per-tile messages and their segment sum, then
+the GRU cell.
+
+The SDDMM edge gates (``cfg.edge_gates``) scale each message by
+σ(⟨h_u·P, h_v·Q⟩) on the ``xla`` and ``pallas`` backends, the score
+through kernel #17; p and q are f32 products of the f32 state (TF32 is
+off: ``torch.backends.cuda.matmul.allow_tf32`` is False by default).  On
+``onehot`` and ``window`` the reference aggregates ungated; so does the
+port, with a warning.
 """
 
 from __future__ import annotations
@@ -45,7 +54,8 @@ from ggnn_tpu_torch.ops.scatter import (BLOCK_N, ScatterLayout,
                                         aggregate_onehot, bias_rows,
                                         block_args, grad_meta, tile_args,
                                         typed_block_step_gru, typed_step_gru)
-from ggnn_tpu_torch.ops.segment import typed_aggregate
+from ggnn_tpu_torch.ops import spmm
+from ggnn_tpu_torch.ops.segment import EdgeScore, sddmm, typed_aggregate
 from ggnn_tpu_torch.ops.window_step import aggregate_window, gru_window_step
 
 
@@ -232,14 +242,10 @@ class TypedFusedStep(torch.autograd.Function):
                 duzr.to(u_zr.dtype), duh.to(uh.dtype), None, None, None)
 
 
-def _unported(what: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, "
-                               "Queue 1 and Queue 2)")
-
-
 def propagate(prop: dict, cfg: ModelConfig, annotations, edge_src, edge_dst,
               edge_type, edge_mask, collect_states: bool = False,
-              scatter_layout=None):
+              type_offsets=None, scatter_layout=None,
+              tiles_layout: dict | None = None):
     """Run T propagation steps; returns the final h [N, D] f32 (and, with
     ``collect_states``, the per-step states stacked to [T, N, D]).
 
@@ -265,11 +271,14 @@ def propagate(prop: dict, cfg: ModelConfig, annotations, edge_src, edge_dst,
     a layout built ``with_grad=True`` (and, fused, N and D multiples of
     128); the q8 table is forward only.
 
+    ``backend='pallas'``: ``tiles_layout`` (a :func:`~ggnn_tpu_torch.ops.
+    spmm.pack_type_tiles` dict) or, without it, the layout packed here once
+    from ``type_offsets`` (the batch's, or the counts of edges with mask > 0
+    per type when None).
+
     ``cfg.remat`` recomputes each step in the backward
     (``torch.utils.checkpoint``) instead of keeping its residuals, except
     with ``collect_states``, as the reference does."""
-    if cfg.edge_gates:
-        raise _unported("edge_gates (the SDDMM gates)")
     h = init_state(annotations, cfg.state_dim)
     fused = fuse_gru(prop["gru"])
     uh = prop["gru"]["uh"]
@@ -277,6 +286,25 @@ def propagate(prop: dict, cfg: ModelConfig, annotations, edge_src, edge_dst,
     msg_w_c = prop["msg_w"].to(cdt)
     msg_b_c = prop["msg_b"].to(cdt)
     gmm = cdt if (cfg.gru_matmul_compute and cdt != torch.float32) else None
+    if cfg.edge_gates and cfg.backend in ("onehot", "window"):
+        warnings.warn(
+            f"edge_gates are not applied with backend={cfg.backend!r}: its "
+            "layouts carry no per-edge gate, so the step aggregates "
+            "ungated, as the reference does", stacklevel=2)
+
+    def gate_features(h):
+        """p = h·P and q = h·Q, f32 products of the f32 state."""
+        return (h.float() @ prop["gate_p"].float(),
+                h.float() @ prop["gate_q"].float())
+
+    def edge_gate(h):
+        """The SDDMM edge gates σ(⟨h_u·P, h_v·Q⟩) folded into the edge
+        mask (the reference's ``edge_gate``)."""
+        if not cfg.edge_gates:
+            return edge_mask
+        p, q = gate_features(h)
+        return edge_mask * torch.sigmoid(sddmm(p, q, edge_src, edge_dst,
+                                               edge_mask))
 
     if cfg.backend == "onehot":
         if isinstance(scatter_layout, (list, tuple)):
@@ -335,14 +363,35 @@ def propagate(prop: dict, cfg: ModelConfig, annotations, edge_src, edge_dst,
             def step(h):
                 a = aggregate_window(h.to(cdt), layout, msg_w_c, msg_b_c)
                 return gru_update(prop["gru"], h, a, fused, matmul_dtype=gmm)
-    elif cfg.backend == "xla":
+    elif cfg.backend == "pallas":
+        layout = tiles_layout
+        if layout is None:
+            if type_offsets is None:
+                type_offsets = spmm.type_offsets_from_mask(
+                    edge_type, edge_mask, cfg.n_message_types)
+            # the tiled layout is topology only: packed once, outside the
+            # step loop
+            layout = spmm.pack_type_tiles(edge_src, edge_dst, edge_type,
+                                          edge_mask, type_offsets,
+                                          cfg.n_message_types)
+
+        def packed_gate(h):
+            if not cfg.edge_gates:
+                return None
+            p, q = gate_features(h)
+            score = EdgeScore.apply(p, q, layout["src"], layout["dst"], None)
+            return layout["mask"] * torch.sigmoid(score)
+
         def step(h):
-            a = typed_aggregate(h.to(cdt), edge_src, edge_dst, edge_type,
-                                edge_mask, msg_w_c, msg_b_c,
-                                strategy=cfg.agg_strategy)
+            a = spmm.typed_aggregate_tiled(h.to(cdt), layout, msg_w_c,
+                                           msg_b_c, mask=packed_gate(h))
             return gru_update(prop["gru"], h, a, fused, matmul_dtype=gmm)
     else:
-        raise _unported(f"backend={cfg.backend!r}")
+        def step(h):
+            a = typed_aggregate(h.to(cdt), edge_src, edge_dst, edge_type,
+                                edge_gate(h), msg_w_c, msg_b_c,
+                                strategy=cfg.agg_strategy)
+            return gru_update(prop["gru"], h, a, fused, matmul_dtype=gmm)
 
     if cfg.remat and not collect_states:
         plain_step = step

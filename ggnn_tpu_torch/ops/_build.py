@@ -86,13 +86,20 @@ _SIGNATURES = {
                          ctypes.c_longlong, _P, _I, _I, _P, _P, _I, _I, _P,
                          _P, _P],
     # dtype, quant, da_t, scales, n_cols, counts, n_c, gt_start, gt_win,
-    # gt_c_off, n_dst_blocks, BR, W, T2, n_src_blocks, group, msg_w, h, dht,
-    # ws, dwt, stream
+    # gt_c_off, n_dst_blocks, BR, W, T2, n_src_blocks, group, D, msg_w, h,
+    # dht, ws, dwt, stream
     "ggnn_window_bwd": [_I, _I, _P, _P, ctypes.c_longlong, _P,
                         ctypes.c_longlong, _P, _P, _P, _I, _I, _I, _I, _I,
-                        _I, _P, _P, _P, _P, _P, _P],
+                        _I, _I, _P, _P, _P, _P, _P, _P],
     # dtype, h, msg_w, msg_b, n_blocks, D, T2, out, stream
     "ggnn_node_table": [_I, _P, _P, _P, _I, _I, _I, _P, _P],
+    # dtype, h, n_h, D, src, mask, tile_type, n_tiles, tile_e, msg_w, msg_b,
+    # T2, out, stream
+    "ggnn_packed_messages": [_I, _P, ctypes.c_longlong, _I, _P, _P, _P, _I,
+                             _I, _P, _P, _I, _P, _P],
+    # p, n_p, q, n_q, G, src, dst, mask, E, out, stream
+    "ggnn_sddmm": [_P, ctypes.c_longlong, _P, ctypes.c_longlong, _I, _P, _P,
+                   _P, ctypes.c_longlong, _P, _P],
     "ggnn_error_string": [_I],
 }
 

@@ -24,16 +24,22 @@
 // Design.  The TPU kernel walks every backward tile in one sequential grid,
 // keeping one source block's windows and a 1 MB dWᵀ accumulator in VMEM.
 // Here one CTA (8 warps, 16 rows each) takes a group of consecutive source
-// blocks and walks, for each block b, its T2 slabs in type order: the slab
+// blocks and one 128-column panel dp of dh (grid y: D / 128 panels, D = 128
+// or 256), and walks, for each block b, its T2 slabs in type order and
+// each slab's 128-column panels fp in order: the slab panel Y_t,b[:, fp]
 // accumulates in registers (rows = the block's 128 source rows, in the
 // mma.sync fragment layout of common.cuh) over the window's real tiles in
-// list order and over BR in K-chunks of 128 (the chunk of Cᵀ and of ā
-// staged in shared memory); it is rounded to T into shared memory twice
-// (Y and Yᵀ), then dh_b += Y·W_tᵀ stays in registers across the T2 slabs,
-// and the group's dWᵀ_t partial [D, D] f32 in the workspace gains Yᵀ·h_b
-// (each element read and written by one thread only).  A second kernel sums
-// the groups' partials in group order.  Every sum runs in one fixed order:
-// the same bits on every run, no atomics.
+// list order and over BR in K-chunks of 128 (the chunk of Cᵀ and of ā's
+// columns fp staged in shared memory); it is rounded to T into shared
+// memory twice (Y and Yᵀ), then dh_b[:, dp] += Y[:, fp]·W_t[dp, fp]ᵀ stays
+// in registers across the slabs and panels (the K-split over f), and the
+// group's dWᵀ_t[fp, dp] partial [128, 128] f32 in the workspace gains
+// Y[:, fp]ᵀ·h_b[:, dp] (each element read and written by one thread of one
+// CTA only).  A second kernel sums the groups' partials in group order.
+// Every sum runs in one fixed order: the same bits on every run, no
+// atomics.  At D = 256 each of the two dp panels computes both Y panels
+// (the count products twice) so that a thread holds one 128-column dh
+// panel and one slab panel, as at D = 128: 128 accumulator registers.
 //
 // Bound on this card: the bytes (the count stream's real tiles, āᵀ once, h,
 // the outputs; 2.15 GB of counts at the community headline) and, at
@@ -45,7 +51,10 @@
 
 namespace ggnn {
 
-template <typename T, bool QUANT>
+// NP: D / 128, the column panels (1 or 2), a template argument so that the
+// D = 128 kernel keeps the single-panel loop of its registers and address
+// arithmetic.
+template <typename T, bool QUANT, int NP>
 __global__ void __launch_bounds__(kThreads) window_bwd_kernel(
     const void* __restrict__ dat, const float* __restrict__ scales,
     long long n_cols, const int8_t* __restrict__ counts, long long n_c,
@@ -62,7 +71,8 @@ __global__ void __launch_bounds__(kThreads) window_bwd_kernel(
   int8_t* A8 = reinterpret_cast<int8_t*>(P);
   int8_t* B8 = reinterpret_cast<int8_t*>(Q);
 
-  const int g = blockIdx.x;
+  constexpr int D = NP * kRows;
+  const int g = blockIdx.x, dp = NP > 1 ? int(blockIdx.y) : 0;
   const int row0 = (threadIdx.x >> 5) * 16;
   const int S = W / kRows, wpb = T2 / S;
   const long long N = (long long)n_src_blocks * kRows;
@@ -73,94 +83,104 @@ __global__ void __launch_bounds__(kThreads) window_bwd_kernel(
     for (int t = 0; t < T2; ++t) {
       const int w = b * wpb + t / S, col0 = (t % S) * kRows;
       const int t0 = gt_start[w], t1 = gt_start[w + 1];
-      float acc[kNT][4];
-      zero_acc(acc);
-      bool any = false;
-      for (int tt = t0; tt < t1; ++tt) {
-        const int B = gt_win[tt];
-        const long long c = gt_c_off[tt];
-        if (B < 0 || B >= n_dst_blocks || c < 0 || c >= n_c) continue;
-        any = true;
-        const int8_t* C = counts + size_t(c) * BR * W + col0;
-        int iacc[kNT][4];
-        if constexpr (QUANT) {
+      for (int fp = 0; fp < NP; ++fp) {
+        float acc[kNT][4];
+        zero_acc(acc);
+        bool any = false;
+        for (int tt = t0; tt < t1; ++tt) {
+          const int B = gt_win[tt];
+          const long long c = gt_c_off[tt];
+          if (B < 0 || B >= n_dst_blocks || c < 0 || c >= n_c) continue;
+          any = true;
+          const int8_t* C = counts + size_t(c) * BR * W + col0;
+          int iacc[kNT][4];
+          if constexpr (QUANT) {
 #pragma unroll
-          for (int nt = 0; nt < kNT; ++nt)
+            for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
-            for (int e = 0; e < 4; ++e) iacc[nt][e] = 0;
-        }
-        for (int k0 = 0; k0 < BR; k0 += kRows) {
-          const size_t acol = size_t(B) * BR + k0;
-          __syncthreads();  // every warp is done with the previous chunk
-          for (int idx = threadIdx.x; idx < kRows * kD; idx += kThreads) {
-            // A[n][k] = C[k0 + k][col0 + n]; Bt[f][k] = āᵀ[f][B·BR + k0 + k]
-            const int k = idx / kD, n = idx % kD;
-            const int8_t cv = C[size_t(k0 + k) * W + n];
-            const int f = idx / kRows, kk = idx % kRows;
-            if constexpr (QUANT) {
-              A8[n * kLd8 + k] = cv;
-              B8[f * kLd8 + kk] =
-                  static_cast<const int8_t*>(dat)[f * n_cols + acol + kk];
-            } else {
-              P[n * ld + k] = from_f<T>(float(cv));
-              Q[f * ld + kk] =
-                  static_cast<const T*>(dat)[f * n_cols + acol + kk];
-            }
+              for (int e = 0; e < 4; ++e) iacc[nt][e] = 0;
           }
-          __syncthreads();
-          if constexpr (QUANT)
-            warp_gemm_s8(iacc, A8 + row0 * kLd8, B8);
-          else
-            warp_gemm(acc, P + row0 * ld, Q);
-        }
-        if constexpr (QUANT) {
-          const float s = scales[B];
+          for (int k0 = 0; k0 < BR; k0 += kRows) {
+            const size_t acol = size_t(B) * BR + k0;
+            __syncthreads();  // every warp is done with the previous chunk
+            for (int idx = threadIdx.x; idx < kRows * kD; idx += kThreads) {
+              // A[n][k] = C[k0 + k][col0 + n];
+              // Bt[f][k] = āᵀ[fp·128 + f][B·BR + k0 + k]
+              const int k = idx / kD, n = idx % kD;
+              const int8_t cv = C[size_t(k0 + k) * W + n];
+              const int f = idx / kRows, kk = idx % kRows;
+              const size_t arow = size_t(fp * kRows + f) * n_cols;
+              if constexpr (QUANT) {
+                A8[n * kLd8 + k] = cv;
+                B8[f * kLd8 + kk] =
+                    static_cast<const int8_t*>(dat)[arow + acol + kk];
+              } else {
+                P[n * ld + k] = from_f<T>(float(cv));
+                Q[f * ld + kk] = static_cast<const T*>(dat)[arow + acol + kk];
+              }
+            }
+            __syncthreads();
+            if constexpr (QUANT)
+              warp_gemm_s8(iacc, A8 + row0 * kLd8, B8);
+            else
+              warp_gemm(acc, P + row0 * ld, Q);
+          }
+          if constexpr (QUANT) {
+            const float s = scales[B];
 #pragma unroll
-          for (int nt = 0; nt < kNT; ++nt)
+            for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
-            for (int e = 0; e < 4; ++e) acc[nt][e] += float(iacc[nt][e]) * s;
+              for (int e = 0; e < 4; ++e)
+                acc[nt][e] += float(iacc[nt][e]) * s;
+          }
         }
+        if (!any) break;  // an empty window: a zero slab, every panel
+        __syncthreads();  // every warp is done with the last chunk
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int n = row0 + frag_row(e), f = frag_col(nt, e);
+            const T y = from_f<T>(acc[nt][e]);
+            P[n * ld + f] = y;
+            R[f * ld + n] = y;
+          }
+        // Q[d][f] = W_t[dp·128 + d][fp·128 + f]
+        load_w_rows(Q, msg_w + size_t(t) * D * D + size_t(dp) * kRows * D,
+                    D, fp * kRows);
+        __syncthreads();
+        // dh[n][d] += Σ_f Y[n][f] W_t[d][f] over this panel's f
+        warp_gemm(dh, P + row0 * ld, Q);
+        __syncthreads();
+        // Q[d][n] = h_b[n][dp·128 + d]
+        load_wt(Q, h + size_t(b) * kRows * D, D, dp * kRows);
+        __syncthreads();
+        // dWᵀ_t[fp·128 + f][dp·128 + d] += Σ_n Yᵀ[f][n] h_b[n][d], this
+        // warp's rows f
+        float* part = ws + (size_t(g) * T2 + t) * D * D +
+                      size_t(fp) * kRows * D + dp * kRows;
+        float wacc[kNT][4];
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            wacc[nt][e] =
+                part[size_t(row0 + frag_row(e)) * D + frag_col(nt, e)];
+        warp_gemm(wacc, R + row0 * ld, Q);
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            part[size_t(row0 + frag_row(e)) * D + frag_col(nt, e)] =
+                wacc[nt][e];
       }
-      if (!any) continue;  // an empty window: a zero slab
-      __syncthreads();     // every warp is done with the last chunk
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int n = row0 + frag_row(e), f = frag_col(nt, e);
-          const T y = from_f<T>(acc[nt][e]);
-          P[n * ld + f] = y;
-          R[f * ld + n] = y;
-        }
-      load_w_rows(Q, msg_w + size_t(t) * kD * kD, kD, 0);  // Q[d][f] = W_t
-      __syncthreads();
-      warp_gemm(dh, P + row0 * ld, Q);  // dh[n][d] += Σ_f Y[n][f] W_t[d][f]
-      __syncthreads();
-      load_wt(Q, h + size_t(b) * kRows * kD, kD, 0);  // Q[d][n] = h_b[n][d]
-      __syncthreads();
-      // dWᵀ_t[f][d] += Σ_n Yᵀ[f][n] h_b[n][d], this warp's rows f
-      float* part = ws + (size_t(g) * T2 + t) * kD * kD;
-      float wacc[kNT][4];
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          wacc[nt][e] =
-              part[size_t(row0 + frag_row(e)) * kD + frag_col(nt, e)];
-      warp_gemm(wacc, R + row0 * ld, Q);
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          part[size_t(row0 + frag_row(e)) * kD + frag_col(nt, e)] =
-              wacc[nt][e];
     }
 #pragma unroll
     for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        dht[size_t(frag_col(nt, e)) * N + size_t(b) * kRows + row0 +
-            frag_row(e)] = dh[nt][e];
+        dht[size_t(dp * kRows + frag_col(nt, e)) * N + size_t(b) * kRows +
+            row0 + frag_row(e)] = dh[nt][e];
   }
 }
 
@@ -174,7 +194,7 @@ __global__ void window_bwd_dw_sum(const float* __restrict__ ws, int n_groups,
   dwt[i] = s;
 }
 
-template <typename T, bool QUANT>
+template <typename T, bool QUANT, int NP>
 int launch_window_bwd(const void* dat, const void* scales, long long n_cols,
                       const void* counts, long long n_c, const void* gt_start,
                       const void* gt_win, const void* gt_c_off,
@@ -184,11 +204,12 @@ int launch_window_bwd(const void* dat, const void* scales, long long n_cols,
                       cudaStream_t stream) {
   const size_t smem = 3 * Smem<T>::tile;
   cudaError_t err = cudaFuncSetAttribute(
-      window_bwd_kernel<T, QUANT>,
+      window_bwd_kernel<T, QUANT, NP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
   const int n_groups = (n_src_blocks + group - 1) / group;
-  window_bwd_kernel<T, QUANT><<<n_groups, kThreads, smem, stream>>>(
+  window_bwd_kernel<T, QUANT, NP><<<dim3(n_groups, NP), kThreads, smem,
+                                    stream>>>(
       dat, static_cast<const float*>(scales), n_cols,
       static_cast<const int8_t*>(counts), n_c,
       static_cast<const int*>(gt_start), static_cast<const int*>(gt_win),
@@ -198,7 +219,7 @@ int launch_window_bwd(const void* dat, const void* scales, long long n_cols,
       static_cast<float*>(ws));
   err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
-  const long long per = (long long)T2 * kD * kD;
+  const long long per = (long long)T2 * NP * kRows * NP * kRows;
   window_bwd_dw_sum<<<int((per + 255) / 256), 256, 0, stream>>>(
       static_cast<const float*>(ws), n_groups, per, static_cast<float*>(dwt));
   return int(cudaGetLastError());
@@ -207,34 +228,42 @@ int launch_window_bwd(const void* dat, const void* scales, long long n_cols,
 }  // namespace ggnn
 
 // dtype (of msg_w, h and, without quant, āᵀ): 0 = float32, 1 = bfloat16;
-// quant: āᵀ int8 with scales [n_dst_blocks] f32 (bf16 only).  dat āᵀ [128,
-// n_cols = n_dst_blocks·BR]; counts the forward stream int8 [n_c·BR, W];
-// gt_start [n_wins + 1], gt_win (the tile's dst block, < 0 for a dummy) and
-// gt_c_off [n_gt]; msg_w [T2, 128, 128]; h [n_src_blocks·128, 128]; dht f32
-// [128, n_src_blocks·128]; ws f32 [ceil(n_src_blocks / group), T2, 128, 128]
-// zeroed; dwt f32 [T2, 128, 128] (dWᵀ).  BR and W multiples of 128, T2·128 a
-// multiple of W.  Returns the cudaError_t of the launches.
+// quant: āᵀ int8 with scales [n_dst_blocks] f32 (bf16 only).  D = 128 or
+// 256.  dat āᵀ [D, n_cols = n_dst_blocks·BR]; counts the forward stream
+// int8 [n_c·BR, W]; gt_start [n_wins + 1], gt_win (the tile's dst block,
+// < 0 for a dummy) and gt_c_off [n_gt]; msg_w [T2, D, D]; h
+// [n_src_blocks·128, D]; dht f32 [D, n_src_blocks·128]; ws f32
+// [ceil(n_src_blocks / group), T2, D, D] zeroed; dwt f32 [T2, D, D] (dWᵀ).
+// BR and W multiples of 128, T2·128 a multiple of W.  Returns the
+// cudaError_t of the launches.
 extern "C" int ggnn_window_bwd(int dtype, int quant, const void* dat,
                                const void* scales, long long n_cols,
                                const void* counts, long long n_c,
                                const void* gt_start, const void* gt_win,
                                const void* gt_c_off, int n_dst_blocks, int BR,
                                int W, int T2, int n_src_blocks, int group,
-                               const void* msg_w, const void* h, void* dht,
-                               void* ws, void* dwt, void* stream) {
+                               int D, const void* msg_w, const void* h,
+                               void* dht, void* ws, void* dwt, void* stream) {
   if (n_src_blocks <= 0) return 0;
   if (BR <= 0 || BR % ggnn::kRows || W <= 0 || W % ggnn::kRows || T2 <= 0 ||
-      (T2 * ggnn::kRows) % W || group <= 0 || (quant && !scales))
+      (T2 * ggnn::kRows) % W || group <= 0 || (quant && !scales) ||
+      (D != ggnn::kD && D != 2 * ggnn::kD))
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define GGNN_LAUNCH(T, Q)                                                    \
-  return ggnn::launch_window_bwd<T, Q>(                                      \
+#define GGNN_LAUNCH(T, Q, NP)                                                \
+  return ggnn::launch_window_bwd<T, Q, NP>(                                  \
       dat, scales, n_cols, counts, n_c, gt_start, gt_win, gt_c_off,          \
       n_dst_blocks, BR, W, T2, n_src_blocks, group, msg_w, h, dht, ws, dwt,  \
       s)
-  if (dtype == 1 && quant) GGNN_LAUNCH(__nv_bfloat16, true);
-  if (dtype == 1) GGNN_LAUNCH(__nv_bfloat16, false);
-  if (dtype == 0 && !quant) GGNN_LAUNCH(float, false);
+#define GGNN_WIDTHS(T, Q)                    \
+  {                                          \
+    if (D == ggnn::kD) GGNN_LAUNCH(T, Q, 1); \
+    GGNN_LAUNCH(T, Q, 2);                    \
+  }
+  if (dtype == 1 && quant) GGNN_WIDTHS(__nv_bfloat16, true);
+  if (dtype == 1) GGNN_WIDTHS(__nv_bfloat16, false);
+  if (dtype == 0 && !quant) GGNN_WIDTHS(float, false);
+#undef GGNN_WIDTHS
 #undef GGNN_LAUNCH
   return int(cudaErrorInvalidValue);
 }

@@ -104,10 +104,18 @@ def narrow_width(x, D: int, *, rows: bool = False, groups: int = 1):
     return x.contiguous()
 
 
+def host_ints(*scalars) -> list:
+    """Integers and 0-d tensors (on one device) as Python ints, in one
+    copy to the host."""
+    dev = next((s.device for s in scalars if torch.is_tensor(s)), "cpu")
+    return torch.stack([torch.as_tensor(s, device=dev).reshape(()).long()
+                        for s in scalars]).tolist()
+
+
 def _check_cuda_args(name, tensors, D, any_width=False, wide=False):
     """Device, contiguity and alignment of every tensor, and the width D:
     128 (with ``wide`` also 256), or with ``any_width`` any D in [1,
-    256]."""
+    256]; D None checks the tensors only."""
     dev = tensors[0][1].device
     for arg, t in tensors:
         if t.device != dev:
@@ -116,6 +124,8 @@ def _check_cuda_args(name, tensors, D, any_width=False, wide=False):
             raise ValueError(f"{name}: {arg} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} must be 16-byte aligned")
+    if D is None:
+        return
     if any_width:
         if not 1 <= D <= MAX_WIDTH:
             raise ValueError(f"{name}: the CUDA kernel takes 1 <= D <= "

@@ -36,12 +36,11 @@ import numpy as np
 import torch
 
 from ggnn_tpu_torch.ops import _build
-from ggnn_tpu_torch.ops.gru import _DTYPE_CODE, _check_cuda_args
+from ggnn_tpu_torch.ops.gru import _DTYPE_CODE, _check_cuda_args, host_ints
 from ggnn_tpu_torch.ops.scatter import (BLOCK_N, ScatterLayout, _rup,
                                         _rup_block)
 from ggnn_tpu_torch.ops.table import node_table
-from ggnn_tpu_torch.ops.window import (host_ints, split_plan,
-                                       window_block_spmm_mono)
+from ggnn_tpu_torch.ops.window import split_plan, window_block_spmm_mono
 
 
 @dataclasses.dataclass

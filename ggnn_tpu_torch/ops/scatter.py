@@ -50,10 +50,9 @@ import torch
 from ggnn_tpu_torch.ops import _build
 from ggnn_tpu_torch.ops.gru import (KERNEL_WIDTH, MAX_WIDTH, _DTYPE_CODE,
                                     _check_cuda_args, gru_cell_fwd,
-                                    kernel_width, narrow_width, pad_width,
-                                    gru_cell_fwd_reference)
-from ggnn_tpu_torch.ops.window import (host_ints, split_plan,
-                                       window_block_spmm_mono)
+                                    host_ints, kernel_width, narrow_width,
+                                    pad_width, gru_cell_fwd_reference)
+from ggnn_tpu_torch.ops.window import split_plan, window_block_spmm_mono
 
 BLOCK_N = 128                  # destination rows per output block
 SMEM_TILE_CAP = 40960          # the reference's per-call tile cap (chunking)

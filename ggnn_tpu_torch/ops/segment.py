@@ -10,11 +10,17 @@ strategies of the same math:
 
 Products are taken in f32 from inputs in the compute dtype (bf16·bf16 is
 exact in f32) and the scatter is ``index_add_`` in f32.
+
+:func:`sddmm` gives the per-edge scores of the SDDMM edge gates through
+kernel #17 (``ops/spmm.py::sddmm_pallas``), reading p and q by the edge
+indices, with a plain backward (:class:`EdgeScore`).
 """
 
 from __future__ import annotations
 
 import torch
+
+from ggnn_tpu_torch.ops import spmm
 
 
 def typed_aggregate(h, edge_src, edge_dst, edge_type, edge_mask, msg_w,
@@ -37,6 +43,45 @@ def typed_aggregate(h, edge_src, edge_dst, edge_type, edge_mask, msg_w,
     messages = messages * edge_mask.float()[:, None]
     out = torch.zeros(n_pad, D, dtype=torch.float32, device=h.device)
     return out.index_add_(0, dst, messages)
+
+
+class EdgeScore(torch.autograd.Function):
+    """score_e = ⟨p[src_e], q[dst_e]⟩ (· mask_e) through #17.  It saves p,
+    q and the indices, never the gathered rows, and regathers them in the
+    backward: dp[u] = Σ_{e: src_e = u} ḡ_e·mask_e·q[dst_e], dq likewise
+    over dst (``index_add_`` in f32).  The mask is data (the batch's edge
+    mask) and takes no gradient: a mask that asks for one raises."""
+
+    @staticmethod
+    def forward(ctx, p, q, src, dst, mask):
+        ctx.save_for_backward(p, q, src, dst, mask)
+        return spmm.sddmm_pallas(p, q, src=src, dst=dst, mask=mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        p, q, src, dst, mask = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        if need[4]:
+            raise NotImplementedError(
+                "sddmm: the edge mask takes no gradient")
+        s, d = src.long(), dst.long()
+        w = g.float() if mask is None else g.float() * mask.float()
+        dp = dq = None
+        if need[0]:
+            dp = torch.zeros_like(p).index_add_(
+                0, s, w[:, None] * q.index_select(0, d))
+        if need[1]:
+            dq = torch.zeros_like(q).index_add_(
+                0, d, w[:, None] * p.index_select(0, s))
+        return dp, dq, None, None, None
+
+
+def sddmm(h_src_feat, h_dst_feat, edge_src, edge_dst, edge_mask):
+    """Sampled dense-dense matmul: per-edge scores ⟨p[src], q[dst]⟩ times
+    the edge mask → [E] f32 (the reference's ``sddmm``; the SDDMM edge
+    gates' scores), through kernel #17 without gathering the rows."""
+    return EdgeScore.apply(h_src_feat, h_dst_feat, edge_src, edge_dst,
+                           edge_mask)
 
 
 def masked_segment_max(scores, segment_ids, num_segments: int, mask):

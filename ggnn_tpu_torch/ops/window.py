@@ -49,7 +49,8 @@ from ggnn_tpu_torch.ops import _build
 from ggnn_tpu_torch.ops.gru import (BLOCK, KERNEL_WIDTH, MAX_WIDTH,
                                     _DTYPE_CODE, _check_cuda_args,
                                     gru_cell_fwd, gru_cell_fwd_reference,
-                                    kernel_width, narrow_width, pad_width)
+                                    host_ints, kernel_width, narrow_width,
+                                    pad_width)
 from ggnn_tpu_torch.ops.table import node_table_block_major_reference
 
 _NONZERO_CHUNK = 1 << 26      # count entries one pass of a plain sum decodes
@@ -616,14 +617,6 @@ def split_plan(tile_start, n_blocks: int):
     pcount = torch.where(nit > 1, nit, torch.zeros_like(nit))
     pbase = torch.cumsum(pcount, 0, dtype=torch.int32) - pcount
     return item_first, pbase, item_first[-1], pcount.sum()
-
-
-def host_ints(*scalars) -> list:
-    """Integers and 0-d tensors (on one device) as Python ints, in one
-    copy to the host."""
-    dev = next((s.device for s in scalars if torch.is_tensor(s)), "cpu")
-    return torch.stack([torch.as_tensor(s, device=dev).reshape(()).long()
-                        for s in scalars]).tolist()
 
 
 def unpack_counts(c_stream, packed: bool):
@@ -1231,8 +1224,9 @@ def window_bwd_fused(da_t, c_stream, tile_start, block_of_tile, win_of_tile,
     [T2, D, D] (cast to h's dtype), ``h`` [N, D] in the compute dtype,
     block-major rows.  A window with no real tile contributes exactly
     zero.  A CPU tensor takes the plain version; a CUDA tensor launches
-    ``csrc/window_bwd.cu`` (D < 128 through
-    :func:`~ggnn_tpu_torch.ops.gru.pad_width`) or raises."""
+    ``csrc/window_bwd.cu`` (D = 128 or 256, in 128-column panels; other
+    D ≤ 256 through :func:`~ggnn_tpu_torch.ops.gru.pad_width`) or
+    raises."""
     name = "window_bwd_fused"
     N, D = h.shape
     quant = da_scales is not None
@@ -1269,7 +1263,7 @@ def window_bwd_fused(da_t, c_stream, tile_start, block_of_tile, win_of_tile,
         return window_bwd_fused_reference(
             da_t, c_stream, tile_start, block_of_tile, win_of_tile, c_off,
             msg_w, h, n_wins, window, out_rows, t2, da_scales)
-    if D < KERNEL_WIDTH:
+    if D != kernel_width(D) and D <= MAX_WIDTH:
         P = lambda x, **kw: pad_width(x, D, **kw)
         dht, dwt = window_bwd_fused(
             P(da_t.t()).t().contiguous(), c_stream, tile_start,
@@ -1286,7 +1280,7 @@ def window_bwd_fused(da_t, c_stream, tile_start, block_of_tile, win_of_tile,
     if quant:
         da_scales = da_scales.float().contiguous()
         named.append(("da_scales", da_scales))
-    _check_cuda_args(name, named, D)
+    _check_cuda_args(name, named, D, wide=True)
     for arg, t in (("tile_start", tile_start), ("win_of_tile", win_of_tile),
                    ("c_off", c_off)):
         if t.dtype != torch.int32:
@@ -1318,7 +1312,7 @@ def window_bwd_fused(da_t, c_stream, tile_start, block_of_tile, win_of_tile,
         _build.library().ggnn_window_bwd, name, dev, _DTYPE_CODE[h.dtype],
         int(quant), p(da_t), p(da_scales), da_t.shape[1], p(c_stream), n_c,
         p(tile_start), p(win_of_tile), p(c_off), n_dst, window, out_rows,
-        t2, n_src, group, p(msg_w), p(h), p(dht), p(ws), p(dwt))
+        t2, n_src, group, D, p(msg_w), p(h), p(dht), p(ws), p(dwt))
     window_bwd_fused.launches += 1
     return dht, dwt
 

@@ -29,12 +29,6 @@ from ggnn_tpu_torch.train.checkpoint import (_flatten, load_checkpoint,
 from ggnn_tpu_torch.train.config import TrainConfig
 from ggnn_tpu_torch.train.metrics import MetricsLogger
 
-_UNPORTED_BACKENDS = {
-    "pallas": ("the pallas backend (packed_messages and sddmm_pallas, "
-               "kernels #16 and #17), ROADMAP Queue 1"),
-}
-
-
 def param_leaves(params) -> list:
     """The parameter tensors in the checkpoint's key order."""
     return [t for _, t in _flatten(params)]
@@ -148,10 +142,6 @@ class Trainer:
             raise NotImplementedError(
                 f"config {cfg.name!r} trains a GGS-NN (head='ggsnn'), which "
                 "is not ported yet (ROADMAP.md Queue 1 item 4)")
-        if cfg.model.backend in _UNPORTED_BACKENDS:
-            raise NotImplementedError(
-                f"backend={cfg.model.backend!r} is not ported for training: "
-                f"{_UNPORTED_BACKENDS[cfg.model.backend]}")
         self.cfg = cfg
         self.logger = logger or MetricsLogger(cfg.metrics_path)
         task = TASKS[cfg.task_id]
@@ -204,7 +194,8 @@ class Trainer:
     def _layout(self, batch, with_grad: bool = True):
         """The static-budget scatter layout of the onehot backend, as the
         reference batches it (``layout_for_batch``), on the Trainer's
-        device; None for the other backends."""
+        device; None for the other backends (``pallas`` packs its tiles
+        inside ``propagate`` from the batch's ``type_offsets``)."""
         if self.cfg.model.backend != "onehot":
             return None
         return layout_for_batch(batch, with_grad=with_grad,

@@ -305,14 +305,19 @@ def test_ggsnn_configs_raise(name, data_root):
 
 
 def test_unported_training_paths_raise(data_root):
-    """A backend whose kernels are not ported (pallas) and a CUDA device
-    without a card (the default) raise instead of training something
-    else; the window backend raises what the reference's Trainer raises
-    (its batches get no layout, and propagate needs one)."""
-    cfg = build_config("babi4", epochs=1, n_train=10, n_test=5,
-                       data_root=data_root, backend="pallas")
-    with pytest.raises(NotImplementedError, match="pallas backend"):
-        Trainer(cfg, _quiet(), device="cpu")
+    """A CUDA device without a card (the default) raises instead of
+    training something else; the window backend raises what the
+    reference's Trainer raises (its batches get no layout, and propagate
+    needs one).  The pallas backend, which raised here until its kernels
+    were ported, now trains: one epoch with a finite loss, in as many
+    steps as the JAX Trainer's first epoch on the same data."""
+    kw = dict(epochs=1, n_train=10, n_test=5, data_root=data_root,
+              backend="pallas")
+    rec = Trainer(build_config("babi4", **kw), _quiet(),
+                  device="cpu").train_epoch()
+    ref = JaxTrainer(jax_build_config("babi4", **kw),
+                     JaxLogger(echo=False)).train_epoch()
+    assert np.isfinite(rec["loss"]) and rec["step"] == ref["step"]
     kw = dict(epochs=1, n_train=10, n_test=5, data_root=data_root,
               backend="window")
     jt = JaxTrainer(jax_build_config("babi4", **kw), JaxLogger(echo=False))
