@@ -104,11 +104,12 @@
    and #13 ``emit_res`` timed, the unfused aggregation's VJP against the
    plain path, and 3 Adam steps through ``make_train_step`` (launch
    counts, the first step against the plain path, step times, peak
-   memory, the layout's host seconds).
+   memory, the layout's host seconds); #3, #4, #13, #14 and #15 timed at
+   D = 256 on that layout (``TIMED_WIDTHS``).
 12. ``[widths]``: every kernel at D = 4, 8, 16 (zero-padded to the D = 128
-   kernels), 128, 200 (padded to 256) and 256 against its plain version,
-   twice bit-equal, #14 (exact and int8 ā) among them; the wider states the
-   kernels do not take raise (ROADMAP Queue 3); one fused window train
+   kernels), 128, 200 (padded to 256), 256, 320 (padded to 384), 384 and
+   512 (``WIDE_DIMS``; no kernel caps D) against its plain version, twice
+   bit-equal, #14 (exact and int8 ā) among them; one fused window train
    step at D = 256 (#13 emit_res, the wide #4, #14) against the plain path;
    and the reference's ``test_predictor_backends_agree`` at D = 8: xla,
    onehot and window (fused and unfused) Predictors predict alike.
@@ -117,7 +118,7 @@
    ``packed_messages`` and #17 ``sddmm_pallas`` against their plain
    versions, per element and twice bit-equal, on fuzz layouts (tile_e 8,
    32, 128; empty types; a type ending on a tile boundary; holes and
-   all-padding tail tiles; a hub; f32 and bf16; #16 at D = 4 to 256, #17
+   all-padding tail tiles; a hub; f32 and bf16; #16 at D = 4 to 384, #17
    at G = 5, 64, 128 with E not a multiple of 128), then at the headline's
    packed layout (bench.py --backend pallas: 62,516 tiles of 128), timed.
    ``[pallas serve]``: three requests through ``Predictor(backend=
@@ -126,12 +127,26 @@
    the plain step).  ``[pallas train]``: 3 Adam steps ungated and gated,
    the first against the plain path.  Then the ``Trainer`` CLI with
    ``--backend pallas`` (it must launch #16).
+14. ``[variants]``, on the same uniform batch: #18
+   ``onehot_segment_scatter_stream``, #19 ``onehot_segment_scatter_loopT``
+   and #20 ``window_block_spmm``, which only the reference's kernel-variant
+   sweeps and tests run.  Fuzz: #18 and #19 on the JAX variant test's
+   layout (tile_e 8), at tile_e 128 and 2048 with empty dst blocks and on
+   a hub block of several hundred tiles; #20 at W 64, and W 256 and 512
+   with dummy tiles, a compact count stream and a block without tiles; D
+   = 4 to 384, f32 and bf16, per element and twice bit-equal; #18 raises
+   below a block's tile count.  Then the main path: the two sweeps of
+   ``scripts/torch_scatter_variants.py`` (tile_e 2048: flat #8, stream
+   #18, loopT #19, mono #11) and ``scripts/torch_window_variants.py`` (the
+   probe's community graph, W 512: #11, #20, ``aggregate_window``),
+   imported, their launches counted; on their layouts and inputs each
+   variant against the plain version, and #18, #19 and #20 timed.
 
 The typed-pack phases (2-4, 7) hand ``Predictor.run_batch`` the typed pack
 they build; the Predictor's own layout is the legacy one (phase 6).
 
 Any failed check raises, so the exit code is non-zero.  The last three
-lines are the kernels JSON (eighteen kernels; each kernel's launches on
+lines are the kernels JSON (21 kernels; each kernel's launches on
 the main paths, its largest error against its plain version, its time and
 its plain version's, its bound from the bytes and operations of the timed
 inputs at the card's published peaks, and the time of one PyTorch call computing
@@ -143,6 +158,7 @@ before printing any result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import statistics
 import subprocess
@@ -281,6 +297,14 @@ KERNELS = {
                         "ggnn_tpu/ops/spmm_pallas.py:82"),
     "sddmm_pallas": ("ggnn_tpu_torch/ops/csrc/sddmm.cu",
                      "ggnn_tpu/ops/spmm_pallas.py:129"),
+    "onehot_segment_scatter_stream": (
+        "ggnn_tpu_torch/ops/csrc/onehot_stream.cu",
+        "ggnn_tpu/ops/scatter_pallas.py:559"),
+    "onehot_segment_scatter_loopT": (
+        "ggnn_tpu_torch/ops/csrc/onehot_stream.cu",
+        "ggnn_tpu/ops/scatter_pallas.py:672"),
+    "window_block_spmm": ("ggnn_tpu_torch/ops/csrc/window_auto.cu",
+                          "ggnn_tpu/ops/window_pallas.py:704"),
 }
 
 
@@ -392,6 +416,14 @@ def cuda_ms(fn, iters):
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def window_bytes(win_of_tile, window, esize) -> int:
+    """The bytes of the table windows that a layout's real tiles address,
+    each window read once however many blocks share it."""
+    import torch
+    real = win_of_tile[win_of_tile >= 0]
+    return torch.unique(real).numel() * window * DIM * esize
 
 
 def roofline(n_bytes, ops):
@@ -1157,7 +1189,10 @@ def kernel_wrappers():
             "window_step_gru[emit_res]": W.window_step_gru,
             "window_bwd_fused": W.window_bwd_fused,
             "packed_messages": SP.packed_messages,
-            "sddmm_pallas": SP.sddmm_pallas}
+            "sddmm_pallas": SP.sddmm_pallas,
+            "onehot_segment_scatter_stream": L.onehot_segment_scatter_stream,
+            "onehot_segment_scatter_loopT": L.onehot_segment_scatter_loopT,
+            "window_block_spmm": W.window_block_spmm}
 
 
 def counter(name):
@@ -1802,12 +1837,12 @@ def check_legacy_grad(tag, lay, log):
         del G, got, ref
 
 
-def check_window_widths(log):
+def check_window_widths(log, dims=(4, 6, 8, 16, 128, 200)):
     """window_block_spmm_mono at widths other than 128 (the bAbI models'
-    D = 4 to 16, and 200 over two column panels) and at 128 on the same
-    layouts: a hub layout whose hub blocks split into several work items,
-    with the dst-local and the int8 count streams, f32 and bf16, per
-    element and bit-equal to a second run."""
+    D = 4 to 16, 200 over two column panels, or the given ``dims``) and at
+    128 on the same layouts: a hub layout whose hub blocks split into
+    several work items, with the dst-local and the int8 count streams, f32
+    and bf16, per element and bit-equal to a second run."""
     import torch
     from ggnn_tpu_torch.ops import legacy as L
     from ggnn_tpu_torch.ops import window as W
@@ -1826,7 +1861,7 @@ def check_window_widths(log):
             lay.block_of_tile, lay.tile_msg_off)]
         if not (np.diff(lay.tile_start) > 32).any():
             raise AssertionError("widths: no block splits into items")
-        for D in (4, 6, 8, 16, 128, 200):
+        for D in dims:
             for dtype in (torch.bfloat16, torch.float32):
                 table = torch.randn(lay.gather_idx.shape[0], D,
                                     device=dev).to(dtype)
@@ -2063,6 +2098,8 @@ def chunked_phase(params, log):
 # --- the window backend (PR 5): [window kernels], [window serve], [window 1m]
 
 WINDOW, COMMUNITY = 512, 512      # bench.py: window 512, nodes // 512
+TIMED_WIDTHS = (256,)    # the wide kernels timed at the headline (more:
+                         # scripts/torch_window_bringup.py --train --wide)
 NODES_W1M, EDGES_W1M, COMMUNITIES_W1M = 1_000_000, 10_000_000, 4096
 
 
@@ -2082,6 +2119,18 @@ def community_graph(seed):
     ann = (r.random((NODES, ANN)) < 0.1).astype(np.float32)
     return dict(n_nodes=NODES, edges=np.stack([src, typ, dst], axis=1),
                 annotations=ann)
+
+
+@functools.cache
+def community_batch():
+    """The community headline's batch (bench.py:457-466: 262,144 nodes in
+    512 communities of 512, 8M directed edges, 95 % inside their
+    community), made once for [variants], [window kernels] and [window
+    train]: the window probe's graph (scripts/torch_window_variants.py)."""
+    _, WV = sweep_scripts()
+    if (WV.TYPES, WV.DIM) != (EDGE_TYPES, DIM):
+        raise AssertionError("the window probe's graph is not the headline's")
+    return WV.community_batch(NODES, EDGES)
 
 
 def bench_window_layout(b, block_rows, on_demand, typed_spill,
@@ -2358,7 +2407,7 @@ def time_window_kernels(tag, lay, hc, w, b, gw, init, hp, sources, stream,
         args = (tab, *stream, init, hp, gw["wa"], gw["b3"], gw["uzr"],
                 gw["uh"])
         read = (n_real * 128 * DIM * 2 if src == "ondemand"
-                else n_real * W_ * DIM)
+                else window_bytes(a["win_of_tile"], W_, 1))
         ops = [(2 * nnz * DIM, INT8_OPS if src == "q8" else BF16_FLOPS),
                (12 * n_rows * DIM * DIM, BF16_FLOPS)]
         if src == "ondemand":
@@ -2408,7 +2457,8 @@ def time_window_mono(tag, lay, table):
     print(f"  time window_block_spmm_mono [{tag}, W {W_}, out_rows {rows}, "
           f"{'int4 packed' if sk['packed'] else 'int8'} counts]: "
           f"{mono_ms:.3f} ms; bound", flush=True)
-    roofline(n_real * rows * a["c_stream"].shape[1] + n_real * W_ * DIM * 2
+    roofline(n_real * rows * a["c_stream"].shape[1]
+             + window_bytes(a["win_of_tile"], W_, 2)
              + lay.n_blocks * rows * DIM * 4, [(2 * nnz * DIM, BF16_FLOPS)])
 
 
@@ -2453,13 +2503,10 @@ def window_kernels_phase(params, log, timings):
     the q8 record's table with the XW spill; W 512, block_rows 512),
     checked and timed."""
     import torch
-    from ggnn_tpu_torch.data.synthetic import synthetic_batch
     window_fuzz(params, log)
     t0 = time.perf_counter()
-    b = synthetic_batch(NODES, EDGES, EDGE_TYPES, annotation_dim=ANN, seed=0,
-                        node_mult=128, n_communities=NODES // COMMUNITY,
-                        p_intra=0.95)
-    print(f"[window kernels] community batch made in "
+    b = community_batch()
+    print(f"[window kernels] community batch made (or reused) in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     layouts = {}
     for name, on_demand in (("on-demand", True), ("q8 table", False)):
@@ -2817,7 +2864,8 @@ def check_emit_res(tag, lay, params, log, dtype, timings=None):
     real = a["win_of_tile"] >= 0
     n_real = int(real.sum().item())
     nnz = int((a["c_stream"] != 0).sum().item())
-    read = n_real * 128 * DIM * 2 if lay.on_demand else n_real * W_ * DIM * 2
+    read = (n_real * 128 * DIM * 2 if lay.on_demand
+            else window_bytes(a["win_of_tile"], W_, 2))
     ops = [(2 * nnz * DIM, BF16_FLOPS), (12 * n_rows * DIM * DIM, BF16_FLOPS)]
     if lay.on_demand:
         ops.append((2 * n_real * W_ * DIM * DIM, BF16_FLOPS))
@@ -2958,9 +3006,9 @@ def window_vjp_check(tag, lay, params, log):
                              "plain path")
 
 
-def time_wide_kernels(lay):
+def time_wide_kernels(lay, D=256):
     """#3, #4, #13 (on-demand, and its emit_res form), #14 (exact ā) and
-    #15 at D = 256 on the community headline's shapes (the
+    #15 at a wide D on the community headline's shapes (the
     window_community_train layout, 262,144 rows), bf16, each against its
     plain version in turns (plain, kernel, kernel, plain), printed with its
     bound: the wide kernels' times for PERF.md (the kernels JSON holds the
@@ -2969,7 +3017,7 @@ def time_wide_kernels(lay):
     from ggnn_tpu_torch.ops import gru as G
     from ggnn_tpu_torch.ops import table as TB
     from ggnn_tpu_torch.ops import window as W
-    D, dt = 256, torch.bfloat16
+    dt = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(46)
     rn = lambda *s_, sc=1.0: torch.randn(*s_, device="cuda",
                                          generator=gen) * sc
@@ -3032,7 +3080,7 @@ def time_wide_kernels(lay):
     time_pairs(pairs, {})
 
 
-def window_train_phase(params, log, timings):
+def window_train_phase(params, log, timings, timed_widths=TIMED_WIDTHS):
     """[window train]: the window backend's training path.  The fuzz
     layouts (:func:`window_grad_fuzz`), then bench.py's two window train
     records on the community headline (bench.py:495-535, its layout built
@@ -3044,15 +3092,13 @@ def window_train_phase(params, log, timings):
     steps of the headline model through make_train_step (fused: per step
     and T, #13 emit_res, #4 on its residuals, #14, the spill's #11 forward
     and backward), the first against the plain path on the card.  Returns
-    the launch counts of the train steps."""
+    the launch counts of the train steps.  ``timed_widths``: the D at
+    which :func:`time_wide_kernels` times the wide kernels."""
     import torch
-    from ggnn_tpu_torch.data.synthetic import synthetic_batch
     window_grad_fuzz(params, log)
     t0 = time.perf_counter()
-    b = synthetic_batch(NODES, EDGES, EDGE_TYPES, annotation_dim=ANN, seed=0,
-                        node_mult=128, n_communities=NODES // COMMUNITY,
-                        p_intra=0.95)
-    print(f"[window train] community batch made in "
+    b = community_batch()
+    print(f"[window train] community batch made (or reused) in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     launched = dict.fromkeys(KERNELS, 0)
     for name, gq in (("window_community_train", False),
@@ -3074,7 +3120,8 @@ def window_train_phase(params, log, timings):
             check_emit_res("headline on-demand", lay, params, log,
                            torch.bfloat16, timings)
             window_vjp_check(name, lay, params, log)
-            time_wide_kernels(lay)
+            for D in timed_widths:
+                time_wide_kernels(lay, D)
         spill = ("window_block_spmm_mono" if lay.spill_meta[6] is not None
                  else "onehot_segment_scatter_flat")
         sb = ("window_block_spmm_mono" if lay.grad_meta[3][6] is not None
@@ -3164,7 +3211,7 @@ def pallas_kernels_phase(b, log, timings):
     against their plain versions, per element and twice bit-equal, on fuzz
     layouts (tile_e 8, 32 and 128; empty types; a type segment ending on a
     tile boundary; holes and all-padding tail tiles; a hub; f32 and bf16;
-    #16 at D = 4, 8, 128, 200 and 256; #17 at G = 5, 64 and 128 with E not
+    #16 at D = 4, 8, 128, 200, 256 and 384; #17 at G = 5, 64 and 128 with E not
     a multiple of 128, with and without index arrays and mask), then both
     at the uniform headline's packed layout (bench.py --backend pallas:
     62,516 tiles of 128), timed against their plain versions and one
@@ -3195,7 +3242,7 @@ def pallas_kernels_phase(b, log, timings):
               f"{tile_e}, {int((live == 0).sum().item())} without a real "
               f"edge; tile types {lay['tile_type'].tolist()[:40]}",
               flush=True)
-        for D in (4, 8, 128, 200, 256):
+        for D in (4, 8, 128, 200, 256, 384):
             for dtype in (torch.bfloat16, torch.float32):
                 gen = torch.Generator(device=dev).manual_seed(D)
                 h = (torch.rand(N, D, device=dev, generator=gen) * 2
@@ -3422,6 +3469,337 @@ def pallas_phases(b, log, timings, serve_and_train=True):
     return launched
 
 
+# --- [variants]: #18, #19 and #20, through the kernel-variant sweeps --------
+
+VARIANT_DIMS = (4, 16, 128, 200, 256, 384)
+
+
+def sweep_scripts():
+    """The two sweep scripts (``scripts/torch_scatter_variants.py``,
+    ``scripts/torch_window_variants.py``) as modules, so that the sweeps'
+    sequence lives in one place."""
+    import os
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts")
+    if here not in sys.path:
+        sys.path.insert(0, here)
+    import torch_scatter_variants
+    import torch_window_variants
+    return torch_scatter_variants, torch_window_variants
+
+
+def random_edges(r, N, E, T2, dst_hi=None, hub=0.0):
+    """Edges as the JAX package's scatter tests draw them
+    (tests/test_scatter_pallas.py::random_edges: uniform, 10 % padding),
+    with dst in [0, dst_hi) and a share ``hub`` into rows [0, 64)."""
+    src = r.integers(0, N, E).astype(np.int32)
+    dst = r.integers(0, N if dst_hi is None else dst_hi, E).astype(np.int32)
+    if hub:
+        dst = np.where(r.random(E) < hub, r.integers(0, 64, E),
+                       dst).astype(np.int32)
+    typ = r.integers(0, T2, E).astype(np.int32)
+    mask = np.where(r.random(E) < 0.1, 0.0, 1.0).astype(np.float32)
+    return src, dst, typ, mask
+
+
+def stream_scatters(lay, extra=False):
+    """The stream scatters of a legacy device layout as name -> (kernel,
+    the plain version) on a message pack: #18 and #19 (with ``extra`` also
+    #8 and #11's mono form, the sweep's other variants of the same
+    function), all held against #18's plain version."""
+    from ggnn_tpu_torch.ops import legacy as L
+    _, tile_e, max_tiles, n_blocks, *_ = lay.meta
+    a = lay.arrays
+    oh, ts, bt = a["onehot"], a["tile_start"], a["block_of_tile"]
+    plain = lambda m: L.onehot_segment_scatter_stream_reference(
+        m, oh, ts, n_blocks, max_tiles, tile_e)
+    kern = {"onehot_segment_scatter_stream":
+            lambda m: L.onehot_segment_scatter_stream(m, oh, ts, n_blocks,
+                                                      max_tiles, tile_e),
+            "onehot_segment_scatter_loopT":
+            lambda m: L.onehot_segment_scatter_loopT(m, oh, ts, n_blocks,
+                                                     tile_e)}
+    if extra:
+        kern["onehot_segment_scatter_flat"] = (
+            lambda m: L.onehot_segment_scatter_flat(m, oh, ts, bt, n_blocks,
+                                                    tile_e))
+        kern["window_block_spmm_mono"] = (
+            lambda m: L.onehot_segment_scatter_mono(m, oh, ts, bt, n_blocks,
+                                                    tile_e))
+    return kern, plain
+
+
+def check_stream_scatters(tag, lay, log, dims, msgs=None, extra=False):
+    """#18 and #19 (``extra``: also #8 and #11's mono form) against the
+    plain version on a legacy layout, per element ('bound': 2e-5 of the
+    plain sums over |messages|, the bound of #8), each twice bit-equal,
+    blocks without a real edge exactly 0; random messages at each D of
+    ``dims`` in bf16 and f32, or the given bf16 ``msgs``."""
+    import torch
+    dev = torch.device("cuda")
+    a = lay.arrays
+    _, tile_e, max_tiles, n_blocks, *_ = lay.meta
+    n_tiles = a["block_of_tile"].shape[0]
+    real = a["dst_local"].reshape(n_tiles, tile_e) >= 0
+    empty = torch.zeros(n_blocks, device=dev).index_add_(
+        0, a["block_of_tile"].long(), real.sum(1).float()) == 0
+    sizes = a["tile_start"][1:] - a["tile_start"][:-1]
+    print(f"[variants] {tag}: tile_e={tile_e} n_blocks={n_blocks} tiles="
+          f"{n_tiles} (max_tiles {max_tiles}, the largest block "
+          f"{int(sizes.max().item())}), {int(empty.sum().item())} blocks "
+          f"without a real edge", flush=True)
+    kern, plain = stream_scatters(lay, extra)
+    gen = torch.Generator(device=dev).manual_seed(len(tag))
+    cases = ([(msgs.shape[1], msgs.dtype, msgs)] if msgs is not None else
+             [(D, dt, None) for D in dims
+              for dt in (torch.bfloat16, torch.float32)])
+    for D, dtype, m in cases:
+        if m is None:
+            m = torch.randn(n_tiles * tile_e, D, device=dev,
+                            generator=gen).to(dtype)
+        dn = f"{str(dtype).split('.')[-1]},D={D}"
+        ref = plain(m)
+        bound = flush_bound(plain, m, ref, torch.float32)
+        for name, fn in kern.items():
+            got = fn(m)
+            same_twice(name, f"{tag},{dn}", got, fn(m))
+            check(f"{name}[{tag},{dn}]", got, ref, "bound", dtype, log,
+                  bound=bound)
+            if (got.reshape(n_blocks, 128, D)[empty] != 0).any():
+                raise AssertionError(f"{name}[{tag}]: a block without a "
+                                     "real edge is not 0")
+            del got
+        del ref, bound
+
+
+def drop_block_tiles(a, n_blocks, b):
+    """A window layout's tile arrays without block b's tiles (tile_start,
+    block_of_tile, win_of_tile, c_off): block b then has no tile at all."""
+    import torch
+    ts = a["tile_start"]
+    t0, t1 = int(ts[b].item()), int(ts[b + 1].item())
+    keep = torch.ones(a["win_of_tile"].shape[0], dtype=torch.bool,
+                      device=ts.device)
+    keep[t0:t1] = False
+    ts2 = ts.clone()
+    ts2[b + 1:] -= t1 - t0
+    return (ts2, a["block_of_tile"][keep].contiguous(),
+            a["win_of_tile"][keep].contiguous(), a["c_off"][keep].contiguous())
+
+
+def check_window_auto(tag, lay_args, table_rows, window, n_blocks, log,
+                      dims, table=None, with_mono=False):
+    """#20 (``with_mono``: also #11) against its plain version on one
+    window layout's arrays ``lay_args`` (c_stream, tile_start,
+    block_of_tile, win_of_tile, c_off), per element (window_sums_bound:
+    2e-5 of Σ|count·row|), twice bit-equal, a block without a real tile
+    exactly 0; random tables of ``table_rows`` rows at each D of ``dims``
+    in bf16 and f32, or the given ``table``."""
+    import torch
+    from ggnn_tpu_torch.ops import window as W
+    dev = torch.device("cuda")
+    c_stream, ts, bt, wt, c_off = lay_args
+    real = (wt >= 0).float()
+    n_real = torch.zeros(n_blocks, device=dev).index_add_(0, bt.long(), real)
+    empty = n_real == 0
+    print(f"[variants] {tag}: W {window}, {n_blocks} blocks, "
+          f"{wt.shape[0]} tiles ({int(real.sum().item())} real, "
+          f"{int((wt < 0).sum().item())} dummy; {c_stream.shape[0] // 128} "
+          f"count tiles), {int((ts[1:] == ts[:-1]).sum().item())} blocks "
+          f"without a tile, {int(empty.sum().item())} without a real one",
+          flush=True)
+    gen = torch.Generator(device=dev).manual_seed(window + len(tag))
+    cases = ([(table.shape[1], table.dtype, table)] if table is not None
+             else [(D, dt, None) for D in dims
+                   for dt in (torch.bfloat16, torch.float32)])
+    kw = dict(n_blocks=n_blocks, window=window, c_off=c_off)
+    fns = {"window_block_spmm": W.window_block_spmm}
+    if with_mono:
+        fns["window_block_spmm_mono"] = W.window_block_spmm_mono
+    for D, dtype, t in cases:
+        if t is None:
+            t = torch.randn(table_rows, D, device=dev, generator=gen).to(dtype)
+        dn = f"{str(dtype).split('.')[-1]},D={D}"
+        ref = W.window_block_spmm_reference(t, c_stream, ts, bt, wt, **kw)
+        bound = window_sums_bound(t, (c_stream, bt, wt, c_off, n_blocks,
+                                      False), window, 128)
+        for name, fn in fns.items():
+            got = fn(t, c_stream, ts, bt, wt, **kw)
+            same_twice(name, f"{tag},{dn}", got,
+                       fn(t, c_stream, ts, bt, wt, **kw))
+            check(f"{name}[{tag},{dn}]", got, ref, "bound", dtype, log,
+                  bound=bound)
+            if (got.reshape(n_blocks, 128, D)[empty] != 0).any():
+                raise AssertionError(f"{name}[{tag}]: a block without a "
+                                     "real tile is not 0")
+            del got
+        del ref, bound
+
+
+def variants_fuzz(log):
+    """The fuzz of [variants]: #18 and #19 on the JAX package's variant
+    test layout (tests/test_scatter_pallas.py:144-146: 256 nodes, 500
+    edges, tile_e 8), at tile_e 128 and 2048 with empty dst blocks and on a
+    hub block of several hundred tiles; #20 on its variant test layout
+    (tests/test_window_pallas.py:303-306: W 64) and on W 256 and 512
+    layouts with dummy tiles (pad_tiles_to), a compact count stream
+    (c_off) and a block without tiles; D = 4, 16, 128, 200, 256, 384 in
+    bf16 and f32.  #18 must raise when max_tiles is below a block's
+    count."""
+    import torch
+    from ggnn_tpu_torch.ops import legacy as L
+    from ggnn_tpu_torch.ops import window as W
+    dev = torch.device("cuda")
+    r = np.random.default_rng(53)
+    fuzz = {
+        # tag: (N, E, T2, tile_e, dst range, hub share)
+        "tile_e8": (256, 500, 4, 8, None, 0.0),
+        "tile_e128 empty": (1024, 6000, 6, 128, 512, 0.0),
+        "tile_e2048 empty": (2048, 30_000, 6, 2048, 1024, 0.0),
+        "tile_e128 hub": (1024, 60_000, 4, 128, None, 0.9),
+    }
+    for tag, (N, E, T2, tile_e, dst_hi, hub) in fuzz.items():
+        lay = L.build_dst_block_layout(*random_edges(r, N, E, T2, dst_hi, hub),
+                                       N, tile_e=tile_e)
+        if hub and lay.max_tiles < 300:
+            raise AssertionError(f"{tag}: the hub block holds only "
+                                 f"{lay.max_tiles} tiles")
+        check_stream_scatters(tag, lay.to(dev), log, VARIANT_DIMS)
+    # max_tiles below a block's count: the TPU grid would drop tiles
+    lay = lay.to(dev)
+    a = lay.arrays
+    try:
+        L.onehot_segment_scatter_stream(
+            torch.zeros(a["block_of_tile"].shape[0] * 128, 4, device=dev),
+            a["onehot"], a["tile_start"], lay.meta[3], lay.meta[2] - 1, 128)
+    except ValueError as e:
+        print(f"  onehot_segment_scatter_stream: max_tiles below a block's "
+              f"count raises ({e})", flush=True)
+    else:
+        raise AssertionError("#18 ran with max_tiles below a block's count")
+    wfuzz = {
+        # tag: (N, E, T2, W, min_edges_per_tile, extra dummy tiles)
+        "W64": (512, 900, 4, 64, 1, 0),
+        "W256 dummies": (2048, 40_000, 8, 256, 8, 50),
+        "W512 dummies": (4096, 60_000, 8, 512, 8, 80),
+    }
+    for tag, (N, E, T2, Wn, mept, pad) in wfuzz.items():
+        src, dst, typ, mask = random_edges(r, N, E, T2)
+        if pad:   # clustered, so that windows fill: src near dst
+            src = np.where(r.random(E) < 0.9,
+                           (dst // 256) * 256 + r.integers(0, 256, E),
+                           src) % N
+        host = W.build_window_layout(src, dst, typ, mask, N, window=Wn,
+                                     min_edges_per_tile=mept)
+        if pad:
+            host = W.build_window_layout(
+                src, dst, typ, mask, N, window=Wn, min_edges_per_tile=mept,
+                pad_tiles_to=host.n_tiles + pad)
+        lay = host.to(dev)
+        a = lay.arrays
+        R = T2 * N
+        args = (a["c_stream"], a["tile_start"], a["block_of_tile"],
+                a["win_of_tile"], a["c_off"])
+        if pad:
+            if (a["c_off"] == torch.arange(a["c_off"].shape[0],
+                                           device=dev)).all():
+                raise AssertionError(f"{tag}: the count stream is not "
+                                     "compact")
+            args = (a["c_stream"], *drop_block_tiles(a, lay.n_blocks, 3))
+        check_window_auto(tag, args, R + (-R) % Wn, Wn, lay.n_blocks, log,
+                          VARIANT_DIMS)
+    try:
+        W.window_block_spmm(torch.zeros(R + (-R) % Wn + 1, 4, device=dev),
+                            *args[:4], lay.n_blocks, Wn, c_off=args[4])
+    except ValueError as e:
+        print(f"  window_block_spmm: table rows not a multiple of W raise "
+              f"({e})", flush=True)
+    else:
+        raise AssertionError("#20 ran on a table of rows not a multiple "
+                             "of W")
+
+
+def variants_phase(b, log, timings):
+    """``[variants]``: #18 ``onehot_segment_scatter_stream``, #19
+    ``onehot_segment_scatter_loopT`` and #20 ``window_block_spmm``, the
+    three kernels only the reference's kernel-variant sweeps and tests
+    run.  The fuzz (:func:`variants_fuzz`); then the main path: the scatter
+    sweep of ``scripts/torch_scatter_variants.py`` at tile_e 2048 on the
+    uniform headline batch ``b`` (flat #8, stream #18, loopT #19, mono
+    #11), and the window sweep of ``scripts/torch_window_variants.py`` on
+    the probe's community graph (#11, #20, then ``aggregate_window``), each
+    with the counts set to 0 before it and read after it.  On the sweeps'
+    own layouts and inputs, #8, #18, #19 and #11 are held against the
+    plain version (and #11 against #20's), and #18, #19 and #20 timed
+    against their plain versions and one PyTorch call.  Returns the main
+    path's launch counts."""
+    import torch
+    SV, WV = sweep_scripts()
+    variants_fuzz(log)
+    zero_counts()
+    _, (tile_e, lay, msgs) = SV.sweep(
+        b, {2048: ("flat", "stream", "loopT", "mono")}, keep_last=True)
+    launched = read_counts()
+    zero_counts()
+    _, (wlay, table) = WV.sweep(community_batch(), keep=True)
+    for k, v in read_counts().items():
+        launched[k] += v
+    print(f"[variants] the sweeps' launches "
+          f"{ {k: v for k, v in launched.items() if v} }", flush=True)
+    for k in ("onehot_segment_scatter_flat", "onehot_segment_scatter_stream",
+              "onehot_segment_scatter_loopT", "window_block_spmm_mono",
+              "window_block_spmm"):
+        if not launched[k]:
+            raise AssertionError(f"[variants] the sweeps did not launch {k}")
+
+    check_stream_scatters("headline tile_e=2048", lay, log, (), msgs=msgs,
+                          extra=True)
+    a = lay.arrays
+    n_blocks = lay.meta[3]
+    real = a["dst_local"] >= 0
+    n_real = int(real.sum().item())
+    kern, plain = stream_scatters(lay)
+    lib = reverse_library_call(msgs, legacy_targets(a, n_blocks, tile_e),
+                               n_blocks * 128)
+    bound = roofline(n_real * DIM * msgs.element_size()
+                     + nbytes(a["onehot"], a["tile_start"])
+                     + n_blocks * 128 * DIM * 4, [(n_real * DIM, F32_FLOPS)])
+    time_pairs({name: (lambda k=k: k(msgs), lambda: plain(msgs), lib, bound)
+                for name, k in kern.items()}, timings)
+    del lay, msgs, lib, kern, plain
+    torch.cuda.empty_cache()
+
+    wa = wlay.arrays
+    args = (wa["c_stream"], wa["tile_start"], wa["block_of_tile"],
+            wa["win_of_tile"], wa["c_off"])
+    R = table.shape[0]
+    check_window_auto("headline community W=512", args, R, 512,
+                      wlay.n_blocks, log, (), table=table, with_mono=True)
+    real_t = torch.nonzero(wa["win_of_tile"] >= 0).flatten()
+    n_real_t = real_t.shape[0]
+    nnz = int((wa["c_stream"] != 0).sum().item())
+    kw = dict(n_blocks=wlay.n_blocks, window=512, c_off=wa["c_off"])
+    # the PyTorch call: one batched product of every real tile's counts
+    # (bf16) with its table window, both gathered beforehand (untimed);
+    # the per-block sum that would follow is not in it
+    cg = wa["c_stream"].view(-1, 128, 512)[wa["c_off"].long()[real_t]].to(
+        table.dtype)
+    tg = table.view(-1, 512, DIM)[wa["win_of_tile"].long()[real_t]]
+    from ggnn_tpu_torch.ops import window as W
+    time_pairs({"window_block_spmm": (
+        lambda: W.window_block_spmm(table, *args[:4], **kw),
+        lambda: W.window_block_spmm_reference(table, *args[:4], **kw),
+        lambda: torch.bmm(cg, tg),
+        roofline(n_real_t * 128 * 512
+                 + window_bytes(wa["win_of_tile"], 512,
+                                table.element_size())
+                 + nbytes(*args[1:]) + wlay.n_blocks * 128 * DIM * 4,
+                 [(2 * nnz * DIM, BF16_FLOPS)]))}, timings)
+    del wlay, table, cg, tg
+    torch.cuda.empty_cache()
+    return launched
+
+
 def widths_phase(log):
     """``[widths]``: :func:`check_kernel_widths`, then the fused window
     train step at D = 256 (:func:`window_step_d256`)."""
@@ -3495,16 +3873,21 @@ def window_step_d256():
                              "the plain path")
 
 
+WIDE_DIMS = (320, 384, 512)     # the widths past 256 every kernel takes
+
+
 def check_kernel_widths(log):
     """Every kernel at the widths the reference takes: #1-#7, #10, #12, #13
-    (and emit_res) and #14 (exact and int8 ā) at D = 4, 8, 16, 128, 200 and
-    256, #15 at 128 and 256, bf16 and f32, against their plain versions
-    and a second run of themselves (bit-equal), with the tolerances of the
-    D = 128 checks.  D < 128 runs the D = 128 kernels zero-padded
-    (ops/gru.py::pad_width), 256 the wide forms (the GRU cell's panels,
-    the window sums' and #14's column panels, the typed scatters'
-    panels), 200 padded to 256.  Every kernel above 256 raises (ROADMAP
-    Queue 3).  (#16 and #17 take their widths in [pallas kernels].)"""
+    (and emit_res) and #14 (exact and int8 ā) at D = 4, 8, 16, 128, 200,
+    256 and WIDE_DIMS, #15 at the multiples of 128 among them, bf16 and
+    f32, against their plain versions and a second run of themselves
+    (bit-equal), with the tolerances of the D = 128 checks; then #8, #9,
+    #10, #11, #16 and #18-#20 at WIDE_DIMS.  D < 128 runs the D = 128
+    kernels zero-padded (ops/gru.py::pad_width), D = 128·P the wide forms
+    (the GRU cell's P panels, the window sums' and #14's P column panels,
+    the typed scatters' P² panel products), other D padded to the next
+    multiple of 128 (200 to 256, 320 to 384).  (#16 and #17 take their
+    other widths in [pallas kernels], #18-#20 in [variants].)"""
     import torch
     from ggnn_tpu_torch.ops import gru as G
     from ggnn_tpu_torch.ops import scatter as S
@@ -3555,7 +3938,7 @@ def check_kernel_widths(log):
                  for kk, v in ck.items()}
             check(f"{name}[widths {part}]", x, z, k, dtype, log, **c)
 
-    for D in (4, 8, 16, 128, 200, 256):
+    for D in (4, 8, 16, 128, 200, 256) + WIDE_DIMS:
         for dtype in (torch.bfloat16, torch.float32):
             dn = str(dtype).split(".")[-1]
             tag = f"D={D},{dn}"
@@ -3668,31 +4051,57 @@ def check_kernel_widths(log):
                     *sargs, msg_w=w8, msg_b=b8, emit_res=True, **wsk),
                 ("flip_rows", "flip"), dtype, a_rows=(a_rows, None))
             check_window_bwd(f"widths D={D}", lay_w, log, dtype, D=D)
-            if D in (128, 256) and dtype == torch.bfloat16:
+            if D % 128 == 0 and dtype == torch.bfloat16:
                 check_q8_table(f"widths D={D}", hn, w8, b8, 256, log)
-    # what the kernels do not take raises, naming ROADMAP Queue 3
-    for D, name in ((384, "window_bwd_fused"), (384, "gru_cell_fwd")):
-        if name == "window_bwd_fused":
-            forms, gt, w, h, kw = bwd_inputs(lay_w, torch.bfloat16, 3, D)
-            fn = lambda: W.window_bwd_fused(forms["exact"][0], *gt, w, h,
-                                            **kw)
-        else:
-            h = torch.rand(1024, D, device=dev) * 2 - 1
-            gw = [torch.randn(D, k * D, device=dev) * D ** -0.5
-                  for k in (3, 2, 1)]
-            fn = lambda: G.gru_cell_fwd(h, h, gw[0],
-                                        torch.zeros(3 * D, device=dev),
-                                        gw[1], gw[2])
-        try:
-            fn()
-        except ValueError as e:
-            if "Queue 3" not in str(e):
-                raise
-            print(f"  {name} at D={D}: raises, as ROADMAP Queue 3 records "
-                  f"({e})", flush=True)
-        else:
-            raise AssertionError(f"{name} ran at D={D}: update the width "
-                                 "checks and ROADMAP Queue 3")
+    wide_legacy_pallas_variants(log)
+
+
+def wide_legacy_pallas_variants(log):
+    """The kernels of the legacy, pallas and variant paths at WIDE_DIMS:
+    #10, #8 and #9 (check_legacy_kernels on a small legacy layout with
+    empty blocks), #11 (check_window_widths' hub layout), #16 (a packed
+    layout with an empty type), #18 and #19 (a tile_e 128 layout), #20 (a
+    W 256 layout), each against its plain version and twice bit-equal."""
+    import torch
+    from ggnn_tpu_torch.ops import legacy as L
+    from ggnn_tpu_torch.ops import spmm as SP
+    from ggnn_tpu_torch.ops import window as W
+    dev = torch.device("cuda")
+    r = np.random.default_rng(59)
+    N, E, T2 = 1024, 6000, 6
+    src, dst = r.integers(0, N, E), r.integers(0, N // 2, E)
+    typ, mask = r.integers(0, T2, E), (r.random(E) < 0.9).astype(np.float32)
+    lay = L.build_dst_block_layout(src, dst, typ, mask, N, tile_e=128,
+                                   n_message_types=T2, row_order="block")
+    check_legacy_kernels("widths", lay.to(dev), N, log, dims=WIDE_DIMS, T2=T2)
+    check_stream_scatters("widths tile_e128", lay.to(dev), log, WIDE_DIMS)
+    check_window_widths(log, WIDE_DIMS)
+    cols = pallas_fuzz_edges(r, 500, 4000, 6, (2,), None, 0.1, 0.1)
+    play = SP.pack_type_tiles(*(torch.as_tensor(c, device=dev)
+                                for c in cols), 6, 128)
+    for D in WIDE_DIMS:
+        for dtype in (torch.bfloat16, torch.float32):
+            gen = torch.Generator(device=dev).manual_seed(D)
+            h = (torch.rand(500, D, device=dev, generator=gen) * 2
+                 - 1).to(dtype)
+            w = (torch.randn(6, D, D, device=dev, generator=gen)
+                 * D ** -0.5).to(dtype)
+            bb = (torch.randn(6, D, device=dev, generator=gen)
+                  * 0.1).to(dtype)
+            check_packed_messages(
+                f"widths D={D},{str(dtype).split('.')[-1]}", h, play, w, bb,
+                log)
+    Nw, Ew = 2048, 40_000
+    src, dst, typ, mask = random_edges(r, Nw, Ew, 8)
+    src = np.where(r.random(Ew) < 0.9,
+                   (dst // 256) * 256 + r.integers(0, 256, Ew), src) % Nw
+    wlay = W.build_window_layout(src, dst, typ, mask, Nw, window=256,
+                                 min_edges_per_tile=8).to(dev)
+    a = wlay.arrays
+    check_window_auto("widths W256", (a["c_stream"], a["tile_start"],
+                                      a["block_of_tile"], a["win_of_tile"],
+                                      a["c_off"]), 8 * Nw, 256,
+                      wlay.n_blocks, log, WIDE_DIMS)
 
 
 def predictor_widths():
@@ -3775,6 +4184,20 @@ def setup():
     return card, init_params(cfg, torch.Generator().manual_seed(0), "cuda")
 
 
+class PhaseClock:
+    """Prints each phase's wall seconds and the run's total so far, so that
+    a run's log shows where its time limit goes."""
+
+    def __init__(self):
+        self.t0 = self.last = time.perf_counter()
+
+    def mark(self, phase):
+        now = time.perf_counter()
+        print(f"[time] {phase}: {now - self.last:.1f} s (run "
+              f"{now - self.t0:.1f} s)", flush=True)
+        self.last = now
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3783,7 +4206,9 @@ def main() -> int:
         return 2
     from ggnn_tpu_torch.data.synthetic import synthetic_batch
     from ggnn_tpu_torch.ops.scatter import build_typed_dst_layout
+    clock = PhaseClock()
     card, params = setup()
+    clock.mark("setup and build")
 
     log, timings = {}, {}
     r = np.random.default_rng(7)
@@ -3825,6 +4250,7 @@ def main() -> int:
     check_kernels("headline", lay, params, log, timings)
     check_grad_kernels("headline", lay, log, timings)
     torch.cuda.empty_cache()
+    clock.mark("[kernels]")
 
     graphs = [(seed, request_graph(seed)) for seed in SERVE_REQUESTS]
     plain_cache = {}
@@ -3840,6 +4266,7 @@ def main() -> int:
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     del graphs, plain_cache
     torch.cuda.empty_cache()
+    clock.mark("[serve]")
 
     fused = {"typed_block_scatter": STEPS, "typed_grad_octet_scatter": STEPS}
     unfused = dict(fused, gru_cell_fwd=STEPS, gru_cell_bwd=STEPS)
@@ -3851,32 +4278,47 @@ def main() -> int:
     torch.cuda.empty_cache()
     for k, v in trained.items():
         launched[k] += v
+    clock.mark("[train]")
     run_trainer()
+    clock.mark("the Trainer CLI")
 
     for k, v in legacy_phase(params, b, log, timings).items():
         launched[k] += v
     torch.cuda.empty_cache()
+    clock.mark("[legacy *]")
     for k, v in pallas_phases(b, log, timings).items():
+        launched[k] += v
+    clock.mark("[pallas *]")
+    for k, v in variants_phase(b, log, timings).items():
         launched[k] += v
     del b
     torch.cuda.empty_cache()
+    clock.mark("[variants]")
 
     for k, v in scalefree_phase(params, log, timings).items():
         launched[k] += v
+    clock.mark("[scalefree]")
     for k, v in chunked_phase(params, log).items():
         launched[k] += v
+    clock.mark("[chunked 1M]")
     for k, v in run_trainer("onehot", want=(
             "onehot_segment_scatter_flat",
             "window_block_spmm_mono")).items():
         launched[k] += v
+    clock.mark("the Trainer CLI, onehot")
     window_kernels_phase(params, log, timings)
-    for phase in (lambda: window_serve_phase(params),
-                  lambda: window_1m_phase(params, log),
-                  lambda: window_train_phase(params, log, timings)):
+    clock.mark("[window kernels]")
+    for tag, phase in (
+            ("[window serve]", lambda: window_serve_phase(params)),
+            ("[window 1m]", lambda: window_1m_phase(params, log)),
+            ("[window train]",
+             lambda: window_train_phase(params, log, timings))):
         for k, v in phase().items():
             launched[k] += v
+        clock.mark(tag)
     widths_phase(log)
     predictor_widths()
+    clock.mark("[widths]")
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     if any(m == "ggnn_tpu" or m.startswith("ggnn_tpu.") for m in sys.modules):

@@ -16,7 +16,9 @@
 // forward's gates need all of r before r⊙h enters the h̃ product, so z is
 // kept in the output rows (f32, read back by the thread that wrote it) and
 // r⊙h in a T workspace; the backward keeps the gate gradients in its gate
-// workspace (as gru_cell_bwd.cu does) and drh⊙r in the dh rows.  The
+// workspace (as gru_cell_bwd.cu does) and drh⊙r in the dh rows, and db's
+// per-warp column sums in shared memory up to P = 2, above that in global
+// scratch (3·P·8·128 floats a block no longer fit beside two tiles).  The
 // parameter gradients are gru_cell_bwd.cu's split-K products, one CTA per
 // (row chunk, product, 128×128 output tile), summed over the chunks in a
 // fixed order.
@@ -28,6 +30,7 @@
 namespace ggnn {
 
 constexpr int kWideBlocksPerChunk = 16;  // 128-row blocks per split-K chunk
+constexpr int kSmemRedPanels = 2;  // the widest P whose db sums fit in smem
 
 // dst[r][c] = T(src[r·ldx + col0 + c]) for the CTA's 128 rows.
 template <typename T, typename S>
@@ -154,12 +157,16 @@ __global__ void __launch_bounds__(kThreads, 1) gru_wide_bwd_rows_kernel(
     const T* __restrict__ wa, const T* __restrict__ uzr,
     const T* __restrict__ uh, int P, float* __restrict__ dh,
     TD* __restrict__ da, T* __restrict__ gates, float* __restrict__ dbp,
-    size_t n_elems) {
+    float* __restrict__ red_g, size_t n_elems) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int ld = Smem<T>::ld;
   T* X_s = reinterpret_cast<T*>(smem);
   T* W_s = reinterpret_cast<T*>(smem + Smem<T>::tile);
-  float* red = reinterpret_cast<float*>(smem + 2 * Smem<T>::tile);
+  // db's per-warp column sums: in shared memory up to P = 2; wider states
+  // keep them in this block's slot of the global scratch red_g (the
+  // barrier before the final sum orders a block's global writes too)
+  float* red = red_g ? red_g + size_t(blockIdx.x) * 3 * P * 8 * kD
+                     : reinterpret_cast<float*>(smem + 2 * Smem<T>::tile);
   const int D = P * kD;
   const size_t rb = size_t(blockIdx.x) * kRows * D;
   T* gz = gates + rb;
@@ -362,8 +369,12 @@ static int launch_gru_wide_bwd(const void* g, const void* h, const void* a,
                                cudaStream_t stream) {
   const int D = P * kD;
   const size_t n_elems = size_t(n_blocks) * kRows * D;
+  // P > 2: db's warp sums go to ws (n_blocks·3·P·8·128 floats, which the
+  // wrapper sizes it for), which the params kernel overwrites afterwards
+  float* red_g = P > kSmemRedPanels ? static_cast<float*>(ws) : nullptr;
   const size_t smem_rows =
-      2 * Smem<T>::tile + size_t(3) * P * 8 * kD * sizeof(float);
+      2 * Smem<T>::tile +
+      (red_g ? 0 : size_t(3) * P * 8 * kD * sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
       gru_wide_bwd_rows_kernel<T, TD>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem_rows));
@@ -374,7 +385,7 @@ static int launch_gru_wide_bwd(const void* g, const void* h, const void* a,
       static_cast<const T*>(ht), static_cast<const T*>(wa),
       static_cast<const T*>(uzr), static_cast<const T*>(uh), P,
       static_cast<float*>(dh), static_cast<TD*>(da), static_cast<T*>(gates),
-      static_cast<float*>(dbp), n_elems);
+      static_cast<float*>(dbp), red_g, n_elems);
   err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
   const int n_chunks =

@@ -19,7 +19,7 @@
 // or FMA loops in the same fragment layout for f32, so an f32 table keeps
 // full f32 products); the rounded result goes back through shared memory
 // so that the table's rows are written with coalesced stores.  h is re-read
-// once per (type, panel), from L2.  D may be any width in [1, 256].
+// once per (type, panel), from L2.  D may be any width >= 1.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -80,7 +80,7 @@ template <typename T>
 static int launch_node_table(const void* h, const void* w, const void* b,
                              int n_blocks, int D, int T2, void* out,
                              cudaStream_t stream) {
-  if (D < 1 || D > 2 * kRows) return int(cudaErrorInvalidValue);
+  if (D < 1) return int(cudaErrorInvalidValue);
   const size_t smem = 2 * Smem<T>::tile;
   cudaError_t err = cudaFuncSetAttribute(
       node_table_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -97,7 +97,7 @@ static int launch_node_table(const void* h, const void* w, const void* b,
 
 // dtype: 0 = float32, 1 = bfloat16 (h, msg_w, msg_b and out all in it).
 // h [n_blocks·128, D], msg_w [T2, D, D], msg_b [T2, D], out
-// [n_blocks·T2·128, D], 1 <= D <= 256.  Returns the cudaError_t of the
+// [n_blocks·T2·128, D], D >= 1.  Returns the cudaError_t of the
 // launch.
 extern "C" int ggnn_node_table(int dtype, const void* h, const void* msg_w,
                                const void* msg_b, int n_blocks, int D, int T2,

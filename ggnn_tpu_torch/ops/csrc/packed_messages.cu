@@ -133,7 +133,7 @@ static int launch_packed_messages(const void* h, long long n_h, int D,
                                   const void* tile_type, int n_tiles,
                                   int tile_e, const void* w, const void* b,
                                   int T2, void* out, cudaStream_t stream) {
-  if (D < 1 || D > 2 * kD || tile_e <= 0 || T2 <= 0)
+  if (D < 1 || tile_e <= 0 || T2 <= 0)
     return int(cudaErrorInvalidValue);
   const size_t smem = 2 * Smem<T>::tile;
   cudaError_t err = cudaFuncSetAttribute(
@@ -152,7 +152,7 @@ static int launch_packed_messages(const void* h, long long n_h, int D,
 }  // namespace ggnn
 
 // dtype: 0 = float32, 1 = bfloat16 (h, msg_w and msg_b in it).  h [n_h, D],
-// 1 <= D <= 256; src int32 and mask f32 [n_tiles·tile_e]; tile_type int32
+// D >= 1; src int32 and mask f32 [n_tiles·tile_e]; tile_type int32
 // [n_tiles]; msg_w [T2, D, D], msg_b [T2, D]; out f32 [n_tiles·tile_e, D].
 // Returns the cudaError_t of the launch.
 extern "C" int ggnn_packed_messages(int dtype, const void* h, long long n_h,

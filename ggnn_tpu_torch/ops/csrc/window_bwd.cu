@@ -24,8 +24,8 @@
 // Design.  The TPU kernel walks every backward tile in one sequential grid,
 // keeping one source block's windows and a 1 MB dWᵀ accumulator in VMEM.
 // Here one CTA (8 warps, 16 rows each) takes a group of consecutive source
-// blocks and one 128-column panel dp of dh (grid y: D / 128 panels, D = 128
-// or 256), and walks, for each block b, its T2 slabs in type order and
+// blocks and one 128-column panel dp of dh (grid y: P = D / 128 panels,
+// D any multiple of 128), and walks, for each block b, its T2 slabs in type order and
 // each slab's 128-column panels fp in order: the slab panel Y_t,b[:, fp]
 // accumulates in registers (rows = the block's 128 source rows, in the
 // mma.sync fragment layout of common.cuh) over the window's real tiles in
@@ -37,9 +37,10 @@
 // Y[:, fp]ᵀ·h_b[:, dp] (each element read and written by one thread of one
 // CTA only).  A second kernel sums the groups' partials in group order.
 // Every sum runs in one fixed order: the same bits on every run, no
-// atomics.  At D = 256 each of the two dp panels computes both Y panels
-// (the count products twice) so that a thread holds one 128-column dh
-// panel and one slab panel, as at D = 128: 128 accumulator registers.
+// atomics.  At D = 128·P each of the P dp panels computes all P Y panels
+// (the count products P times, P² in all) so that a thread holds one
+// 128-column dh panel and one slab panel, as at D = 128: 128 accumulator
+// registers.
 //
 // Bound on this card: the bytes (the count stream's real tiles, āᵀ once, h,
 // the outputs; 2.15 GB of counts at the community headline) and, at
@@ -51,9 +52,10 @@
 
 namespace ggnn {
 
-// NP: D / 128, the column panels (1 or 2), a template argument so that the
-// D = 128 kernel keeps the single-panel loop of its registers and address
-// arithmetic.
+// NP: D / 128, the column panels, a template argument (1 or 2) so that the
+// D = 128 and 256 kernels keep their unrolled panel loops and address
+// arithmetic; NP = 0 takes the panel count from the grid (gridDim.y), for
+// every wider D.
 template <typename T, bool QUANT, int NP>
 __global__ void __launch_bounds__(kThreads) window_bwd_kernel(
     const void* __restrict__ dat, const float* __restrict__ scales,
@@ -71,8 +73,9 @@ __global__ void __launch_bounds__(kThreads) window_bwd_kernel(
   int8_t* A8 = reinterpret_cast<int8_t*>(P);
   int8_t* B8 = reinterpret_cast<int8_t*>(Q);
 
-  constexpr int D = NP * kRows;
-  const int g = blockIdx.x, dp = NP > 1 ? int(blockIdx.y) : 0;
+  const int np = NP > 0 ? NP : int(gridDim.y);
+  const int D = np * kRows;
+  const int g = blockIdx.x, dp = NP == 1 ? 0 : int(blockIdx.y);
   const int row0 = (threadIdx.x >> 5) * 16;
   const int S = W / kRows, wpb = T2 / S;
   const long long N = (long long)n_src_blocks * kRows;
@@ -83,7 +86,7 @@ __global__ void __launch_bounds__(kThreads) window_bwd_kernel(
     for (int t = 0; t < T2; ++t) {
       const int w = b * wpb + t / S, col0 = (t % S) * kRows;
       const int t0 = gt_start[w], t1 = gt_start[w + 1];
-      for (int fp = 0; fp < NP; ++fp) {
+      for (int fp = 0; fp < np; ++fp) {
         float acc[kNT][4];
         zero_acc(acc);
         bool any = false;
@@ -195,7 +198,8 @@ __global__ void window_bwd_dw_sum(const float* __restrict__ ws, int n_groups,
 }
 
 template <typename T, bool QUANT, int NP>
-int launch_window_bwd(const void* dat, const void* scales, long long n_cols,
+int launch_window_bwd(int P, const void* dat, const void* scales,
+                      long long n_cols,
                       const void* counts, long long n_c, const void* gt_start,
                       const void* gt_win, const void* gt_c_off,
                       int n_dst_blocks, int BR, int W, int T2,
@@ -208,7 +212,7 @@ int launch_window_bwd(const void* dat, const void* scales, long long n_cols,
       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
   const int n_groups = (n_src_blocks + group - 1) / group;
-  window_bwd_kernel<T, QUANT, NP><<<dim3(n_groups, NP), kThreads, smem,
+  window_bwd_kernel<T, QUANT, NP><<<dim3(n_groups, P), kThreads, smem,
                                     stream>>>(
       dat, static_cast<const float*>(scales), n_cols,
       static_cast<const int8_t*>(counts), n_c,
@@ -219,7 +223,7 @@ int launch_window_bwd(const void* dat, const void* scales, long long n_cols,
       static_cast<float*>(ws));
   err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
-  const long long per = (long long)T2 * NP * kRows * NP * kRows;
+  const long long per = (long long)T2 * P * kRows * P * kRows;
   window_bwd_dw_sum<<<int((per + 255) / 256), 256, 0, stream>>>(
       static_cast<const float*>(ws), n_groups, per, static_cast<float*>(dwt));
   return int(cudaGetLastError());
@@ -228,8 +232,8 @@ int launch_window_bwd(const void* dat, const void* scales, long long n_cols,
 }  // namespace ggnn
 
 // dtype (of msg_w, h and, without quant, āᵀ): 0 = float32, 1 = bfloat16;
-// quant: āᵀ int8 with scales [n_dst_blocks] f32 (bf16 only).  D = 128 or
-// 256.  dat āᵀ [D, n_cols = n_dst_blocks·BR]; counts the forward stream
+// quant: āᵀ int8 with scales [n_dst_blocks] f32 (bf16 only).  D a multiple
+// of 128.  dat āᵀ [D, n_cols = n_dst_blocks·BR]; counts the forward stream
 // int8 [n_c·BR, W]; gt_start [n_wins + 1], gt_win (the tile's dst block,
 // < 0 for a dummy) and gt_c_off [n_gt]; msg_w [T2, D, D]; h
 // [n_src_blocks·128, D]; dht f32 [D, n_src_blocks·128]; ws f32
@@ -247,18 +251,20 @@ extern "C" int ggnn_window_bwd(int dtype, int quant, const void* dat,
   if (n_src_blocks <= 0) return 0;
   if (BR <= 0 || BR % ggnn::kRows || W <= 0 || W % ggnn::kRows || T2 <= 0 ||
       (T2 * ggnn::kRows) % W || group <= 0 || (quant && !scales) ||
-      (D != ggnn::kD && D != 2 * ggnn::kD))
+      D <= 0 || D % ggnn::kD)
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int P = D / ggnn::kD;
 #define GGNN_LAUNCH(T, Q, NP)                                                \
   return ggnn::launch_window_bwd<T, Q, NP>(                                  \
-      dat, scales, n_cols, counts, n_c, gt_start, gt_win, gt_c_off,          \
+      P, dat, scales, n_cols, counts, n_c, gt_start, gt_win, gt_c_off,          \
       n_dst_blocks, BR, W, T2, n_src_blocks, group, msg_w, h, dht, ws, dwt,  \
       s)
-#define GGNN_WIDTHS(T, Q)                    \
-  {                                          \
-    if (D == ggnn::kD) GGNN_LAUNCH(T, Q, 1); \
-    GGNN_LAUNCH(T, Q, 2);                    \
+#define GGNN_WIDTHS(T, Q)           \
+  {                                 \
+    if (P == 1) GGNN_LAUNCH(T, Q, 1); \
+    if (P == 2) GGNN_LAUNCH(T, Q, 2); \
+    GGNN_LAUNCH(T, Q, 0);           \
   }
   if (dtype == 1 && quant) GGNN_WIDTHS(__nv_bfloat16, true);
   if (dtype == 1) GGNN_WIDTHS(__nv_bfloat16, false);

@@ -47,7 +47,7 @@
 // own 16 output rows, in the order of the rows).  No float atomics: the
 // same result on every run.
 //
-// Widths: D = 128 runs the kernel above.  Any other D in [1, 256] (the
+// Widths: D = 128 runs the kernel above.  Any other D >= 1 (the
 // bAbI models run D = 4 to 16) runs window_mono_panel_kernel
 // (window_mono_panel.cuh, compiled in parallel with this file): one CTA per
 // (work item, 128-column panel), the last panel masked, the panel's
@@ -230,7 +230,7 @@ static int launch_window_mono(const void* table, long long n_table, int D,
                               const void* pbase, int n_items, int n_partial,
                               void* ws, void* out, void* bad,
                               cudaStream_t stream) {
-  if (D < 1 || D > 2 * kRows) return int(cudaErrorInvalidValue);
+  if (D < 1) return int(cudaErrorInvalidValue);
   if (MODE == kOnehot && (bad == nullptr || (window % 16 != 0 && D == kD)))
     return int(cudaErrorInvalidValue);
   // the dst-local and one-hot forms address 128-row blocks; the panel
@@ -277,7 +277,7 @@ static int launch_window_mono(const void* table, long long n_table, int D,
 // entry t).  item_first [n_blocks + 1] and pbase [n_blocks] are the hub
 // split (see common.cuh); ws holds n_partial·out_rows/128 [128, D] f32
 // slots.  table is [n_table, D], out [n_blocks·out_rows, D] with out_rows a
-// multiple of 128, 1 <= D <= 256.
+// multiple of 128, D >= 1.
 // Returns the cudaError_t of the launches.
 extern "C" int ggnn_window_mono(
     int table_dtype, int out_dtype, int dstl, int packed, const void* table,

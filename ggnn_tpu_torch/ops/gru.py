@@ -16,7 +16,6 @@ import torch
 from ggnn_tpu_torch.ops import _build
 
 KERNEL_WIDTH = 128      # the state width D the CUDA kernels are written for
-MAX_WIDTH = 256         # the widest D the CUDA kernels take
 BLOCK = 128             # rows per CTA
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -112,10 +111,44 @@ def host_ints(*scalars) -> list:
                         for s in scalars]).tolist()
 
 
+def _scatter_data_checks(name, tile_start, n_tiles, block_of_tile=None,
+                         max_tiles=None, extra=()):
+    """tile_start runs from 0, never down, to at most the stream's tiles
+    (exactly its tiles with ``block_of_tile``, which must name the same
+    block for every tile), and no block holds more than ``max_tiles``
+    (one copy to the host, with ``extra`` 0-d tensors appended)."""
+    counts = tile_start[1:] - tile_start[:-1]
+    stats = [tile_start[0], tile_start[-1], counts.min(), counts.max()]
+    if block_of_tile is not None:
+        tiles = torch.arange(n_tiles, dtype=torch.int32,
+                             device=tile_start.device)
+        want = torch.searchsorted(tile_start[1:].contiguous(), tiles,
+                                  right=True)
+        stats.append((want != block_of_tile).sum())
+    ts0, ts1, c_min, c_max, *rest = host_ints(*stats, *extra)
+    if block_of_tile is not None:
+        bad, *rest = rest
+        if bad:
+            raise ValueError(f"{name}: block_of_tile names another block "
+                             f"than tile_start for {bad} tiles: layout and "
+                             f"arguments disagree")
+    if ts0 != 0 or c_min < 0 or ts1 > n_tiles or (
+            block_of_tile is not None and ts1 != n_tiles):
+        raise ValueError(f"{name}: tile_start runs from {ts0} to {ts1} "
+                         f"(least count {c_min}) over a stream of {n_tiles} "
+                         f"tiles: layout and arguments disagree")
+    if max_tiles is not None and c_max > max_tiles:
+        raise ValueError(f"{name}: a block holds {c_max} tiles, more than "
+                         f"max_tiles={max_tiles}: layout and arguments "
+                         f"disagree")
+    return rest
+
+
 def _check_cuda_args(name, tensors, D, any_width=False, wide=False):
     """Device, contiguity and alignment of every tensor, and the width D:
-    128 (with ``wide`` also 256), or with ``any_width`` any D in [1,
-    256]; D None checks the tensors only."""
+    128 (with ``wide`` any multiple of 128: the kernels' 128-column
+    panels), or with ``any_width`` any D >= 1; D None checks the tensors
+    only."""
     dev = tensors[0][1].device
     for arg, t in tensors:
         if t.device != dev:
@@ -127,15 +160,15 @@ def _check_cuda_args(name, tensors, D, any_width=False, wide=False):
     if D is None:
         return
     if any_width:
-        if not 1 <= D <= MAX_WIDTH:
-            raise ValueError(f"{name}: the CUDA kernel takes 1 <= D <= "
-                             f"{MAX_WIDTH}, got D={D}")
-    elif D != KERNEL_WIDTH and not (wide and D == MAX_WIDTH):
-        top = MAX_WIDTH if wide else KERNEL_WIDTH
-        raise ValueError(f"{name}: the CUDA kernel takes D <= {top} "
-                         f"(other widths zero-padded to a multiple of "
-                         f"{KERNEL_WIDTH}), got D={D} (wider states: "
-                         f"ROADMAP Queue 3)")
+        if D < 1:
+            raise ValueError(f"{name}: the CUDA kernel takes D >= 1, got "
+                             f"D={D}")
+    elif D != KERNEL_WIDTH and not (wide and D > 0
+                                    and D % KERNEL_WIDTH == 0):
+        want = (f"a multiple of {KERNEL_WIDTH}" if wide
+                else f"D = {KERNEL_WIDTH}")
+        raise ValueError(f"{name}: the CUDA kernel takes {want} (the "
+                         f"wrappers zero-pad other widths), got D={D}")
 
 
 def gru_cell_fwd(h, a, w_a, b_all, u_zr, uh, mdt=torch.bfloat16):
@@ -144,13 +177,13 @@ def gru_cell_fwd(h, a, w_a, b_all, u_zr, uh, mdt=torch.bfloat16):
     ``u_zr`` [D, 2D], ``uh`` [D, D] (cast to ``mdt``); ``b_all`` [3D].
 
     A CPU tensor takes :func:`gru_cell_fwd_reference`; a CUDA tensor
-    launches the kernel (``csrc/gru_cell.cu``; at 128 < D ≤ 256
+    launches the kernel (``csrc/gru_cell.cu``; at D = 128·P, P > 1,
     ``csrc/gru_cell_wide.cu``; other D through :func:`pad_width`) or
     raises."""
     if h.device.type == "cpu":
         return gru_cell_fwd_reference(h, a, w_a, b_all, u_zr, uh, mdt)
     N, D = h.shape
-    if D != kernel_width(D) and D <= MAX_WIDTH:
+    if D != kernel_width(D):
         P = lambda x, **kw: pad_width(x, D, **kw)
         out = gru_cell_fwd(P(h), P(a), P(w_a, rows=True, groups=3),
                            P(b_all.reshape(-1), groups=3),
@@ -237,14 +270,14 @@ def gru_cell_bwd(g, h, a, z, r, htil, w_a, u_zr, uh, mdt=torch.bfloat16,
     weights are cast to ``mdt``.
 
     A CPU tensor takes :func:`gru_cell_bwd_reference`; a CUDA tensor
-    launches the kernel (``csrc/gru_cell_bwd.cu``; at 128 < D ≤ 256
+    launches the kernel (``csrc/gru_cell_bwd.cu``; at D = 128·P, P > 1,
     ``csrc/gru_cell_wide.cu``; other D through :func:`pad_width`) or
     raises."""
     if g.device.type == "cpu":
         return gru_cell_bwd_reference(g, h, a, z, r, htil, w_a, u_zr, uh,
                                       mdt, da_dtype)
     N, D = h.shape
-    if D != kernel_width(D) and D <= MAX_WIDTH:
+    if D != kernel_width(D):
         P = lambda x, **kw: pad_width(x, D, **kw)
         dh, da, dwa, db, duzr, duh = gru_cell_bwd(
             *(P(x) for x in (g, h, a, z, r, htil)),
@@ -287,7 +320,9 @@ def gru_cell_bwd(g, h, a, z, r, htil, w_a, u_zr, uh, mdt=torch.bfloat16,
     da = torch.empty((N, D), dtype=da_dtype, device=dev)
     gates = torch.empty((3, N, D), dtype=mdt, device=dev)
     dbp = torch.empty((n_blocks, 3 * D), **f32)
-    ws = torch.empty((n_chunks, 6, D, D), **f32)
+    # the params kernel's split-K partials; above D = 256 the wide rows
+    # kernel first keeps db's per-warp sums there (3·8 per column a block)
+    ws = torch.empty(max(n_chunks * 6 * D * D, n_blocks * 24 * D), **f32)
     dwa = torch.empty((D, 3 * D), **f32)
     db = torch.empty((1, 3 * D), **f32)
     duzr = torch.empty((D, 2 * D), **f32)

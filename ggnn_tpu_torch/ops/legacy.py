@@ -19,6 +19,11 @@ scatters, array for array and rounding point for rounding point:
   each is :func:`~ggnn_tpu_torch.ops.window.window_block_spmm_mono` with
   ``window = tile_e`` and tile t reading its own messages, as the reference
   says of them; :func:`onehot_segment_scatter_mono` is that kernel itself.
+- :func:`onehot_segment_scatter_stream` (#18) and
+  :func:`onehot_segment_scatter_loopT` (#19), the reference's other two
+  variants of the one-hot stream scatter, which only its kernel-variant
+  sweep and tests run (``scripts/torch_scatter_variants.py`` here):
+  ``csrc/onehot_stream.cu``, one CTA per dst block walking its tiles.
 - :func:`legacy_forward` (``_aggregate_impl``'s table-gather branch: the
   node-transform table of ``ops/table.py``, the gather, then the scatter
   the layout carries) and :func:`aggregate_onehot_chunked` (forward only,
@@ -36,7 +41,8 @@ import numpy as np
 import torch
 
 from ggnn_tpu_torch.ops import _build
-from ggnn_tpu_torch.ops.gru import _DTYPE_CODE, _check_cuda_args, host_ints
+from ggnn_tpu_torch.ops.gru import (_DTYPE_CODE, _check_cuda_args,
+                                    _scatter_data_checks, host_ints)
 from ggnn_tpu_torch.ops.scatter import (BLOCK_N, ScatterLayout, _rup,
                                         _rup_block)
 from ggnn_tpu_torch.ops.table import node_table
@@ -363,39 +369,6 @@ def _check_scatter_args(name, messages, stream, tile_start, n_blocks,
                          f"with this layout")
 
 
-def _scatter_data_checks(name, tile_start, n_tiles, block_of_tile=None,
-                         max_tiles=None, extra=()):
-    """tile_start runs from 0, never down, to at most the stream's tiles
-    (exactly its tiles with ``block_of_tile``, which must name the same
-    block for every tile), and no block holds more than ``max_tiles``
-    (one copy to the host, with ``extra`` 0-d tensors appended)."""
-    counts = tile_start[1:] - tile_start[:-1]
-    stats = [tile_start[0], tile_start[-1], counts.min(), counts.max()]
-    if block_of_tile is not None:
-        tiles = torch.arange(n_tiles, dtype=torch.int32,
-                             device=tile_start.device)
-        want = torch.searchsorted(tile_start[1:].contiguous(), tiles,
-                                  right=True)
-        stats.append((want != block_of_tile).sum())
-    ts0, ts1, c_min, c_max, *rest = host_ints(*stats, *extra)
-    if block_of_tile is not None:
-        bad, *rest = rest
-        if bad:
-            raise ValueError(f"{name}: block_of_tile names another block "
-                             f"than tile_start for {bad} tiles: layout and "
-                             f"arguments disagree")
-    if ts0 != 0 or c_min < 0 or ts1 > n_tiles or (
-            block_of_tile is not None and ts1 != n_tiles):
-        raise ValueError(f"{name}: tile_start runs from {ts0} to {ts1} "
-                         f"(least count {c_min}) over a stream of {n_tiles} "
-                         f"tiles: layout and arguments disagree")
-    if max_tiles is not None and c_max > max_tiles:
-        raise ValueError(f"{name}: a block holds {c_max} tiles, more than "
-                         f"max_tiles={max_tiles}: layout and arguments "
-                         f"disagree")
-    return rest
-
-
 def _launch_scatter(entry, name, messages, stream, n_c, tile_start,
                     n_blocks, tile_e, checks, bad=None):
     """Launch a legacy scatter entry point of ``csrc/window_mono.cu`` over
@@ -453,7 +426,7 @@ def onehot_segment_scatter_flat(messages, onehot_i8, tile_start,
     stream (stored transposed, [n_tiles·128, tile_e]: each column at most
     one entry, a 1, as the builders make it); ``block_of_tile`` and
     ``tile_start`` (int32) must agree.  ``messages`` in the compute dtype,
-    1 <= D <= 256.  A CPU tensor takes the plain version; a CUDA tensor
+    any D >= 1.  A CPU tensor takes the plain version; a CUDA tensor
     launches ``ggnn_onehot_flat`` of ``csrc/window_mono.cu`` (which decodes
     each tile's one-hot into dst ids and sums them in order, as
     :func:`onehot_segment_scatter` does) or raises, also after the launch
@@ -516,7 +489,7 @@ def onehot_segment_scatter(messages, dst_local, tile_start, n_blocks: int,
     """The same scatter from dst-local ids: edge e of tile e // tile_e of
     block b (``tile_start``) adds messages[e] to row b·128 + dst_local[e];
     −1 adds nothing → [n_blocks·128, D] f32.  ``messages`` [E_pack, D] in
-    the compute dtype (1 <= D <= 256), ``dst_local`` int32 [E_pack].  (The
+    the compute dtype (any D >= 1), ``dst_local`` int32 [E_pack].  (The
     reference's grid runs max_tiles steps per block and clamps; the port
     checks that no block holds more.)  A CPU tensor takes the plain
     version; a CUDA tensor launches ``ggnn_onehot_dstl`` of
@@ -543,6 +516,126 @@ def onehot_segment_scatter(messages, dst_local, tile_start, n_blocks: int,
 
 
 onehot_segment_scatter.launches = 0
+
+
+def _check_stream_args(name, messages, onehot_i8, tile_start, n_blocks,
+                       tile_e, max_tiles=None):
+    """The argument and data checks of #18 and #19; returns n_tiles."""
+    E = messages.shape[0] if messages.dim() == 2 else -1
+    if E % tile_e:
+        raise ValueError(f"{name}: messages has {E} rows, not whole tiles "
+                         f"of {tile_e}: layout and arguments disagree")
+    n_tiles = E // tile_e
+    _check_scatter_args(name, messages, onehot_i8, tile_start, n_blocks,
+                        tile_e, n_tiles, (n_tiles * BLOCK_N, tile_e),
+                        torch.int8)
+    _scatter_data_checks(name, tile_start, n_tiles, max_tiles=max_tiles)
+    return n_tiles
+
+
+def _launch_stream(entry, name, messages, onehot_i8, tile_start, n_blocks,
+                   tile_e, n_tiles):
+    """One launch of C entry point ``entry`` of ``csrc/onehot_stream.cu``
+    (#18 or #19) after the device checks."""
+    if messages.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{name}: dtype {messages.dtype} not in "
+                         f"{list(_DTYPE_CODE)}")
+    D = messages.shape[-1]
+    _check_cuda_args(name, [("messages", messages), ("onehot", onehot_i8),
+                            ("tile_start", tile_start)], D, any_width=True)
+    out = torch.empty(n_blocks * BLOCK_N, D, dtype=torch.float32,
+                      device=messages.device)
+    p = _build.ptr
+    _build.launch(getattr(_build.library(), entry), name, messages.device,
+                  _DTYPE_CODE[messages.dtype], p(messages),
+                  messages.shape[0], D, p(onehot_i8), n_tiles, tile_e,
+                  p(tile_start), n_blocks, p(out))
+    return out
+
+
+def onehot_segment_scatter_loopT_reference(messages, onehot_t, tile_start,
+                                           n_blocks: int, tile_e: int = 2048):
+    """Plain version of :func:`onehot_segment_scatter_loopT` and
+    :func:`onehot_segment_scatter_stream`: :func:`onehot_segment_scatter_
+    flat_reference` (f64 sums, rounded once to f32) over tiles [0,
+    tile_start[-1]), each with the block ``tile_start`` gives it, whatever
+    int8 values the stream holds."""
+    n_used = host_ints(tile_start[-1])[0]
+    tiles = torch.arange(n_used, dtype=torch.int32, device=tile_start.device)
+    block_of_tile = torch.searchsorted(tile_start[1:].contiguous(), tiles,
+                                       right=True)
+    return onehot_segment_scatter_flat_reference(
+        messages, onehot_t[:n_used * BLOCK_N], tile_start, block_of_tile,
+        n_blocks, tile_e)
+
+
+def onehot_segment_scatter_stream_reference(messages, onehot_i8, tile_start,
+                                            n_blocks: int, max_tiles: int,
+                                            tile_e: int = 512):
+    """Plain version of :func:`onehot_segment_scatter_stream` (that of
+    :func:`onehot_segment_scatter_loopT`)."""
+    del max_tiles
+    return onehot_segment_scatter_loopT_reference(messages, onehot_i8,
+                                                  tile_start, n_blocks, tile_e)
+
+
+def onehot_segment_scatter_stream(messages, onehot_i8, tile_start,
+                                  n_blocks: int, max_tiles: int,
+                                  tile_e: int = 512):
+    """Kernel #18, the reference's two-stream scatter: out[b·128 + r] =
+    Σ_{tiles i of b} Σ_j C[i·128 + r, j] · messages[i·tile_e + j] →
+    [n_blocks·128, D] f32, with C the int8 stream (cast to the messages'
+    dtype, whatever values it holds: no one-hot check, as the TPU kernel)
+    and every block written (zeros for a block without tiles).
+
+    ``messages`` [E_pack, D] in the compute dtype (any D), E_pack = n_tiles·
+    tile_e; ``onehot_i8`` [n_tiles·128, tile_e] int8, each tile's one-hot
+    stored transposed: the array :func:`onehot_segment_scatter_flat` reads
+    and the TPU kernel's BlockSpec ``(BLOCK_N, tile_e)`` cuts (its
+    docstring's "[E_pack, BLOCK_N]" is wrong); ``tile_start`` int32
+    [n_blocks + 1].  The TPU grid runs ``max_tiles`` steps per block and
+    drops a block's tiles past it; the port raises when a block holds more.
+    A CPU tensor takes the plain version; a CUDA tensor launches
+    ``ggnn_onehot_stream`` of ``csrc/onehot_stream.cu`` (one CTA per block
+    and 128-column panel, the block's edges in staged chunks of 128) or
+    raises."""
+    name = "onehot_segment_scatter_stream"
+    n_tiles = _check_stream_args(name, messages, onehot_i8, tile_start,
+                                 n_blocks, tile_e, max_tiles)
+    if messages.device.type == "cpu":
+        return onehot_segment_scatter_stream_reference(
+            messages, onehot_i8, tile_start, n_blocks, max_tiles, tile_e)
+    out = _launch_stream("ggnn_onehot_stream", name, messages, onehot_i8,
+                         tile_start, n_blocks, tile_e, n_tiles)
+    onehot_segment_scatter_stream.launches += 1
+    return out
+
+
+onehot_segment_scatter_stream.launches = 0
+
+
+def onehot_segment_scatter_loopT(messages, onehot_t, tile_start,
+                                 n_blocks: int, tile_e: int = 2048):
+    """Kernel #19, the reference's looped-DMA form of
+    :func:`onehot_segment_scatter_stream`: the same function and arguments
+    without ``max_tiles`` (one program per block walks all its tiles).  A
+    CPU tensor takes the plain version; a CUDA tensor launches
+    ``ggnn_onehot_loopT`` of ``csrc/onehot_stream.cu`` (a cp.async ring of
+    two stages: the next chunk's copies overlap this chunk's product) or
+    raises."""
+    name = "onehot_segment_scatter_loopT"
+    n_tiles = _check_stream_args(name, messages, onehot_t, tile_start,
+                                 n_blocks, tile_e)
+    if messages.device.type == "cpu":
+        return onehot_segment_scatter_loopT_reference(
+            messages, onehot_t, tile_start, n_blocks, tile_e)
+    out = _launch_stream("ggnn_onehot_loopT", name, messages, onehot_t,
+                         tile_start, n_blocks, tile_e, n_tiles)
+    onehot_segment_scatter_loopT.launches += 1
+    return out
+
+
+onehot_segment_scatter_loopT.launches = 0
 
 
 def onehot_segment_scatter_mono(messages, onehot_t, tile_start,

@@ -34,9 +34,9 @@ reference does and launches once over all blocks.
 A wrapper takes its plain version only for CPU tensors; for CUDA tensors it
 launches the kernel or raises.  The kernels are written for D = 128: a
 narrower state runs them zero-padded (:func:`~ggnn_tpu_torch.ops.gru.
-pad_width`, exact), D = 256 in 128-column panels (:func:`_panel_scatter`;
-the fused steps then add the GRU cell kernel at that width), and other D ≤
-256 padded to 256.
+pad_width`, exact), D = 128·P in 128-column panels (:func:`_panel_scatter`;
+the fused steps then add the GRU cell kernel at that width), and any other
+D padded to the next multiple of 128.
 """
 
 from __future__ import annotations
@@ -48,7 +48,7 @@ import numpy as np
 import torch
 
 from ggnn_tpu_torch.ops import _build
-from ggnn_tpu_torch.ops.gru import (KERNEL_WIDTH, MAX_WIDTH, _DTYPE_CODE,
+from ggnn_tpu_torch.ops.gru import (KERNEL_WIDTH, _DTYPE_CODE,
                                     _check_cuda_args, gru_cell_fwd,
                                     host_ints, kernel_width, narrow_width,
                                     pad_width, gru_cell_fwd_reference)
@@ -507,7 +507,7 @@ def typed_block_scatter(h_pack, dstl_blk, slot_off16, blk_off16, msg_w,
             h_pack, dstl_blk, slot_off16, blk_off16, msg_w, n_blocks, tile_e,
             S8, cmax, span_rows)
     D = msg_w.shape[-1]
-    if D != kernel_width(D) and D <= MAX_WIDTH:
+    if D != kernel_width(D):
         # the kernel on zero-padded states (ops/gru.py::pad_width)
         return narrow_width(typed_block_scatter(
             pad_width(h_pack, D), dstl_blk, slot_off16, blk_off16,
@@ -549,7 +549,7 @@ def typed_block_step_gru(h_pack, dstl_blk, slot_off16, blk_off16, msg_w,
         return typed_block_step_gru_reference(
             h_pack, dstl_blk, slot_off16, blk_off16, msg_w, init, hstate, wa,
             b3, uzr, uh, n_blocks, tile_e, S8, cmax, span_rows)
-    if D != kernel_width(D) and D <= MAX_WIDTH:
+    if D != kernel_width(D):
         return narrow_width(typed_block_step_gru(
             pad_width(h_pack, D), dstl_blk, slot_off16, blk_off16,
             *_pad_step(D, msg_w, init, hstate, wa, b3, uzr, uh), n_blocks,
@@ -754,7 +754,7 @@ def typed_onehot_scatter(h_pack, dstl, tile_start, block_of_tile,
             h_pack, dstl, tile_start, block_of_tile, tile_msg_off, c_off,
             tile_type, msg_w, n_blocks, tile_e, align)
     D = msg_w.shape[-1]
-    if D != kernel_width(D) and D <= MAX_WIDTH:
+    if D != kernel_width(D):
         return narrow_width(typed_onehot_scatter(
             pad_width(h_pack, D), dstl, tile_start, block_of_tile,
             tile_msg_off, c_off, tile_type, pad_width(msg_w, D, rows=True),
@@ -800,7 +800,7 @@ def typed_step_gru(h_pack, dstl, tile_start, block_of_tile, tile_msg_off,
             h_pack, dstl, tile_start, block_of_tile, tile_msg_off, c_off,
             tile_type, msg_w, init, hstate, wa, b3, uzr, uh, n_blocks,
             tile_e, align)
-    if D != kernel_width(D) and D <= MAX_WIDTH:
+    if D != kernel_width(D):
         w, ini, hs, *gw = _pad_step(D, msg_w, init, hstate, wa, b3, uzr, uh)
         return narrow_width(typed_step_gru(
             pad_width(h_pack, D), dstl, tile_start, block_of_tile,
@@ -1005,7 +1005,7 @@ def typed_grad_octet_scatter(G, dstl_oct, slot_off16, oblk16, n_oct: int,
         if dt not in _DTYPE_CODE:
             raise ValueError(f"{name}: {what} {dt} not in {list(_DTYPE_CODE)}")
     D = G.shape[-1]
-    if D != kernel_width(D) and D <= MAX_WIDTH:
+    if D != kernel_width(D):
         return narrow_width(typed_grad_octet_scatter(
             pad_width(G, D), dstl_oct, slot_off16, oblk16, n_oct, g_tile, C,
             R8, span8, out_dtype), D)

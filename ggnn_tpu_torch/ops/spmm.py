@@ -141,9 +141,8 @@ def packed_messages(h, layout_src, layout_mask, tile_type, msg_w, msg_b,
     ``h`` [N, D], ``msg_w`` [T2, D, D] and ``msg_b`` [T2, D] in one compute
     dtype; ``layout_src`` int32 [P] (P = n_tiles·tile_e), ``layout_mask``
     [P], ``tile_type`` int32 [n_tiles].  A CPU tensor takes the plain
-    version; a CUDA tensor launches ``csrc/packed_messages.cu`` (any D ≤
-    256: zero-filled to the 128-column panels in shared memory) or
-    raises."""
+    version; a CUDA tensor launches ``csrc/packed_messages.cu`` (any D:
+    zero-filled to the 128-column panels in shared memory) or raises."""
     name = "packed_messages"
     _check_messages_args(name, h, layout_src, layout_mask, tile_type, msg_w,
                          msg_b, tile_e)

@@ -158,7 +158,8 @@ def node_table_block_major_q8(h, msg_w, msg_b, window: int):
     ``h`` [N, D], ``msg_w`` [T2, D, D], ``msg_b`` [T2, D] in the compute
     dtype; N % 128 == 0, D % 128 == 0, W % 128 == 0, (T2·128) % W == 0.  A
     CPU tensor takes the plain version; a CUDA tensor launches
-    ``csrc/node_table_q8.cu`` (D = 128 or 256) or raises."""
+    ``csrc/node_table_q8.cu`` (D = 128·P, in P column panels) or
+    raises."""
     name = "node_table_block_major_q8"
     _check_q8_args(name, h, msg_w, msg_b, window)
     if h.device.type == "cpu":

@@ -17,6 +17,10 @@ out[block] = Σ_win C · table[win·W : win·W + W]):
   window layouts' spill) and the int8 or int4-packed count matrix with
   output blocks of any multiple of 128 rows.  The per-tile kernels
   (``csrc/typed_tile.cu``) share its hub split :func:`split_plan`.
+- #20 :func:`window_block_spmm` (``csrc/window_auto.cu``): the
+  reference's auto-pipelined variant of #11 over unpacked 128-row count
+  tiles, which only its window probe and tests run
+  (``scripts/torch_window_variants.py`` here).
 - #12 :func:`window_block_spmm_ondemand` (``csrc/window_ondemand.cu``) and
   #13 :func:`window_step_gru` (``csrc/window_step.cu``, ``_q8.cu``,
   ``_ondemand.cu``; one template, ``csrc/window_step.cuh``): table
@@ -46,8 +50,8 @@ import numpy as np
 import torch
 
 from ggnn_tpu_torch.ops import _build
-from ggnn_tpu_torch.ops.gru import (BLOCK, KERNEL_WIDTH, MAX_WIDTH,
-                                    _DTYPE_CODE, _check_cuda_args,
+from ggnn_tpu_torch.ops.gru import (BLOCK, KERNEL_WIDTH, _DTYPE_CODE,
+                                    _check_cuda_args, _scatter_data_checks,
                                     gru_cell_fwd, gru_cell_fwd_reference,
                                     host_ints, kernel_width, narrow_width,
                                     pad_width)
@@ -785,7 +789,7 @@ def window_block_spmm_mono(table, c_stream, tile_start, block_of_tile,
     [n_blocks·R, D] in ``out_dtype`` (default f32), summed in f32 and
     rounded once.
 
-    ``table`` [rows, D] in the compute dtype, 1 <= D <= 256; ``c_stream``
+    ``table`` [rows, D] in the compute dtype, any D >= 1; ``c_stream``
     the int32 dst-local stream [rows, window] (``dstl=True``, R = 128), the
     int8 count matrix [n·R, window], or with ``packed`` its int4 pairs
     [n·R, window/2]; tile t reads entry ``c_off[t]`` (None: t);
@@ -794,9 +798,9 @@ def window_block_spmm_mono(table, c_stream, tile_start, block_of_tile,
     W-row table windows (any R > 0).  (The TPU kernel's
     grid split and DMA ring depth do not change the sums; the port has
     neither.)  A CPU tensor takes the plain version; a CUDA tensor launches
-    ``csrc/window_mono.cu`` (at D = 128 with int4 counts or R > 128: the
-    window step's sums of ``csrc/window_step.cu``, then one rounding to
-    ``out_dtype``) or raises."""
+    ``csrc/window_mono.cu`` (at D = 128 with int4 counts or R > 128, and at
+    R % 128 ≠ 0: the window step's sums of ``csrc/window_step.cu``, then
+    one rounding to ``out_dtype``) or raises."""
     name = "window_block_spmm_mono"
     _check_mono_args(name, table, c_stream, tile_start, block_of_tile,
                      win_of_tile, n_blocks, window, out_rows, packed,
@@ -819,20 +823,18 @@ def window_block_spmm_mono(table, c_stream, tile_start, block_of_tile,
     if c_off is not None:
         named.append(("c_off", c_off))
     _check_cuda_args(name, named, D, any_width=True)
-    if not dstl and out_rows % BLOCK and D != KERNEL_WIDTH:
+    if not dstl and out_rows % BLOCK and D != kernel_width(D):
         # output blocks of no multiple of 128 rows (the backward's Y over
-        # windows of W % 128 ≠ 0): the D = 128 route, zero-padded
-        if D > KERNEL_WIDTH:
-            raise ValueError(f"{name}: out_rows={out_rows} (not a multiple "
-                             f"of {BLOCK}) takes D <= {KERNEL_WIDTH}, got "
-                             f"D={D} (ROADMAP Queue 3)")
+        # windows of W % 128 ≠ 0): the window step's route, zero-padded
         return narrow_width(window_block_spmm_mono(
             pad_width(table, D), c_stream, tile_start, block_of_tile,
             win_of_tile, n_blocks, window, out_rows, packed, win_stride,
             c_off, out_dtype, dstl), D)
-    if not dstl and D == KERNEL_WIDTH and (packed or out_rows != BLOCK):
-        # the window layouts' int4 and tall count forms: the window step's
-        # sums without the GRU (csrc/window_step.cu)
+    if not dstl and (D == KERNEL_WIDTH and (packed or out_rows != BLOCK)
+                     or out_rows % BLOCK):
+        # the window layouts' int4 and tall count forms at D = 128, and
+        # blocks of no multiple of 128 rows at D = 128·P: the window step's
+        # sums without the GRU (csrc/window_step.cu, P 128-column panels)
         if stride != window:
             raise ValueError(f"{name}: int4 counts or out_rows={out_rows} "
                              f"take windows at stride {window}, got "
@@ -864,6 +866,72 @@ def window_block_spmm_mono(table, c_stream, tile_start, block_of_tile,
 
 
 window_block_spmm_mono.launches = 0
+
+
+# --- #20 window_block_spmm ---------------------------------------------------
+
+def window_block_spmm_reference(table, c_stream, tile_start, block_of_tile,
+                                win_of_tile, n_blocks: int, window: int,
+                                c_off=None):
+    """Plain version of :func:`window_block_spmm`: #11's plain version at
+    128-row blocks (f64 sums, rounded once to f32)."""
+    return window_block_spmm_mono_reference(
+        table, c_stream, tile_start, block_of_tile, win_of_tile, n_blocks,
+        window, out_rows=BLOCK, c_off=c_off)
+
+
+def window_block_spmm(table, c_stream, tile_start, block_of_tile,
+                      win_of_tile, n_blocks: int, window: int, c_off=None):
+    """Kernel #20, the reference's auto-pipelined window SpMM:
+    out[b·128:(b+1)·128] = Σ_{tiles t of b, win[t] ≥ 0} C_t ·
+    table[win[t]·W : (win[t]+1)·W] → [n_blocks·128, D] f32, summed in f32.
+
+    ``table`` [R, D] in the compute dtype (any D), R a multiple of
+    ``window`` (W; the reference raises otherwise, so does the port);
+    ``c_stream`` the unpacked int8 counts [n·128, W], tile t reading entry
+    ``c_off[t]`` (None: t); ``tile_start`` int32 [n_blocks + 1] and
+    ``block_of_tile`` must agree; ``win_of_tile`` < 0 marks a dummy tile,
+    which adds nothing.  The TPU kernel zeroes a block at its first tile
+    (``i == tile_start[b]``) and so never writes a block without tiles; the
+    port writes zeros there.  A CPU tensor takes the plain version; a CUDA
+    tensor launches ``csrc/window_auto.cu`` (one CTA per dst block and
+    128-column panel, its tiles in order, each in K-chunks of 128 window
+    rows; no work-item split, unlike #11) or raises."""
+    name = "window_block_spmm"
+    _check_mono_args(name, table, c_stream, tile_start, block_of_tile,
+                     win_of_tile, n_blocks, window, BLOCK, False, None,
+                     c_off, False)
+    n_tiles = win_of_tile.shape[0]
+    _scatter_data_checks(name, tile_start, n_tiles,
+                         block_of_tile=block_of_tile)
+    _mono_data_checks(name, table.shape[0], c_stream, win_of_tile, window,
+                      window, c_off, False)
+    if table.device.type == "cpu":
+        return window_block_spmm_reference(table, c_stream, tile_start,
+                                           block_of_tile, win_of_tile,
+                                           n_blocks, window, c_off)
+    if table.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{name}: table {table.dtype} not in "
+                         f"{list(_DTYPE_CODE)}")
+    D = table.shape[-1]
+    named = [("table", table), ("c_stream", c_stream),
+             ("tile_start", tile_start), ("win_of_tile", win_of_tile)]
+    if c_off is not None:
+        named.append(("c_off", c_off))
+    _check_cuda_args(name, named, D, any_width=True)
+    out = torch.empty(n_blocks * BLOCK, D, dtype=torch.float32,
+                      device=table.device)
+    p = _build.ptr
+    _build.launch(
+        _build.library().ggnn_window_auto, name, table.device,
+        _DTYPE_CODE[table.dtype], p(table), table.shape[0], D, p(c_stream),
+        c_stream.shape[0] // BLOCK, p(tile_start), p(win_of_tile), p(c_off),
+        n_tiles, n_blocks, window, p(out))
+    window_block_spmm.launches += 1
+    return out
+
+
+window_block_spmm.launches = 0
 
 
 # --- #12 window_block_spmm_ondemand and #13 window_step_gru ------------------
@@ -938,7 +1006,7 @@ def _launch_step(name, src_mode, fused, table, c_stream, tile_start,
                  wa=None, b3=None, uzr=None, uh=None, res=None):
     """Launch ``ggnn_window_step`` of ``csrc/window_step.cu`` after the
     device checks; returns the [n_blocks·out_rows, D] f32 output (the sums
-    take D = 256 in two 128-column panels, the fused step D = 128)."""
+    take D = 128·P in P 128-column panels, the fused step D = 128)."""
     D = table.shape[-1]
     cdt = table.dtype if src_mode != _SRC_Q8 else wa.dtype
     if cdt not in _DTYPE_CODE:
@@ -1001,8 +1069,9 @@ def window_block_spmm_ondemand(h, msg_w, msg_b, c_stream, tile_start,
     ``h`` [N, D] (N % 128 == 0) in the compute dtype, ``msg_w`` [T2, D, D]
     (cast to h's dtype), ``msg_b`` [T2, D] (added in f32); the counts int8
     [n·out_rows, W].  A CPU tensor takes the plain version; a CUDA tensor
-    launches ``csrc/window_ondemand.cu`` (D = 128 or 256; other D ≤ 256
-    zero-padded, :func:`~ggnn_tpu_torch.ops.gru.pad_width`) or raises."""
+    launches ``csrc/window_ondemand.cu`` (D = 128·P in P column panels;
+    other D zero-padded, :func:`~ggnn_tpu_torch.ops.gru.pad_width`) or
+    raises."""
     name = "window_block_spmm_ondemand"
     N, D = h.shape
     T2 = msg_w.shape[0]
@@ -1020,7 +1089,7 @@ def window_block_spmm_ondemand(h, msg_w, msg_b, c_stream, tile_start,
         return window_block_spmm_ondemand_reference(
             h, msg_w, msg_b, c_stream, tile_start, block_of_tile,
             win_of_tile, c_off, n_blocks, window, out_rows)
-    if D != kernel_width(D) and D <= MAX_WIDTH:
+    if D != kernel_width(D):
         return narrow_width(window_block_spmm_ondemand(
             pad_width(h, D), pad_width(msg_w, D, rows=True),
             pad_width(msg_b, D), c_stream, tile_start, block_of_tile,
@@ -1083,9 +1152,9 @@ def window_step_gru(table, c_stream, tile_start, block_of_tile, win_of_tile,
     4D] = (a | z | r | h̃) in the compute dtype, each rounded from the
     epilogue's f32 values.  A CPU tensor takes the plain version (any D);
     a CUDA tensor launches ``csrc/window_step.cu`` (``_res.cu``,
-    ``_ondemand_res.cu`` with ``emit_res``) at D = 128, at D = 256 its sums
-    in two 128-column panels and then the wide GRU cell kernel, at other D
-    ≤ 256 through :func:`~ggnn_tpu_torch.ops.gru.pad_width`, or raises."""
+    ``_ondemand_res.cu`` with ``emit_res``) at D = 128, at D = 128·P its
+    sums in P 128-column panels and then the wide GRU cell kernel, at other
+    D through :func:`~ggnn_tpu_torch.ops.gru.pad_width`, or raises."""
     name = "window_step_gru"
     q8 = scales is not None
     ondemand = msg_w is not None
@@ -1104,7 +1173,7 @@ def window_step_gru(table, c_stream, tile_start, block_of_tile, win_of_tile,
             wa, b3, uzr, uh, n_blocks, window, out_rows, packed, has_init,
             emit_res, scales, c_off, msg_w, msg_b)
     D = table.shape[-1]
-    if D != kernel_width(D) and D <= MAX_WIDTH:
+    if D != kernel_width(D):
         P = lambda x, **kw: pad_width(x, D, **kw)
         res = window_step_gru(
             P(table), c_stream, tile_start, block_of_tile, win_of_tile,
@@ -1224,9 +1293,8 @@ def window_bwd_fused(da_t, c_stream, tile_start, block_of_tile, win_of_tile,
     [T2, D, D] (cast to h's dtype), ``h`` [N, D] in the compute dtype,
     block-major rows.  A window with no real tile contributes exactly
     zero.  A CPU tensor takes the plain version; a CUDA tensor launches
-    ``csrc/window_bwd.cu`` (D = 128 or 256, in 128-column panels; other
-    D ≤ 256 through :func:`~ggnn_tpu_torch.ops.gru.pad_width`) or
-    raises."""
+    ``csrc/window_bwd.cu`` (D = 128·P, in 128-column panels; other D
+    through :func:`~ggnn_tpu_torch.ops.gru.pad_width`) or raises."""
     name = "window_bwd_fused"
     N, D = h.shape
     quant = da_scales is not None
@@ -1263,7 +1331,7 @@ def window_bwd_fused(da_t, c_stream, tile_start, block_of_tile, win_of_tile,
         return window_bwd_fused_reference(
             da_t, c_stream, tile_start, block_of_tile, win_of_tile, c_off,
             msg_w, h, n_wins, window, out_rows, t2, da_scales)
-    if D != kernel_width(D) and D <= MAX_WIDTH:
+    if D != kernel_width(D):
         P = lambda x, **kw: pad_width(x, D, **kw)
         dht, dwt = window_bwd_fused(
             P(da_t.t()).t().contiguous(), c_stream, tile_start,

@@ -1,7 +1,7 @@
 """The short first check of the window kernels on one NVIDIA GPU (H100),
 after one of them changes.
 
-    python3 scripts/torch_window_bringup.py [--headline] [--train]
+    python3 scripts/torch_window_bringup.py [--headline] [--train] [--wide]
 
 Builds the port's CUDA library and runs chip_smoke.py's window kernel
 checks on its fuzz layouts: #11 (int8 and int4 counts, 128-, 256- and
@@ -12,8 +12,9 @@ fuzz layouts, then the community headline's bench layouts, checked and
 timed.  ``--train`` runs the training path's checks instead: #14 and
 #13's emit_res on the grad fuzz layouts, the Y path, every kernel's
 widths and the D = 8 Predictors (with ``--headline``: the whole ``[window
-train]`` phase, the two train records included).  The checks, tolerances,
-bounds and timings are chip_smoke.py's own.
+train]`` phase, the two train records included; ``--wide`` also times
+the wide kernels at D = 384 and 512 there, beside 256).  The checks,
+tolerances, bounds and timings are chip_smoke.py's own.
 """
 
 import argparse
@@ -34,6 +35,8 @@ def main() -> int:
                     help="also check and time the community headline")
     ap.add_argument("--train", action="store_true",
                     help="the training path's kernels (#13 emit_res, #14)")
+    ap.add_argument("--wide", action="store_true",
+                    help="with --train --headline: also time D = 384, 512")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_window_bringup: no CUDA device", file=sys.stderr)
@@ -41,7 +44,9 @@ def main() -> int:
     card, params = chip_smoke.setup()
     log, timings = {}, {}
     if args.train and args.headline:
-        chip_smoke.window_train_phase(params, log, timings)
+        chip_smoke.window_train_phase(
+            params, log, timings,
+            chip_smoke.TIMED_WIDTHS + ((384, 512) if args.wide else ()))
     elif args.train:
         chip_smoke.window_grad_fuzz(params, log)
         chip_smoke.check_kernel_widths(log)

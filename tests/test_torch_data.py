@@ -33,11 +33,16 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(d, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    scripts = os.path.join(REPO, "scripts")
+    for f in sorted(os.listdir(scripts)):
+        if f.startswith("torch_") and f.endswith(".py"):
+            yield os.path.join(scripts, f)
 
 
 def test_port_never_imports_the_jax_package():
-    """No module of the port and nothing in chip_smoke.py imports
-    ``ggnn_tpu`` or ``jax`` (every import statement, at any depth)."""
+    """No module of the port, nothing in chip_smoke.py and no
+    ``scripts/torch_*.py`` imports ``ggnn_tpu`` or ``jax`` (every import
+    statement, at any depth)."""
     found = []
     for path in _port_sources():
         tree = ast.parse(open(path).read(), path)
