@@ -39,7 +39,9 @@
    and ``onehot_segment_scatter`` (#9) against their plain versions, each
    twice (bit-equal), per element, on fuzz layouts (empty blocks, the
    all-padding tail of ``pad_tiles_to``, tile_e 128 and 2048, D = 4 and
-   128, f32 and bf16) and on ``layout_for_batch`` of the headline (64,548
+   128, f32 and bf16; #10 also at the seams of its persistent schedule:
+   one source block and 150, T2 = 1, 3 and 16, D = 4 to 384) and on
+   ``layout_for_batch`` of the headline (64,548
    forward tiles, 95,268 grad tiles; timed), with
    ``window_block_spmm_mono`` (#11) on its grad half, and #11 at D = 4, 6,
    8, 16, 128 and 200 on a hub layout.  ``[legacy serve]``: one
@@ -119,8 +121,11 @@
    versions, per element and twice bit-equal, on fuzz layouts (tile_e 8,
    32, 128; empty types; a type ending on a tile boundary; holes and
    all-padding tail tiles; a hub; f32 and bf16; #16 at D = 4 to 384, #17
-   at G = 5, 64, 128 with E not a multiple of 128), then at the headline's
-   packed layout (bench.py --backend pallas: 62,516 tiles of 128), timed.
+   at G = 5, 64, 128 with E not a multiple of 128; #16 also at the seams
+   of its persistent schedule: an unsorted tile_type, type runs inside one
+   CTA's range and across two, a single tile, one type, all-padding tiles
+   between real ones), then at the headline's packed layout (bench.py
+   --backend pallas: 62,516 tiles of 128), timed.
    ``[pallas serve]``: three requests through ``Predictor(backend=
    'pallas')``, ungated and gated, then the headline batch through
    ``run_batch`` (launch counts, device ms, peak memory, each step against
@@ -1880,10 +1885,46 @@ def check_window_widths(log, dims=(4, 6, 8, 16, 128, 200)):
                           table, ref, dtype))
 
 
+def table_seam_fuzz(log, dims=(4, 6, 8, 13, 128, 200, 256, 384)):
+    """[legacy kernels] #10 at the seams of its persistent schedule: one
+    source block (N = 128) and 150 blocks (a CTA's range of (block, type)
+    items then begins and ends inside a block's types), T2 = 1, 3 and 16,
+    at ``dims`` in bf16 and f32 (6 and 13: the element-wise copies of
+    widths that are not whole 16-byte vectors), against its plain version
+    per element (:func:`table_bound`) and twice bit-equal."""
+    import torch
+    from ggnn_tpu_torch.ops import table as TB
+    dev = torch.device("cuda")
+    for N in (128, 128 * 150):
+        for T2 in (1, 3, 16):
+            for D in dims:
+                for dtype in (torch.bfloat16, torch.float32):
+                    tag = (f"seams N={N},T2={T2},D={D},"
+                           f"{str(dtype).split('.')[-1]}")
+                    gen = torch.Generator(device=dev).manual_seed(D + T2)
+                    h = (torch.rand(N, D, device=dev, generator=gen) * 2
+                         - 1).to(dtype)
+                    w = (torch.randn(T2, D, D, device=dev, generator=gen)
+                         * D ** -0.5).to(dtype)
+                    b = (torch.randn(T2, D, device=dev, generator=gen)
+                         * 0.1).to(dtype)
+                    tab = TB.node_table_block_major(h, w, b)
+                    same_twice("node_table_block_major", tag, tab,
+                               TB.node_table_block_major(h, w, b))
+                    ref = TB.node_table_block_major_reference(h, w, b)
+                    check(f"node_table_block_major[{tag}]", tab, ref,
+                          "bound", dtype, log,
+                          bound=table_bound(h, w, b, ref, dtype))
+                    del tab, ref
+    print("[legacy kernels] #10 seams: N = 128 and 19,200, T2 = 1, 3, 16, "
+          f"D = {dims}, bf16 and f32: ok", flush=True)
+
+
 def legacy_fuzz(log):
     """[legacy kernels] on small layouts: empty blocks (the upper half of
     the dst rows has no edge), the all-padding tail of pad_tiles_to,
-    tile_e 128 and 2048, D = 4 and 128, f32 and bf16."""
+    tile_e 128 and 2048, D = 4 and 128, f32 and bf16; then #10 at the
+    seams of its schedule (:func:`table_seam_fuzz`)."""
     from ggnn_tpu_torch.ops import legacy as L
     r = np.random.default_rng(13)
     N, E, T2 = 1024, 6000, 6
@@ -1896,6 +1937,7 @@ def legacy_fuzz(log):
             pad_tiles_to=L.static_tile_budget(E, N, tile_e) + 3)
         check_legacy_kernels(f"fuzz tile_e={tile_e}", lay.to("cuda"), N, log,
                              dims=(4, DIM), T2=T2)
+    table_seam_fuzz(log)
 
 
 def legacy_phase(params, b, log, timings):
@@ -3191,6 +3233,103 @@ def check_packed_messages(tag, h, lay, w, b, log):
                              "holds a nonzero message")
 
 
+def cta_ranges(n_items, n_ctas):
+    """The contiguous item ranges of the persistent kernels #10 and #16
+    (``mma_pipe.cuh``): CTA x takes items [n·x/G, n·(x+1)/G)."""
+    return [(n_items * x // n_ctas, n_items * (x + 1) // n_ctas)
+            for x in range(n_ctas)]
+
+
+def run_seams(tile_type, cpt, n_ctas):
+    """How the runs of equal ``tile_type`` fall on the CTAs' ranges of
+    128-row chunks (``cpt`` chunks a tile): (runs inside one range, runs
+    across two or more)."""
+    first = [a for a, _ in cta_ranges(len(tile_type) * cpt, n_ctas)]
+    cta = np.searchsorted(first, np.arange(len(tile_type)) * cpt,
+                          side="right") - 1
+    last = np.searchsorted(first, np.arange(len(tile_type)) * cpt + cpt - 1,
+                           side="right") - 1
+    starts = np.concatenate([[0], np.nonzero(np.diff(tile_type))[0] + 1])
+    ends = np.concatenate([starts[1:], [len(tile_type)]]) - 1
+    across = int((last[ends] != cta[starts]).sum())
+    return len(starts) - across, across
+
+
+def packed_seam_layouts(r, n_ctas, N=2000):
+    """Packed layouts at the seams of #16's persistent schedule, built by
+    hand (tile_type in any order): an unsorted tile_type; type runs of 1,
+    2, 3, 7 and 13 tiles on 6 chunks a CTA, so runs begin and end inside
+    one CTA's range and across two (tile_e 128, and 256: two chunks a
+    tile); a single tile; one type only; every third tile all padding
+    between real ones.  Each has holes (masked slots).  Returns tag ->
+    (layout dict, T2)."""
+    def runs(n_tiles, T2):
+        out, k = [], 0
+        while len(out) < n_tiles:
+            out += [k % T2] * (1, 2, 3, 7, 13)[k % 5]
+            k += 1
+        return np.array(out[:n_tiles])
+
+    cases = {
+        "unsorted": (128, r.integers(0, 6, 700), 6, False),
+        "runs tile_e128": (128, runs(6 * n_ctas, 5), 5, False),
+        "runs tile_e256": (256, runs(3 * n_ctas, 5), 5, False),
+        "single tile": (128, np.array([2]), 3, False),
+        "one type": (128, np.full(400, 1), 4, False),
+        "padding between": (128, np.sort(r.integers(0, 6, 500)), 6, True),
+    }
+    out = {}
+    for tag, (tile_e, tt, T2, pad_between) in cases.items():
+        P = len(tt) * tile_e
+        src = r.integers(0, N, P)
+        mask = (r.random(P) >= 0.1).astype(np.float32)
+        if pad_between:
+            pad = np.repeat(np.arange(len(tt)) % 3 == 1, tile_e)
+            src[pad], mask[pad] = 0, 0.0
+        out[tag] = ({"src": src.astype(np.int32), "mask": mask,
+                     "tile_type": tt.astype(np.int32), "tile_e": tile_e,
+                     "n_tiles": len(tt)}, T2)
+    return out
+
+
+def packed_seam_fuzz(log, dims=(4, 6, 8, 13, 128, 200, 256, 384)):
+    """[pallas kernels] #16 at the seams of its persistent schedule
+    (:func:`packed_seam_layouts`, 128-column panels on the card's SMs), at
+    ``dims`` in bf16 and f32 (6 and 13: the element-wise copies and stores
+    of widths that are not whole 16-byte vectors), with
+    check_packed_messages' criteria."""
+    import torch
+    dev = torch.device("cuda")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    N = 2000
+    for tag, (lay, T2) in packed_seam_layouts(np.random.default_rng(23),
+                                              n_sm, N).items():
+        inside, across = run_seams(lay["tile_type"],
+                                   -(-lay["tile_e"] // 128), n_sm)
+        print(f"[pallas kernels] seams {tag}: {lay['n_tiles']} tiles of "
+              f"{lay['tile_e']}, T2 {T2}; at D <= 128 on {n_sm} CTAs "
+              f"{inside} type runs inside one CTA's range, {across} across "
+              f"two or more", flush=True)
+        if tag.startswith("runs") and not (inside and across):
+            raise AssertionError(f"seams {tag}: no run inside one CTA's "
+                                 "range or none across two")
+        lay = {k: (torch.as_tensor(v, device=dev)
+                   if isinstance(v, np.ndarray) else v)
+               for k, v in lay.items()}
+        for D in dims:
+            for dtype in (torch.bfloat16, torch.float32):
+                gen = torch.Generator(device=dev).manual_seed(D)
+                h = (torch.rand(N, D, device=dev, generator=gen) * 2
+                     - 1).to(dtype)
+                w = (torch.randn(T2, D, D, device=dev, generator=gen)
+                     * D ** -0.5).to(dtype)
+                bb = (torch.randn(T2, D, device=dev, generator=gen)
+                      * 0.1).to(dtype)
+                dn = str(dtype).split(".")[-1]
+                check_packed_messages(f"seams {tag},D={D},{dn}", h, lay, w,
+                                      bb, log)
+
+
 def check_sddmm(tag, p, q, log, **kw):
     """#17 against its plain version per element: 2e-5 of Σ|p||q| (f32
     sums in another order), mean ≤ 0.1 of it; twice, bit-equal."""
@@ -3212,7 +3351,8 @@ def pallas_kernels_phase(b, log, timings):
     layouts (tile_e 8, 32 and 128; empty types; a type segment ending on a
     tile boundary; holes and all-padding tail tiles; a hub; f32 and bf16;
     #16 at D = 4, 8, 128, 200, 256 and 384; #17 at G = 5, 64 and 128 with E not
-    a multiple of 128, with and without index arrays and mask), then both
+    a multiple of 128, with and without index arrays and mask), #16 at the
+    seams of its persistent schedule (:func:`packed_seam_fuzz`), then both
     at the uniform headline's packed layout (bench.py --backend pallas:
     62,516 tiles of 128), timed against their plain versions and one
     PyTorch call each."""
@@ -3254,6 +3394,7 @@ def pallas_kernels_phase(b, log, timings):
                 dn = str(dtype).split(".")[-1]
                 check_packed_messages(f"{tag},D={D},{dn}", h, lay, w, bb,
                                       log)
+    packed_seam_fuzz(log)
     E = 10_000 + 37                 # not a multiple of 128
     for G in (5, 64, 128):
         gen = torch.Generator(device=dev).manual_seed(G)

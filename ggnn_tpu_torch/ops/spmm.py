@@ -10,7 +10,9 @@ Counterpart of ``ggnn_tpu/ops/spmm_pallas.py``:
   the port of ``_messages_kernel``): per tile of type t,
   (h[src]·W_t + b_t)·mask, f32 products of the compute dtype's values and
   f32 output.  The kernel gathers h's rows by ``src`` itself, where the
-  reference gathers them with an XLA op before its kernel;
+  reference gathers them with an XLA op before its kernel; in bf16 it is
+  persistent, keeping W_t in shared memory across a run of one tile type
+  while the next chunk's rows are gathered;
 - :func:`sddmm_pallas` wraps kernel #17 (``csrc/sddmm.cu``, the port of
   ``_sddmm_kernel``): per edge ⟨p[src_e], q[dst_e]⟩, with optional index
   arrays (none: row e) and an optional mask;

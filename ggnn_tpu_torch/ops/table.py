@@ -11,7 +11,9 @@ gathers its messages from this table; the window backend
   block-major order, row (i·T2 + t)·128 + s = h[i·128 + s]·W_t + b_t, f32
   sums rounded once to h's dtype.  The reference falls back to XLA for
   weight banks over 6 MB (a VMEM limit of the TPU); the kernel takes every
-  size, any width D in [1, 256].
+  size and any width D.  In bf16 it is persistent: a CTA keeps a source
+  block's rows in shared memory while W_t streams through a ring, type
+  after type.
 - :func:`node_table` is ``_node_table``: the block-major kernel for
   ``'block'``, and the ``'type'`` (row t·N + v) and ``'src'`` (row v·T2 + t)
   orders as plain einsums, as the reference computes them outside Pallas.
