@@ -84,7 +84,10 @@
    ``node_table_block_major_q8`` against their plain versions, each twice
    (bit-equal), on fuzz layouts (W 128/256/512 with block_rows
    128/256/512, a block without a real tile, ``pad_tiles_to`` padding,
-   dummy-first blocks; f32 and bf16) and on the community headline's two
+   dummy-first blocks; f32 and bf16), #13 at the seams of its bf16 kernel
+   (``window_step_seam_fuzz``: clusters of 1, 2, 4 CTAs, 1, 2, 4 chunks a
+   window, a block of more than 256 real tiles, blocks without one, D =
+   4, 8, 128, emit_res and q8) and on the community headline's two
    bench layouts (262,144 nodes, 8M directed edges, W 512, block_rows 512,
    the XW spill: on-demand, and the q8 record's table), timed.  ``[window
    serve]``: one request through the window ``Predictor`` (its own
@@ -100,7 +103,10 @@
    built ``with_grad`` (dummy-first and empty windows, a hub window, W and
    block_rows 128 to 512, on-demand, f32 and bf16) and the Y path where
    the fused backward does not apply (odd T2, 'src' rows at W 192 and
-   512, int4 transposed counts: #11 on ``ct_stream``); then bench.py's
+   512, int4 transposed counts: #11 on ``ct_stream``), #14 at the seams of
+   its bf16 kernel (``window_bwd_seam_fuzz``: S = 1, 2, 4, a block count
+   that is not a multiple of the group, per-block int8 scales, D = 128,
+   256, 384); then bench.py's
    window_community_train and window_community_train_q8g (the community
    headline, its layout built ``with_grad``, on-demand, the XW spill): #14
    and #13 ``emit_res`` timed, the unfused aggregation's VJP against the
@@ -290,13 +296,15 @@ KERNELS = {
                                "ggnn_tpu/ops/window_pallas.py:1499"),
     "window_block_spmm_ondemand": ("ggnn_tpu_torch/ops/csrc/window_ondemand.cu",
                                    "ggnn_tpu/ops/window_pallas.py:1017"),
-    "window_step_gru": ("ggnn_tpu_torch/ops/csrc/window_step.cu",
-                        "ggnn_tpu/ops/window_pallas.py:1666"),
+    "window_step_gru": (
+        "ggnn_tpu_torch/ops/csrc/window_step_fused_ondemand.cu",
+        "ggnn_tpu/ops/window_pallas.py:1666"),
     "node_table_block_major_q8": ("ggnn_tpu_torch/ops/csrc/node_table_q8.cu",
                                   "ggnn_tpu/ops/window_pallas.py:1555"),
-    "window_step_gru[emit_res]": ("ggnn_tpu_torch/ops/csrc/window_step_res.cu",
-                                  "ggnn_tpu/ops/window_pallas.py:1666"),
-    "window_bwd_fused": ("ggnn_tpu_torch/ops/csrc/window_bwd.cu",
+    "window_step_gru[emit_res]": (
+        "ggnn_tpu_torch/ops/csrc/window_step_fused_ondemand_res.cu",
+        "ggnn_tpu/ops/window_pallas.py:1666"),
+    "window_bwd_fused": ("ggnn_tpu_torch/ops/csrc/window_bwd_fused.cu",
                          "ggnn_tpu/ops/window_pallas.py:1204"),
     "packed_messages": ("ggnn_tpu_torch/ops/csrc/packed_messages.cu",
                         "ggnn_tpu/ops/spmm_pallas.py:82"),
@@ -2539,6 +2547,207 @@ def window_fuzz(params, log):
                                 dtypes=(None, torch.float32))
 
 
+def rand_step_weights(D, dtype, gen, T2=2 * EDGE_TYPES):
+    """Random message and GRU weights at width D (the seam fuzz's models
+    have no width of their own)."""
+    import torch
+    dev = torch.device("cuda")
+
+    def rnd(*shape, scale=D ** -0.5):
+        return torch.randn(*shape, device=dev, generator=gen) * scale
+
+    return (rnd(T2, D, D).to(dtype), rnd(T2, D, scale=0.1).to(dtype),
+            dict(wa=rnd(D, 3 * D).to(dtype), b3=rnd(1, 3 * D, scale=0.1),
+                 uzr=rnd(D, 2 * D).to(dtype), uh=rnd(D, D).to(dtype)))
+
+
+def step_seam_layouts():
+    """(tag, layout) at the seams of #13's bf16 kernel
+    (csrc/window_step_fused.cuh): W 128, 256, 512 (1, 2, 4 chunks a
+    window) with 128-, 256- and 512-row blocks (on-demand: clusters of 1,
+    2, 4 CTAs), table and on-demand; dst block 0 with more than 256 real
+    tiles (edges from every source block and type: the tile list is
+    scanned 256 entries at a time), two blocks without any edge (init
+    only), the last source block's windows addressed."""
+    from ggnn_tpu_torch.ops import window as W
+    r = np.random.default_rng(24)
+    N, T2, E = 10_240, 2 * EDGE_TYPES, 60_000
+    for W_, rows in ((128, 128), (256, 256), (512, 512), (128, 512),
+                     (512, 128)):
+        hub = r.random(E) < 0.3
+        dst = np.where(hub, r.integers(0, rows, E), r.integers(0, N, E))
+        src = np.where(hub, r.integers(0, N, E),
+                       (dst // 512) * 512 + r.integers(0, 512, E)) % N
+        src[:64] = N - 1 - r.integers(0, 128, 64)
+        for blk in (2, N // rows - 1):
+            sel = dst // rows == blk
+            dst[sel] = rows + dst[sel] % rows
+        typ = r.integers(0, T2, E)
+        for on_demand in (False, True):
+            kw = dict(window=W_, block_rows=rows, n_message_types=T2,
+                      row_major="block", min_edges_per_tile=2)
+            if on_demand:
+                kw.update(on_demand=True, typed_spill=True)
+            lay = W.build_window_layout(src, dst, typ,
+                                        np.ones(E, np.float32), N, **kw)
+            a = lay.arrays
+            real = a["win_of_tile"] >= 0
+            first = int(real[a["tile_start"][0]:a["tile_start"][1]].sum())
+            per = np.bincount(a["block_of_tile"][real],
+                              minlength=lay.n_blocks)
+            if first <= 256 or (per == 0).sum() < 2:
+                raise AssertionError(f"step seams W{W_} rows{rows}: block 0 "
+                                     f"has {first} real tiles, "
+                                     f"{(per == 0).sum()} blocks none")
+            yield (f"W{W_} rows{rows} {'on-demand' if on_demand else 'table'}"
+                   f" (block 0: {first} real tiles)"), lay
+
+
+def check_step_case(tag, lay, src, D, dtype, emit_res, gen, log):
+    """#13 on one layout, source, width and dtype against its plain version
+    (h' and a per row within 8 ulps of max(1, max|a_row|), z, r, h̃ within
+    8 ulps), twice bit-equal; with emit_res the residuals' h' is the
+    serving kernel's, and a block without a real tile has a = init
+    exactly."""
+    import torch
+    from ggnn_tpu_torch.ops import table as TB
+    from ggnn_tpu_torch.ops import window as W
+    dev = torch.device("cuda")
+    a = lay.arrays
+    nb, rows, W_ = lay.n_blocks, lay.block_rows, lay.window
+    n_rows = nb * rows
+    T2 = 2 * EDGE_TYPES
+    w, b, gw = rand_step_weights(D, dtype, gen, T2)
+    h = torch.rand(n_rows, D, device=dev, generator=gen) * 2 - 1
+    hc = h[:lay.n_nodes_pad].to(dtype)
+    init = torch.randn(n_rows, D, device=dev, generator=gen) * 0.3
+    if src == "on-demand":
+        tab, kw = hc, dict(msg_w=w, msg_b=b)
+    elif src == "table":
+        tab, kw = TB.node_table(hc, w, b, "block"), {}
+    else:
+        tab, sc = TB.node_table_block_major_q8(hc, w, b, W_)
+        kw = dict(scales=sc[:, 0])
+    sk = dict(n_blocks=nb, window=W_, out_rows=rows, packed=False,
+              c_off=a["c_off"], **kw)
+    stream = (a["c_stream"], a["tile_start"], a["block_of_tile"],
+              a["win_of_tile"])
+    args = (tab, *stream, init, h, gw["wa"], gw["b3"], gw["uzr"], gw["uh"])
+    dn = str(dtype).split(".")[-1]
+    name = (f"window_step_gru{'[emit_res]' if emit_res else ''}"
+            f"[seam {tag},{src},D={D},{dn}")
+    got = W.window_step_gru(*args, emit_res=emit_res, **sk)
+    again = W.window_step_gru(*args, emit_res=emit_res, **sk)
+    ref = W.window_step_gru_reference(*args, emit_res=emit_res, **sk)
+    a_ref = W.window_sums_reference(
+        tab, a["c_stream"], a["block_of_tile"], a["win_of_tile"], a["c_off"],
+        nb, W_, rows, False, init=init, **kw).float()
+    a_rows = a_ref.abs().amax(1).clamp_min(1.0)
+    if not emit_res:
+        same_twice("window_step_gru", name[len("window_step_gru["):], got,
+                   again)
+        check(f"{name}]", got, ref, "flip_rows", dtype, log, a_rows=a_rows)
+        return
+    for part, x, y in zip(("h", "resid"), got, again):
+        same_twice("window_step_gru[emit_res]", f"seam {tag},{part}", x, y)
+    if not torch.equal(W.window_step_gru(*args, **sk), got[0]):
+        raise AssertionError(f"{name}]: h' differs from the serving "
+                             f"kernel's")
+    (got, res), (ref, rres) = got, ref
+    check(f"{name},h]", got, ref, "flip_rows", dtype, log, a_rows=a_rows)
+    check(f"{name},a]", res[:, :D], rres[:, :D], "flip_rows", dtype, log,
+          a_rows=a_rows)
+    check(f"{name},zrh]", res[:, D:], rres[:, D:], "flip", dtype, log)
+    real = a["win_of_tile"] >= 0
+    per = torch.zeros(nb, device=dev).index_add_(
+        0, a["block_of_tile"].long(), real.float())
+    empty = (per == 0).repeat_interleave(rows)
+    if not torch.equal(res[empty, :D], init[empty].to(dtype)):
+        raise AssertionError(f"{name}]: a block without a real tile has a "
+                             f"!= init")
+
+
+def window_step_seam_fuzz(log):
+    """[window kernels] #13 at the seams of its bf16 kernel
+    (:func:`step_seam_layouts`), D = 4, 8 (zero-padded to the D = 128
+    kernel) and 128 in bf16, and D = 128 in f32 (the first version's body):
+    the table, q8 (D = 128, bf16) and on-demand sources, with and without
+    emit_res (not q8)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    for tag, lay in step_seam_layouts():
+        lay = lay.to("cuda")
+        print(f"[window kernels] step seams {tag}: {lay.n_blocks} blocks, "
+              f"{lay.n_tiles} tiles", flush=True)
+        for D in (4, 8, 128):
+            for dtype in ((torch.bfloat16, torch.float32) if D == DIM
+                          else (torch.bfloat16,)):
+                srcs = (("on-demand",) if lay.on_demand else
+                        ("table", "q8") if D == DIM and dtype ==
+                        torch.bfloat16 else ("table",))
+                for src in srcs:
+                    for emit_res in ((False,) if src == "q8"
+                                     else (False, True)):
+                        check_step_case(tag, lay, src, D, dtype, emit_res,
+                                        gen, log)
+        del lay
+        torch.cuda.empty_cache()
+
+
+def window_bwd_seam_fuzz(log):
+    """[window train] #14 at the seams of its bf16 kernel
+    (csrc/window_bwd_fused.cu): S = 1, 2, 4 slabs a window (W 128, 256,
+    512; 128-, 256- and 512-row blocks, and 256 under W 512), a number of
+    source blocks that is not a multiple of the card's group size, a
+    window addressed by every dst block (source block 0), windows without
+    a real tile (source block 3 sends nothing), ā whose int8 scales differ
+    by block (powers of 2 over 2**-6 .. 2**6); D = 128, 256 and 384 (the
+    wider ones on the first version's body) in bf16 and D = 128 in f32,
+    exact and int8 ā (check_window_bwd)."""
+    import torch
+    from ggnn_tpu_torch.ops import _build
+    from ggnn_tpu_torch.ops import window as W
+    r = np.random.default_rng(25)
+    T2 = 2 * EDGE_TYPES
+    for W_, rows in ((128, 128), (256, 256), (512, 512), (512, 256)):
+        slots = min(_build.library().ggnn_window_bwd_slots(q, W_ // 128)
+                    for q in (0, 1))
+        n_src = next(n for n in range(slots + 1, 8 * slots)
+                     if n % -(-n // slots) and n % (rows // 128) == 0)
+        group = -(-n_src // slots)
+        N = 128 * n_src
+        E = 16 * N
+        dst = r.integers(0, N - rows, E)
+        src = np.where(r.random(E) < 0.95,
+                       (dst // 256) * 256 + r.integers(0, 256, E),
+                       r.integers(0, N, E)) % N
+        hub = r.random(E) < 0.3
+        src[hub] = r.integers(0, 128, int(hub.sum()))
+        quiet = src // 128 == 3
+        src[quiet] = src[quiet] + 128
+        edges = (src, dst, r.integers(0, T2, E), np.ones(E, np.float32))
+        lay = W.build_window_layout(*edges, N, window=W_, block_rows=rows,
+                                    n_message_types=T2, row_major="block",
+                                    min_edges_per_tile=16, with_grad=True)
+        if not lay.grad_meta[4]:
+            raise AssertionError("bwd seams: not the fused path")
+        a = lay.arrays
+        per_win = np.diff(a["gt_tile_start"])
+        tag = (f"seam W{W_} rows{rows} n_src {n_src} (group {group} of "
+               f"{slots} clusters)")
+        print(f"[window train] bwd seams {tag}: largest window "
+              f"{per_win.max()} tiles, {(per_win <= 1).sum()} of "
+              f"{per_win.size} windows without a real tile", flush=True)
+        lay = lay.to("cuda")
+        for D in (DIM, 2 * DIM, 3 * DIM):
+            for dtype in ((torch.bfloat16, torch.float32) if D == DIM
+                          else (torch.bfloat16,)):
+                check_window_bwd(f"{tag},D={D}", lay, log, dtype, D=D,
+                                 spread=True)
+        del lay
+        torch.cuda.empty_cache()
+
+
 def window_kernels_phase(params, log, timings):
     """[window kernels]: the fuzz layouts, then the community headline's
     two bench layouts (bench.py:466-488: on-demand with the XW spill, and
@@ -2546,6 +2755,7 @@ def window_kernels_phase(params, log, timings):
     checked and timed."""
     import torch
     window_fuzz(params, log)
+    window_step_seam_fuzz(log)
     t0 = time.perf_counter()
     b = community_batch()
     print(f"[window kernels] community batch made (or reused) in "
@@ -2760,9 +2970,11 @@ def window_1m_phase(params, log):
 
 # --- [window train]: the window backend's training path (#13 emit_res, #14) --
 
-def bwd_inputs(lay, dtype, seed, D=DIM):
+def bwd_inputs(lay, dtype, seed, D=DIM, spread=False):
     """The fused backward's inputs at a with_grad layout's shapes: the
-    transposed cotangent āᵀ (and its int8 form with scales), h and W."""
+    transposed cotangent āᵀ (and its int8 form with scales), h and W;
+    ``spread``: each dst block's ā scaled by its own power of 2 in
+    [2**-6, 2**6], so the int8 form's scales differ by block."""
     import torch
     from ggnn_tpu_torch.ops import window as W
     dev = torch.device("cuda")
@@ -2771,6 +2983,10 @@ def bwd_inputs(lay, dtype, seed, D=DIM):
     n_wins = lay.grad_meta[0]
     T2 = n_wins * lay.window // lay.n_nodes_pad
     da = torch.randn(n_rows, D, device=dev, generator=gen)
+    if spread:
+        k = torch.randint(-6, 7, (lay.n_blocks,), device=dev, generator=gen)
+        da = da * torch.exp2(k.float()).repeat_interleave(lay.block_rows)[
+            :, None]
     q, sc = W.quantize_grad_pow2(da, lay.block_rows)
     h = (torch.rand(lay.n_nodes_pad, D, device=dev, generator=gen) * 2
          - 1).to(dtype)
@@ -2807,7 +3023,8 @@ def window_bwd_bound(lay, kw, da_t, sc, gt, w, h):
          (4 * slabs * 128 * D * D, BF16_FLOPS)])
 
 
-def check_window_bwd(tag, lay, log, dtype, timings=None, D=DIM):
+def check_window_bwd(tag, lay, log, dtype, timings=None, D=DIM,
+                     spread=False):
     """#14 against its plain version on a layout whose backward takes the
     fused path, exact and with int8 ā, per element: 2e-5 of the plain
     version on |ā|, |W|, |h| (f32 sums in another order), plus in bf16 one
@@ -2817,7 +3034,7 @@ def check_window_bwd(tag, lay, log, dtype, timings=None, D=DIM):
     version, with its bound."""
     import torch
     from ggnn_tpu_torch.ops import window as W
-    forms, gt, w, h, kw = bwd_inputs(lay, dtype, 41, D)
+    forms, gt, w, h, kw = bwd_inputs(lay, dtype, 41, D, spread)
     dn = str(dtype).split(".")[-1]
     flip = BF16_ULP if dtype == torch.bfloat16 else 0.0
     for form, (da_t, sc) in forms.items():
@@ -3138,6 +3355,7 @@ def window_train_phase(params, log, timings, timed_widths=TIMED_WIDTHS):
     which :func:`time_wide_kernels` times the wide kernels."""
     import torch
     window_grad_fuzz(params, log)
+    window_bwd_seam_fuzz(log)
     t0 = time.perf_counter()
     b = community_batch()
     print(f"[window train] community batch made (or reused) in "

@@ -70,10 +70,11 @@ _SIGNATURES = {
                          _P, _I, _I, _P, _P, _P],
     # src, dtype, fused, packed, width, table, n_table, counts, n_c,
     # tile_start, win_of_tile, c_off, n_blocks, out_rows, window, scales,
-    # wbank, bbank, T2, init, hstate, wa, b3, uzr, uh, out, res, stream
+    # wbank, bbank, T2, init, hstate, wa, b3, uzr, uh, out, res, scratch,
+    # stream
     "ggnn_window_step": [_I, _I, _I, _I, _I, _P, ctypes.c_longlong, _P,
                          ctypes.c_longlong, _P, _P, _P, _I, _I, _I, _P, _P,
-                         _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+                         _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     # dtype, h, msg_w, msg_b, n_blocks, T2, gtypes, P, out, scales, stream
     "ggnn_node_table_q8": [_I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     # dtype, msgs, n_msgs, D, onehot / dst_local, n_tiles, tile_start,
@@ -87,10 +88,12 @@ _SIGNATURES = {
                          _P, _P],
     # dtype, quant, da_t, scales, n_cols, counts, n_c, gt_start, gt_win,
     # gt_c_off, n_dst_blocks, BR, W, T2, n_src_blocks, group, D, msg_w, h,
-    # dht, ws, dwt, stream
+    # dht, ws, dwt, walk, goff, stream
     "ggnn_window_bwd": [_I, _I, _P, _P, ctypes.c_longlong, _P,
                         ctypes.c_longlong, _P, _P, _P, _I, _I, _I, _I, _I,
-                        _I, _I, _P, _P, _P, _P, _P, _P],
+                        _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    # quant, S (the clusters of the bf16 fused backward that fit at once)
+    "ggnn_window_bwd_slots": [_I, _I],
     # dtype, h, msg_w, msg_b, n_blocks, D, T2, out, stream
     "ggnn_node_table": [_I, _P, _P, _P, _I, _I, _I, _P, _P],
     # dtype, h, n_h, D, src, mask, tile_type, n_tiles, tile_e, msg_w, msg_b,

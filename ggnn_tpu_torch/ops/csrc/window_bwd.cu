@@ -23,39 +23,42 @@
 //
 // Design.  The TPU kernel walks every backward tile in one sequential grid,
 // keeping one source block's windows and a 1 MB dWᵀ accumulator in VMEM.
-// Here one CTA (8 warps, 16 rows each) takes a group of consecutive source
-// blocks and one 128-column panel dp of dh (grid y: P = D / 128 panels,
-// D any multiple of 128), and walks, for each block b, its T2 slabs in type order and
-// each slab's 128-column panels fp in order: the slab panel Y_t,b[:, fp]
-// accumulates in registers (rows = the block's 128 source rows, in the
-// mma.sync fragment layout of common.cuh) over the window's real tiles in
-// list order and over BR in K-chunks of 128 (the chunk of Cᵀ and of ā's
-// columns fp staged in shared memory); it is rounded to T into shared
-// memory twice (Y and Yᵀ), then dh_b[:, dp] += Y[:, fp]·W_t[dp, fp]ᵀ stays
-// in registers across the slabs and panels (the K-split over f), and the
-// group's dWᵀ_t[fp, dp] partial [128, 128] f32 in the workspace gains
-// Y[:, fp]ᵀ·h_b[:, dp] (each element read and written by one thread of one
-// CTA only).  A second kernel sums the groups' partials in group order.
-// Every sum runs in one fixed order: the same bits on every run, no
-// atomics.  At D = 128·P each of the P dp panels computes all P Y panels
-// (the count products P times, P² in all) so that a thread holds one
-// 128-column dh panel and one slab panel, as at D = 128: 128 accumulator
-// registers.
+// - bf16 at D = 128 with W of 128, 256 or 512 (exact and int8 ā) runs
+//   window_bwd_fused.cu: every operand read as it lies (Yᵀ = āᵀ · C, the
+//   count tile's rows as the B operand), one staging of each āᵀ chunk for
+//   the S = W / 128 slabs of a window (a thread-block cluster of S CTAs
+//   sharing it through distributed shared memory), copies in flight
+//   during the products, and dWᵀ kept in registers across a group of
+//   source blocks (written once per group and type).
+// - f32, and bf16 at D = 128·P > 128, keep the first version (below): one
+//   CTA (8 warps, 16 rows each) takes a group of consecutive source blocks
+//   and one 128-column panel dp of dh (grid y: P = D / 128 panels), and
+//   walks, for each block b, its T2 slabs in type order and each slab's
+//   128-column panels fp in order: the slab panel Y_t,b[:, fp] accumulates
+//   in registers over the window's real tiles in list order and over BR in
+//   K-chunks of 128 (the chunk of Cᵀ transposed by scalar stores and ā's
+//   columns fp staged in shared memory, nothing in flight); it is rounded
+//   to T into shared memory twice (Y and Yᵀ), then dh_b[:, dp] +=
+//   Y[:, fp]·W_t[dp, fp]ᵀ stays in registers across the slabs and panels,
+//   and the group's dWᵀ_t[fp, dp] partial [128, 128] f32 in the zeroed
+//   workspace gains Y[:, fp]ᵀ·h_b[:, dp] (a read-modify-write per slab;
+//   each element read and written by one thread of one CTA only).  At
+//   D = 128·P each of the P dp panels computes all P Y panels (the count
+//   products P times, P² in all).
+// A second kernel sums the groups' dWᵀ partials in group order.  Every sum
+// runs in one fixed order: the same bits on every run, no atomics.
 //
 // Bound on this card: the bytes (the count stream's real tiles, āᵀ once, h,
-// the outputs; 2.15 GB of counts at the community headline) and, at
-// block_rows 512, the dense count products (0.55 TFLOP staged densely, as in
-// the forward kernels).  What this first version does not do: decode the
-// ~99.6 %-zero count tiles sparsely, TMA, wgmma; each slab re-reads its
-// window's āᵀ chunks (once per type of the window, from L2).
+// the outputs; 2.15 GB of counts at the community headline).
 #include "window_step.cuh"
 
 namespace ggnn {
 
 // NP: D / 128, the column panels, a template argument (1 or 2) so that the
 // D = 128 and 256 kernels keep their unrolled panel loops and address
-// arithmetic; NP = 0 takes the panel count from the grid (gridDim.y), for
-// every wider D.
+// arithmetic (at D = 256 NP = 2 gains about 1 % over NP = 0 on an H100);
+// NP = 0 takes the panel count from the grid (gridDim.y), for every wider
+// D.
 template <typename T, bool QUANT, int NP>
 __global__ void __launch_bounds__(kThreads) window_bwd_kernel(
     const void* __restrict__ dat, const float* __restrict__ scales,
@@ -197,6 +200,21 @@ __global__ void window_bwd_dw_sum(const float* __restrict__ ws, int n_groups,
   dwt[i] = s;
 }
 
+int launch_window_bwd_dw_sum(const void* ws, int n_groups, long long per,
+                              void* dwt, cudaStream_t stream) {
+  window_bwd_dw_sum<<<int((per + 255) / 256), 256, 0, stream>>>(
+      static_cast<const float*>(ws), n_groups, per, static_cast<float*>(dwt));
+  return int(cudaGetLastError());
+}
+
+// window_bwd_fused.cu
+int launch_window_bwd_fused(int quant, const void* dat, const void* scales,
+                            long long n_cols, const void* counts,
+                            const void* walk, const void* goff, int BR,
+                            int W, int T2, int n_src_blocks, int group,
+                            const void* msg_w, const void* h, void* dht,
+                            void* ws, cudaStream_t stream);
+
 template <typename T, bool QUANT, int NP>
 int launch_window_bwd(int P, const void* dat, const void* scales,
                       long long n_cols,
@@ -223,10 +241,8 @@ int launch_window_bwd(int P, const void* dat, const void* scales,
       static_cast<float*>(ws));
   err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
-  const long long per = (long long)T2 * P * kRows * P * kRows;
-  window_bwd_dw_sum<<<int((per + 255) / 256), 256, 0, stream>>>(
-      static_cast<const float*>(ws), n_groups, per, static_cast<float*>(dwt));
-  return int(cudaGetLastError());
+  return launch_window_bwd_dw_sum(
+      ws, n_groups, (long long)T2 * P * kRows * P * kRows, dwt, stream);
 }
 
 }  // namespace ggnn
@@ -237,7 +253,11 @@ int launch_window_bwd(int P, const void* dat, const void* scales,
 // int8 [n_c·BR, W]; gt_start [n_wins + 1], gt_win (the tile's dst block,
 // < 0 for a dummy) and gt_c_off [n_gt]; msg_w [T2, D, D]; h
 // [n_src_blocks·128, D]; dht f32 [D, n_src_blocks·128]; ws f32
-// [ceil(n_src_blocks / group), T2, D, D] zeroed; dwt f32 [T2, D, D] (dWᵀ).
+// [ceil(n_src_blocks / group), T2, D, D] (zeroed, but for the bf16 D = 128
+// form, which writes every element once); dwt f32 [T2, D, D] (dWᵀ); for
+// the bf16 D = 128 form (else null) its walk, int32 [n_real, 4] rows (dst
+// block, stream tile, window, 0), and each group's first row [n_groups + 1]
+// (ops/window.py::bwd_walk).
 // BR and W multiples of 128, T2·128 a multiple of W.  Returns the
 // cudaError_t of the launches.
 extern "C" int ggnn_window_bwd(int dtype, int quant, const void* dat,
@@ -247,7 +267,9 @@ extern "C" int ggnn_window_bwd(int dtype, int quant, const void* dat,
                                const void* gt_c_off, int n_dst_blocks, int BR,
                                int W, int T2, int n_src_blocks, int group,
                                int D, const void* msg_w, const void* h,
-                               void* dht, void* ws, void* dwt, void* stream) {
+                               void* dht, void* ws, void* dwt,
+                               const void* walk, const void* goff,
+                               void* stream) {
   if (n_src_blocks <= 0) return 0;
   if (BR <= 0 || BR % ggnn::kRows || W <= 0 || W % ggnn::kRows || T2 <= 0 ||
       (T2 * ggnn::kRows) % W || group <= 0 || (quant && !scales) ||
@@ -255,6 +277,16 @@ extern "C" int ggnn_window_bwd(int dtype, int quant, const void* dat,
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int P = D / ggnn::kD;
+  if (dtype == 1 && P == 1 && (W == 128 || W == 256 || W == 512)) {
+    if (!walk || !goff) return int(cudaErrorInvalidValue);
+    int err = ggnn::launch_window_bwd_fused(
+        quant, dat, scales, n_cols, counts, walk, goff, BR, W, T2,
+        n_src_blocks, group, msg_w, h, dht, ws, s);
+    if (err != 0) return err;
+    return ggnn::launch_window_bwd_dw_sum(
+        ws, (n_src_blocks + group - 1) / group, (long long)T2 * D * D, dwt,
+        s);
+  }
 #define GGNN_LAUNCH(T, Q, NP)                                                \
   return ggnn::launch_window_bwd<T, Q, NP>(                                  \
       P, dat, scales, n_cols, counts, n_c, gt_start, gt_win, gt_c_off,          \

@@ -32,27 +32,33 @@
 // Design.  The TPU kernel keeps a dst block of up to 512 rows and its f32
 // accumulator in VMEM, and walks the block's tiles with a DMA ring.  A 512-
 // row f32 accumulator alone (256 KB) exceeds a CTA's 227 KB of shared
-// memory, so here each dst block is cut into 128-row slices: one CTA per
-// (block, slice), 8 warps of 16 rows, the accumulator in registers in the
-// mma.sync fragment layout (common.cuh).  The slice walks its block's tiles
-// in order (so the sums run in one fixed order: the same bits on every
-// run), and each tile in K-chunks of 128 window rows: the chunk's [128, 128]
-// counts (converted to T, exact) and its [128, 128] window rows staged in
-// shared memory, then one warp_gemm.  The block's tile list is scanned 256
-// entries at a time for real tiles (__syncthreads_or), so a static budget's
-// padding tiles (hundreds of thousands on the last block of a serving
-// layout) cost a read of their win_of_tile and nothing else.
-//
-// Bound on this card: HBM bytes, the count stream.  At the community
-// headline (262,144 nodes, 16 message types, D = 128, W 512, block_rows 512,
-// on-demand) one step reads 2.15 GB of counts, the h blocks of 8,192 real
-// tiles (0.27 GB), and h, init and h' (0.40 GB).  What this first version
-// does not do: the count matrices are ~99.6 % zeros and are staged densely
-// (the dense product is 0.55 TFLOP); the table window is re-read (kTable,
-// kQ8) or rebuilt (kOnDemand: 4× the table transform's 0.137 TFLOP at
-// block_rows 512) by each of a block's slices; no TMA, no wgmma.  These are
-// Queue 2 items; the sums and their order would not change.
+// memory, so here each dst block is cut into 128-row slices, one CTA per
+// (block, slice), the accumulator in registers; each slice walks its
+// block's real tiles in list order (one fixed order: the same bits on every
+// run), and each tile in chunks of 128 window rows.
+// - The fused bf16 forms (#13 over a table, the q8 table or on-demand
+//   windows, with or without emit_res; int8 counts, W a multiple of 128)
+//   run window_step_fused.cuh: count chunks and table chunks in flight by
+//   cp.async during the product, both read by ldmatrix as they lie (the
+//   int8 counts converted to bf16 in the fragments, q8 products exact
+//   through mma.m16n8k32), each on-demand chunk built once per dst block
+//   by the block's slices as one thread-block cluster, the GRU epilogue's
+//   weights by cp.async and ldmatrix.trans.  Bound on this card: the count
+//   stream's bytes (2.15 GB at the community headline: 262,144 nodes,
+//   W 512, block_rows 512, 16 message types, D = 128).
+// - Every other instantiation of window_step.cuh (f32; the int4 counts; a
+//   W that is no multiple of 128; on-demand blocks of other than 128, 256
+//   or 512 rows; the sums without the epilogue: #12, #11's window forms,
+//   the backward's Y path, the sums of a wider D) keeps the first
+//   version's body: per chunk, the [128, 128] counts converted to T and
+//   the window rows staged in shared memory by scalar loops, then one
+//   warp_gemm, with nothing in flight; an on-demand chunk is rebuilt by
+//   each slice.  The block's tile list is scanned 256 entries at a time for
+//   real tiles (__syncthreads_or), so a static budget's padding tiles
+//   (hundreds of thousands on the last block of a serving layout) cost a
+//   read of their win_of_tile and nothing else.
 #include "window_step.cuh"
+#include "window_step_fused.cuh"
 
 GGNN_WINDOW_STEP_INSTANTIATE(ggnn::kTable, true, false)
 GGNN_WINDOW_STEP_INSTANTIATE(ggnn::kTable, false, false)
@@ -62,6 +68,11 @@ GGNN_WINDOW_STEP_EXTERN(ggnn::kOnDemand, true, false)
 GGNN_WINDOW_STEP_EXTERN(ggnn::kOnDemand, false, false)
 GGNN_WINDOW_STEP_EXTERN(ggnn::kTable, true, true)
 GGNN_WINDOW_STEP_EXTERN(ggnn::kOnDemand, true, true)
+GGNN_WINDOW_STEP_FUSED_EXTERN(ggnn::wstep::kTable, false)
+GGNN_WINDOW_STEP_FUSED_EXTERN(ggnn::wstep::kTable, true)
+GGNN_WINDOW_STEP_FUSED_EXTERN(ggnn::wstep::kQ8, false)
+GGNN_WINDOW_STEP_FUSED_EXTERN(ggnn::wstep::kOnDemand, false)
+GGNN_WINDOW_STEP_FUSED_EXTERN(ggnn::wstep::kOnDemand, true)
 
 // src: 0 = table, 1 = q8, 2 = on-demand; dtype (the table's, or for q8 the
 // GRU weights'; wbank's for on-demand): 0 = float32, 1 = bfloat16; fused: 1
@@ -74,7 +85,9 @@ GGNN_WINDOW_STEP_EXTERN(ggnn::kOnDemand, true, true)
 // f32 (on-demand); init (or null: zero) and hstate f32 [n_blocks·out_rows,
 // 128]; wa [128, 384], b3 [384] f32, uzr [128, 256], uh [128, 128]; out f32
 // [n_blocks·out_rows, 128]; res (or null: no residuals; fused table or
-// on-demand only) [n_blocks·out_rows, 512] in the dtype.  Without fused,
+// on-demand only) [n_blocks·out_rows, 512] in the dtype; scratch (the
+// bf16 fused on-demand form, else null) bf16 [n_blocks, 2·window, 128].
+// Without fused,
 // width = P·128 for wider states (every 128 above becomes the width: the
 // table, h source, wbank [T2, width, width], bbank, init and out).  Returns
 // the cudaError_t of the launch.
@@ -85,11 +98,35 @@ extern "C" int ggnn_window_step(
     int n_blocks, int out_rows, int window, const void* scales,
     const void* wbank, const void* bbank, int T2, const void* init,
     const void* hstate, const void* wa, const void* b3, const void* uzr,
-    const void* uh, void* out, void* res, void* stream) {
+    const void* uh, void* out, void* res, void* scratch, void* stream) {
   if (n_blocks <= 0) return 0;
   if (width <= 0 || width % ggnn::kD) return int(cudaErrorInvalidValue);
   const int P = width / ggnn::kD;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int slices = out_rows / ggnn::kRows;
+  if (fused && dtype == 1 && !packed && P == 1 && window > 0 &&
+      window % ggnn::kRows == 0 && out_rows > 0 &&
+      out_rows % ggnn::kRows == 0 &&
+      (src != ggnn::kOnDemand || slices == 1 || slices == 2 || slices == 4)) {
+    if (!hstate || !wa || !b3 || !uzr || !uh || (src == ggnn::kQ8 && res) ||
+        (src == ggnn::kQ8 && !scales) ||
+        (src == ggnn::kOnDemand &&
+         (T2 <= 0 || (T2 * ggnn::kRows) % window || !wbank || !bbank)))
+      return int(cudaErrorInvalidValue);
+#define GGNN_FUSED(SRC, RES)                                                 \
+  return ggnn::wstep::launch_window_step_fused<SRC, RES>(                    \
+      table, n_table, counts, n_c, tile_start, win_of_tile, c_off, n_blocks, \
+      out_rows, window, scales, wbank, bbank, T2, init, hstate, wa, b3, uzr, \
+      uh, out, res, scratch, s)
+    if (src == ggnn::kTable && res) GGNN_FUSED(ggnn::wstep::kTable, true);
+    if (src == ggnn::kTable) GGNN_FUSED(ggnn::wstep::kTable, false);
+    if (src == ggnn::kQ8) GGNN_FUSED(ggnn::wstep::kQ8, false);
+    if (src == ggnn::kOnDemand && res)
+      GGNN_FUSED(ggnn::wstep::kOnDemand, true);
+    if (src == ggnn::kOnDemand) GGNN_FUSED(ggnn::wstep::kOnDemand, false);
+#undef GGNN_FUSED
+    return int(cudaErrorInvalidValue);
+  }
 #define GGNN_LAUNCH(T, SRC, FUSED, RES)                                      \
   return ggnn::launch_window_step<T, SRC, FUSED, RES>(                       \
       P, table, n_table, counts, n_c, packed != 0, tile_start, win_of_tile,     \

@@ -45,6 +45,7 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
+import weakref
 
 import numpy as np
 import torch
@@ -1045,6 +1046,13 @@ def _launch_step(name, src_mode, fused, table, c_stream, tile_start,
     _mono_data_checks(name, n_table, c_stream, win_of_tile, window, window,
                       c_off, False, out_rows)
     out = torch.empty(n_rows, D, dtype=torch.float32, device=table.device)
+    scratch = None
+    if (fused and src_mode == _SRC_ONDEMAND and cdt == torch.bfloat16
+            and out_rows in (128, 256, 512)):
+        # the bf16 fused on-demand kernel's window scratch: two slots of
+        # ``window`` rows per dst block, each window built once there
+        scratch = torch.empty(n_blocks, 2 * window, D, dtype=cdt,
+                              device=table.device)
     p = _build.ptr
     _build.launch(
         _build.library().ggnn_window_step, name, table.device, src_mode,
@@ -1052,7 +1060,7 @@ def _launch_step(name, src_mode, fused, table, c_stream, tile_start,
         p(c_stream), c_stream.shape[0] // out_rows, p(tile_start),
         p(win_of_tile), p(c_off), n_blocks, out_rows, window, p(scales),
         p(wbank), p(bbank), 0 if wbank is None else wbank.shape[0], p(init),
-        p(hstate), p(wa), p(b3), p(uzr), p(uh), p(out), p(res))
+        p(hstate), p(wa), p(b3), p(uzr), p(uh), p(out), p(res), p(scratch))
     return out
 
 
@@ -1151,10 +1159,14 @@ def window_step_gru(table, c_stream, tile_start, block_of_tile, win_of_tile,
     on-demand sources) returns ``(h', resid)``, resid [n_blocks·out_rows,
     4D] = (a | z | r | h̃) in the compute dtype, each rounded from the
     epilogue's f32 values.  A CPU tensor takes the plain version (any D);
-    a CUDA tensor launches ``csrc/window_step.cu`` (``_res.cu``,
-    ``_ondemand_res.cu`` with ``emit_res``) at D = 128, at D = 128·P its
-    sums in P 128-column panels and then the wide GRU cell kernel, at other
-    D through :func:`~ggnn_tpu_torch.ops.gru.pad_width`, or raises."""
+    a CUDA tensor launches at D = 128 ``csrc/window_step_fused_*.cu`` (bf16,
+    int8 counts, W % 128 == 0; on-demand windows with 128-, 256- or
+    512-row blocks, a block's slices one cluster building each window once
+    into a scratch of two windows per block) or ``csrc/window_step.cu``
+    (``_res.cu``, ``_ondemand_res.cu`` with ``emit_res``: f32, int4
+    counts, other W), at D = 128·P its sums in P 128-column panels and then
+    the wide GRU cell kernel, at other D through
+    :func:`~ggnn_tpu_torch.ops.gru.pad_width`, or raises."""
     name = "window_step_gru"
     q8 = scales is not None
     ondemand = msg_w is not None
@@ -1245,6 +1257,48 @@ def quantize_grad_pow2(da_pad, block_rows: int):
     return q.to(torch.int8).reshape(R, D), torch.exp2(e)
 
 
+def bwd_walk(gt_start, gt_win, gt_c_off, n_gt: int, n_dst: int, n_c: int,
+             wpb: int, group: int, n_groups: int):
+    """#14's walk (``csrc/window_bwd_fused.cu``): the real backward tiles
+    (dst block in [0, n_dst), stream tile in [0, n_c)) in the order each
+    group of ``group`` source blocks takes them, window j of a block outer,
+    block inner, a window's tiles in list order, as int32 rows (dst block,
+    stream tile, window, 0) [n_gt, 4] (the other tiles after them); and
+    each group's first row, int32 [n_groups + 1].  Window w = b·wpb + j
+    holds source block b's j-th window (gt_start [n_wins + 1]); n_gt =
+    gt_start[-1], the tiles the windows hold."""
+    dev = gt_win.device
+    gt_win, gt_c_off = gt_win[:n_gt], gt_c_off[:n_gt]
+    w = torch.repeat_interleave(
+        torch.arange(gt_start.shape[0] - 1, device=dev),
+        (gt_start[1:] - gt_start[:-1]).long(), output_size=n_gt)
+    c = gt_c_off.long()
+    real = (gt_win >= 0) & (gt_win < n_dst) & (c >= 0) & (c < n_c)
+    b, j = w // wpb, w % wpb
+    g = b // group
+    tt = torch.arange(n_gt, device=dev)
+    # the real tiles first, in walk order (no host sync: rows past a
+    # group's count are never read)
+    key = torch.where(real, ((g * wpb + j) * group + b - g * group) * n_gt
+                      + tt, n_groups * wpb * group * n_gt + tt)
+    order = torch.argsort(key)
+    walk = torch.stack([gt_win.long(), c, w, torch.zeros_like(w)],
+                       dim=1)[order].to(torch.int32)
+    goff = torch.zeros(n_groups + 1, dtype=torch.long, device=dev)
+    goff[1:] = torch.cumsum(torch.zeros(n_groups, dtype=torch.long,
+                                        device=dev).scatter_add_(
+        0, g, real.long()), 0)
+    return walk.contiguous(), goff.to(torch.int32)
+
+
+def bwd_groups(n_src: int, slots: int):
+    """#14's schedule: (group, n_groups), the source blocks of one CTA (or
+    cluster) and their count, ``n_src`` blocks over at most ``slots`` at
+    once (at least one)."""
+    group = -(-n_src // max(1, slots))
+    return group, -(-n_src // group)
+
+
 def window_bwd_fused_reference(da_t, c_stream, tile_start, block_of_tile,
                                win_of_tile, c_off, msg_w, h, n_wins: int,
                                window: int, out_rows: int, t2: int,
@@ -1276,6 +1330,24 @@ def window_bwd_fused_reference(da_t, c_stream, tile_start, block_of_tile,
     return dht, dwt
 
 
+# #14's walk tables (bwd_walk), kept per layout while its arrays live:
+# id(backward tile_start) -> (a weak reference to it, {key: table})
+_BWD_WALKS: dict = {}
+
+
+def cached_per_tensor(t, key, make):
+    """``make()``, computed once per (tensor ``t``, ``key``) while ``t``
+    lives (#14's walk table for a layout's backward arrays)."""
+    entry = _BWD_WALKS.get(id(t))
+    if entry is None or entry[0]() is not t:
+        entry = (weakref.ref(t, lambda _, i=id(t): _BWD_WALKS.pop(i, None)),
+                 {})
+        _BWD_WALKS[id(t)] = entry
+    if key not in entry[1]:
+        entry[1][key] = make()
+    return entry[1][key]
+
+
 def window_bwd_fused(da_t, c_stream, tile_start, block_of_tile, win_of_tile,
                      c_off, msg_w, h, n_wins: int, window: int, out_rows: int,
                      t2: int, da_scales=None):
@@ -1293,8 +1365,10 @@ def window_bwd_fused(da_t, c_stream, tile_start, block_of_tile, win_of_tile,
     [T2, D, D] (cast to h's dtype), ``h`` [N, D] in the compute dtype,
     block-major rows.  A window with no real tile contributes exactly
     zero.  A CPU tensor takes the plain version; a CUDA tensor launches
-    ``csrc/window_bwd.cu`` (D = 128·P, in 128-column panels; other D
-    through :func:`~ggnn_tpu_torch.ops.gru.pad_width`) or raises."""
+    ``csrc/window_bwd_fused.cu`` (bf16 at D = 128 and W of 128, 256 or 512:
+    a cluster of W / 128 CTAs per group of source blocks) or
+    ``csrc/window_bwd.cu`` (f32, D = 128·P in 128-column panels; other D
+    through :func:`~ggnn_tpu_torch.ops.gru.pad_width`), or raises."""
     name = "window_bwd_fused"
     N, D = h.shape
     quant = da_scales is not None
@@ -1354,6 +1428,7 @@ def window_bwd_fused(da_t, c_stream, tile_start, block_of_tile, win_of_tile,
         if t.dtype != torch.int32:
             raise ValueError(f"{name}: {arg} must be int32, got {t.dtype}")
     n_c = c_stream.shape[0] // window
+    t_end = 0
     if win_of_tile.shape[0]:
         real = win_of_tile >= 0
         zero = torch.zeros_like(win_of_tile)
@@ -1368,19 +1443,39 @@ def window_bwd_fused(da_t, c_stream, tile_start, block_of_tile, win_of_tile,
                              f"{c_max}] of {n_c}: layout and arguments "
                              f"disagree")
     n_src = N // 128
-    sms = torch.cuda.get_device_properties(h.device).multi_processor_count
-    group = -(-n_src // (2 * sms))
-    n_groups = -(-n_src // group)
     dev = h.device
+    if h.dtype == torch.bfloat16 and D == 128 and out_rows in (128, 256,
+                                                               512):
+        # csrc/window_bwd_fused.cu: clusters of W / 128 CTAs, about one CTA
+        # an SM, each group's dWᵀ partial written once
+        with torch.cuda.device(dev):
+            slots = _build.library().ggnn_window_bwd_slots(int(quant),
+                                                           out_rows // 128)
+        if slots < 1:
+            raise RuntimeError(f"{name}: no cluster of {out_rows // 128} "
+                               f"CTAs fits on this card")
+        group, n_groups = bwd_groups(n_src, slots)
+        ws = torch.empty(n_groups, t2, D, D, dtype=torch.float32, device=dev)
+        # the walk table, once per layout (its arrays) and group size
+        walk, goff = cached_per_tensor(
+            tile_start, (group, t_end, n_dst, n_c, t2, out_rows,
+                         win_of_tile.data_ptr(), c_off.data_ptr()),
+            lambda: bwd_walk(tile_start, win_of_tile, c_off, t_end, n_dst,
+                             n_c, t2 * 128 // out_rows, group, n_groups))
+    else:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        group, n_groups = bwd_groups(n_src, 2 * sms)
+        ws = torch.zeros(n_groups, t2, D, D, dtype=torch.float32, device=dev)
+        walk = goff = None
     dht = torch.empty(D, N, dtype=torch.float32, device=dev)
     dwt = torch.empty(t2, D, D, dtype=torch.float32, device=dev)
-    ws = torch.zeros(n_groups, t2, D, D, dtype=torch.float32, device=dev)
     p = _build.ptr
     _build.launch(
         _build.library().ggnn_window_bwd, name, dev, _DTYPE_CODE[h.dtype],
         int(quant), p(da_t), p(da_scales), da_t.shape[1], p(c_stream), n_c,
         p(tile_start), p(win_of_tile), p(c_off), n_dst, window, out_rows,
-        t2, n_src, group, D, p(msg_w), p(h), p(dht), p(ws), p(dwt))
+        t2, n_src, group, D, p(msg_w), p(h), p(dht), p(ws), p(dwt), p(walk),
+        p(goff))
     window_bwd_fused.launches += 1
     return dht, dwt
 
