@@ -67,7 +67,17 @@
    counts, the first step's loss against the plain path and the
    aggregation's VJP against its plain version (dh per row off the hub);
    then #8, #9 and #10 on the graph's ``layout_for_batch`` (its hub block
-   holds about 44K tiles).
+   holds about 44K tiles).  #6's bf16 kernel is held on the fuzz layouts
+   (tile_e 16 to 256) and the headline against its plain version and the
+   GRU cell of init plus #7's f64 plain sums, and at the headline again
+   with |a| ≤ 1 (8 ulps a row, the hub's split blocks included).
+   ``[scalefree window]``: the request of the same graph through
+   ``run_batch`` unfused on bench.py's scalefree_fwd_window layout (W 512,
+   block_rows 128, on-demand, the XW spill; dst block 0 holds about 3.5K
+   of its 9K real tiles), built by the request's layout function (#12, the
+   spill's #11 and the GRU cell per step), each step against the plain
+   step; then on that layout #12 against its plain version, twice
+   bit-equal, its work items printed, timed with its bound.
 8. ``[chunked 1M]``: the reference's large-graph configuration
    (1,048,576 nodes, 10M logical edges, the headline model) through
    ``build_chunked_dst_layouts(n_chunks=4, tile_e=2048)``: one forward
@@ -87,7 +97,10 @@
    dummy-first blocks; f32 and bf16), #13 at the seams of its bf16 kernel
    (``window_step_seam_fuzz``: clusters of 1, 2, 4 CTAs, 1, 2, 4 chunks a
    window, a block of more than 256 real tiles, blocks without one, D =
-   4, 8, 128, emit_res and q8) and on the community headline's two
+   4, 8, 128, emit_res and q8), #12 at the seams of its bf16 kernel
+   (``ondemand_seam_fuzz``: clusters of 1, 2, 4 CTAs, 1, 2, 4 chunks a
+   window, a hub block cut into many work items, a one-tile block, empty
+   blocks, D = 4 and 128) and on the community headline's two
    bench layouts (262,144 nodes, 8M directed edges, W 512, block_rows 512,
    the XW spill: on-demand, and the q8 record's table), timed.  ``[window
    serve]``: one request through the window ``Predictor`` (its own
@@ -243,12 +256,16 @@ SYMMETRIC_LEAVES, TOL_SYMMETRIC = ("head/b2",), 1e-6
 #   plain| / bound must stay ≤ 0.1 as well, so a systematic error fails;
 # - #6, the fused step, against its plain version: a hub row's |a| makes
 #   the ulp of its bf16 rounding large, so each row within 8 bf16 ulps
-#   times max(1, max|a_row|) ('flip_rows'); and, exactly, against the GRU
-#   cell kernel (#3) applied to #7's sums plus init: the same sums and the
-#   same epilogue code (common.cuh), so equal up to TOL_SAME, f32
-#   rounding, in every row, the hub's split blocks included; and on a fuzz
-#   layout whose blocks split into several work items with |a| ≤ 1, where
-#   'flip_rows' is 8 ulps at every row;
+#   times max(1, max|a_row|) ('flip_rows'); in bf16 (csrc/
+#   typed_tile_fused.cu, whose tensor cores add a tile's one-hot terms in
+#   another order than #7's segment sums) also against the GRU cell of
+#   init plus #7's plain version (f64 sums), 'flip_rows' again; in f32
+#   (typed_tile.cu, #7's body) exactly against the GRU cell kernel (#3)
+#   applied to #7's sums plus init: the same sums and the same epilogue
+#   code (common.cuh), so equal up to TOL_SAME, f32 rounding, in every
+#   row, the hub's split blocks included; and on a fuzz layout whose
+#   blocks split into several work items with |a| ≤ 1, where 'flip_rows'
+#   is 8 ulps at every row;
 # - the aggregation's VJP on the power-law graph: dh per row, over the
 #   rows of at most HUB_TERMS terms (the hub rows' whole-tensor error hides
 #   them): each row's relative error ≤ TOL_TRAIN and the rows' relative
@@ -284,7 +301,7 @@ KERNELS = {
                                  "ggnn_tpu/ops/scatter_pallas.py:2120"),
     "typed_onehot_scatter": ("ggnn_tpu_torch/ops/csrc/typed_tile.cu",
                              "ggnn_tpu/ops/scatter_pallas.py:1416"),
-    "typed_step_gru": ("ggnn_tpu_torch/ops/csrc/typed_tile.cu",
+    "typed_step_gru": ("ggnn_tpu_torch/ops/csrc/typed_tile_fused.cu",
                        "ggnn_tpu/ops/scatter_pallas.py:1562"),
     "window_block_spmm_mono": ("ggnn_tpu_torch/ops/csrc/window_mono.cu",
                                "ggnn_tpu/ops/window_pallas.py:787"),
@@ -294,8 +311,9 @@ KERNELS = {
                                "ggnn_tpu/ops/scatter_pallas.py:506"),
     "node_table_block_major": ("ggnn_tpu_torch/ops/csrc/node_table.cu",
                                "ggnn_tpu/ops/window_pallas.py:1499"),
-    "window_block_spmm_ondemand": ("ggnn_tpu_torch/ops/csrc/window_ondemand.cu",
-                                   "ggnn_tpu/ops/window_pallas.py:1017"),
+    "window_block_spmm_ondemand": (
+        "ggnn_tpu_torch/ops/csrc/window_ondemand_fused.cu",
+        "ggnn_tpu/ops/window_pallas.py:1017"),
     "window_step_gru": (
         "ggnn_tpu_torch/ops/csrc/window_step_fused_ondemand.cu",
         "ggnn_tpu/ops/window_pallas.py:1666"),
@@ -437,6 +455,16 @@ def window_bytes(win_of_tile, window, esize) -> int:
     import torch
     real = win_of_tile[win_of_tile >= 0]
     return torch.unique(real).numel() * window * DIM * esize
+
+
+def ondemand_h_bytes(win_of_tile, window, T2, esize=2) -> int:
+    """The bytes of the 128-row h blocks that a layout's real tiles'
+    on-demand windows are built from (window w from block w // wpb, wpb =
+    T2·128 / W), each block read once however many tiles address it."""
+    import torch
+    real = win_of_tile[win_of_tile >= 0]
+    wpb = T2 * 128 // window
+    return torch.unique(real // wpb).numel() * 128 * DIM * esize
 
 
 def roofline(n_bytes, ops):
@@ -739,13 +767,15 @@ def check_grad_kernels(tag, layout, log, timings=None):
         del Gp, got, ref, outs, refs, args
 
 
-def check_tile_kernels(tag, layout, params, log, timings=None, a_max=None):
+def check_tile_kernels(tag, layout, params, log, timings=None, a_max=None,
+                       dtypes=None):
     """The per-tile kernels against their plain versions at a per-tile
     layout's shapes (per element; the fused step per row, scaled by the
     row's |a|, and exactly against the GRU cell kernel of the plain
     kernel's sums), and each against a second run of itself (bit-equal:
     no atomics); blocks whose only tile is a dummy must come out exactly
-    0.  ``a_max``: inputs scaled so that |a| ≤ a_max."""
+    0.  ``a_max``: inputs scaled so that |a| ≤ a_max; ``dtypes``: by
+    default bf16 and f32."""
     import torch
     from ggnn_tpu_torch.ops import _build
     from ggnn_tpu_torch.ops import gru as G
@@ -765,7 +795,7 @@ def check_tile_kernels(tag, layout, params, log, timings=None, a_max=None):
         raise AssertionError(f"{tag}: no block splits into several items")
     kw = S.tile_args(layout)
     dummy = kw["block_of_tile"][kw["tile_msg_off"] < 0].long()
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes or (torch.bfloat16, torch.float32):
         x = kernel_inputs(layout, dtype, params, seed=1, a_max=a_max)
         dn = str(dtype).split(".")[-1]
         sa = dict(h_pack=x["h_pack"], msg_w=x["msg_w"], **kw)
@@ -790,11 +820,20 @@ def check_tile_kernels(tag, layout, params, log, timings=None, a_max=None):
         check(f"typed_step_gru[{tag},{dn}]", got,
               S.typed_step_gru_reference(**fa), "flip_rows", dtype, log,
               a_rows=a_rows)
-        cell = G.gru_cell_fwd(x["hstate"], sums + x["init"], x["wa"],
-                              x["b3"][0], x["uzr"], x["uh"], mdt=dtype)[0]
-        torch.cuda.synchronize()
-        check(f"typed_step_gru[{tag},{dn}] vs gru_cell_fwd(typed_onehot_"
-              f"scatter + init)", got, cell, "same", dtype, {})
+        if dtype == torch.float32:
+            cell = G.gru_cell_fwd(x["hstate"], sums + x["init"], x["wa"],
+                                  x["b3"][0], x["uzr"], x["uh"],
+                                  mdt=dtype)[0]
+            torch.cuda.synchronize()
+            check(f"typed_step_gru[{tag},{dn}] vs gru_cell_fwd(typed_"
+                  f"onehot_scatter + init)", got, cell, "same", dtype, {})
+        else:
+            cell = G.gru_cell_fwd_reference(x["hstate"], x["a"], x["wa"],
+                                            x["b3"][0], x["uzr"], x["uh"],
+                                            mdt=dtype)[0]
+            check(f"typed_step_gru[{tag},{dn}] vs the GRU cell of init + "
+                  f"typed_onehot_scatter_reference (f64 sums)", got, cell,
+                  "flip_rows", dtype, log, a_rows=a_rows)
         del sums, cell
         if timings is not None and dtype == torch.bfloat16:
             arrays = [kw[k] for k in ("dstl", "tile_start", "block_of_tile",
@@ -816,13 +855,16 @@ def check_tile_kernels(tag, layout, params, log, timings=None, a_max=None):
             hub_off = torch.where(kw["block_of_tile"] == big,
                                   kw["tile_msg_off"],
                                   torch.full_like(kw["tile_msg_off"], -1))
-            hub_ms = cuda_ms(lambda: S.typed_onehot_scatter(
-                **dict(sa, tile_msg_off=hub_off)), 10)
-            whole = timings["typed_onehot_scatter"]["ms"]
-            print(f"  hub block {big} alone ({int(sizes[big].item())} of "
-                  f"{int(ts[-1].item())} tiles): typed_onehot_scatter "
-                  f"{hub_ms:.3f} ms, {hub_ms / whole:.3f} of the whole "
-                  f"call's {whole:.3f} ms", flush=True)
+            for kname, fn, args in (
+                    ("typed_onehot_scatter", S.typed_onehot_scatter, sa),
+                    ("typed_step_gru", S.typed_step_gru, fa)):
+                hub_ms = cuda_ms(lambda: fn(**dict(args,
+                                                   tile_msg_off=hub_off)), 10)
+                whole = timings[kname]["ms"]
+                print(f"  hub block {big} alone ({int(sizes[big].item())} of "
+                      f"{int(ts[-1].item())} tiles): {kname} {hub_ms:.3f} "
+                      f"ms, {hub_ms / whole:.3f} of the whole call's "
+                      f"{whole:.3f} ms", flush=True)
         del x, got
 
 
@@ -1560,10 +1602,55 @@ def scalefree_phase(params, log, timings):
     size, where block mode and the octet grad layout decline: the per-tile
     kernels and the window kernel against their plain versions (fuzz
     layouts and the headline), timed; one request served fused and
-    unfused; 3 Adam steps trained fused and unfused.  Returns the launch
-    counts of the serving and training runs."""
+    unfused; 3 Adam steps trained fused and unfused; then [scalefree
+    window] (#12 on bench.py's scalefree_fwd_window layout and its unfused
+    request).  Returns the launch counts of the serving and training
+    runs."""
     import torch
-    from ggnn_tpu_torch.data.synthetic import synthetic_batch
+    scalefree_fuzz(params, log)
+    b, lay = scalefree_headline(params, log, timings)
+    from ggnn_tpu_torch.ops.legacy import layout_for_batch
+    check_legacy_kernels("scalefree legacy",
+                         layout_for_batch(b, with_grad=False, device="cuda"),
+                         NODES, log, params=params, report_f32=True)
+    torch.cuda.empty_cache()
+
+    graphs = [(seed, scalefree_graph(seed)) for seed in EARLIER_REQUESTS]
+    plain_cache = {}
+    launched = dict.fromkeys(KERNELS, 0)
+    torch.cuda.reset_peak_memory_stats()
+    for fuse, per_request in (
+            (True, {"typed_step_gru": STEPS}),
+            (False, {"typed_onehot_scatter": STEPS, "gru_cell_fwd": STEPS})):
+        for k, v in serve(params, fuse, graphs, plain_cache, per_request,
+                          tag="scalefree serve", stepwise=True).items():
+            launched[k] += v
+    print(f"[scalefree serve] peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    graph = dict(graphs)[0]
+    del graphs, plain_cache
+    torch.cuda.empty_cache()
+
+    fused = {"typed_onehot_scatter": STEPS, "window_block_spmm_mono": STEPS}
+    unfused = dict(fused, gru_cell_fwd=STEPS, gru_cell_bwd=STEPS)
+    trained = train_headline(b, lay, {
+        "fused": (dict(fuse_gru=True), fused),
+        "unfused": (dict(fuse_gru=False), unfused)},
+        tag="scalefree train", f32_check=False, stepwise=True)
+    for k, v in trained.items():
+        launched[k] += v
+    del lay, b
+    torch.cuda.empty_cache()
+    for k, v in scalefree_window_phase(params, log, graph).items():
+        launched[k] += v
+    return launched
+
+
+def scalefree_fuzz(params, log):
+    """[scalefree] on small layouts where block mode declines: uniform with
+    block mode off, span mode, a small chunk cap, empty blocks, tile_e 16
+    and 144 (#6's chunks of 128 rows cut short), a hub (twice: the second
+    with |a| ≤ 1); the per-tile kernels and #11 on the grad half."""
     from ggnn_tpu_torch.ops.scatter import build_typed_dst_layout
     r = np.random.default_rng(9)
     fuzz = {
@@ -1575,8 +1662,12 @@ def scalefree_phase(params, log, timings):
                             dict(block_mode=False, smem_tile_cap=5)),
         "empty_blocks_tiles": (1024, 3000, 4, 512, False,
                                dict(block_mode=False)),
+        "tile_e 16": (640, 9000, 6, 640, False,
+                      dict(block_mode=False, tile_e=16)),
         "hub": (4096, 60000, 4, 4096, True, dict(tile_e=128,
                                                  grad_tile_e=128)),
+        "hub, tile_e 144": (4096, 60000, 6, 4096, True,
+                            dict(tile_e=144, grad_tile_e=128)),
     }
     for tag, (n, e, t2, dst_hi, hub, kw) in fuzz.items():
         src, dst = r.integers(0, n, e), r.integers(0, dst_hi, e)
@@ -1592,12 +1683,21 @@ def scalefree_phase(params, log, timings):
                                  "engaged")
         lay = lay.to("cuda")
         check_tile_kernels(tag, lay, params, log)
-        if hub:     # the split blocks' fused epilogue at 8 ulps per row
+        if tag == "hub":  # the split blocks' fused epilogue at 8 ulps a row
             check_tile_kernels(f"{tag}, |a| <= 1", lay, params, log,
                                a_max=1.0)
         check_window_kernel(tag, lay, log)
     check_count_stream(log)
 
+
+def scalefree_headline(params, log, timings):
+    """The scale-free headline batch (Zipf 1.2, 262,144 nodes, 8M directed
+    edges) and its typed layout built with its grad half, on the card, with
+    the per-tile kernels and #11 checked and timed there.  Returns (batch,
+    layout)."""
+    import torch
+    from ggnn_tpu_torch.data.synthetic import synthetic_batch
+    from ggnn_tpu_torch.ops.scatter import build_typed_dst_layout
     t0 = time.perf_counter()
     b = synthetic_batch(NODES, EDGES, EDGE_TYPES, annotation_dim=ANN,
                         seed=0, node_mult=128, powerlaw_alpha=ZIPF)
@@ -1618,40 +1718,115 @@ def scalefree_phase(params, log, timings):
                              "engaged, or the layout is not chunked")
     lay = lay.to("cuda")
     check_tile_kernels("scalefree", lay, params, log, timings)
+    # #6's split blocks, the hub's 698 items included, at 8 ulps a row
+    check_tile_kernels("scalefree, |a| <= 1", lay, params, log, a_max=1.0,
+                       dtypes=(torch.bfloat16,))
     check_window_kernel("scalefree", lay, log, timings)
     torch.cuda.empty_cache()
-    from ggnn_tpu_torch.ops.legacy import layout_for_batch
-    check_legacy_kernels("scalefree legacy",
-                         layout_for_batch(b, with_grad=False, device="cuda"),
-                         NODES, log, params=params, report_f32=True)
-    torch.cuda.empty_cache()
+    return b, lay
 
-    graphs = [(seed, scalefree_graph(seed)) for seed in EARLIER_REQUESTS]
-    plain_cache = {}
-    launched = dict.fromkeys(KERNELS, 0)
-    torch.cuda.reset_peak_memory_stats()
-    for fuse, per_request in (
-            (True, {"typed_step_gru": STEPS}),
-            (False, {"typed_onehot_scatter": STEPS, "gru_cell_fwd": STEPS})):
-        for k, v in serve(params, fuse, graphs, plain_cache, per_request,
-                          tag="scalefree serve", stepwise=True).items():
-            launched[k] += v
-    print(f"[scalefree serve] peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    del graphs, plain_cache
-    torch.cuda.empty_cache()
 
-    fused = {"typed_onehot_scatter": STEPS, "window_block_spmm_mono": STEPS}
-    unfused = dict(fused, gru_cell_fwd=STEPS, gru_cell_bwd=STEPS)
-    trained = train_headline(b, lay, {
-        "fused": (dict(fuse_gru=True), fused),
-        "unfused": (dict(fuse_gru=False), unfused)},
-        tag="scalefree train", f32_check=False, stepwise=True)
-    for k, v in trained.items():
-        launched[k] += v
-    del lay, b
+def scalefree_window_phase(params, log, graph=None):
+    """[scalefree window]: a scale-free request (``graph``, by default
+    :func:`scalefree_graph` of seed 0) through run_batch unfused on
+    bench.py's scalefree_fwd_window layout (bench.py:192-244 with
+    --powerlaw 1.2 --on_demand: W 512, block_rows 128, on-demand windows,
+    the XW spill), which the request's layout_fn builds from its batch:
+    #12, the spill's #11 and the GRU cell per step, each step against the
+    plain step; then on that layout #12 against its plain version per
+    element and twice bit-equal, its work items, timed with its bound.
+    Returns the request's launch counts."""
+    import torch
+    from ggnn_tpu_torch.ops import window as W
+    t0 = time.perf_counter()
+    graph = scalefree_graph(0) if graph is None else graph
+    built = {}
+
+    def layout_fn(pred, batch):
+        built["lay"] = bench_window_layout(batch, 128, True, True).to("cuda")
+        return built["lay"]
+    launches = serve(
+        params, False, [(0, graph)], {},
+        dict(window_block_spmm_ondemand=STEPS, window_block_spmm_mono=STEPS,
+             gru_cell_fwd=STEPS), tag="scalefree window serve",
+        layout_fn=layout_fn, plain_fn=plain_run, label="on-demand, unfused",
+        stepwise=window_unfused_stepwise, cfg_kw=dict(backend="window"))
+    lay = built.pop("lay")
+    a = lay.arrays
+    nb, rows, W_ = lay.n_blocks, lay.block_rows, lay.window
+    n_c = a["c_stream"].shape[0] // rows
+    item_first, _, rt_start, _, split, n_items, n_part = W.ondemand_items(
+        a["tile_start"], a["win_of_tile"], a["c_off"], n_c, nb)
+    per = (rt_start[1:] - rt_start[:-1]).long()
+    big = int(per.argmax().item())
+    n_real = int(per.sum().item())
+    print(f"[scalefree window] request served and checked in "
+          f"{time.perf_counter() - t0:.2f} s; layout stats {lay.stats}; "
+          f"{nb} blocks, {n_real} real tiles, the largest block ({big}) "
+          f"{int(per[big].item())}, {int((per == 0).sum().item())} blocks "
+          f"without one; {n_items} work items of at most "
+          f"{W.ONDEMAND_SPLIT} tiles, {split.numel()} blocks split into "
+          f"{n_part} partials", flush=True)
+    w, bias, _ = window_weights(params, torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    h = (torch.rand(lay.n_nodes_pad, DIM, device="cuda", generator=gen)
+         * 2 - 1).to(torch.bfloat16)
+    stream = (a["c_stream"], a["tile_start"], a["block_of_tile"],
+              a["win_of_tile"])
+    args = (h, w, bias, *stream, a["c_off"], nb, W_, rows)
+    got = W.window_block_spmm_ondemand(*args)
+    same_twice("window_block_spmm_ondemand", "scalefree", got,
+               W.window_block_spmm_ondemand(*args))
+    lay_args = (a["c_stream"], a["block_of_tile"], a["win_of_tile"],
+                a["c_off"], nb, False)
+    check("window_block_spmm_ondemand[scalefree,bfloat16]", got,
+          W.window_block_spmm_ondemand_reference(*args), "bound",
+          torch.bfloat16, log, bound=window_sums_bound(
+              h, lay_args, W_, rows, msg_w=w, msg_b=bias, flip=True))
+    del got
+    nnz = int((a["c_stream"] != 0).sum().item())
+    local = {}
+    time_pairs({"window_block_spmm_ondemand": (
+        lambda: W.window_block_spmm_ondemand(*args),
+        lambda: W.window_block_spmm_ondemand_reference(*args), None,
+        roofline(n_real * rows * W_
+                 + ondemand_h_bytes(a["win_of_tile"], W_, w.shape[0])
+                 + nb * rows * DIM * 4 + nbytes(w, bias, a["win_of_tile"],
+                                                a["c_off"]),
+                 [(2 * nnz * DIM, BF16_FLOPS),
+                  (2 * n_real * W_ * DIM * DIM, BF16_FLOPS)]))}, local)
+    print(f"[scalefree window] #12 on the scale-free layout: "
+          f"{json.dumps(local)}", flush=True)
+    del args, h, lay
     torch.cuda.empty_cache()
-    return launched
+    return launches
+
+
+def window_unfused_stepwise(pred, batch, layout, tag, log):
+    """Each unfused window step of a served request (``aggregate_window``,
+    then the GRU cell) against the plain step from the same input state:
+    per row within 8 bf16 ulps of max(1, max|a_row|), mean within 1e-3 (a
+    power-law graph's hub rows make the steps' drift compound, see
+    :func:`serve`)."""
+    import torch
+    from ggnn_tpu_torch.models.ggnn import gru_update, init_state
+    from ggnn_tpu_torch.ops import window_step as WS
+    cfg, prop = pred.cfg, pred.params["prop"]
+    cdt = torch.bfloat16
+    gmm = cdt if cfg.gru_matmul_compute else None
+    w, b = prop["msg_w"].to(cdt), prop["msg_b"].to(cdt)
+    ann = torch.as_tensor(batch.annotations, device="cuda")
+    h = init_state(ann, cfg.state_dim)
+    with torch.inference_mode():
+        for t in range(cfg.n_steps):
+            a = WS.aggregate_window(h.to(cdt), layout, w, b)
+            got = gru_update(prop["gru"], h, a, matmul_dtype=gmm)
+            with plain_versions():
+                a_ref = WS.aggregate_window(h.to(cdt), layout, w, b)
+                ref = gru_update(prop["gru"], h, a_ref, matmul_dtype=gmm)
+            check(f"{tag} step {t}", got, ref, "flip_rows", cdt, log,
+                  a_rows=a_ref.abs().amax(1).clamp_min(1.0))
+            h = got
 
 
 def table_bound(h, w, b, ref, dtype):
@@ -2298,19 +2473,29 @@ def window_sums_bound(table, lay_args, window, out_rows, scales=None,
                       msg_w=None, msg_b=None, flip=False):
     """The per-element bound of a window sum against its plain version:
     2e-5 of Σ|count·row| (f32 sums in another order), plus with ``flip``
-    (on-demand windows: each window row is a bf16 rounding of an f32 sum
-    the kernel adds in another order, so it may land one ulp away) one
-    bf16 ulp of every term, 2**-7·Σ|count·row|."""
+    one bf16 ulp of every term, 2**-7·Σ|count·row|.  On-demand windows
+    (``msg_w``: table is the h source) are built by the kernel as bf16
+    roundings of f32 sums h·W_t + b_t taken in another order: their rows
+    in the 2e-5 term are the magnitudes |h|·|W_t| + |b_t| (a window value
+    that cancels to near 0 keeps the f32 rounding of its terms, several
+    bf16 ulps of itself), and ``flip`` adds the ulp of the rounded row."""
     from ggnn_tpu_torch.ops import table as TB
     from ggnn_tpu_torch.ops import window as W
     c_stream, block_of_tile, win_of_tile, c_off, n_blocks, packed = lay_args
-    if msg_w is not None:
-        table = TB.node_table_block_major_reference(
-            table, msg_w.to(table.dtype), msg_b)
-    s = W.window_sums_reference(table.abs(), c_stream, block_of_tile,
-                                win_of_tile, c_off, n_blocks, window,
-                                out_rows, packed, scales=scales).float()
-    return (2e-5 + (BF16_ULP if flip else 0.0)) * s
+
+    def sums(rows):
+        return W.window_sums_reference(rows, c_stream, block_of_tile,
+                                       win_of_tile, c_off, n_blocks, window,
+                                       out_rows, packed,
+                                       scales=scales).float()
+    ulp = BF16_ULP if flip else 0.0
+    if msg_w is None:
+        return (2e-5 + ulp) * sums(table.abs())
+    rows = TB.node_table_block_major_reference(table, msg_w.to(table.dtype),
+                                               msg_b)
+    mag = TB.node_table_block_major_reference(
+        table.abs(), msg_w.abs().to(table.dtype), msg_b.abs())
+    return 2e-5 * sums(mag) + ulp * sums(rows.abs())
 
 
 def check_window_layout(tag, lay, params, log, dtypes=(None,), timings=None,
@@ -2423,10 +2608,10 @@ def time_window_kernels(tag, lay, hc, w, b, gw, init, hp, sources, stream,
                         sk, n_real, timings):
     """#12, #13 and #15 at the headline in bf16, kernel and plain version
     in turns, with their bounds: the count stream's real tiles, the h
-    blocks or table windows they read, init, h and h' (#13), the table and
-    scales (#15); products of the nonzero counts, of the on-demand windows
-    (each real tile's once) and of the GRU, at the card's peak for their
-    type.  (No single PyTorch call builds windows, quantizes per window or
+    blocks or table windows they read (each once), init, h and h' (#13),
+    the table and scales (#15); products of the nonzero counts, of the
+    on-demand windows (each real tile's once) and of the GRU, at the
+    card's peak for their type.  (No single PyTorch call builds windows, quantizes per window or
     runs a GRU epilogue on a sparse product: library_ms is null.)"""
     import torch
     from ggnn_tpu_torch.ops import table as TB
@@ -2446,7 +2631,9 @@ def time_window_kernels(tag, lay, hc, w, b, gw, init, hp, sources, stream,
                 hc, w, b, *stream, a["c_off"], nb, W_, rows),
             lambda: W.window_block_spmm_ondemand_reference(
                 hc, w, b, *stream, a["c_off"], nb, W_, rows), None,
-            roofline(count_bytes + n_real * 128 * DIM * 2 + row_bytes
+            roofline(count_bytes
+                     + ondemand_h_bytes(a["win_of_tile"], W_, w.shape[0])
+                     + row_bytes
                      + nbytes(w, b, a["win_of_tile"], a["c_off"]),
                      [(2 * nnz * DIM, BF16_FLOPS), win_ops]))
     for src in ("ondemand", "q8"):
@@ -2456,7 +2643,8 @@ def time_window_kernels(tag, lay, hc, w, b, gw, init, hp, sources, stream,
         tab, kw, _ = sources[src]
         args = (tab, *stream, init, hp, gw["wa"], gw["b3"], gw["uzr"],
                 gw["uh"])
-        read = (n_real * 128 * DIM * 2 if src == "ondemand"
+        read = (ondemand_h_bytes(a["win_of_tile"], W_, w.shape[0])
+                if src == "ondemand"
                 else window_bytes(a["win_of_tile"], W_, 1))
         ops = [(2 * nnz * DIM, INT8_OPS if src == "q8" else BF16_FLOPS),
                (12 * n_rows * DIM * DIM, BF16_FLOPS)]
@@ -2694,6 +2882,87 @@ def window_step_seam_fuzz(log):
         torch.cuda.empty_cache()
 
 
+def ondemand_seam_layouts():
+    """(tag, layout) at the seams of #12's bf16 kernel
+    (csrc/window_ondemand_fused.cu): W 128, 256, 512 (1, 2, 4 chunks a
+    window) with 128-, 256- and 512-row blocks (clusters of 1, 2, 4 CTAs),
+    on-demand with the XW spill; dst block 0 a hub whose real tiles are
+    cut into many work items, block 1 the block of a single real tile, two
+    blocks without any edge, the last source block's windows addressed."""
+    from ggnn_tpu_torch.ops import window as W
+    r = np.random.default_rng(27)
+    N, T2, E = 10_240, 2 * EDGE_TYPES, 60_000
+    for W_, rows in ((128, 128), (256, 256), (512, 512), (128, 512),
+                     (512, 128), (256, 128)):
+        hub = r.random(E) < 0.3
+        dst = np.where(hub, r.integers(0, rows, E),
+                       r.integers(2 * rows, N, E))
+        src = np.where(hub, r.integers(0, N, E),
+                       (dst // 512) * 512 + r.integers(0, 512, E)) % N
+        src[:64] = N - 1 - r.integers(0, 128, 64)
+        typ = r.integers(0, T2, E)
+        one = np.arange(E - 8, E)    # block 1: 8 edges of one window
+        dst[one], src[one] = rows + one % rows, 5 * 128 + one % 128
+        typ[one] = 0
+        for blk in (3, N // rows - 1):
+            sel = dst // rows == blk
+            dst[sel] = 2 * rows + dst[sel] % rows
+        lay = W.build_window_layout(
+            src, dst, typ, np.ones(E, np.float32), N, window=W_,
+            block_rows=rows, n_message_types=T2, row_major="block",
+            min_edges_per_tile=2, on_demand=True, typed_spill=True)
+        a = lay.arrays
+        real = a["win_of_tile"] >= 0
+        per = np.bincount(a["block_of_tile"][real], minlength=lay.n_blocks)
+        if (per[0] <= 4 * W.ONDEMAND_SPLIT or per[1] != 1
+                or (per == 0).sum() < 2):
+            raise AssertionError(f"#12 seams W{W_} rows{rows}: blocks 0 and "
+                                 f"1 hold {per[0]} and {per[1]} real "
+                                 f"tiles, {(per == 0).sum()} blocks none")
+        yield (f"W{W_} rows{rows} (block 0: {per[0]} real tiles, "
+               f"{-(-per[0] // W.ONDEMAND_SPLIT)} items)"), lay
+
+
+def ondemand_seam_fuzz(log):
+    """[window kernels] #12 at the seams of its bf16 kernel
+    (:func:`ondemand_seam_layouts`), D = 4 (zero-padded to the D = 128
+    kernel) and 128, against its plain version per element, twice
+    bit-equal; a block without a real tile is exactly 0."""
+    import torch
+    from ggnn_tpu_torch.ops import window as W
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    for tag, lay in ondemand_seam_layouts():
+        lay = lay.to("cuda")
+        a = lay.arrays
+        nb, rows, W_ = lay.n_blocks, lay.block_rows, lay.window
+        print(f"[window kernels] #12 seams {tag}: {nb} blocks, "
+              f"{lay.n_tiles} tiles", flush=True)
+        stream = (a["c_stream"], a["tile_start"], a["block_of_tile"],
+                  a["win_of_tile"])
+        lay_args = (a["c_stream"], a["block_of_tile"], a["win_of_tile"],
+                    a["c_off"], nb, False)
+        real = a["win_of_tile"] >= 0
+        per = torch.zeros(nb, device="cuda").index_add_(
+            0, a["block_of_tile"].long(), real.float())
+        for D in (4, DIM):
+            w, b, _ = rand_step_weights(D, torch.bfloat16, gen)
+            h = (torch.rand(lay.n_nodes_pad, D, device="cuda",
+                            generator=gen) * 2 - 1).to(torch.bfloat16)
+            args = (h, w, b, *stream, a["c_off"], nb, W_, rows)
+            got = W.window_block_spmm_ondemand(*args)
+            same_twice("window_block_spmm_ondemand", f"seam {tag},D={D}",
+                       got, W.window_block_spmm_ondemand(*args))
+            check(f"window_block_spmm_ondemand[seam {tag},D={D}]", got,
+                  W.window_block_spmm_ondemand_reference(*args), "bound",
+                  torch.bfloat16, log, bound=window_sums_bound(
+                      h, lay_args, W_, rows, msg_w=w, msg_b=b, flip=True))
+            if (got.reshape(nb, rows, D)[per == 0] != 0).any():
+                raise AssertionError(f"#12 seams {tag}: a block without a "
+                                     "real tile is not 0")
+        del lay
+        torch.cuda.empty_cache()
+
+
 def window_bwd_seam_fuzz(log):
     """[window train] #14 at the seams of its bf16 kernel
     (csrc/window_bwd_fused.cu): S = 1, 2, 4 slabs a window (W 128, 256,
@@ -2756,6 +3025,7 @@ def window_kernels_phase(params, log, timings):
     import torch
     window_fuzz(params, log)
     window_step_seam_fuzz(log)
+    ondemand_seam_fuzz(log)
     t0 = time.perf_counter()
     b = community_batch()
     print(f"[window kernels] community batch made (or reused) in "
@@ -3123,8 +3393,8 @@ def check_emit_res(tag, lay, params, log, dtype, timings=None):
     real = a["win_of_tile"] >= 0
     n_real = int(real.sum().item())
     nnz = int((a["c_stream"] != 0).sum().item())
-    read = (n_real * 128 * DIM * 2 if lay.on_demand
-            else window_bytes(a["win_of_tile"], W_, 2))
+    read = (ondemand_h_bytes(a["win_of_tile"], W_, w.shape[0])
+            if lay.on_demand else window_bytes(a["win_of_tile"], W_, 2))
     ops = [(2 * nnz * DIM, BF16_FLOPS), (12 * n_rows * DIM * DIM, BF16_FLOPS)]
     if lay.on_demand:
         ops.append((2 * n_real * W_ * DIM * DIM, BF16_FLOPS))

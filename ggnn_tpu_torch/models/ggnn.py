@@ -243,11 +243,14 @@ class TypedFusedStep(torch.autograd.Function):
 
 
 def propagate(prop: dict, cfg: ModelConfig, annotations, edge_src, edge_dst,
-              edge_type, edge_mask, collect_states: bool = False,
+              edge_type, edge_mask, h0=None, collect_states: bool = False,
               type_offsets=None, scatter_layout=None,
               tiles_layout: dict | None = None):
-    """Run T propagation steps; returns the final h [N, D] f32 (and, with
-    ``collect_states``, the per-step states stacked to [T, N, D]).
+    """Run T propagation steps from ``h0`` [N, D] f32 (None: the padded
+    annotations, :func:`init_state`); returns the final h [N, D] f32 (and,
+    with ``collect_states``, the per-step states stacked to [T, N, D]).
+    Every backend's step returns h's gradient, so one that ``h0`` asks
+    for reaches it (under ``cfg.remat`` too).
 
     ``scatter_layout`` for ``backend='onehot'``, as the reference takes it:
 
@@ -279,7 +282,7 @@ def propagate(prop: dict, cfg: ModelConfig, annotations, edge_src, edge_dst,
     ``cfg.remat`` recomputes each step in the backward
     (``torch.utils.checkpoint``) instead of keeping its residuals, except
     with ``collect_states``, as the reference does."""
-    h = init_state(annotations, cfg.state_dim)
+    h = init_state(annotations, cfg.state_dim) if h0 is None else h0
     fused = fuse_gru(prop["gru"])
     uh = prop["gru"]["uh"]
     cdt = torch_dtype(cfg.compute_dtype)

@@ -62,6 +62,21 @@ _SIGNATURES = {
                         _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _I,
                         _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "ggnn_tile_split": [],
+    # h_pack, n_pack, dstl, n_dstl, tile_start, tile_msg_off, c_off,
+    # tile_type, dstl_len, msg_w, T2, n_blocks, tile_e, align, item_first,
+    # pbase, n_items, split, n_split, init, hstate, wa, b3, uzr, uh, ws, out,
+    # stream
+    "ggnn_typed_step_fused": [_P, ctypes.c_longlong, _P, ctypes.c_longlong,
+                              _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
+                              _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _P],
+    # h, n_h, counts, n_c, tile_start, win_of_tile, c_off, n_blocks,
+    # out_rows, window, wbank, bbank, T2, item_first, rt, rt_start, pbase,
+    # n_items, split_k, split, n_split, ws, scratch, out, stream
+    "ggnn_window_ondemand_fused": [_P, ctypes.c_longlong, _P,
+                                   ctypes.c_longlong, _P, _P, _P, _I, _I, _I,
+                                   _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _I,
+                                   _P, _P, _P, _P],
     # table_dtype, out_dtype, dstl, packed, table, n_table, D, c_stream,
     # n_c, tile_start, win_of_tile, c_off, n_blocks, out_rows, window,
     # stride, item_first, pbase, n_items, n_partial, ws, out, stream

@@ -46,10 +46,13 @@
 //   weights by cp.async and ldmatrix.trans.  Bound on this card: the count
 //   stream's bytes (2.15 GB at the community headline: 262,144 nodes,
 //   W 512, block_rows 512, 16 message types, D = 128).
+// - #12 in bf16 at D = 128 (on-demand blocks of 128, 256 or 512 rows)
+//   runs the same pipeline's STORE form with a hub split
+//   (window_ondemand_fused.cu, its own entry point).
 // - Every other instantiation of window_step.cuh (f32; the int4 counts; a
 //   W that is no multiple of 128; on-demand blocks of other than 128, 256
-//   or 512 rows; the sums without the epilogue: #12, #11's window forms,
-//   the backward's Y path, the sums of a wider D) keeps the first
+//   or 512 rows; the sums without the epilogue: #12 in f32 or at a wider
+//   D, #11's window forms, the backward's Y path) keeps the first
 //   version's body: per chunk, the [128, 128] counts converted to T and
 //   the window rows staged in shared memory by scalar loops, then one
 //   warp_gemm, with nothing in flight; an on-demand chunk is rebuilt by
@@ -68,11 +71,11 @@ GGNN_WINDOW_STEP_EXTERN(ggnn::kOnDemand, true, false)
 GGNN_WINDOW_STEP_EXTERN(ggnn::kOnDemand, false, false)
 GGNN_WINDOW_STEP_EXTERN(ggnn::kTable, true, true)
 GGNN_WINDOW_STEP_EXTERN(ggnn::kOnDemand, true, true)
-GGNN_WINDOW_STEP_FUSED_EXTERN(ggnn::wstep::kTable, false)
-GGNN_WINDOW_STEP_FUSED_EXTERN(ggnn::wstep::kTable, true)
-GGNN_WINDOW_STEP_FUSED_EXTERN(ggnn::wstep::kQ8, false)
-GGNN_WINDOW_STEP_FUSED_EXTERN(ggnn::wstep::kOnDemand, false)
-GGNN_WINDOW_STEP_FUSED_EXTERN(ggnn::wstep::kOnDemand, true)
+GGNN_WINDOW_STEP_FUSED_EXTERN(ggnn::wstep::kTable, false, false)
+GGNN_WINDOW_STEP_FUSED_EXTERN(ggnn::wstep::kTable, true, false)
+GGNN_WINDOW_STEP_FUSED_EXTERN(ggnn::wstep::kQ8, false, false)
+GGNN_WINDOW_STEP_FUSED_EXTERN(ggnn::wstep::kOnDemand, false, false)
+GGNN_WINDOW_STEP_FUSED_EXTERN(ggnn::wstep::kOnDemand, true, false)
 
 // src: 0 = table, 1 = q8, 2 = on-demand; dtype (the table's, or for q8 the
 // GRU weights'; wbank's for on-demand): 0 = float32, 1 = bfloat16; fused: 1
@@ -114,10 +117,10 @@ extern "C" int ggnn_window_step(
          (T2 <= 0 || (T2 * ggnn::kRows) % window || !wbank || !bbank)))
       return int(cudaErrorInvalidValue);
 #define GGNN_FUSED(SRC, RES)                                                 \
-  return ggnn::wstep::launch_window_step_fused<SRC, RES>(                    \
+  return ggnn::wstep::launch_window_step_fused<SRC, RES, false>(             \
       table, n_table, counts, n_c, tile_start, win_of_tile, c_off, n_blocks, \
       out_rows, window, scales, wbank, bbank, T2, init, hstate, wa, b3, uzr, \
-      uh, out, res, scratch, s)
+      uh, out, res, scratch, ggnn::wstep::Items{}, s)
     if (src == ggnn::kTable && res) GGNN_FUSED(ggnn::wstep::kTable, true);
     if (src == ggnn::kTable) GGNN_FUSED(ggnn::wstep::kTable, false);
     if (src == ggnn::kQ8) GGNN_FUSED(ggnn::wstep::kQ8, false);

@@ -22,8 +22,8 @@
 //   memory (two slots, 2·W rows; it stays in L2), and one cluster barrier
 //   a tile publishes it: the chunks are then read like a table's.
 // The GRU epilogue stages a and h in bf16 (and h's f32 rows, for the
-// gates) and streams its six [128, 128] weight panels through two cp.async
-// stages, read by ldmatrix.trans.
+// gates) and runs gru_pipe.cuh's gru_tile, which #6 shares: the six [128,
+// 128] weight panels through two cp.async stages, read by ldmatrix.trans.
 //
 // Unchanged from the first version: each row sums its block's tiles in
 // list order, in f32, with no atomics (the same bits on every run); a
@@ -31,9 +31,20 @@
 // without a real tile gives the GRU of init; the rounding points (a, h,
 // r⊙h rounded to bf16 before the gate products; an on-demand chunk
 // rounded once; q8 products exact in int32, times the window's scale).
+//
+// STORE (on-demand only; #12, window_ondemand_fused.cu): the same
+// pipeline without the GRU epilogue, the sums stored in f32, and each dst
+// block's real tiles cut into work items of at most split_k tiles (the
+// host's plan: rt, the real tiles in list order, block b's at rt[rt_start
+// [b] .. rt_start[b + 1])), one CTA (cluster) per item with a window
+// scratch of its own, so that a hub block that holds most of a power-law
+// graph's tiles spreads over the card.  A block of one item writes its
+// rows; a block of more writes one f32 partial per item (slot pbase[b] +
+// k), summed in item order by window_ondemand_fused.cu's second kernel.
 #pragma once
 
 #include "common.cuh"
+#include "gru_pipe.cuh"
 #include "window_pipe.cuh"
 
 namespace ggnn {
@@ -44,6 +55,8 @@ namespace wstep {
 using wpipe::bf16;
 using wpipe::cluster_sync;
 using wpipe::cp16;
+using wpipe::gru_panel;
+using wpipe::gru_tile;
 using wpipe::kChunk8;
 using wpipe::kLd;
 using wpipe::kLd8;
@@ -94,7 +107,17 @@ __device__ __forceinline__ void build_piece(const bf16* H, const bf16* Wp,
       }
 }
 
-template <int SRC, bool RES>
+// The STORE form's work items (see above); all null for the fused forms.
+struct Items {
+  const int* item_first;  // [n_blocks + 1]: block b's items
+  const int* rt;          // the real tiles, in list order
+  const int* rt_start;    // [n_blocks + 1]: block b's entries of rt
+  const int* pbase;       // [n_blocks]: a split block's first partial slot
+  float* ws;              // the partials, [slots, out_rows, 128] f32
+  int n_blocks, split_k;
+};
+
+template <int SRC, bool RES, bool STORE>
 __global__ void __launch_bounds__(kThreads, 1) window_step_fused_kernel(
     const void* __restrict__ table, long long n_table,
     const int8_t* __restrict__ counts, long long n_c,
@@ -106,14 +129,19 @@ __global__ void __launch_bounds__(kThreads, 1) window_step_fused_kernel(
     const bf16* __restrict__ wa, const float* __restrict__ b3,
     const bf16* __restrict__ uzr, const bf16* __restrict__ uh,
     float* __restrict__ out, bf16* __restrict__ res,
-    bf16* __restrict__ scratch) {
+    bf16* __restrict__ scratch, Items items) {
+  static_assert(!STORE || (SRC == kOnDemand && !RES),
+                "STORE is the on-demand sums without the epilogue");
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ int rt_list[kThreads];   // the block's next real tiles
   __shared__ int rt_warp[kThreads / 32];
   constexpr bool kPair = SRC == kQ8;
   using TA = Tile<8, kPair>;
   const int slices = out_rows / 128;
-  const int b = blockIdx.x / slices, slice = blockIdx.x % slices;
+  // the work item (STORE) or the dst block of this CTA's cluster
+  const int wi = blockIdx.x / slices, slice = blockIdx.x % slices;
+  int b = wi;
+  if constexpr (STORE) b = item_block(items.item_first, items.n_blocks, wi);
   const int cs = SRC == kOnDemand ? slices : 1;  // CTAs of the cluster
   const int rank = SRC == kOnDemand ? slice : 0;
   const int pw = 128 / cs;                       // a piece's columns
@@ -138,10 +166,19 @@ __global__ void __launch_bounds__(kThreads, 1) window_step_fused_kernel(
   int iacc[2][8][4];
   if constexpr (SRC == kQ8) zero<8>(iacc);
 
+  // STORE: the item's real tiles from the plan
+  int it_pos = 0, it_end = 0, n_items = 1, k_item = 0;
+  if constexpr (STORE) {
+    k_item = wi - items.item_first[b];
+    n_items = items.item_first[b + 1] - items.item_first[b];
+    it_pos = items.rt_start[b] + k_item * items.split_k;
+    it_end = min(it_pos + items.split_k, items.rt_start[b + 1]);
+  }
   // the block's real tiles in list order, 256 entries scanned at a time
   const int t1 = tile_start[b + 1];
   int pos = 0, cnt = 0, scan = tile_start[b];
   auto next_tile = [&]() -> int {
+    if constexpr (STORE) return it_pos < it_end ? items.rt[it_pos++] : -1;
     while (pos == cnt && scan < t1) {
       const int tc = scan + threadIdx.x;
       bool real = false;
@@ -208,7 +245,7 @@ __global__ void __launch_bounds__(kThreads, 1) window_step_fused_kernel(
   // on-demand: the block's window scratch, two slots of W rows, and the
   // inputs of a tile's build (its h block; the CTA's piece of W_t for
   // chunk j, into W stage ws)
-  bf16* scr = SRC == kOnDemand ? scratch + size_t(b) * 2 * window * 128
+  bf16* scr = SRC == kOnDemand ? scratch + size_t(wi) * 2 * window * 128
                                : nullptr;
   auto fetch_h = [&](int t) {
     const long long hb = (long long)(win_of_tile[t] / wpb) * 128;
@@ -259,22 +296,12 @@ __global__ void __launch_bounds__(kThreads, 1) window_step_fused_kernel(
     }
   };
 
-  // the GRU epilogue's weight panel p ([128, 128] of wa, uzr or uh) into
-  // dst; its first two go to HB and WP as soon as those are free
-  auto fetch_panel = [&](int p, bf16* dst) {
-    const bf16* src = p == 5 ? uh : (p & 1) ? uzr : wa;
-    const int ld = p == 5 ? 128 : (p & 1) ? 256 : 384;
-    const int col = p == 5 ? 0 : (p >> 1) * 128;
-    for (int idx = threadIdx.x; idx < 128 * 16; idx += kThreads) {
-      const int k = idx >> 4, v = idx & 15;
-      cp16(dst + k * kLd + v * 8, src + size_t(k) * ld + col + v * 8, true);
-    }
-    pipe::cp_async_commit();
-  };
   bool panels = false;
+  // the GRU epilogue's first two weight panels, into HB and WP as soon as
+  // those are free
   auto fetch_panels = [&]() {
-    fetch_panel(0, HB);
-    fetch_panel(1, WP);
+    gru_panel(0, HB, wa, uzr, uh);
+    gru_panel(1, WP, wa, uzr, uh);
     panels = true;
   };
 
@@ -306,7 +333,7 @@ __global__ void __launch_bounds__(kThreads, 1) window_step_fused_kernel(
       if (nxt >= 0) {
         fetch_h(nxt);
         fetch_wpiece(nxt, 0, 0);
-      } else {
+      } else if constexpr (!STORE) {
         fetch_panels();  // HB and WP are free for good
       }
       pipe::cp_async_commit();
@@ -360,7 +387,25 @@ __global__ void __launch_bounds__(kThreads, 1) window_step_fused_kernel(
   pipe::cp_async_wait_all();
   __syncthreads();
 
-  // --- the GRU epilogue ----------------------------------------------------
+  if constexpr (STORE) {
+    // the sums, f32, into the output rows or the item's partial slot
+    float* dst = n_items == 1
+                     ? out + orow0 * 128
+                     : items.ws + (size_t(items.pbase[b] + k_item) * out_rows +
+                                   size_t(slice) * 128) * 128;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; e += 2)
+          *reinterpret_cast<float2*>(dst + TA::row(mi, e) * 128 +
+                                     TA::col(ni, e)) =
+              make_float2(acc[mi][ni][e], acc[mi][ni][e + 1]);
+    return;
+  }
+
+  // --- the GRU epilogue (gru_pipe.cuh) --------------------------------------
   // h's f32 rows (Hf, over the count ring and the first B stage) by
   // cp.async, then read from shared memory; a in B stage 1, h in bf16 in
   // the second half of WP, the weight stages HB and WP
@@ -369,11 +414,7 @@ __global__ void __launch_bounds__(kThreads, 1) window_step_fused_kernel(
   static_assert(128 * kLdH * 4 <= kBB + pipe::kChunk, "Hf fits");
   bf16* A_s = reinterpret_cast<bf16*>(bbuf(1));
   bf16* H_s = reinterpret_cast<bf16*>(smem + kWP + pipe::kChunk);
-  bf16* W_s[2] = {HB, WP};
-  if (!panels) {
-    fetch_panel(0, W_s[0]);
-    fetch_panel(1, W_s[1]);
-  }
+  if (!panels) fetch_panels();
   const float* hrow = hstate + orow0 * 128;
   for (int idx = threadIdx.x; idx < 128 * 32; idx += kThreads) {
     const int r = idx >> 5, v = idx & 31;
@@ -409,75 +450,10 @@ __global__ void __launch_bounds__(kThreads, 1) window_step_fused_kernel(
           *reinterpret_cast<const uint4*>(A_s + r * kLd + v * 8);
     }
   }
-  using TG = Tile<8>;
-  float z[2][8][4], g[2][8][4];
-  zero<8>(z);
-  zero<8>(g);
-  auto step = [&](float (&x)[2][8][4], const bf16* A, int stage, int next) {
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-    __syncthreads();
-    mma_bf16<8>(x, A, kLd, W_s[stage], kLd);
-    __syncthreads();
-    fetch_panel(next, W_s[stage]);
-  };
-  step(z, A_s, 0, 2);  // a·W_z
-  step(z, H_s, 1, 3);  // h·U_z
-  step(g, A_s, 0, 4);  // a·W_r
-  step(g, H_s, 1, 5);  // h·U_r
-  // gates; r⊙h replaces h in H_s (every warp is done with H_s)
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; e += 2) {
-        const int r = TG::row(mi, e), c = TG::col(ni, e);
-        const float2 hv = *reinterpret_cast<const float2*>(Hf + r * kLdH + c);
-        const float z0 = sigmoid_f(z[mi][ni][e] + b3[c]);
-        const float z1 = sigmoid_f(z[mi][ni][e + 1] + b3[c + 1]);
-        const float r0 = sigmoid_f(g[mi][ni][e] + b3[128 + c]);
-        const float r1 = sigmoid_f(g[mi][ni][e + 1] + b3[128 + c + 1]);
-        z[mi][ni][e] = z0;
-        z[mi][ni][e + 1] = z1;
-        *reinterpret_cast<__nv_bfloat162*>(H_s + r * kLd + c) =
-            __floats2bfloat162_rn(r0 * hv.x, r1 * hv.y);
-        if constexpr (RES) {
-          *reinterpret_cast<__nv_bfloat162*>(rrow + size_t(r) * kRes + 128 +
-                                             c) =
-              __floats2bfloat162_rn(z0, z1);
-          *reinterpret_cast<__nv_bfloat162*>(rrow + size_t(r) * kRes + 256 +
-                                             c) =
-              __floats2bfloat162_rn(r0, r1);
-        }
-      }
-  zero<8>(g);
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-  __syncthreads();  // W_h has landed; r⊙h is in H_s
-  mma_bf16<8>(g, A_s, kLd, W_s[0], kLd);
-  pipe::cp_async_wait_all();
-  __syncthreads();
-  mma_bf16<8>(g, H_s, kLd, W_s[1], kLd);
-  // h' replaces h in Hf (each element read and written by one thread) and
-  // h̃ goes to A_s (no warp reads a any more), then both leave as whole
-  // rows, 16 bytes a store
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; e += 2) {
-        const int r = TG::row(mi, e), c = TG::col(ni, e);
-        float2* hp = reinterpret_cast<float2*>(Hf + r * kLdH + c);
-        const float2 hv = *hp;
-        const float h0 = tanhf(g[mi][ni][e] + b3[256 + c]);
-        const float h1 = tanhf(g[mi][ni][e + 1] + b3[256 + c + 1]);
-        const float z0 = z[mi][ni][e], z1 = z[mi][ni][e + 1];
-        *hp = make_float2((1.0f - z0) * hv.x + z0 * h0,
-                          (1.0f - z1) * hv.y + z1 * h1);
-        if constexpr (RES)
-          *reinterpret_cast<__nv_bfloat162*>(A_s + r * kLd + c) =
-              __floats2bfloat162_rn(h0, h1);
-      }
+  // h' replaces h in Hf and h̃ goes to A_s; then both leave as whole rows,
+  // 16 bytes a store
+  gru_tile<RES>(A_s, H_s, HB, WP, Hf, kLdH, Hf, kLdH, rrow, wa, b3, uzr,
+                uh);
   __syncthreads();
   float* orow = out + orow0 * 128;
   for (int idx = threadIdx.x; idx < 128 * 32; idx += kThreads) {
@@ -494,27 +470,29 @@ __global__ void __launch_bounds__(kThreads, 1) window_step_fused_kernel(
   }
 }
 
-// The launch: one CTA per (dst block, 128-row slice); on-demand windows
-// with the slices of a block as one cluster (out_rows 128, 256 or 512).
-template <int SRC, bool RES>
+// The launch: one CTA per (dst block, 128-row slice), or with STORE per
+// (work item, slice); on-demand windows with the slices of a block as one
+// cluster (out_rows 128, 256 or 512).
+template <int SRC, bool RES, bool STORE>
 int launch_window_step_fused(
     const void* table, long long n_table, const void* counts, long long n_c,
     const void* tile_start, const void* win_of_tile, const void* c_off,
     int n_blocks, int out_rows, int window, const void* scales,
     const void* wbank, const void* bbank, int T2, const void* init,
     const void* hstate, const void* wa, const void* b3, const void* uzr,
-    const void* uh, void* out, void* res, void* scratch,
+    const void* uh, void* out, void* res, void* scratch, Items items,
     cudaStream_t stream) {
   const int slices = out_rows / 128;
   const int cs = SRC == kOnDemand ? slices : 1;
   if (out_rows <= 0 || out_rows % 128 || window <= 0 || window % 128 ||
       (cs != 1 && cs != 2 && cs != 4) || (SRC == kOnDemand && !scratch))
     return int(cudaErrorInvalidValue);
-  auto kern = window_step_fused_kernel<SRC, RES>;
+  auto kern = window_step_fused_kernel<SRC, RES, STORE>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(kSmem));
   if (err != cudaSuccess) return int(err);
   cudaLaunchConfig_t cfg = {};
+  // (with STORE, n_blocks counts the work items)
   cfg.gridDim = dim3(unsigned(n_blocks) * slices);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = kSmem;
@@ -536,7 +514,7 @@ int launch_window_step_fused(
       static_cast<const bf16*>(wa), static_cast<const float*>(b3),
       static_cast<const bf16*>(uzr), static_cast<const bf16*>(uh),
       static_cast<float*>(out), static_cast<bf16*>(res),
-      static_cast<bf16*>(scratch));
+      static_cast<bf16*>(scratch), items);
   if (err != cudaSuccess) return int(err);
   return int(cudaGetLastError());
 }
@@ -548,10 +526,11 @@ int launch_window_step_fused(
   const void*, long long, const void*, long long, const void*, const void*, \
       const void*, int, int, int, const void*, const void*, const void*,    \
       int, const void*, const void*, const void*, const void*, const void*, \
-      const void*, void*, void*, void*, cudaStream_t
-#define GGNN_WINDOW_STEP_FUSED_INSTANTIATE(SRC, RES) \
-  template int ggnn::wstep::launch_window_step_fused<SRC, RES>(  \
+      const void*, void*, void*, void*, ggnn::wstep::Items, cudaStream_t
+#define GGNN_WINDOW_STEP_FUSED_INSTANTIATE(SRC, RES, STORE)            \
+  template int ggnn::wstep::launch_window_step_fused<SRC, RES, STORE>( \
       GGNN_WINDOW_STEP_FUSED_SIG);
-#define GGNN_WINDOW_STEP_FUSED_EXTERN(SRC, RES)                     \
-  extern template int ggnn::wstep::launch_window_step_fused<SRC, RES>( \
+#define GGNN_WINDOW_STEP_FUSED_EXTERN(SRC, RES, STORE)                 \
+  extern template int                                                  \
+  ggnn::wstep::launch_window_step_fused<SRC, RES, STORE>(              \
       GGNN_WINDOW_STEP_FUSED_SIG);

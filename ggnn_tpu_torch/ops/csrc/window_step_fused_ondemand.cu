@@ -3,4 +3,4 @@
 // so that nvcc builds the window kernels in parallel.
 #include "window_step_fused.cuh"
 
-GGNN_WINDOW_STEP_FUSED_INSTANTIATE(ggnn::wstep::kOnDemand, false)
+GGNN_WINDOW_STEP_FUSED_INSTANTIATE(ggnn::wstep::kOnDemand, false, false)

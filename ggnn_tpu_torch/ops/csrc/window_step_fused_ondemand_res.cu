@@ -4,4 +4,4 @@
 // in parallel.
 #include "window_step_fused.cuh"
 
-GGNN_WINDOW_STEP_FUSED_INSTANTIATE(ggnn::wstep::kOnDemand, true)
+GGNN_WINDOW_STEP_FUSED_INSTANTIATE(ggnn::wstep::kOnDemand, true, false)

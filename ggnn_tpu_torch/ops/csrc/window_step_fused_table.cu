@@ -3,4 +3,4 @@
 // builds the window kernels in parallel.
 #include "window_step_fused.cuh"
 
-GGNN_WINDOW_STEP_FUSED_INSTANTIATE(ggnn::wstep::kTable, false)
+GGNN_WINDOW_STEP_FUSED_INSTANTIATE(ggnn::wstep::kTable, false, false)

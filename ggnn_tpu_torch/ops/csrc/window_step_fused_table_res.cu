@@ -4,4 +4,4 @@
 // parallel.
 #include "window_step_fused.cuh"
 
-GGNN_WINDOW_STEP_FUSED_INSTANTIATE(ggnn::wstep::kTable, true)
+GGNN_WINDOW_STEP_FUSED_INSTANTIATE(ggnn::wstep::kTable, true, false)

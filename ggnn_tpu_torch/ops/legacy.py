@@ -382,7 +382,7 @@ def _launch_scatter(entry, name, messages, stream, n_c, tile_start,
     D = messages.shape[-1]
     _check_cuda_args(name, [("messages", messages), ("stream", stream),
                             ("tile_start", tile_start)], D, any_width=True)
-    item_first, pbase, n_items, n_part = split_plan(tile_start, n_blocks)
+    item_first, pbase, n_items, n_part = split_plan(tile_start.diff())
     n_items, n_part = checks((n_items, n_part))
     dev = messages.device
     ws = torch.empty(max(n_part, 1), BLOCK_N, D, dtype=torch.float32,

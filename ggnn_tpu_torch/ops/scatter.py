@@ -52,7 +52,8 @@ from ggnn_tpu_torch.ops.gru import (KERNEL_WIDTH, _DTYPE_CODE,
                                     _check_cuda_args, gru_cell_fwd,
                                     host_ints, kernel_width, narrow_width,
                                     pad_width, gru_cell_fwd_reference)
-from ggnn_tpu_torch.ops.window import split_plan, window_block_spmm_mono
+from ggnn_tpu_torch.ops.window import (cached_per_tensor, split_plan,
+                                       window_block_spmm_mono)
 
 BLOCK_N = 128                  # destination rows per output block
 SMEM_TILE_CAP = 40960          # the reference's per-call tile cap (chunking)
@@ -653,11 +654,22 @@ def typed_onehot_scatter_reference(h_pack, dstl, tile_start, block_of_tile,
                                    n_blocks: int, tile_e: int, align: int):
     """Plain version of :func:`typed_onehot_scatter`: per type t, each real
     tile's one-hot product in f32 by ``index_add_``, rounded to ``msg_w``'s
-    dtype per tile, then times W_t in f32 and added to its block."""
+    dtype per tile, then times W_t in f32; the tiles' products summed into
+    their blocks in f64 and rounded once to f32 (a hub row adds thousands
+    of tiles: an f32 sum would drift from any exact order)."""
     del tile_start
+    return _typed_tile_sums(h_pack, dstl, block_of_tile, tile_msg_off, c_off,
+                            tile_type, msg_w, n_blocks, tile_e, align,
+                            torch.float64).float()
+
+
+def _typed_tile_sums(h_pack, dstl, block_of_tile, tile_msg_off, c_off,
+                     tile_type, msg_w, n_blocks, tile_e, align, acc_dtype):
+    """The per-tile scatter's sums: each tile's product added to its block
+    in ``acc_dtype``."""
     T2, D = msg_w.shape[0], msg_w.shape[-1]
     dev = h_pack.device
-    out = torch.zeros(n_blocks * BLOCK_N, D, dtype=torch.float32, device=dev)
+    out = torch.zeros(n_blocks * BLOCK_N, D, dtype=acc_dtype, device=dev)
     real = tile_msg_off >= 0
     cols = torch.arange(tile_e, device=dev)
     rows128 = torch.arange(BLOCK_N, device=dev)
@@ -674,7 +686,7 @@ def typed_onehot_scatter_reference(h_pack, dstl, tile_start, block_of_tile,
         p.index_add_(0, tgt, h_pack.index_select(0, src).float())
         p = p.to(msg_w.dtype).float() @ msg_w[t].float()
         out.index_add_(0, (block_of_tile.long()[sel, None] * BLOCK_N
-                           + rows128).reshape(-1), p)
+                           + rows128).reshape(-1), p.to(acc_dtype))
     return out
 
 
@@ -683,12 +695,46 @@ def typed_step_gru_reference(h_pack, dstl, tile_start, block_of_tile,
                              hstate, wa, b3, uzr, uh, n_blocks: int,
                              tile_e: int, align: int):
     """Plain version of :func:`typed_step_gru`: the per-tile scatter
-    started from ``init``, then the GRU cell with matmul inputs in ``wa``'s
-    dtype."""
-    a = init.float() + typed_onehot_scatter_reference(
-        h_pack, dstl, tile_start, block_of_tile, tile_msg_off, c_off,
-        tile_type, msg_w, n_blocks, tile_e, align)
+    summed in f32, plus ``init``, then the GRU cell with matmul inputs in
+    ``wa``'s dtype.  Its sums stay f32, the reference kernel's accumulator
+    type: a sum's last bit decides which bf16 neighbour a rounds to before
+    the gate matmuls, and the CPU tests hold this step to the reference's
+    with one bf16 ulp.  On the card, the kernel is also held to the GRU
+    cell of ``init`` plus :func:`typed_onehot_scatter_reference`'s f64
+    sums."""
+    del tile_start
+    a = init.float() + _typed_tile_sums(
+        h_pack, dstl, block_of_tile, tile_msg_off, c_off, tile_type, msg_w,
+        n_blocks, tile_e, align, torch.float32)
     return gru_cell_fwd_reference(hstate, a, wa, b3, uzr, uh, mdt=wa.dtype)[0]
+
+
+def dstl_lengths(dstl):
+    """Each dstl row's length, its last slot with a dst id ≥ 0 plus one (0
+    for none), int32 [n_dstl]: a tile's real rows lie in that prefix of its
+    slots (``csrc/typed_tile_fused.cu`` reads only those)."""
+    slots = torch.arange(1, dstl.shape[1] + 1, dtype=torch.int32,
+                         device=dstl.device)
+    return torch.where(dstl >= 0, slots, 0).amax(1).to(torch.int32)
+
+
+def _fused_tile_plan(name, h_pack, dstl, tile_start, block_of_tile,
+                     tile_msg_off, c_off, tile_type, T2, n_blocks, tile_e,
+                     align):
+    """``csrc/typed_tile_fused.cu``'s plan: the hub split (item_first,
+    pbase), the blocks of more than one item first and in block order
+    (``split``, int32 [n_blocks], of which the first n_split are read),
+    :func:`dstl_lengths`, and the item, partial-slot and split counts,
+    after the layout's data checks against the pack."""
+    item_first, pbase, n_items, n_part = split_plan(tile_start.diff())
+    multi = item_first[1:] - item_first[:-1] > 1
+    n_items, n_part, n_split = _tile_data_checks(
+        name, h_pack, dstl, tile_start, block_of_tile, tile_msg_off, c_off,
+        tile_type, T2, n_blocks, tile_e, align,
+        (n_items, n_part, multi.sum()))
+    split = torch.argsort((~multi).to(torch.int8), stable=True)
+    return (item_first, pbase, split.to(torch.int32), dstl_lengths(dstl),
+            n_items, n_part, n_split)
 
 
 def _launch_tile(name, fused, h_pack, dstl, tile_start, block_of_tile,
@@ -712,15 +758,40 @@ def _launch_tile(name, fused, h_pack, dstl, tile_start, block_of_tile,
                 raise ValueError(f"{name}: {arg} must be {want}, got "
                                  f"{t.dtype}")
     _check_cuda_args(name, named, D)
-    item_first, pbase, n_items, n_part = split_plan(tile_start, n_blocks)
+    dev = h_pack.device
+    out = torch.empty(n_blocks * BLOCK_N, D, dtype=torch.float32, device=dev)
+    p = _build.ptr
+    if fused and h_pack.dtype == torch.bfloat16 and tile_e % 16 == 0:
+        # csrc/typed_tile_fused.cu: the one-hot product on the tensor
+        # cores; the blocks of more than one item summed, and their GRU
+        # run, by 8 CTAs a block.  The plan and the layout's checks once
+        # per layout and pack height (no host sync on later calls).
+        item_first, pbase, split, lens, n_items, n_part, n_split = \
+            cached_per_tensor(
+                tile_start,
+                ("typed_step_fused", h_pack.shape[0], n_blocks, tile_e,
+                 align, T2) + tuple(t.data_ptr() for t in (
+                     dstl, block_of_tile, tile_msg_off, c_off, tile_type)),
+                lambda: _fused_tile_plan(
+                    name, h_pack, dstl, tile_start, block_of_tile,
+                    tile_msg_off, c_off, tile_type, T2, n_blocks, tile_e,
+                    align))
+        ws = torch.empty(max(n_part, 1), BLOCK_N, D, dtype=torch.float32,
+                         device=dev)
+        _build.launch(
+            _build.library().ggnn_typed_step_fused, name, dev, p(h_pack),
+            h_pack.shape[0], p(dstl), dstl.shape[0], p(tile_start),
+            p(tile_msg_off), p(c_off), p(tile_type), p(lens), p(msg_w), T2,
+            n_blocks, tile_e, align, p(item_first), p(pbase), n_items,
+            p(split), n_split, p(init), p(hstate), p(wa), p(b3), p(uzr),
+            p(uh), p(ws), p(out))
+        return out
+    item_first, pbase, n_items, n_part = split_plan(tile_start.diff())
     n_items, n_part = _tile_data_checks(
         name, h_pack, dstl, tile_start, block_of_tile, tile_msg_off, c_off,
         tile_type, T2, n_blocks, tile_e, align, (n_items, n_part))
-    dev = h_pack.device
     ws = torch.empty(max(n_part, 1), BLOCK_N, D, dtype=torch.float32,
                      device=dev)
-    out = torch.empty(n_blocks * BLOCK_N, D, dtype=torch.float32, device=dev)
-    p = _build.ptr
     _build.launch(
         _build.library().ggnn_typed_tile, name, dev, _DTYPE_CODE[h_pack.dtype],
         int(fused), p(h_pack), h_pack.shape[0], p(dstl), dstl.shape[0],
@@ -777,7 +848,10 @@ def typed_step_gru(h_pack, dstl, tile_start, block_of_tile, tile_msg_off,
     [n_blocks·128, D] f32 is the Σ_t indeg_t·b_t bias, ``hstate`` the padded
     f32 node state, ``wa``/``uzr``/``uh`` in the compute dtype and ``b3``
     [1, 3D] f32; returns h' [n_blocks·128, D] f32.  The other arguments are
-    those of :func:`typed_onehot_scatter`."""
+    those of :func:`typed_onehot_scatter`.  A CPU tensor takes the plain
+    version; a CUDA tensor launches ``csrc/typed_tile_fused.cu`` (bf16,
+    tile_e a multiple of 16: the one-hot product on the tensor cores) or
+    ``csrc/typed_tile.cu`` (``FUSED = true``), or raises."""
     name = "typed_step_gru"
     _check_tile_args(name, h_pack, dstl, tile_start, block_of_tile,
                      tile_msg_off, c_off, tile_type, msg_w, n_blocks, tile_e)

@@ -606,18 +606,20 @@ def window_layout_for_batch(batch, window: int = 512,
 
 # --- shared by the kernels' wrappers -----------------------------------------
 
-def split_plan(tile_start, n_blocks: int):
-    """The hub split on the device: ``item_first`` [n_blocks + 1] (block b's
-    work items are item_first[b] .. item_first[b + 1], at least one) and
+def split_plan(per, k=None):
+    """The hub split on the device: each dst block's ``per`` [n_blocks]
+    tiles cut into work items of at most ``k`` (by default
+    ``csrc/common.cuh``'s kSplit, the per-tile kernels' cut of their
+    ``tile_start.diff()``): ``item_first`` [n_blocks + 1] (block b's work
+    items are item_first[b] .. item_first[b + 1], at least one) and
     ``pbase`` [n_blocks] (the first workspace slot of a block with more
     than one item), both int32, and the 0-d totals (items, partial slots)
     for the caller to read with its other host checks."""
-    K = _build.library().ggnn_tile_split()
-    ts = tile_start.to(torch.int32)
-    nit = ((ts[1:] - ts[:-1]).clamp_min(0) + K - 1) // K
+    K = _build.library().ggnn_tile_split() if k is None else k
+    nit = (per.to(torch.int32).clamp_min(0) + K - 1) // K
     nit = nit.clamp_min(1)
-    item_first = torch.zeros(n_blocks + 1, dtype=torch.int32,
-                             device=ts.device)
+    item_first = torch.zeros(per.shape[0] + 1, dtype=torch.int32,
+                             device=per.device)
     item_first[1:] = torch.cumsum(nit, 0, dtype=torch.int32)
     pcount = torch.where(nit > 1, nit, torch.zeros_like(nit))
     pbase = torch.cumsum(pcount, 0, dtype=torch.int32) - pcount
@@ -845,7 +847,7 @@ def window_block_spmm_mono(table, c_stream, tile_start, block_of_tile,
                            out_rows, packed)
         window_block_spmm_mono.launches += 1
         return out if out_dtype == torch.float32 else out.to(out_dtype)
-    item_first, pbase, n_items, n_part = split_plan(tile_start, n_blocks)
+    item_first, pbase, n_items, n_part = split_plan(tile_start.diff())
     n_items, n_part = _mono_data_checks(name, table.shape[0], c_stream,
                                         win_of_tile, window, stride, c_off,
                                         dstl, out_rows, (n_items, n_part))
@@ -1064,6 +1066,40 @@ def _launch_step(name, src_mode, fused, table, c_stream, tile_start,
     return out
 
 
+# #12's work items: at most this many real tiles of a dst block per CTA (or
+# cluster) of csrc/window_ondemand_fused.cu (scripts/torch_scalefree_
+# variants.py times 8, 16, 32 and no split)
+ONDEMAND_SPLIT = 32
+
+
+def ondemand_items(tile_start, win_of_tile, c_off, n_c: int, n_blocks: int):
+    """#12's plan (``csrc/window_ondemand_fused.cu``): the real tiles (win
+    ≥ 0, stream entry in [0, n_c)) in list order, ``rt`` int32, block b's
+    at rt[rt_start[b] : rt_start[b + 1]]; each block's cut by
+    :func:`split_plan` into work items of at most :data:`ONDEMAND_SPLIT`
+    of them (item_first, pbase); ``split``, the blocks of several items.
+    Returns (item_first, rt, rt_start, pbase, split) int32 and the item
+    and slot counts."""
+    dev = tile_start.device
+    (t_end,) = host_ints(tile_start[-1])
+    idx = torch.arange(t_end, device=dev)
+    c = idx if c_off is None else c_off[:t_end].long()
+    real = (win_of_tile[:t_end] >= 0) & (c >= 0) & (c < n_c)
+    rt = torch.nonzero(real).flatten()
+    blk = torch.repeat_interleave(
+        torch.arange(n_blocks, device=dev),
+        (tile_start[1:] - tile_start[:-1]).long(), output_size=t_end)
+    per = torch.bincount(blk[rt], minlength=n_blocks)
+    item_first, pbase, n_items, n_part = split_plan(per, ONDEMAND_SPLIT)
+    rt_start = torch.zeros(n_blocks + 1, dtype=torch.int32, device=dev)
+    rt_start[1:] = torch.cumsum(per, 0)
+    split = torch.nonzero(item_first.diff() > 1).flatten()
+    n_items, n_part = host_ints(n_items, n_part)
+    i32 = lambda t: t.to(torch.int32).contiguous()
+    return (item_first, i32(rt), rt_start, pbase, i32(split), n_items,
+            n_part)
+
+
 def window_block_spmm_ondemand(h, msg_w, msg_b, c_stream, tile_start,
                                block_of_tile, win_of_tile, c_off,
                                n_blocks: int, window: int,
@@ -1077,9 +1113,11 @@ def window_block_spmm_ondemand(h, msg_w, msg_b, c_stream, tile_start,
     ``h`` [N, D] (N % 128 == 0) in the compute dtype, ``msg_w`` [T2, D, D]
     (cast to h's dtype), ``msg_b`` [T2, D] (added in f32); the counts int8
     [n·out_rows, W].  A CPU tensor takes the plain version; a CUDA tensor
-    launches ``csrc/window_ondemand.cu`` (D = 128·P in P column panels;
-    other D zero-padded, :func:`~ggnn_tpu_torch.ops.gru.pad_width`) or
-    raises."""
+    launches ``csrc/window_ondemand_fused.cu`` (bf16, D = 128, 128-, 256-
+    or 512-row blocks: each block's real tiles cut into work items,
+    :func:`ondemand_items`) or ``csrc/window_ondemand.cu`` (f32; D =
+    128·P in P column panels; other D zero-padded,
+    :func:`~ggnn_tpu_torch.ops.gru.pad_width`), or raises."""
     name = "window_block_spmm_ondemand"
     N, D = h.shape
     T2 = msg_w.shape[0]
@@ -1102,11 +1140,60 @@ def window_block_spmm_ondemand(h, msg_w, msg_b, c_stream, tile_start,
             pad_width(h, D), pad_width(msg_w, D, rows=True),
             pad_width(msg_b, D), c_stream, tile_start, block_of_tile,
             win_of_tile, c_off, n_blocks, window, out_rows), D)
-    out = _launch_step(name, _SRC_ONDEMAND, False, h, c_stream, tile_start,
-                       win_of_tile, c_off, n_blocks, window, out_rows, False,
-                       wbank=msg_w.to(h.dtype).contiguous(),
-                       bbank=msg_b.float().contiguous())
+    wbank = msg_w.to(h.dtype).contiguous()
+    bbank = msg_b.float().contiguous()
+    if h.dtype == torch.bfloat16 and D == 128 and out_rows in (128, 256,
+                                                               512):
+        out = _launch_ondemand_fused(name, h, c_stream, tile_start,
+                                     win_of_tile, c_off, n_blocks, window,
+                                     out_rows, wbank, bbank)
+    else:
+        out = _launch_step(name, _SRC_ONDEMAND, False, h, c_stream,
+                           tile_start, win_of_tile, c_off, n_blocks, window,
+                           out_rows, False, wbank=wbank, bbank=bbank)
     window_block_spmm_ondemand.launches += 1
+    return out
+
+
+def _launch_ondemand_fused(name, h, c_stream, tile_start, win_of_tile, c_off,
+                           n_blocks, window, out_rows, wbank, bbank):
+    """#12 in bf16 at D = 128 (``csrc/window_ondemand_fused.cu``): the
+    plan of :func:`ondemand_items`, made once per layout, the partial
+    slots and the items' window scratch; returns [n_blocks·out_rows, 128]
+    f32."""
+    D, T2 = h.shape[1], wbank.shape[0]
+    named = [("h", h), ("c_stream", c_stream), ("tile_start", tile_start),
+             ("win_of_tile", win_of_tile), ("msg_w", wbank),
+             ("msg_b", bbank)]
+    if c_off is not None:
+        named.append(("c_off", c_off))
+    _check_cuda_args(name, named, D)
+    n_c = c_stream.shape[0] // out_rows
+
+    def plan():
+        # the layout's checks against h, then the work items: once per
+        # layout and h height (no host sync on later calls)
+        _mono_data_checks(name, h.shape[0] * T2, c_stream, win_of_tile,
+                          window, window, c_off, False, out_rows)
+        return ondemand_items(tile_start, win_of_tile, c_off, n_c, n_blocks)
+    item_first, rt, rt_start, pbase, split, n_items, n_part = \
+        cached_per_tensor(
+            tile_start, ("ondemand_items", h.shape[0], T2, n_blocks, n_c,
+                         window, ONDEMAND_SPLIT, win_of_tile.data_ptr(),
+                         None if c_off is None else c_off.data_ptr()), plan)
+    dev = h.device
+    out = torch.empty(n_blocks * out_rows, D, dtype=torch.float32,
+                      device=dev)
+    ws = torch.empty(max(n_part, 1), out_rows, D, dtype=torch.float32,
+                     device=dev)
+    scratch = torch.empty(n_items, 2 * window, D, dtype=h.dtype, device=dev)
+    p = _build.ptr
+    _build.launch(
+        _build.library().ggnn_window_ondemand_fused, name, dev, p(h),
+        h.shape[0], p(c_stream), n_c, p(tile_start), p(win_of_tile),
+        p(c_off), n_blocks, out_rows, window, p(wbank), p(bbank), T2,
+        p(item_first), p(rt), p(rt_start), p(pbase), n_items, ONDEMAND_SPLIT,
+        p(split), split.shape[0], p(ws), p(scratch), p(out))
     return out
 
 

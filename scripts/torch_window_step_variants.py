@@ -62,10 +62,10 @@ extern "C" int variant(int src, int res, const void* table, long long n_table,
     int T2, const void* init, const void* hstate, const void* wa,
     const void* b3, const void* uzr, const void* uh, void* out, void* rs,
     void* scr, void* stream) {
-#define GO(S, R) return ggnn::wstep::launch_window_step_fused<S, R>(table, \\
-    n_table, counts, n_c, tile_start, win_of_tile, c_off, n_blocks, \\
+#define GO(S, R) return ggnn::wstep::launch_window_step_fused<S, R, false>( \\
+    table, n_table, counts, n_c, tile_start, win_of_tile, c_off, n_blocks, \\
     out_rows, window, scales, wbank, bbank, T2, init, hstate, wa, b3, uzr, \\
-    uh, out, rs, scr, static_cast<cudaStream_t>(stream))
+    uh, out, rs, scr, ggnn::wstep::Items{}, static_cast<cudaStream_t>(stream))
   if (src == 2 && res) GO(2, true);
   if (src == 2) GO(2, false);
   return 1;
