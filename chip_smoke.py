@@ -17,6 +17,13 @@
    forward kernels:
    ``typed_block_scatter``, ``typed_block_step_gru``, ``gru_cell_fwd``; the
    backward kernels: ``gru_cell_bwd`` and ``typed_grad_octet_scatter``.
+   In bf16 #1 is held per element (``ops/bounds.py::block_bound``) and
+   #2 also to the GRU cell of init plus #1's plain sums; then the bf16
+   slot pipeline of #1, #2, #6 and #7 at its seams (``typed_seam_fuzz``: real-row prefixes of
+   1 to 256 rows at tile_e 256 and 144, a block without a slot, a hub of
+   two work items with type changes inside them, a slot list of 288; D =
+   64, 128, 256), twice bit-equal, and #7 = #1 and #6 = #2 bit for bit on
+   the blocks of one work item of the same edges.
 3. Serves: a ``Predictor`` for the headline model (node_select head,
    onehot backend, bf16, T = 5 steps, random weights from seed 0) answers
    two requests of 262,144-node graphs (seeds 0 and 1;
@@ -202,15 +209,25 @@ EARLIER_REQUESTS = (0,)
 BF16_ULP = 2.0 ** -7   # one bf16 ulp at 1.0
 
 # Tolerances, checked against |kernel − plain| on the same inputs:
-# - scatter: the same bf16-rounded one-hot sums, f32 W_t products summed in
-#   another order → max ≤ 2e-5·max(1, max|plain|);
+# - scatter (#1 in f32, csrc/typed_block.cu): the same one-hot sums, f32
+#   W_t products summed in another order → max ≤ 2e-5·max(1, max|plain|);
+#   #1 in bf16 (csrc/typed_block_fused.cu), whose tensor cores add a
+#   k-step's 16 one-hot terms at once, so that a slot's f32 sum on a bf16
+#   boundary may round to the other neighbour: per element ('bound',
+#   ggnn_tpu_torch/ops/bounds.py::block_bound), 2e-5 of the plain version
+#   on |h_pack| and |W| plus one bf16 ulp of every slot's rounded sum of
+#   three or more terms, times |W_t| (a sum of one or two terms is the
+#   same in every order), and the mean of |kernel − plain| / bound ≤ 0.1,
+#   as #7 is held (ops/bounds.py::tile_bound);
 # - GRU cell: the same rounded matmul inputs, f32 sums in another order;
 #   outputs stored in bf16 may round to the neighbouring value → max ≤ one
 #   bf16 ulp at 1.0 (f32: 1e-4);
-# - fused step and served scores (bf16): a, the aggregation, is rounded to
-#   bf16 before the gate matmuls, and a last-bit difference in f32 can
-#   round it the other way, moving a gate by ulp(a)·|W| → max ≤ 8 ulps at
-#   1.0 (6.25e-2) and mean ≤ 1e-3 (rare flips, not a wrong sum); f32: 1e-4.
+# - fused step (#2) and served scores (bf16): a, the aggregation, is
+#   rounded to bf16 before the gate matmuls, and a last-bit difference in
+#   f32 can round it the other way, moving a gate by ulp(a)·|W| → max ≤ 8
+#   ulps at 1.0 (6.25e-2) and mean ≤ 1e-3 (rare flips, not a wrong sum);
+#   f32: 1e-4.  #2 in bf16 is also held per row ('flip_rows') to the GRU
+#   cell of init plus #1's plain sums, as #6 is held to #7's;
 # - reverse scatter (grad octet): the same f32 sums in another order →
 #   f32 max ≤ 2e-5·max(1, max|plain|); flushed to bf16, a last-bit f32
 #   difference can round a row to the neighbouring bf16 value → max ≤ one
@@ -289,9 +306,9 @@ HBM_BPS, BF16_FLOPS, F32_FLOPS, INT8_OPS = 3.35e12, 989e12, 67e12, 1979e12
 
 KERNELS = {
     # name: (source, the TPU kernel body it replaces)
-    "typed_block_scatter": ("ggnn_tpu_torch/ops/csrc/typed_block.cu",
+    "typed_block_scatter": ("ggnn_tpu_torch/ops/csrc/typed_block_fused.cu",
                             "ggnn_tpu/ops/scatter_pallas.py:1873"),
-    "typed_block_step_gru": ("ggnn_tpu_torch/ops/csrc/typed_block.cu",
+    "typed_block_step_gru": ("ggnn_tpu_torch/ops/csrc/typed_block_fused.cu",
                              "ggnn_tpu/ops/scatter_pallas.py:1873"),
     "gru_cell_fwd": ("ggnn_tpu_torch/ops/csrc/gru_cell.cu",
                      "ggnn_tpu/ops/gru_pallas.py:41"),
@@ -299,7 +316,7 @@ KERNELS = {
                      "ggnn_tpu/ops/gru_pallas.py:62"),
     "typed_grad_octet_scatter": ("ggnn_tpu_torch/ops/csrc/grad_octet.cu",
                                  "ggnn_tpu/ops/scatter_pallas.py:2120"),
-    "typed_onehot_scatter": ("ggnn_tpu_torch/ops/csrc/typed_tile.cu",
+    "typed_onehot_scatter": ("ggnn_tpu_torch/ops/csrc/typed_tile_fused.cu",
                              "ggnn_tpu/ops/scatter_pallas.py:1416"),
     "typed_step_gru": ("ggnn_tpu_torch/ops/csrc/typed_tile_fused.cu",
                        "ggnn_tpu/ops/scatter_pallas.py:1562"),
@@ -548,45 +565,6 @@ def kernel_inputs(layout, dtype, params, seed, a_max=None):
     return x
 
 
-def tile_bound(x, kw, dtype):
-    """The per-element bound of |typed_onehot_scatter − its plain version|
-    (see the tolerances above): 2e-5 of the plain version on |h_pack| and
-    |msg_w|, and in bf16 2**-7 (one ulp) of every tile's rounded one-hot
-    sum of three or more terms, times |W_t|, added to its block's rows as
-    the plain version adds the tile."""
-    import torch
-    from ggnn_tpu_torch.ops import scatter as S
-    h_pack, msg_w = x["h_pack"], x["msg_w"]
-    bound = 2e-5 * S.typed_onehot_scatter_reference(
-        h_pack.abs(), msg_w=msg_w.abs(), **kw)
-    if dtype == torch.float32:
-        return bound
-    dev = h_pack.device
-    real = kw["tile_msg_off"] >= 0
-    cols, rows128 = (torch.arange(kw["tile_e"], device=dev),
-                     torch.arange(128, device=dev))
-    for t in range(msg_w.shape[0]):
-        sel = torch.nonzero(real & (kw["tile_type"] == t)).flatten()
-        n = sel.numel()
-        if n == 0:
-            continue
-        d = kw["dstl"].long()[kw["c_off"].long()[sel]]
-        valid = d >= 0
-        src = (kw["tile_msg_off"].long()[sel, None] * kw["align"]
-               + cols)[valid]
-        tgt = (torch.arange(n, device=dev)[:, None] * 128 + d)[valid]
-        p = torch.zeros(n * 128, h_pack.shape[1], device=dev)
-        p.index_add_(0, tgt, h_pack.index_select(0, src).float())
-        cnt = torch.zeros(n * 128, device=dev)
-        cnt.index_add_(0, tgt, torch.ones(tgt.shape[0], device=dev))
-        flips = p.to(dtype).float().abs() * (cnt >= 3).float()[:, None]
-        bound.index_add_(0, (kw["block_of_tile"].long()[sel, None] * 128
-                             + rows128).reshape(-1),
-                         BF16_ULP * (flips @ msg_w[t].float().abs()))
-        del p, cnt, flips
-    return bound
-
-
 def flush_bound(plain, table, ref, out_dtype):
     """The per-element bound of a reverse scatter against its plain version
     ``plain`` (a function of the table, summing into f32): 2e-5 of the sum
@@ -625,6 +603,7 @@ def scatter_bound(layout, x, dtype, fused, layout_arrays):
 
 def check_kernels(tag, layout, params, log, timings=None):
     import torch
+    from ggnn_tpu_torch.ops import bounds as B
     from ggnn_tpu_torch.ops import gru as G
     from ggnn_tpu_torch.ops import scatter as S
     print(f"[kernels] {tag}: tile_e={layout.meta[1]} n_blocks="
@@ -641,8 +620,15 @@ def check_kernels(tag, layout, params, log, timings=None):
         got = S.typed_block_scatter(*sa, **kw)
         same_twice("typed_block_scatter", tag, got,
                    S.typed_block_scatter(*sa, **kw))
-        check(f"typed_block_scatter[{tag},{dn}]", got,
-              S.typed_block_scatter_reference(*sa, **kw), "sum", dtype, log)
+        ref = S.typed_block_scatter_reference(*sa, **kw)
+        if dtype == torch.bfloat16:   # csrc/typed_block_fused.cu
+            check(f"typed_block_scatter[{tag},{dn}]", got, ref, "bound",
+                  dtype, log, bound=B.block_bound(x["h_pack"], x["msg_w"],
+                                                  arrs, kw, dtype))
+        else:
+            check(f"typed_block_scatter[{tag},{dn}]", got, ref, "sum",
+                  dtype, log)
+        del ref
         empty = (layout.arrays["slot_off16"].reshape(kw["n_blocks"], -1)
                  < 0).all(1)
         if empty.any():
@@ -657,6 +643,12 @@ def check_kernels(tag, layout, params, log, timings=None):
         check(f"typed_block_step_gru[{tag},{dn}]", got,
               S.typed_block_step_gru_reference(*fa, **kw), "flip", dtype,
               log)
+        if dtype == torch.bfloat16:
+            check(f"typed_block_step_gru[{tag},{dn}] vs the GRU cell of "
+                  f"init + typed_block_scatter_reference", got,
+                  G.gru_cell_fwd_reference(*ga, mdt=dtype)[0],
+                  "flip_rows", dtype, log,
+                  a_rows=x["a"].abs().amax(1).clamp_min(1.0))
         outs = G.gru_cell_fwd(*ga, mdt=dtype)
         torch.cuda.synchronize()
         refs = G.gru_cell_fwd_reference(*ga, mdt=dtype)
@@ -687,6 +679,172 @@ def check_kernels(tag, layout, params, log, timings=None):
                     cell_bound),
             }, timings)
         del x
+
+
+# Real-row prefix lengths at the seams of typed_pipe.cuh's 128-row chunks
+# and 16-row k-steps.
+TYPED_SEAM_LENGTHS = (1, 15, 16, 17, 127, 128, 129, 256)
+
+
+def typed_seam_edges():
+    """(tag, edges, N, T2, tile_e, widths) at the seams of the bf16 slot
+    pipeline (csrc/typed_pipe.cuh) of #1, #2, #6 and #7:
+
+    - "lengths": block i < 8 holds a type-0 group of TYPED_SEAM_LENGTHS[i]
+      edges, a type-2 group of 256 more (a second slot of that prefix at
+      tile_e 256) and a type-3 group of another length; block 8 none;
+      blocks 9-11 random edges; 10 % more edges masked out; at tile_e 256
+      and 144 (a slot's second chunk cut short), widths 64 (zero-padded),
+      128 and 256 (two panels);
+    - "hub": dst block 0 holds 60 tiles of three types (two work items of
+      #6/#7 with a type change inside each, 20 slots a type in block
+      mode);
+    - "many slots": 36 types, tile_e 16, dst block 0 with eight slots of
+      every type (S8 = 288: the slot list read in two groups)."""
+    r = np.random.default_rng(33)
+
+    def rand_block(b, n, T2):
+        return (r.integers(0, 128 * 12, n), 128 * b + r.integers(0, 128, n),
+                r.integers(0, T2, n))
+
+    L = TYPED_SEAM_LENGTHS
+    parts = []
+    for i, n in enumerate(L):
+        for t, m in ((0, n), (2, 256 + n), (3, L[(i + 3) % len(L)])):
+            parts.append((r.integers(0, 128 * 12, m),
+                          128 * i + r.integers(0, 128, m), np.full(m, t)))
+    parts += [rand_block(b, 500, 4) for b in (9, 10, 11)]
+    src, dst, typ = (np.concatenate(x) for x in zip(*parts))
+    n_mask = src.shape[0] // 10
+    mask = np.concatenate([np.ones(src.shape[0], np.float32),
+                           np.zeros(n_mask, np.float32)])
+    extra = rand_block(int(r.integers(0, 12)), n_mask, 4)
+    edges = tuple(np.concatenate([a, b]) for a, b in zip((src, dst, typ),
+                                                         extra)) + (mask,)
+    for tile_e in (256, 144):
+        yield f"lengths, tile_e {tile_e}", edges, 128 * 12, 4, tile_e, (
+            64, DIM, 256)
+    parts = [(r.integers(0, 128 * 12, 5000), r.integers(0, 128, 5000),
+              np.full(5000, t)) for t in (0, 1, 3)]
+    parts += [rand_block(b, 700, 4) for b in range(1, 12, 2)]
+    src, dst, typ = (np.concatenate(x) for x in zip(*parts))
+    yield "hub", (src, dst, typ, np.ones(src.shape[0], np.float32)), \
+        128 * 12, 4, 256, (DIM,)
+    T2 = 36
+    parts = [(r.integers(0, 128 * 12, 125), r.integers(0, 128, 125),
+              np.full(125, t)) for t in range(T2)]
+    parts += [rand_block(b, 300, T2) for b in (1, 4, 7)]
+    src, dst, typ = (np.concatenate(x) for x in zip(*parts))
+    yield "many slots", (src, dst, typ, np.ones(src.shape[0], np.float32)), \
+        128 * 12, T2, 16, (DIM,)
+
+
+def typed_seam_fuzz(log):
+    """[kernels] #1, #2, #7 and #6 in bf16 at the seams of their slot
+    pipeline (:func:`typed_seam_edges`): each edge set as a block-mode
+    layout (#1, #2) and a per-tile layout (#7, #6), each kernel against
+    its plain version (#1 and #7 per element, #2 and #6 per row, #2 also
+    against the GRU cell of init plus #1's plain sums), twice bit-equal; a
+    block without an edge is exactly 0 (#1, #7).  The two layouts hold the
+    same edges in the same slots in the same order, and the four kernels
+    share the pipeline, so on every block of one work item #7 must give
+    #1's bits and #6 #2's."""
+    import torch
+    from ggnn_tpu_torch.ops import _build
+    from ggnn_tpu_torch.ops import bounds as B
+    from ggnn_tpu_torch.ops import gru as G
+    from ggnn_tpu_torch.ops import scatter as S
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(34)
+    K = _build.library().ggnn_tile_split()
+    for tag, (src, dst, typ, mask), N, T2, tile_e, dims in typed_seam_edges():
+        blay = S.build_typed_dst_layout(src, dst, typ, mask, N, T2,
+                                        tile_e=tile_e, block_mode=True)
+        tlay = S.build_typed_dst_layout(src, dst, typ, mask, N, T2,
+                                        tile_e=tile_e, block_mode=False)
+        if blay.block_meta is None or tlay.block_meta is not None:
+            raise AssertionError(f"typed seams {tag}: the layouts' modes")
+        blay, tlay = blay.to("cuda"), tlay.to("cuda")
+        bkw = S.block_args(blay)
+        arrs = (bkw.pop("dstl_blk"), bkw.pop("slot_off16"),
+                bkw.pop("blk_off16"))
+        tkw = S.tile_args(tlay)
+        nb = bkw["n_blocks"]
+        sizes = tkw["tile_start"].diff()
+        single = sizes <= K
+        lens = S.dstl_lengths(arrs[0])[arrs[1] >= 0]
+        print(f"[kernels] typed seams {tag}: {nb} blocks, (S8, cmax) "
+              f"({bkw['S8']}, {bkw['cmax']}), {int(lens.numel())} real "
+              f"slots, prefix lengths {sorted(set(lens.tolist()))[:12]}...; "
+              f"{int(sizes.sum())} tiles, largest block "
+              f"{int(sizes.max())} (items of {K})", flush=True)
+        if tag == "hub" and bool(single.all()):
+            raise AssertionError("typed seams hub: no block splits")
+        if tag == "many slots" and bkw["S8"] <= 256:
+            raise AssertionError("typed seams many slots: S8 <= 256")
+        empty = (arrs[1].reshape(nb, -1) < 0).all(1)
+        for D in dims:
+            w, _, gw = rand_step_weights(D, bf, gen, T2=T2)
+            h = (torch.rand(N, D, device="cuda", generator=gen) * 2
+                 - 1).to(bf)
+            init = torch.randn(N, D, device="cuda", generator=gen) * 0.3
+            hstate = torch.rand(N, D, device="cuda", generator=gen) * 2 - 1
+            st = dict(init=init, hstate=hstate, **gw)
+            name = f"seam {tag},D={D}"
+            hb = h.index_select(0, blay.arrays["gather_idx"])
+            ht = h.index_select(0, tlay.arrays["gather_idx"])
+            got1 = S.typed_block_scatter(hb, *arrs, w, **bkw)
+            same_twice("typed_block_scatter", name, got1,
+                       S.typed_block_scatter(hb, *arrs, w, **bkw))
+            ref1 = S.typed_block_scatter_reference(hb, *arrs, w, **bkw)
+            check(f"typed_block_scatter[{name}]", got1, ref1, "bound", bf,
+                  log, bound=B.block_bound(hb, w, arrs, bkw, bf))
+            if (got1.reshape(nb, 128, D)[empty] != 0).any():
+                raise AssertionError(f"typed seams {tag}: a block without "
+                                     "a slot is not 0")
+            a1 = init + ref1
+            a_rows = a1.abs().amax(1).clamp_min(1.0)
+            del ref1
+            fa = (hb, *arrs, w, init, hstate, gw["wa"], gw["b3"], gw["uzr"],
+                  gw["uh"])
+            got2 = S.typed_block_step_gru(*fa, **bkw)
+            same_twice("typed_block_step_gru", name, got2,
+                       S.typed_block_step_gru(*fa, **bkw))
+            check(f"typed_block_step_gru[{name}]", got2,
+                  S.typed_block_step_gru_reference(*fa, **bkw), "flip_rows",
+                  bf, log, a_rows=a_rows)
+            check(f"typed_block_step_gru[{name}] vs the GRU cell of init + "
+                  f"typed_block_scatter_reference", got2,
+                  G.gru_cell_fwd_reference(
+                      hstate, a1, gw["wa"], gw["b3"][0], gw["uzr"],
+                      gw["uh"], mdt=bf)[0], "flip_rows", bf, log,
+                  a_rows=a_rows)
+            sa = dict(h_pack=ht, msg_w=w, **tkw)
+            got7 = S.typed_onehot_scatter(**sa)
+            same_twice("typed_onehot_scatter", name, got7,
+                       S.typed_onehot_scatter(**sa))
+            check(f"typed_onehot_scatter[{name}]", got7,
+                  S.typed_onehot_scatter_reference(**sa), "bound", bf, log,
+                  bound=B.tile_bound(ht, w, tkw, bf))
+            got6 = S.typed_step_gru(**sa, **st)
+            same_twice("typed_step_gru", name, got6,
+                       S.typed_step_gru(**sa, **st))
+            check(f"typed_step_gru[{name}]", got6,
+                  S.typed_step_gru_reference(**sa, **st), "flip_rows", bf,
+                  log, a_rows=a_rows)
+            for k1, o1, k2, o2 in (("#7", got7, "#1", got1),
+                                   ("#6", got6, "#2", got2)):
+                if not torch.equal(o1.reshape(nb, 128, D)[single],
+                                   o2.reshape(nb, 128, D)[single]):
+                    raise AssertionError(
+                        f"typed seams {tag}, D={D}: {k1} differs from {k2} "
+                        "on a block of one work item")
+            print(f"  typed seams {tag}, D={D}: #7 = #1 and #6 = #2 bit for "
+                  f"bit on the {int(single.sum())} blocks of one work item",
+                  flush=True)
+            del got1, got2, got6, got7, hb, ht
+        del blay, tlay
+        torch.cuda.empty_cache()
 
 
 def check_grad_kernels(tag, layout, log, timings=None):
@@ -778,6 +936,7 @@ def check_tile_kernels(tag, layout, params, log, timings=None, a_max=None,
     default bf16 and f32."""
     import torch
     from ggnn_tpu_torch.ops import _build
+    from ggnn_tpu_torch.ops import bounds as B
     from ggnn_tpu_torch.ops import gru as G
     from ggnn_tpu_torch.ops import scatter as S
     ts = layout.arrays["tile_start"]
@@ -806,7 +965,7 @@ def check_tile_kernels(tag, layout, params, log, timings=None, a_max=None,
                    S.typed_onehot_scatter(**sa))
         check(f"typed_onehot_scatter[{tag},{dn}]", got,
               S.typed_onehot_scatter_reference(**sa), "bound", dtype, log,
-              bound=tile_bound(x, kw, dtype))
+              bound=B.tile_bound(x["h_pack"], x["msg_w"], kw, dtype))
         if dummy.numel():
             if (got.reshape(-1, 128, DIM)[dummy] != 0).any():
                 raise AssertionError(f"{tag}: a block with only a dummy "
@@ -4510,7 +4669,8 @@ def check_kernel_widths(log):
     (and emit_res) and #14 (exact and int8 ā) at D = 4, 8, 16, 128, 200,
     256 and WIDE_DIMS, #15 at the multiples of 128 among them, bf16 and
     f32, against their plain versions and a second run of themselves
-    (bit-equal), with the tolerances of the D = 128 checks; then #8, #9,
+    (bit-equal), with the tolerances of the D = 128 checks (bf16 #1 per
+    element, ``ops/bounds.py::block_bound``); then #8, #9,
     #10, #11, #16 and #18-#20 at WIDE_DIMS.  D < 128 runs the D = 128
     kernels zero-padded (ops/gru.py::pad_width), D = 128·P the wide forms
     (the GRU cell's P panels, the window sums' and #14's P column panels,
@@ -4518,6 +4678,7 @@ def check_kernel_widths(log):
     multiple of 128 (200 to 256, 320 to 384).  (#16 and #17 take their
     other widths in [pallas kernels], #18-#20 in [variants].)"""
     import torch
+    from ggnn_tpu_torch.ops import bounds as B
     from ggnn_tpu_torch.ops import gru as G
     from ggnn_tpu_torch.ops import scatter as S
     from ggnn_tpu_torch.ops import table as TB
@@ -4585,10 +4746,14 @@ def check_kernel_widths(log):
             nr = kb["n_blocks"] * 128
             init = rn(nr, D, sc=0.1)
             hs = torch.rand(nr, D, device=dev, generator=gen) * 2 - 1
+            # bf16 #1 (csrc/typed_block_fused.cu) per element, as at D = 128
+            bf = dtype == torch.bfloat16
             run("typed_block_scatter", tag,
                 lambda: S.typed_block_scatter(hp, *arrs, w, **kb),
                 lambda: S.typed_block_scatter_reference(hp, *arrs, w, **kb),
-                "sum", dtype)
+                "bound" if bf else "sum", dtype,
+                **(dict(bound=B.block_bound(hp, w, arrs, kb,
+                                            dtype)) if bf else {}))
             run("typed_block_step_gru", tag,
                 lambda: S.typed_block_step_gru(hp, *arrs, w, init, hs,
                                                *gargs, **kb),
@@ -4625,7 +4790,7 @@ def check_kernel_widths(log):
             run("typed_onehot_scatter", tag,
                 lambda: S.typed_onehot_scatter(ht_, msg_w=w, **kt),
                 lambda: S.typed_onehot_scatter_reference(ht_, msg_w=w, **kt),
-                "bound", dtype, bound=tile_bound(x, kt, dtype))
+                "bound", dtype, bound=B.tile_bound(ht_, w, kt, dtype))
             init_t = rn(nt, D, sc=0.1)
             hs_t = torch.rand(nt, D, device=dev, generator=gen) * 2 - 1
             a_t = init_t + S.typed_onehot_scatter_reference(ht_, msg_w=w,
@@ -4861,6 +5026,7 @@ def main() -> int:
         lay = lay.to("cuda")
         check_kernels(tag, lay, params, log)
         check_grad_kernels(tag, lay, log)
+    typed_seam_fuzz(log)
 
     t0 = time.perf_counter()
     b = synthetic_batch(NODES, EDGES, EDGE_TYPES, annotation_dim=ANN,

@@ -16,7 +16,7 @@ from ggnn_tpu_torch.models.ggnn import propagate
 def _ggsnn_unported():
     return NotImplementedError(
         "head='ggsnn' (the GGS-NN round loop and its losses) is not ported "
-        "yet (ROADMAP.md Queue 1 item 4)")
+        "yet (ROADMAP.md Queue 1, GGS-NN)")
 
 
 def forward(params: dict, cfg: ModelConfig, arrays: dict, n_graphs: int,

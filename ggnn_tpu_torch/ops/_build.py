@@ -70,6 +70,17 @@ _SIGNATURES = {
                               _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
                               _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                               _P],
+    # the same without init, hstate and the GRU weights (#7's STORE form)
+    "ggnn_typed_onehot_fused": [_P, ctypes.c_longlong, _P,
+                                ctypes.c_longlong, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _P, _P, _I, _P, _I, _P, _P,
+                                _P],
+    # fused, h_pack, n_pack, dstl_blk, slot_off16, blk_off16, dstl_len,
+    # msg_w, n_blocks, T2, cmax, S8, tile_e, init, hstate, wa, b3, uzr, uh,
+    # out, stream
+    "ggnn_typed_block_fused": [_I, _P, ctypes.c_longlong, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                               _P, _P],
     # h, n_h, counts, n_c, tile_start, win_of_tile, c_off, n_blocks,
     # out_rows, window, wbank, bbank, T2, item_first, rt, rt_start, pbase,
     # n_items, split_k, split, n_split, ws, scratch, out, stream

@@ -1,5 +1,7 @@
 // Typed per-block scatter for Hopper (sm_90a), plain or with the GRU step
-// fused into its epilogue.
+// fused into its epilogue, in f32: the first body of #1 and #2, which bf16
+// replaced by typed_block_fused.cu (block-mode layouts have tile_e a
+// multiple of 16, which that kernel takes).
 //
 // Replaces ggnn_tpu/ops/scatter_pallas.py::_typed_block_kernel (run by
 // typed_block_scatter with fused=False and by typed_block_step_gru with
@@ -145,9 +147,10 @@ static int launch_typed_block(const void* h_pack, long long n_pack,
 
 }  // namespace ggnn
 
-// dtype: 0 = float32, 1 = bfloat16 (h_pack, msg_w and the GRU weights);
-// fused = 0: plain scatter (init, hstate, GRU weights unused, may be null).
-// Returns the cudaError_t of the launch (0 = success).
+// dtype: 0 = float32 (h_pack, msg_w and the GRU weights; bf16 runs
+// ggnn_typed_block_fused); fused = 0: plain scatter (init, hstate, GRU
+// weights unused, may be null).  Returns the cudaError_t of the launch (0 =
+// success).
 extern "C" int ggnn_typed_block(int dtype, int fused, const void* h_pack,
                                 long long n_pack, const void* dstl_blk,
                                 const void* slot_off16, const void* blk_off16,
@@ -162,8 +165,6 @@ extern "C" int ggnn_typed_block(int dtype, int fused, const void* h_pack,
   return ggnn::launch_typed_block<T, F>(                                     \
       h_pack, n_pack, dstl_blk, slot_off16, blk_off16, msg_w, n_blocks, T2,  \
       cmax, S8, tile_e, init, hstate, wa, b3, uzr, uh, out, s)
-  if (dtype == 1 && fused) GGNN_LAUNCH(__nv_bfloat16, true);
-  if (dtype == 1) GGNN_LAUNCH(__nv_bfloat16, false);
   if (dtype == 0 && fused) GGNN_LAUNCH(float, true);
   if (dtype == 0) GGNN_LAUNCH(float, false);
 #undef GGNN_LAUNCH

@@ -1,147 +1,69 @@
-// The fused per-tile typed step (#6) in bf16 for Hopper (sm_90a): the typed
-// pack's scatter with the GRU step in its epilogue, where block mode
-// declines (hub-heavy and power-law graphs).
+// The per-tile typed kernels #6 and #7 in bf16 for Hopper (sm_90a): the
+// typed pack's scatter where block mode declines (hub-heavy and power-law
+// graphs), with the GRU step in its epilogue (#6) or storing its f32 sums
+// (#7, the STORE form).
 //
 // Replaces ggnn_tpu/ops/scatter_pallas.py::_typed_step_kernel (run by
-// typed_step_gru).  For dst block b it computes
-//     a = init_b + Σ_t T(onehot(dstl[c_off[t]]) @ H_t) @ W[type[t]]
+// typed_step_gru) and ::_typed_onehot_kernel (run by typed_onehot_scatter).
+// For dst block b they compute
+//     s = Σ_t T(onehot(dstl[c_off[t]]) @ H_t) @ W[type[t]]
 // over the block's tiles t (tile t reads tile_e rows of h_pack from
-// tile_msg_off[t]·align; −1 marks a dummy tile, which adds nothing; dst ids
-// outside [0, 128), rows outside [0, n_pack), dstl rows outside [0, n_dstl)
-// and types outside [0, T2) add nothing), the one-hot product in f32 and
-// rounded to bf16 PER TILE, as the TPU kernel does, then the GRU cell of
-// common.cuh::gru_block on a.  init is added after the tile sums.
+// tile_msg_off[t]·align; −1 marks a dummy tile, which adds nothing), the
+// one-hot product in f32 and rounded to bf16 PER TILE, as the TPU kernels
+// do; #7 stores s, #6 runs the GRU cell of common.cuh::gru_block on
+// a = s + init (init added after the tile sums, as the plain versions do).
 //
 // Bound on this card: the scattered reads of h_pack.  At the scale-free
 // headline (262,144 nodes, 8M directed edges, Zipf 1.2, D = 128, tile_e
 // 256) one call reads 2.05 GB of packed rows (0.61 ms at 3.35 TB/s); the
 // W_t products are 61K·2·128³ ≈ 0.26 TFLOP.  The first version
-// (typed_tile.cu, which #7 keeps) lost its time to two things:
+// (typed_tile.cu, which f32 keeps) lost its time to two things:
 // - the one-hot product was a segment sum in which warp w adds the tile
 //   rows bound for dst rows [16w, 16w + 16): a hub row's tile fell to one
 //   warp while seven waited (the hub block, 22,328 of 60,962 tiles, took
-//   5.55 of #7's 8.58 ms);
+//   5.43 of #7's 8.5 ms);
 // - a second kernel summed the hub block's 698 item partials (45.7 MB of
 //   f32) on one SM, then ran the epilogue there.
 // This design:
-// - the one-hot product runs on the tensor cores: the 0/1 operand is made
-//   in registers from dstl (a lane compares its dst ids with its rows), H_t
-//   is the B operand as it lies (ldmatrix.trans), so every warp does the
-//   same work whatever the skew, over the tile's real rows in steps of 16:
-//   2·128·len·128 operations a tile, as much as the W product at 128 rows
-//   (skipping a warp's k-steps without one of its rows cost more than it
-//   saved: scripts/torch_scalefree_variants.py);
-// - the tile's sums, rounded to bf16, go through shared memory as the A
-//   operand of the W_t product (ldmatrix; W_t as it lies, ldmatrix.trans),
-//   8 warps as 4 × 2 tiles of 32 × 64 (window_pipe.cuh);
-// - a tile's real rows lie in a prefix of its tile_e slots (the pack fills
-//   a (block, type) group's tiles in order): the host gives each dstl
-//   row's length (its last dst id ≥ 0, plus one), and only that prefix is
-//   read, in 128-row chunks (the scale-free headline has 8M real rows in
-//   60,962 tiles of 256 slots);
-// - H_t's 128-row chunks and their dst ids go by cp.async into a ring of
-//   two stages, one chunk ahead; W_t into a ring of two, loaded only where
-//   the type changes (a block's tiles are sorted by type), issued with the
-//   new type's first chunk;
+// - an item's tiles go through typed_pipe.cuh's slot pipeline (shared with
+//   #1 and #2): the one-hot product on the tensor cores over each tile's
+//   real-row prefix, H_t's chunks and W_t by cp.async one unit ahead;
 // - the hub split is typed_tile.cu's (kSplit = 32 tiles an item, one CTA
-//   per item, common.cuh); a block of several items writes f32 partials,
-//   and the second kernel sums them over 8 CTAs a block, each 16 rows in
-//   item order, and runs the GRU on its 16 rows there (the weight panels
-//   by cp.async, ldmatrix.trans), so the sum meets the epilogue without
-//   another pass through memory.
+//   per item, common.cuh); a block of several items writes f32 partials;
+// - #6's second kernel sums them over 8 CTAs a block, each 16 rows in item
+//   order, and runs the GRU on its 16 rows there (the weight panels by
+//   cp.async, ldmatrix.trans), so the sum meets the epilogue without
+//   another pass through memory; #7's (partial_sum.cuh) sums float4
+//   columns in item order, kReduceThreads a CTA, so the hub's 698 partials
+//   spread over 128·32 / kReduceThreads = 128 CTAs.
 // No float atomics: the same bits on every run.  The sums are taken in
-// another order than #7's segment sums (the tensor cores add a k-step's 16
-// products at once), so #6's a is held to the plain version, not to #7's
-// output bit for bit.
-#include "common.cuh"
-#include "gru_pipe.cuh"
-#include "window_pipe.cuh"
+// another order than typed_tile.cu's segment sums (the tensor cores add a
+// k-step's 16 products at once), so both are held to the plain version
+// within one bf16 ulp of each tile's rounded sum, not to each other.
+#include "partial_sum.cuh"
+#include "typed_pipe.cuh"
 
 namespace ggnn {
 namespace tstep {
 
-using wpipe::bf16;
-using wpipe::cp16;
-using wpipe::gru_panel;
-using wpipe::gru_tile;
-using wpipe::kLd;
-using wpipe::kThreads;
-using wpipe::mma_bf16;
-using wpipe::Tile;
-using wpipe::zero;
-using TA = Tile<8>;
+// (using-declarations: common.cuh's ggnn::kThreads is another name)
+using tpipe::bf16;
+using tpipe::gru_panel;
+using tpipe::init_gru;
+using tpipe::kLd;
+using tpipe::kSmem;
+using tpipe::kThreads;
+using tpipe::slot_sums;
+using tpipe::store_rows;
+using tpipe::zero;
 
-// dynamic shared memory: the H_t chunk ring and the W_t ring (two stages
-// each), the tile's rounded sums P, the dst-id ring; the epilogue reuses P
-// as a, H stage 0 as h and the W ring for its weight panels
-constexpr size_t kH = 0;
-constexpr size_t kW = kH + 2 * pipe::kChunk;
-constexpr size_t kP = kW + 2 * pipe::kChunk;
-constexpr size_t kDl = kP + pipe::kChunk;
-constexpr size_t kSmem = kDl + 2 * 128 * sizeof(int);  // 175,104 B
+// #7's second kernel: float4 columns a CTA and loads in flight a thread
+// (the variants' choice, scripts/torch_typed_variants.py).
+constexpr int kReduceThreads = 32, kReduceUnroll = 16;
 
-// p += onehot(dl)[128 dst × nk k] · H[nk k × 128 n] on the warp's 32 × 64
-// tile (nk: the chunk's rows up to the tile's length, a multiple of 16 or
-// 128): the A fragment of lane (g, q) holds rows r, r + 8 of each m16-tile
-// and k = k0 + 2q, +1, +8, +9, 1.0 where dl[k] is the row.
-__device__ __forceinline__ void onehot_mma(float (&p)[2][8][4], const int* dl,
-                                           const bf16* H, int nk) {
-  constexpr uint32_t kOne = 0x3F80u;  // bf16 1.0
-  const int lane = threadIdx.x & 31, q = lane & 3;
-  const int r0 = TA::row0() + (lane >> 2);
-  const bf16* b_base = H + (lane & 15) * kLd + TA::col0() + (lane >> 4) * 8;
-#pragma unroll
-  for (int k0 = 0; k0 < 128; k0 += 16) {
-    if (k0 >= nk) break;
-    const int2 lo = *reinterpret_cast<const int2*>(dl + k0 + 2 * q);
-    const int2 hi = *reinterpret_cast<const int2*>(dl + k0 + 8 + 2 * q);
-    uint32_t a[2][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      const int ra = r0 + 16 * mi, rb = ra + 8;
-      a[mi][0] = (lo.x == ra ? kOne : 0u) | (lo.y == ra ? kOne << 16 : 0u);
-      a[mi][1] = (lo.x == rb ? kOne : 0u) | (lo.y == rb ? kOne << 16 : 0u);
-      a[mi][2] = (hi.x == ra ? kOne : 0u) | (hi.y == ra ? kOne << 16 : 0u);
-      a[mi][3] = (hi.x == rb ? kOne : 0u) | (hi.y == rb ? kOne << 16 : 0u);
-    }
-#pragma unroll
-    for (int nj = 0; nj < 4; ++nj) {
-      uint32_t b[4];
-      pipe::ldsm_x4_trans(b, b_base + k0 * kLd + nj * 16);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        pipe::mma_bf16(p[mi][2 * nj], a[mi], b[0], b[1]);
-        pipe::mma_bf16(p[mi][2 * nj + 1], a[mi], b[2], b[3]);
-      }
-    }
-  }
-}
-
-// The GRU epilogue of a single-item block (gru_pipe.cuh's gru_tile, as
-// #13's): a in P (bf16), h's f32 rows from hrow into H stage 0 in bf16,
-// the six weight panels through the two W stages; h' to orow.  A function
-// of its own, so that its registers are not the tile loop's.
-__device__ __noinline__ void tile_gru_epilogue(
-    bf16* Ps, bf16* Hs, bf16* Ws, const float* __restrict__ hrow,
-    const bf16* __restrict__ wa, const float* __restrict__ b3,
-    const bf16* __restrict__ uzr, const bf16* __restrict__ uh,
-    float* __restrict__ orow) {
-  bf16* W1 = Ws + 128 * kLd;
-  gru_panel(0, Ws, wa, uzr, uh);
-  gru_panel(1, W1, wa, uzr, uh);
-  for (int idx = threadIdx.x; idx < 128 * 32; idx += kThreads) {
-    const int r = idx >> 5, c = (idx & 31) * 4;
-    const float4 x = *reinterpret_cast<const float4*>(hrow + r * 128 + c);
-    __nv_bfloat162* hp = reinterpret_cast<__nv_bfloat162*>(Hs + r * kLd + c);
-    hp[0] = __floats2bfloat162_rn(x.x, x.y);
-    hp[1] = __floats2bfloat162_rn(x.z, x.w);
-  }
-  gru_tile<false>(Ps, Hs, Ws, W1, hrow, 128, orow, 128, nullptr, wa, b3, uzr,
-                  uh);
-}
-
-// One CTA per work item (grid = item_first[n_blocks]).
-__global__ void __launch_bounds__(kThreads, 1) typed_step_fused_kernel(
+// One CTA per work item (grid = item_first[n_blocks]); GRU: #6, else #7.
+template <bool GRU>
+__global__ void __launch_bounds__(kThreads, 1) typed_tile_fused_kernel(
     const bf16* __restrict__ h_pack, long long n_pack,
     const int* __restrict__ dstl, long long n_dstl,
     const int* __restrict__ tile_start, const int* __restrict__ tile_msg_off,
@@ -155,10 +77,6 @@ __global__ void __launch_bounds__(kThreads, 1) typed_step_fused_kernel(
     const bf16* __restrict__ uh, float* __restrict__ ws,
     float* __restrict__ out) {
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Hs = reinterpret_cast<bf16*>(smem + kH);
-  bf16* Ws = reinterpret_cast<bf16*>(smem + kW);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + kP);
-  int* Dl = reinterpret_cast<int*>(smem + kDl);
   const int item = blockIdx.x;
   const int b = item_block(item_first, n_blocks, item);
   const int k = item - item_first[b];
@@ -181,134 +99,24 @@ __global__ void __launch_bounds__(kThreads, 1) typed_step_fused_kernel(
     s_len[i] = ok ? min(dstl_len[c], tile_e) : 0;
   }
   __syncthreads();
-  // the item's next tile with a real row, in list order (every thread
-  // alike): its index in the item
-  int i_scan = 0;
-  auto next_tile = [&]() -> int {
-    while (i_scan < n_t) {
-      const int i = i_scan++;
-      if (s_len[i] > 0) return i;
-    }
-    return -1;
-  };
-  // chunk j of the item's tile t (its rows and dst ids) into stage st;
-  // rows past the tile's length or outside the pack read 0 (their dst ids
-  // too: a 0 row adds 0)
-  auto fetch = [&](int t, int j, int st) {
-    const int len = s_len[t];
-    const long long base = (long long)s_off[t] * align + j * 128;
-    bf16* hd = Hs + st * 128 * kLd;
-    for (int idx = threadIdx.x; idx < 128 * 16; idx += kThreads) {
-      const int r = idx >> 4, v = idx & 15;
-      const long long row = base + r;
-      const bool ok = j * 128 + r < len && row >= 0 && row < n_pack;
-      cp16(hd + r * kLd + v * 8, h_pack + (ok ? row : 0) * 128 + v * 8, ok);
-    }
-    if (threadIdx.x < 32) {
-      const int jj = j * 128 + threadIdx.x * 4;
-      const bool ok = jj < tile_e;
-      cp16(Dl + st * 128 + threadIdx.x * 4,
-           ok ? dstl + size_t(s_c[t]) * tile_e + jj : dstl, ok);
-    }
-  };
-  auto fetch_w = [&](int typ, int wb) {
-    bf16* wd = Ws + wb * 128 * kLd;
-    const bf16* src = msg_w + size_t(typ) * 128 * 128;
-    for (int idx = threadIdx.x; idx < 128 * 16; idx += kThreads) {
-      const int r = idx >> 4, v = idx & 15;
-      cp16(wd + r * kLd + v * 8, src + r * 128 + v * 8, true);
-    }
-  };
-
-  float acc[2][8][4], p[2][8][4];
+  float acc[2][8][4];
   zero<8>(acc);
-  int t = next_tile();
-  int wb = 0, w_type = -1;  // the W stage of tile t and the type it holds
-  if (t >= 0) {
-    fetch(t, 0, 0);
-    w_type = s_typ[t];
-    fetch_w(w_type, 0);
-  }
-  pipe::cp_async_commit();
-  int s = 0;  // the stage counter of (tile, chunk) units
-  while (t >= 0) {
-    const int len = s_len[t], nch = (len + 127) / 128;
-    int t_next = -1;
-    for (int j = 0; j < nch; ++j, ++s) {
-      int nt = t, nj = j + 1;
-      if (nj == nch) {
-        t_next = next_tile();
-        nt = t_next;
-        nj = 0;
-      }
-      pipe::cp_async_wait_all();
-      __syncthreads();  // unit s has landed; every warp is done with s − 1
-      if (nt >= 0) {
-        fetch(nt, nj, (s + 1) & 1);
-        if (nj == 0 && s_typ[nt] != w_type)
-          fetch_w(s_typ[nt], wb ^ 1);  // the other stage is free
-      }
-      pipe::cp_async_commit();
-      if (j == 0) zero<8>(p);
-      onehot_mma(p, Dl + (s & 1) * 128, Hs + (s & 1) * 128 * kLd,
-                 min(128, (len - j * 128 + 15) & ~15));
-      if (j == nch - 1) {
-        // the tile's sums, rounded to bf16, are the A operand of W_t
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-            for (int e = 0; e < 4; e += 2)
-              *reinterpret_cast<__nv_bfloat162*>(
-                  Ps + TA::row(mi, e) * kLd + TA::col(ni, e)) =
-                  __floats2bfloat162_rn(p[mi][ni][e], p[mi][ni][e + 1]);
-        __syncthreads();
-        mma_bf16<8>(acc, Ps, kLd, Ws + wb * 128 * kLd, kLd);
-      }
-    }
-    if (t_next >= 0 && s_typ[t_next] != w_type) {
-      wb ^= 1;
-      w_type = s_typ[t_next];
-    }
-    t = t_next;
-  }
-  pipe::cp_async_wait_all();
-  __syncthreads();
+  slot_sums(acc, smem, s_off, s_typ, s_c, s_len, n_t, h_pack, n_pack, dstl,
+            tile_e, align, msg_w);
 
   const size_t ob = size_t(b) * 128 * 128;
   if (n_items > 1) {  // the item's partial, summed by the second kernel
-    float* dst = ws + size_t(pbase[b] + k) * 128 * 128;
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-        for (int e = 0; e < 4; e += 2)
-          *reinterpret_cast<float2*>(dst + TA::row(mi, e) * 128 +
-                                     TA::col(ni, e)) =
-              make_float2(acc[mi][ni][e], acc[mi][ni][e + 1]);
+    store_rows(acc, ws + size_t(pbase[b] + k) * 128 * 128);
     return;
   }
-  // the GRU epilogue on a = sums + init (over P), in a function of its own
-  // (its registers are not the tile loop's)
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; e += 2) {
-        const int r = TA::row(mi, e), c = TA::col(ni, e);
-        const float2 iv =
-            *reinterpret_cast<const float2*>(init + ob + r * 128 + c);
-        *reinterpret_cast<__nv_bfloat162*>(Ps + r * kLd + c) =
-            __floats2bfloat162_rn(acc[mi][ni][e] + iv.x,
-                                  acc[mi][ni][e + 1] + iv.y);
-      }
-  tile_gru_epilogue(Ps, Hs, Ws, hstate + ob, wa, b3, uzr, uh, out + ob);
+  if constexpr (GRU)  // the GRU epilogue on a = sums + init
+    init_gru(acc, smem, init + ob, hstate + ob, wa, b3, uzr, uh, out + ob);
+  else
+    store_rows(acc, out + ob);
 }
 
-// The split blocks: 8 CTAs a block (split[blockIdx.x / 8]), each 16 rows.
+// #6's second kernel: 8 CTAs a split block (split[blockIdx.x / 8]), each
+// 16 rows.
 // Sums the block's item partials in item order, adds init, and runs the
 // GRU cell on its rows (gru_block's products and rounding points: the
 // gate products' inputs a, h and r⊙h in bf16, f32 gates and h); warp w
@@ -430,6 +238,52 @@ __global__ void __launch_bounds__(kThreads) typed_step_reduce_kernel(
     }
 }
 
+template <bool GRU>
+static int launch_tile_fused(
+    const void* h_pack, long long n_pack, const void* dstl, long long n_dstl,
+    const void* tile_start, const void* tile_msg_off, const void* c_off,
+    const void* tile_type, const void* dstl_len, const void* msg_w, int T2,
+    int n_blocks, int tile_e, int align, const void* item_first,
+    const void* pbase, int n_items, const void* split, int n_split,
+    const void* init, const void* hstate, const void* wa, const void* b3,
+    const void* uzr, const void* uh, void* ws, void* out, cudaStream_t s) {
+  if (n_blocks <= 0 || n_items <= 0) return 0;
+  if (tile_e <= 0 || tile_e % 16) return int(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      typed_tile_fused_kernel<GRU>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(kSmem));
+  if (err != cudaSuccess) return int(err);
+  typed_tile_fused_kernel<GRU><<<n_items, kThreads, kSmem, s>>>(
+      static_cast<const bf16*>(h_pack), n_pack, static_cast<const int*>(dstl),
+      n_dstl, static_cast<const int*>(tile_start),
+      static_cast<const int*>(tile_msg_off), static_cast<const int*>(c_off),
+      static_cast<const int*>(tile_type), static_cast<const int*>(dstl_len),
+      static_cast<const bf16*>(msg_w), T2,
+      n_blocks, tile_e, align, static_cast<const int*>(item_first),
+      static_cast<const int*>(pbase), static_cast<const float*>(init),
+      static_cast<const float*>(hstate), static_cast<const bf16*>(wa),
+      static_cast<const float*>(b3), static_cast<const bf16*>(uzr),
+      static_cast<const bf16*>(uh), static_cast<float*>(ws),
+      static_cast<float*>(out));
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 0) return int(err);
+  if constexpr (!GRU)
+    return launch_partial_sum<kReduceThreads, kReduceUnroll>(
+        split, item_first, pbase, ws, n_split, 128, out, s);
+  err = cudaFuncSetAttribute(typed_step_reduce_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             int(kRSmem));
+  if (err != cudaSuccess) return int(err);
+  typed_step_reduce_kernel<<<n_split * (128 / kRS), kThreads, kRSmem, s>>>(
+      static_cast<const int*>(split), static_cast<const int*>(item_first),
+      static_cast<const int*>(pbase), static_cast<const float*>(ws),
+      static_cast<const float*>(init), static_cast<const float*>(hstate),
+      static_cast<const bf16*>(wa), static_cast<const float*>(b3),
+      static_cast<const bf16*>(uzr), static_cast<const bf16*>(uh),
+      static_cast<float*>(out));
+  return int(cudaGetLastError());
+}
+
 }  // namespace tstep
 }  // namespace ggnn
 
@@ -450,38 +304,25 @@ extern "C" int ggnn_typed_step_fused(
     const void* init,
     const void* hstate, const void* wa, const void* b3, const void* uzr,
     const void* uh, void* ws, void* out, void* stream) {
-  using namespace ggnn::tstep;
-  if (n_blocks <= 0 || n_items <= 0) return 0;
-  if (tile_e <= 0 || tile_e % 16) return int(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaFuncSetAttribute(
-      typed_step_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(kSmem));
-  if (err != cudaSuccess) return int(err);
-  typed_step_fused_kernel<<<n_items, kThreads, kSmem, s>>>(
-      static_cast<const bf16*>(h_pack), n_pack, static_cast<const int*>(dstl),
-      n_dstl, static_cast<const int*>(tile_start),
-      static_cast<const int*>(tile_msg_off), static_cast<const int*>(c_off),
-      static_cast<const int*>(tile_type), static_cast<const int*>(dstl_len),
-      static_cast<const bf16*>(msg_w), T2,
-      n_blocks, tile_e, align, static_cast<const int*>(item_first),
-      static_cast<const int*>(pbase), static_cast<const float*>(init),
-      static_cast<const float*>(hstate), static_cast<const bf16*>(wa),
-      static_cast<const float*>(b3), static_cast<const bf16*>(uzr),
-      static_cast<const bf16*>(uh), static_cast<float*>(ws),
-      static_cast<float*>(out));
-  err = cudaGetLastError();
-  if (err != cudaSuccess || n_split == 0) return int(err);
-  err = cudaFuncSetAttribute(typed_step_reduce_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             int(kRSmem));
-  if (err != cudaSuccess) return int(err);
-  typed_step_reduce_kernel<<<n_split * (128 / kRS), kThreads, kRSmem, s>>>(
-      static_cast<const int*>(split), static_cast<const int*>(item_first),
-      static_cast<const int*>(pbase), static_cast<const float*>(ws),
-      static_cast<const float*>(init), static_cast<const float*>(hstate),
-      static_cast<const bf16*>(wa), static_cast<const float*>(b3),
-      static_cast<const bf16*>(uzr), static_cast<const bf16*>(uh),
-      static_cast<float*>(out));
-  return int(cudaGetLastError());
+  return ggnn::tstep::launch_tile_fused<true>(
+      h_pack, n_pack, dstl, n_dstl, tile_start, tile_msg_off, c_off,
+      tile_type, dstl_len, msg_w, T2, n_blocks, tile_e, align, item_first,
+      pbase, n_items, split, n_split, init, hstate, wa, b3, uzr, uh, ws, out,
+      static_cast<cudaStream_t>(stream));
+}
+
+// #7, the STORE form: the arguments of ggnn_typed_step_fused without init,
+// hstate and the GRU weights; out f32 [n_blocks·128, 128] = the sums.
+extern "C" int ggnn_typed_onehot_fused(
+    const void* h_pack, long long n_pack, const void* dstl, long long n_dstl,
+    const void* tile_start, const void* tile_msg_off, const void* c_off,
+    const void* tile_type, const void* dstl_len, const void* msg_w, int T2,
+    int n_blocks, int tile_e, int align, const void* item_first,
+    const void* pbase, int n_items, const void* split, int n_split, void* ws,
+    void* out, void* stream) {
+  return ggnn::tstep::launch_tile_fused<false>(
+      h_pack, n_pack, dstl, n_dstl, tile_start, tile_msg_off, c_off,
+      tile_type, dstl_len, msg_w, T2, n_blocks, tile_e, align, item_first,
+      pbase, n_items, split, n_split, nullptr, nullptr, nullptr, nullptr,
+      nullptr, nullptr, ws, out, static_cast<cudaStream_t>(stream));
 }

@@ -25,44 +25,14 @@
 //   order) cut into work items of at most split_k tiles, one CTA (cluster)
 //   each, so the hub spreads over the card; a block of one item writes its
 //   rows, a block of more one f32 partial per item;
-// - the second kernel sums a split block's partials in item order, each
-//   CTA 256 float4 columns of the block, so no SM sums a hub alone.
+// - the second kernel (partial_sum.cuh) sums a split block's partials in
+//   item order, each CTA 256 float4 columns of the block, so no SM sums a
+//   hub alone.
 // No float atomics: the same bits on every run.
+#include "partial_sum.cuh"
 #include "window_step_fused.cuh"
 
 GGNN_WINDOW_STEP_FUSED_INSTANTIATE(ggnn::wstep::kOnDemand, false, true)
-
-namespace ggnn {
-namespace wstep {
-
-// The split blocks' partials (out_rows·128 floats a slot) summed in item
-// order: CTA (i, j) sums float4 columns [256 j, 256 j + 256) of block
-// split[i].
-__global__ void __launch_bounds__(256) ondemand_reduce_kernel(
-    const int* __restrict__ split, const int* __restrict__ item_first,
-    const int* __restrict__ pbase, const float* __restrict__ ws, int out_rows,
-    float* __restrict__ out) {
-  const int per = out_rows * 128 / 4;  // float4 of a block
-  const int ctas = per / 256;
-  const int b = split[blockIdx.x / ctas];
-  const int v = (blockIdx.x % ctas) * 256 + threadIdx.x;
-  const int n = item_first[b + 1] - item_first[b];
-  const float4* slot =
-      reinterpret_cast<const float4*>(ws) + size_t(pbase[b]) * per + v;
-  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 4
-  for (int k = 0; k < n; ++k) {
-    const float4 x = slot[size_t(k) * per];
-    s.x += x.x;
-    s.y += x.y;
-    s.z += x.z;
-    s.w += x.w;
-  }
-  reinterpret_cast<float4*>(out)[size_t(b) * per + v] = s;
-}
-
-}  // namespace wstep
-}  // namespace ggnn
 
 // h [n_h, 128] bf16 (the h source of block-major windows), counts int8
 // [n_c·out_rows, window], tile_start [n_blocks + 1], win_of_tile and c_off
@@ -97,10 +67,6 @@ extern "C" int ggnn_window_ondemand_fused(
       window, nullptr, wbank, bbank, T2, nullptr, nullptr, nullptr, nullptr,
       nullptr, nullptr, out, nullptr, scratch, items, s);
   if (err != 0 || n_split == 0) return err;
-  const int ctas = out_rows * 128 / 4 / 256;
-  ondemand_reduce_kernel<<<n_split * ctas, 256, 0, s>>>(
-      static_cast<const int*>(split), static_cast<const int*>(item_first),
-      static_cast<const int*>(pbase), static_cast<const float*>(ws), out_rows,
-      static_cast<float*>(out));
-  return int(cudaGetLastError());
+  return ggnn::launch_partial_sum<256>(split, item_first, pbase, ws, n_split,
+                                      out_rows, out, s);
 }

@@ -11,10 +11,16 @@ Counterpart of ``ggnn_tpu/ops/scatter_pallas.py`` for its typed pack:
   it declines the legacy one of :func:`ggnn_tpu_torch.ops.legacy.
   build_dst_block_layout`.
 - :func:`typed_block_scatter` and :func:`typed_block_step_gru` wrap the
-  CUDA kernel ``csrc/typed_block.cu`` (the port of ``_typed_block_kernel``);
-  :func:`typed_onehot_scatter` and :func:`typed_step_gru` wrap
-  ``csrc/typed_tile.cu`` (the ports of ``_typed_onehot_kernel`` and
-  ``_typed_step_kernel``); :func:`typed_grad_octet_scatter` wraps
+  CUDA kernels of ``_typed_block_kernel``'s port, and
+  :func:`typed_onehot_scatter` and :func:`typed_step_gru` those of
+  ``_typed_onehot_kernel`` and ``_typed_step_kernel``.  The dispatch is by
+  dtype and ``tile_e``: bf16 with ``tile_e % 16 == 0`` (every block-mode
+  layout) runs the slot pipeline of ``csrc/typed_pipe.cuh``
+  (``csrc/typed_block_fused.cu``, ``csrc/typed_tile_fused.cu``: each
+  slot's real-row prefix, the one-hot product on the tensor cores); f32,
+  and per-tile layouts of another tile_e, the first bodies
+  (``csrc/typed_block.cu``, ``csrc/typed_tile.cu``: segment sums);
+  :func:`typed_grad_octet_scatter` wraps
   ``csrc/grad_octet.cu`` (the port of ``_grad_octet_kernel``), and the
   legacy grad layout goes through
   :func:`ggnn_tpu_torch.ops.window.window_block_spmm_mono`.  Each has a
@@ -434,6 +440,36 @@ def typed_block_step_gru_reference(h_pack, dstl_blk, slot_off16, blk_off16,
     return gru_cell_fwd_reference(hstate, a, wa, b3, uzr, uh, mdt=wa.dtype)[0]
 
 
+def block_plan(name, h_pack, dstl_blk, slot_off16, blk_off16, n_blocks,
+               tile_e, S8):
+    """``csrc/typed_block_fused.cu``'s plan: :func:`dstl_lengths` of
+    ``dstl_blk`` (int32 [n_blocks·S8]), after checking that every real
+    slot's prefix lies inside ``h_pack`` (one copy to the host); made once
+    per layout and pack height, so later calls do not sync with the
+    host."""
+    return cached_per_tensor(
+        dstl_blk, ("typed_block_fused", h_pack.shape[0], n_blocks, tile_e,
+                   S8) + tuple(t.data_ptr() for t in (slot_off16,
+                                                      blk_off16)),
+        lambda: _fused_block_plan(name, h_pack, dstl_blk, slot_off16,
+                                  blk_off16, n_blocks, S8))
+
+
+def _fused_block_plan(name, h_pack, dstl_blk, slot_off16, blk_off16,
+                      n_blocks, S8):
+    lens = dstl_lengths(dstl_blk)
+    off = slot_off16.reshape(n_blocks, S8).long()
+    ln = lens.reshape(n_blocks, S8)
+    end = torch.where((off >= 0) & (ln > 0),
+                      (blk_off16.long()[:, None] + off) * 16 + ln, 0)
+    last = host_ints(end.max())[0] if end.numel() else 0
+    if last > h_pack.shape[0]:
+        raise ValueError(f"{name}: h_pack has {h_pack.shape[0]} rows, fewer "
+                         f"than a slot reads ({last}): it was not gathered "
+                         f"with this layout")
+    return lens
+
+
 def _launch_block(name, fused, h_pack, dstl_blk, slot_off16, blk_off16,
                   msg_w, n_blocks, tile_e, S8, cmax, init=None, hstate=None,
                   wa=None, b3=None, uzr=None, uh=None):
@@ -456,6 +492,22 @@ def _launch_block(name, fused, h_pack, dstl_blk, slot_off16, blk_off16,
     out = torch.empty(n_blocks * BLOCK_N, D, dtype=torch.float32,
                       device=h_pack.device)
     p = _build.ptr
+    if h_pack.dtype == torch.bfloat16:
+        # csrc/typed_block_fused.cu: each slot's real prefix only, the
+        # one-hot product on the tensor cores (block mode's layouts have
+        # tile_e a multiple of 16); f32 runs csrc/typed_block.cu
+        if tile_e % 16:
+            raise ValueError(f"{name}: tile_e {tile_e} is not a multiple of "
+                             f"16, as block mode's layouts' are")
+        lens = block_plan(name, h_pack, dstl_blk, slot_off16, blk_off16,
+                          n_blocks, tile_e, S8)
+        _build.launch(
+            _build.library().ggnn_typed_block_fused, name, h_pack.device,
+            int(fused), p(h_pack), h_pack.shape[0], p(dstl_blk),
+            p(slot_off16), p(blk_off16), p(lens), p(msg_w), n_blocks,
+            msg_w.shape[0], cmax, S8, tile_e, p(init), p(hstate), p(wa),
+            p(b3), p(uzr), p(uh), p(out))
+        return out
     _build.launch(
         _build.library().ggnn_typed_block, name, h_pack.device,
         _DTYPE_CODE[h_pack.dtype], int(fused), p(h_pack), h_pack.shape[0],
@@ -500,7 +552,10 @@ def typed_block_scatter(h_pack, dstl_blk, slot_off16, blk_off16, msg_w,
     Σ_{t,c} bf16(onehot(b,t,c) @ H_chunk) · W_t  → [n_blocks·128, D] f32.
 
     ``h_pack`` [E_pack, D] and ``msg_w`` [T2, D, D] in the compute dtype;
-    the int32 layout arrays as :func:`build_typed_dst_layout` made them."""
+    the int32 layout arrays as :func:`build_typed_dst_layout` made them.
+    A CPU tensor takes the plain version; a CUDA tensor launches
+    ``csrc/typed_block_fused.cu`` (bf16) or ``csrc/typed_block.cu`` (f32),
+    or raises."""
     _check_block_args("typed_block_scatter", h_pack, dstl_blk, slot_off16,
                       blk_off16, msg_w, n_blocks, tile_e, S8, cmax, span_rows)
     if h_pack.device.type == "cpu":
@@ -531,7 +586,8 @@ def typed_block_step_gru(h_pack, dstl_blk, slot_off16, blk_off16, msg_w,
     """Fused per-block typed aggregation + GRU step: ``init``
     [n_blocks·128, D] f32 is the Σ_t indeg_t·b_t bias, ``hstate`` the padded
     f32 node state, ``wa``/``uzr``/``uh`` in the compute dtype and ``b3``
-    [1, 3D] f32; returns h' [n_blocks·128, D] f32."""
+    [1, 3D] f32; returns h' [n_blocks·128, D] f32.  The kernels as for
+    :func:`typed_block_scatter`, with the GRU step in their epilogue."""
     _check_block_args("typed_block_step_gru", h_pack, dstl_blk, slot_off16,
                       blk_off16, msg_w, n_blocks, tile_e, S8, cmax, span_rows)
     D = msg_w.shape[-1]
@@ -712,7 +768,7 @@ def typed_step_gru_reference(h_pack, dstl, tile_start, block_of_tile,
 def dstl_lengths(dstl):
     """Each dstl row's length, its last slot with a dst id ≥ 0 plus one (0
     for none), int32 [n_dstl]: a tile's real rows lie in that prefix of its
-    slots (``csrc/typed_tile_fused.cu`` reads only those)."""
+    slots (``csrc/typed_pipe.cuh`` reads only those)."""
     slots = torch.arange(1, dstl.shape[1] + 1, dtype=torch.int32,
                          device=dstl.device)
     return torch.where(dstl >= 0, slots, 0).amax(1).to(torch.int32)
@@ -721,11 +777,11 @@ def dstl_lengths(dstl):
 def _fused_tile_plan(name, h_pack, dstl, tile_start, block_of_tile,
                      tile_msg_off, c_off, tile_type, T2, n_blocks, tile_e,
                      align):
-    """``csrc/typed_tile_fused.cu``'s plan: the hub split (item_first,
-    pbase), the blocks of more than one item first and in block order
-    (``split``, int32 [n_blocks], of which the first n_split are read),
-    :func:`dstl_lengths`, and the item, partial-slot and split counts,
-    after the layout's data checks against the pack."""
+    """``csrc/typed_tile_fused.cu``'s plan (#6 and #7): the hub split
+    (item_first, pbase), the blocks of more than one item first and in
+    block order (``split``, int32 [n_blocks], of which the first n_split
+    are read), :func:`dstl_lengths`, and the item, partial-slot and split
+    counts, after the layout's data checks against the pack."""
     item_first, pbase, n_items, n_part = split_plan(tile_start.diff())
     multi = item_first[1:] - item_first[:-1] > 1
     n_items, n_part, n_split = _tile_data_checks(
@@ -761,11 +817,13 @@ def _launch_tile(name, fused, h_pack, dstl, tile_start, block_of_tile,
     dev = h_pack.device
     out = torch.empty(n_blocks * BLOCK_N, D, dtype=torch.float32, device=dev)
     p = _build.ptr
-    if fused and h_pack.dtype == torch.bfloat16 and tile_e % 16 == 0:
+    if h_pack.dtype == torch.bfloat16 and tile_e % 16 == 0:
         # csrc/typed_tile_fused.cu: the one-hot product on the tensor
-        # cores; the blocks of more than one item summed, and their GRU
-        # run, by 8 CTAs a block.  The plan and the layout's checks once
-        # per layout and pack height (no host sync on later calls).
+        # cores over each tile's real prefix; the blocks of more than one
+        # item summed by a second kernel (#6: and their GRU run, 8 CTAs a
+        # block; #7: float4 columns).  The plan and the layout's checks
+        # once per layout and pack height, shared by #6 and #7 (no host
+        # sync on later calls).
         item_first, pbase, split, lens, n_items, n_part, n_split = \
             cached_per_tensor(
                 tile_start,
@@ -778,13 +836,18 @@ def _launch_tile(name, fused, h_pack, dstl, tile_start, block_of_tile,
                     align))
         ws = torch.empty(max(n_part, 1), BLOCK_N, D, dtype=torch.float32,
                          device=dev)
-        _build.launch(
-            _build.library().ggnn_typed_step_fused, name, dev, p(h_pack),
-            h_pack.shape[0], p(dstl), dstl.shape[0], p(tile_start),
-            p(tile_msg_off), p(c_off), p(tile_type), p(lens), p(msg_w), T2,
-            n_blocks, tile_e, align, p(item_first), p(pbase), n_items,
-            p(split), n_split, p(init), p(hstate), p(wa), p(b3), p(uzr),
-            p(uh), p(ws), p(out))
+        args = (p(h_pack), h_pack.shape[0], p(dstl), dstl.shape[0],
+                p(tile_start), p(tile_msg_off), p(c_off), p(tile_type),
+                p(lens), p(msg_w), T2, n_blocks, tile_e, align,
+                p(item_first), p(pbase), n_items, p(split), n_split)
+        lib = _build.library()
+        if fused:
+            _build.launch(lib.ggnn_typed_step_fused, name, dev, *args,
+                          p(init), p(hstate), p(wa), p(b3), p(uzr), p(uh),
+                          p(ws), p(out))
+        else:
+            _build.launch(lib.ggnn_typed_onehot_fused, name, dev, *args,
+                          p(ws), p(out))
         return out
     item_first, pbase, n_items, n_part = split_plan(tile_start.diff())
     n_items, n_part = _tile_data_checks(
@@ -813,7 +876,8 @@ def typed_onehot_scatter(h_pack, dstl, tile_start, block_of_tile,
     the int32 layout arrays as :func:`build_typed_dst_layout` made them.
     (The TPU kernel's DMA ring depth and span mode do not change the sums;
     the port has neither.)  A CPU tensor takes the plain version; a CUDA
-    tensor launches ``csrc/typed_tile.cu`` or raises."""
+    tensor launches ``csrc/typed_tile_fused.cu``'s STORE form (bf16,
+    tile_e a multiple of 16) or ``csrc/typed_tile.cu``, or raises."""
     name = "typed_onehot_scatter"
     _check_tile_args(name, h_pack, dstl, tile_start, block_of_tile,
                      tile_msg_off, c_off, tile_type, msg_w, n_blocks, tile_e)

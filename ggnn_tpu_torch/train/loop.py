@@ -141,7 +141,7 @@ class Trainer:
         if cfg.model.head == "ggsnn":
             raise NotImplementedError(
                 f"config {cfg.name!r} trains a GGS-NN (head='ggsnn'), which "
-                "is not ported yet (ROADMAP.md Queue 1 item 4)")
+                "is not ported yet (ROADMAP.md Queue 1, GGS-NN)")
         self.cfg = cfg
         self.logger = logger or MetricsLogger(cfg.metrics_path)
         task = TASKS[cfg.task_id]

@@ -24,6 +24,7 @@ import torch
 
 from ggnn_tpu.ops import gru_pallas as GP
 from ggnn_tpu.ops import scatter_pallas as SP
+from ggnn_tpu_torch.ops import bounds as B
 from ggnn_tpu_torch.ops import gru as G
 from ggnn_tpu_torch.ops import scatter as S
 
@@ -272,7 +273,11 @@ def test_kernels_match_reference_on_card(dtype):
     """Each kernel against its plain version on the card, with model-scale
     inputs (h in (−1, 1), weights U(±1/√D)).  The kernel sums in another
     order than the plain version's library matmuls, so the criteria are
-    those of chip_smoke.py: scatter max ≤ 2e-5·max(1, max|plain|); GRU
+    those of chip_smoke.py: scatter max ≤ 2e-5·max(1, max|plain|) in f32,
+    in bf16 per element within ops/bounds.py::block_bound and on average
+    within a tenth of it (the tensor cores of csrc/typed_block_fused.cu
+    add a slot's one-hot terms in another order, so a slot's sum on a bf16
+    boundary may round the other way); GRU
     cell max ≤ one bf16 ulp at 1.0 (f32: 1e-4); fused step (bf16) max ≤
     8 ulps at 1.0 and mean ≤ 1e-3, since a last-bit f32 difference can
     round a, the aggregation, to the neighbouring bf16 value before the
@@ -303,7 +308,12 @@ def test_kernels_match_reference_on_card(dtype):
     got = S.typed_block_scatter(h_pack, *arrs, w, **kw)
     ref = S.typed_block_scatter_reference(h_pack, *arrs, w, **kw)
     emax, _, scale = err(got, ref)
-    assert emax <= 2e-5 * max(1.0, scale), emax
+    if bf16:
+        bound = B.block_bound(h_pack, w, arrs, kw, tdt)
+        assert B.within_bound(got, ref, bound), B.bound_ratios(got, ref,
+                                                               bound)
+    else:
+        assert emax <= 2e-5 * max(1.0, scale), emax
     gw = [x[k].to(tdt) for k in ("wa", "uzr", "uh")]
     got = S.typed_block_step_gru(h_pack, *arrs, w, init, x["hstate"],
                                  gw[0], x["b3"], gw[1], gw[2], **kw)
