@@ -23,7 +23,10 @@
    1 to 256 rows at tile_e 256 and 144, a block without a slot, a hub of
    two work items with type changes inside them, a slot list of 288; D =
    64, 128, 256), twice bit-equal, and #7 = #1 and #6 = #2 bit for bit on
-   the blocks of one work item of the same edges.
+   the blocks of one work item of the same edges; then #4 at the seams of
+   its bf16 kernel (``gru_bwd_seam_fuzz``: 1, 17, 33 and SMs + 1 blocks of
+   128 rows, da in f32 and bf16; f32 at 1 and 17), each of its six
+   outputs twice bit-equal, as at every layout.
 3. Serves: a ``Predictor`` for the headline model (node_select head,
    onehot backend, bf16, T = 5 steps, random weights from seed 0) answers
    two requests of 262,144-node graphs (seeds 0 and 1;
@@ -107,7 +110,10 @@
    4, 8, 128, emit_res and q8), #12 at the seams of its bf16 kernel
    (``ondemand_seam_fuzz``: clusters of 1, 2, 4 CTAs, 1, 2, 4 chunks a
    window, a hub block cut into many work items, a one-tile block, empty
-   blocks, D = 4 and 128) and on the community headline's two
+   blocks, D = 4 and 128), #15 at the seams of its bf16 kernels
+   (``q8_table_seam_fuzz``: windows of 1, 2, 4, 16 types at T2 = 16 and
+   of 1, 3 at T2 = 3, 133 source blocks, an all-zero block with a zero
+   bias: scale 2**-100, q 0) and on the community headline's two
    bench layouts (262,144 nodes, 8M directed edges, W 512, block_rows 512,
    the XW spill: on-demand, and the q8 record's table), timed.  ``[window
    serve]``: one request through the window ``Predictor`` (its own
@@ -312,7 +318,7 @@ KERNELS = {
                              "ggnn_tpu/ops/scatter_pallas.py:1873"),
     "gru_cell_fwd": ("ggnn_tpu_torch/ops/csrc/gru_cell.cu",
                      "ggnn_tpu/ops/gru_pallas.py:41"),
-    "gru_cell_bwd": ("ggnn_tpu_torch/ops/csrc/gru_cell_bwd.cu",
+    "gru_cell_bwd": ("ggnn_tpu_torch/ops/csrc/gru_cell_bwd_pipe.cu",
                      "ggnn_tpu/ops/gru_pallas.py:62"),
     "typed_grad_octet_scatter": ("ggnn_tpu_torch/ops/csrc/grad_octet.cu",
                                  "ggnn_tpu/ops/scatter_pallas.py:2120"),
@@ -880,30 +886,16 @@ def check_grad_kernels(tag, layout, log, timings=None):
         rows = got.reshape(n_oct * 8, 128, DIM)
         if (rows[empty] != 0).any():
             raise AssertionError(f"{tag}: an empty grad block is not 0")
-        h = torch.rand(n_rows, DIM, device=dev, generator=gen) * 2 - 1
-        a = torch.randn(n_rows, DIM, device=dev, generator=gen)
-        g = torch.randn(n_rows, DIM, device=dev, generator=gen)
-        w = [torch.empty(DIM, k * DIM, device=dev).uniform_(
-            -DIM ** -0.5, DIM ** -0.5, generator=gen) for k in (3, 2, 1)]
-        b3 = torch.empty(3 * DIM, device=dev).uniform_(-0.1, 0.1,
-                                                        generator=gen)
-        _, z, r, ht = G.gru_cell_fwd_reference(h, a, w[0], b3, w[1], w[2],
-                                               mdt=dtype)
-        args = (g, h.to(dtype), a.to(dtype), z, r, ht, *w)
-        outs = G.gru_cell_bwd(*args, mdt=dtype)
-        torch.cuda.synchronize()
-        refs = G.gru_cell_bwd_reference(*args, mdt=dtype)
-        for part, o, rr in zip(("dh", "da", "dW_a", "db", "dU_zr", "dU_h"),
-                               outs, refs):
-            check(f"gru_cell_bwd[{tag},{dn},{part}]", o, rr, "relfro", dtype,
-                  log)
+        args = gru_bwd_inputs(n_rows, dtype, gen)
+        w = args[6:]
+        outs = check_gru_bwd(f"{tag},{dn}", args, dtype, log)
         if timings is not None and dtype == torch.bfloat16:
             n_real = int(arrs["g_indeg"].sum().item())
             octet_bound = roofline(
                 n_real * DIM * Gp.element_size() + nbytes(*octs)
                 + nbytes(got), [(n_real * DIM, F32_FLOPS)])
             bwd_bound = roofline(
-                nbytes(g) + 5 * nbytes(args[1]) + 2 * nbytes(*w)
+                nbytes(args[0]) + 5 * nbytes(args[1]) + 2 * nbytes(*w)
                 + 2 * n_rows * DIM * 4 + 3 * DIM * 4,
                 [(24 * n_rows * DIM * DIM, BF16_FLOPS)])
             lib = reverse_library_call(
@@ -922,7 +914,64 @@ def check_grad_kernels(tag, layout, log, timings=None):
                     lambda: G.gru_cell_bwd_reference(*args, mdt=dtype),
                     None, bwd_bound),
             }, timings)
-        del Gp, got, ref, outs, refs, args
+        del Gp, got, ref, outs, args
+
+
+def gru_bwd_inputs(n_rows, dtype, gen, D=DIM):
+    """#4's arguments for ``n_rows`` rows: the cotangent g, h, a and the
+    residuals z, r, h̃ that the forward cell makes from random h and a,
+    and the GRU weights."""
+    import torch
+    from ggnn_tpu_torch.ops import gru as G
+    dev = torch.device("cuda")
+    h = torch.rand(n_rows, D, device=dev, generator=gen) * 2 - 1
+    a = torch.randn(n_rows, D, device=dev, generator=gen)
+    g = torch.randn(n_rows, D, device=dev, generator=gen)
+    w = [torch.empty(D, k * D, device=dev).uniform_(
+        -D ** -0.5, D ** -0.5, generator=gen) for k in (3, 2, 1)]
+    b3 = torch.empty(3 * D, device=dev).uniform_(-0.1, 0.1, generator=gen)
+    _, z, r, ht = G.gru_cell_fwd_reference(h, a, w[0], b3, w[1], w[2],
+                                           mdt=dtype)
+    return (g, h.to(dtype), a.to(dtype), z, r, ht, *w)
+
+
+def check_gru_bwd(tag, args, dtype, log, da_dtype=None):
+    """#4 on ``args`` against its plain version (relative Frobenius error
+    of each of its six outputs), and a second run bit-equal on all six."""
+    import torch
+    from ggnn_tpu_torch.ops import gru as G
+    kw = dict(mdt=dtype, da_dtype=da_dtype or torch.float32)
+    outs = G.gru_cell_bwd(*args, **kw)
+    again = G.gru_cell_bwd(*args, **kw)
+    refs = G.gru_cell_bwd_reference(*args, **kw)
+    for part, o, o2, rr in zip(("dh", "da", "dW_a", "db", "dU_zr", "dU_h"),
+                               outs, again, refs):
+        same_twice("gru_cell_bwd", f"{tag},{part}", o, o2)
+        check(f"gru_cell_bwd[{tag},{part}]", o, rr, "relfro", dtype, log)
+    return outs
+
+
+def gru_bwd_seam_fuzz(log):
+    """[kernels] #4 at the seams of its bf16 kernel, da in f32 and in bf16
+    (the fused window step's VJP): one 128-row block, 17 (a split-K chunk
+    of 16 blocks and a partial one), 33, and one block more than the card
+    has SMs (the persistent rows pass then gives one CTA two blocks); in
+    f32 one block and 17."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for n_blocks in (1, 17, 33, sms + 1):
+        for dtype, das in ((torch.bfloat16, (torch.float32, torch.bfloat16)),
+                           (torch.float32, (torch.float32,))):
+            if dtype == torch.float32 and n_blocks > 17:
+                continue
+            args = gru_bwd_inputs(128 * n_blocks, dtype, gen)
+            for da in das:
+                check_gru_bwd(f"seam {n_blocks} blocks,"
+                              f"{str(dtype).split('.')[-1]},da "
+                              f"{str(da).split('.')[-1]}", args, dtype, log,
+                              da_dtype=da)
+            del args
 
 
 def check_tile_kernels(tag, layout, params, log, timings=None, a_max=None,
@@ -2628,6 +2677,45 @@ def check_q8_table(tag, h, w, b, window, log):
     return tq, sc
 
 
+# #15's seams: (T2, window, source blocks, bias) — windows of 1, 2, 4, 16
+# types at T2 = 16 and of 1, 3 at T2 = 3; 133 blocks leave the persistent
+# CTAs (and clusters) uneven; "zero" makes the bias 0 and source block 1
+# all zero, so that its windows' scale is 2^-100 and their q 0.
+Q8_SEAMS = ((16, 128, 7, "rand"), (16, 256, 7, "rand"),
+            (16, 512, 133, "rand"), (16, 2048, 5, "rand"),
+            (3, 128, 7, "rand"), (3, 384, 7, "rand"), (16, 512, 9, "zero"))
+
+
+def q8_table_seam_fuzz(log):
+    """[window kernels] #15 at its seams (``Q8_SEAMS``) with
+    :func:`check_q8_table`'s criteria, and the all-zero block exactly."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    bf = torch.bfloat16
+    for T2, W_, nb, kind in Q8_SEAMS:
+        h = (torch.rand(nb * 128, DIM, device="cuda", generator=gen) * 2
+             - 1).to(bf)
+        w = torch.empty(T2, DIM, DIM, device="cuda").uniform_(
+            -DIM ** -0.5, DIM ** -0.5, generator=gen).to(bf)
+        b = torch.empty(T2, DIM, device="cuda").uniform_(
+            -0.1, 0.1, generator=gen).to(bf)
+        if kind == "zero":
+            h[128:256] = 0
+            b.zero_()
+        tq, sc = check_q8_table(f"seam T2={T2},W={W_},blocks={nb},{kind}",
+                                h, w, b, W_, log)
+        if kind == "zero":
+            wpb = T2 * 128 // W_
+            if not (sc[wpb:2 * wpb] == 2.0 ** -100).all() or \
+                    (tq[T2 * 128:2 * T2 * 128] != 0).any():
+                raise AssertionError("node_table_block_major_q8: the zero "
+                                     "block's scale is not 2^-100 or its q "
+                                     "not 0")
+            print("  node_table_block_major_q8[seam zero]: the zero block's "
+                  "scales are 2^-100, its q 0", flush=True)
+        del h, w, b, tq, sc
+
+
 def window_sums_bound(table, lay_args, window, out_rows, scales=None,
                       msg_w=None, msg_b=None, flip=False):
     """The per-element bound of a window sum against its plain version:
@@ -3185,6 +3273,7 @@ def window_kernels_phase(params, log, timings):
     window_fuzz(params, log)
     window_step_seam_fuzz(log)
     ondemand_seam_fuzz(log)
+    q8_table_seam_fuzz(log)
     t0 = time.perf_counter()
     b = community_batch()
     print(f"[window kernels] community batch made (or reused) in "
@@ -5027,6 +5116,7 @@ def main() -> int:
         check_kernels(tag, lay, params, log)
         check_grad_kernels(tag, lay, log)
     typed_seam_fuzz(log)
+    gru_bwd_seam_fuzz(log)
 
     t0 = time.perf_counter()
     b = synthetic_batch(NODES, EDGES, EDGE_TYPES, annotation_dim=ANN,

@@ -1,4 +1,4 @@
-// GRU cell backward for Hopper (sm_90a).
+// GRU cell backward for Hopper (sm_90a): the f32 body of kernel #4.
 //
 // Replaces ggnn_tpu/ops/gru_pallas.py::gru_cell_bwd (_bwd_kernel).  From the
 // output cotangent g (f32) and the narrow residuals h, a, z, r, h̃ (matmul
@@ -11,26 +11,26 @@
 //   db = Σ_rows [dpz | dpr | dq]                             (all f32)
 // with every matmul input rounded to T (gate gradients included) and f32
 // accumulation, and db summed from the f32 gate gradients, as the TPU kernel
-// does.
+// does.  bf16 residuals run gru_cell_bwd_pipe.cu (persistent rows pass with
+// the weights resident, the params pass through ldmatrix.trans); this file
+// keeps the first body for f32.
 //
 // The TPU kernel accumulates the parameter gradients across its sequential
 // grid; a [D, 6D] f32 accumulator per CTA (384 KB) does not fit in shared
 // memory here, and float atomics would make the result change from run to
 // run.  So the work is split in three deterministic launches:
 // 1. rows: one CTA per 128-row block (8 warps x 16 rows) computes the gate
-//    gradients, dh and da with mma.sync (bf16) or FMA loops (f32), writes
-//    dpz, dpr, dq rounded to T to a workspace and the block's column sums of
-//    the f32 gate gradients (db partials);
+//    gradients, dh and da with FMA loops, writes dpz, dpr, dq to a
+//    workspace and the block's column sums of the gate gradients (db
+//    partials);
 // 2. params: split-K over row chunks, one CTA per (chunk, product) for the
 //    six [128, 128] products xᵀ·y, each staged transposed in shared memory,
 //    writing one f32 partial per chunk;
 // 3. reduce: every output element sums its chunk partials in a fixed order.
 //
-// Bound on this card: HBM bytes.  At the headline (262,144 rows, D = 128,
-// bf16) the rows pass reads g (134 MB) and four residuals (268 MB) and
-// writes dh (134 MB), da (134 MB) and the gate workspace (201 MB); the params
-// pass reads 6 x 2 x 67 MB and the partials are ~50 MB: ≈ 1.7 GB, ≈ 0.5 ms
-// at 3.35 TB/s, against the ≈ 0.7 GB the function itself must move.
+// Bound on this card in f32: the products.  At the headline's 262,144 rows
+// the function moves 1.07 GB (0.32 ms at 3.35 TB/s) and multiplies 103
+// GFLOP outside the tensor cores (1.54 ms at 67 TFLOP/s).
 #include "common.cuh"
 
 namespace ggnn {
@@ -298,6 +298,14 @@ static int launch_gru_bwd(const void* g, const void* h, const void* a,
   return int(cudaGetLastError());
 }
 
+template <typename TD>
+int launch_gru_bwd_bf16(const void* g, const void* h, const void* a,
+                        const void* z, const void* r, const void* ht,
+                        const void* wa, const void* uzr, const void* uh,
+                        void* dh, void* da, void* gates, void* dbp, void* ws,
+                        void* dwa, void* db, void* duzr, void* duh,
+                        int n_blocks, cudaStream_t stream);
+
 }  // namespace ggnn
 
 // Number of split-K chunks the workspace ws must hold for n_blocks blocks
@@ -319,13 +327,17 @@ extern "C" int ggnn_gru_cell_bwd(int dtype, int da_narrow, const void* g,
                                  int n_blocks, void* stream) {
   if (n_blocks <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define GGNN_LAUNCH(T, TD)                                                   \
-  return ggnn::launch_gru_bwd<T, TD>(g, h, a, z, r, ht, wa, uzr, uh, dh, da, \
-                                     gates, dbp, ws, dwa, db, duzr, duh,     \
-                                     n_blocks, s)
-  if (dtype == 1 && da_narrow) GGNN_LAUNCH(__nv_bfloat16, __nv_bfloat16);
-  if (dtype == 1) GGNN_LAUNCH(__nv_bfloat16, float);
-  if (dtype == 0) GGNN_LAUNCH(float, float);
-#undef GGNN_LAUNCH
+  if (dtype == 0)
+    return ggnn::launch_gru_bwd<float, float>(g, h, a, z, r, ht, wa, uzr, uh,
+                                              dh, da, gates, dbp, ws, dwa, db,
+                                              duzr, duh, n_blocks, s);
+  if (dtype == 1 && da_narrow)
+    return ggnn::launch_gru_bwd_bf16<__nv_bfloat16>(
+        g, h, a, z, r, ht, wa, uzr, uh, dh, da, gates, dbp, ws, dwa, db,
+        duzr, duh, n_blocks, s);
+  if (dtype == 1)
+    return ggnn::launch_gru_bwd_bf16<float>(g, h, a, z, r, ht, wa, uzr, uh,
+                                            dh, da, gates, dbp, ws, dwa, db,
+                                            duzr, duh, n_blocks, s);
   return int(cudaErrorInvalidValue);
 }

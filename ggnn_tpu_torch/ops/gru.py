@@ -5,8 +5,9 @@ Counterpart of ``ggnn_tpu/ops/gru_pallas.py``.  The forward kernel
 (``csrc/gru_cell.cu``) runs the whole cell in one pass per 128-row block and
 returns ``(h', z, r, h̃)`` with the residual gates in the matmul dtype, as
 the TPU kernel does; serving uses only ``h'``.  The backward kernel
-(``csrc/gru_cell_bwd.cu``) turns the cotangent of h' and those residuals
-into dh, da and the parameter gradients.
+(``csrc/gru_cell_bwd.cu``; bf16 at D = 128 ``csrc/gru_cell_bwd_pipe.cu``)
+turns the cotangent of h' and those residuals into dh, da and the
+parameter gradients.
 """
 
 from __future__ import annotations
@@ -270,7 +271,8 @@ def gru_cell_bwd(g, h, a, z, r, htil, w_a, u_zr, uh, mdt=torch.bfloat16,
     weights are cast to ``mdt``.
 
     A CPU tensor takes :func:`gru_cell_bwd_reference`; a CUDA tensor
-    launches the kernel (``csrc/gru_cell_bwd.cu``; at D = 128·P, P > 1,
+    launches the kernel (``csrc/gru_cell_bwd.cu``, bf16 at D = 128
+    ``csrc/gru_cell_bwd_pipe.cu``; at D = 128·P, P > 1,
     ``csrc/gru_cell_wide.cu``; other D through :func:`pad_width`) or
     raises."""
     if g.device.type == "cpu":

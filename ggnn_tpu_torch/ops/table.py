@@ -20,7 +20,9 @@ gathers its messages from this table; the window backend
 - :func:`node_table_block_major_q8` wraps ``csrc/node_table_q8.cu`` (the
   port of ``_table_block_q8_kernel``): the same rows quantized to int8 with
   one power-of-2 scale per window of ``window / 128`` types (the window
-  backend's q8 serving table).
+  backend's q8 serving table).  In bf16 at D = 128 a cluster of
+  ``window / 128`` CTAs (up to 8) computes a window, each its own type,
+  and they exchange the window's max through distributed shared memory.
 
 A wrapper takes its plain version only for CPU tensors; for CUDA tensors it
 launches the kernel or raises.
@@ -160,8 +162,9 @@ def node_table_block_major_q8(h, msg_w, msg_b, window: int):
     ``h`` [N, D], ``msg_w`` [T2, D, D], ``msg_b`` [T2, D] in the compute
     dtype; N % 128 == 0, D % 128 == 0, W % 128 == 0, (T2·128) % W == 0.  A
     CPU tensor takes the plain version; a CUDA tensor launches
-    ``csrc/node_table_q8.cu`` (D = 128·P, in P column panels) or
-    raises."""
+    ``csrc/node_table_q8.cu`` (bf16 at D = 128: a cluster of CTAs a window
+    up to 8 types, else the products twice; D = 128·P in P column panels)
+    or raises."""
     name = "node_table_block_major_q8"
     _check_q8_args(name, h, msg_w, msg_b, window)
     if h.device.type == "cpu":
