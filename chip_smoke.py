@@ -50,7 +50,12 @@
    twice (bit-equal), per element, on fuzz layouts (empty blocks, the
    all-padding tail of ``pad_tiles_to``, tile_e 128 and 2048, D = 4 and
    128, f32 and bf16; #10 also at the seams of its persistent schedule:
-   one source block and 150, T2 = 1, 3 and 16, D = 4 to 384) and on
+   one source block and 150, T2 = 1, 3 and 16, D = 4 to 384), the bf16
+   pipeline of #11 and #8 (``csrc/window_mono_fused.cu``) at its seams
+   (``mono_seam_fuzz``: #11's dst-local, count and 256/512-row count
+   forms, f32 and bf16 out, #8 at tile_e 128 and 2048, #9; a hub block
+   of many work items, a hub tile, padding tails, all-padding and dummy
+   tiles, a ``c_off`` permutation, empty blocks exactly 0) and on
    ``layout_for_batch`` of the headline (64,548
    forward tiles, 95,268 grad tiles; timed), with
    ``window_block_spmm_mono`` (#11) on its grad half, and #11 at D = 4, 6,
@@ -135,7 +140,8 @@
    256, 384); then bench.py's
    window_community_train and window_community_train_q8g (the community
    headline, its layout built ``with_grad``, on-demand, the XW spill): #14
-   and #13 ``emit_res`` timed, the unfused aggregation's VJP against the
+   and #13 ``emit_res`` timed, #11 on the spill both ways timed with its
+   bound (``time_spill_mono``), the unfused aggregation's VJP against the
    plain path, and 3 Adam steps through ``make_train_step`` (launch
    counts, the first step against the plain path, step times, peak
    memory, the layout's host seconds); #3, #4, #13, #14 and #15 timed at
@@ -326,11 +332,13 @@ KERNELS = {
                              "ggnn_tpu/ops/scatter_pallas.py:1416"),
     "typed_step_gru": ("ggnn_tpu_torch/ops/csrc/typed_tile_fused.cu",
                        "ggnn_tpu/ops/scatter_pallas.py:1562"),
-    "window_block_spmm_mono": ("ggnn_tpu_torch/ops/csrc/window_mono.cu",
-                               "ggnn_tpu/ops/window_pallas.py:787"),
-    "onehot_segment_scatter_flat": ("ggnn_tpu_torch/ops/csrc/window_mono.cu",
-                                    "ggnn_tpu/ops/scatter_pallas.py:618"),
-    "onehot_segment_scatter": ("ggnn_tpu_torch/ops/csrc/window_mono.cu",
+    "window_block_spmm_mono": (
+        "ggnn_tpu_torch/ops/csrc/window_mono_fused.cu",
+        "ggnn_tpu/ops/window_pallas.py:787"),
+    "onehot_segment_scatter_flat": (
+        "ggnn_tpu_torch/ops/csrc/window_mono_fused.cu",
+        "ggnn_tpu/ops/scatter_pallas.py:618"),
+    "onehot_segment_scatter": ("ggnn_tpu_torch/ops/csrc/window_mono_fused.cu",
                                "ggnn_tpu/ops/scatter_pallas.py:506"),
     "node_table_block_major": ("ggnn_tpu_torch/ops/csrc/node_table.cu",
                                "ggnn_tpu/ops/window_pallas.py:1499"),
@@ -2331,6 +2339,206 @@ def legacy_fuzz(log):
     table_seam_fuzz(log)
 
 
+def mono_seam_edges(seed, N=4096, E=40000, T2=3):
+    """The seam layouts' edges: 90 % of E into dst rows [0, 64), the rest
+    into the lower half of the N rows, 600 more into dst row 5."""
+    r = np.random.default_rng(seed)
+    src, typ = r.integers(0, N, E + 600), r.integers(0, T2, E + 600)
+    dst = np.concatenate([np.where(r.random(E) < 0.9, r.integers(0, 64, E),
+                                   r.integers(0, N // 2, E)),
+                          np.full(600, 5)])
+    return src, dst, typ, (r.random(E + 600) < 0.95).astype(np.float32)
+
+
+def mono_seam_layouts():
+    """The seams of #11's and #8's bf16 pipeline on small layouts (4,096
+    nodes): a hub block of far more than 32 tiles (90 % of the edges into
+    dst rows [0, 64)), a hub tile (600 edges into dst row 5), padding tails
+    inside tiles, all-padding tiles (``pad_tiles_to``), empty blocks (no
+    edge into the upper half of the dst rows), windows overlapping at
+    ``win_stride`` 16, dummy tiles (20 % of the tiles' windows set to −1)
+    and a stream read through a ``c_off`` permutation; window layouts with
+    counts above 1 at W 128/256/512 and blocks of 128 to 512 rows.  Yields
+    (tag, table rows, (stream, tile_start, block_of_tile, win_of_tile),
+    keyword arguments of #11) on the card."""
+    import torch
+    from ggnn_tpu_torch.ops import legacy as L
+    from ggnn_tpu_torch.ops import window as W
+    N, T2 = 4096, 3
+    src, dst, typ, mask = mono_seam_edges(41)
+    r = np.random.default_rng(42)
+    t = lambda x: torch.as_tensor(np.asarray(x), device="cuda")
+    for dstl in (True, False):
+        for tile_e in (128, 256):
+            base = L.build_dst_block_layout(src, dst, typ, mask, N,
+                                            tile_e=tile_e, n_message_types=T2,
+                                            edge_align=16, dstl_stream=dstl)
+            lay = L.build_dst_block_layout(
+                src, dst, typ, mask, N, tile_e=tile_e, n_message_types=T2,
+                edge_align=16, dstl_stream=dstl,
+                pad_tiles_to=base.block_of_tile.shape[0] + 5)
+            form = "dstl" if dstl else "counts"
+            stream = lay.dstl if dstl else lay.onehot
+            kw = dict(n_blocks=lay.n_blocks, window=tile_e, win_stride=16,
+                      dstl=dstl)
+            R = lay.gather_idx.shape[0]
+            yield (f"{form} tile_e={tile_e}", R, tuple(t(x) for x in (
+                stream, lay.tile_start, lay.block_of_tile,
+                lay.tile_msg_off)), kw)
+            n_tiles = lay.block_of_tile.shape[0]
+            win = np.where(r.random(n_tiles) < 0.2, -1,
+                           lay.tile_msg_off).astype(np.int32)
+            n_c = stream.shape[0] // (1 if dstl else 128)
+            perm = r.permutation(n_c)
+            inv = np.argsort(perm).astype(np.int32)
+            permuted = (stream[perm] if dstl else stream.reshape(
+                n_c, 128, tile_e)[perm].reshape(stream.shape))
+            yield (f"{form} tile_e={tile_e} dummies c_off", R,
+                   tuple(t(x) for x in (permuted, lay.tile_start,
+                                        lay.block_of_tile, win)),
+                   dict(kw, c_off=t(inv[:n_tiles])))
+    for W_, rows in ((128, 128), (256, 256), (512, 512), (128, 512)):
+        lay = W.build_window_layout(
+            src, dst, typ, mask, N, window=W_, min_edges_per_tile=1,
+            n_message_types=T2, block_rows=rows)
+        a = {k: t(v) for k, v in lay.arrays.items()}
+        yield (f"window W={W_} rows={rows}", T2 * N + (-T2 * N) % W_,
+               (a["c_stream"], a["tile_start"], a["block_of_tile"],
+                a["win_of_tile"]),
+               dict(n_blocks=lay.n_blocks, window=W_, out_rows=rows,
+                    c_off=a["c_off"], dstl=False))
+
+
+def mono_seam_fuzz(log):
+    """[legacy kernels] #11's and #8's bf16 pipeline
+    (``csrc/window_mono_fused.cu``) against their plain versions at the
+    seams of :func:`mono_seam_layouts`: #11 in its dst-local, count and
+    tall count forms, output f32 and bf16; #8 at tile_e 128 and 2048 and #9
+    at tile_e 128 and 256 (f32 out) on the same edges, and #9 at tile_e 24
+    (``csrc/window_mono.cu``'s panel kernel).  Each per element within
+    :func:`flush_bound`, twice bit-equal, and every block without a term
+    exactly 0; #8 refuses a stream with an entry 2."""
+    import torch
+    from ggnn_tpu_torch.ops import legacy as L
+    from ggnn_tpu_torch.ops import window as W
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    n_checks = 0
+
+    def held(name, tag, run, plain, table, out_dtype):
+        got = run(table)
+        same_twice(name, tag, got, run(table))
+        ref = plain(table)
+        bound = flush_bound(plain, table, ref, out_dtype)
+        check(f"{name}[{tag}]", got, ref, "bound", table.dtype, log,
+              bound=bound)
+        empty = bound.reshape(-1, 128 * bound.shape[1]).amax(1) == 0
+        if not empty.any():
+            raise AssertionError(f"{name}[{tag}]: the layout has no empty "
+                                 f"block")
+        if (got.reshape(empty.shape[0], -1)[empty] != 0).any():
+            raise AssertionError(f"{name}[{tag}]: a block without a term "
+                                 f"is not 0")
+
+    n_split = 0
+    for tag, R, args, kw in mono_seam_layouts():
+        n_split += int((args[1].diff() > 32).any().item())
+        table = (torch.rand(R, DIM, device="cuda", generator=gen) * 2
+                 - 1).to(torch.bfloat16)
+        for out_dtype in (torch.float32, torch.bfloat16):
+            held("window_block_spmm_mono",
+                 f"{tag},{str(out_dtype).split('.')[-1]}",
+                 lambda x, o=out_dtype: W.window_block_spmm_mono(
+                     x, *args, out_dtype=o, **kw),
+                 lambda x: W.window_block_spmm_mono_reference(
+                     x, *args, **kw), table, out_dtype)
+            n_checks += 1
+    if n_split < 6:
+        raise AssertionError(f"mono seams: {n_split} layouts with a block of "
+                             f"several work items")
+    N, T2 = 4096, 3
+    src, dst, typ, mask = mono_seam_edges(44)
+    for tile_e in (128, 256, 2048, 24):
+        base = L.build_dst_block_layout(src, dst, typ, mask, N,
+                                        tile_e=tile_e, n_message_types=T2)
+        lay = L.build_dst_block_layout(
+            src, dst, typ, mask, N, tile_e=tile_e, n_message_types=T2,
+            pad_tiles_to=base.block_of_tile.shape[0] + 3).to("cuda")
+        a, nb, mt = lay.arrays, lay.meta[3], lay.meta[2]
+        msgs = (torch.rand(a["gather_idx"].shape[0], DIM, device="cuda",
+                           generator=gen) * 2 - 1).to(torch.bfloat16)
+        if tile_e in (128, 2048):
+            fa = (a["onehot"], a["tile_start"], a["block_of_tile"], nb,
+                  tile_e)
+            held("onehot_segment_scatter_flat", f"seams tile_e={tile_e}",
+                 lambda x, f=fa: L.onehot_segment_scatter_flat(x, *f),
+                 lambda x, f=fa: L.onehot_segment_scatter_flat_reference(
+                     x, *f), msgs, torch.float32)
+            n_checks += 1
+            # a stream that is not one-hot: refused by the plan's pass
+            bad = a["onehot"].clone()
+            bad.view(-1)[torch.nonzero(bad.view(-1))[0]] = 2
+            try:
+                L.onehot_segment_scatter_flat(msgs, bad, *fa[1:])
+            except ValueError as e:
+                if "not a one-hot layout" not in str(e):
+                    raise
+            else:
+                raise AssertionError("onehot_segment_scatter_flat: a "
+                                     "stream with an entry 2 was taken")
+            del bad
+        if tile_e != 2048:
+            da = (a["dst_local"], a["tile_start"], nb, mt, tile_e)
+            held("onehot_segment_scatter", f"seams tile_e={tile_e}",
+                 lambda x, d=da: L.onehot_segment_scatter(x, *d),
+                 lambda x, d=da: L.onehot_segment_scatter_reference(x, *d),
+                 msgs, torch.float32)
+            n_checks += 1
+    print(f"[legacy kernels] mono seams: {n_checks} checks of the bf16 "
+          f"pipeline (#11 dst-local, counts, tall counts; #8; #9; #9 at "
+          f"tile_e 24 on the panel kernel), each twice bit-equal; #8's "
+          f"one-hot check refuses a bad stream: ok", flush=True)
+
+
+def time_spill_mono(lay, timings):
+    """[window train] #11 on a window train step's XW spill, forward
+    (``s_``) and backward (``sb_``), replayed on the layout's own
+    arguments with random bf16 message rows: its time and its bound (the
+    real rows' bytes: each pack row whose dst id is ≥ 0, read once; the
+    dst-local stream, tile_start and windows; the f32 output), printed,
+    and the sum of one step's ten launches."""
+    import torch
+    from ggnn_tpu_torch.ops import window as W
+    a = lay.arrays
+    gen = torch.Generator(device="cuda").manual_seed(45)
+    total = 0.0
+    for prefix, meta in (("s_", lay.spill_meta), ("sb_", lay.grad_meta[3])):
+        if meta[6] is None or prefix + "dstl" not in a:
+            print(f"  {prefix} spill: not the dst-local form", flush=True)
+            continue
+        stream = (a[prefix + "dstl"], a[prefix + "tile_start"],
+                  a[prefix + "block_of_tile"], a[prefix + "tile_msg_off"])
+        kw = dict(n_blocks=meta[3], window=meta[1], win_stride=meta[6],
+                  dstl=True)
+        msgs = (torch.rand(a[prefix + "gather_idx"].shape[0], DIM,
+                           device="cuda", generator=gen) * 2
+                - 1).to(torch.bfloat16)
+        ms = min(cuda_ms(lambda: W.window_block_spmm_mono(
+            msgs, *stream, **kw), 10) for _ in range(2))
+        n_real = int((stream[0] >= 0).sum().item())
+        print(f"  time window_block_spmm_mono [{prefix} spill: "
+              f"{stream[0].shape[0]} tiles of {meta[1]}, {meta[3]} blocks, "
+              f"{n_real} real rows of {msgs.shape[0]}]: {ms:.4f} ms; bound",
+              flush=True)
+        bound_ms, _ = roofline(n_real * DIM * 2 + nbytes(*stream)
+                               + meta[3] * 128 * DIM * 4,
+                               [(n_real * DIM, F32_FLOPS)])
+        timings[f"window_block_spmm_mono[{prefix}spill]"] = dict(
+            ms=ms, bound_ms=bound_ms)
+        total += ms
+    print(f"  #11 on the spill: {STEPS} launches each way a step, "
+          f"{STEPS * total:.3f} ms a step", flush=True)
+
+
 def legacy_phase(params, b, log, timings):
     """The legacy table-gather path at the headline (the uniform batch
     ``b``): [legacy kernels], [legacy serve], [legacy train] with the
@@ -2343,6 +2551,7 @@ def legacy_phase(params, b, log, timings):
     from ggnn_tpu_torch.train.loop import batch_arrays
     launched = dict.fromkeys(KERNELS, 0)
     legacy_fuzz(log)
+    mono_seam_fuzz(log)
     check_window_widths(log)
     t0 = time.perf_counter()
     lay = L.layout_for_batch(b, with_grad=True, device="cuda")
@@ -3898,6 +4107,7 @@ def window_train_phase(params, log, timings, timed_widths=TIMED_WIDTHS):
             check_emit_res("headline on-demand", lay, params, log,
                            torch.bfloat16, timings)
             window_vjp_check(name, lay, params, log)
+            time_spill_mono(lay, {})
             for D in timed_widths:
                 time_wide_kernels(lay, D)
         spill = ("window_block_spmm_mono" if lay.spill_meta[6] is not None

@@ -103,12 +103,17 @@ _SIGNATURES = {
                          _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     # dtype, h, msg_w, msg_b, n_blocks, T2, gtypes, P, out, scales, stream
     "ggnn_node_table_q8": [_I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    # ids, out_dtype, table, n_table, c_stream, window, units, work,
+    # n_work, zero_blk, n_zero, item_first, pbase, split, n_split, ws, out,
+    # stream
+    "ggnn_mono_fused": [_I, _I, _P, ctypes.c_longlong, _P, _I, _P, _P, _I,
+                        _P, _I, _P, _P, _P, _I, _P, _P, _P],
     # dtype, msgs, n_msgs, D, onehot / dst_local, n_tiles, tile_start,
     # n_blocks, tile_e, item_first, pbase, n_items, n_partial, ws, out,
-    # [bad,] stream
+    # stream
     "ggnn_onehot_flat": [_I, _P, ctypes.c_longlong, _I, _P,
                          ctypes.c_longlong, _P, _I, _I, _P, _P, _I, _I, _P,
-                         _P, _P, _P],
+                         _P, _P],
     "ggnn_onehot_dstl": [_I, _P, ctypes.c_longlong, _I, _P,
                          ctypes.c_longlong, _P, _I, _I, _P, _P, _I, _I, _P,
                          _P, _P],

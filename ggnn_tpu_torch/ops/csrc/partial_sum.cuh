@@ -1,8 +1,10 @@
 // The second kernel of the split STORE forms (#12 window_ondemand_fused.cu,
-// #7 typed_tile_fused.cu) for Hopper (sm_90a): a split block's work-item
-// partials summed in item order and stored in f32.
+// #7 typed_tile_fused.cu, #11/#8 window_mono_fused.cu) for Hopper (sm_90a):
+// a split block's work-item partials summed in item order and stored in f32
+// or, rounded once, in bf16.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace ggnn {
@@ -13,11 +15,11 @@ namespace ggnn {
 // spreads over out_rows·32 / NT CTAs and no SM sums a hub alone; a thread
 // keeps UNROLL of its loads in flight.  The same order on every run: the
 // same bits.
-template <int NT, int UNROLL = 4>
+template <int NT, int UNROLL = 4, typename TO = float>
 __global__ void __launch_bounds__(NT) partial_sum_kernel(
     const int* __restrict__ split, const int* __restrict__ item_first,
     const int* __restrict__ pbase, const float* __restrict__ ws, int out_rows,
-    float* __restrict__ out) {
+    TO* __restrict__ out) {
   const int per = out_rows * 128 / 4;  // float4 of a block
   const int ctas = per / NT;
   const int b = split[blockIdx.x / ctas];
@@ -34,20 +36,27 @@ __global__ void __launch_bounds__(NT) partial_sum_kernel(
     s.z += x.z;
     s.w += x.w;
   }
-  reinterpret_cast<float4*>(out)[size_t(b) * per + v] = s;
+  if constexpr (sizeof(TO) == 4) {
+    reinterpret_cast<float4*>(out)[size_t(b) * per + v] = s;
+  } else {
+    __nv_bfloat162* o =
+        reinterpret_cast<__nv_bfloat162*>(out) + 2 * (size_t(b) * per + v);
+    o[0] = __floats2bfloat162_rn(s.x, s.y);
+    o[1] = __floats2bfloat162_rn(s.z, s.w);
+  }
 }
 
 // Launches it over the n_split blocks of `split` (out_rows·32 divisible by
-// NT).
-template <int NT, int UNROLL = 4>
+// NT); out is TO.
+template <int NT, int UNROLL = 4, typename TO = float>
 int launch_partial_sum(const void* split, const void* item_first,
                        const void* pbase, const void* ws, int n_split,
                        int out_rows, void* out, cudaStream_t s) {
   const int ctas = out_rows * 128 / 4 / NT;
-  partial_sum_kernel<NT, UNROLL><<<n_split * ctas, NT, 0, s>>>(
+  partial_sum_kernel<NT, UNROLL, TO><<<n_split * ctas, NT, 0, s>>>(
       static_cast<const int*>(split), static_cast<const int*>(item_first),
       static_cast<const int*>(pbase), static_cast<const float*>(ws), out_rows,
-      static_cast<float*>(out));
+      static_cast<TO*>(out));
   return int(cudaGetLastError());
 }
 

@@ -1,6 +1,8 @@
 // Windowed count-matrix SpMM for Hopper (sm_90a): the reverse scatter of the
 // legacy grad layouts, and the forward scatter of the legacy table-gather
-// layout.
+// layout, in f32 at D = 128 and at every other width.  (A bf16 table at
+// D = 128 runs window_mono_fused.cu's tensor-core pipeline, mono_pipe.cuh,
+// where the window is a multiple of 16, else the panel kernel below.)
 //
 // Replaces ggnn_tpu/ops/window_pallas.py::_window_mono_kernel (run by
 // window_block_spmm_mono), and, through entry points of their own, the two
@@ -21,8 +23,11 @@
 //   stream (−1 = no edge): a segment sum, each window row added to the
 //   output row it names; or
 // - counts: rows [c[t]·R, c[t]·R + R) of an int8 [n_c·R, window] count
-//   matrix: a matrix product, counts converted to the table's type (exact)
-//   through mma.sync (bf16) or FMA loops (f32),
+//   matrix: a matrix product, counts converted to f32 (exact) through FMA
+//   loops;
+// - the one-hot stream (a count matrix whose columns hold at most one 1,
+//   which the wrapper checks once per stream): decoded into dst-local ids,
+//   then the DSTL sum,
 // with c[t] = c_off[t], or t where c_off is null (a dense stream).  Here R
 // = out_rows = 128.  The window layouts' other count forms, the int4 pairs
 // [n_c·R, window/2] (`packed`) and R = 256 or 512, are at D = 128 the sums
@@ -30,25 +35,18 @@
 // window_step.cu), which ops/window.py launches for them; the panel kernel
 // below takes them at every other D.
 //
-// Bound on this card: HBM bytes.  At the scale-free headline's grad layout
-// (262,144 nodes, 8M directed edges, Zipf 1.2, 16 message types, D = 128,
-// bf16, g_tile 256) one call reads 8.25M packed rows of G (2.1 GB) and the
-// 62 MB dstl stream and writes Y (4.19M rows, 1.07 GB): ≈ 0.97 ms at
-// 3.35 TB/s; the legacy forward at the uniform headline reads 8M rows of
-// messages (2.05 GB) and the 1.06 GB one-hot stream.  The grad blocks of
-// the hub's source rows hold ~1,400 tiles
-// each against ~2 elsewhere, so one CTA per output block would leave a
-// few SMs with the hub's work.  As in typed_tile.cu, each block's tiles are
-// cut into work items of at most kSplit = 32 tiles (common.cuh), one CTA
-// per item; a block with one item flushes its rows itself, a block with
-// more writes f32 partials that a second kernel sums in item order and
-// flushes.  Inside an item the DSTL rows are summed into a [128, D] f32
-// shared-memory buffer by segment_sum_ordered (common.cuh: each warp its
-// own 16 output rows, in the order of the rows).  No float atomics: the
-// same result on every run.
+// Bound on this card: HBM bytes (see window_mono_fused.cu).  Each
+// block's tiles are cut into work items of at most kSplit = 32 tiles
+// (common.cuh), one CTA per item; a block with one item flushes its rows
+// itself, a block with more writes f32 partials that a second kernel sums
+// in item order and flushes.  Inside an item the DSTL rows are summed into
+// a [128, D] f32 shared-memory buffer by segment_sum_ordered (common.cuh:
+// each warp its own 16 output rows, in the order of the rows).  No float
+// atomics: the same result on every run.
 //
 // Widths: D = 128 runs the kernel above.  Any other D >= 1 (the
-// bAbI models run D = 4 to 16) runs window_mono_panel_kernel
+// bAbI models run D = 4 to 16), and bf16 at D = 128 with a window of no
+// multiple of 16, runs window_mono_panel_kernel
 // (window_mono_panel.cuh, compiled in parallel with this file): one CTA per
 // (work item, 128-column panel), the last panel masked, the panel's
 // table rows staged 32 at a time in shared memory and every output element
@@ -59,6 +57,8 @@
 // outside [0, n_c) are dropped, so a layout that does not belong to its
 // table cannot address memory outside it.
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "window_mono.cuh"
 
@@ -75,9 +75,7 @@ struct MonoSmem {
   static size_t onehot(int window) { return dstl + size_t(window) * 4; }
 };
 
-// One CTA per work item (grid = item_first[n_blocks]).  MODE kOnehot sets
-// *bad when a column of a tile's one-hot holds more than one entry or an
-// entry other than 1 (the result is then not the product).
+// One CTA per work item (grid = item_first[n_blocks]).
 template <typename TT, typename TO, int MODE>
 __global__ void __launch_bounds__(kThreads) window_mono_kernel(
     const TT* __restrict__ table, long long n_table,
@@ -85,7 +83,7 @@ __global__ void __launch_bounds__(kThreads) window_mono_kernel(
     const int* __restrict__ tile_start, const int* __restrict__ win_of_tile,
     const int* __restrict__ c_off, int n_blocks, int window, int stride,
     const int* __restrict__ item_first, const int* __restrict__ pbase,
-    float* __restrict__ ws, TO* __restrict__ out, int* __restrict__ bad) {
+    float* __restrict__ ws, TO* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* S = reinterpret_cast<float*>(smem);
   const int item = blockIdx.x;
@@ -121,7 +119,8 @@ __global__ void __launch_bounds__(kThreads) window_mono_kernel(
       for (int j = threadIdx.x; j < window; j += kThreads) d_s[j] = -1;
       __syncthreads();
       // 16 bytes of the [128, window] tile per load (128·window is a
-      // multiple of 16); a nonzero byte names its (row, column)
+      // multiple of 16); a nonzero byte names its (row, column), the one
+      // entry of its column in a one-hot stream
       const int4* C = reinterpret_cast<const int4*>(
           onehot + size_t(c) * kRows * window);
       for (int q = threadIdx.x; q < kRows * window / 16; q += kThreads) {
@@ -133,7 +132,7 @@ __global__ void __launch_bounds__(kThreads) window_mono_kernel(
           const int byte = (words[i >> 2] >> (8 * (i & 3))) & 0xff;
           if (byte == 0) continue;
           const int pos = q * 16 + i, r = pos / window, j = pos % window;
-          if (byte != 1 || atomicCAS(&d_s[j], -1, r) != -1) *bad = 1;
+          atomicCAS(&d_s[j], -1, r);
         }
       }
       __syncthreads();
@@ -220,45 +219,30 @@ __global__ void __launch_bounds__(kThreads) window_mono_reduce_kernel(
   }
 }
 
-template <typename TT, typename TO, int MODE>
-static int launch_window_mono(const void* table, long long n_table, int D,
-                              const void* c_stream, long long n_c,
-                              bool packed, int out_rows,
-                              const void* tile_start, const void* win_of_tile,
-                              const void* c_off, int n_blocks, int window,
-                              int stride, const void* item_first,
-                              const void* pbase, int n_items, int n_partial,
-                              void* ws, void* out, void* bad,
-                              cudaStream_t stream) {
-  if (D < 1) return int(cudaErrorInvalidValue);
-  if (MODE == kOnehot && (bad == nullptr || (window % 16 != 0 && D == kD)))
-    return int(cudaErrorInvalidValue);
-  // the dst-local and one-hot forms address 128-row blocks; the panel
-  // kernel's counts any multiple of 128, int8 or int4 pairs; the D = 128
-  // kernel's 128-row blocks of int8 counts (the window step takes the rest)
-  if (out_rows % kRows || (MODE != kCounts && out_rows != kRows) ||
-      (packed && (MODE != kCounts || window % 2)) ||
-      (D == kD && (packed || out_rows != kRows)))
-    return int(cudaErrorInvalidValue);
-  if (D != kD)
-    return launch_window_mono_panel<TT, TO, MODE>(
-        table, n_table, D, c_stream, n_c, packed, out_rows, tile_start,
-        win_of_tile, c_off, n_blocks, window, stride, item_first, pbase,
-        n_items, n_partial, ws, out, bad, stream);
-  const size_t smem = MODE == kDstl     ? MonoSmem<TT>::dstl
-                      : MODE == kCounts ? MonoSmem<TT>::counts
-                                        : MonoSmem<TT>::onehot(window);
+// The f32 D = 128 kernel and its reduce.
+template <typename TO, int MODE>
+static int launch_window_mono_d128(const void* table, long long n_table,
+                                   const void* c_stream, long long n_c,
+                                   const void* tile_start,
+                                   const void* win_of_tile, const void* c_off,
+                                   int n_blocks, int window, int stride,
+                                   const void* item_first, const void* pbase,
+                                   int n_items, int n_partial, void* ws,
+                                   void* out, cudaStream_t stream) {
+  const size_t smem = MODE == kDstl     ? MonoSmem<float>::dstl
+                      : MODE == kCounts ? MonoSmem<float>::counts
+                                        : MonoSmem<float>::onehot(window);
   cudaError_t err = cudaFuncSetAttribute(
-      window_mono_kernel<TT, TO, MODE>,
+      window_mono_kernel<float, TO, MODE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
-  window_mono_kernel<TT, TO, MODE><<<n_items, kThreads, smem, stream>>>(
-      static_cast<const TT*>(table), n_table, c_stream, n_c,
+  window_mono_kernel<float, TO, MODE><<<n_items, kThreads, smem, stream>>>(
+      static_cast<const float*>(table), n_table, c_stream, n_c,
       static_cast<const int*>(tile_start),
       static_cast<const int*>(win_of_tile), static_cast<const int*>(c_off),
       n_blocks, window, stride, static_cast<const int*>(item_first),
       static_cast<const int*>(pbase), static_cast<float*>(ws),
-      static_cast<TO*>(out), static_cast<int*>(bad));
+      static_cast<TO*>(out));
   err = cudaGetLastError();
   if (err != cudaSuccess || n_partial == 0) return int(err);
   window_mono_reduce_kernel<TO><<<n_blocks, kThreads, 0, stream>>>(
@@ -267,12 +251,47 @@ static int launch_window_mono(const void* table, long long n_table, int D,
   return int(cudaGetLastError());
 }
 
+template <typename TT, typename TO, int MODE>
+static int launch_window_mono(const void* table, long long n_table, int D,
+                              const void* c_stream, long long n_c,
+                              bool packed, int out_rows,
+                              const void* tile_start, const void* win_of_tile,
+                              const void* c_off, int n_blocks, int window,
+                              int stride, const void* item_first,
+                              const void* pbase, int n_items, int n_partial,
+                              void* ws, void* out, cudaStream_t stream) {
+  if (D < 1) return int(cudaErrorInvalidValue);
+  if (MODE == kOnehot && window % 16 != 0 && D == kD)
+    return int(cudaErrorInvalidValue);
+  // the dst-local and one-hot forms address 128-row blocks; the panel
+  // kernel's counts any multiple of 128, int8 or int4 pairs; the D = 128
+  // kernel's 128-row blocks of int8 counts (the window step takes the rest)
+  if (out_rows % kRows || (MODE != kCounts && out_rows != kRows) ||
+      (packed && (MODE != kCounts || window % 2)) ||
+      (D == kD && (packed || out_rows != kRows)))
+    return int(cudaErrorInvalidValue);
+  // a bf16 table at D = 128 runs window_mono_fused.cu, or, where the
+  // window is no multiple of 16, the panel kernel
+  if constexpr (std::is_same<TT, float>::value) {
+    if (D == kD)
+      return launch_window_mono_d128<TO, MODE>(
+          table, n_table, c_stream, n_c, tile_start, win_of_tile, c_off,
+          n_blocks, window, stride, item_first, pbase, n_items, n_partial,
+          ws, out, stream);
+  }
+  return launch_window_mono_panel<TT, TO, MODE == kOnehot ? kCounts : MODE>(
+      table, n_table, D, c_stream, n_c, packed, out_rows, tile_start,
+      win_of_tile, c_off, n_blocks, window, stride, item_first, pbase,
+      n_items, n_partial, ws, out, stream);
+}
+
 }  // namespace ggnn
 
 // table_dtype, out_dtype: 0 = float32, 1 = bfloat16; dstl = 1: c_stream is
 // the int32 [n_c, window] dst-local stream (out_rows = 128), else the int8
 // [n_c·out_rows, window] count matrix, or with packed = 1 its int4 pairs
-// [n_c·out_rows, window/2] (D = 128: int8 counts and out_rows = 128 only);
+// [n_c·out_rows, window/2] (D = 128: an f32 table, int8 counts and
+// out_rows = 128 only);
 // win_of_tile and c_off may be null (tile t reads window t, side-stream
 // entry t).  item_first [n_blocks + 1] and pbase [n_blocks] are the hub
 // split (see common.cuh); ws holds n_partial·out_rows/128 [128, D] f32
@@ -292,7 +311,7 @@ extern "C" int ggnn_window_mono(
   return ggnn::launch_window_mono<TT, TO, DS>(                               \
       table, n_table, D, c_stream, n_c, packed != 0, out_rows, tile_start,   \
       win_of_tile, c_off, n_blocks, window, stride, item_first, pbase,       \
-      n_items, n_partial, ws, out, nullptr, s)
+      n_items, n_partial, ws, out, s)
 #define GGNN_DTYPES(DS)                                                      \
   if (table_dtype == 1 && out_dtype == 1)                                    \
     GGNN_LAUNCH(__nv_bfloat16, __nv_bfloat16, DS);                           \
@@ -310,18 +329,18 @@ extern "C" int ggnn_window_mono(
 }
 
 // onehot_segment_scatter_flat: msgs [n_tiles·tile_e, D] (dtype 0 = float32,
-// 1 = bfloat16), the int8 transposed one-hot stream [n_tiles·128, tile_e],
-// tile_start [n_blocks + 1]; out [n_blocks·128, D] f32.  Tile t reads
-// message rows [t·tile_e, (t + 1)·tile_e) and one-hot rows [t·128,
-// (t + 1)·128), decoded into dst-local ids (D = 128: tile_e % 16 == 0).
-// *bad (int32, zeroed by the caller) is set when a column holds more than
-// one entry or an entry other than 1.  The hub split and ws as in
+// 1 = bfloat16: D != 128), the int8 transposed one-hot stream
+// [n_tiles·128, tile_e] (each column at most one entry, a 1: the wrapper's
+// check), tile_start [n_blocks + 1]; out [n_blocks·128, D] f32.  Tile t
+// reads message rows [t·tile_e, (t + 1)·tile_e) and one-hot rows [t·128,
+// (t + 1)·128), decoded into dst-local ids at D = 128 (tile_e % 16 == 0),
+// taken as counts at other D.  The hub split and ws as in
 // ggnn_window_mono.
 extern "C" int ggnn_onehot_flat(
     int dtype, const void* msgs, long long n_msgs, int D, const void* onehot,
     long long n_tiles, const void* tile_start, int n_blocks, int tile_e,
     const void* item_first, const void* pbase, int n_items, int n_partial,
-    void* ws, void* out, void* bad, void* stream) {
+    void* ws, void* out, void* stream) {
   if (n_blocks <= 0 || n_items <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
@@ -329,17 +348,18 @@ extern "C" int ggnn_onehot_flat(
         msgs, n_msgs, D, onehot, n_tiles, false, ggnn::kRows, tile_start,
         nullptr, nullptr,
         n_blocks, tile_e, tile_e, item_first, pbase, n_items, n_partial, ws,
-        out, bad, s);
+        out, s);
   if (dtype == 0)
     return ggnn::launch_window_mono<float, float, ggnn::kOnehot>(
         msgs, n_msgs, D, onehot, n_tiles, false, ggnn::kRows, tile_start,
         nullptr, nullptr,
         n_blocks, tile_e, tile_e, item_first, pbase, n_items, n_partial, ws,
-        out, bad, s);
+        out, s);
   return int(cudaErrorInvalidValue);
 }
 
-// onehot_segment_scatter: msgs [n_tiles·tile_e, D], dst_local int32
+// onehot_segment_scatter: msgs [n_tiles·tile_e, D] (dtype 0 = float32,
+// 1 = bfloat16: D != 128, or tile_e % 16 != 0), dst_local int32
 // [n_tiles·tile_e] (−1 = padding), tile_start [n_blocks + 1]; out
 // [n_blocks·128, D] f32.  Edge e of tile t = e / tile_e adds msgs[e] to row
 // dst_local[e] of its block.  The hub split and ws as in ggnn_window_mono.
@@ -355,12 +375,12 @@ extern "C" int ggnn_onehot_dstl(
         msgs, n_msgs, D, dst_local, n_tiles, false, ggnn::kRows, tile_start,
         nullptr, nullptr,
         n_blocks, tile_e, tile_e, item_first, pbase, n_items, n_partial, ws,
-        out, nullptr, s);
+        out, s);
   if (dtype == 0)
     return ggnn::launch_window_mono<float, float, ggnn::kDstl>(
         msgs, n_msgs, D, dst_local, n_tiles, false, ggnn::kRows, tile_start,
         nullptr, nullptr,
         n_blocks, tile_e, tile_e, item_first, pbase, n_items, n_partial, ws,
-        out, nullptr, s);
+        out, s);
   return int(cudaErrorInvalidValue);
 }

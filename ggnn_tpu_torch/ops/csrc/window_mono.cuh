@@ -11,8 +11,9 @@
 namespace ggnn {
 
 // The side stream's form: a dst-local stream, an int8 count matrix, or an
-// int8 one-hot matrix (each column at most one entry, a 1), which the
-// kernel decodes into dst-local ids.
+// int8 one-hot matrix (each column at most one entry, a 1), which the f32
+// D = 128 kernel decodes into dst-local ids (the panel kernel takes it as
+// counts).
 constexpr int kDstl = 0, kCounts = 1, kOnehot = 2;
 
 // window_block_spmm_mono at a width D != 128 (window_mono_panel.cu); the
@@ -25,7 +26,7 @@ int launch_window_mono_panel(const void* table, long long n_table, int D,
                              int n_blocks, int window, int stride,
                              const void* item_first, const void* pbase,
                              int n_items, int n_partial, void* ws, void* out,
-                             void* bad, cudaStream_t stream);
+                             cudaStream_t stream);
 
 }  // namespace ggnn
 
@@ -34,7 +35,7 @@ int launch_window_mono_panel(const void* table, long long n_table, int D,
   PREFIX template int ggnn::launch_window_mono_panel<TT, TO, MODE>(          \
       const void*, long long, int, const void*, long long, bool, int,        \
       const void*, const void*, const void*, int, int, int, const void*,     \
-      const void*, int, int, void*, void*, void*, cudaStream_t);
+      const void*, int, int, void*, void*, cudaStream_t);
 #define GGNN_MONO_PANEL_DSTL(PREFIX)                                          \
   GGNN_MONO_PANEL_ONE(PREFIX, __nv_bfloat16, __nv_bfloat16, ggnn::kDstl)      \
   GGNN_MONO_PANEL_ONE(PREFIX, __nv_bfloat16, float, ggnn::kDstl)              \
@@ -45,10 +46,6 @@ int launch_window_mono_panel(const void* table, long long n_table, int D,
   GGNN_MONO_PANEL_ONE(PREFIX, __nv_bfloat16, float, ggnn::kCounts)            \
   GGNN_MONO_PANEL_ONE(PREFIX, float, __nv_bfloat16, ggnn::kCounts)            \
   GGNN_MONO_PANEL_ONE(PREFIX, float, float, ggnn::kCounts)
-#define GGNN_MONO_PANEL_ONEHOT(PREFIX)                                        \
-  GGNN_MONO_PANEL_ONE(PREFIX, __nv_bfloat16, float, ggnn::kOnehot)            \
-  GGNN_MONO_PANEL_ONE(PREFIX, float, float, ggnn::kOnehot)
 #define GGNN_MONO_PANEL_EXTERN                                                \
   GGNN_MONO_PANEL_DSTL(extern)                                                \
-  GGNN_MONO_PANEL_COUNTS(extern)                                              \
-  GGNN_MONO_PANEL_ONEHOT(extern)
+  GGNN_MONO_PANEL_COUNTS(extern)

@@ -1,9 +1,9 @@
 // The panel kernel of window_block_spmm_mono at widths D != 128 (the bAbI
 // models run D = 4 to 16; see window_mono.cu for the function and the hub
 // split).  Instantiated per side-stream form in window_mono_panel.cu
-// (dst-local), window_mono_panel_counts.cu and window_mono_panel_onehot.cu,
-// so that nvcc builds them in parallel with each other and with the
-// D = 128 kernels.
+// (dst-local) and window_mono_panel_counts.cu (counts, and #8's one-hot
+// stream, whose product is the count form's), so that nvcc builds them in
+// parallel with each other and with the D = 128 kernels.
 #pragma once
 
 #include <stdint.h>
@@ -29,7 +29,7 @@ __global__ void __launch_bounds__(kThreads) window_mono_panel_kernel(
     const int* __restrict__ win_of_tile, const int* __restrict__ c_off,
     int n_blocks, int window, int stride,
     const int* __restrict__ item_first, const int* __restrict__ pbase,
-    float* __restrict__ ws, TO* __restrict__ out, int* __restrict__ bad) {
+    float* __restrict__ ws, TO* __restrict__ out) {
   constexpr bool DSTL = MODE == kDstl;
   const int slice = blockIdx.z, slices = gridDim.z;
   const int ccols = packed ? window / 2 : window;
@@ -80,18 +80,6 @@ __global__ void __launch_bounds__(kThreads) window_mono_panel_kernel(
         }
       }
       __syncthreads();
-      if constexpr (MODE == kOnehot) {
-        // a one-hot column holds at most one entry, a 1
-        if (blockIdx.y == 0 && threadIdx.x < nj) {
-          int n = 0;
-          for (int r = 0; r < kRows; ++r) {
-            const float cv = C_s[r][threadIdx.x];
-            n += cv != 0.0f;
-            if (cv != 0.0f && cv != 1.0f) *bad = 1;
-          }
-          if (n > 1) *bad = 1;
-        }
-      }
 #pragma unroll
       for (int q = 0; q < kOwn; ++q) {
         const int idx = threadIdx.x + q * kThreads;
@@ -152,7 +140,7 @@ int launch_window_mono_panel(const void* table, long long n_table, int D,
                              int n_blocks, int window, int stride,
                              const void* item_first, const void* pbase,
                              int n_items, int n_partial, void* ws, void* out,
-                             void* bad, cudaStream_t stream) {
+                             cudaStream_t stream) {
   const int slices = out_rows / kRows;
   const dim3 grid(n_items, (D + kRows - 1) / kRows, slices);
   window_mono_panel_kernel<TT, TO, MODE><<<grid, kThreads, 0, stream>>>(
@@ -161,7 +149,7 @@ int launch_window_mono_panel(const void* table, long long n_table, int D,
       static_cast<const int*>(win_of_tile), static_cast<const int*>(c_off),
       n_blocks, window, stride, static_cast<const int*>(item_first),
       static_cast<const int*>(pbase), static_cast<float*>(ws),
-      static_cast<TO*>(out), static_cast<int*>(bad));
+      static_cast<TO*>(out));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_partial == 0) return int(err);
   window_mono_panel_reduce_kernel<TO>

@@ -15,10 +15,13 @@ scatters, array for array and rounding point for rounding point:
   messages of one range exist at a time: how a 1M-node graph fits).
 - :func:`onehot_segment_scatter_flat` (the int8 one-hot stream) and
   :func:`onehot_segment_scatter` (dst-local ids), the two scatters of the
-  table-gather forward, wrapping entry points of ``csrc/window_mono.cu``:
-  each is :func:`~ggnn_tpu_torch.ops.window.window_block_spmm_mono` with
-  ``window = tile_e`` and tile t reading its own messages, as the reference
-  says of them; :func:`onehot_segment_scatter_mono` is that kernel itself.
+  table-gather forward: each is
+  :func:`~ggnn_tpu_torch.ops.window.window_block_spmm_mono` with ``window =
+  tile_e`` and tile t reading its own messages, as the reference says of
+  them, and runs #11's kernels (bf16 at D = 128:
+  ``csrc/window_mono_fused.cu`` on the layout's plan; else entry points of
+  ``csrc/window_mono.cu``); :func:`onehot_segment_scatter_mono` is that
+  kernel itself.
 - :func:`onehot_segment_scatter_stream` (#18) and
   :func:`onehot_segment_scatter_loopT` (#19), the reference's other two
   variants of the one-hot stream scatter, which only its kernel-variant
@@ -46,7 +49,10 @@ from ggnn_tpu_torch.ops.gru import (_DTYPE_CODE, _check_cuda_args,
 from ggnn_tpu_torch.ops.scatter import (BLOCK_N, ScatterLayout, _rup,
                                         _rup_block)
 from ggnn_tpu_torch.ops.table import node_table
-from ggnn_tpu_torch.ops.window import split_plan, window_block_spmm_mono
+from ggnn_tpu_torch.ops.window import (cached_per_tensor, group_mask,
+                                       launch_mono_fused, mono_plan_once,
+                                       split_plan, tile_arange,
+                                       window_block_spmm_mono)
 
 
 @dataclasses.dataclass
@@ -370,21 +376,42 @@ def _check_scatter_args(name, messages, stream, tile_start, n_blocks,
 
 
 def _launch_scatter(entry, name, messages, stream, n_c, tile_start,
-                    n_blocks, tile_e, checks, bad=None):
-    """Launch a legacy scatter entry point of ``csrc/window_mono.cu`` over
-    the hub split; ``checks(extra)`` runs the data checks with the split's
-    totals appended and returns them; ``bad``: the int32 flag the one-hot
-    entry point sets on a malformed side stream (its last argument before
-    the CUDA stream)."""
+                    n_blocks, tile_e, checks, dstl, key=()):
+    """Launch a legacy scatter over the hub split: bf16 at D = 128 and
+    tile_e % 16 = 0 through ``csrc/window_mono_fused.cu`` on the layout's
+    plan (#11's dst-local or count form, window = stride = tile_e, tile t
+    reading window t), else through C entry point ``entry`` of
+    ``csrc/window_mono.cu``.  The data checks ``checks(extra)`` (which
+    return the 0-d ``extra`` tensors as ints), the one-hot check of a
+    stream that is not ``dstl`` (:func:`~ggnn_tpu_torch.ops.window.
+    group_mask`) and the split run once per layout (``cached_per_tensor``
+    on ``tile_start``, ``key`` naming what else the checks read): a launch
+    on a layout already seen copies nothing to the host."""
     if messages.dtype not in _DTYPE_CODE:
         raise ValueError(f"{name}: dtype {messages.dtype} not in "
                          f"{list(_DTYPE_CODE)}")
     D = messages.shape[-1]
     _check_cuda_args(name, [("messages", messages), ("stream", stream),
                             ("tile_start", tile_start)], D, any_width=True)
-    item_first, pbase, n_items, n_part = split_plan(tile_start.diff())
-    n_items, n_part = checks((n_items, n_part))
     dev = messages.device
+    if messages.dtype == torch.bfloat16 and D == BLOCK_N and tile_e % 16 == 0:
+        c = stream.view(n_c, tile_e) if dstl else stream
+        plan = mono_plan_once(name, messages.shape[0], c, tile_start,
+                              tile_arange(tile_start, n_c), None, n_blocks,
+                              tile_e, tile_e, BLOCK_N, dstl, checks=checks,
+                              key=key, onehot=not dstl)
+        return launch_mono_fused(name, messages, c, plan, tile_e, dstl,
+                                 n_blocks, torch.float32)
+
+    def split():
+        item_first, pbase, n_items, n_part = split_plan(tile_start.diff())
+        rest = checks((n_items, n_part))
+        if not dstl:
+            group_mask(stream, tile_e, False, onehot_of=name)
+        return (item_first, pbase, *rest)
+    item_first, pbase, n_items, n_part = cached_per_tensor(
+        tile_start, (name, "split", messages.shape[0], stream.data_ptr(),
+                     tuple(stream.shape), n_blocks, tile_e, *key), split)
     ws = torch.empty(max(n_part, 1), BLOCK_N, D, dtype=torch.float32,
                      device=dev)
     out = torch.empty(n_blocks * BLOCK_N, D, dtype=torch.float32, device=dev)
@@ -392,7 +419,7 @@ def _launch_scatter(entry, name, messages, stream, n_c, tile_start,
     _build.launch(entry, name, dev, _DTYPE_CODE[messages.dtype], p(messages),
                   messages.shape[0], D, p(stream), n_c, p(tile_start),
                   n_blocks, tile_e, p(item_first), p(pbase), n_items, n_part,
-                  p(ws), p(out), *([] if bad is None else [p(bad)]))
+                  p(ws), p(out))
     return out
 
 
@@ -427,10 +454,13 @@ def onehot_segment_scatter_flat(messages, onehot_i8, tile_start,
     one entry, a 1, as the builders make it); ``block_of_tile`` and
     ``tile_start`` (int32) must agree.  ``messages`` in the compute dtype,
     any D >= 1.  A CPU tensor takes the plain version; a CUDA tensor
-    launches ``ggnn_onehot_flat`` of ``csrc/window_mono.cu`` (which decodes
-    each tile's one-hot into dst ids and sums them in order, as
-    :func:`onehot_segment_scatter` does) or raises, also after the launch
-    when the kernel found a column that is not one-hot."""
+    launches, in bf16 at D = 128, ``csrc/window_mono_fused.cu`` (the
+    product of each tile's one-hot and messages on the tensor cores, as the
+    TPU kernel computes it, over the 16-row groups the one-hot names),
+    else ``ggnn_onehot_flat`` of ``csrc/window_mono.cu`` (f32 at D = 128
+    decodes each tile's one-hot into dst ids and sums them in order, as
+    :func:`onehot_segment_scatter` does); or raises, also when a column of
+    the stream is not one-hot (checked once per layout)."""
     name = "onehot_segment_scatter_flat"
     n_tiles = block_of_tile.shape[0]
     _check_scatter_args(name, messages, onehot_i8, tile_start, n_blocks,
@@ -439,25 +469,21 @@ def onehot_segment_scatter_flat(messages, onehot_i8, tile_start,
     if block_of_tile.dtype != torch.int32:
         raise ValueError(f"{name}: block_of_tile must be int32, got "
                          f"{block_of_tile.dtype}")
-    checks = lambda extra=(): _scatter_data_checks(
-        name, tile_start, n_tiles, block_of_tile=block_of_tile, extra=extra)
     if messages.device.type == "cpu":
-        checks()
+        _scatter_data_checks(name, tile_start, n_tiles,
+                             block_of_tile=block_of_tile)
         return onehot_segment_scatter_flat_reference(
             messages, onehot_i8, tile_start, block_of_tile, n_blocks, tile_e)
     if messages.shape[-1] == BLOCK_N and tile_e % 16:
         raise ValueError(f"{name}: the CUDA kernel at D = {BLOCK_N} reads "
                          f"the one-hot in 16-byte rows: tile_e % 16 == 0, "
                          f"got tile_e={tile_e}")
-    bad = torch.zeros(1, dtype=torch.int32, device=messages.device)
+    checks = lambda extra=(): _scatter_data_checks(
+        name, tile_start, n_tiles, block_of_tile=block_of_tile, extra=extra)
     out = _launch_scatter(_build.library().ggnn_onehot_flat, name, messages,
                           onehot_i8, n_tiles, tile_start, n_blocks, tile_e,
-                          checks, bad)
+                          checks, False, key=(block_of_tile.data_ptr(),))
     onehot_segment_scatter_flat.launches += 1
-    if bad.item():
-        raise ValueError(f"{name}: a column of the one-hot stream holds more "
-                         f"than one entry or an entry other than 1: not a "
-                         f"one-hot layout")
     return out
 
 
@@ -492,8 +518,9 @@ def onehot_segment_scatter(messages, dst_local, tile_start, n_blocks: int,
     the compute dtype (any D >= 1), ``dst_local`` int32 [E_pack].  (The
     reference's grid runs max_tiles steps per block and clamps; the port
     checks that no block holds more.)  A CPU tensor takes the plain
-    version; a CUDA tensor launches ``ggnn_onehot_dstl`` of
-    ``csrc/window_mono.cu`` or raises."""
+    version; a CUDA tensor launches #11's dst-local form (bf16 at D = 128:
+    ``csrc/window_mono_fused.cu``; else ``ggnn_onehot_dstl`` of
+    ``csrc/window_mono.cu``) or raises."""
     name = "onehot_segment_scatter"
     E = dst_local.shape[0]
     if E % tile_e:
@@ -510,7 +537,7 @@ def onehot_segment_scatter(messages, dst_local, tile_start, n_blocks: int,
             messages, dst_local, tile_start, n_blocks, max_tiles, tile_e)
     out = _launch_scatter(_build.library().ggnn_onehot_dstl, name, messages,
                           dst_local, n_tiles, tile_start, n_blocks, tile_e,
-                          checks)
+                          checks, True, key=(max_tiles,))
     onehot_segment_scatter.launches += 1
     return out
 
@@ -646,9 +673,9 @@ def onehot_segment_scatter_mono(messages, onehot_t, tile_start,
     tile reading its own ``tile_e`` message rows (``win_of_tile`` =
     arange), flushed in ``out_dtype``."""
     n_tiles = onehot_t.shape[0] // BLOCK_N
-    win = torch.arange(n_tiles, dtype=torch.int32, device=messages.device)
     return window_block_spmm_mono(
-        messages, onehot_t, tile_start, block_of_tile, win,
+        messages, onehot_t, tile_start, block_of_tile,
+        tile_arange(tile_start, n_tiles),
         n_blocks=n_blocks, window=tile_e, out_dtype=out_dtype)
 
 

@@ -44,6 +44,7 @@ or raises.  The compositions (spill, ``aggregate_window``,
 from __future__ import annotations
 
 import dataclasses
+import math
 import warnings
 import weakref
 
@@ -670,6 +671,164 @@ def window_counts_sum(rows_of, c_stream, block_of_tile, win_of_tile, c_off,
     return Y
 
 
+# --- the plan of #11's and #8's bf16 pipeline (csrc/window_mono_fused.cu) ---
+
+# tiles a work item of csrc/window_mono_fused.cu holds at most (common.cuh's
+# kSplit): no accumulator sums a whole hub row
+MONO_SPLIT = 32
+def group_mask(c_stream, window: int, dstl: bool, onehot_of=None):
+    """Which 16-row k-groups of each 128-row stream entry add something →
+    bool [entries, ⌈window/16⌉]: the dst-local stream [n, window] (an id
+    of the group in [0, 128)), or the int8 count / one-hot matrix [n·128,
+    window] (a nonzero byte in the entry's [128, 16] group).  One read of
+    the stream on its device.  ``onehot_of``: the name of the scatter that
+    takes the int8 matrix as a one-hot stream, whose columns hold at most
+    one entry, a 1; it raises with that name otherwise (one copy to the
+    host)."""
+    ng = -(-window // 16)
+    if dstl:
+        return ((c_stream & -BLOCK) == 0).view(-1, ng, 16).any(2)
+    if onehot_of is None:
+        # a group is two 8-byte words of each of the entry's 128 rows
+        lo, hi = torch.aminmax(
+            c_stream.view(torch.int64).view(-1, BLOCK, window // 8), dim=1)
+        return ((lo != 0) | (hi != 0)).view(-1, ng, 2).any(2)
+    # entries of 0 or 1 sum over an entry's 128 rows in words of wb bytes
+    # without a carry: each byte of a word's sum counts its column
+    wb = math.gcd(window, 8)
+    wdt = {8: torch.int64, 4: torch.int32, 2: torch.int16, 1: torch.int8}[wb]
+    n_col = c_stream.view(wdt).view(-1, BLOCK, window // wb).sum(1, dtype=wdt)
+    ones = int.from_bytes(b"\x01" * wb, "little")
+    bad = [((n_col & ~ones) != 0).any()]
+    if c_stream.numel():
+        lo, hi = torch.aminmax(c_stream)
+        bad.append((lo < 0) | (hi > 1))
+    if any(host_ints(*bad)):
+        raise ValueError(f"{onehot_of}: a column of the one-hot stream holds "
+                         f"more than one entry or an entry other than 1: not "
+                         f"a one-hot layout")
+    return torch.nn.functional.pad(
+        n_col != 0, (0, (16 * ng - window) // wb)).view(-1, ng, 16 // wb).any(2)
+
+
+@dataclasses.dataclass
+class MonoPlan:
+    """The units and work items of csrc/window_mono_fused.cu (int32 on the
+    layout's device): ``units`` [n_units, 2] {first table row of a 16-row
+    group, the offset of its ids or its count rows' first bytes in the
+    stream, in 16-byte vectors}; ``work`` [n_work, 4], the work items
+    with a unit, in order, each {first unit, end unit, 128-row block,
+    partial slot or −1 where it is its block's only item}; ``zero_blk``,
+    the blocks without a unit (one item each, zeroed); ``item_first``
+    [n_blocks·S + 1], ``pbase``, ``split`` (the blocks of several items)
+    and the totals as :func:`split_plan`'s over the plan's 128-row blocks
+    (S = out_rows / 128 of them a layout block)."""
+    units: torch.Tensor
+    work: torch.Tensor
+    zero_blk: torch.Tensor
+    item_first: torch.Tensor
+    pbase: torch.Tensor
+    split: torch.Tensor
+    n_items: int
+    n_part: int
+
+
+def mono_plan(c_stream, tile_start, win_of_tile, c_off, n_blocks: int,
+              window: int, stride: int, out_rows: int, dstl: bool,
+              onehot_of=None) -> MonoPlan:
+    """The plan of the bf16 pipeline of #11 (and #8, #9), made on the
+    device: every tile t of block b (``tile_start``) with win[t] ≥ 0 and
+    stream entry c in [0, n_c) (``c_off``, None: t); an output block of
+    R = ``out_rows`` = 128·S rows is S blocks of 128 rows, slice s reading
+    count rows [s·128, s·128 + 128) of each tile (entry c·S + s of the
+    stream's 128-row entries); a (tile, slice)'s window groups that
+    :func:`group_mask` marks (``onehot_of``: its check of a one-hot
+    stream) make its units {win·stride + 16·g, the group's first byte in
+    the stream / 16}; (tile, slice) pairs with no unit are dropped.  Each
+    128-row block's pairs, in tile order, are cut by :func:`split_plan`
+    into items of at most ``MONO_SPLIT`` pairs, as evenly as their count
+    allows.  A few copies to the host (the real pairs and units, the
+    totals, the busy items)."""
+    dev = tile_start.device
+    S = out_rows // BLOCK
+    ng = window // 16
+    n_c = (c_stream.shape[0] if dstl else c_stream.shape[0] // BLOCK)
+    # a unit's group: its offset in the stream in 16-byte vectors
+    vec_entry = window // 4 if dstl else BLOCK * window // 16
+    if n_c * vec_entry >= 2 ** 31:
+        raise ValueError(f"window_block_spmm_mono: a stream of {n_c} entries "
+                         f"of {16 * vec_entry} bytes does not fit the plan's "
+                         f"int32 units")
+    gmask = group_mask(c_stream, window, dstl, onehot_of)
+    n_t = win_of_tile.shape[0]
+    t = torch.arange(n_t, dtype=tile_start.dtype, device=dev)
+    w = win_of_tile.long()
+    c = t.long() if c_off is None else c_off.long()
+    n_e = n_c // S                      # the layout's stream entries
+    # tile t's block (tiles outside tile_start's range belong to none)
+    blk = torch.searchsorted(tile_start[1:], t, right=True)
+    valid = ((w >= 0) & (c >= 0) & (c < n_e) & (t >= tile_start[0])
+             & (t < tile_start[-1]))
+    sl = torch.arange(S, device=dev)
+    ce = c.clamp(0, max(n_e - 1, 0))[:, None] * S + sl      # [n_t, S]
+    m = (gmask[ce] if n_e else torch.zeros(n_t, S, ng, dtype=torch.bool,
+                                           device=dev))
+    m &= valid[:, None, None]
+    # the real (tile, slice) pairs, in block order, then tile order
+    pid = torch.nonzero(m.any(2).flatten()).flatten()
+    p_blk = (blk[:, None] * S + sl).flatten()[pid]
+    if S > 1:
+        order = torch.sort(p_blk, stable=True).indices
+        pid, p_blk = pid[order], p_blk[order]
+    p_e, p_m = ce.flatten()[pid], m.reshape(-1, ng)[pid]
+    p_row = w[pid // S] * stride
+    nb = n_blocks * S
+    per = torch.zeros(nb, dtype=torch.long, device=dev).scatter_add_(
+        0, p_blk, torch.ones_like(p_blk))
+    item_first, pbase, n_items, n_part = split_plan(per, MONO_SPLIT)
+    n_items, n_part = host_ints(n_items, n_part)
+    ui, ug = torch.nonzero(p_m, as_tuple=True)
+    units = torch.stack([p_row[ui] + 16 * ug,
+                         p_e[ui] * vec_entry + (4 if dstl else 1) * ug], 1)
+    pstart = torch.zeros(p_m.shape[0] + 1, dtype=torch.long, device=dev)
+    pstart[1:] = torch.cumsum(p_m.sum(1), 0)
+    nit = item_first.diff().long()
+    item_blk = torch.repeat_interleave(torch.arange(nb, device=dev), nit,
+                                       output_size=n_items)
+    kk = torch.arange(n_items, device=dev) - item_first[item_blk].long()
+    first_pair = torch.cumsum(per, 0) - per
+    p0 = first_pair[item_blk] + kk * per[item_blk] // nit[item_blk]
+    item_u = torch.cat([pstart[p0], pstart[-1:]])
+    item_slot = torch.where(nit[item_blk] > 1, pbase[item_blk].long() + kk,
+                            torch.full_like(kk, -1))
+    busy = item_u[1:] > item_u[:-1]
+    work = torch.stack([item_u[:-1], item_u[1:], item_blk, item_slot],
+                       1)[busy]
+    i32 = lambda x: x.to(torch.int32).contiguous()
+    return MonoPlan(i32(units), i32(work), i32(item_blk[~busy]), item_first,
+                    pbase, i32(torch.nonzero(nit > 1).flatten()), n_items,
+                    n_part)
+
+
+def launch_mono_fused(name, table, c_stream, plan: MonoPlan, window: int,
+                      dstl: bool, n_out_blocks: int, out_dtype):
+    """One launch of ``ggnn_mono_fused`` (``csrc/window_mono_fused.cu``)
+    on ``plan`` → [n_out_blocks·128, 128] in ``out_dtype`` (f32 or bf16)."""
+    dev = table.device
+    out = torch.empty(n_out_blocks * BLOCK, KERNEL_WIDTH, dtype=out_dtype,
+                      device=dev)
+    ws = torch.empty(max(plan.n_part, 1), BLOCK, KERNEL_WIDTH,
+                     dtype=torch.float32, device=dev)
+    p = _build.ptr
+    _build.launch(
+        _build.library().ggnn_mono_fused, name, dev, int(dstl),
+        _DTYPE_CODE[out_dtype], p(table), table.shape[0], p(c_stream), window,
+        p(plan.units), p(plan.work), plan.work.shape[0], p(plan.zero_blk),
+        plan.zero_blk.shape[0], p(plan.item_first), p(plan.pbase),
+        p(plan.split), plan.split.shape[0], p(ws), p(out))
+    return out
+
+
 # --- #11 window_block_spmm_mono ----------------------------------------------
 
 def _check_mono_args(name, table, c_stream, tile_start, block_of_tile,
@@ -801,9 +960,15 @@ def window_block_spmm_mono(table, c_stream, tile_start, block_of_tile,
     W-row table windows (any R > 0).  (The TPU kernel's
     grid split and DMA ring depth do not change the sums; the port has
     neither.)  A CPU tensor takes the plain version; a CUDA tensor launches
-    ``csrc/window_mono.cu`` (at D = 128 with int4 counts or R > 128, and at
-    R % 128 ≠ 0: the window step's sums of ``csrc/window_step.cu``, then
-    one rounding to ``out_dtype``) or raises."""
+    ``csrc/window_mono_fused.cu`` (a bf16 table at D = 128, the dst-local
+    stream or int8 counts at R % 128 = 0, window % 16 = 0: the plan of
+    :func:`mono_plan`, made once per layout), ``csrc/window_mono.cu`` (f32
+    at D = 128, any other D; bf16 at D = 128 and window % 16 ≠ 0: its
+    panel kernel), or at D = 128 with int4 counts, R > 128 (f32, or window
+    % 16 ≠ 0), or R % 128 ≠ 0 the window step's sums of
+    ``csrc/window_step.cu``,
+    then one rounding to ``out_dtype``; or raises.  The data checks run
+    once per layout (no copy to the host on a layout already seen)."""
     name = "window_block_spmm_mono"
     _check_mono_args(name, table, c_stream, tile_start, block_of_tile,
                      win_of_tile, n_blocks, window, out_rows, packed,
@@ -833,11 +998,23 @@ def window_block_spmm_mono(table, c_stream, tile_start, block_of_tile,
             pad_width(table, D), c_stream, tile_start, block_of_tile,
             win_of_tile, n_blocks, window, out_rows, packed, win_stride,
             c_off, out_dtype, dstl), D)
+    args = (c_stream, tile_start, win_of_tile, c_off, n_blocks, window,
+            stride, out_rows, dstl)
+    if (table.dtype == torch.bfloat16 and D == KERNEL_WIDTH and not packed
+            and out_rows % BLOCK == 0 and window % 16 == 0):
+        # csrc/window_mono_fused.cu on the layout's plan
+        plan = mono_plan_once(name, table.shape[0], *args)
+        out = launch_mono_fused(name, table, c_stream, plan, window, dstl,
+                                n_blocks * out_rows // BLOCK, out_dtype)
+        window_block_spmm_mono.launches += 1
+        return out
     if not dstl and (D == KERNEL_WIDTH and (packed or out_rows != BLOCK)
                      or out_rows % BLOCK):
-        # the window layouts' int4 and tall count forms at D = 128, and
-        # blocks of no multiple of 128 rows at D = 128·P: the window step's
-        # sums without the GRU (csrc/window_step.cu, P 128-column panels)
+        # the window layouts' int4 and tall count forms at D = 128 (f32,
+        # or bf16 at window % 16 ≠ 0),
+        # and blocks of no multiple of 128 rows at D = 128·P: the window
+        # step's sums without the GRU (csrc/window_step.cu, P 128-column
+        # panels)
         if stride != window:
             raise ValueError(f"{name}: int4 counts or out_rows={out_rows} "
                              f"take windows at stride {window}, got "
@@ -847,10 +1024,13 @@ def window_block_spmm_mono(table, c_stream, tile_start, block_of_tile,
                            out_rows, packed)
         window_block_spmm_mono.launches += 1
         return out if out_dtype == torch.float32 else out.to(out_dtype)
-    item_first, pbase, n_items, n_part = split_plan(tile_start.diff())
-    n_items, n_part = _mono_data_checks(name, table.shape[0], c_stream,
-                                        win_of_tile, window, stride, c_off,
-                                        dstl, out_rows, (n_items, n_part))
+
+    def split():
+        _mono_checks(name, table.shape[0], *args)
+        item_first, pbase, n_items, n_part = split_plan(tile_start.diff())
+        return (item_first, pbase, *host_ints(n_items, n_part))
+    item_first, pbase, n_items, n_part = cached_per_tensor(
+        tile_start, _mono_key("split_plan", table.shape[0], *args), split)
     dev = table.device
     slices = out_rows // BLOCK
     ws = torch.empty(max(n_part * slices, 1), BLOCK, D, dtype=torch.float32,
@@ -866,6 +1046,65 @@ def window_block_spmm_mono(table, c_stream, tile_start, block_of_tile,
         p(pbase), n_items, n_part, p(ws), p(out))
     window_block_spmm_mono.launches += 1
     return out
+
+
+def _mono_key(what, n_table, c_stream, tile_start, win_of_tile, c_off,
+              n_blocks, window, stride, out_rows, dstl):
+    """The key of a layout's cached checks and plan besides its tile_start
+    (``cached_per_tensor``): the table's height, the other arrays and the
+    arguments."""
+    del tile_start
+    return (what, n_table, tuple(c_stream.shape), c_stream.dtype,
+            c_stream.data_ptr(), win_of_tile.data_ptr(),
+            None if c_off is None else c_off.data_ptr(), n_blocks, window,
+            stride, out_rows, dstl)
+
+
+def _mono_checks(name, n_table, c_stream, tile_start, win_of_tile, c_off,
+                 n_blocks, window, stride, out_rows, dstl):
+    """#11's data checks, in one copy to the host: the windows lie in the
+    table, the stream entries in the stream, tile_start runs upward within
+    the tiles."""
+    del n_blocks
+    n_tiles = win_of_tile.shape[0]
+    ts0, ts1, c_min = _mono_data_checks(
+        name, n_table, c_stream, win_of_tile, window, stride, c_off, dstl,
+        out_rows, (tile_start[0], tile_start[-1], tile_start.diff().min()
+                   if tile_start.shape[0] > 1 else 0))
+    if ts0 < 0 or c_min < 0 or ts1 > n_tiles:
+        raise ValueError(f"{name}: tile_start runs from {ts0} to {ts1} "
+                         f"(least count {c_min}) over a stream of {n_tiles} "
+                         f"tiles: layout and arguments disagree")
+
+
+def tile_arange(tile_start, n_tiles: int):
+    """int32 arange(n_tiles) on tile_start's device, made once per layout:
+    the ``win_of_tile`` of a stream whose tile t reads window t (#8, #9)."""
+    return cached_per_tensor(tile_start, ("tile_arange", n_tiles),
+                             lambda: torch.arange(n_tiles, dtype=torch.int32,
+                                                  device=tile_start.device))
+
+
+def mono_plan_once(name, n_table, c_stream, tile_start, win_of_tile, c_off,
+                   n_blocks, window, stride, out_rows, dstl, checks=None,
+                   key=(), onehot=False):
+    """The layout's :func:`mono_plan`, made once per layout (its arrays,
+    the table's height and the arguments: ``cached_per_tensor`` on
+    ``tile_start``; ``key``: what else ``checks`` reads) after the data
+    checks (#11's, or ``checks()``), which raise there, as the plan's
+    check of a one-hot stream (``onehot``, #8) does; later calls copy
+    nothing to the host."""
+    args = (c_stream, tile_start, win_of_tile, c_off, n_blocks, window,
+            stride, out_rows, dstl)
+
+    def make():
+        if checks is None:
+            _mono_checks(name, n_table, *args)
+        else:
+            checks()
+        return mono_plan(*args, onehot_of=name if onehot else None)
+    return cached_per_tensor(
+        tile_start, (*_mono_key(name, n_table, *args), *key), make)
 
 
 window_block_spmm_mono.launches = 0
@@ -1045,8 +1284,12 @@ def _launch_step(name, src_mode, fused, table, c_stream, tile_start,
         raise ValueError(f"{name}: {scales.shape[0]} scales for a table of "
                          f"{n_table} rows in windows of {window}: the table "
                          f"and its scales do not belong together")
-    _mono_data_checks(name, n_table, c_stream, win_of_tile, window, window,
-                      c_off, False, out_rows)
+    # the data checks once per layout and table height
+    cached_per_tensor(tile_start, _mono_key(
+        "checks " + name, n_table, c_stream, tile_start, win_of_tile, c_off,
+        n_blocks, window, window, out_rows, False), lambda: _mono_data_checks(
+            name, n_table, c_stream, win_of_tile, window, window, c_off,
+            False, out_rows) or True)
     out = torch.empty(n_rows, D, dtype=torch.float32, device=table.device)
     scratch = None
     if (fused and src_mode == _SRC_ONDEMAND and cdt == torch.bfloat16
@@ -1424,7 +1667,8 @@ _BWD_WALKS: dict = {}
 
 def cached_per_tensor(t, key, make):
     """``make()``, computed once per (tensor ``t``, ``key``) while ``t``
-    lives (#14's walk table for a layout's backward arrays)."""
+    lives: what a layout's arrays alone decide, such as #14's walk table,
+    #11's plan and the kernels' data checks (a raise is not cached)."""
     entry = _BWD_WALKS.get(id(t))
     if entry is None or entry[0]() is not t:
         entry = (weakref.ref(t, lambda _, i=id(t): _BWD_WALKS.pop(i, None)),
