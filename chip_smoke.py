@@ -26,7 +26,10 @@
    the blocks of one work item of the same edges; then #4 at the seams of
    its bf16 kernel (``gru_bwd_seam_fuzz``: 1, 17, 33 and SMs + 1 blocks of
    128 rows, da in f32 and bf16; f32 at 1 and 17), each of its six
-   outputs twice bit-equal, as at every layout.
+   outputs twice bit-equal, as at every layout; then #3 at the seams of
+   its bf16 kernel (``gru_cell_seam_fuzz``: 1, SMs − 1 and SMs + 1 blocks
+   of 128 rows, |a| ~ 1 and saturating gates at |a| ~ 40), as at every
+   layout in bf16 also bit-equal to the first body (``gru_cell.cu``).
 3. Serves: a ``Predictor`` for the headline model (node_select head,
    onehot backend, bf16, T = 5 steps, random weights from seed 0) answers
    two requests of 262,144-node graphs (seeds 0 and 1;
@@ -159,11 +162,16 @@
    versions, per element and twice bit-equal, on fuzz layouts (tile_e 8,
    32, 128; empty types; a type ending on a tile boundary; holes and
    all-padding tail tiles; a hub; f32 and bf16; #16 at D = 4 to 384, #17
-   at G = 5, 64, 128 with E not a multiple of 128; #16 also at the seams
-   of its persistent schedule: an unsorted tile_type, type runs inside one
-   CTA's range and across two, a single tile, one type, all-padding tiles
-   between real ones), then at the headline's packed layout (bench.py
-   --backend pallas: 62,516 tiles of 128), timed.
+   at G = 5, 64, 128 with E not a multiple of 128 and on the fuzz
+   layouts' packed src and dst; #16 also at the seams of its persistent
+   schedule: an unsorted tile_type, type runs inside one CTA's range and
+   across two, a single tile, one type, all-padding tiles between real
+   ones; #17 at the seams of its plan, ``sddmm_seam_fuzz``: a dst hub
+   past three work items, empty dst blocks, one edge, a src hub), #17
+   with both index arrays also bit-equal to its first body (``sddmm.cu``)
+   and to a run on copies of the arrays (its plan made anew), then at the
+   headline's packed layout (bench.py --backend pallas: 62,516 tiles of
+   128), timed, with #17's plan on a new layout.
    ``[pallas serve]``: three requests through ``Predictor(backend=
    'pallas')``, ungated and gated, then the headline batch through
    ``run_batch`` (launch counts, device ms, peak memory, each step against
@@ -322,7 +330,7 @@ KERNELS = {
                             "ggnn_tpu/ops/scatter_pallas.py:1873"),
     "typed_block_step_gru": ("ggnn_tpu_torch/ops/csrc/typed_block_fused.cu",
                              "ggnn_tpu/ops/scatter_pallas.py:1873"),
-    "gru_cell_fwd": ("ggnn_tpu_torch/ops/csrc/gru_cell.cu",
+    "gru_cell_fwd": ("ggnn_tpu_torch/ops/csrc/gru_cell_pipe.cu",
                      "ggnn_tpu/ops/gru_pallas.py:41"),
     "gru_cell_bwd": ("ggnn_tpu_torch/ops/csrc/gru_cell_bwd_pipe.cu",
                      "ggnn_tpu/ops/gru_pallas.py:62"),
@@ -357,7 +365,7 @@ KERNELS = {
                          "ggnn_tpu/ops/window_pallas.py:1204"),
     "packed_messages": ("ggnn_tpu_torch/ops/csrc/packed_messages.cu",
                         "ggnn_tpu/ops/spmm_pallas.py:82"),
-    "sddmm_pallas": ("ggnn_tpu_torch/ops/csrc/sddmm.cu",
+    "sddmm_pallas": ("ggnn_tpu_torch/ops/csrc/sddmm_blocked.cu",
                      "ggnn_tpu/ops/spmm_pallas.py:129"),
     "onehot_segment_scatter_stream": (
         "ggnn_tpu_torch/ops/csrc/onehot_stream.cu",
@@ -663,12 +671,15 @@ def check_kernels(tag, layout, params, log, timings=None):
                   G.gru_cell_fwd_reference(*ga, mdt=dtype)[0],
                   "flip_rows", dtype, log,
                   a_rows=x["a"].abs().amax(1).clamp_min(1.0))
-        outs = G.gru_cell_fwd(*ga, mdt=dtype)
-        torch.cuda.synchronize()
-        refs = G.gru_cell_fwd_reference(*ga, mdt=dtype)
-        for part, o, r in zip(("h", "z", "r", "htil"), outs, refs):
-            check(f"gru_cell_fwd[{tag},{dn},{part}]", o, r, "cell", dtype,
-                  log)
+        if dtype == torch.bfloat16:   # csrc/gru_cell_pipe.cu
+            check_gru_cell(f"{tag},{dn}", ga, log)
+        else:
+            outs = G.gru_cell_fwd(*ga, mdt=dtype)
+            torch.cuda.synchronize()
+            refs = G.gru_cell_fwd_reference(*ga, mdt=dtype)
+            for part, o, r in zip(("h", "z", "r", "htil"), outs, refs):
+                check(f"gru_cell_fwd[{tag},{dn},{part}]", o, r, "cell",
+                      dtype, log)
         if timings is not None and dtype == torch.bfloat16:
             n_rows = kw["n_blocks"] * 128
             cell_bound = roofline(
@@ -980,6 +991,76 @@ def gru_bwd_seam_fuzz(log):
                               f"{str(da).split('.')[-1]}", args, dtype, log,
                               da_dtype=da)
             del args
+
+
+def gru_first_body(ga):
+    """#3's first body in bf16 (``csrc/gru_cell.cu``, ``ggnn_gru_cell``
+    with dtype 1) on the arguments ``ga`` of ``gru_cell_fwd``, called
+    through its C entry point: (h', z, r, h̃)."""
+    import torch
+    from ggnn_tpu_torch.ops import gru as G
+    bf = torch.bfloat16
+    h, a, w_a, b_all, u_zr, uh = ga
+    w_a, u_zr, uh = (w.to(bf).contiguous() for w in (w_a, u_zr, uh))
+    b3 = b_all.reshape(-1).float().contiguous()
+    out = torch.empty_like(h)
+    z, r, ht = (torch.empty(h.shape, dtype=bf, device=h.device)
+                for _ in range(3))
+    G.cell_launch("ggnn_gru_cell", h, a, w_a, b3, u_zr, uh, out, z, r, ht,
+                  bf)
+    return out, z, r, ht
+
+
+def check_gru_cell(tag, ga, log):
+    """#3 in bf16 (``csrc/gru_cell_pipe.cu``) on ``ga``: each output
+    against the plain version ('cell'), twice bit-equal, and bit-equal to
+    the first body (:func:`gru_first_body`)."""
+    import torch
+    from ggnn_tpu_torch.ops import gru as G
+    bf = torch.bfloat16
+    outs = G.gru_cell_fwd(*ga, mdt=bf)
+    again = G.gru_cell_fwd(*ga, mdt=bf)
+    first = gru_first_body(ga)
+    torch.cuda.synchronize()
+    refs = G.gru_cell_fwd_reference(*ga, mdt=bf)
+    differ = []
+    for part, o, f in zip(("h", "z", "r", "htil"), outs, first):
+        d = (o.float() - f.float()).abs()
+        if not torch.equal(o, f):
+            differ.append(f"{part}: {int((d > 0).sum())} elements, at most "
+                          f"{d.max().item():.3e}")
+    if differ:
+        raise AssertionError(f"gru_cell_fwd[{tag}]: not the first body's "
+                             f"bits ({'; '.join(differ)})")
+    for part, o, o2, r in zip(("h", "z", "r", "htil"), outs, again, refs):
+        same_twice("gru_cell_fwd", f"{tag},{part}", o, o2)
+        check(f"gru_cell_fwd[{tag},{part}]", o, r, "cell", bf, log)
+    print(f"  gru_cell_fwd[{tag}]: h', z, r, h̃ bit-equal to the first "
+          f"body (gru_cell.cu)", flush=True)
+
+
+def gru_cell_seam_fuzz(log):
+    """[kernels] #3's bf16 body at the seams of its persistent CTAs (one an
+    SM, 8 warps, a warp a 16-row strip): one 128-row block (one CTA), one
+    block fewer and one more than the card has SMs (every CTA 8 strips;
+    strip ranges of 8 and 16), each with |a| ~ 1 and with saturating gates
+    (|a| ~ 40: σ at 0 and 1, tanh at ±1): against the plain version,
+    twice bit-equal and bit-equal to the first body."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    dev = torch.device("cuda")
+    for n_blocks in (1, sms - 1, sms + 1):
+        for amp in (1.0, 40.0):
+            N = 128 * n_blocks
+            h = torch.rand(N, DIM, device=dev, generator=gen) * 2 - 1
+            a = torch.randn(N, DIM, device=dev, generator=gen) * amp
+            w = [torch.empty(DIM, k * DIM, device=dev).uniform_(
+                -DIM ** -0.5, DIM ** -0.5, generator=gen) for k in (3, 2, 1)]
+            b3 = torch.empty(3 * DIM, device=dev).uniform_(-0.1, 0.1,
+                                                          generator=gen)
+            check_gru_cell(f"seam {n_blocks} blocks,|a|~{amp:g}",
+                           (h, a, w[0], b3, w[1], w[2]), log)
 
 
 def check_tile_kernels(tag, layout, params, log, timings=None, a_max=None,
@@ -4276,19 +4357,108 @@ def packed_seam_fuzz(log, dims=(4, 6, 8, 13, 128, 200, 256, 384)):
                                       bb, log)
 
 
+def sddmm_first_body(p, q, src=None, dst=None, mask=None):
+    """#17's first body (``csrc/sddmm.cu``, ``ggnn_sddmm``) on the
+    arguments of ``sddmm_pallas``, called through its C entry point."""
+    import torch
+    from ggnn_tpu_torch.ops import _build
+    E = src.shape[0] if src is not None else p.shape[0]
+    out = torch.empty(E, dtype=torch.float32, device=p.device)
+    ptr = _build.ptr
+    _build.launch(_build.library().ggnn_sddmm, "sddmm_pallas", p.device,
+                  ptr(p), p.shape[0], ptr(q), q.shape[0], p.shape[1],
+                  ptr(src), ptr(dst), ptr(mask), E, ptr(out))
+    return out
+
+
 def check_sddmm(tag, p, q, log, **kw):
     """#17 against its plain version per element: 2e-5 of Σ|p||q| (f32
-    sums in another order), mean ≤ 0.1 of it; twice, bit-equal."""
+    sums in another order), mean ≤ 0.1 of it; twice, bit-equal.  With both
+    index arrays also bit-equal to the first body (``sddmm.cu``: the
+    blocked body sums each edge in its order) and to a run on copies of
+    the index arrays (a new layout: the plan made anew)."""
     import torch
     from ggnn_tpu_torch.ops import spmm as SP
     got = SP.sddmm_pallas(p, q, **kw)
     same_twice("sddmm_pallas", tag, got, SP.sddmm_pallas(p, q, **kw))
+    if kw.get("src") is not None and kw.get("dst") is not None:
+        if not torch.equal(got, sddmm_first_body(p, q, **kw)):
+            raise AssertionError(f"sddmm_pallas[{tag}]: not the first "
+                                 f"body's bits")
+        fresh = dict(kw, src=kw["src"].clone(), dst=kw["dst"].clone())
+        if not torch.equal(got, SP.sddmm_pallas(p, q, **fresh)):
+            raise AssertionError(f"sddmm_pallas[{tag}]: a new layout's "
+                                 f"plan gives other bits")
+        print(f"  sddmm_pallas[{tag}]: bit-equal to the first body and on "
+              f"a new layout", flush=True)
     ref = SP.sddmm_pallas_reference(p, q, **kw)
     mag = SP.sddmm_pallas_reference(
         p.abs(), q.abs(), **{k: (v.abs() if k == "mask" else v)
                              for k, v in kw.items()})
     check(f"sddmm_pallas[{tag}]", got, ref, "bound", torch.float32, log,
           bound=2e-5 * mag)
+
+
+def sddmm_seam_edges(seed, n_p, n_q, k):
+    """Index arrays at the seams of #17's plan ((src slab, dst block of
+    128 rows) keys cut into work items of at most ``k`` edges; these
+    graphs have one slab): tag -> (src, dst) int32 on the card."""
+    import torch
+    r = np.random.default_rng(seed)
+    blocks = -(-n_q // 128)
+    hub = np.concatenate([np.zeros(3 * k + 5, np.int64),
+                          r.integers(0, n_q, 2000)])
+    rest = r.integers(0, n_q, 6000)
+    keep = ~np.isin(rest // 128, (2, blocks - 1))
+    uneven = r.integers(0, n_q, 10_037)
+    cases = {
+        "dst hub past 3 items": (r.integers(0, n_p, hub.size), hub),
+        "empty blocks": (r.integers(0, n_p, int(keep.sum())), rest[keep]),
+        "one edge": (np.array([n_p - 1]), np.array([n_q - 1])),
+        "uneven, src hub": (np.where(np.arange(uneven.size) < 3000, 0,
+                                     r.integers(0, n_p, uneven.size)),
+                            uneven),
+    }
+    return {t: tuple(torch.as_tensor(x.astype(np.int32), device="cuda")
+                     for x in c) for t, c in cases.items()}
+
+
+def sddmm_seam_fuzz(log):
+    """[pallas kernels] #17's blocked body at the seams of its plan: a dst
+    hub past three work items, dst blocks without an edge (the last one
+    too), one edge, 10,037 edges with a src hub, q of 1000 rows (a last
+    block of 104), G = 4, 64 and 128, with and without a mask; then p of
+    262,144 rows (4 src slabs at G = 128, 2 at G = 64); each with
+    :func:`check_sddmm`'s criteria (the plain version, twice bit-equal,
+    the first body's bits, a new layout's plan)."""
+    import torch
+    from ggnn_tpu_torch.ops import spmm as SP
+    dev = torch.device("cuda")
+    n_p, n_q = 1500, 1000
+    for tag, (src, dst) in sddmm_seam_edges(
+            23, n_p, n_q, SP.SDDMM_ITEM).items():
+        E = src.shape[0]
+        for G in (4, 64, 128):
+            gen = torch.Generator(device=dev).manual_seed(G + E)
+            p = torch.randn(n_p, G, device=dev, generator=gen)
+            q = torch.randn(n_q, G, device=dev, generator=gen)
+            mask = (torch.rand(E, device=dev, generator=gen) < 0.7).float()
+            check_sddmm(f"seam {tag},G={G}", p, q, log, src=src, dst=dst)
+            check_sddmm(f"seam {tag},G={G},masked", p, q, log, src=src,
+                        dst=dst, mask=mask)
+    # p of 262,144 rows: 4 src slabs at G = 128, 2 at G = 64
+    n_p, E = 262_144, 40_000
+    gen = torch.Generator(device=dev).manual_seed(29)
+    src = torch.randint(0, n_p, (E,), device=dev, generator=gen,
+                        dtype=torch.int32)
+    dst = torch.randint(0, n_q, (E,), device=dev, generator=gen,
+                        dtype=torch.int32)
+    for G in (64, 128):
+        p = torch.randn(n_p, G, device=dev, generator=gen)
+        q = torch.randn(n_q, G, device=dev, generator=gen)
+        plan = SP.sddmm_plan(src, dst, n_p, n_q, G)
+        check_sddmm(f"seam {plan['n_keys'] // plan['n_qblk']} src slabs,"
+                    f"G={G}", p, q, log, src=src, dst=dst)
 
 
 def pallas_kernels_phase(b, log, timings):
@@ -4340,7 +4510,14 @@ def pallas_kernels_phase(b, log, timings):
                 dn = str(dtype).split(".")[-1]
                 check_packed_messages(f"{tag},D={D},{dn}", h, lay, w, bb,
                                       log)
+        for G in (64, 128):     # the pallas gate: the packed src and dst
+            gen = torch.Generator(device=dev).manual_seed(G + N)
+            p = torch.randn(N, G, device=dev, generator=gen)
+            q = torch.randn(N, G, device=dev, generator=gen)
+            check_sddmm(f"{tag},G={G},packed", p, q, log, src=lay["src"],
+                        dst=lay["dst"])
     packed_seam_fuzz(log)
+    sddmm_seam_fuzz(log)
     E = 10_000 + 37                 # not a multiple of 128
     for G in (5, 64, 128):
         gen = torch.Generator(device=dev).manual_seed(G)
@@ -4412,8 +4589,36 @@ def pallas_kernels_phase(b, log, timings):
                  [(2 * P_ * DIM, F32_FLOPS)]))}, timings)
     print("  sddmm_pallas library call: torch.einsum('eg,eg->e') on the "
           "rows gathered beforehand", flush=True)
+    time_sddmm_plan(p, q, lay)
     del pg, qg, lay
     torch.cuda.empty_cache()
+
+
+def time_sddmm_plan(p, q, lay):
+    """#17 on a new layout: its plan alone, and a launch on copies of the
+    packed src and dst (the range checks, the plan and the kernel; the two
+    copies included), against a launch on the layout seen before; the
+    bytes the blocked body gathers (each edge's p row, each work item's q
+    block, from L2 or HBM) and their time at the HBM rate."""
+    import torch
+    from ggnn_tpu_torch.ops import spmm as SP
+    src, dst = lay["src"], lay["dst"]
+    G = p.shape[1]
+    make = lambda: SP.sddmm_plan(src, dst, p.shape[0], q.shape[0], G)
+    plan_ms = cuda_ms(make, 5)
+    new_ms = cuda_ms(lambda: SP.sddmm_pallas(p, q, src=src.clone(),
+                                             dst=dst.clone()), 5)
+    seen_ms = cuda_ms(lambda: SP.sddmm_pallas(p, q, src=src, dst=dst), 10)
+    plan = make()
+    n_items = int(plan["item_first"][-1].item())
+    gather = (src.shape[0] * G + n_items * SP.SDDMM_BLOCK * G) * 4
+    print(f"  sddmm_pallas on a new layout: plan {plan_ms:.3f} ms, launch "
+          f"with checks and plan {new_ms:.3f} ms, on the layout seen "
+          f"{seen_ms:.3f} ms; {n_items} work items of at most "
+          f"{SP.SDDMM_ITEM} edges over {plan['n_keys']} (src slab, dst "
+          f"block) keys ({plan['n_keys'] // plan['n_qblk']} slabs); "
+          f"gathered rows {gather / 1e9:.3f} GB -> "
+          f"{gather / HBM_BPS * 1e3:.4f} ms at the HBM rate", flush=True)
 
 
 def pallas_stepwise(tag, cfg, prop, arrays, log):
@@ -5327,6 +5532,7 @@ def main() -> int:
         check_grad_kernels(tag, lay, log)
     typed_seam_fuzz(log)
     gru_bwd_seam_fuzz(log)
+    gru_cell_seam_fuzz(log)
 
     t0 = time.perf_counter()
     b = synthetic_batch(NODES, EDGES, EDGE_TYPES, annotation_dim=ANN,

@@ -40,6 +40,8 @@ _SIGNATURES = {
                          _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     # dtype, h, a, wa, b3, uzr, uh, out_h, z, r, ht, n_blocks, stream
     "ggnn_gru_cell": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+    "ggnn_gru_cell_pipe": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                           _P],
     # dtype, da_narrow, g, h, a, z, r, ht, wa, uzr, uh, dh, da, gates, dbp,
     # ws, dwa, db, duzr, duh, n_blocks, stream
     "ggnn_gru_cell_bwd": [_I, _I] + [_P] * 18 + [_I, _P],
@@ -134,6 +136,11 @@ _SIGNATURES = {
     # p, n_p, q, n_q, G, src, dst, mask, E, out, stream
     "ggnn_sddmm": [_P, ctypes.c_longlong, _P, ctypes.c_longlong, _I, _P, _P,
                    _P, ctypes.c_longlong, _P, _P],
+    # p, n_p, q, n_q, G, src, dst, mask, E, order, item_first, key_start,
+    # n_keys, n_qblk, K, grid, out, stream
+    "ggnn_sddmm_blocked": [_P, ctypes.c_longlong, _P, ctypes.c_longlong, _I,
+                           _P, _P, _P, ctypes.c_longlong, _P, _P, _P, _I,
+                           _I, _I, ctypes.c_longlong, _P, _P],
     # dtype, msgs, n_msgs, D, onehot, n_tiles, tile_e, tile_start,
     # n_blocks, out, stream
     "ggnn_onehot_stream": [_I, _P, ctypes.c_longlong, _I, _P, _I, _I, _P,

@@ -52,6 +52,22 @@ __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
+// The GRU cell's pointwise math, for every body that computes the cell
+// (gru_block below, gru_pipe.cuh's gru_tile and gru_strip): a gate from its
+// f32 sum and bias, the candidate h̃, and h' = (1 − z)·h + z·h̃ with each
+// rounding written out (no product left for the compiler to fuse into an
+// fma, which it does differently in different kernels), so that the
+// bodies give the same bits, and the plain version's roundings.
+__device__ __forceinline__ float gru_gate(float acc, float b) {
+  return sigmoid_f(acc + b);
+}
+__device__ __forceinline__ float gru_cand(float acc, float b) {
+  return tanhf(acc + b);
+}
+__device__ __forceinline__ float gru_h_next(float z, float h, float ht) {
+  return __fadd_rn(__fmul_rn(1.0f - z, h), __fmul_rn(z, ht));
+}
+
 // Bt[n][k] = W[k][col0 + n] for n, k in [0, 128): one [D, D] weight tile,
 // transposed into shared memory.  W is row-major with row length ldw.
 template <typename T>
@@ -190,8 +206,8 @@ __device__ void gru_block(const T* A_s, T* H_s, T* W_s,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int r = row0 + frag_row(e), c = frag_col(nt, e);
-      const float z = sigmoid_f(zacc[nt][e] + b3[c]);
-      const float rg = sigmoid_f(racc[nt][e] + b3[kD + c]);
+      const float z = gru_gate(zacc[nt][e], b3[c]);
+      const float rg = gru_gate(racc[nt][e], b3[kD + c]);
       const float hv = hrow[r * kD + c];
       zacc[nt][e] = z;
       H_s[r * ld + c] = from_f<T>(rg * hv);
@@ -215,10 +231,10 @@ __device__ void gru_block(const T* A_s, T* H_s, T* W_s,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int r = row0 + frag_row(e), c = frag_col(nt, e);
-      const float ht = tanhf(racc[nt][e] + b3[2 * kD + c]);
+      const float ht = gru_cand(racc[nt][e], b3[2 * kD + c]);
       const float hv = hrow[r * kD + c];
       const float z = zacc[nt][e];
-      out_h[r * kD + c] = (1.0f - z) * hv + z * ht;
+      out_h[r * kD + c] = gru_h_next(z, hv, ht);
       if (EMIT) out_ht[r * LDR + c] = from_f<T>(ht);
     }
   }

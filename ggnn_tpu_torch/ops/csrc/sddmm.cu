@@ -53,10 +53,10 @@ __global__ void __launch_bounds__(kSddmmThreads) sddmm_kernel(
       for (int j = lane * 4; j < G; j += 128) {
         const float4 a = *reinterpret_cast<const float4*>(pr + j);
         const float4 c = *reinterpret_cast<const float4*>(qr + j);
-        s += a.x * c.x;
-        s += a.y * c.y;
-        s += a.z * c.z;
-        s += a.w * c.w;
+        s = __fmaf_rn(a.x, c.x, s);
+        s = __fmaf_rn(a.y, c.y, s);
+        s = __fmaf_rn(a.z, c.z, s);
+        s = __fmaf_rn(a.w, c.w, s);
       }
     } else {
       for (int j = lane; j < G; j += 32) s += pr[j] * qr[j];

@@ -2,9 +2,10 @@
 versions.
 
 Counterpart of ``ggnn_tpu/ops/gru_pallas.py``.  The forward kernel
-(``csrc/gru_cell.cu``) runs the whole cell in one pass per 128-row block and
-returns ``(h', z, r, h̃)`` with the residual gates in the matmul dtype, as
-the TPU kernel does; serving uses only ``h'``.  The backward kernel
+(``csrc/gru_cell.cu``; bf16 at D = 128 ``csrc/gru_cell_pipe.cu``) runs the
+whole cell in one pass over the rows and returns ``(h', z, r, h̃)`` with
+the residual gates in the matmul dtype, as the TPU kernel does; serving
+uses only ``h'``.  The backward kernel
 (``csrc/gru_cell_bwd.cu``; bf16 at D = 128 ``csrc/gru_cell_bwd_pipe.cu``)
 turns the cotangent of h' and those residuals into dh, da and the
 parameter gradients.
@@ -178,9 +179,9 @@ def gru_cell_fwd(h, a, w_a, b_all, u_zr, uh, mdt=torch.bfloat16):
     ``u_zr`` [D, 2D], ``uh`` [D, D] (cast to ``mdt``); ``b_all`` [3D].
 
     A CPU tensor takes :func:`gru_cell_fwd_reference`; a CUDA tensor
-    launches the kernel (``csrc/gru_cell.cu``; at D = 128·P, P > 1,
-    ``csrc/gru_cell_wide.cu``; other D through :func:`pad_width`) or
-    raises."""
+    launches the kernel (bf16 at D = 128 ``csrc/gru_cell_pipe.cu``, f32
+    ``csrc/gru_cell.cu``; at D = 128·P, P > 1, ``csrc/gru_cell_wide.cu``;
+    other D through :func:`pad_width`) or raises."""
     if h.device.type == "cpu":
         return gru_cell_fwd_reference(h, a, w_a, b_all, u_zr, uh, mdt)
     N, D = h.shape
@@ -220,13 +221,23 @@ def gru_cell_fwd(h, a, w_a, b_all, u_zr, uh, mdt=torch.bfloat16):
             p(u_zr), p(uh), p(rh), p(out), p(z), p(r), p(htil), N // BLOCK)
         gru_cell_fwd.launches += 1
         return out, z, r, htil
-    _build.launch(
-        _build.library().ggnn_gru_cell, "gru_cell_fwd", h.device,
-        _DTYPE_CODE[mdt], h.data_ptr(), a.data_ptr(), w_a.data_ptr(),
-        b3.data_ptr(), u_zr.data_ptr(), uh.data_ptr(), out.data_ptr(),
-        z.data_ptr(), r.data_ptr(), htil.data_ptr(), N // BLOCK)
+    # bf16: csrc/gru_cell_pipe.cu (weights resident); f32: csrc/gru_cell.cu
+    entry = "ggnn_gru_cell_pipe" if mdt == torch.bfloat16 else "ggnn_gru_cell"
+    cell_launch(entry, h, a, w_a, b3, u_zr, uh, out, z, r, htil, mdt)
     gru_cell_fwd.launches += 1
     return out, z, r, htil
+
+
+def cell_launch(entry, h, a, w_a, b3, u_zr, uh, out, z, r, htil, mdt):
+    """Launch C entry point ``entry`` of the D = 128 GRU cell
+    (``ggnn_gru_cell``, ``csrc/gru_cell.cu``, or its bf16 redesign
+    ``ggnn_gru_cell_pipe``) on arguments :func:`gru_cell_fwd` has checked;
+    it counts nothing (the checks on the card call the first body
+    through it)."""
+    p = _build.ptr
+    _build.launch(getattr(_build.library(), entry), "gru_cell_fwd", h.device,
+                  _DTYPE_CODE[mdt], p(h), p(a), p(w_a), p(b3), p(u_zr),
+                  p(uh), p(out), p(z), p(r), p(htil), h.shape[0] // BLOCK)
 
 
 def gru_cell_bwd_reference(g, h, a, z, r, htil, w_a, u_zr, uh,

@@ -13,9 +13,12 @@ Counterpart of ``ggnn_tpu/ops/spmm_pallas.py``:
   reference gathers them with an XLA op before its kernel; in bf16 it is
   persistent, keeping W_t in shared memory across a run of one tile type
   while the next chunk's rows are gathered;
-- :func:`sddmm_pallas` wraps kernel #17 (``csrc/sddmm.cu``, the port of
-  ``_sddmm_kernel``): per edge ⟨p[src_e], q[dst_e]⟩, with optional index
-  arrays (none: row e) and an optional mask;
+- :func:`sddmm_pallas` wraps kernel #17 (the port of ``_sddmm_kernel``):
+  per edge ⟨p[src_e], q[dst_e]⟩, with optional index arrays (none: row e)
+  and an optional mask; with both index arrays and G a multiple of 4 up to
+  128 it runs ``csrc/sddmm_blocked.cu`` on :func:`sddmm_plan` (the edges
+  grouped by src slab and dst block, made once per pair of index arrays),
+  else ``csrc/sddmm.cu``;
 - :func:`typed_aggregate_tiled` is ``_typed_tiled`` with its custom VJP
   (:class:`TypedTiled`): #16, then the segment sum over ``dst``; the
   backward is the reference's node-side one, with the gate gradient dmask
@@ -29,12 +32,19 @@ are glue: ``index_add_`` in f32, as ``ops/segment.py`` sums.
 
 from __future__ import annotations
 
+import weakref
+
 import torch
 
 from ggnn_tpu_torch.ops import _build
 from ggnn_tpu_torch.ops.gru import _DTYPE_CODE, _check_cuda_args, host_ints
+from ggnn_tpu_torch.ops.window import cached_per_tensor, split_plan
 
 DEFAULT_TILE_E = 128
+SDDMM_BLOCK = 128   # dst rows of a block of #17's plan (sddmm_blocked.cu)
+SDDMM_ITEM = 1024   # edges of one of its work items, at most
+SDDMM_SLAB_BYTES = 32 << 20   # p rows of a slab of the plan, about
+SDDMM_SLAB_EDGES = 256        # edges a (slab, block) key keeps, at least
 
 
 def tiles_budget(e_pad: int, n_message_types: int,
@@ -215,6 +225,75 @@ def sddmm_pallas_reference(p, q, src=None, dst=None, mask=None):
     return out if mask is None else out * mask.float()
 
 
+def plan_from_keys(key, n_keys: int, n_qblk: int, k: int = SDDMM_ITEM):
+    """#17's plan from each edge's key in [0, ``n_keys``) (its q block is
+    key % ``n_qblk``): ``order`` [E] int32, the edge ids grouped by key by
+    one stable sort; ``key_start`` [n_keys + 1] int32, key j's edges
+    order[key_start[j] .. key_start[j + 1]); ``item_first`` [n_keys + 1]
+    int32, key j's work items of at most ``k`` edges (none for an empty
+    key, :func:`~ggnn_tpu_torch.ops.window.split_plan`); and ``grid``, a
+    host bound on the items (E / k rounded up, plus one for each key that
+    may hold edges), so that nothing is copied to the host."""
+    E = key.shape[0]
+    sk, order = torch.sort(key, stable=True)
+    bounds = torch.arange(n_keys + 1, dtype=sk.dtype, device=key.device)
+    key_start = torch.searchsorted(sk, bounds).to(torch.int32)
+    item_first = split_plan(key_start.diff(), k, empty_items=0)[0]
+    return {"order": order.to(torch.int32), "key_start": key_start,
+            "item_first": item_first, "n_keys": n_keys, "n_qblk": n_qblk,
+            "k": k, "grid": -(-E // k) + min(n_keys, E)}
+
+
+def sddmm_plan(src, dst, n_p: int, n_q: int, G: int, k: int = SDDMM_ITEM,
+               slab_bytes: int = SDDMM_SLAB_BYTES,
+               slab_edges: int = SDDMM_SLAB_EDGES):
+    """The plan of #17's blocked body for the index arrays ``src``,
+    ``dst`` [E] (values in [0, n_p) and [0, n_q)) of G-wide p and q rows:
+    the edges grouped by (src slab, dst block of :data:`SDDMM_BLOCK`
+    rows), slab-major, each key's edges in their order, cut into work
+    items of at most ``k`` (:func:`plan_from_keys`).  A slab is about
+    ``slab_bytes`` of p, so that the CTAs at work, all in one slab, find
+    its rows in L2; q is then staged once per slab and block, so there are
+    no more slabs than leave about ``slab_edges`` edges a key (at the
+    headline: 4 slabs of 65,536 rows, 977 edges a key; a small graph has
+    one slab: the dst-block order).  Torch ops on dst's device: a sort
+    (16-bit keys where they fit), a search and a few prefix sums."""
+    E = dst.shape[0]
+    n_qblk = -(-n_q // SDDMM_BLOCK)
+    n_slabs = -(-n_p // max(1, slab_bytes // (4 * G)))
+    n_slabs = max(1, min(n_slabs, E // (slab_edges * n_qblk)))
+    key = dst.to(torch.int32) // SDDMM_BLOCK
+    if n_slabs > 1:
+        key = key + src.to(torch.int32) // -(-n_p // n_slabs) * n_qblk
+    n_keys = n_slabs * n_qblk
+    if n_keys <= torch.iinfo(torch.int16).max:
+        key = key.to(torch.int16)
+    return plan_from_keys(key, n_keys, n_qblk, k)
+
+
+def sddmm_plan_for(src, dst, n_p: int, n_q: int, G: int):
+    """:func:`sddmm_plan`, made once per pair of index arrays while both
+    live (cached on src, checked against dst)."""
+    pairs = cached_per_tensor(src, ("sddmm_plan", n_p, n_q, G), dict)
+    hit = pairs.get(id(dst))
+    if hit is None or hit[0]() is not dst:
+        hit = (weakref.ref(dst), sddmm_plan(src, dst, n_p, n_q, G))
+        pairs[id(dst)] = hit
+    return hit[1]
+
+
+def sddmm_rows_checked(name, arg, idx, n):
+    """``idx``'s values lie in [0, n), checked once per index tensor (one
+    copy to the host; a raise is not cached)."""
+    def check():
+        lo, hi = host_ints(idx.min(), idx.max())
+        if lo < 0 or hi >= n:
+            raise ValueError(f"{name}: {arg} addresses rows [{lo}, {hi}] of "
+                             f"{n}: layout and arguments disagree")
+        return True
+    cached_per_tensor(idx, ("sddmm_rows", n), check)
+
+
 def sddmm_pallas(p, q, tile_e: int = DEFAULT_TILE_E, *, src=None, dst=None,
                  mask=None):
     """Per-edge scores ⟨p[src_e], q[dst_e]⟩ (kernel #17, the reference's
@@ -225,8 +304,11 @@ def sddmm_pallas(p, q, tile_e: int = DEFAULT_TILE_E, *, src=None, dst=None,
     endpoint features); with int32 index arrays the kernel reads the rows
     itself and no [E, G] copy is made.  ``tile_e`` is the reference's
     tile; the kernel takes any E, so E need not be its multiple.  A CPU
-    tensor takes the plain version; a CUDA tensor launches
-    ``csrc/sddmm.cu`` or raises."""
+    tensor takes the plain version; a CUDA tensor launches the kernel or
+    raises: with both index arrays and G a multiple of 4 up to 128
+    ``csrc/sddmm_blocked.cu`` on :func:`sddmm_plan` (made once per pair
+    of index arrays, as the range checks are made once per index array),
+    else ``csrc/sddmm.cu``.  Both give the same bits."""
     del tile_e
     name = "sddmm_pallas"
     E = _check_sddmm_args(name, p, q, src, dst, mask)
@@ -247,21 +329,22 @@ def sddmm_pallas(p, q, tile_e: int = DEFAULT_TILE_E, *, src=None, dst=None,
     out = torch.empty(E, dtype=torch.float32, device=p.device)
     if E == 0:
         return out
-    checks = [(src, p.shape[0], "src"), (dst, q.shape[0], "dst")]
-    checks = [c for c in checks if c[0] is not None]
-    if checks:
-        ends = host_ints(*[x for idx, _, _ in checks
-                           for x in (idx.min(), idx.max())])
-        for k, (_, n, arg) in enumerate(checks):
-            lo, hi = ends[2 * k], ends[2 * k + 1]
-            if lo < 0 or hi >= n:
-                raise ValueError(f"{name}: {arg} addresses rows [{lo}, "
-                                 f"{hi}] of {n}: layout and arguments "
-                                 f"disagree")
+    for idx, n, arg in ((src, p.shape[0], "src"), (dst, q.shape[0], "dst")):
+        if idx is not None:
+            sddmm_rows_checked(name, arg, idx, n)
     ptr = _build.ptr
-    _build.launch(_build.library().ggnn_sddmm, name, p.device, ptr(p),
-                  p.shape[0], ptr(q), q.shape[0], G, ptr(src), ptr(dst),
-                  ptr(mask), E, ptr(out))
+    if src is not None and dst is not None and G % 4 == 0 and G <= 128:
+        plan = sddmm_plan_for(src, dst, p.shape[0], q.shape[0], G)
+        _build.launch(_build.library().ggnn_sddmm_blocked, name, p.device,
+                      ptr(p), p.shape[0], ptr(q), q.shape[0], G, ptr(src),
+                      ptr(dst), ptr(mask), E, ptr(plan["order"]),
+                      ptr(plan["item_first"]), ptr(plan["key_start"]),
+                      plan["n_keys"], plan["n_qblk"], plan["k"],
+                      plan["grid"], ptr(out))
+    else:
+        _build.launch(_build.library().ggnn_sddmm, name, p.device, ptr(p),
+                      p.shape[0], ptr(q), q.shape[0], G, ptr(src), ptr(dst),
+                      ptr(mask), E, ptr(out))
     sddmm_pallas.launches += 1
     return out
 

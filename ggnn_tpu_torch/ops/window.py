@@ -607,18 +607,19 @@ def window_layout_for_batch(batch, window: int = 512,
 
 # --- shared by the kernels' wrappers -----------------------------------------
 
-def split_plan(per, k=None):
+def split_plan(per, k=None, empty_items=1):
     """The hub split on the device: each dst block's ``per`` [n_blocks]
     tiles cut into work items of at most ``k`` (by default
     ``csrc/common.cuh``'s kSplit, the per-tile kernels' cut of their
     ``tile_start.diff()``): ``item_first`` [n_blocks + 1] (block b's work
-    items are item_first[b] .. item_first[b + 1], at least one) and
+    items are item_first[b] .. item_first[b + 1], at least
+    ``empty_items``: 1, or 0 where an empty block needs no item) and
     ``pbase`` [n_blocks] (the first workspace slot of a block with more
     than one item), both int32, and the 0-d totals (items, partial slots)
     for the caller to read with its other host checks."""
     K = _build.library().ggnn_tile_split() if k is None else k
     nit = (per.to(torch.int32).clamp_min(0) + K - 1) // K
-    nit = nit.clamp_min(1)
+    nit = nit.clamp_min(empty_items)
     item_first = torch.zeros(per.shape[0] + 1, dtype=torch.int32,
                              device=per.device)
     item_first[1:] = torch.cumsum(nit, 0, dtype=torch.int32)
