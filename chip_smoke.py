@@ -186,12 +186,17 @@
    a hub block of several hundred tiles; #20 at W 64, and W 256 and 512
    with dummy tiles, a compact count stream and a block without tiles; D
    = 4 to 384, f32 and bf16, per element and twice bit-equal; #18 raises
-   below a block's tile count.  Then the main path: the two sweeps of
+   below a block's tile count; #18 and #19 on a signed stream that is not
+   one-hot (2, −3, 127, −128, −1); #20's plan seams (a hub row cut into
+   several work items, signed counts, W 64, 256 and 512).  Then the main path: the two sweeps of
    ``scripts/torch_scatter_variants.py`` (tile_e 2048: flat #8, stream
    #18, loopT #19, mono #11) and ``scripts/torch_window_variants.py`` (the
    probe's community graph, W 512: #11, #20, ``aggregate_window``),
    imported, their launches counted; on their layouts and inputs each
-   variant against the plain version, and #18, #19 and #20 timed.
+   variant against the plain version, and #18, #19 and #20 timed (#20
+   against the plan's bound, the dense stream's printed beside it), #18
+   and #20 also on a new layout (their checks and plans included), and
+   #11's window form beside #20.
 
 The typed-pack phases (2-4, 7) hand ``Predictor.run_batch`` the typed pack
 they build; the Predictor's own layout is the legacy one (phase 6).
@@ -367,13 +372,15 @@ KERNELS = {
                         "ggnn_tpu/ops/spmm_pallas.py:82"),
     "sddmm_pallas": ("ggnn_tpu_torch/ops/csrc/sddmm_blocked.cu",
                      "ggnn_tpu/ops/spmm_pallas.py:129"),
+    # bf16 at D = 128 (the sweep's form); f32, other D and tile_e % 16 != 0
+    # run #19's body, csrc/onehot_stream.cu
     "onehot_segment_scatter_stream": (
-        "ggnn_tpu_torch/ops/csrc/onehot_stream.cu",
+        "ggnn_tpu_torch/ops/csrc/window_mono_fused.cu",
         "ggnn_tpu/ops/scatter_pallas.py:559"),
     "onehot_segment_scatter_loopT": (
         "ggnn_tpu_torch/ops/csrc/onehot_stream.cu",
         "ggnn_tpu/ops/scatter_pallas.py:672"),
-    "window_block_spmm": ("ggnn_tpu_torch/ops/csrc/window_auto.cu",
+    "window_block_spmm": ("ggnn_tpu_torch/ops/csrc/window_auto_gather.cu",
                           "ggnn_tpu/ops/window_pallas.py:704"),
 }
 
@@ -4794,15 +4801,18 @@ def random_edges(r, N, E, T2, dst_hi=None, hub=0.0):
     return src, dst, typ, mask
 
 
-def stream_scatters(lay, extra=False):
+def stream_scatters(lay, extra=False, onehot=None):
     """The stream scatters of a legacy device layout as name -> (kernel,
     the plain version) on a message pack: #18 and #19 (with ``extra`` also
     #8 and #11's mono form, the sweep's other variants of the same
-    function), all held against #18's plain version."""
+    function), all held against #18's plain version; ``onehot``: another
+    int8 stream of the layout's shape in place of its one-hot."""
     from ggnn_tpu_torch.ops import legacy as L
     _, tile_e, max_tiles, n_blocks, *_ = lay.meta
     a = lay.arrays
     oh, ts, bt = a["onehot"], a["tile_start"], a["block_of_tile"]
+    if onehot is not None:
+        oh = onehot
     plain = lambda m: L.onehot_segment_scatter_stream_reference(
         m, oh, ts, n_blocks, max_tiles, tile_e)
     kern = {"onehot_segment_scatter_stream":
@@ -4821,12 +4831,52 @@ def stream_scatters(lay, extra=False):
     return kern, plain
 
 
-def check_stream_scatters(tag, lay, log, dims, msgs=None, extra=False):
+def abs_parts(c):
+    """Int8 streams of nonnegative values that sum to |c| (|−128| does not
+    fit an int8): max(c, 0), max(−1 − c, 0) and [c < 0]."""
+    import torch
+    zero = torch.zeros((), dtype=c.dtype, device=c.device)
+    return [torch.maximum(c, zero), torch.maximum(-1 - c, zero),
+            (c < 0).to(c.dtype)]
+
+
+def signed_stream(c, r, cols_too=True):
+    """A copy of the int8 stream ``c`` [n·128, width] whose nonzero bytes
+    are, at random, 2, −3, 127, −128 or −1 (a fifth each, a fifth of them
+    changed), and (``cols_too``) whose columns with an entry gain a second
+    one, −1, in the next row: not a one-hot; zero stays zero elsewhere."""
+    import torch
+    out = c.clone()
+    flat = out.view(-1)
+    nz = torch.nonzero(flat).flatten()
+    pick = nz[torch.as_tensor(r.random(nz.shape[0]) < 0.2, device=c.device)]
+    vals = torch.tensor([2, -3, 127, -128, -1], dtype=torch.int8,
+                        device=c.device)
+    flat[pick] = vals[torch.as_tensor(r.integers(0, 5, pick.shape[0]),
+                                      device=c.device)]
+    if cols_too:
+        width = c.shape[1]
+        two = nz[torch.as_tensor(r.random(nz.shape[0]) < 0.1,
+                                 device=c.device)]
+        row = two // width
+        nxt = (row // 128) * 128 + (row % 128 + 1) % 128
+        dst = nxt * width + two % width
+        flat[dst[flat[dst] == 0]] = -1
+    for v in (2, -3, 127, -128, -1):
+        if not (flat == v).any():
+            raise AssertionError(f"the signed stream holds no {v}")
+    return out
+
+
+def check_stream_scatters(tag, lay, log, dims, msgs=None, extra=False,
+                          onehot=None):
     """#18 and #19 (``extra``: also #8 and #11's mono form) against the
     plain version on a legacy layout, per element ('bound': 2e-5 of the
-    plain sums over |messages|, the bound of #8), each twice bit-equal,
-    blocks without a real edge exactly 0; random messages at each D of
-    ``dims`` in bf16 and f32, or the given bf16 ``msgs``."""
+    plain sums over |messages| and |stream|, the bound of #8), each twice
+    bit-equal, blocks without a real edge exactly 0; random messages at
+    each D of ``dims`` in bf16 and f32, or the given bf16 ``msgs``;
+    ``onehot``: another int8 stream in place of the layout's (signed
+    values, columns of two entries: :func:`signed_stream`)."""
     import torch
     dev = torch.device("cuda")
     a = lay.arrays
@@ -4840,7 +4890,12 @@ def check_stream_scatters(tag, lay, log, dims, msgs=None, extra=False):
           f"{n_tiles} (max_tiles {max_tiles}, the largest block "
           f"{int(sizes.max().item())}), {int(empty.sum().item())} blocks "
           f"without a real edge", flush=True)
-    kern, plain = stream_scatters(lay, extra)
+    kern, plain = stream_scatters(lay, extra, onehot)
+    if onehot is None:
+        plain_abs = plain
+    else:   # the sums over |stream|
+        parts = [stream_scatters(lay, onehot=p)[1] for p in abs_parts(onehot)]
+        plain_abs = lambda m: sum(f(m) for f in parts)
     gen = torch.Generator(device=dev).manual_seed(len(tag))
     cases = ([(msgs.shape[1], msgs.dtype, msgs)] if msgs is not None else
              [(D, dt, None) for D in dims
@@ -4851,7 +4906,7 @@ def check_stream_scatters(tag, lay, log, dims, msgs=None, extra=False):
                             generator=gen).to(dtype)
         dn = f"{str(dtype).split('.')[-1]},D={D}"
         ref = plain(m)
-        bound = flush_bound(plain, m, ref, torch.float32)
+        bound = flush_bound(plain_abs, m, ref, torch.float32)
         for name, fn in kern.items():
             got = fn(m)
             same_twice(name, f"{tag},{dn}", got, fn(m))
@@ -4884,9 +4939,10 @@ def check_window_auto(tag, lay_args, table_rows, window, n_blocks, log,
     """#20 (``with_mono``: also #11) against its plain version on one
     window layout's arrays ``lay_args`` (c_stream, tile_start,
     block_of_tile, win_of_tile, c_off), per element (window_sums_bound:
-    2e-5 of Σ|count·row|), twice bit-equal, a block without a real tile
-    exactly 0; random tables of ``table_rows`` rows at each D of ``dims``
-    in bf16 and f32, or the given ``table``."""
+    2e-5 of Σ|count·row|, over |counts| where they are signed), twice
+    bit-equal, a block without a real tile exactly 0; random tables of
+    ``table_rows`` rows at each D of ``dims`` in bf16 and f32, or the given
+    ``table``.  Prints #20's plan (entries, work items, split rows)."""
     import torch
     from ggnn_tpu_torch.ops import window as W
     dev = torch.device("cuda")
@@ -4900,6 +4956,14 @@ def check_window_auto(tag, lay_args, table_rows, window, n_blocks, log,
           f"count tiles), {int((ts[1:] == ts[:-1]).sum().item())} blocks "
           f"without a tile, {int(empty.sum().item())} without a real one",
           flush=True)
+    plan = W.window_auto_plan_once("window_block_spmm", table_rows, c_stream,
+                                   ts, bt, wt, c_off, n_blocks, window)
+    per_item = plan.items[:, 1] - plan.items[:, 0]
+    print(f"  window_block_spmm plan: {plan.ent.shape[0]} entries "
+          f"({'4' if plan.packed else '8'} bytes), {plan.items.shape[0]} "
+          f"work items of at most {int(per_item.max().item())} entries, "
+          f"{plan.split.shape[0]} rows of several items "
+          f"({plan.n_part} partials)", flush=True)
     gen = torch.Generator(device=dev).manual_seed(window + len(tag))
     cases = ([(table.shape[1], table.dtype, table)] if table is not None
              else [(D, dt, None) for D in dims
@@ -4908,13 +4972,15 @@ def check_window_auto(tag, lay_args, table_rows, window, n_blocks, log,
     fns = {"window_block_spmm": W.window_block_spmm}
     if with_mono:
         fns["window_block_spmm_mono"] = W.window_block_spmm_mono
+    signed = bool((c_stream < 0).any().item())
+    streams = abs_parts(c_stream) if signed else [c_stream]
     for D, dtype, t in cases:
         if t is None:
             t = torch.randn(table_rows, D, device=dev, generator=gen).to(dtype)
         dn = f"{str(dtype).split('.')[-1]},D={D}"
         ref = W.window_block_spmm_reference(t, c_stream, ts, bt, wt, **kw)
-        bound = window_sums_bound(t, (c_stream, bt, wt, c_off, n_blocks,
-                                      False), window, 128)
+        bound = sum(window_sums_bound(t, (c, bt, wt, c_off, n_blocks, False),
+                                      window, 128) for c in streams)
         for name, fn in fns.items():
             got = fn(t, c_stream, ts, bt, wt, **kw)
             same_twice(name, f"{tag},{dn}", got,
@@ -4926,6 +4992,51 @@ def check_window_auto(tag, lay_args, table_rows, window, n_blocks, log,
                                      "real tile is not 0")
             del got
         del ref, bound
+    return plan
+
+
+def auto_seam_fuzz(log, dims=(16, 128, 200)):
+    """#20's plan at its seams: window layouts at W 64, 256 and 512 with a
+    hub dst row (2,000 edges from distinct sources into row 5: one output
+    row cut into several work items, their partials summed by the second
+    kernel), dummy tiles (pad_tiles_to) and a compact count stream (c_off)
+    at W 256 and 512, a block without tiles, and the counts signed
+    (:func:`signed_stream`: 2, −3, 127, −128 and −1 beside the layout's
+    counts); each at ``dims`` in bf16 and f32 (check_window_auto)."""
+    import torch
+    from ggnn_tpu_torch.ops import window as W
+    dev = torch.device("cuda")
+    r = np.random.default_rng(61)
+    seams = {
+        # tag: (N, E, T2, W, min_edges_per_tile, extra dummy tiles)
+        "W64 hub signed": (1024, 8000, 4, 64, 1, 0),
+        "W256 hub dummies signed": (2048, 40_000, 8, 256, 8, 50),
+        "W512 hub dummies signed": (4096, 60_000, 8, 512, 8, 80),
+    }
+    for tag, (N, E, T2, Wn, mept, pad) in seams.items():
+        src, dst, typ, mask = random_edges(r, N, E, T2)
+        src = np.where(r.random(E) < 0.9,
+                       (dst // 256) * 256 + r.integers(0, 256, E), src) % N
+        hub = min(2000, N - 24)
+        src[:hub] = r.permutation(N)[:hub]
+        dst[:hub], typ[:hub], mask[:hub] = 5, 0, 1.0
+        host = W.build_window_layout(src, dst, typ, mask, N, window=Wn,
+                                     min_edges_per_tile=mept)
+        if pad:
+            host = W.build_window_layout(
+                src, dst, typ, mask, N, window=Wn, min_edges_per_tile=mept,
+                pad_tiles_to=host.n_tiles + pad)
+        a = host.to(dev).arrays
+        R = T2 * N
+        args = (signed_stream(a["c_stream"], r, cols_too=False),
+                *drop_block_tiles(a, host.n_blocks, 3))
+        plan = check_window_auto(tag, args, R + (-R) % Wn, Wn,
+                                 host.n_blocks, log, dims)
+        if not (plan.split == 5).any():
+            raise AssertionError(f"{tag}: the hub row is not split")
+        if int((plan.items[:, 1] - plan.items[:, 0]).max().item()) > \
+                W.AUTO_SPLIT:
+            raise AssertionError(f"{tag}: a work item over AUTO_SPLIT")
 
 
 def variants_fuzz(log):
@@ -4936,13 +5047,17 @@ def variants_fuzz(log):
     (tests/test_window_pallas.py:303-306: W 64) and on W 256 and 512
     layouts with dummy tiles (pad_tiles_to), a compact count stream
     (c_off) and a block without tiles; D = 4, 16, 128, 200, 256, 384 in
-    bf16 and f32.  #18 must raise when max_tiles is below a block's
-    count."""
+    bf16 and f32; #18 and #19 again on the tile_e 2048 and hub layouts with
+    a signed stream that is not one-hot (:func:`signed_stream`) at D = 16,
+    128 and 200; then #20's plan seams (:func:`auto_seam_fuzz`).  #18 must
+    raise when max_tiles is below a block's count, in both of its
+    routes."""
     import torch
     from ggnn_tpu_torch.ops import legacy as L
     from ggnn_tpu_torch.ops import window as W
     dev = torch.device("cuda")
     r = np.random.default_rng(53)
+    signed = {}
     fuzz = {
         # tag: (N, E, T2, tile_e, dst range, hub share)
         "tile_e8": (256, 500, 4, 8, None, 0.0),
@@ -4957,18 +5072,27 @@ def variants_fuzz(log):
             raise AssertionError(f"{tag}: the hub block holds only "
                                  f"{lay.max_tiles} tiles")
         check_stream_scatters(tag, lay.to(dev), log, VARIANT_DIMS)
+        if tile_e >= 128:
+            signed[tag] = lay.to(dev)
+    for tag in ("tile_e2048 empty", "tile_e128 hub"):
+        lay = signed[tag]
+        check_stream_scatters(f"{tag} signed", lay, log, (16, 128, 200),
+                              onehot=signed_stream(lay.arrays["onehot"], r))
     # max_tiles below a block's count: the TPU grid would drop tiles
-    lay = lay.to(dev)
     a = lay.arrays
-    try:
-        L.onehot_segment_scatter_stream(
-            torch.zeros(a["block_of_tile"].shape[0] * 128, 4, device=dev),
-            a["onehot"], a["tile_start"], lay.meta[3], lay.meta[2] - 1, 128)
-    except ValueError as e:
-        print(f"  onehot_segment_scatter_stream: max_tiles below a block's "
-              f"count raises ({e})", flush=True)
-    else:
-        raise AssertionError("#18 ran with max_tiles below a block's count")
+    for D, dt in ((4, torch.float32), (128, torch.bfloat16)):
+        try:
+            L.onehot_segment_scatter_stream(
+                torch.zeros(a["block_of_tile"].shape[0] * 128, D, device=dev,
+                            dtype=dt),
+                a["onehot"], a["tile_start"], lay.meta[3], lay.meta[2] - 1,
+                128)
+        except ValueError as e:
+            print(f"  onehot_segment_scatter_stream: max_tiles below a "
+                  f"block's count raises at D = {D} ({e})", flush=True)
+        else:
+            raise AssertionError("#18 ran with max_tiles below a block's "
+                                 "count")
     wfuzz = {
         # tag: (N, E, T2, W, min_edges_per_tile, extra dummy tiles)
         "W64": (512, 900, 4, 64, 1, 0),
@@ -5009,6 +5133,7 @@ def variants_fuzz(log):
     else:
         raise AssertionError("#20 ran on a table of rows not a multiple "
                              "of W")
+    auto_seam_fuzz(log)
 
 
 def variants_phase(b, log, timings):
@@ -5058,7 +5183,17 @@ def variants_phase(b, log, timings):
                      + n_blocks * 128 * DIM * 4, [(n_real * DIM, F32_FLOPS)])
     time_pairs({name: (lambda k=k: k(msgs), lambda: plain(msgs), lib, bound)
                 for name, k in kern.items()}, timings)
-    del lay, msgs, lib, kern, plain
+    # #18 on a new layout: its checks and plan (a copy of tile_start is a
+    # layout not seen before), as a user of a new layout pays them
+    from ggnn_tpu_torch.ops import legacy as L
+    oh, ts = a["onehot"], a["tile_start"]
+    new_ms = cuda_ms(lambda: L.onehot_segment_scatter_stream(
+        msgs, oh, ts.clone(), n_blocks, lay.meta[2], tile_e), 3)
+    print(f"  onehot_segment_scatter_stream on a new layout (checks and plan "
+          f"included): {new_ms:.3f} ms; on the layout seen "
+          f"{timings['onehot_segment_scatter_stream']['ms']:.3f} ms",
+          flush=True)
+    del lay, msgs, lib, kern, plain, oh, ts
     torch.cuda.empty_cache()
 
     wa = wlay.arrays
@@ -5078,15 +5213,48 @@ def variants_phase(b, log, timings):
         table.dtype)
     tg = table.view(-1, 512, DIM)[wa["win_of_tile"].long()[real_t]]
     from ggnn_tpu_torch.ops import window as W
+    # the bounds: the dense stream's (each real count tile, each window it
+    # addresses once, the output) and the plan's (its entries and items,
+    # each table row an entry names once, the output), which a launch on a
+    # layout seen before is held to
+    dense = roofline(n_real_t * 128 * 512
+                     + window_bytes(wa["win_of_tile"], 512,
+                                    table.element_size())
+                     + nbytes(*args[1:]) + wlay.n_blocks * 128 * DIM * 4,
+                     [(2 * nnz * DIM, BF16_FLOPS)])
+    plan = W.window_auto_plan_once("window_block_spmm", R, *args[:4],
+                                   args[4], wlay.n_blocks, 512)
+    rows = ((plan.ent.long() & 0xFFFFFFFF) >> 8 if plan.packed
+            else plan.ent[:, 0])
+    n_rows = torch.unique(rows).numel()
+    planned = roofline(nbytes(plan.ent, plan.items)
+                       + n_rows * DIM * table.element_size()
+                       + wlay.n_blocks * 128 * DIM * 4,
+                       [(2 * plan.ent.shape[0] * DIM, F32_FLOPS)])
+    print(f"  window_block_spmm bounds: dense stream {dense[0]:.4f} ms, plan "
+          f"{planned[0]:.4f} ms ({plan.ent.shape[0]} entries of "
+          f"{'4' if plan.packed else '8'} bytes naming {n_rows} table rows, "
+          f"{plan.items.shape[0]} work items, {plan.split.shape[0]} rows "
+          f"split)", flush=True)
     time_pairs({"window_block_spmm": (
         lambda: W.window_block_spmm(table, *args[:4], **kw),
         lambda: W.window_block_spmm_reference(table, *args[:4], **kw),
-        lambda: torch.bmm(cg, tg),
-        roofline(n_real_t * 128 * 512
-                 + window_bytes(wa["win_of_tile"], 512,
-                                table.element_size())
-                 + nbytes(*args[1:]) + wlay.n_blocks * 128 * DIM * 4,
-                 [(2 * nnz * DIM, BF16_FLOPS)]))}, timings)
+        lambda: torch.bmm(cg, tg), planned)}, timings)
+    # on a new layout (a copy of tile_start): the checks and the plan
+    # included; beside it #11's window form on the same layout
+    ts = args[1]
+    new_ms = cuda_ms(lambda: W.window_block_spmm(
+        table, args[0], ts.clone(), *args[2:4], **kw), 3)
+    plan_ms = cuda_ms(lambda: W.window_auto_plan(
+        args[0], args[2], args[3], args[4], wlay.n_blocks, 512, R), 3)
+    mono_ms = cuda_ms(lambda: W.window_block_spmm_mono(table, *args[:4],
+                                                       **kw), 10)
+    print(f"  window_block_spmm on a new layout (checks and plan included): "
+          f"{new_ms:.3f} ms (the plan alone {plan_ms:.3f} ms, against the "
+          f"dense bound {dense[0]:.4f} ms); on the layout seen "
+          f"{timings['window_block_spmm']['ms']:.3f} ms; #11's window form "
+          f"on the same layout {mono_ms:.3f} ms", flush=True)
+    del plan, rows
     del wlay, table, cg, tg
     torch.cuda.empty_cache()
     return launched

@@ -143,14 +143,12 @@ _SIGNATURES = {
                            _I, _I, ctypes.c_longlong, _P, _P],
     # dtype, msgs, n_msgs, D, onehot, n_tiles, tile_e, tile_start,
     # n_blocks, out, stream
-    "ggnn_onehot_stream": [_I, _P, ctypes.c_longlong, _I, _P, _I, _I, _P,
-                           _I, _P, _P],
     "ggnn_onehot_loopT": [_I, _P, ctypes.c_longlong, _I, _P, _I, _I, _P,
                           _I, _P, _P],
-    # dtype, table, n_table, D, counts, n_c, tile_start, win_of_tile, c_off,
-    # n_tiles, n_blocks, window, out, stream
-    "ggnn_window_auto": [_I, _P, ctypes.c_longlong, _I, _P,
-                         ctypes.c_longlong, _P, _P, _P, _I, _I, _I, _P, _P],
+    # dtype, packed, table, D, ent, items, n_items, split, n_split,
+    # item_first, pbase, ws, out, stream
+    "ggnn_window_auto_gather": [_I, _I, _P, _I, _P, _P, _I, _P, _I, _P, _P,
+                                _P, _P, _P],
     "ggnn_error_string": [_I],
 }
 

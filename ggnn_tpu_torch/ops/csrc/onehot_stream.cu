@@ -1,9 +1,12 @@
-// The streamed one-hot scatters for Hopper (sm_90a): kernels #18 and #19.
+// The streamed one-hot scatter for Hopper (sm_90a): kernel #19, and #18
+// where #11's pipeline does not take it.
 //
-// Replaces _scatter_stream_kernel (run by onehot_segment_scatter_stream,
-// #18) and _scatter_loopT_kernel (run by onehot_segment_scatter_loopT, #19)
-// of ggnn_tpu/ops/scatter_pallas.py.  Both compute, for every dst block b
-// of 128 rows and its tiles i in [tile_start[b], tile_start[b + 1]),
+// Replaces _scatter_loopT_kernel (run by onehot_segment_scatter_loopT, #19)
+// of ggnn_tpu/ops/scatter_pallas.py, and _scatter_stream_kernel (run by
+// onehot_segment_scatter_stream, #18) for an f32 message pack, D ≠ 128 or
+// tile_e % 16 ≠ 0 (bf16 at D = 128 with tile_e % 16 = 0 runs #11's count
+// form, window_mono_fused.cu).  Both compute, for every dst block b of 128
+// rows and its tiles i in [tile_start[b], tile_start[b + 1]),
 //     out[b·128 + r] = Σ_i Σ_j C[i·128 + r][j] · msgs[i·tile_e + j]      (f32)
 // from the int8 stream C [n_tiles·128, tile_e] (each tile's one-hot stored
 // transposed, the array #8 reads) and msgs [n_tiles·tile_e, D] in T (bf16 or
@@ -15,31 +18,25 @@
 // block's edges in order, in K-chunks of 128 edges (a block's tiles are
 // consecutive, so a chunk may span tiles when tile_e < 128).  At tile_e
 // 2048–4096 a one-hot tile is 256–512 KB, more than shared memory holds;
-// a chunk is 16 KB of one-hot and 32 KB of bf16 messages.  C's chunk
-// becomes the A operand [128 rows][128 edges] in T, the messages' chunk the
-// B operand [128 edges][128 columns]; the products run on mma.sync (bf16 in,
-// f32 accumulators in registers; the counts are exact in bf16 and the
-// products exact in f32) or, for f32 messages, FMA loops in the same
-// fragment layout (no TF32).  The block is written once: no atomics, no
-// split, the same bits on every run.
-// - #18 (onehot_stream_kernel) stages each chunk with plain loads, converted
-//   and transposed on the way into the [n][k] operand common.cuh's
-//   warp_gemm reads, between two barriers: load and product alternate.
-// - #19 (onehot_loopT_kernel), the counterpart of the TPU kernel's
-//   double-buffered DMA loop: a ring of two stages filled by cp.async
-//   (16-byte copies straight from global memory into the raw layouts, C as
-//   int8 [r][k] and the messages as [k][n]); the copies of chunk k + 1 are
-//   in flight while chunk k is multiplied, whose operands the product reads
-//   in place (warp_gemm_raw).  Where a 16-byte copy would not be aligned
-//   (tile_e % 16 ≠ 0; D not whole 16-byte vectors) that part of a stage is
-//   stored by plain loads instead.
+// a chunk is 16 KB of one-hot and 32 KB of bf16 messages.  The counterpart
+// of the TPU kernel's double-buffered DMA loop: a ring of two stages filled
+// by cp.async (16-byte copies straight from global memory into the raw
+// layouts, C as int8 [r][k] and the messages as [k][n]); the copies of
+// chunk k + 1 are in flight while chunk k is multiplied, whose operands the
+// product reads in place (warp_gemm_raw: mma.sync, bf16 in, f32
+// accumulators in registers; the counts are exact in bf16 and the products
+// exact in f32; FMA loops in the same fragment layout for f32 messages, no
+// TF32).  Where a 16-byte copy would not be aligned (tile_e % 16 ≠ 0; D not
+// whole 16-byte vectors) that part of a stage is stored by plain loads
+// instead.  The block is written once: no atomics, no split, the same bits
+// on every run.
 //
 // Bound on this card: HBM bytes.  At the uniform headline (8M directed
 // edges, tile_e 2048, D = 128, bf16) one call reads the messages (≈ 2.1 GB)
 // and the one-hot stream (≈ 1.1 GB) once and writes 134 MB: ≈ 1 ms at 3.35
 // TB/s, against 0.28 TFLOP of dense one-hot products (0.28 ms at the bf16
-// tensor rate).  What this first version does not do: TMA, wgmma, decoding
-// the one-hot into dst ids (#8 does) or skipping its zeros.
+// tensor rate).  What this body does not do: TMA, wgmma, decoding the
+// one-hot into dst ids (#8 does) or skipping its zeros.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -84,46 +81,6 @@ __device__ __forceinline__ void store_out(const float (&acc)[kNT][4],
       const int c = frag_col(nt, e);
       if (c < wid) dst[size_t(row0 + frag_row(e)) * D + c] = acc[nt][e];
     }
-}
-
-// --- #18: staged chunks ---------------------------------------------------------
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) onehot_stream_kernel(
-    const T* __restrict__ msgs, int D, const int8_t* __restrict__ onehot,
-    int n_tiles, int tile_e, const int* __restrict__ tile_start,
-    float* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int ld = Smem<T>::ld;
-  T* A_s = reinterpret_cast<T*>(smem);                  // A[r][k] = C
-  T* B_s = reinterpret_cast<T*>(smem + Smem<T>::tile);  // Bt[n][k] = msgs
-  const int c0 = blockIdx.y * kD, wid = min(kD, D - c0);
-  const int row0 = (threadIdx.x >> 5) * 16;
-  long long e_begin, e_end;
-  block_edges(tile_start, n_tiles, tile_e, e_begin, e_end);
-  float acc[kNT][4];
-  zero_acc(acc);
-  for (long long e0 = e_begin; e0 < e_end; e0 += kChunk) {
-    const int nk = int(min((long long)kChunk, e_end - e0));
-    const long long i0 = e0 / tile_e;
-    const int j0 = int(e0 - i0 * tile_e);
-    __syncthreads();  // every warp is done with the previous chunk
-    for (int idx = threadIdx.x; idx < kRows * kChunk; idx += kThreads) {
-      // A_s[r][k] = C[r][e0 + k]: consecutive threads, consecutive edges
-      const int r = idx / kChunk, k = idx % kChunk;
-      A_s[r * ld + k] = from_f<T>(
-          k < nk ? float(onehot_at(onehot, tile_e, i0, j0, k, r)) : 0.0f);
-      // B_s[n][k] = msgs[e0 + k][c0 + n]: consecutive threads, consecutive
-      // columns of one message row
-      const int kk = idx / kD, n = idx % kD;
-      B_s[n * ld + kk] = (kk < nk && n < wid)
-                             ? msgs[size_t(e0 + kk) * D + c0 + n]
-                             : from_f<T>(0.0f);
-    }
-    __syncthreads();
-    warp_gemm(acc, A_s + row0 * ld, B_s);
-  }
-  store_out(acc, out, D, c0, wid);
 }
 
 // --- #19: a cp.async ring of two stages ----------------------------------------
@@ -273,16 +230,15 @@ __global__ void __launch_bounds__(kThreads) onehot_loopT_kernel(
   store_out(acc, out, D, c0, wid);
 }
 
-template <typename T, bool RING>
-int launch_onehot_stream(const void* msgs, long long n_msgs, int D,
+template <typename T>
+int launch_onehot_loopT(const void* msgs, long long n_msgs, int D,
                          const void* onehot, int n_tiles, int tile_e,
                          const void* tile_start, int n_blocks, void* out,
                          cudaStream_t stream) {
   if (D < 1 || tile_e < 1 || n_msgs < (long long)n_tiles * tile_e)
     return int(cudaErrorInvalidValue);
-  auto kernel = RING ? onehot_loopT_kernel<T> : onehot_stream_kernel<T>;
-  const size_t smem = RING ? 2 * (size_t(kRows) * kLdO + Smem<T>::tile)
-                           : 2 * Smem<T>::tile;
+  auto kernel = onehot_loopT_kernel<T>;
+  const size_t smem = 2 * (size_t(kRows) * kLdO + Smem<T>::tile);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
@@ -296,29 +252,24 @@ int launch_onehot_stream(const void* msgs, long long n_msgs, int D,
 
 }  // namespace ggnn
 
-// dtype: 0 = float32, 1 = bfloat16 (the messages).  msgs [n_msgs ≥
-// n_tiles·tile_e, D]; onehot int8 [n_tiles·128, tile_e]; tile_start int32
-// [n_blocks + 1] (clamped to [0, n_tiles]); out f32 [n_blocks·128, D], every
-// row written.  Returns the cudaError_t of the launch.
-#define GGNN_ONEHOT_STREAM_ENTRY(NAME, RING)                                  \
-  extern "C" int NAME(int dtype, const void* msgs, long long n_msgs, int D,  \
-                      const void* onehot, int n_tiles, int tile_e,           \
-                      const void* tile_start, int n_blocks, void* out,       \
-                      void* stream) {                                        \
-    if (n_blocks <= 0) return 0;                                             \
-    cudaStream_t s = static_cast<cudaStream_t>(stream);                      \
-    if (dtype == 1)                                                          \
-      return ggnn::launch_onehot_stream<__nv_bfloat16, RING>(                \
-          msgs, n_msgs, D, onehot, n_tiles, tile_e, tile_start, n_blocks,    \
-          out, s);                                                           \
-    if (dtype == 0)                                                          \
-      return ggnn::launch_onehot_stream<float, RING>(                        \
-          msgs, n_msgs, D, onehot, n_tiles, tile_e, tile_start, n_blocks,    \
-          out, s);                                                           \
-    return int(cudaErrorInvalidValue);                                       \
-  }
-
-// #18 onehot_segment_scatter_stream: staged chunks.
-GGNN_ONEHOT_STREAM_ENTRY(ggnn_onehot_stream, false)
-// #19 onehot_segment_scatter_loopT: the cp.async ring.
-GGNN_ONEHOT_STREAM_ENTRY(ggnn_onehot_loopT, true)
+// #19 onehot_segment_scatter_loopT (and #18's other forms).  dtype: 0 =
+// float32, 1 = bfloat16 (the messages).  msgs [n_msgs ≥ n_tiles·tile_e,
+// D]; onehot int8 [n_tiles·128, tile_e]; tile_start int32 [n_blocks + 1]
+// (clamped to [0, n_tiles]); out f32 [n_blocks·128, D], every row written.
+// Returns the cudaError_t of the launch.
+extern "C" int ggnn_onehot_loopT(int dtype, const void* msgs, long long n_msgs,
+                                 int D, const void* onehot, int n_tiles,
+                                 int tile_e, const void* tile_start,
+                                 int n_blocks, void* out, void* stream) {
+  if (n_blocks <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return ggnn::launch_onehot_loopT<__nv_bfloat16>(
+        msgs, n_msgs, D, onehot, n_tiles, tile_e, tile_start, n_blocks, out,
+        s);
+  if (dtype == 0)
+    return ggnn::launch_onehot_loopT<float>(msgs, n_msgs, D, onehot, n_tiles,
+                                            tile_e, tile_start, n_blocks, out,
+                                            s);
+  return int(cudaErrorInvalidValue);
+}

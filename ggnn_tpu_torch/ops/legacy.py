@@ -25,8 +25,10 @@ scatters, array for array and rounding point for rounding point:
 - :func:`onehot_segment_scatter_stream` (#18) and
   :func:`onehot_segment_scatter_loopT` (#19), the reference's other two
   variants of the one-hot stream scatter, which only its kernel-variant
-  sweep and tests run (``scripts/torch_scatter_variants.py`` here):
-  ``csrc/onehot_stream.cu``, one CTA per dst block walking its tiles.
+  sweep and tests run (``scripts/torch_scatter_variants.py`` here): #18
+  in bf16 at D = 128 as #11's count form (``csrc/window_mono_fused.cu``),
+  otherwise, as #19, ``csrc/onehot_stream.cu`` (one CTA per dst block
+  walking its tiles through a ``cp.async`` ring).
 - :func:`legacy_forward` (``_aggregate_impl``'s table-gather branch: the
   node-transform table of ``ops/table.py``, the gather, then the scatter
   the layout carries) and :func:`aggregate_onehot_chunked` (forward only,
@@ -545,9 +547,8 @@ def onehot_segment_scatter(messages, dst_local, tile_start, n_blocks: int,
 onehot_segment_scatter.launches = 0
 
 
-def _check_stream_args(name, messages, onehot_i8, tile_start, n_blocks,
-                       tile_e, max_tiles=None):
-    """The argument and data checks of #18 and #19; returns n_tiles."""
+def _stream_tiles(name, messages, onehot_i8, tile_start, n_blocks, tile_e):
+    """The argument checks of #18 and #19; returns n_tiles."""
     E = messages.shape[0] if messages.dim() == 2 else -1
     if E % tile_e:
         raise ValueError(f"{name}: messages has {E} rows, not whole tiles "
@@ -556,14 +557,14 @@ def _check_stream_args(name, messages, onehot_i8, tile_start, n_blocks,
     _check_scatter_args(name, messages, onehot_i8, tile_start, n_blocks,
                         tile_e, n_tiles, (n_tiles * BLOCK_N, tile_e),
                         torch.int8)
-    _scatter_data_checks(name, tile_start, n_tiles, max_tiles=max_tiles)
     return n_tiles
 
 
-def _launch_stream(entry, name, messages, onehot_i8, tile_start, n_blocks,
-                   tile_e, n_tiles):
-    """One launch of C entry point ``entry`` of ``csrc/onehot_stream.cu``
-    (#18 or #19) after the device checks."""
+def _launch_stream(name, messages, onehot_i8, tile_start, n_blocks, tile_e,
+                   n_tiles):
+    """One launch of ``ggnn_onehot_loopT`` (``csrc/onehot_stream.cu``, #19's
+    body, which #18 shares where its pipeline does not run) after the data
+    checks."""
     if messages.dtype not in _DTYPE_CODE:
         raise ValueError(f"{name}: dtype {messages.dtype} not in "
                          f"{list(_DTYPE_CODE)}")
@@ -573,7 +574,7 @@ def _launch_stream(entry, name, messages, onehot_i8, tile_start, n_blocks,
     out = torch.empty(n_blocks * BLOCK_N, D, dtype=torch.float32,
                       device=messages.device)
     p = _build.ptr
-    _build.launch(getattr(_build.library(), entry), name, messages.device,
+    _build.launch(_build.library().ggnn_onehot_loopT, name, messages.device,
                   _DTYPE_CODE[messages.dtype], p(messages),
                   messages.shape[0], D, p(onehot_i8), n_tiles, tile_e,
                   p(tile_start), n_blocks, p(out))
@@ -606,6 +607,29 @@ def onehot_segment_scatter_stream_reference(messages, onehot_i8, tile_start,
                                                   tile_start, n_blocks, tile_e)
 
 
+def stream_plan_once(n_msgs: int, onehot_i8, tile_start, n_blocks: int,
+                     max_tiles: int, tile_e: int, pipe: bool):
+    """#18's data checks (tile_start runs from 0 upward within the stream,
+    no block holds more than ``max_tiles`` tiles) and, with ``pipe``, the
+    plan of #11's count form over its stream (:func:`~ggnn_tpu_torch.ops.
+    window.mono_plan`: window = stride = tile_e, tile t reading window t,
+    the blocks from ``tile_start``), made once per layout
+    (``cached_per_tensor`` on tile_start; a raise is not cached) → the plan,
+    or None without ``pipe``."""
+    name = "onehot_segment_scatter_stream"
+    n_tiles = onehot_i8.shape[0] // BLOCK_N
+    checks = lambda extra=(): _scatter_data_checks(
+        name, tile_start, n_tiles, max_tiles=max_tiles, extra=extra)
+    if not pipe:
+        cached_per_tensor(tile_start, (name, "checks", n_tiles, max_tiles),
+                          checks)
+        return None
+    return mono_plan_once(name, n_msgs, onehot_i8, tile_start,
+                          tile_arange(tile_start, n_tiles), None, n_blocks,
+                          tile_e, tile_e, BLOCK_N, False, checks=checks,
+                          key=(max_tiles,))
+
+
 def onehot_segment_scatter_stream(messages, onehot_i8, tile_start,
                                   n_blocks: int, max_tiles: int,
                                   tile_e: int = 512):
@@ -622,18 +646,34 @@ def onehot_segment_scatter_stream(messages, onehot_i8, tile_start,
     docstring's "[E_pack, BLOCK_N]" is wrong); ``tile_start`` int32
     [n_blocks + 1].  The TPU grid runs ``max_tiles`` steps per block and
     drops a block's tiles past it; the port raises when a block holds more.
-    A CPU tensor takes the plain version; a CUDA tensor launches
-    ``ggnn_onehot_stream`` of ``csrc/onehot_stream.cu`` (one CTA per block
-    and 128-column panel, the block's edges in staged chunks of 128) or
-    raises."""
+    A CPU tensor takes the plain version; a CUDA tensor launches, bf16 at
+    D = 128 with tile_e % 16 = 0, #11's count form on its pipeline
+    (``csrc/window_mono_fused.cu`` on the plan of :func:`stream_plan_once`),
+    else #19's body (``ggnn_onehot_loopT`` of ``csrc/onehot_stream.cu``:
+    the same function and arguments); or raises.  The data checks (and the
+    plan) run once per layout: a launch on a layout already seen copies
+    nothing to the host."""
     name = "onehot_segment_scatter_stream"
-    n_tiles = _check_stream_args(name, messages, onehot_i8, tile_start,
-                                 n_blocks, tile_e, max_tiles)
+    n_tiles = _stream_tiles(name, messages, onehot_i8, tile_start, n_blocks,
+                            tile_e)
     if messages.device.type == "cpu":
+        _scatter_data_checks(name, tile_start, n_tiles, max_tiles=max_tiles)
         return onehot_segment_scatter_stream_reference(
             messages, onehot_i8, tile_start, n_blocks, max_tiles, tile_e)
-    out = _launch_stream("ggnn_onehot_stream", name, messages, onehot_i8,
-                         tile_start, n_blocks, tile_e, n_tiles)
+    pipe = (messages.dtype == torch.bfloat16
+            and messages.shape[1] == BLOCK_N and tile_e % 16 == 0)
+    args = (messages.shape[0], onehot_i8, tile_start, n_blocks, max_tiles,
+            tile_e)
+    if pipe:
+        _check_cuda_args(name, [("messages", messages), ("onehot", onehot_i8),
+                                ("tile_start", tile_start)], BLOCK_N)
+        out = launch_mono_fused(name, messages, onehot_i8,
+                                stream_plan_once(*args, True), tile_e, False,
+                                n_blocks, torch.float32)
+    else:
+        stream_plan_once(*args, False)
+        out = _launch_stream(name, messages, onehot_i8, tile_start, n_blocks,
+                             tile_e, n_tiles)
     onehot_segment_scatter_stream.launches += 1
     return out
 
@@ -651,13 +691,14 @@ def onehot_segment_scatter_loopT(messages, onehot_t, tile_start,
     two stages: the next chunk's copies overlap this chunk's product) or
     raises."""
     name = "onehot_segment_scatter_loopT"
-    n_tiles = _check_stream_args(name, messages, onehot_t, tile_start,
-                                 n_blocks, tile_e)
+    n_tiles = _stream_tiles(name, messages, onehot_t, tile_start, n_blocks,
+                            tile_e)
+    _scatter_data_checks(name, tile_start, n_tiles)
     if messages.device.type == "cpu":
         return onehot_segment_scatter_loopT_reference(
             messages, onehot_t, tile_start, n_blocks, tile_e)
-    out = _launch_stream("ggnn_onehot_loopT", name, messages, onehot_t,
-                         tile_start, n_blocks, tile_e, n_tiles)
+    out = _launch_stream(name, messages, onehot_t, tile_start, n_blocks,
+                         tile_e, n_tiles)
     onehot_segment_scatter_loopT.launches += 1
     return out
 

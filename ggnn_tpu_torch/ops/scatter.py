@@ -1104,11 +1104,12 @@ def typed_grad_octet_scatter_reference(G, dstl_oct, slot_off16, oblk16,
                                        R8: int, span8: int = 0,
                                        out_dtype=None):
     """Plain version of :func:`typed_grad_octet_scatter`: every slot's rows
-    summed into their grad block's rows by ``index_add_`` in f32, then
-    rounded to ``out_dtype``."""
+    summed into their grad block's rows by ``index_add_`` in f64, rounded
+    once to ``out_dtype`` (default f32): a hub row's millions of terms
+    drift in an f32 ``index_add_``."""
     del span8
     D, dev = G.shape[-1], G.device
-    Y = torch.zeros(n_oct * 8 * BLOCK_N, D, dtype=torch.float32, device=dev)
+    Y = torch.zeros(n_oct * 8 * BLOCK_N, D, dtype=torch.float64, device=dev)
     off = slot_off16.reshape(n_oct, 8, C).long()
     dl = (dstl_oct.reshape(n_oct, R8, g_tile)[:, :8 * C]
           .reshape(n_oct, 8, C, g_tile).long())
@@ -1117,7 +1118,7 @@ def typed_grad_octet_scatter_reference(G, dstl_oct, slot_off16, oblk16,
     valid = (dl >= 0) & (off[..., None] >= 0)
     blk = torch.arange(n_oct * 8, device=dev).reshape(n_oct, 8, 1, 1)
     Y.index_add_(0, (blk * BLOCK_N + dl)[valid],
-                 G.index_select(0, rows[valid]).float())
+                 G.index_select(0, rows[valid]).double())
     return Y.to(torch.float32 if out_dtype is None else out_dtype)
 
 

@@ -17,10 +17,11 @@ out[block] = Σ_win C · table[win·W : win·W + W]):
   window layouts' spill) and the int8 or int4-packed count matrix with
   output blocks of any multiple of 128 rows.  The per-tile kernels
   (``csrc/typed_tile.cu``) share its hub split :func:`split_plan`.
-- #20 :func:`window_block_spmm` (``csrc/window_auto.cu``): the
+- #20 :func:`window_block_spmm` (``csrc/window_auto_gather.cu``): the
   reference's auto-pipelined variant of #11 over unpacked 128-row count
-  tiles, which only its window probe and tests run
-  (``scripts/torch_window_variants.py`` here).
+  tiles, here a gather-sum of the nonzero counts alone on a plan made once
+  per layout (:func:`window_auto_plan`); only the reference's window probe
+  and tests run it (``scripts/torch_window_variants.py`` here).
 - #12 :func:`window_block_spmm_ondemand` (``csrc/window_ondemand.cu``) and
   #13 :func:`window_step_gru` (``csrc/window_step.cu``, ``_q8.cu``,
   ``_ondemand.cu``; one template, ``csrc/window_step.cuh``): table
@@ -1113,6 +1114,169 @@ window_block_spmm_mono.launches = 0
 
 # --- #20 window_block_spmm ---------------------------------------------------
 
+# entries a work item of csrc/window_auto_gather.cu sums at most: a longer
+# output row is cut into several items, whose partials a second kernel adds
+AUTO_SPLIT = 128
+_PACK_ROWS = 2 ** 24    # tables of fewer rows pack an entry into 4 bytes
+_PLAN_BYTES = 1 << 30   # count bytes one pass of window_auto_plan decodes
+
+
+@dataclasses.dataclass
+class AutoPlan:
+    """The plan of #20's gather-sum (``csrc/window_auto_gather.cu``), on
+    the layout's device: ``ent`` every nonzero count byte of every real
+    tile as an entry {table row win·W + j, count}, in order of output row
+    (then tile, then j): int32 [nnz] holding row << 8 | count byte
+    (``packed``, a table of fewer than ``_PACK_ROWS`` rows) or [nnz, 2]
+    {row, count}; ``items`` int32 [n_items, 4], the work items {first entry, end
+    entry, output row, partial slot or −1}, at least one an output row, in
+    row order; ``item_first`` [rows + 1], ``pbase`` [rows] and ``split``
+    (the rows of several items) as :func:`split_plan`'s over the rows."""
+    ent: torch.Tensor
+    items: torch.Tensor
+    item_first: torch.Tensor
+    pbase: torch.Tensor
+    split: torch.Tensor
+    n_part: int
+    packed: bool
+
+
+def _nonzero_bytes(x):
+    """Flat indices (int64, ascending) and values of the nonzero bytes of
+    the contiguous int8 tensor ``x`` (numel a multiple of 8): the nonzero
+    8-byte words first, then their bytes."""
+    words = torch.nonzero(x.view(torch.int64).view(-1)).flatten()
+    b = x.view(-1, 8)[words].view(-1)
+    k = torch.nonzero(b).flatten()
+    return words[k // 8] * 8 + k % 8, b[k]
+
+
+def window_auto_plan(c_stream, block_of_tile, win_of_tile, c_off,
+                     n_blocks: int, window: int, n_table: int) -> AutoPlan:
+    """The plan of #20's gather-sum, made on the stream's device: every
+    tile t with win[t] >= 0 and count entry c (``c_off[t]``, None: t) in
+    the stream adds its nonzero count bytes C_c[r][j] as entries {table row
+    win[t]·W + j, C_c[r][j]} to output row block_of_tile[t]·128 + r; each
+    row's entries (in tile order, then j) are cut by :func:`split_plan`
+    into items of at most ``AUTO_SPLIT``, as evenly as their count allows,
+    a row without entries one empty item; an entry takes 4 bytes where the
+    table has fewer than ``_PACK_ROWS`` rows.  The stream is read in place
+    where no two real tiles read one entry (else each pass gathers its
+    tiles' entries), in passes of about ``_PLAN_BYTES``, then one stable
+    sort by output row; a few copies to the host (each pass's nonzeros,
+    the totals)."""
+    dev = c_stream.device
+    tile_bytes = BLOCK * window
+    n_c = c_stream.shape[0] // BLOCK
+    n_t = win_of_tile.shape[0]
+    n_rows = n_blocks * BLOCK
+    packed = n_table < _PACK_ROWS
+    c = (torch.arange(n_t, device=dev) if c_off is None else c_off.long())
+    real = torch.nonzero((win_of_tile >= 0) & (c >= 0) & (c < n_c)).flatten()
+    C = c_stream.view(n_c, tile_bytes)
+    base = win_of_tile.long()[real] * window
+    blk = block_of_tile.long()[real] * BLOCK
+    c = c[real]
+    # each stream entry's real tile: where no two real tiles read one
+    # entry, the stream is read in place (an entry no real tile reads gets
+    # the key n_rows, past every row), else each pass gathers its tiles'
+    tile_of = torch.full((n_c,), -1, dtype=torch.long, device=dev)
+    idx_real = torch.arange(real.shape[0], device=dev)
+    tile_of[c] = idx_real
+    in_place = host_ints((tile_of[c] == idx_real).all())[0]
+    n_src = n_c if in_place else real.shape[0]
+    keys = [torch.zeros(0, dtype=torch.int32, device=dev)]
+    ents = [torch.zeros((0,) if packed else (0, 2), dtype=torch.int32,
+                        device=dev)]
+    per = max(1, _PLAN_BYTES // tile_bytes)
+    for i0 in range(0, n_src, per):
+        idx, v = _nonzero_bytes(C[i0:i0 + per] if in_place
+                                else C.index_select(0, c[i0:i0 + per]))
+        i, rem = i0 + idx // tile_bytes, idx % tile_bytes
+        if in_place:
+            i = tile_of[i]
+            key = torch.where(i >= 0, blk[i.clamp_min(0)] + rem // window,
+                              n_rows)
+            i = i.clamp_min(0)
+        else:
+            key = blk[i] + rem // window
+        keys.append(key.to(torch.int32))
+        row = base[i] + rem % window
+        if packed:   # row << 8 | count byte, as an int32's bits
+            e = (row << 8) | (v.long() & 0xFF)
+            ents.append(torch.where(e >= 2 ** 31, e - 2 ** 32,
+                                    e).to(torch.int32))
+        else:
+            ents.append(torch.stack([row, v.long()], 1).to(torch.int32))
+    key, order = torch.sort(torch.cat(keys), stable=True)
+    rowptr = torch.searchsorted(
+        key, torch.arange(n_rows + 1, dtype=torch.int32, device=dev))
+    per_row = rowptr.diff()
+    item_first, pbase, n_items, n_part = split_plan(per_row, AUTO_SPLIT)
+    n_items, n_part, n_ent = host_ints(n_items, n_part, rowptr[-1])
+    ent = torch.cat(ents)[order[:n_ent]]
+    nit = item_first.diff().long()
+    item_row = torch.repeat_interleave(torch.arange(n_rows, device=dev), nit,
+                                       output_size=n_items)
+    kk = torch.arange(n_items, device=dev) - item_first[item_row].long()
+    n_r, nit_r = per_row[item_row], nit[item_row]
+    first = rowptr[item_row] + kk * n_r // nit_r
+    end = rowptr[item_row] + (kk + 1) * n_r // nit_r
+    slot = torch.where(nit_r > 1, pbase[item_row].long() + kk,
+                       torch.full_like(kk, -1))
+    i32 = lambda x: x.to(torch.int32).contiguous()
+    return AutoPlan(ent.contiguous(),
+                    i32(torch.stack([first, end, item_row, slot], 1)),
+                    item_first, pbase, i32(torch.nonzero(nit > 1).flatten()),
+                    n_part, packed)
+
+
+def _auto_checks(name, n_table, c_stream, tile_start, block_of_tile,
+                 win_of_tile, c_off, window):
+    """#20's data checks: tile_start runs from 0 upward over every tile and
+    agrees with block_of_tile, the windows lie in the table and the
+    stream entries in the stream (two copies to the host)."""
+    _scatter_data_checks(name, tile_start, win_of_tile.shape[0],
+                         block_of_tile=block_of_tile)
+    _mono_data_checks(name, n_table, c_stream, win_of_tile, window, window,
+                      c_off, False)
+
+
+def window_auto_plan_once(name, n_table, c_stream, tile_start,
+                          block_of_tile, win_of_tile, c_off, n_blocks,
+                          window):
+    """The layout's :func:`window_auto_plan`, made once per layout (its arrays, the table's height and the arguments:
+    ``cached_per_tensor`` on ``tile_start``) after #20's data checks,
+    which raise there (a raise is not cached); later calls copy nothing to
+    the host."""
+    def make():
+        _auto_checks(name, n_table, c_stream, tile_start, block_of_tile,
+                     win_of_tile, c_off, window)
+        return window_auto_plan(c_stream, block_of_tile, win_of_tile, c_off,
+                                n_blocks, window, n_table)
+    key = (*_mono_key(name, n_table, c_stream, tile_start, win_of_tile,
+                      c_off, n_blocks, window, window, BLOCK, False),
+           block_of_tile.data_ptr())
+    return cached_per_tensor(tile_start, key, make)
+
+
+def launch_window_auto(name, table, plan: AutoPlan):
+    """One launch of ``ggnn_window_auto_gather``
+    (``csrc/window_auto_gather.cu``) on ``plan`` → [rows, D] f32."""
+    dev, D = table.device, table.shape[-1]
+    out = torch.empty(plan.item_first.shape[0] - 1, D, dtype=torch.float32,
+                      device=dev)
+    ws = torch.empty(max(plan.n_part, 1), D, dtype=torch.float32, device=dev)
+    p = _build.ptr
+    _build.launch(
+        _build.library().ggnn_window_auto_gather, name, dev,
+        _DTYPE_CODE[table.dtype], int(plan.packed), p(table), D, p(plan.ent),
+        p(plan.items), plan.items.shape[0], p(plan.split),
+        plan.split.shape[0], p(plan.item_first), p(plan.pbase), p(ws),
+        p(out))
+    return out
+
+
 def window_block_spmm_reference(table, c_stream, tile_start, block_of_tile,
                                 win_of_tile, n_blocks: int, window: int,
                                 c_off=None):
@@ -1131,45 +1295,41 @@ def window_block_spmm(table, c_stream, tile_start, block_of_tile,
 
     ``table`` [R, D] in the compute dtype (any D), R a multiple of
     ``window`` (W; the reference raises otherwise, so does the port);
-    ``c_stream`` the unpacked int8 counts [n·128, W], tile t reading entry
+    ``c_stream`` the unpacked int8 counts [n·128, W] (any int8 value
+    counts, as the TPU kernel casts them), tile t reading entry
     ``c_off[t]`` (None: t); ``tile_start`` int32 [n_blocks + 1] and
     ``block_of_tile`` must agree; ``win_of_tile`` < 0 marks a dummy tile,
     which adds nothing.  The TPU kernel zeroes a block at its first tile
     (``i == tile_start[b]``) and so never writes a block without tiles; the
     port writes zeros there.  A CPU tensor takes the plain version; a CUDA
-    tensor launches ``csrc/window_auto.cu`` (one CTA per dst block and
-    128-column panel, its tiles in order, each in K-chunks of 128 window
-    rows; no work-item split, unlike #11) or raises."""
+    tensor launches ``csrc/window_auto_gather.cu`` (the nonzero counts
+    alone, gathered and summed per output row on the layout's plan,
+    :func:`window_auto_plan`, made with the data checks once per layout:
+    a launch on a layout already seen copies nothing to the host) or
+    raises."""
     name = "window_block_spmm"
     _check_mono_args(name, table, c_stream, tile_start, block_of_tile,
                      win_of_tile, n_blocks, window, BLOCK, False, None,
                      c_off, False)
-    n_tiles = win_of_tile.shape[0]
-    _scatter_data_checks(name, tile_start, n_tiles,
-                         block_of_tile=block_of_tile)
-    _mono_data_checks(name, table.shape[0], c_stream, win_of_tile, window,
-                      window, c_off, False)
     if table.device.type == "cpu":
+        _auto_checks(name, table.shape[0], c_stream, tile_start,
+                     block_of_tile, win_of_tile, c_off, window)
         return window_block_spmm_reference(table, c_stream, tile_start,
                                            block_of_tile, win_of_tile,
                                            n_blocks, window, c_off)
     if table.dtype not in _DTYPE_CODE:
         raise ValueError(f"{name}: table {table.dtype} not in "
                          f"{list(_DTYPE_CODE)}")
-    D = table.shape[-1]
     named = [("table", table), ("c_stream", c_stream),
-             ("tile_start", tile_start), ("win_of_tile", win_of_tile)]
+             ("tile_start", tile_start), ("block_of_tile", block_of_tile),
+             ("win_of_tile", win_of_tile)]
     if c_off is not None:
         named.append(("c_off", c_off))
-    _check_cuda_args(name, named, D, any_width=True)
-    out = torch.empty(n_blocks * BLOCK, D, dtype=torch.float32,
-                      device=table.device)
-    p = _build.ptr
-    _build.launch(
-        _build.library().ggnn_window_auto, name, table.device,
-        _DTYPE_CODE[table.dtype], p(table), table.shape[0], D, p(c_stream),
-        c_stream.shape[0] // BLOCK, p(tile_start), p(win_of_tile), p(c_off),
-        n_tiles, n_blocks, window, p(out))
+    _check_cuda_args(name, named, table.shape[-1], any_width=True)
+    plan = window_auto_plan_once(name, table.shape[0], c_stream, tile_start,
+                                 block_of_tile, win_of_tile, c_off, n_blocks,
+                                 window)
+    out = launch_window_auto(name, table, plan)
     window_block_spmm.launches += 1
     return out
 

@@ -406,6 +406,7 @@ def test_one_kernel_per_family_takes_d384_on_card():
     assert ((got - ref).abs() <= 2e-5 * mag + 2.0 ** -7 * mag).all()
     # #8 and #10
     lay_l = L.build_dst_block_layout(*edges, 512, tile_e=128,
+                                     n_message_types=4,
                                      row_order="block").to(dev)
     hn = (torch.rand(512, D, device=dev, generator=gen) * 2 - 1).to(bf)
     tab = TB.node_table_block_major(hn, w, rn(4, D, sc=0.1).to(bf))
@@ -425,7 +426,8 @@ def test_one_kernel_per_family_takes_d384_on_card():
                                np.ones(E, np.float32), N, window=256,
                                block_rows=256, n_message_types=T2,
                                row_major="block", min_edges_per_tile=4,
-                               with_grad=True, on_demand=True).to(dev)
+                               with_grad=True, on_demand=True,
+                               typed_spill=True).to(dev)
     assert lw.grad_meta[4]
     aw = lw.arrays
     da_t = rn(D, lw.n_blocks * 256).to(bf)
