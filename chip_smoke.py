@@ -275,7 +275,8 @@ BF16_ULP = 2.0 ** -7   # one bf16 ulp at 1.0
 #   6.1e-3 on every leaf; the bound is 2**-6 (1.6e-2) per leaf and 1e-3 on
 #   the loss.  A leaf whose gradient vanishes by the model's symmetry
 #   (head/b2: shifting every node's score leaves the softmax unchanged, so
-#   its gradient Σ_v p_v − 1 is 0 up to f32 rounding in either path) has
+#   its gradient Σ_v p_v − 1 is 0 up to f32 rounding in either path; so is
+#   out/b2, the bias of GGS-NN's node output, per graph and round) has
 #   no scale of its own, so no relative error: both paths must give 0 up
 #   to rounding, ≤ 1e-6 of the whole gradient's norm, as the CPU tests
 #   hold it (tests/test_torch_train_model.py).
@@ -283,7 +284,7 @@ TOL_F32 = 1e-4
 TOL_FLIP_MAX, TOL_FLIP_MEAN = 8 * BF16_ULP, 1e-3
 TOL_RELF_BF16, TOL_RELF_F32 = 2.0 ** -8, 1e-5
 TOL_TRAIN = {"bfloat16": (2.0 ** -6, 1e-3), "float32": (1e-4, 1e-5)}
-SYMMETRIC_LEAVES, TOL_SYMMETRIC = ("head/b2",), 1e-6
+SYMMETRIC_LEAVES, TOL_SYMMETRIC = ("head/b2", "out/b2"), 1e-6
 # The per-tile kernels (#6, #7) and the window kernel (#11), which carry
 # power-law graphs: a hub row sums up to 1.5M terms, so one tolerance
 # scaled by the output's largest value would be as large as an ordinary
@@ -323,6 +324,21 @@ TOL_BOUND_MEAN, TOL_SAME, HUB_TERMS = 0.1, 1e-6, 64
 #   computed before any quantization, keeps its 1e-3); #14's int8 form is
 #   held per element on the same int8 ā in its own check.
 TOL_Q8G = 2.0 ** -4
+# - GGS-NN's first train step (K = 3 rounds of T = 5 steps, the annotation
+#   BCE), per gradient leaf against the plain path: 15 chained bf16 steps
+#   forward and back, and each graph's loss reads a gated sum over its
+#   4,096 nodes, so the bf16 flips reach every leaf further than in the
+#   5-step node_select step.  Between two faithful versions with the same
+#   rounding points (the JAX package and the port on the xla backend, this
+#   configuration on the CPU, tests/ggsnn_spread.py) the graph
+#   output's leaves spread by 2.2e-4 to 6.7e-3 on one graph and 7.0e-4 to
+#   2.4e-2 (median 1.7e-2) on 8 graphs, the node output's by up to 3.6e-3
+#   on 8 (out/b2 aside, SYMMETRIC_LEAVES); the bound is 2**-4 per leaf
+#   (the loss keeps its 1e-3).  On an H100 (700 W), at this check's 64
+#   graphs, scripts/torch_ggsnn_tol_control.py reads the kernels' worst
+#   leaf at 2.25e-2 and a step with one round of one net's gradient left
+#   out at 0.36 or more on that net's leaves.
+TOL_GGSNN = 2.0 ** -4
 
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense), for each
 # kernel's bound: the larger of bytes / HBM rate and operations / the rate
@@ -1647,7 +1663,8 @@ def fresh_params(cfg):
 
 
 def train_headline(batch, layout, modes, tag="train", f32_check=True,
-                   stepwise=False, steps=3, grad_tol=None):
+                   stepwise=False, steps=3, grad_tol=None, cfg_fn=None,
+                   n_graphs=1, targets=None):
     """``steps`` Adam steps of the headline model per mode through
     make_train_step; ``modes``: mode -> (config fields, kernel -> launches
     per step; every other kernel 0).  The first step is held to the plain
@@ -1656,23 +1673,29 @@ def train_headline(batch, layout, modes, tag="train", f32_check=True,
     the hub's cotangent reaches every node; the gradients of 5 steps of two
     faithful paths then differ by O(1) there, so only the loss is held to
     the plain path, the gradients are reported, and the aggregation's VJP
-    is held to it instead (:func:`vjp_aggregate_check`).  Returns the
-    launch counts of those runs."""
+    is held to it instead (:func:`vjp_aggregate_check`).  ``cfg_fn``
+    (fields -> ModelConfig; :func:`headline_cfg` by default), ``n_graphs``
+    and ``targets`` (the batch's target tensors; a node_select target from
+    seed 0 by default) serve other heads.  Returns the launch counts of
+    those runs."""
     import torch
     from ggnn_tpu_torch.models.api import loss_and_metrics
     from ggnn_tpu_torch.train.checkpoint import _flatten
     from ggnn_tpu_torch.train.loop import (batch_arrays, make_optimizer,
                                            make_train_step, param_leaves)
     arrays = batch_arrays(batch, "cuda")
-    target = int(np.random.default_rng(0).integers(0, NODES))
-    arrays["targets"] = {"node": torch.tensor([target], dtype=torch.int32,
-                                              device="cuda")}
+    if targets is None:
+        target = int(np.random.default_rng(0).integers(0, NODES))
+        targets = {"node": torch.tensor([target], dtype=torch.int32,
+                                        device="cuda")}
+    arrays["targets"] = targets
+    cfg_fn = cfg_fn or headline_cfg
     total = dict.fromkeys(KERNELS, 0)
     for mode, (extra, per_step) in modes.items():
-        cfg = headline_cfg(compute_dtype="bfloat16", **extra)
+        cfg = cfg_fn(compute_dtype="bfloat16", **extra)
         params = fresh_params(cfg)
         opt = make_optimizer(params, 1e-3)
-        step = make_train_step(cfg, 1, opt)
+        step = make_train_step(cfg, n_graphs, opt)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         zero_counts()
@@ -1705,7 +1728,8 @@ def train_headline(batch, layout, modes, tag="train", f32_check=True,
         for k in total:
             total[k] += launches[k]
         compare_first_step(f"{tag} {mode}", cfg, arrays, layout, grads1,
-                           losses[0], strict=not stepwise, tol=grad_tol)
+                           losses[0], strict=not stepwise, tol=grad_tol,
+                           n_graphs=n_graphs)
         if stepwise:
             vjp_aggregate_check(f"{tag} {mode}", cfg, arrays, layout)
         del params, opt, step, grads1
@@ -1726,7 +1750,7 @@ def train_headline(batch, layout, modes, tag="train", f32_check=True,
 
 
 def compare_first_step(mode, cfg, arrays, layout, grads, loss_k,
-                       strict=True, tol=None):
+                       strict=True, tol=None, n_graphs=1):
     """The first step's loss and gradient leaves against the same step
     through the kernels' plain versions on the card (``strict=False``: the
     loss is held to its bound, the gradients reported only; ``tol``: the
@@ -1737,7 +1761,7 @@ def compare_first_step(mode, cfg, arrays, layout, grads, loss_k,
     from ggnn_tpu_torch.train.loop import param_leaves
     params = fresh_params(cfg)
     with plain_versions():
-        loss, _ = loss_and_metrics(params, cfg, arrays, 1,
+        loss, _ = loss_and_metrics(params, cfg, arrays, n_graphs,
                                    scatter_layout=layout)
         gp = torch.autograd.grad(loss, param_leaves(params))
     loss = float(loss.detach())
@@ -1871,12 +1895,12 @@ finally:
 """
 
 
-def run_trainer(backend="xla", want=()):
+def run_trainer(backend="xla", want=(), config="babi4"):
     """``python -m ggnn_tpu_torch.train --config babi4 --device cuda
-    --epochs 3 [--backend ...]`` in a child process (on bAbI task 4, as a
-    user runs it); ``want``: the kernels it must have launched.  Returns
-    the child's launch counts."""
-    args = ["--config", "babi4", "--device", "cuda", "--epochs", "3"]
+    --epochs 3 [--backend ...]`` in a child process (on bAbI task 4, or the
+    task of ``config``, as a user runs it); ``want``: the kernels it must
+    have launched.  Returns the child's launch counts."""
+    args = ["--config", config, "--device", "cuda", "--epochs", "3"]
     if backend != "xla":
         args += ["--backend", backend]
     t0 = time.perf_counter()
@@ -5618,6 +5642,347 @@ def predictor_widths():
                                  f"predictions differ from xla's")
 
 
+# --- GGS-NN and the native host plan: [ggsnn serve], [ggsnn train], the
+# Trainer CLI on bAbI task 19, [native] -------------------------------------
+
+# The headline model as a GGS-NN with bAbI task 19's round count (its
+# max_seq_len, 3) and vocabulary (4 directions and the end token), on a
+# batch of 64 graphs of 4,096 nodes and 62,500 logical edges each: the
+# headline's 262,144 nodes and 8M directed edges.
+GGSNN_GRAPHS, GGSNN_NODES, GGSNN_EDGES = 64, 4096, 62_500
+ROUNDS, VOCAB = 3, 5
+
+
+def ggsnn_graphs(seed=0):
+    """The GGS-NN request: 64 uniform random graphs, drawn from ``seed`` as
+    :func:`request_graph` draws one."""
+    r = np.random.default_rng(seed)
+    graphs = []
+    for _ in range(GGSNN_GRAPHS):
+        n, m = GGSNN_NODES, GGSNN_EDGES
+        edges = np.stack([r.integers(0, n, m), r.integers(0, EDGE_TYPES, m),
+                          r.integers(0, n, m)], axis=1)
+        ann = (r.random((n, ANN)) < 0.1).astype(np.float32)
+        graphs.append(dict(n_nodes=n, edges=edges, annotations=ann))
+    return graphs
+
+
+def ggsnn_cfg(output="graph", **kw):
+    """The headline model (D = 128, 8 edge types, T = 5, bf16 with f32
+    sums) as a GGS-NN of ``ROUNDS`` rounds, annotation supervision on."""
+    from ggnn_tpu_torch.models.config import ModelConfig
+    kw.setdefault("backend", "onehot")
+    kw.setdefault("compute_dtype", "bfloat16")
+    return ModelConfig(state_dim=DIM, annotation_dim=ANN,
+                       n_edge_types=EDGE_TYPES, n_steps=STEPS, head="ggsnn",
+                       n_classes=VOCAB, n_rounds=ROUNDS, ggsnn_output=output,
+                       ann_supervision=True, **kw)
+
+
+@contextlib.contextmanager
+def plain_ggsnn():
+    """:func:`plain_versions`, and the fused typed steps (#2, #6) routed to
+    their plain versions as well."""
+    from ggnn_tpu_torch.models import ggnn as M
+    from ggnn_tpu_torch.ops import scatter as S
+    saved = M.typed_block_step_gru, M.typed_step_gru
+    with plain_versions():
+        M.typed_block_step_gru = S.typed_block_step_gru_reference
+        M.typed_step_gru = S.typed_step_gru_reference
+        try:
+            yield
+        finally:
+            M.typed_block_step_gru, M.typed_step_gru = saved
+
+
+def ggsnn_run(cfg, params, arrays, layout, annotations=None):
+    """(outputs, annotations) of the GGS-NN rounds on the card."""
+    import torch
+    from ggnn_tpu_torch.models.ggsnn import ggsnn_forward
+    ann = arrays["annotations"] if annotations is None else annotations
+    with torch.inference_mode():
+        return ggsnn_forward(
+            params, cfg, ann, arrays["node_graph"], arrays["node_mask"],
+            arrays["edge_src"], arrays["edge_dst"], arrays["edge_type"],
+            arrays["edge_mask"], n_graphs=GGSNN_GRAPHS,
+            type_offsets=arrays["type_offsets"], scatter_layout=layout)
+
+
+def ggsnn_checks(tag, cfg, params, arrays, layout, log):
+    """The served rounds against the port's plain path on the card, at the
+    tolerances of [serve] (a bf16 value within 8 ulps at 1.0, the mean
+    within 1e-3): the outputs and annotations of all K rounds, and each
+    round from the kernel path's X^{(k)} (the round's outputs and
+    X^{(k+1)}), so that rounding differences do not compound."""
+    import dataclasses
+    import torch
+    got = ggsnn_run(cfg, params, arrays, layout)
+    with plain_ggsnn():
+        ref = ggsnn_run(cfg, params, arrays, layout)
+    for what, g, r in zip(("outputs", "annotations"), got, ref):
+        check(f"{tag}: {what} of all {ROUNDS} rounds", g, r, "flip",
+              torch.bfloat16, log)
+    one = dataclasses.replace(cfg, n_rounds=1)
+    X = arrays["annotations"].float()
+    for k in range(ROUNDS):
+        g = ggsnn_run(one, params, arrays, layout, X)
+        with plain_ggsnn():
+            r = ggsnn_run(one, params, arrays, layout, X)
+        for what, a, b in zip(("outputs", "X'"), g, r):
+            check(f"{tag}: round {k} {what} from the same X", a[0], b[0],
+                  "flip", torch.bfloat16, log)
+        X = g[1][0]
+
+
+def ggsnn_batch():
+    """The GGS-NN request batched (``batch_graphs``: the native sort of 8M
+    directed edges) and its typed pack, built ``with_grad`` for the train
+    phase and served as it is, on the card; prints the host seconds."""
+    from ggnn_tpu_torch.graph import PaddingSpec, batch_graphs
+    from ggnn_tpu_torch.ops.scatter import _rup_block, build_typed_dst_layout
+    graphs = ggsnn_graphs(0)
+    spec = PaddingSpec(n_graphs=GGSNN_GRAPHS, n_pad=NODES, e_pad=2 * EDGES,
+                       n_edge_types=EDGE_TYPES, annotation_dim=ANN)
+    t0 = time.perf_counter()
+    batch = batch_graphs(graphs, spec)
+    t1 = time.perf_counter()
+    lay = build_typed_dst_layout(
+        batch.edge_src, batch.edge_dst, batch.edge_type, batch.edge_mask,
+        _rup_block(spec.n_pad), n_message_types=2 * EDGE_TYPES,
+        with_grad=True)
+    t2 = time.perf_counter()
+    lay = lay.to("cuda")
+    print(f"[ggsnn serve] {GGSNN_GRAPHS} graphs of {GGSNN_NODES} nodes and "
+          f"{GGSNN_EDGES} edges: batch_graphs {t1 - t0:.2f} s on the host; "
+          f"typed pack with its grad half {t2 - t1:.2f} s (block mode "
+          f"{lay.block_meta is not None}, grad_meta {lay.meta[5]})",
+          flush=True)
+    return graphs, batch, lay
+
+
+def ggsnn_serve_phase(graphs, batch, lay, log):
+    """[ggsnn serve]: the GGS-NN request through ``Predictor.run_batch``,
+    both outputs, on the typed pack fused (#2 at every step of every round)
+    and on ``backend='pallas'`` (#16 and #3); the launch counts, device ms
+    a request (CUDA events around a second forward), the peak memory, the
+    decoded answers and the checks of :func:`ggsnn_checks`; the pallas
+    Predictor's ``predict`` on the graphs decodes as ``run_batch`` does.
+    Returns the launches."""
+    import torch
+    from ggnn_tpu_torch.infer import Predictor
+    from ggnn_tpu_torch.models.api import forward
+    from ggnn_tpu_torch.models.init import init_params
+    from ggnn_tpu_torch.train.loop import batch_arrays
+    launched = dict.fromkeys(KERNELS, 0)
+    arrays = batch_arrays(batch, "cuda")
+    fused = ("typed_block_step_gru" if lay.block_meta is not None
+             else "typed_step_gru")
+    for output in ("graph", "node"):
+        for path, kw, layout, per in (
+                ("typed fused", dict(fuse_gru=True), lay, {fused: STEPS}),
+                ("pallas", dict(backend="pallas"), None,
+                 {"packed_messages": STEPS, "gru_cell_fwd": STEPS})):
+            cfg = ggsnn_cfg(output, **kw)
+            params = init_params(cfg, torch.Generator().manual_seed(0),
+                                 "cuda")
+            pred = Predictor(cfg, batch.spec, params=params, device="cuda")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            t0 = time.perf_counter()
+            res = pred.run_batch(batch, layout)
+            t1 = time.perf_counter()
+            launches = read_counts()
+            expect_counts(f"ggsnn serve {output} {path}", launches,
+                          {k: v * ROUNDS for k, v in per.items()})
+            for k, v in launches.items():
+                launched[k] += v
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            answers = pred.decode(res, batch, GGSNN_GRAPHS)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            with torch.inference_mode():
+                ev[0].record()
+                forward(params, cfg, arrays, GGSNN_GRAPHS, layout)
+                ev[1].record()
+            torch.cuda.synchronize()
+            want = ((ROUNDS, GGSNN_GRAPHS, VOCAB) if output == "graph"
+                    else (ROUNDS, NODES))
+            if res.shape != want or not np.isfinite(res).all():
+                raise AssertionError(f"ggsnn serve {output} {path}: bad "
+                                     f"outputs {res.shape}")
+            if len(answers) != GGSNN_GRAPHS:
+                raise AssertionError("ggsnn serve: not every graph decoded")
+            rate = 2 * EDGES * STEPS * ROUNDS / (ev[0].elapsed_time(ev[1])
+                                                 * 1e-3)
+            print(f"[ggsnn serve] {output} output, {path}: run_batch "
+                  f"{t1 - t0:.3f} s on the host clock (copies in and out "
+                  f"included); device forward "
+                  f"{ev[0].elapsed_time(ev[1]):.2f} ms a request of "
+                  f"{ROUNDS} rounds x {STEPS} steps (CUDA events, a second "
+                  f"forward; {rate:.4e} directed-edges*T*K/s); peak device "
+                  f"memory {peak:.2f} GiB; launches "
+                  f"{ {k: v for k, v in launches.items() if v} }; answers of "
+                  f"graphs 0-2 {answers[:3]}", flush=True)
+            ggsnn_checks(f"ggsnn serve {output} {path}", cfg, params, arrays,
+                         layout, log)
+            if path == "pallas" and output == "node":
+                # the pallas aggregation sums the messages with f32
+                # index_add_ (atomics: last bits vary from run to run), so
+                # a node near its graph's top may win in one run and not
+                # in another: each round's answer must be a top node of
+                # run_batch's scores within the tolerance, as [serve]
+                # holds its answers
+                t0 = time.perf_counter()
+                again = pred.predict(graphs)
+                secs = time.perf_counter() - t0
+                base = np.arange(GGSNN_GRAPHS) * GGSNN_NODES
+                top = res.reshape(ROUNDS, GGSNN_GRAPHS, GGSNN_NODES).max(2)
+                picked = np.stack([res[k, base + np.array(
+                    [a[k] for a in again])] for k in range(ROUNDS)])
+                moved = sum(a != b for a, b in zip(again, answers))
+                print(f"[ggsnn serve] Predictor.predict of the "
+                      f"{GGSNN_GRAPHS} graphs (pallas, node output): "
+                      f"{secs:.3f} s on the host clock; {moved} of "
+                      f"{GGSNN_GRAPHS} answers differ from run_batch's, the "
+                      f"picked scores at most "
+                      f"{float((top - picked).max()):.3e} under their "
+                      f"graph's top (tol {TOL_FLIP_MAX:.3e})", flush=True)
+                if (top - picked).max() > TOL_FLIP_MAX:
+                    raise AssertionError("ggsnn serve: predict picks a node "
+                                         "that is not a top node")
+            del pred, params, res
+            torch.cuda.empty_cache()
+    return launched
+
+
+def ggsnn_targets(batch):
+    """Random GGS-NN targets from seed 0: per graph a length in 1..K, the
+    tokens ``seq`` and path nodes ``seq_nodes`` (−1 past it), and the
+    annotation targets ``ann_seq`` [N, K, A] (one in ten set)."""
+    import torch
+    r = np.random.default_rng(0)
+    live = (np.arange(ROUNDS)[None, :]
+            < r.integers(1, ROUNDS + 1, GGSNN_GRAPHS)[:, None])
+    seq = np.where(live, r.integers(0, VOCAB, live.shape), -1)
+    nodes = np.where(live, r.integers(0, GGSNN_NODES, live.shape), -1)
+    ann = (r.random((batch.spec.n_pad, ROUNDS, ANN)) < 0.1)
+    return {"seq": torch.tensor(seq, dtype=torch.int32, device="cuda"),
+            "seq_nodes": torch.tensor(nodes, dtype=torch.int32,
+                                      device="cuda"),
+            "ann_seq": torch.tensor(ann, dtype=torch.float32, device="cuda")}
+
+
+def ggsnn_train_phase(batch, lay):
+    """[ggsnn train]: 3 Adam steps of the GGS-NN through make_train_step on
+    the request's batch with random targets and the annotation BCE: on the
+    typed pack fused (#1 and #5 at each step of each round) with the graph
+    and the node output, unfused (+ #3, #4) and on pallas (#16, #3, #4);
+    the first step against the plain path, step ms, peak memory.  Returns
+    the launches.  The first step's leaves are held to ``TOL_GGSNN``."""
+    per = ROUNDS * STEPS
+    fused = {"typed_block_scatter": per, "typed_grad_octet_scatter": per}
+    unfused = dict(fused, gru_cell_fwd=per, gru_cell_bwd=per)
+    pallas = {"packed_messages": per, "gru_cell_fwd": per,
+              "gru_cell_bwd": per}
+    targets = ggsnn_targets(batch)
+    launched = {}
+    for layout, modes in (
+            (lay, {"typed fused": (dict(fuse_gru=True), fused),
+                   "typed fused, node output": (
+                       dict(fuse_gru=True, output="node"), fused),
+                   "typed unfused": (dict(fuse_gru=False), unfused)}),
+            (None, {"pallas": (dict(backend="pallas"), pallas)})):
+        got = train_headline(batch, layout, modes, tag="ggsnn train",
+                             f32_check=False, cfg_fn=ggsnn_cfg,
+                             n_graphs=GGSNN_GRAPHS, targets=targets,
+                             grad_tol=TOL_GGSNN)
+        for k, v in got.items():
+            launched[k] = launched.get(k, 0) + v
+    return launched
+
+
+def babi19_trainers():
+    """The Trainer CLI on bAbI task 19 from ``babi_data/`` on the card:
+    ``babi19_small`` (the node output) and ``babi19`` (the graph output),
+    3 epochs each; prints their test loss and accuracy."""
+    for config in ("babi19_small", "babi19"):
+        run_trainer(config=config)
+
+
+def native_phase():
+    """[native]: the port's native host library at the community headline:
+    ``batch_graphs``'s sort of its 8M directed edges and the window
+    Predictor's layout (``window_layout_for_batch``: the 16.5 GB padded
+    count stream of its static budget), native and numpy, array for array
+    equal; prints each one's host seconds."""
+    from ggnn_tpu_torch import native
+    from ggnn_tpu_torch.graph import lexsort_edges
+    from ggnn_tpu_torch.ops import window as W
+    native.library()
+    print(f"[native] {native.BuildInfo.path} "
+          f"{'compiled' if native.BuildInfo.compiled else 'loaded'} in "
+          f"{native.BuildInfo.seconds:.2f} s", flush=True)
+    s, t, d = community_graph(0)["edges"].T
+    edges = (np.concatenate([s, d]), np.concatenate([d, s]),
+             np.concatenate([t, t + EDGE_TYPES]))
+    secs, out = {}, {}
+    for use, sort in ((True, native.sort_edges_native),
+                      (False, lexsort_edges)):
+        t0 = time.perf_counter()
+        out[use] = sort(*edges, 2 * EDGE_TYPES)
+        secs[use] = time.perf_counter() - t0
+    if not all(np.array_equal(a, b) for a, b in zip(out[True], out[False])):
+        raise AssertionError("native: the sorts differ")
+    print(f"[native] sort of {edges[0].shape[0]} directed edges: native "
+          f"{secs[True]:.3f} s, numpy {secs[False]:.3f} s on the host; "
+          f"equal", flush=True)
+    del out, edges
+    b = community_batch()
+    lays, limit = {}, W.NATIVE_PLAN_EDGES
+    for use in (True, False):
+        # the Predictor's own call, its plan picked by the threshold: 0
+        # (native) or past every graph (numpy)
+        W.NATIVE_PLAN_EDGES = 0 if use else float("inf")
+        try:
+            t0 = time.perf_counter()
+            lays[use] = W.window_layout_for_batch(b)
+            secs[use] = time.perf_counter() - t0
+        finally:
+            W.NATIVE_PLAN_EDGES = limit
+    a, c = lays[True], lays[False]
+    same = (a.meta == c.meta and a.stats == c.stats
+            and a.arrays.keys() == c.arrays.keys()
+            and all(np.array_equal(a.arrays[k], c.arrays[k])
+                    for k in a.arrays))
+    if not same:
+        raise AssertionError("native: the window layouts differ")
+    print(f"[native] window_layout_for_batch of the community headline "
+          f"({a.stats['n_tiles']} tiles, a {a.stats['stream_gb']:.2f} GB "
+          f"count stream): native {secs[True]:.3f} s, numpy "
+          f"{secs[False]:.3f} s on the host; meta, stats and "
+          f"{len(a.arrays)} arrays equal", flush=True)
+
+
+def ggsnn_phases(log, clock):
+    """The GGS-NN phases and [native]; returns the launches of the serving
+    and training paths."""
+    import torch
+    graphs, batch, lay = ggsnn_batch()
+    launched = ggsnn_serve_phase(graphs, batch, lay, log)
+    del graphs
+    clock.mark("[ggsnn serve]")
+    for k, v in ggsnn_train_phase(batch, lay).items():
+        launched[k] += v
+    del batch, lay
+    torch.cuda.empty_cache()
+    clock.mark("[ggsnn train]")
+    babi19_trainers()
+    clock.mark("the Trainer CLI, bAbI 19")
+    native_phase()
+    clock.mark("[native]")
+    return launched
+
+
 def setup():
     """Print the card and the software, build the port's kernels from the
     checkout (nvcc seconds per source, ptxas's register and spill lines),
@@ -5788,6 +6153,8 @@ def main() -> int:
     widths_phase(log)
     predictor_widths()
     clock.mark("[widths]")
+    for k, v in ggsnn_phases(log, clock).items():
+        launched[k] += v
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     if any(m == "ggnn_tpu" or m.startswith("ggnn_tpu.") for m in sys.modules):

@@ -14,9 +14,10 @@ A batch is a flattened, block-diagonal, edge-type-annotated COO batch:
 - edges are sorted by (type, dst, src);
 - padding edges carry ``src = dst = 0`` and ``edge_mask = 0``.
 
-The reference sorts large edge sets with an optional C++ routine that is
-tested equal to the numpy ``lexsort`` path; the port keeps only the
-``lexsort`` path, so the arrays are the same.
+From ``NATIVE_SORT_THRESHOLD`` edges on, the sort runs in the port's native
+host library (:func:`ggnn_tpu_torch.native.sort_edges_native`, a radix
+sort), as the reference's does; its arrays equal the numpy ``lexsort``
+path's.
 """
 
 from __future__ import annotations
@@ -25,6 +26,11 @@ import dataclasses
 from typing import Any, Optional
 
 import numpy as np
+
+# edge counts from this one on sort in the native library (the reference's
+# threshold)
+NATIVE_SORT_THRESHOLD = 4096
+
 
 @dataclasses.dataclass(frozen=True)
 class PaddingSpec:
@@ -105,9 +111,9 @@ class GraphBatch:
         )
 
 
-def _sort_edges(src, dst, etype, n_message_types):
-    """Sort directed edges by (type, dst, src) and compute type segment
-    offsets."""
+def lexsort_edges(src, dst, etype, n_message_types):
+    """The numpy sort of :func:`_sort_edges`: the edges by (type, dst, src)
+    and the type segment offsets."""
     src = np.asarray(src, np.int32)
     dst = np.asarray(dst, np.int32)
     etype = np.asarray(etype, np.int32)
@@ -117,6 +123,17 @@ def _sort_edges(src, dst, etype, n_message_types):
     offsets = np.zeros(n_message_types + 1, np.int32)
     np.cumsum(counts, out=offsets[1:])
     return src, dst, etype, offsets
+
+
+def _sort_edges(src, dst, etype, n_message_types):
+    """Sort directed edges by (type, dst, src) and compute type segment
+    offsets: from ``NATIVE_SORT_THRESHOLD`` edges on in the native library
+    (built at first use; a failed build raises
+    ``native.NativeBuildError``), below it :func:`lexsort_edges`."""
+    if np.shape(src)[0] >= NATIVE_SORT_THRESHOLD:
+        from ggnn_tpu_torch import native
+        return native.sort_edges_native(src, dst, etype, n_message_types)
+    return lexsort_edges(src, dst, etype, n_message_types)
 
 
 def batch_graphs(

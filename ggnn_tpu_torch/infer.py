@@ -50,6 +50,9 @@ class Predictor:
     - node_select → predicted node id per graph
     - per_node    → [n_nodes] class ids per graph
     - graph_gated → class id per graph
+    - ggsnn       → per graph, the local node id of each round (node
+      output), or the tokens before the end token ``n_classes − 1``
+      (graph output)
     """
 
     def __init__(self, cfg: ModelConfig, spec: PaddingSpec, params=None,
@@ -128,6 +131,20 @@ class Predictor:
                 decoded.append(np.argmax(res[offs[gi]:offs[gi] + n], axis=-1))
             elif cfg.head == "graph_gated":
                 decoded.append(int(np.argmax(res[gi])))
+            elif cfg.head == "ggsnn" and cfg.ggsnn_output == "node":
+                # round k selects the k-th path node; no end token: the
+                # sequence's length is the task's round count
+                decoded.append([
+                    int(np.argmax(res[k, offs[gi]:offs[gi] + n]))
+                    for k in range(res.shape[0])])
+            elif cfg.head == "ggsnn":
+                toks = []
+                for k in range(res.shape[0]):
+                    t = int(np.argmax(res[k, gi]))
+                    if t == cfg.n_classes - 1:          # the end token
+                        break
+                    toks.append(t)
+                decoded.append(toks)
             else:
                 raise ValueError(f"unknown head {cfg.head!r}")
         return decoded

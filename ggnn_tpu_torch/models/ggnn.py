@@ -56,6 +56,7 @@ from ggnn_tpu_torch.ops.scatter import (BLOCK_N, ScatterLayout,
                                         typed_block_step_gru, typed_step_gru)
 from ggnn_tpu_torch.ops import spmm
 from ggnn_tpu_torch.ops.segment import EdgeScore, sddmm, typed_aggregate
+from ggnn_tpu_torch.ops.window import DeviceWindowLayout
 from ggnn_tpu_torch.ops.window_step import aggregate_window, gru_window_step
 
 
@@ -242,6 +243,33 @@ class TypedFusedStep(torch.autograd.Function):
                 duzr.to(u_zr.dtype), duh.to(uh.dtype), None, None, None)
 
 
+def default_layouts(cfg: ModelConfig, n_nodes: int, device, edge_src,
+                    edge_dst, edge_type, edge_mask, type_offsets=None,
+                    scatter_layout=None, tiles_layout: dict | None = None):
+    """The layouts the backend's step reads, (scatter_layout,
+    tiles_layout), each built from the edges where none is passed: for
+    ``onehot`` the reference's default legacy layout over ``n_nodes`` rows
+    (built on the host), for ``pallas`` the type tiles packed from
+    ``type_offsets`` (or the counts of the edges with mask > 0 per type).
+    A host-form legacy or window layout is moved to ``device``.  Layouts
+    are topology only: :func:`propagate` makes them once for its T steps,
+    ``ggsnn_forward`` once for its K rounds."""
+    if cfg.backend == "onehot" and scatter_layout is None:
+        scatter_layout = build_dst_block_layout(
+            edge_src.cpu().numpy(), edge_dst.cpu().numpy(),
+            edge_type.cpu().numpy(), edge_mask.cpu().numpy(), n_nodes)
+    if isinstance(scatter_layout, (DstBlockLayout, DeviceWindowLayout)):
+        scatter_layout = scatter_layout.to(device)
+    if cfg.backend == "pallas" and tiles_layout is None:
+        if type_offsets is None:
+            type_offsets = spmm.type_offsets_from_mask(
+                edge_type, edge_mask, cfg.n_message_types)
+        tiles_layout = spmm.pack_type_tiles(edge_src, edge_dst, edge_type,
+                                            edge_mask, type_offsets,
+                                            cfg.n_message_types)
+    return scatter_layout, tiles_layout
+
+
 def propagate(prop: dict, cfg: ModelConfig, annotations, edge_src, edge_dst,
               edge_type, edge_mask, h0=None, collect_states: bool = False,
               type_offsets=None, scatter_layout=None,
@@ -283,6 +311,9 @@ def propagate(prop: dict, cfg: ModelConfig, annotations, edge_src, edge_dst,
     (``torch.utils.checkpoint``) instead of keeping its residuals, except
     with ``collect_states``, as the reference does."""
     h = init_state(annotations, cfg.state_dim) if h0 is None else h0
+    scatter_layout, tiles_layout = default_layouts(
+        cfg, h.shape[0], h.device, edge_src, edge_dst, edge_type, edge_mask,
+        type_offsets, scatter_layout, tiles_layout)
     fused = fuse_gru(prop["gru"])
     uh = prop["gru"]["uh"]
     cdt = torch_dtype(cfg.compute_dtype)
@@ -318,13 +349,6 @@ def propagate(prop: dict, cfg: ModelConfig, annotations, edge_src, edge_dst,
                                              msg_b_c)
                 return gru_update(prop["gru"], h, a, fused, matmul_dtype=gmm)
         else:
-            if scatter_layout is None:
-                scatter_layout = build_dst_block_layout(
-                    edge_src.cpu().numpy(), edge_dst.cpu().numpy(),
-                    edge_type.cpu().numpy(), edge_mask.cpu().numpy(),
-                    h.shape[0])
-            if isinstance(scatter_layout, DstBlockLayout):
-                scatter_layout = scatter_layout.to(h.device)
             layout = scatter_layout
             if cfg.fuse_gru and layout.typed:
                 # gate matmuls in the compute dtype on this path, whatever
@@ -356,7 +380,7 @@ def propagate(prop: dict, cfg: ModelConfig, annotations, edge_src, edge_dst,
                 "backend='window' needs a precomputed layout: "
                 "build_window_layout(...) (or window_layout_for_batch), "
                 "passed as scatter_layout")
-        layout = scatter_layout.to(h.device)
+        layout = scatter_layout
         if cfg.fuse_gru:
             def step(h):
                 return gru_window_step(h, layout, msg_w_c, msg_b_c,
@@ -368,15 +392,6 @@ def propagate(prop: dict, cfg: ModelConfig, annotations, edge_src, edge_dst,
                 return gru_update(prop["gru"], h, a, fused, matmul_dtype=gmm)
     elif cfg.backend == "pallas":
         layout = tiles_layout
-        if layout is None:
-            if type_offsets is None:
-                type_offsets = spmm.type_offsets_from_mask(
-                    edge_type, edge_mask, cfg.n_message_types)
-            # the tiled layout is topology only: packed once, outside the
-            # step loop
-            layout = spmm.pack_type_tiles(edge_src, edge_dst, edge_type,
-                                          edge_mask, type_offsets,
-                                          cfg.n_message_types)
 
         def packed_gate(h):
             if not cfg.edge_gates:

@@ -9,8 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from ggnn_tpu_torch.ops.segment import (masked_segment_max,
-                                        segment_log_softmax)
+from ggnn_tpu_torch.ops.segment import segment_log_softmax
 
 
 def _mlp2(p, x, w1="w1", b1="b1", w2="w2", b2="b2"):
@@ -72,17 +71,33 @@ def node_select_loss(scores, node_graph, node_mask, n_nodes, target_local,
     nll = -logp[target_global] * graph_mask
     loss = nll.sum() / graph_mask.sum().clamp_min(1.0)
 
-    seg = node_graph.long()
-    masked, seg_max = masked_segment_max(scores, seg, n_graphs + 1,
-                                         node_mask)
-    is_max = (masked == seg_max[seg]) & (node_mask > 0)
-    n = scores.shape[0]
-    idx = torch.arange(n, device=scores.device)
-    pred = torch.full((n_graphs + 1,), n, dtype=torch.long,
-                      device=scores.device).scatter_reduce(
-        0, seg, torch.where(is_max, idx, torch.full_like(idx, n)), "amin")
-    correct = (pred[:n_graphs] == target_global) & (n_nodes > 0)
+    pred = segment_first_argmax(scores[None], node_graph, node_mask,
+                                n_graphs)[0]
+    correct = (pred == target_global) & (n_nodes > 0)
     return loss, correct, graph_mask
+
+
+def segment_first_argmax(scores, node_graph, node_mask, n_graphs: int):
+    """Per row of ``scores`` [K, N], each graph's argmax node (global id):
+    the LOWEST node index among the nodes that reach its graph's maximum,
+    as the reference's ``segment_min`` over the max positions; padding
+    nodes (mask 0) never win.  Returns [K, n_graphs] int64 (N for a graph
+    without nodes)."""
+    K, N = scores.shape
+    seg = node_graph.long()[None, :].expand(K, N)
+    real = node_mask[None, :] > 0
+    neg = torch.finfo(scores.dtype).min
+    masked = torch.where(real, scores, torch.full_like(scores, neg))
+    seg_max = torch.full((K, n_graphs + 1), float("-inf"),
+                         dtype=scores.dtype, device=scores.device
+                         ).scatter_reduce(1, seg, masked, "amax")
+    is_max = (masked == seg_max.gather(1, seg)) & real
+    idx = torch.arange(N, device=scores.device)[None, :].expand(K, N)
+    big = torch.full_like(idx, N)
+    pred = torch.full((K, n_graphs + 1), N, dtype=torch.long,
+                      device=scores.device).scatter_reduce(
+        1, seg, torch.where(is_max, idx, big), "amin")
+    return pred[:, :n_graphs]
 
 
 def graph_class_loss(logits, target, n_nodes):

@@ -144,6 +144,9 @@ def _pack_nibbles(c: np.ndarray) -> np.ndarray:
 # heuristic keys on (window_pallas.py:114-121); kept so that the port picks
 # the same spill as the reference for the same graph.
 GATHER_CLIFF_BYTES = 100e6
+# real edges from this many on plan their window layout in the native
+# library (the reference's threshold, window_pallas.py:263-264)
+NATIVE_PLAN_EDGES = 200_000
 
 
 def prefer_xw_spill(n_nodes_pad: int, state_dim: int, *,
@@ -228,9 +231,13 @@ def build_window_layout(edge_src, edge_dst, edge_type, edge_mask,
     - ``grad_quant``: int8 gradients in the fused backward (``meta[10]``;
       it warns and stays exact where the fused backward does not apply).
 
-    ``use_native`` is accepted and ignored: the numpy path always runs (the
-    reference's native plan gives the same arrays)."""
-    del use_native
+    - ``use_native``: the tile plan and the count streams from the port's
+      native host library (:class:`~ggnn_tpu_torch.native.
+      WindowPlanNative`, one radix sort in place of the ``np.unique`` and
+      ``np.add.at`` passes; the same arrays); None picks it from
+      ``NATIVE_PLAN_EDGES`` real edges on where its key fits, as the
+      reference; a failed build raises (``native.NativeBuildError``), and
+      so does ``True`` where the key does not fit."""
     from ggnn_tpu_torch.ops.legacy import build_dst_block_layout
     if block_rows % BLOCK:
         raise ValueError(f"block_rows must be a multiple of {BLOCK}")
@@ -276,14 +283,27 @@ def build_window_layout(edge_src, edge_dst, edge_type, edge_mask,
     key = block * n_wins + win
     max_count = 15 if pack_fwd else 127
 
-    _, inv, counts = np.unique(key, return_inverse=True, return_counts=True)
-    keep = (counts >= min_edges_per_tile)[inv.reshape(-1)]
-    # (dst, table row) pairs past the count's range spill: the per-edge
-    # path takes duplicates as they come
-    pair = rows * np.int64(n_nodes_pad) + dst
-    _, pinv, pcounts = np.unique(pair, return_inverse=True,
-                                 return_counts=True)
-    keep &= pcounts[pinv.reshape(-1)] <= max_count
+    plan = None
+    if use_native is None:
+        from ggnn_tpu_torch.native import WindowPlanNative
+        use_native = (n_edges >= NATIVE_PLAN_EDGES and WindowPlanNative.fits(
+            window, block_rows, n_wins, n_blocks))
+    if use_native:
+        from ggnn_tpu_torch.native import WindowPlanNative
+        plan = WindowPlanNative(rows, dst, window, block_rows, n_wins,
+                                n_blocks, min_edges_per_tile, max_count,
+                                want_grad=with_grad)
+        keep = plan.keep
+    else:
+        _, inv, counts = np.unique(key, return_inverse=True,
+                                   return_counts=True)
+        keep = (counts >= min_edges_per_tile)[inv.reshape(-1)]
+        # (dst, table row) pairs past the count's range spill: the per-edge
+        # path takes duplicates as they come
+        pair = rows * np.int64(n_nodes_pad) + dst
+        _, pinv, pcounts = np.unique(pair, return_inverse=True,
+                                     return_counts=True)
+        keep &= pcounts[pinv.reshape(-1)] <= max_count
 
     def decode_rows(r):
         """table row → (type, src) for this row_major."""
@@ -346,7 +366,8 @@ def build_window_layout(edge_src, edge_dst, edge_type, edge_mask,
     # the dense tiles, plus one dummy tile (win = −1) per block so that an
     # empty block has a tile; the count stream holds the real tiles only,
     # addressed through c_off
-    real_keys = np.unique(key[keep])
+    real_keys = (plan.dense_keys if plan is not None
+                 else np.unique(key[keep]))
     dummy = np.arange(n_blocks, dtype=np.int64) * n_wins
     uniq_t = np.unique(np.concatenate([real_keys, dummy]))
     n_tiles = uniq_t.shape[0]
@@ -376,19 +397,23 @@ def build_window_layout(edge_src, edge_dst, edge_type, edge_mask,
     # a static budget pads the stream too (its rows are never read)
     stream_tiles = (pad_tiles_to if pad_tiles_to is not None
                     else max(n_real, 1))
-    tile_of_edge = np.searchsorted(real_keys, key[keep])
-    c = np.zeros((stream_tiles * block_rows, window), np.int8)
-    np.add.at(c, (tile_of_edge * block_rows
-                  + (dst[keep] - block[keep] * block_rows),
-                  rows[keep] % window), 1)
-    # (a static budget's padding rows are never written: the real tiles'
-    # rows hold every count)
-    if int(c[:max(n_real, 1) * block_rows].sum(dtype=np.int64)) \
-            != int(keep.sum()):
-        raise ValueError("count-matrix overflow: >127 duplicate edges "
-                         "for one (dst, table-row) pair within a tile")
-    if pack_fwd:
-        c = _pack_nibbles(c)
+    if plan is not None:
+        # (the plan's pair filter keeps every count within max_count)
+        c = plan.fill_counts(real_keys, pack_fwd, total_tiles=stream_tiles)
+    else:
+        tile_of_edge = np.searchsorted(real_keys, key[keep])
+        c = np.zeros((stream_tiles * block_rows, window), np.int8)
+        np.add.at(c, (tile_of_edge * block_rows
+                      + (dst[keep] - block[keep] * block_rows),
+                      rows[keep] % window), 1)
+        # (a static budget's padding rows are never written: the real
+        # tiles' rows hold every count)
+        if int(c[:max(n_real, 1) * block_rows].sum(dtype=np.int64)) \
+                != int(keep.sum()):
+            raise ValueError("count-matrix overflow: >127 duplicate edges "
+                             "for one (dst, table-row) pair within a tile")
+        if pack_fwd:
+            c = _pack_nibbles(c)
 
     arrays = {"c_stream": c, "tile_start": tile_start,
               "block_of_tile": block_of_tile, "win_of_tile": win_of_tile,
@@ -413,7 +438,7 @@ def build_window_layout(edge_src, edge_dst, edge_type, edge_mask,
             t2=t2, window=window, block_rows=block_rows,
             n_nodes_pad=n_nodes_pad, n_src_rows=n_src_rows,
             row_major=row_major, pack_counts=pack_counts, pack_bwd=pack_bwd,
-            spill=spill, xw_state=xw_state, decode_rows=decode_rows,
+            plan=plan, spill=spill, xw_state=xw_state, decode_rows=decode_rows,
             gt_pad_tiles_to=gt_pad_tiles_to,
             spill_bwd_bucket=spill_bwd_bucket,
             spill_bwd_tile_e=spill_bwd_tile_e,
@@ -456,8 +481,8 @@ def _median_tile(ids, n_rows):
 
 def _grad_half(arrays, *, win, block, keep, rows, dst, typ, real_keys,
                n_wins, n_blocks, t2, window, block_rows, n_nodes_pad,
-               n_src_rows, row_major, pack_counts, pack_bwd, spill, xw_state,
-               decode_rows, gt_pad_tiles_to, spill_bwd_bucket,
+               n_src_rows, row_major, pack_counts, pack_bwd, plan, spill,
+               xw_state, decode_rows, gt_pad_tiles_to, spill_bwd_bucket,
                spill_bwd_tile_e, spill_bwd_pad_tiles_to):
     """The reference's ``with_grad`` half (``window_pallas.py:476-649``),
     added to ``arrays``; returns ``grad_meta`` = (n_wins, n_gt_tiles,
@@ -475,7 +500,8 @@ def _grad_half(arrays, *, win, block, keep, rows, dst, typ, real_keys,
     0, the ``sb_*`` layout that scatters the per-edge dh rows to their
     source rows."""
     from ggnn_tpu_torch.ops.legacy import build_dst_block_layout
-    real_t = np.unique(win[keep] * n_blocks + block[keep])
+    real_t = (plan.dense_keys_t if plan is not None
+              else np.unique(win[keep] * n_blocks + block[keep]))
     uniq_gt = np.unique(np.concatenate(
         [real_t, np.arange(n_wins, dtype=np.int64) * n_blocks]))
     n_gt = uniq_gt.shape[0]
@@ -499,13 +525,18 @@ def _grad_half(arrays, *, win, block, keep, rows, dst, typ, real_keys,
                                               fwd_keys).astype(np.int32)
     else:
         gt_c_off[is_real_t] = np.arange(n_gt_real, dtype=np.int32)
-        key_t = win[keep] * n_blocks + block[keep]
-        gt_of_edge = np.searchsorted(real_t, key_t)
-        ct = np.zeros((max(n_gt_real, 1) * window, block_rows), np.int8)
-        np.add.at(ct, (gt_of_edge * window + rows[keep] % window,
-                       dst[keep] - block[keep] * block_rows), 1)
-        if pack_bwd:
-            ct = _pack_nibbles(ct)
+        if plan is not None:
+            ct = plan.fill_counts_t(real_t, pack_bwd)
+            if n_gt_real == 0:          # the numpy path's one empty tile
+                ct = np.zeros((window, ct.shape[1]), np.int8)
+        else:
+            key_t = win[keep] * n_blocks + block[keep]
+            gt_of_edge = np.searchsorted(real_t, key_t)
+            ct = np.zeros((max(n_gt_real, 1) * window, block_rows), np.int8)
+            np.add.at(ct, (gt_of_edge * window + rows[keep] % window,
+                           dst[keep] - block[keep] * block_rows), 1)
+            if pack_bwd:
+                ct = _pack_nibbles(ct)
         if gt_pad_tiles_to is not None:
             want = gt_pad_tiles_to * window
             if ct.shape[0] < want:

@@ -24,7 +24,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="ggnn_tpu_torch.train")
     ap.add_argument("--config", required=True,
                     help="registered config name (babi4/babi15/babi16/"
-                         "babi18; babi19/babi19_small need GGS-NN)")
+                         "babi18; babi19/babi19_small train a GGS-NN)")
     ap.add_argument("--epochs", type=int)
     ap.add_argument("--lr", type=float)
     ap.add_argument("--batch_size", type=int)

@@ -138,10 +138,6 @@ class Trainer:
     def __init__(self, cfg: TrainConfig,
                  logger: Optional[MetricsLogger] = None, device="cuda"):
         self.device = device_or_raise(device)
-        if cfg.model.head == "ggsnn":
-            raise NotImplementedError(
-                f"config {cfg.name!r} trains a GGS-NN (head='ggsnn'), which "
-                "is not ported yet (ROADMAP.md Queue 1, GGS-NN)")
         self.cfg = cfg
         self.logger = logger or MetricsLogger(cfg.metrics_path)
         task = TASKS[cfg.task_id]

@@ -1,7 +1,8 @@
 """The port's training layer against the JAX package's: the optimizer
 against optax, one ``Trainer`` step from shared initial parameters, bAbI
 task 4 to paper-level accuracy, exact checkpoint resume, every registered
-config, the CLI without jax, and the paths that are not ported yet.
+config (the GGS-NN ones too), the CLI without jax, and the paths that
+raise.
 
 Tolerances: the optimizer and one Trainer step compare parameters in f32 at
 rtol = 1e-5, atol = 1e-6 (Adam's first steps move each entry by about lr ×
@@ -298,10 +299,17 @@ def test_config_builds_and_steps(name, data_root):
 
 @pytest.mark.parametrize("name", ["babi19", "babi19_small"])
 def test_ggsnn_configs_raise(name, data_root):
-    cfg = build_config(name, epochs=1, n_train=10, n_test=5,
-                       data_root=data_root)
-    with pytest.raises(NotImplementedError, match="GGS-NN"):
-        Trainer(cfg, _quiet(), device="cpu")
+    """The two GGS-NN configs, which raised here until GGS-NN was ported
+    (the name is kept), now train: one epoch on the CPU with a finite loss,
+    in as many steps as the JAX Trainer's first epoch on the same data,
+    and an evaluation."""
+    kw = dict(epochs=1, n_train=10, n_test=5, data_root=data_root)
+    tt = Trainer(build_config(name, **kw), _quiet(), device="cpu")
+    rec = tt.train_epoch()
+    ref = JaxTrainer(jax_build_config(name, **kw),
+                     JaxLogger(echo=False)).train_epoch()
+    assert np.isfinite(rec["loss"]) and rec["step"] == ref["step"]
+    assert 0.0 <= tt.evaluate()["accuracy"] <= 1.0
 
 
 def test_unported_training_paths_raise(data_root):
