@@ -183,20 +183,24 @@
    and #20 ``window_block_spmm``, which only the reference's kernel-variant
    sweeps and tests run.  Fuzz: #18 and #19 on the JAX variant test's
    layout (tile_e 8), at tile_e 128 and 2048 with empty dst blocks and on
-   a hub block of several hundred tiles; #20 at W 64, and W 256 and 512
-   with dummy tiles, a compact count stream and a block without tiles; D
-   = 4 to 384, f32 and bf16, per element and twice bit-equal; #18 raises
-   below a block's tile count; #18 and #19 on a signed stream that is not
-   one-hot (2, −3, 127, −128, −1); #20's plan seams (a hub row cut into
-   several work items, signed counts, W 64, 256 and 512).  Then the main path: the two sweeps of
+   a hub block of several hundred tiles (#19's hub row split into
+   partials); #20 at W 64, and W 256 and 512 with dummy tiles, a compact
+   count stream and a block without tiles; D = 1 to 384, f32 and bf16,
+   per element and twice bit-equal; #18 raises below a block's tile
+   count; #18 and #19 on a signed stream that is not one-hot (2, −3, 127,
+   −128, −1); #19's seams (:func:`loopT_seam_fuzz`: tile_start ending
+   before the stream, 4- and 8-byte plan entries); #20's plan seams (a
+   hub row cut into several work items, signed counts, W 64, 256 and
+   512).  Then the main path: the two sweeps of
    ``scripts/torch_scatter_variants.py`` (tile_e 2048: flat #8, stream
    #18, loopT #19, mono #11) and ``scripts/torch_window_variants.py`` (the
    probe's community graph, W 512: #11, #20, ``aggregate_window``),
    imported, their launches counted; on their layouts and inputs each
-   variant against the plain version, and #18, #19 and #20 timed (#20
-   against the plan's bound, the dense stream's printed beside it), #18
-   and #20 also on a new layout (their checks and plans included), and
-   #11's window form beside #20.
+   variant against the plain version (#18 and #19 also in f32), and #18,
+   #19 and #20 timed (#19 and #20 against their plans' bounds, the dense
+   stream's printed beside them; #18 and #19 also in f32, beside one f32
+   ``index_add_``), #18, #19 and #20 also on a new layout (their checks
+   and plans included), and #11's window form beside #20.
 
 The typed-pack phases (2-4, 7) hand ``Predictor.run_batch`` the typed pack
 they build; the Predictor's own layout is the legacy one (phase 6).
@@ -389,12 +393,12 @@ KERNELS = {
     "sddmm_pallas": ("ggnn_tpu_torch/ops/csrc/sddmm_blocked.cu",
                      "ggnn_tpu/ops/spmm_pallas.py:129"),
     # bf16 at D = 128 (the sweep's form); f32, other D and tile_e % 16 != 0
-    # run #19's body, csrc/onehot_stream.cu
+    # run #19's gather, csrc/window_auto_gather.cu
     "onehot_segment_scatter_stream": (
         "ggnn_tpu_torch/ops/csrc/window_mono_fused.cu",
         "ggnn_tpu/ops/scatter_pallas.py:559"),
     "onehot_segment_scatter_loopT": (
-        "ggnn_tpu_torch/ops/csrc/onehot_stream.cu",
+        "ggnn_tpu_torch/ops/csrc/window_auto_gather.cu",
         "ggnn_tpu/ops/scatter_pallas.py:672"),
     "window_block_spmm": ("ggnn_tpu_torch/ops/csrc/window_auto_gather.cu",
                           "ggnn_tpu/ops/window_pallas.py:704"),
@@ -541,12 +545,13 @@ def roofline(n_bytes, ops):
                                        else "operations")
 
 
-def time_pairs(pairs, timings):
+def time_pairs(pairs, timings, what="bf16 headline"):
     """Time each kernel against its plain version in turns, plain, kernel,
     kernel, plain, so both are compared within one card, and keep the best
     of each; then the PyTorch call computing the same function, where
     there is one.  ``pairs``: name -> (kernel, plain, library call or None,
-    (bound_ms, bound_by))."""
+    (bound_ms, bound_by)); ``what`` names the inputs in the printed
+    lines."""
     for name, (kern, plain, lib, (bound_ms, bound_by)) in pairs.items():
         p1 = cuda_ms(plain, 3)
         k1 = cuda_ms(kern, 10)
@@ -556,7 +561,7 @@ def time_pairs(pairs, timings):
         timings[name] = dict(ms=min(k1, k2), plain_ms=min(p1, p2),
                              bound_ms=bound_ms, bound_by=bound_by,
                              library_ms=lib_ms)
-        print(f"  time {name} [bf16 headline]: kernel {k1:.3f}/{k2:.3f} ms, "
+        print(f"  time {name} [{what}]: kernel {k1:.3f}/{k2:.3f} ms, "
               f"plain {p1:.3f}/{p2:.3f} ms, library call "
               f"{'none' if lib_ms is None else f'{lib_ms:.3f} ms'}, bound "
               f"{bound_ms:.4f} ms ({bound_by}): kernel at "
@@ -4794,7 +4799,7 @@ def pallas_phases(b, log, timings, serve_and_train=True):
 
 # --- [variants]: #18, #19 and #20, through the kernel-variant sweeps --------
 
-VARIANT_DIMS = (4, 16, 128, 200, 256, 384)
+VARIANT_DIMS = (1, 4, 16, 128, 200, 256, 384)
 
 
 def sweep_scripts():
@@ -5063,6 +5068,62 @@ def auto_seam_fuzz(log, dims=(16, 128, 200)):
             raise AssertionError(f"{tag}: a work item over AUTO_SPLIT")
 
 
+def loopT_seam_fuzz(hosts, log, r):
+    """#19's gather (``csrc/window_auto_gather.cu`` on the plan of
+    ``ops/legacy.py::loopT_plan_once``) at its seams, on the host layouts
+    of :func:`variants_fuzz`: the hub block's plan (its hub row split into
+    partials, no work item over AUTO_SPLIT); tile_start ending before the
+    stream (the tiles past it hold entries, which must add nothing) with a
+    signed stream that is not one-hot, in 4-byte plan entries at tile_e
+    128 and in 8-byte ones at tile_e 2048 (``_PACK_ROWS`` lowered, as for
+    a pack of 2**24 rows or more); at D = 1, 16, 128 and 200 in bf16 and
+    f32, #18 beside it (:func:`check_stream_scatters`)."""
+    import dataclasses
+
+    import torch
+    from ggnn_tpu_torch.ops import legacy as L
+    from ggnn_tpu_torch.ops import window as W
+    dev = torch.device("cuda")
+    name = "onehot_segment_scatter_loopT"
+    lay = hosts["tile_e128 hub"].to(dev)
+    a = lay.arrays
+    plan = L.loopT_plan_once(name, a["onehot"], a["tile_start"], lay.meta[3],
+                             lay.meta[1])
+    n_max = int((plan.items[:, 1] - plan.items[:, 0]).max().item())
+    print(f"  {name} plan [tile_e128 hub]: {plan.ent.shape[0]} entries, "
+          f"{plan.items.shape[0]} work items of at most {n_max} entries, "
+          f"{plan.split.shape[0]} rows split ({plan.n_part} partials)",
+          flush=True)
+    if not plan.split.numel() or n_max > W.AUTO_SPLIT:
+        raise AssertionError(f"{name}: the hub rows are not split into "
+                             f"items of at most {W.AUTO_SPLIT} entries")
+    del lay, a, plan
+    for tag, packed in (("tile_e128 empty", True),
+                        ("tile_e2048 empty", False)):
+        host = hosts[tag]
+        ts = host.tile_start.copy()
+        ts[3:] = ts[2]
+        tile_e = host.tile_e
+        if not host.onehot.reshape(-1, 128 * tile_e)[ts[-1]:].any():
+            raise AssertionError(f"{tag}: no entry past tile_start[-1]")
+        lay = dataclasses.replace(host, tile_start=ts).to(dev)
+        oh = signed_stream(lay.arrays["onehot"], r)
+        kept = W._PACK_ROWS
+        if not packed:
+            W._PACK_ROWS = 0
+        try:
+            check_stream_scatters(
+                f"{tag} cut signed, {4 if packed else 8}-byte entries", lay,
+                log, (1, 16, 128, 200), onehot=oh)
+            plan = L.loopT_plan_once(name, oh, lay.arrays["tile_start"],
+                                     lay.meta[3], tile_e)
+        finally:
+            W._PACK_ROWS = kept
+        if plan.packed != packed:
+            raise AssertionError(f"{name}[{tag}]: the plan's entries are "
+                                 f"not {4 if packed else 8} bytes")
+
+
 def variants_fuzz(log):
     """The fuzz of [variants]: #18 and #19 on the JAX package's variant
     test layout (tests/test_scatter_pallas.py:144-146: 256 nodes, 500
@@ -5070,10 +5131,11 @@ def variants_fuzz(log):
     hub block of several hundred tiles; #20 on its variant test layout
     (tests/test_window_pallas.py:303-306: W 64) and on W 256 and 512
     layouts with dummy tiles (pad_tiles_to), a compact count stream
-    (c_off) and a block without tiles; D = 4, 16, 128, 200, 256, 384 in
+    (c_off) and a block without tiles; D = 1, 4, 16, 128, 200, 256, 384 in
     bf16 and f32; #18 and #19 again on the tile_e 2048 and hub layouts with
     a signed stream that is not one-hot (:func:`signed_stream`) at D = 16,
-    128 and 200; then #20's plan seams (:func:`auto_seam_fuzz`).  #18 must
+    128 and 200; #19's seams (:func:`loopT_seam_fuzz`); then #20's plan
+    seams (:func:`auto_seam_fuzz`).  #18 must
     raise when max_tiles is below a block's count, in both of its
     routes."""
     import torch
@@ -5081,7 +5143,7 @@ def variants_fuzz(log):
     from ggnn_tpu_torch.ops import window as W
     dev = torch.device("cuda")
     r = np.random.default_rng(53)
-    signed = {}
+    signed, hosts = {}, {}
     fuzz = {
         # tag: (N, E, T2, tile_e, dst range, hub share)
         "tile_e8": (256, 500, 4, 8, None, 0.0),
@@ -5096,12 +5158,14 @@ def variants_fuzz(log):
             raise AssertionError(f"{tag}: the hub block holds only "
                                  f"{lay.max_tiles} tiles")
         check_stream_scatters(tag, lay.to(dev), log, VARIANT_DIMS)
+        hosts[tag] = lay
         if tile_e >= 128:
             signed[tag] = lay.to(dev)
     for tag in ("tile_e2048 empty", "tile_e128 hub"):
         lay = signed[tag]
         check_stream_scatters(f"{tag} signed", lay, log, (16, 128, 200),
                               onehot=signed_stream(lay.arrays["onehot"], r))
+    loopT_seam_fuzz(hosts, log, r)
     # max_tiles below a block's count: the TPU grid would drop tiles
     a = lay.arrays
     for D, dt in ((4, torch.float32), (128, torch.bfloat16)):
@@ -5172,8 +5236,8 @@ def variants_phase(b, log, timings):
     with the counts set to 0 before it and read after it.  On the sweeps'
     own layouts and inputs, #8, #18, #19 and #11 are held against the
     plain version (and #11 against #20's), and #18, #19 and #20 timed
-    against their plain versions and one PyTorch call.  Returns the main
-    path's launch counts."""
+    against their plain versions and one PyTorch call (#18 and #19 also in
+    f32).  Returns the main path's launch counts."""
     import torch
     SV, WV = sweep_scripts()
     variants_fuzz(log)
@@ -5195,29 +5259,88 @@ def variants_phase(b, log, timings):
 
     check_stream_scatters("headline tile_e=2048", lay, log, (), msgs=msgs,
                           extra=True)
+    # #18's and #19's f32 forms (both on #19's gather) at the headline too
+    m32 = msgs.float()
+    check_stream_scatters("headline tile_e=2048 f32", lay, log, (), msgs=m32)
+    from ggnn_tpu_torch.ops import legacy as L
     a = lay.arrays
     n_blocks = lay.meta[3]
-    real = a["dst_local"] >= 0
-    n_real = int(real.sum().item())
-    kern, plain = stream_scatters(lay)
-    lib = reverse_library_call(msgs, legacy_targets(a, n_blocks, tile_e),
-                               n_blocks * 128)
-    bound = roofline(n_real * DIM * msgs.element_size()
-                     + nbytes(a["onehot"], a["tile_start"])
-                     + n_blocks * 128 * DIM * 4, [(n_real * DIM, F32_FLOPS)])
-    time_pairs({name: (lambda k=k: k(msgs), lambda: plain(msgs), lib, bound)
-                for name, k in kern.items()}, timings)
-    # #18 on a new layout: its checks and plan (a copy of tile_start is a
-    # layout not seen before), as a user of a new layout pays them
-    from ggnn_tpu_torch.ops import legacy as L
     oh, ts = a["onehot"], a["tile_start"]
-    new_ms = cuda_ms(lambda: L.onehot_segment_scatter_stream(
-        msgs, oh, ts.clone(), n_blocks, lay.meta[2], tile_e), 3)
-    print(f"  onehot_segment_scatter_stream on a new layout (checks and plan "
-          f"included): {new_ms:.3f} ms; on the layout seen "
-          f"{timings['onehot_segment_scatter_stream']['ms']:.3f} ms",
-          flush=True)
-    del lay, msgs, lib, kern, plain, oh, ts
+    n_real = int((a["dst_local"] >= 0).sum().item())
+    kern, plain = stream_scatters(lay)
+    tgt = legacy_targets(a, n_blocks, tile_e)
+    out_bytes = n_blocks * 128 * DIM * 4
+    # the bounds: the dense stream's (the real rows, the one-hot, out),
+    # which #18's count form reads, and #19's plan's (its entries and
+    # items, each real row once, out), which a launch on a layout seen is
+    # held to
+    dense = roofline(n_real * DIM * msgs.element_size() + nbytes(oh, ts)
+                     + out_bytes, [(n_real * DIM, F32_FLOPS)])
+    plan = L.loopT_plan_once("onehot_segment_scatter_loopT", oh, ts,
+                             n_blocks, tile_e)
+    print(f"  onehot_segment_scatter_loopT plan: {plan.ent.shape[0]} entries "
+          f"of {'4' if plan.packed else '8'} bytes ({n_real} real edges), "
+          f"{plan.items.shape[0]} work items, {plan.split.shape[0]} rows "
+          f"split", flush=True)
+    planned = {m.dtype: roofline(
+        nbytes(plan.ent, plan.items) + n_real * DIM * m.element_size()
+        + out_bytes, [(2 * plan.ent.shape[0] * DIM, F32_FLOPS)])
+        for m in (msgs, m32)}
+    del plan
+    pairs = lambda m, lib, bounds: {
+        name: (lambda k=k: k(m), lambda: plain(m), lib, bounds[name])
+        for name, k in kern.items()}
+    time_pairs(pairs(msgs, reverse_library_call(msgs, tgt, n_blocks * 128),
+                     {"onehot_segment_scatter_stream": dense,
+                      "onehot_segment_scatter_loopT": planned[msgs.dtype]}),
+               timings)
+    timings["onehot_segment_scatter_loopT"]["dense_bound_ms"] = dense[0]
+    # the f32 forms against one f32 index_add_ (float atomics into f32)
+    f32 = {}
+    time_pairs(pairs(m32, reverse_library_call(m32, tgt, n_blocks * 128),
+                     dict.fromkeys(kern, planned[torch.float32])), f32,
+               "f32 headline")
+    for name, t in f32.items():
+        timings[name].update({f"f32_{k}": v for k, v in t.items()
+                              if k != "bound_by"})
+    del m32, tgt, f32
+    # #18 and #19 on a new layout: their checks and plans (a copy of
+    # tile_start is a layout not seen before), as a user of a new layout
+    # pays them
+    for name, fn in (
+            ("onehot_segment_scatter_stream",
+             lambda t: L.onehot_segment_scatter_stream(
+                 msgs, oh, t, n_blocks, lay.meta[2], tile_e)),
+            ("onehot_segment_scatter_loopT",
+             lambda t: L.onehot_segment_scatter_loopT(msgs, oh, t, n_blocks,
+                                                      tile_e))):
+        new_ms = cuda_ms(lambda: fn(ts.clone()), 3)
+        timings[name]["new_layout_ms"] = new_ms
+        print(f"  {name} on a new layout (checks and plan included): "
+              f"{new_ms:.3f} ms; on the layout seen "
+              f"{timings[name]['ms']:.3f} ms", flush=True)
+    plan_ms = cuda_ms(lambda: L.loopT_plan_once(
+        "onehot_segment_scatter_loopT", oh, ts.clone(), n_blocks, tile_e), 3)
+    print(f"  onehot_segment_scatter_loopT's checks and plan alone: "
+          f"{plan_ms:.3f} ms", flush=True)
+    # a launch on the layout seen copies nothing to the host: every copy
+    # of the checks and plans goes through host_ints
+    from ggnn_tpu_torch.ops import gru as G
+    from ggnn_tpu_torch.ops import window as W
+    copies, host_ints = [], G.host_ints
+    try:
+        for mod in (G, W, L):
+            mod.host_ints = lambda *x: copies.append(x) or host_ints(*x)
+        L.onehot_segment_scatter_loopT(msgs, oh, ts, n_blocks, tile_e)
+    finally:
+        for mod in (G, W, L):
+            mod.host_ints = host_ints
+    if copies:
+        raise AssertionError(f"onehot_segment_scatter_loopT copied to the "
+                             f"host {len(copies)} times on a layout seen")
+    print("  onehot_segment_scatter_loopT on the layout seen: no copy to "
+          "the host", flush=True)
+    del lay, msgs, kern, plain, oh, ts
     torch.cuda.empty_cache()
 
     wa = wlay.arrays

@@ -141,10 +141,6 @@ _SIGNATURES = {
     "ggnn_sddmm_blocked": [_P, ctypes.c_longlong, _P, ctypes.c_longlong, _I,
                            _P, _P, _P, ctypes.c_longlong, _P, _P, _P, _I,
                            _I, _I, ctypes.c_longlong, _P, _P],
-    # dtype, msgs, n_msgs, D, onehot, n_tiles, tile_e, tile_start,
-    # n_blocks, out, stream
-    "ggnn_onehot_loopT": [_I, _P, ctypes.c_longlong, _I, _P, _I, _I, _P,
-                          _I, _P, _P],
     # dtype, packed, table, D, ent, items, n_items, split, n_split,
     # item_first, pbase, ws, out, stream
     "ggnn_window_auto_gather": [_I, _I, _P, _I, _P, _P, _I, _P, _I, _P, _P,

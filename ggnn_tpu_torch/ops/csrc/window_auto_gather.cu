@@ -2,8 +2,15 @@
 // gather-sum: kernel #20's redesign.
 //
 // Replaces _window_kernel of ggnn_tpu/ops/window_pallas.py (run by
-// window_block_spmm).  For every dst block b of 128 rows and its tiles t
-// with win_of_tile[t] = w >= 0,
+// window_block_spmm, #20) and _scatter_loopT_kernel of
+// ggnn_tpu/ops/scatter_pallas.py (run by onehot_segment_scatter_loopT,
+// #19; and _scatter_stream_kernel, #18, in the forms #11's pipeline does
+// not take): #19 is this function with W = tile_e, each tile t reading its
+// own message rows (w = t) into the block tile_start gives it, the tiles
+// past tile_start[-1] unused (ops/legacy.py::loopT_plan_once).
+//
+// For every dst block b of 128 rows and its tiles t with win_of_tile[t] =
+// w >= 0,
 //     out[b·128 + r] = Σ_t Σ_j C_c[r][j] · table[w·W + j]           (f32)
 // with C_c the int8 count tile [128, W] of stream entry c (c_off[t], or
 // t), whatever values it holds (−128 … 127), and table [R, D] in T (bf16 or
@@ -40,6 +47,9 @@
 // the plan (≈ 4 bytes an entry plus 16 an item), each table row that an
 // entry names (once, if L2 keeps it between the entries that name it) and
 // writes the output: ≈ 1.2 GB at the headline, ≈ 0.37 ms at 3.35 TB/s.
+// For #19 at the uniform headline (tile_e 2048, 8M edges) every entry
+// names its own message row: ≈ 2.22 GB in bf16, 0.66 ms, where the dense
+// one-hot product would read 3.26 GB.
 #include <stdint.h>
 
 #include <cuda_bf16.h>

@@ -26,9 +26,11 @@ scatters, array for array and rounding point for rounding point:
   :func:`onehot_segment_scatter_loopT` (#19), the reference's other two
   variants of the one-hot stream scatter, which only its kernel-variant
   sweep and tests run (``scripts/torch_scatter_variants.py`` here): #18
-  in bf16 at D = 128 as #11's count form (``csrc/window_mono_fused.cu``),
-  otherwise, as #19, ``csrc/onehot_stream.cu`` (one CTA per dst block
-  walking its tiles through a ``cp.async`` ring).
+  in bf16 at D = 128 with tile_e % 16 = 0 as #11's count form
+  (``csrc/window_mono_fused.cu``); #19 in every form, and #18 in the
+  others, as #20's gather-sum (``csrc/window_auto_gather.cu``) on the
+  stream's nonzero bytes, listed once per layout by
+  :func:`loopT_plan_once`.
 - :func:`legacy_forward` (``_aggregate_impl``'s table-gather branch: the
   node-transform table of ``ops/table.py``, the gather, then the scatter
   the layout carries) and :func:`aggregate_onehot_chunked` (forward only,
@@ -52,8 +54,9 @@ from ggnn_tpu_torch.ops.scatter import (BLOCK_N, ScatterLayout, _rup,
                                         _rup_block)
 from ggnn_tpu_torch.ops.table import node_table
 from ggnn_tpu_torch.ops.window import (cached_per_tensor, group_mask,
-                                       launch_mono_fused, mono_plan_once,
-                                       split_plan, tile_arange,
+                                       launch_mono_fused, launch_window_auto,
+                                       mono_plan_once, split_plan,
+                                       tile_arange, window_auto_plan,
                                        window_block_spmm_mono)
 
 
@@ -560,25 +563,59 @@ def _stream_tiles(name, messages, onehot_i8, tile_start, n_blocks, tile_e):
     return n_tiles
 
 
-def _launch_stream(name, messages, onehot_i8, tile_start, n_blocks, tile_e,
-                   n_tiles):
-    """One launch of ``ggnn_onehot_loopT`` (``csrc/onehot_stream.cu``, #19's
-    body, which #18 shares where its pipeline does not run) after the data
-    checks."""
+def loopT_plan_once(name, onehot_t, tile_start, n_blocks: int,
+                    tile_e: int):
+    """The gather plan of #19 ``onehot_segment_scatter_loopT`` (and of #18's
+    forms off #11's pipeline: one plan a layout serves both) over one
+    layout's stream, made once per layout (``cached_per_tensor`` on
+    tile_start; a raise, in ``name``, is not cached): the data checks
+    (tile_start runs from 0, never down, to at most the stream's tiles),
+    then :func:`~ggnn_tpu_torch.ops.window.
+    window_auto_plan` with window = tile_e, tile t reading its own message
+    rows (``win_of_tile`` t) into block ``searchsorted(tile_start[1:], t,
+    right=True)``, and the tiles past tile_start[-1] marked −1, so that
+    they add nothing.  A launch on a layout already seen copies nothing to
+    the host.
+
+    It serves ``_scatter_loopT_kernel`` (``ggnn_tpu/ops/scatter_pallas.py:
+    672``), which multiplies every one-hot tile with its messages on the
+    TPU's matrix unit.  On the card the function is bound by HBM bytes:
+    read densely, the one-hot stream is a third of them (1.075 of 3.26 GB
+    at the uniform headline, tile_e 2048), yet under 1 % of its bytes are
+    not zero, and a dense product of each 128-edge chunk spends its time
+    on shared-memory loads of zeros.  The plan lists each nonzero byte
+    once as an entry {message row, value} in output-row order, so that a
+    launch reads the real message rows once, 4 bytes an entry and the
+    output (2.22 GB in bf16 there, 0.66 ms at 3.35 TB/s), and the one-hot
+    not at all; ``csrc/window_auto_gather.cu`` sums each row's entries in
+    f32 in that order (no atomics: the same bits on every run)."""
+    n_tiles = onehot_t.shape[0] // BLOCK_N
+
+    def make():
+        _scatter_data_checks(name, tile_start, n_tiles)
+        t = torch.arange(n_tiles, dtype=torch.int32, device=tile_start.device)
+        used = t < tile_start[-1]
+        win = torch.where(used, t, -1)
+        blk = torch.searchsorted(tile_start[1:].contiguous(), t, right=True,
+                                 out_int32=True)
+        return window_auto_plan(onehot_t, torch.where(used, blk, 0), win,
+                                None, n_blocks, tile_e, n_tiles * tile_e)
+    return cached_per_tensor(
+        tile_start, ("loopT plan", tuple(onehot_t.shape),
+                     onehot_t.data_ptr(), n_blocks, tile_e), make)
+
+
+def _launch_gather(name, messages, onehot_i8, tile_start, n_blocks, tile_e):
+    """One launch of ``csrc/window_auto_gather.cu`` on the layout's
+    :func:`loopT_plan_once` → [n_blocks·128, D] f32."""
     if messages.dtype not in _DTYPE_CODE:
         raise ValueError(f"{name}: dtype {messages.dtype} not in "
                          f"{list(_DTYPE_CODE)}")
-    D = messages.shape[-1]
     _check_cuda_args(name, [("messages", messages), ("onehot", onehot_i8),
-                            ("tile_start", tile_start)], D, any_width=True)
-    out = torch.empty(n_blocks * BLOCK_N, D, dtype=torch.float32,
-                      device=messages.device)
-    p = _build.ptr
-    _build.launch(_build.library().ggnn_onehot_loopT, name, messages.device,
-                  _DTYPE_CODE[messages.dtype], p(messages),
-                  messages.shape[0], D, p(onehot_i8), n_tiles, tile_e,
-                  p(tile_start), n_blocks, p(out))
-    return out
+                            ("tile_start", tile_start)], messages.shape[-1],
+                     any_width=True)
+    return launch_window_auto(name, messages, loopT_plan_once(
+        name, onehot_i8, tile_start, n_blocks, tile_e))
 
 
 def onehot_segment_scatter_loopT_reference(messages, onehot_t, tile_start,
@@ -649,10 +686,10 @@ def onehot_segment_scatter_stream(messages, onehot_i8, tile_start,
     A CPU tensor takes the plain version; a CUDA tensor launches, bf16 at
     D = 128 with tile_e % 16 = 0, #11's count form on its pipeline
     (``csrc/window_mono_fused.cu`` on the plan of :func:`stream_plan_once`),
-    else #19's body (``ggnn_onehot_loopT`` of ``csrc/onehot_stream.cu``:
-    the same function and arguments); or raises.  The data checks (and the
-    plan) run once per layout: a launch on a layout already seen copies
-    nothing to the host."""
+    else #19's gather-sum (``csrc/window_auto_gather.cu`` on the plan of
+    :func:`loopT_plan_once`: the same function and arguments); or raises.
+    The data checks and the plans run once per layout: a launch on a
+    layout already seen copies nothing to the host."""
     name = "onehot_segment_scatter_stream"
     n_tiles = _stream_tiles(name, messages, onehot_i8, tile_start, n_blocks,
                             tile_e)
@@ -672,8 +709,8 @@ def onehot_segment_scatter_stream(messages, onehot_i8, tile_start,
                                 n_blocks, torch.float32)
     else:
         stream_plan_once(*args, False)
-        out = _launch_stream(name, messages, onehot_i8, tile_start, n_blocks,
-                             tile_e, n_tiles)
+        out = _launch_gather(name, messages, onehot_i8, tile_start, n_blocks,
+                             tile_e)
     onehot_segment_scatter_stream.launches += 1
     return out
 
@@ -685,20 +722,23 @@ def onehot_segment_scatter_loopT(messages, onehot_t, tile_start,
                                  n_blocks: int, tile_e: int = 2048):
     """Kernel #19, the reference's looped-DMA form of
     :func:`onehot_segment_scatter_stream`: the same function and arguments
-    without ``max_tiles`` (one program per block walks all its tiles).  A
-    CPU tensor takes the plain version; a CUDA tensor launches
-    ``ggnn_onehot_loopT`` of ``csrc/onehot_stream.cu`` (a cp.async ring of
-    two stages: the next chunk's copies overlap this chunk's product) or
-    raises."""
+    without ``max_tiles`` (one program per block walks all its tiles), and
+    the tiles past tile_start[-1] unused.  A CPU tensor takes the plain
+    version; a CUDA tensor, in every dtype (bf16, f32) and width D,
+    launches ``csrc/window_auto_gather.cu`` (#20's gather-sum) on the plan
+    of :func:`loopT_plan_once` (the stream's nonzero bytes as entries
+    {message row, value} in output-row order, made with the data checks
+    once per layout: a launch on a layout already seen copies nothing to
+    the host), or raises."""
     name = "onehot_segment_scatter_loopT"
     n_tiles = _stream_tiles(name, messages, onehot_t, tile_start, n_blocks,
                             tile_e)
-    _scatter_data_checks(name, tile_start, n_tiles)
     if messages.device.type == "cpu":
+        _scatter_data_checks(name, tile_start, n_tiles)
         return onehot_segment_scatter_loopT_reference(
             messages, onehot_t, tile_start, n_blocks, tile_e)
-    out = _launch_stream(name, messages, onehot_t, tile_start, n_blocks,
-                         tile_e, n_tiles)
+    out = _launch_gather(name, messages, onehot_t, tile_start, n_blocks,
+                         tile_e)
     onehot_segment_scatter_loopT.launches += 1
     return out
 

@@ -1,15 +1,16 @@
-"""Where the time of #20 ``window_block_spmm`` (``csrc/window_auto_gather.cu``)
-and #18 ``onehot_segment_scatter_stream`` goes on one NVIDIA GPU (H100),
-and the parent's bodies of both against this tree's in one process.
+"""Where the time of #20 ``window_block_spmm`` (``csrc/window_auto_gather.cu``),
+#18 ``onehot_segment_scatter_stream`` and #19 ``onehot_segment_scatter_loopT``
+goes on one NVIDIA GPU (H100), and the parent's #19 against this tree's in
+one process.
 
     python3 scripts/torch_auto_stream_variants.py [--parent DIR]
 
 Inputs: #20 on the window sweep's community layout
 (``scripts/torch_window_variants.py``: 262,144 nodes, 8M directed edges,
 W 512, 128-row blocks, the compact count stream) and a random table
-[16·262,144, D] (seed 0); #18 on the scatter sweep's uniform layout
-(``scripts/torch_scatter_variants.py``: the same size, tile_e 2048) and
-random messages (seed 0).
+[16·262,144, D] (seed 0); #18 and #19 on the scatter sweep's uniform
+layout (``scripts/torch_scatter_variants.py``: the same size, tile_e 2048)
+and random messages (seed 0).
 
 #20's kernel variants are ``window_auto_gather.cu`` after one textual edit
 each, compiled by nvcc for sm_90a into
@@ -33,18 +34,21 @@ profiled by ``torch.profiler``: its ops by device and host time),
 a launch on a layout not seen before), and the yardsticks: #11's window
 form on the same layout (``window_block_spmm_mono``, its plan cached) and
 ``torch.bmm`` of the real tiles' counts and windows gathered beforehand.
-#18: the wrapper (#11's count form, ``window_mono_fused.cu``), its
-checks and plan on a new layout, the plan alone (and profiled), #19's
-ring body on the same arguments (``ggnn_onehot_loopT``) and
-``index_add_`` of every message row (chip_smoke.py's library call).
+#18: the wrapper (#11's count form, ``window_mono_fused.cu``) in turns
+with #19's gather on the same arguments (the function #18 computes; the
+gather runs #18's other forms) and ``index_add_`` of every message row
+(chip_smoke.py's library call), its checks and plan on a new layout, the
+plan alone (and profiled).  #19: the wrapper on a new layout, its checks
+and plan alone (and profiled), and ``index_add_`` in f32.
 
-``--parent DIR`` also builds DIR's ``window_auto.cu`` and
-``onehot_stream.cu`` (the first bodies of #20 and #18) and times their
-entry points ``ggnn_window_auto`` and ``ggnn_onehot_stream`` against this
-tree's in turns (parent, tree, tree, parent, twice over): the kernels
-alone, and with the host checks the parent's wrappers made before every
-launch; #20 also with an f32 table and at D = 256, #18 with f32 messages
-(the forms the tree runs on its other bodies).
+``--parent DIR`` also builds DIR's ``onehot_stream.cu`` (the ring body #19
+ran through PR 17, and #18 in its f32 and D ≠ 128 forms) and times its
+entry point ``ggnn_onehot_loopT`` against this tree's #19 in turns
+(parent, parent with the host check its wrapper made before every launch,
+tree; forwards then backwards, twice over) in five forms: bf16 and f32 at
+D = 128, bf16 at D = 256 and 200 on the uniform layout, and bf16 at
+D = 128 on the JAX variant test's layout (tile_e 8, chip_smoke.py's
+``tile_e8`` fuzz layout).
 
 Timed with CUDA events (10 launches after a warm-up, best of two rounds,
 the variants in turns).  Prints ptxas's registers and spills per variant,
@@ -60,6 +64,8 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -81,13 +87,9 @@ VARIANTS = {
 }
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 PARENT_ENTRIES = {
-    # the parent's #20: dtype, table, n_table, D, counts, n_c, tile_start,
-    # win_of_tile, c_off, n_tiles, n_blocks, window, out, stream
-    "ggnn_window_auto": [_I, _P, _L, _I, _P, _L, _P, _P, _P, _I, _I, _I, _P,
-                         _P],
-    # the parent's #18: dtype, msgs, n_msgs, D, onehot, n_tiles, tile_e,
-    # tile_start, n_blocks, out, stream
-    "ggnn_onehot_stream": [_I, _P, _L, _I, _P, _I, _I, _P, _I, _P, _P],
+    # the parent's #19 ring: dtype, msgs, n_msgs, D, onehot, n_tiles,
+    # tile_e, tile_start, n_blocks, out, stream
+    "ggnn_onehot_loopT": [_I, _P, _L, _I, _P, _I, _I, _P, _I, _P, _P],
 }
 
 
@@ -137,8 +139,8 @@ def build(name, edits, sources=(GATHER,), csrc=CSRC):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", default=None,
-                    help="time the parent tree's #20 and #18 against this "
-                         "tree's")
+                    help="time the parent tree's #19 (its ring body) "
+                         "against this tree's")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -158,8 +160,7 @@ def main() -> int:
     if args.parent:
         pdir = os.path.join(os.path.abspath(args.parent), "ggnn_tpu_torch",
                             "ops", "csrc")
-        builds["parent"] = ([], ("window_auto.cu", "onehot_stream.cu"),
-                            pdir)
+        builds["parent"] = ([], ("onehot_stream.cu",), pdir)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds) + 1) as pool:
         lib_f = pool.submit(_build.library)
@@ -229,9 +230,8 @@ def main() -> int:
     kw = dict(n_blocks=nb, window=WV.WINDOW, c_off=a["c_off"])
     R = 2 * WV.TYPES * bc.spec.n_pad
     del bc
-    tables = {"bf16": torch.randn(R, cs.DIM, device=dev,
-                                  generator=gen).to(torch.bfloat16)}
-    table = tables["bf16"]
+    table = torch.randn(R, cs.DIM, device=dev,
+                        generator=gen).to(torch.bfloat16)
     plan = W.window_auto_plan_once("window_block_spmm", R, *cargs,
                                    a["c_off"], nb, WV.WINDOW)
     want = W.window_block_spmm(table, *cargs, **kw)
@@ -293,47 +293,11 @@ def main() -> int:
                                                              **kw),
         "torch_bmm": lambda: torch.bmm(cg, tg)}))
     del cg, tg
-    if args.parent:
-        par = fns["parent"]
-
-        def parent20(t, checks):
-            out = torch.empty(nb * 128, t.shape[1], dtype=torch.float32,
-                              device=dev)
-
-            def go():
-                if checks:   # the parent wrapper's two host checks
-                    G._scatter_data_checks("p", a["tile_start"],
-                                           a["win_of_tile"].shape[0],
-                                           block_of_tile=a["block_of_tile"])
-                    W._mono_data_checks("p", t.shape[0], a["c_stream"],
-                                        a["win_of_tile"], WV.WINDOW,
-                                        WV.WINDOW, a["c_off"], False)
-                _build.check(par.ggnn_window_auto(
-                    G._DTYPE_CODE[t.dtype], p(t), t.shape[0], t.shape[1],
-                    p(a["c_stream"]), a["c_stream"].shape[0] // 128,
-                    p(a["tile_start"]), p(a["win_of_tile"]), p(a["c_off"]),
-                    a["win_of_tile"].shape[0], nb, WV.WINDOW, p(out),
-                    stream()), "parent ggnn_window_auto")
-                return out
-            return go
-        tables["f32"] = table.float()
-        tables["bf16_D256"] = torch.randn(R, 256, device=dev,
-                                          generator=gen).to(torch.bfloat16)
-        for tn, t in tables.items():
-            ref = W.window_block_spmm(t, *cargs, **kw)
-            got = parent20(t, False)()
-            print(f"  #20 {tn}: parent - tree max |diff| "
-                  f"{(got - ref).abs().max().item():.3e}", flush=True)
-            r[f"parent_ab_{tn}"] = turns({
-                "parent": parent20(t, False),
-                "parent_with_checks": parent20(t, True),
-                "tree": lambda t=t: W.window_block_spmm(t, *cargs, **kw)})
-            del ref, got
     res["window_block_spmm"] = r
-    del tables, table, want, plan, lay, a, cargs
+    del table, want, plan, lay, a, cargs
     torch.cuda.empty_cache()
 
-    # --- #18 on the uniform layout at tile_e 2048 -----------------------
+    # --- #18 and #19 on the uniform layout at tile_e 2048 --------------
     b = synthetic_batch(cs.NODES, cs.EDGES, cs.EDGE_TYPES,
                         annotation_dim=cs.ANN, seed=0, node_mult=128)
     _, (tile_e, lay, msgs) = SV.sweep(b, {2048: ()}, keep_last=True)
@@ -342,19 +306,14 @@ def main() -> int:
     _, _, max_tiles, nb, *_ = lay.meta
     oh, ts = a["onehot"], a["tile_start"]
     n_tiles = oh.shape[0] // 128
-    want = L.onehot_segment_scatter_stream(msgs, oh, ts, nb, max_tiles,
-                                           tile_e)
-
-    def ring(m):
-        return lambda: L._launch_stream("ring", m, oh, ts, nb, tile_e,
-                                        n_tiles)
+    tgt = cs.legacy_targets(a, nb, tile_e)
     r = {}
     r.update(turns({
         "wrapper": lambda: L.onehot_segment_scatter_stream(
             msgs, oh, ts, nb, max_tiles, tile_e),
-        "ring_body": ring(msgs),
-        "index_add": cs.reverse_library_call(
-            msgs, cs.legacy_targets(a, nb, tile_e), nb * 128)}))
+        "loopT_gather": lambda: L.onehot_segment_scatter_loopT(
+            msgs, oh, ts, nb, tile_e),
+        "index_add": cs.reverse_library_call(msgs, tgt, nb * 128)}))
     r["new_layout"] = best(lambda: L.onehot_segment_scatter_stream(
         msgs, oh, ts.clone(), nb, max_tiles, tile_e), 3)
     make_plan = lambda: W.mono_plan(
@@ -362,37 +321,68 @@ def main() -> int:
         False)
     r["plan"] = best(make_plan, 3)
     profile("#18's plan", make_plan)
+    res["onehot_segment_scatter_stream"] = r
+
+    r = {}
+    r["new_layout"] = best(lambda: L.onehot_segment_scatter_loopT(
+        msgs, oh, ts.clone(), nb, tile_e), 3)
+    make_plan = lambda: L.loopT_plan_once(
+        "onehot_segment_scatter_loopT", oh, ts.clone(), nb, tile_e)
+    r["plan"] = best(make_plan, 3)
+    profile("#19's checks and plan", make_plan)
+    r["index_add_f32"] = best(cs.reverse_library_call(msgs.float(), tgt,
+                                                      nb * 128))
+    del tgt
     if args.parent:
         par = fns["parent"]
 
-        def parent18(m, checks):
+        def ring(m, oh, ts, nb, tile_e, checks):
+            """The parent's #19: its ring body, with its wrapper's host
+            check before every launch where ``checks``."""
             out = torch.empty(nb * 128, m.shape[1], dtype=torch.float32,
                               device=dev)
+            n_t = oh.shape[0] // 128
 
             def go():
-                if checks:   # the parent wrapper's host check
-                    G._scatter_data_checks("p", ts, n_tiles,
-                                           max_tiles=max_tiles)
-                _build.check(par.ggnn_onehot_stream(
+                if checks:
+                    G._scatter_data_checks("p", ts, n_t)
+                _build.check(par.ggnn_onehot_loopT(
                     G._DTYPE_CODE[m.dtype], p(m), m.shape[0], m.shape[1],
-                    p(oh), n_tiles, tile_e, p(ts), nb, p(out), stream()),
-                    "parent ggnn_onehot_stream")
+                    p(oh), n_t, tile_e, p(ts), nb, p(out), stream()),
+                    "parent ggnn_onehot_loopT")
                 return out
             return go
-        got = parent18(msgs, False)()
-        print(f"  #18 bf16: parent - tree max |diff| "
-              f"{(got - want).abs().max().item():.3e}", flush=True)
-        r["parent_ab_bf16"] = turns({
-            "parent": parent18(msgs, False),
-            "parent_with_checks": parent18(msgs, True),
-            "tree": lambda: L.onehot_segment_scatter_stream(
-                msgs, oh, ts, nb, max_tiles, tile_e)})
-        m32 = msgs.float()
-        r["parent_ab_f32"] = turns({
-            "parent": parent18(m32, False),
-            "tree": lambda: L.onehot_segment_scatter_stream(
-                m32, oh, ts, nb, max_tiles, tile_e)})
-    res["onehot_segment_scatter_stream"] = r
+
+        def ab(form, m, oh, ts, nb, tile_e):
+            tree = lambda: L.onehot_segment_scatter_loopT(m, oh, ts, nb,
+                                                          tile_e)
+            got = ring(m, oh, ts, nb, tile_e, False)()
+            print(f"  #19 {form}: parent - tree max |diff| "
+                  f"{(got - tree()).abs().max().item():.3e}", flush=True)
+            r[f"parent_ab_{form}"] = turns({
+                "parent": ring(m, oh, ts, nb, tile_e, False),
+                "parent_with_checks": ring(m, oh, ts, nb, tile_e, True),
+                "tree": tree})
+
+        forms = {"bf16_D128": lambda: msgs, "f32_D128": msgs.float,
+                 "bf16_D256": lambda: torch.randn(
+                     msgs.shape[0], 256, device=dev,
+                     generator=gen).to(torch.bfloat16),
+                 "bf16_D200": lambda: torch.randn(
+                     msgs.shape[0], 200, device=dev,
+                     generator=gen).to(torch.bfloat16)}
+        for form, make in forms.items():
+            ab(form, make(), oh, ts, nb, tile_e)
+            torch.cuda.empty_cache()
+        rng = np.random.default_rng(53)   # chip_smoke.py's tile_e8 layout
+        small = L.build_dst_block_layout(*cs.random_edges(rng, 256, 500, 4),
+                                         256, tile_e=8).to(dev)
+        sa = small.arrays
+        m = torch.randn(sa["gather_idx"].shape[0], 128, device=dev,
+                        generator=gen).to(torch.bfloat16)
+        ab("tile_e8_bf16_D128", m, sa["onehot"], sa["tile_start"],
+           small.meta[3], 8)
+    res["onehot_segment_scatter_loopT"] = r
     print(json.dumps({"ms": res}))
     print(card)
     return 0
