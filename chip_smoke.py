@@ -202,6 +202,30 @@
    ``index_add_``), #18, #19 and #20 also on a new layout (their checks
    and plans included), and #11's window form beside #20.
 
+15. The parallel layer (``ggnn_tpu_torch/parallel``), after ``[ggsnn
+   train]``: the single-device references on the card first ('xla' with
+   the sharded path's f32 GRU matmul inputs; the GGS-NN cell's typed pack
+   fused for [ddp]), then two ranks spawned on cuda:0 over gloo (NCCL
+   takes one rank per device; CUDA tensors staged through pinned host
+   buffers), each building the partition and every shard's layouts as
+   the reference's host does.  ``[sharded serve]``: the uniform headline
+   through all_gather, halo, halo_overlap and halo_onehot (#11), the
+   community headline through halo_window fused on the bf16 table (#10,
+   #13, the XW spill's #11) and on-demand, and q8 serving (#15); each
+   against single-device ``propagate`` (``TOL_SHARDED``), halo and
+   halo_overlap against all_gather and on-demand against the table at the
+   [serve] tolerance, q8 against the exact step; the exchange timed alone.
+   ``[sharded train]``: one node_select task step each through halo_onehot
+   and halo_window (on-demand, exact and int8 gradients), the loss, every
+   gradient leaf and the updated parameters against the single-device
+   step, the parameters bit-equal on both ranks.  ``[sharded ggsnn]``: one
+   GGS-NN task step on the [ggsnn *] cell (64 graphs of 4,096 nodes, K = 3)
+   through halo; ``[ddp]``: one data-parallel step on its 64 graphs (32 a
+   rank, each with its typed pack, #1 and #5).  ``[sharded nccl]``: a
+   world of one rank on NCCL in this process, one halo propagate and one
+   task step.  Each rank's launches, step ms, error and peak memory are
+   printed; two ranks on one card give no scaling number.
+
 The typed-pack phases (2-4, 7) hand ``Predictor.run_batch`` the typed pack
 they build; the Predictor's own layout is the legacy one (phase 6).
 
@@ -6086,9 +6110,11 @@ def native_phase():
           f"{len(a.arrays)} arrays equal", flush=True)
 
 
-def ggsnn_phases(log, clock):
+def ggsnn_phases(log, clock, sharded=None):
     """The GGS-NN phases and [native]; returns the launches of the serving
-    and training paths."""
+    and training paths.  ``sharded(holder, clock)`` (the sharded phases)
+    runs after [ggsnn train] on ``holder = [batch, typed pack]``, which it
+    empties once it no longer needs them; its launches are added."""
     import torch
     graphs, batch, lay = ggsnn_batch()
     launched = ggsnn_serve_phase(graphs, batch, lay, log)
@@ -6096,14 +6122,779 @@ def ggsnn_phases(log, clock):
     clock.mark("[ggsnn serve]")
     for k, v in ggsnn_train_phase(batch, lay).items():
         launched[k] += v
+    holder = [batch, lay]
     del batch, lay
     torch.cuda.empty_cache()
     clock.mark("[ggsnn train]")
+    if sharded is not None:
+        for k, v in sharded(holder, clock).items():
+            launched[k] += v
+    del holder
+    torch.cuda.empty_cache()
     babi19_trainers()
     clock.mark("the Trainer CLI, bAbI 19")
     native_phase()
     clock.mark("[native]")
     return launched
+
+
+# --- the parallel layer: sharded phases on one card, two gloo ranks --------
+
+SHARDED_P = 2           # ranks of the sharded phases, both on cuda:0
+SHARDED_TIMEOUT = 900   # seconds the ranks get, their set-up included
+# Tolerances of the sharded paths against the port's single-device path on
+# the card (bf16, the headline model).  The single-device reference is
+# ``propagate`` (backend 'xla') with ``gru_matmul_compute=False``: the
+# reference's sharded GRU cell takes f32 matmul inputs, so this is the
+# single-device path with the sharded path's GRU; the message weights take
+# bf16 values (:func:`sharded_params`), so the typed strategies (all_gather,
+# halo, halo_overlap) take the reference's products and differ from it by
+# the order of their sums alone (on an H100 at 700 W: 2.2e-3 at most,
+# 7.7e-5 on average).  halo_onehot still rounds its table rows to bf16 and
+# the fused window step its gate inputs, which the reference does not:
+# 1.3e-2 and 3.3e-2 at most, 1.9e-3 on average there (0.031 and 1.9e-3 on
+# the CPU at 16,384 nodes with the port's plain versions); the bound is
+# 2**-4 and 4e-3.  Paths that share their rounding points are held to each
+# other at the [serve] tolerance (TOL_FLIP_MAX, TOL_FLIP_MEAN: halo and
+# halo_overlap against all_gather, the on-demand window step against the
+# table one); q8 serving to the exact sharded step (TOL_SHARDED_Q8).  First
+# train steps: the loss within 1e-3 and every gradient leaf within
+# TOL_TRAIN's bf16 bound (2**-6; the H100 read 1.14e-2 at most, on
+# halo_onehot's), GGS-NN's within TOL_GGSNN (8.9e-3 there); with int8
+# gradients (grad_quant), whose quantization noise the single-device exact
+# step does not have, 0.3 (the H100 read 0.121, the CPU 0.17).  One Adam
+# step moves an element by lr at most, so the updated parameters lie within
+# 2·lr of the reference's step.
+TOL_SHARDED = (2.0 ** -4, 4e-3)
+TOL_SHARDED_Q8G = 0.3
+# q8 serving against the exact sharded step: the reference's test holds 3
+# steps of 1,024 nodes within 5 % of the largest state; over the
+# headline's 5 steps and 262,144 nodes the quantization noise's tail
+# reaches further (the card: 10.6 % of the largest state at one element,
+# 1.5 % relative Frobenius), so the largest error within 2**-2 of the
+# largest state and the relative Frobenius error within 2**-5
+TOL_SHARDED_Q8 = (2.0 ** -2, 2.0 ** -5)
+SHARDED_LR = 1e-3
+# the sharded phases' device; their other values in CPU rehearsals
+SHARDED_DEVICE = "cuda"
+NCCL = "nccl"
+
+
+def sharded_cfg(**kw):
+    """The headline model as the sharded phases run it (bf16)."""
+    kw.setdefault("backend", "xla")
+    return headline_cfg(compute_dtype="bfloat16", **kw)
+
+
+def sharded_params(cfg):
+    """:func:`fresh_params` with the message weights and biases rounded to
+    bf16 values (kept in f32).  The reference's typed strategies multiply
+    the bf16 pool by the f32 weights, the single-device path by their bf16
+    copy: with bf16 values both take the same products, so the sharded
+    steps and their single-device references share their rounding points
+    but for the order of the sums (a 3-round GGS-NN's gated pool over
+    4,096 nodes a graph turned the weights' rounding alone into gradient
+    differences of 0.44 on its readout gate)."""
+    import torch
+    params = fresh_params(cfg)
+    with torch.no_grad():
+        for k in ("msg_w", "msg_b"):
+            w = params["prop"][k]
+            w.copy_(w.to(torch.bfloat16).float())
+    return params
+
+
+def node_target():
+    """train_headline's node_select target (seed 0)."""
+    return int(np.random.default_rng(0).integers(0, NODES))
+
+
+def flat_grads(params):
+    """{leaf: its .grad on the host}."""
+    from ggnn_tpu_torch.train.checkpoint import _flatten
+    return {k: p.grad.detach().float().cpu() for k, p in _flatten(params)
+            if p.grad is not None}
+
+
+def flat_params(params):
+    from ggnn_tpu_torch.train.checkpoint import _flatten
+    return {k: p.detach().float().cpu() for k, p in _flatten(params)}
+
+
+def timed(fn):
+    """(fn's result, its ms by CUDA events, the launches it made)."""
+    import torch
+    torch.cuda.synchronize()
+    zero_counts()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    out = fn()
+    ev[1].record()
+    torch.cuda.synchronize()
+    return out, ev[0].elapsed_time(ev[1]), read_counts()
+
+
+def params_same_on_ranks(params, group):
+    """Every rank's parameters bit-equal to rank 0's (its flat copy
+    all-gathered over ``group``)."""
+    import torch
+    from ggnn_tpu_torch.parallel import comm
+    from ggnn_tpu_torch.train.loop import param_leaves
+    flat = torch.cat([p.detach().float().reshape(-1)
+                      for p in param_leaves(params)])
+    everyone = comm.all_gather(flat[None], group)
+    return all(torch.equal(everyone[0], x) for x in everyone)
+
+
+def rank_serve(mesh, state):
+    """[sharded serve] on this rank: the uniform headline through
+    all_gather, halo, halo_overlap and halo_onehot, then the community
+    headline through halo_window fused (the bf16 table, on-demand) and q8
+    serving; each forward once to make the per-layout plans, then once
+    counted and timed; the exchange alone."""
+    import dataclasses
+    import torch
+    from ggnn_tpu_torch.data.synthetic import synthetic_batch
+    from ggnn_tpu_torch.parallel import comm, sharded_propagate
+    from ggnn_tpu_torch.train.loop import param_leaves
+    from ggnn_tpu_torch.parallel.partition import (
+        build_halo_scatter_layouts, build_halo_window_layouts,
+        local_halo_layout, partition_batch, split_local_remote)
+    axis, dev = mesh.axis("graph"), mesh.device
+    r, P = axis.index, axis.size
+    out, runs = {"host_s": {}}, {}
+    t0 = time.perf_counter()
+    b = synthetic_batch(NODES, EDGES, EDGE_TYPES, annotation_dim=ANN,
+                        seed=0, node_mult=128)
+    parts = split_local_remote(partition_batch(b, P))
+    scat = build_halo_scatter_layouts(parts, tile_e=512, with_grad=True)
+    state["uniform"] = (parts.local(r, dev), local_halo_layout(scat, r, dev),
+                        scat[1])
+    out["host_s"]["uniform partition and one-hot layouts"] = \
+        time.perf_counter() - t0
+    out["halo_size"] = parts.halo_size
+    del b, parts, scat
+    t0 = time.perf_counter()
+    cb = community_batch()
+    cparts = split_local_remote(partition_batch(cb, P))
+    wl = {}
+    for od in (False, True):
+        lay = build_halo_window_layouts(
+            cparts, window=WINDOW, spill_tile_e=None,
+            n_message_types=2 * EDGE_TYPES, row_major="block",
+            typed_spill=True, on_demand=od, with_grad=True)
+        wl[od] = (local_halo_layout(lay, r, dev), lay[1])
+    state["community"] = (cparts.local(r, dev), wl)
+    out["host_s"]["community partition and window layouts"] = \
+        time.perf_counter() - t0
+    out["community_halo_size"] = cparts.halo_size
+    del cparts
+
+    params = sharded_params(sharded_cfg())
+    for p in param_leaves(params):
+        # served: with parameters that take gradients the fused window
+        # step writes its training residuals (#13's emit_res form)
+        p.requires_grad_(False)
+    lp, slay, _ = state["uniform"]
+    clp = state["community"][0]
+    wcfg = sharded_cfg(backend="window", fuse_gru=True)
+    paths = [(s, sharded_cfg(), lp, slay if s == "halo_onehot" else None)
+             for s in ("all_gather", "halo", "halo_overlap", "halo_onehot")]
+    paths += [("halo_window table", wcfg, clp, wl[False][0]),
+              ("halo_window on-demand", wcfg, clp, wl[True][0]),
+              ("halo_window q8", dataclasses.replace(wcfg,
+                                                     quantized_table=True),
+               clp, wl[False][0])]
+    for tag, cfg, parts_, lay in paths:
+        def run():
+            with torch.inference_mode():
+                return sharded_propagate(params["prop"], cfg, mesh, parts_,
+                                         strategy=tag.split()[0],
+                                         halo_layouts=lay)
+        run()
+        h, ms, launches = timed(run)
+        runs[tag] = dict(h=h.float().cpu(), ms=ms, launches=launches)
+
+    # the exchange alone: the send rows gathered, the all-to-all (staged
+    # through pinned host buffers: gloo), the pool concatenated
+    hc = torch.randn(lp.n_local, DIM, device=dev).to(torch.bfloat16)
+    idx = lp.send_idx.reshape(-1).long()
+
+    def exchange():
+        send = hc.index_select(0, idx).reshape(P, lp.halo_size, DIM)
+        recv = comm.all_to_all(send, axis.group)
+        return torch.cat([recv.reshape(-1, DIM), hc])
+
+    def gather():
+        return comm.all_gather(hc, axis.group)
+
+    out["exchange_ms"] = cuda_ms(exchange, 5)
+    out["gather_ms"] = cuda_ms(gather, 5)
+    out["exchange_mb"] = 2 * P * lp.halo_size * DIM * 2 / 2 ** 20
+    return with_runs(out, runs)
+
+
+def with_runs(out, runs):
+    """A rank phase's results: ``runs`` (path -> its results) under
+    "out", their launch counts under "launches"."""
+    out["out"] = runs
+    out["launches"] = {tag: res["launches"] for tag, res in runs.items()}
+    return out
+
+
+def rank_train(mesh, state):
+    """[sharded train] on this rank: one node_select task step each
+    through halo_onehot (the uniform headline) and halo_window (the
+    community headline, on-demand, exact and with int8 gradients)."""
+    import dataclasses
+    import torch
+    from ggnn_tpu_torch.parallel import make_sharded_task_train_step
+    from ggnn_tpu_torch.train.loop import make_optimizer
+    axis = mesh.axis("graph")
+    dev = mesh.device
+    lp, slay, smeta = state["uniform"]
+    clp, wl = state["community"]
+    wlay, wmeta = wl[True]
+    # grad_quant sets the layout's meta[10] alone (build_window_layout:
+    # the arrays are those of the exact layout)
+    qlay = dataclasses.replace(wlay, meta=wlay.meta[:10] + (True,))
+    qmeta = dict(wmeta, full_meta=qlay.meta)
+    targets = {"n_nodes": torch.tensor([NODES], dtype=torch.int32,
+                                       device=dev),
+               "node": torch.tensor([node_target()], dtype=torch.int32,
+                                    device=dev)}
+    wcfg = sharded_cfg(backend="window", fuse_gru=True)
+    runs = {}
+    for tag, cfg, parts_, lay, meta in (
+            ("halo_onehot", sharded_cfg(), lp, slay, smeta),
+            ("halo_window", wcfg, clp, wlay, wmeta),
+            ("halo_window grad_quant", wcfg, clp, qlay, qmeta)):
+        params = sharded_params(cfg)
+        opt = make_optimizer(params, SHARDED_LR)
+        step = make_sharded_task_train_step(
+            cfg, mesh, opt, 1, strategy=tag.split()[0], halo_meta=meta)
+        m, ms, launches = timed(lambda: step(params, parts_, targets, lay))
+        runs[tag] = dict(loss=float(m["loss_sum"] / m["count"]), ms=ms,
+                        launches=launches,
+                        same=params_same_on_ranks(params, axis.group),
+                        grads=flat_grads(params) if mesh.rank == 0 else None,
+                        params=flat_params(params) if mesh.rank == 0
+                        else None)
+        del params, opt, step
+        torch.cuda.empty_cache()
+    return with_runs({}, runs)
+
+
+def ggsnn_cell(device):
+    """The [ggsnn *] phases' cell: the batch of 64 graphs of 4,096 nodes
+    with the targets of :func:`ggsnn_targets` (host copies in
+    ``batch.targets``), and those targets on ``device`` with ``n_nodes``."""
+    import torch
+    from ggnn_tpu_torch.graph import PaddingSpec, batch_graphs
+    spec = PaddingSpec(n_graphs=GGSNN_GRAPHS, n_pad=NODES, e_pad=2 * EDGES,
+                       n_edge_types=EDGE_TYPES, annotation_dim=ANN)
+    batch = batch_graphs(ggsnn_graphs(0), spec)
+    targets = {k: v.to(device) for k, v in ggsnn_targets(batch).items()}
+    batch.targets = {k: v.cpu().numpy() for k, v in targets.items()}
+    targets["n_nodes"] = torch.as_tensor(batch.n_nodes, device=device)
+    return batch, targets
+
+
+def rank_ggsnn(mesh, state):
+    """[sharded ggsnn] on this rank: one sharded GGS-NN task step (the
+    graph output, annotation supervision) through halo; then [ddp]: one
+    data-parallel step of the same cell, each rank with its 32 graphs'
+    typed pack, fused."""
+    import torch
+    from ggnn_tpu_torch.ops.scatter import _rup_block, build_typed_dst_layout
+    from ggnn_tpu_torch.parallel import make_sharded_task_train_step
+    from ggnn_tpu_torch.parallel.partition import partition_batch
+    from ggnn_tpu_torch.parallel.train import (make_gspmd_train_step,
+                                               split_batch)
+    from ggnn_tpu_torch.train.loop import batch_arrays, make_optimizer
+    axis, dev = mesh.axis("graph"), mesh.device
+    out, runs = {"host_s": {}}, {}
+    t0 = time.perf_counter()
+    batch, targets = ggsnn_cell(dev)
+    lp = partition_batch(batch, axis.size).local(axis.index, dev)
+    out["host_s"]["ggsnn batch and partition"] = time.perf_counter() - t0
+    cfg = ggsnn_cfg("graph", backend="xla")
+    params = sharded_params(cfg)
+    opt = make_optimizer(params, SHARDED_LR)
+    step = make_sharded_task_train_step(cfg, mesh, opt, GGSNN_GRAPHS,
+                                        strategy="halo")
+    m, ms, launches = timed(lambda: step(params, lp, targets))
+    runs["ggsnn"] = dict(loss=float(m["loss_sum"] / m["count"]), ms=ms,
+                        launches=launches,
+                        same=params_same_on_ranks(params, axis.group),
+                        grads=flat_grads(params) if mesh.rank == 0 else None)
+    del params, opt, step, lp
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    sub = split_batch(batch, mesh.size, mesh.rank)
+    lay = build_typed_dst_layout(
+        sub.edge_src, sub.edge_dst, sub.edge_type, sub.edge_mask,
+        _rup_block(sub.spec.n_pad), n_message_types=2 * EDGE_TYPES,
+        with_grad=True).to(dev)
+    arrays = batch_arrays(sub, dev)
+    out["host_s"]["ddp split and typed pack"] = time.perf_counter() - t0
+    cfg = ggsnn_cfg("graph", fuse_gru=True)
+    params = sharded_params(cfg)
+    opt = make_optimizer(params, SHARDED_LR)
+    step = make_gspmd_train_step(cfg, GGSNN_GRAPHS, opt, mesh)
+    m, ms, launches = timed(lambda: step(params, arrays, lay))
+    runs["ddp"] = dict(loss=float(m["loss_sum"] / m["count"]), ms=ms,
+                       launches=launches,
+                       same=params_same_on_ranks(params, axis.group),
+                       grads=flat_grads(params) if mesh.rank == 0 else None)
+    return with_runs(out, runs)
+
+
+def tree_map_leaves(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map_leaves(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def host_copy(x):
+    """Tensors as numpy arrays: a rank's results cross the queue by value
+    (torch's shared-memory handles would die with the rank)."""
+    import torch
+    return x.numpy() if isinstance(x, torch.Tensor) else x
+
+
+def tensor_copy(x):
+    import torch
+    return torch.from_numpy(x) if isinstance(x, np.ndarray) else x
+
+
+RANK_PHASES = (("[sharded serve]", rank_serve),
+               ("[sharded train]", rank_train),
+               ("[sharded ggsnn] and [ddp]", rank_ggsnn))
+
+
+def sharded_rank(rank, world, port, queue):
+    """One rank of the sharded phases (a spawned process on the card):
+    joins the gloo world, loads the kernels, runs each phase of
+    RANK_PHASES and puts (rank, phase, results) on ``queue``; a failure
+    puts its traceback and ends the process with exit code 1."""
+    import os
+    import traceback
+    os.environ["LOCAL_RANK"] = str(rank)
+    try:
+        import torch
+        from ggnn_tpu_torch.ops import _build
+        from ggnn_tpu_torch.parallel import make_mesh
+        from ggnn_tpu_torch.parallel.multihost import initialize_multihost
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dev = None if SHARDED_DEVICE == "cuda" else SHARDED_DEVICE
+        initialize_multihost(coordinator_address=f"127.0.0.1:{port}",
+                             num_processes=world, process_id=rank,
+                             init_timeout_s=120, backend="gloo", device=dev)
+        _build.library()
+        mesh = make_mesh(n_graph=world, device=dev)
+        state = {}
+        for name, phase in RANK_PHASES:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = phase(mesh, state)
+            torch.cuda.synchronize()
+            res["wall_s"] = time.perf_counter() - t0
+            res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            queue.put((rank, name, tree_map_leaves(host_copy, res)))
+        torch.distributed.destroy_process_group()
+        queue.put((rank, "done", None))
+    except BaseException:
+        queue.put((rank, "error", traceback.format_exc()))
+        queue.close()
+        queue.join_thread()
+        os._exit(1)
+
+
+def run_ranks(on_phase, world=SHARDED_P):
+    """Spawn ``world`` ranks of :func:`sharded_rank` (the ``spawn`` start
+    method: CUDA is initialised here) on a free rendezvous port; as soon
+    as every rank has reported a phase, ``on_phase(phase, [result of rank
+    0, rank 1, …])`` checks it.  A rank that fails or outlives
+    SHARDED_TIMEOUT fails the phase."""
+    import multiprocessing as mp
+    import queue as queue_mod
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=sharded_rank, args=(r, world, port, q))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results, done = {}, 0
+    deadline = time.monotonic() + SHARDED_TIMEOUT
+    try:
+        while done < world:
+            try:
+                rank, name, res = q.get(timeout=max(
+                    1.0, deadline - time.monotonic()))
+            except queue_mod.Empty:
+                raise AssertionError(
+                    f"sharded ranks: no result within {SHARDED_TIMEOUT} s "
+                    "(a rank hangs)") from None
+            if name == "error":
+                raise AssertionError(f"sharded rank {rank} failed:\n{res}")
+            if name == "done":
+                done += 1
+                continue
+            got = results.setdefault(name, [None] * world)
+            got[rank] = tree_map_leaves(tensor_copy, res)
+            if all(x is not None for x in got):
+                on_phase(name, results.pop(name))
+        for p in procs:
+            p.join(timeout=60)
+            if p.exitcode != 0:
+                raise AssertionError(f"sharded rank exited {p.exitcode}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+
+def single_device_refs(b, holder):
+    """The single-device path on the card, before the ranks start: the
+    first GGS-NN step through the cell's whole typed pack fused (the [ddp]
+    reference; ``holder`` is emptied after it), then on 'xla' with f32 GRU
+    matmul inputs (the sharded path's cell): the GGS-NN cell's first step,
+    the uniform and community headline forwards (``propagate``) and their
+    first node_select steps.  The 'xla' steps recompute each propagation
+    step in the backward (``cfg.remat``: the same values, without keeping
+    15 steps' node-transform operands)."""
+    import torch
+    from ggnn_tpu_torch.models import propagate
+    from ggnn_tpu_torch.models.api import loss_and_metrics
+    from ggnn_tpu_torch.train.checkpoint import _flatten
+    from ggnn_tpu_torch.train.loop import batch_arrays, param_leaves
+
+    def first_step(cfg, arrays, n_graphs, layout=None):
+        params = sharded_params(cfg)
+        loss, _ = loss_and_metrics(params, cfg, arrays, n_graphs,
+                                   scatter_layout=layout)
+        g = torch.autograd.grad(loss, param_leaves(params))
+        return dict(loss=float(loss.detach()), params=params, grads={
+            k: x.float().cpu() for (k, _), x in zip(_flatten(params), g)})
+
+    refs = {}
+    batch, lay = holder
+    arrays = batch_arrays(batch, SHARDED_DEVICE)
+    arrays["targets"] = ggsnn_targets(batch)
+    refs["ddp"] = first_step(ggsnn_cfg("graph", fuse_gru=True), arrays,
+                             GGSNN_GRAPHS, lay)
+    holder.clear()
+    del lay
+    torch.cuda.empty_cache()
+    refs["ggsnn"] = first_step(ggsnn_cfg("graph", backend="xla",
+                                         gru_matmul_compute=False,
+                                         remat=True), arrays, GGSNN_GRAPHS)
+    del arrays, batch
+    for name, batch in (("uniform", b), ("community", community_batch())):
+        arrays = batch_arrays(batch, SHARDED_DEVICE)
+        arrays["targets"] = {"node": torch.tensor(
+            [node_target()], dtype=torch.int32, device=SHARDED_DEVICE)}
+        cfg = sharded_cfg(gru_matmul_compute=False, remat=True)
+        refs[name] = first_step(cfg, arrays, 1)
+        with torch.no_grad():
+            refs[name]["h"] = propagate(
+                refs[name]["params"]["prop"], cfg, arrays["annotations"],
+                arrays["edge_src"], arrays["edge_dst"], arrays["edge_type"],
+                arrays["edge_mask"]).float().cpu()
+        del arrays
+    torch.cuda.empty_cache()
+    return refs
+
+
+def hold(name, got, ref, tol_max, tol_mean):
+    """|got − ref| within (tol_max · max(1, max|ref|), tol_mean); prints
+    and returns the largest error."""
+    import torch
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite values")
+    if got.shape != ref.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} vs "
+                             f"{tuple(ref.shape)}")
+    d = (got.double() - ref.double()).abs()
+    emax, emean = d.max().item(), d.mean().item()
+    tol = tol_max * max(1.0, ref.abs().max().item())
+    ok = emax <= tol and emean <= tol_mean
+    print(f"  {name}: max_abs_err {emax:.3e} (tol {tol:.3e}) mean_abs_err "
+          f"{emean:.3e} (tol {tol_mean:.1e}) {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise AssertionError(f"{name}: error over tolerance")
+    return emax
+
+
+def hold_step(name, res, ref, tol, lr=None):
+    """A first train step against the single-device one: the loss within
+    1e-3, every gradient leaf's relative Frobenius error within ``tol``
+    (a leaf that vanishes by symmetry within TOL_SYMMETRIC of the
+    gradient's norm), and with ``lr`` the updated parameters within 2·lr
+    of the reference's Adam step."""
+    import torch
+    dl = abs(res["loss"] - ref["loss"]) / max(abs(ref["loss"]), 1e-30)
+    total = torch.stack([g.double().norm()
+                         for g in ref["grads"].values()]).norm().item()
+    errs, sym = [], 0.0
+    for k, g_ref in ref["grads"].items():
+        got = res["grads"][k]
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{name}: non-finite gradient {k}")
+        if k in SYMMETRIC_LEAVES:
+            sym = max(sym, got.double().norm().item() / total,
+                      g_ref.double().norm().item() / total)
+            continue
+        errs.append((relfro(got, g_ref), k))
+    errs.sort(reverse=True)
+    ok = dl <= 1e-3 and errs[0][0] <= tol and sym <= TOL_SYMMETRIC
+    moved = ""
+    if lr is not None:
+        from ggnn_tpu_torch.train.checkpoint import _flatten
+        p = {k: v.detach().clone() for k, v in _flatten(ref["params"])}
+        opt = torch.optim.Adam(list(p.values()), lr=lr, betas=(0.9, 0.999),
+                               eps=1e-8)
+        for k, v in p.items():
+            v.grad = ref["grads"][k].to(v.device)
+        opt.step()
+        far = max((res["params"][k] - v.float().cpu()).abs().max().item()
+                  for k, v in p.items())
+        ok = ok and far <= 2 * lr * (1 + 1e-3)
+        moved = f"; updated parameters within {far:.3e} of its Adam step " \
+                f"(tol {2 * lr:.1e})"
+    print(f"  {name}: loss {res['loss']:.6f} vs {ref['loss']:.6f} (rel "
+          f"{dl:.3e}, tol 1e-3); worst leaves (rel_frobenius, tol "
+          f"{tol:.3e}) " + ", ".join(f"{k} {e:.3e}" for e, k in errs[:3])
+          + f"; {'/'.join(SYMMETRIC_LEAVES)} {sym:.3e} of the norm"
+          + moved + f" {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{name}: disagrees with the single-device "
+                             "step")
+    return errs[0][0]
+
+
+def rank_line(phase, rank, tag, res, card, err=None, extra=""):
+    launches = {k: v for k, v in res["launches"].items() if v}
+    print(f"{phase} rank {rank} {tag}: step {res['ms']:.2f} ms (CUDA "
+          f"events){extra}; largest error against the single-device path "
+          f"{'not compared' if err is None else f'{err:.3e}'}; launches "
+          f"{launches}; card {card}", flush=True)
+
+
+def must_launch(tag, launches, names):
+    """The kernels a sharded path has to have run."""
+    for n in names:
+        if not launches[n]:
+            raise AssertionError(f"{tag}: {n} was never launched")
+
+
+def sharded_phases(holder, clock):
+    """The parallel layer on the card (``ggnn_tpu_torch/parallel``), two
+    ranks on cuda:0 over gloo (NCCL takes one rank per device), at the
+    headline width: [sharded serve], [sharded train], [sharded ggsnn],
+    [ddp], each against the single-device path; then [sharded nccl].
+    ``holder`` = [the GGS-NN cell's batch, its typed pack] (emptied once the
+    [ddp] reference is made).  Returns the ranks' launches on the sharded
+    main paths."""
+    import torch
+    from ggnn_tpu_torch.data.synthetic import synthetic_batch
+    t_start = time.perf_counter()
+    card = card_line()
+    b = synthetic_batch(NODES, EDGES, EDGE_TYPES, annotation_dim=ANN,
+                        seed=0, node_mult=128)
+    refs = single_device_refs(b, holder)
+    torch.cuda.empty_cache()
+    clock.mark("[sharded] single-device references")
+    launched = dict.fromkeys(KERNELS, 0)
+    checks = {"[sharded serve]": check_sharded_serve,
+              "[sharded train]": check_sharded_train,
+              "[sharded ggsnn] and [ddp]": check_sharded_ggsnn}
+
+    def on_phase(name, results):
+        for res in results:
+            for launches in res["launches"].values():
+                for k, v in launches.items():
+                    launched[k] += v
+        checks[name](results, refs, card)
+        clock.mark(f"{name} ({SHARDED_P} ranks, their set-up included)")
+
+    run_ranks(on_phase)
+    nccl_phase(b, refs["uniform"], card)
+    clock.mark("[sharded nccl]")
+    print(f"[sharded] the sharded phases took "
+          f"{time.perf_counter() - t_start:.1f} s of wall time; two ranks "
+          "share one card over a host-staged transport, so their times are "
+          "no scaling number", flush=True)
+    return launched
+
+
+def phase_footer(phase, results):
+    for r, res in enumerate(results):
+        print(f"{phase} rank {r}: host seconds {res.get('host_s', {})}; "
+              f"phase {res['wall_s']:.1f} s; peak device memory "
+              f"{res['peak_gib']:.2f} GiB", flush=True)
+
+
+def check_sharded_serve(serve, refs, card):
+    """[sharded serve]'s results against the single-device forwards."""
+    import torch
+    n_loc = NODES // SHARDED_P
+    for r, res in enumerate(serve):
+        print(f"[sharded serve] rank {r}: halo size {res['halo_size']} "
+              f"(uniform), {res['community_halo_size']} (community); the "
+              f"exchange alone {res['exchange_ms']:.3f} ms for "
+              f"{res['exchange_mb']:.1f} MiB sent and received (halo, "
+              f"staged through pinned host buffers), the all_gather "
+              f"{res['gather_ms']:.3f} ms", flush=True)
+    for tag in ("all_gather", "halo", "halo_overlap", "halo_onehot",
+                "halo_window table", "halo_window on-demand",
+                "halo_window q8"):
+        ref = refs["community" if "window" in tag else "uniform"]["h"]
+        h = torch.cat([res["out"][tag]["h"] for res in serve])
+        if tag == "halo_window q8":
+            exact = torch.cat([res["out"]["halo_window table"]["h"]
+                               for res in serve])
+            rel = ((h - exact).abs().max() / exact.abs().max()).item()
+            rf = relfro(h, exact)
+            ok = rel <= TOL_SHARDED_Q8[0] and rf <= TOL_SHARDED_Q8[1] \
+                and not torch.equal(h, exact)
+            print(f"  [sharded serve] q8 against the exact sharded table "
+                  f"step: max_abs_err {rel:.3e} of the largest state (tol "
+                  f"{TOL_SHARDED_Q8[0]:.3e}), rel_frobenius {rf:.3e} (tol "
+                  f"{TOL_SHARDED_Q8[1]:.3e}) {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            if not ok:
+                raise AssertionError("sharded q8 serving off its bound")
+            errs = [None] * len(serve)
+        else:
+            hold(f"[sharded serve] {tag} against single-device propagate",
+                 h, ref, *TOL_SHARDED)
+            errs = [(res["out"][tag]["h"] - ref[r * n_loc:(r + 1) * n_loc])
+                    .abs().max().item() for r, res in enumerate(serve)]
+        for r, res in enumerate(serve):
+            rank_line("[sharded serve]", r, tag, res["out"][tag], card,
+                      errs[r])
+    for tag, other in (("halo", "all_gather"), ("halo_overlap", "all_gather"),
+                       ("halo_window on-demand", "halo_window table")):
+        hold(f"[sharded serve] {tag} against {other}",
+             torch.cat([res["out"][tag]["h"] for res in serve]),
+             torch.cat([res["out"][other]["h"] for res in serve]),
+             TOL_FLIP_MAX, TOL_FLIP_MEAN)
+    for tag, names in (("halo_onehot", ("window_block_spmm_mono",)),
+                       ("halo_window table", ("node_table_block_major",
+                                              "window_step_gru")),
+                       ("halo_window q8", ("node_table_block_major_q8",
+                                           "window_step_gru"))):
+        must_launch(f"[sharded serve] {tag}", serve[0]["launches"][tag],
+                    names)
+    phase_footer("[sharded serve]", serve)
+
+
+def check_sharded_train(train, refs, card):
+    """[sharded train]'s first steps against the single-device ones."""
+    for tag, ref, tol in (
+            ("halo_onehot", refs["uniform"], TOL_TRAIN["bfloat16"][0]),
+            ("halo_window", refs["community"], TOL_TRAIN["bfloat16"][0]),
+            ("halo_window grad_quant", refs["community"], TOL_SHARDED_Q8G)):
+        err = hold_step(f"[sharded train] {tag}", train[0]["out"][tag], ref,
+                        tol, lr=SHARDED_LR)
+        for r, res in enumerate(train):
+            out = res["out"][tag]
+            if not out["same"]:
+                raise AssertionError(f"[sharded train] {tag}: rank {r}'s "
+                                     "parameters differ from rank 0's")
+            rank_line("[sharded train]", r, tag, out, card, err,
+                      f", loss {out['loss']:.6f}, parameters bit-equal on "
+                      "the ranks")
+    must_launch("[sharded train] halo_window",
+                train[0]["launches"]["halo_window"],
+                ("window_step_gru[emit_res]", "window_bwd_fused",
+                 "gru_cell_bwd"))
+    phase_footer("[sharded train]", train)
+
+
+def check_sharded_ggsnn(gg, refs, card):
+    """[sharded ggsnn] and [ddp] against the single-device steps."""
+    for tag, phase in (("ggsnn", "[sharded ggsnn]"), ("ddp", "[ddp]")):
+        err = hold_step(f"{phase} {tag}", gg[0]["out"][tag], refs[tag],
+                        TOL_GGSNN)
+        for r, res in enumerate(gg):
+            out = res["out"][tag]
+            if not out["same"]:
+                raise AssertionError(f"{phase}: rank {r}'s parameters "
+                                     "differ from rank 0's")
+            rank_line(phase, r, tag, out, card, err,
+                      f", loss {out['loss']:.6f}, parameters bit-equal on "
+                      "the ranks")
+    must_launch("[ddp]", gg[0]["launches"]["ddp"],
+                ("typed_block_scatter", "typed_grad_octet_scatter"))
+    phase_footer("[sharded ggsnn] and [ddp]", gg)
+
+
+def nccl_phase(b, ref, card):
+    """[sharded nccl]: a world of one rank on NCCL in this process (the
+    transport the caller names: nccl, with the device tensors): one halo
+    propagate and one node_select task step, each against the
+    single-device path; the group is destroyed after."""
+    import socket
+    import torch
+    import torch.distributed as dist
+    from ggnn_tpu_torch.parallel import (make_mesh,
+                                         make_sharded_task_train_step,
+                                         partition_batch, sharded_propagate)
+    from ggnn_tpu_torch.parallel.multihost import initialize_multihost
+    from ggnn_tpu_torch.train.loop import make_optimizer
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dev = None if SHARDED_DEVICE == "cuda" else SHARDED_DEVICE
+    initialize_multihost(coordinator_address=f"127.0.0.1:{port}",
+                         num_processes=1, process_id=0, init_timeout_s=120,
+                         backend=NCCL, device=dev)
+    try:
+        if dist.get_backend() != NCCL:
+            raise AssertionError("[sharded nccl]: not an NCCL group")
+        mesh = make_mesh(n_graph=1, device=dev)
+        lp = partition_batch(b, 1).local(0, mesh.device)
+        cfg = sharded_cfg()
+        params = sharded_params(cfg)
+
+        def run():
+            with torch.inference_mode():
+                return sharded_propagate(params["prop"], cfg, mesh, lp,
+                                         strategy="halo")
+        run()
+        h, ms, launches = timed(run)
+        err = hold("[sharded nccl] halo against single-device propagate",
+                   h.float().cpu(), ref["h"], *TOL_SHARDED)
+        rank_line("[sharded nccl]", 0, "halo", dict(ms=ms,
+                                                    launches=launches),
+                  card, err)
+        targets = {"n_nodes": torch.tensor([NODES], dtype=torch.int32,
+                                           device=mesh.device),
+                   "node": torch.tensor([node_target()], dtype=torch.int32,
+                                        device=mesh.device)}
+        opt = make_optimizer(params, SHARDED_LR)
+        step = make_sharded_task_train_step(cfg, mesh, opt, 1,
+                                            strategy="halo")
+        m, ms, launches = timed(lambda: step(params, lp, targets))
+        res = dict(loss=float(m["loss_sum"] / m["count"]),
+                   grads=flat_grads(params), params=flat_params(params))
+        err = hold_step("[sharded nccl] halo node_select step", res, ref,
+                        TOL_TRAIN["bfloat16"][0], lr=SHARDED_LR)
+        rank_line("[sharded nccl]", 0, "halo train step",
+                  dict(ms=ms, launches=launches), card, err)
+    finally:
+        dist.destroy_process_group()
 
 
 def setup():
@@ -6276,7 +7067,7 @@ def main() -> int:
     widths_phase(log)
     predictor_widths()
     clock.mark("[widths]")
-    for k, v in ggsnn_phases(log, clock).items():
+    for k, v in ggsnn_phases(log, clock, sharded_phases).items():
         launched[k] += v
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

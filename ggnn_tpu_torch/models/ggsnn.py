@@ -76,47 +76,46 @@ def ggsnn_forward(params: dict, cfg: ModelConfig, annotations, node_graph,
     return torch.stack(outs), torch.stack(anns)
 
 
-def _ann_bce(anns, ann_targets, valid, node_graph, node_mask, B: int):
-    """GGS-NN-opt annotation BCE, masked to valid rounds and real nodes;
-    ``ann_targets`` [N, K, A] (node-aligned batching)."""
+def ann_bce_sums(anns, ann_targets, valid, node_graph, node_mask, B: int):
+    """The GGS-NN-opt annotation BCE's (sum, weight): the BCE summed over
+    valid rounds and real nodes, and their count; ``ann_targets`` [N, K,
+    A] (node-aligned batching)."""
     t = ann_targets.float().permute(1, 0, 2)                  # [K, N, A]
     p = anns.clamp(1e-6, 1.0 - 1e-6)
     bce = -(t * torch.log(p) + (1.0 - t) * torch.log(1.0 - p))
     w = (valid.to(p.dtype)[:, node_graph.long().clamp(0, B - 1)]
          * node_mask.float()[None, :])
-    return (bce * w[..., None]).sum() / w.sum().clamp_min(1.0)
+    return (bce * w[..., None]).sum(), w.sum()
 
 
-def ggsnn_loss(logits, targets, n_nodes, anns=None, ann_targets=None,
-               node_graph=None, node_mask=None, ann_weight: float = 1.0):
-    """Σ_k CE(logits_k, target_k) over the valid rounds (+ the optional
-    GGS-NN-opt annotation BCE); exact-match sequence accuracy.  Returns
-    (loss, correct [B] bool, graph mask [B])."""
-    K, B, V = logits.shape
+def _ann_bce(anns, ann_targets, valid, node_graph, node_mask, B: int):
+    """The GGS-NN-opt annotation BCE, its mean over valid rounds and real
+    nodes."""
+    total, weight = ann_bce_sums(anns, ann_targets, valid, node_graph,
+                                 node_mask, B)
+    return total / weight.clamp_min(1.0)
+
+
+def graph_round_nll(logits, targets, n_nodes):
+    """Per (round, graph) of the token output: (nll [K, B], zero where the
+    round is past the sequence or the graph is padding; valid [K, B];
+    step_correct [K, B])."""
     tgt = targets.t()                                          # [K, B]
     valid = (tgt >= 0) & (n_nodes[None, :] > 0)
     safe = tgt.clamp_min(0).long()
     logp = torch.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, safe[..., None])[..., 0]
     nll = torch.where(valid, nll, torch.zeros_like(nll))
-    loss = nll.sum() / valid.sum().clamp_min(1)
-    if anns is not None and ann_targets is not None:
-        loss = loss + ann_weight * _ann_bce(anns, ann_targets, valid,
-                                            node_graph, node_mask, B)
     step_correct = (logits.argmax(-1) == tgt) | ~valid
-    seq_correct = step_correct.all(0) & (n_nodes > 0)
-    return loss, seq_correct, (n_nodes > 0).to(logits.dtype)
+    return nll, valid, step_correct
 
 
-def ggsnn_node_loss(scores, target_nodes, node_graph, node_mask, n_nodes,
-                    n_graphs: int, anns=None, ann_targets=None,
-                    ann_weight: float = 1.0):
-    """The loss of the node-selection output (``cfg.ggsnn_output='node'``):
-    per round, a softmax over each graph's nodes against the target path
-    node (``target_nodes`` [B, K] LOCAL ids, −1 past the path's end);
-    exact-match sequence accuracy over the valid rounds, each round's
-    prediction the first node at its graph's maximum
-    (:func:`segment_first_argmax`)."""
+def node_round_nll(scores, target_nodes, node_graph, node_mask, n_nodes,
+                   n_graphs: int):
+    """:func:`graph_round_nll` of the node-selection output: per round a
+    softmax over each graph's nodes against the target path node
+    (``target_nodes`` [B, K] LOCAL ids), each round's prediction the first
+    node at its graph's maximum (:func:`segment_first_argmax`)."""
     K, N = scores.shape
     tgt = target_nodes.t()                                     # [K, B] local
     valid = (tgt >= 0) & (n_nodes[None, :] > 0)
@@ -127,11 +126,39 @@ def ggsnn_node_loss(scores, target_nodes, node_graph, node_mask, n_nodes,
     # a padding graph's target may point one past the last row: masked
     nll = -logp.gather(1, tgt_global.clamp_max(N - 1))
     nll = torch.where(valid, nll, torch.zeros_like(nll))
+    pred = segment_first_argmax(scores, node_graph, node_mask, n_graphs)
+    step_correct = (pred == tgt_global) | ~valid
+    return nll, valid, step_correct
+
+
+def ggsnn_loss(logits, targets, n_nodes, anns=None, ann_targets=None,
+               node_graph=None, node_mask=None, ann_weight: float = 1.0):
+    """Σ_k CE(logits_k, target_k) over the valid rounds (+ the optional
+    GGS-NN-opt annotation BCE); exact-match sequence accuracy.  Returns
+    (loss, correct [B] bool, graph mask [B])."""
+    B = logits.shape[1]
+    nll, valid, step_correct = graph_round_nll(logits, targets, n_nodes)
+    loss = nll.sum() / valid.sum().clamp_min(1)
+    if anns is not None and ann_targets is not None:
+        loss = loss + ann_weight * _ann_bce(anns, ann_targets, valid,
+                                            node_graph, node_mask, B)
+    seq_correct = step_correct.all(0) & (n_nodes > 0)
+    return loss, seq_correct, (n_nodes > 0).to(logits.dtype)
+
+
+def ggsnn_node_loss(scores, target_nodes, node_graph, node_mask, n_nodes,
+                    n_graphs: int, anns=None, ann_targets=None,
+                    ann_weight: float = 1.0):
+    """The loss of the node-selection output (``cfg.ggsnn_output='node'``):
+    per round, a softmax over each graph's nodes against the target path
+    node (``target_nodes`` [B, K] LOCAL ids, −1 past the path's end);
+    exact-match sequence accuracy over the valid rounds (:func:`
+    node_round_nll`)."""
+    nll, valid, step_correct = node_round_nll(
+        scores, target_nodes, node_graph, node_mask, n_nodes, n_graphs)
     loss = nll.sum() / valid.sum().clamp_min(1)
     if anns is not None and ann_targets is not None:
         loss = loss + ann_weight * _ann_bce(anns, ann_targets, valid,
                                             node_graph, node_mask, n_graphs)
-    pred = segment_first_argmax(scores, node_graph, node_mask, n_graphs)
-    step_correct = (pred == tgt_global) | ~valid
     seq_correct = step_correct.all(0) & (n_nodes > 0)
     return loss, seq_correct, (n_nodes > 0).to(scores.dtype)

@@ -41,8 +41,26 @@ def typed_aggregate(h, edge_src, edge_dst, edge_type, edge_mask, msg_w,
     else:
         raise ValueError(f"unknown strategy {strategy!r}")
     messages = messages * edge_mask.float()[:, None]
-    out = torch.zeros(n_pad, D, dtype=torch.float32, device=h.device)
-    return out.index_add_(0, dst, messages)
+    return ScatterRows.apply(messages, dst, n_pad)
+
+
+class ScatterRows(torch.autograd.Function):
+    """out[v] = Σ_{e: dst_e = v} x_e (``index_add_`` into f32 zeros of
+    ``n_rows`` rows).  Its backward gathers the cotangent's rows by ``dst``,
+    as autograd's does, but saves the index alone: autograd's
+    ``index_add`` keeps the [E, D] source alive until the backward, one
+    per propagation step."""
+
+    @staticmethod
+    def forward(ctx, x, dst, n_rows):
+        ctx.save_for_backward(dst)
+        out = torch.zeros(n_rows, x.shape[1], dtype=x.dtype, device=x.device)
+        return out.index_add_(0, dst, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (dst,) = ctx.saved_tensors
+        return g.index_select(0, dst), None, None
 
 
 class EdgeScore(torch.autograd.Function):

@@ -1,0 +1,296 @@
+"""Rank worker of the port's sharded CPU tests (not a test module).
+
+A job is a list of cases (``cases.pkl`` in a job directory, written by the
+test process with :class:`RankJob`).  Each rank is one process of a gloo
+world on the CPU, joined through the environment a launcher such as
+``torchrun`` sets (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``,
+``RANK``, ``LOCAL_RANK``) by ``ggnn_tpu_torch.parallel.multihost.
+initialize_multihost``; it runs every case on its mesh and writes what it
+computed to ``<case>.<rank>.npz``.  One spawn per test module runs all of
+its cases.  It imports the port, never ``jax`` or ``ggnn_tpu``.
+
+    python tests/torch_dist_worker.py <job_dir>      (with the env above)
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+import socket
+import subprocess
+import sys
+import traceback
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_flat(tree[k], f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def _np(t):
+    import torch
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _params(case, device="cpu"):
+    """The case's parameters as trainable tensors."""
+    from ggnn_tpu_torch.models.init import params_from_numpy
+    from ggnn_tpu_torch.train.loop import param_leaves
+    params = params_from_numpy(case["params"], device)
+    for p in param_leaves(params):
+        p.requires_grad_(True)
+    return params
+
+
+def _cfg(case):
+    from ggnn_tpu_torch.models.config import ModelConfig
+    return ModelConfig(**case["cfg"])
+
+
+def _parts(case):
+    """The case's partition (and its split and stacked kernel layouts)."""
+    from ggnn_tpu_torch.parallel.partition import (
+        build_halo_scatter_layouts, build_halo_window_layouts,
+        partition_batch, split_local_remote)
+    parts = partition_batch(case["batch"], case["P"], **case.get("part", {}))
+    lay = case.get("layout")
+    if lay is None:
+        return parts, None
+    lay = dict(lay)
+    kind = lay.pop("kind")
+    if kind == "scatter":
+        return parts, build_halo_scatter_layouts(parts, **lay)
+    split_local_remote(parts)
+    return parts, build_halo_window_layouts(parts, **lay)
+
+
+def run_propagate(case, mesh):
+    """h_local of ``sharded_propagate`` (the host partition, or with
+    ``local`` the rank's LocalParts and layout)."""
+    import torch
+    from ggnn_tpu_torch.parallel import sharded_propagate
+    from ggnn_tpu_torch.parallel.partition import (local_halo_layout,
+                                                   split_local_remote)
+    prop = _params(case)["prop"]
+    parts, lay = _parts(case)
+    if case.get("local"):
+        split_local_remote(parts)
+        idx = mesh.axis("graph").index
+        parts = parts.local(idx, mesh.device)
+        lay = None if lay is None else local_halo_layout(lay, idx,
+                                                         mesh.device)
+    with torch.no_grad():
+        h = sharded_propagate(prop, _cfg(case), mesh, parts,
+                              strategy=case["strategy"], halo_layouts=lay,
+                              scatter_tile_e=case.get("scatter_tile_e", 512))
+    return {"h": _np(h)}
+
+
+def _grads(params):
+    return {f"g/{k}": _np(v.grad) for k, v in _flat(params).items()
+            if v.grad is not None}
+
+
+def _values(params, tag="p"):
+    return {f"{tag}/{k}": _np(v) for k, v in _flat(params).items()}
+
+
+def run_train(case, mesh):
+    """One ``make_sharded_train_step`` (Adam): loss, the summed gradients,
+    the updated parameters."""
+    from ggnn_tpu_torch.parallel import make_sharded_train_step
+    from ggnn_tpu_torch.train.loop import make_optimizer
+    prop = _params(case)["prop"]
+    opt = make_optimizer(prop, case["lr"])
+    parts, lay = _parts(case)
+    step = make_sharded_train_step(
+        _cfg(case), mesh, opt, strategy=case["strategy"],
+        halo_meta=None if lay is None else lay[1])
+    loss = step(prop, parts, None if lay is None else lay[0])
+    return {"loss": _np(loss), **_grads(prop), **_values(prop)}
+
+
+def _targets(case):
+    import torch
+    return {k: torch.as_tensor(v) for k, v in case["targets"].items()}
+
+
+def run_task(case, mesh):
+    """``make_sharded_task_train_step`` for ``steps`` Adam steps: each
+    step's metrics, the first step's gradients, the final parameters."""
+    import numpy as np
+    from ggnn_tpu_torch.parallel import make_sharded_task_train_step
+    from ggnn_tpu_torch.train.loop import make_optimizer
+    params = _params(case)
+    opt = make_optimizer(params, case["lr"])
+    parts, lay = _parts(case)
+    step = make_sharded_task_train_step(
+        _cfg(case), mesh, opt, case["n_graphs"], strategy=case["strategy"],
+        halo_meta=None if lay is None else lay[1])
+    targets, out, metrics = _targets(case), {}, []
+    for i in range(case.get("steps", 1)):
+        m = step(params, parts, targets, None if lay is None else lay[0])
+        metrics.append([float(m[k]) for k in ("loss_sum", "correct",
+                                              "count")])
+        if i == 0:
+            out.update(_grads(params))
+    return {"metrics": np.asarray(metrics), **out, **_values(params)}
+
+
+def run_eval(case, mesh):
+    import numpy as np
+    from ggnn_tpu_torch.parallel import make_sharded_eval_step
+    parts, lay = _parts(case)
+    step = make_sharded_eval_step(_cfg(case), mesh, case["n_graphs"],
+                                  strategy=case["strategy"],
+                                  halo_meta=None if lay is None else lay[1])
+    m = step(_params(case), parts, _targets(case),
+             None if lay is None else lay[0])
+    return {"metrics": np.asarray([float(m[k]) for k in
+                                   ("loss_sum", "correct", "count")])}
+
+
+def run_ddp(case, mesh):
+    """One data-parallel step (``parallel/train.py``) over the mesh."""
+    import numpy as np
+    from ggnn_tpu_torch.parallel.train import (make_gspmd_train_step,
+                                               shard_batch_arrays)
+    from ggnn_tpu_torch.train.loop import make_optimizer
+    params = _params(case)
+    opt = make_optimizer(params, case["lr"])
+    step = make_gspmd_train_step(_cfg(case), case["n_graphs"], opt, mesh)
+    m = step(params, shard_batch_arrays(case["batch"], mesh))
+    return {"metrics": np.asarray([float(m[k]) for k in
+                                   ("loss_sum", "correct", "count")]),
+            **_grads(params), **_values(params)}
+
+
+RUNNERS = {"propagate": run_propagate, "train": run_train, "task": run_task,
+           "eval": run_eval, "ddp": run_ddp}
+
+
+def mesh_key(case):
+    """(n_graph, n_data) of a case's mesh: the sharded cases put P ranks on
+    the graph axis of a grid that fills the world (P = 2 on a world of 4:
+    two data replicas); the data-parallel step runs on P ranks of the data
+    axis."""
+    return (1, case["P"]) if case["kind"] == "ddp" else (case["P"], None)
+
+
+def main(job_dir: str) -> None:
+    sys.path.insert(0, ROOT)
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    from ggnn_tpu_torch.parallel import make_mesh
+    from ggnn_tpu_torch.parallel.multihost import (initialize_multihost,
+                                                   is_primary)
+    rank = int(os.environ["RANK"])
+    world = int(os.environ["WORLD_SIZE"])
+    # the rendezvous from the environment alone
+    if not initialize_multihost(init_timeout_s=120, backend="gloo",
+                                device="cpu"):
+        raise AssertionError("initialize_multihost did not join the world")
+    if dist.get_world_size() != world or is_primary() != (rank == 0):
+        raise AssertionError("the world does not match the environment")
+    with open(os.path.join(job_dir, "cases.pkl"), "rb") as f:
+        cases = pickle.load(f)
+    meshes = {}
+    for case in cases:           # every rank makes every group, in order
+        n_graph, n_data = mesh_key(case)
+        key = (n_graph, n_data or world // n_graph)
+        if key not in meshes:
+            meshes[key] = make_mesh(n_graph=key[0], n_data=key[1],
+                                    device="cpu")
+        case["_mesh"] = key
+    for case in cases:
+        mesh = meshes[case.pop("_mesh")]
+        if mesh is None:
+            continue
+        out = RUNNERS[case["kind"]](case, mesh)
+        np.savez(os.path.join(job_dir, f"{case['name']}.{rank}.npz"), **out)
+    dist.barrier()
+    dist.destroy_process_group()
+    print(f"RANK_OK {rank}", flush=True)
+
+
+class RankJob:
+    """``world`` gloo ranks running ``cases`` (a list of dicts with a
+    unique ``name``, ``kind``, ``P`` and the runner's inputs) in
+    ``job_dir``; started at once, joined (with ``timeout`` seconds) at the
+    first :meth:`result`."""
+
+    def __init__(self, cases, world: int, job_dir, timeout: float = 600):
+        self.dir, self.world, self.timeout = str(job_dir), world, timeout
+        with open(os.path.join(self.dir, "cases.pkl"), "wb") as f:
+            pickle.dump(cases, f)
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        self.procs, self.logs = [], []
+        for rank in range(world):
+            env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(port), WORLD_SIZE=str(world),
+                       RANK=str(rank), LOCAL_RANK=str(rank),
+                       OMP_NUM_THREADS="1")
+            log = open(os.path.join(self.dir, f"rank{rank}.log"), "w")
+            self.logs.append(log)
+            self.procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), self.dir],
+                stdout=log, stderr=subprocess.STDOUT, env=env))
+        self.rcs = None
+
+    def wait(self):
+        if self.rcs is not None:
+            return self.rcs
+        try:
+            for p in self.procs:
+                p.wait(timeout=self.timeout)
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in self.procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for log in self.logs:
+                log.close()
+        self.rcs = [p.returncode for p in self.procs]
+        return self.rcs
+
+    def log(self, rank: int) -> str:
+        with open(os.path.join(self.dir, f"rank{rank}.log")) as f:
+            return f.read()
+
+    def result(self, name: str, rank: int = 0) -> dict:
+        """What ``rank`` wrote for case ``name``; raises with the ranks'
+        logs where a rank failed."""
+        import numpy as np
+        rcs = self.wait()
+        path = os.path.join(self.dir, f"{name}.{rank}.npz")
+        if any(rc != 0 for rc in rcs) or not os.path.exists(path):
+            logs = "\n".join(f"--- rank {r} (rc {rc}) ---\n"
+                             f"{self.log(r)[-3000:]}"
+                             for r, rc in enumerate(rcs))
+            raise AssertionError(f"rank job failed ({name}):\n{logs}")
+        with np.load(path) as f:
+            return dict(f)
+
+
+if __name__ == "__main__":
+    try:
+        main(sys.argv[1])
+    except BaseException:
+        traceback.print_exc()
+        sys.stdout.flush()
+        # a failed rank ends at once: the others then fail in their next
+        # collective instead of waiting for it
+        os._exit(1)
