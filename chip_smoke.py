@@ -225,6 +225,24 @@
    world of one rank on NCCL in this process, one halo propagate and one
    task step.  Each rank's launches, step ms, error and peak memory are
    printed; two ranks on one card give no scaling number.
+16. The edges, after the sharded phases and ``[native]``.
+   ``[profile]``: the Trainer CLI with ``--backend onehot --profile DIR``
+   (a child process); the trace must name the device kernels that #8's
+   and #11's wrappers launch on that path (a probe runs each alone on the
+   CLI's first batch under ``torch.profiler``); the five ops of the most
+   device time are printed.  ``[examples]``: ``examples/torch_large_graph.
+   py`` at its defaults (the headline's size) in its three forms (one
+   legacy layout, 4 chunks, a window layout over 512 communities), the
+   launches of its two forwards, its checksum, final h and first step's h
+   against the plain path ('flip'); then ``examples/torch_custom_task.py``.
+   ``[distributed example]``: the distributed example's body on two ranks
+   on cuda:0 over gloo at the community headline's scale (3 train
+   iterations, then q8 serving under ``torch.no_grad``: finite losses and
+   h, the parameters bit-equal on the ranks, no ``emit_res`` launch while
+   serving), then its entry through ``torch.distributed.run
+   --nproc_per_node 2`` at its default size.  ``[dryrun]``:
+   ``ggnn_tpu_torch.dryrun.entry("cuda")`` against its plain run and
+   ``dryrun_multichip(2)`` (its spawned ranks' launches are not counted).
 
 The typed-pack phases (2-4, 7) hand ``Predictor.run_batch`` the typed pack
 they build; the Predictor's own layout is the legacy one (phase 6).
@@ -1924,14 +1942,15 @@ finally:
 """
 
 
-def run_trainer(backend="xla", want=(), config="babi4"):
+def run_trainer(backend="xla", want=(), config="babi4", extra=()):
     """``python -m ggnn_tpu_torch.train --config babi4 --device cuda
-    --epochs 3 [--backend ...]`` in a child process (on bAbI task 4, or the
-    task of ``config``, as a user runs it); ``want``: the kernels it must
-    have launched.  Returns the child's launch counts."""
+    --epochs 3 [--backend ...] [extra ...]`` in a child process (on bAbI
+    task 4, or the task of ``config``, as a user runs it); ``want``: the
+    kernels it must have launched.  Returns the child's launch counts."""
     args = ["--config", config, "--device", "cuda", "--epochs", "3"]
     if backend != "xla":
         args += ["--backend", backend]
+    args += list(extra)
     t0 = time.perf_counter()
     res = subprocess.run([sys.executable, "-c", TRAINER_CHILD, *args],
                          capture_output=True, text=True, timeout=600)
@@ -6474,11 +6493,12 @@ RANK_PHASES = (("[sharded serve]", rank_serve),
                ("[sharded ggsnn] and [ddp]", rank_ggsnn))
 
 
-def sharded_rank(rank, world, port, queue):
+def sharded_rank(rank, world, port, queue, phases=RANK_PHASES):
     """One rank of the sharded phases (a spawned process on the card):
-    joins the gloo world, loads the kernels, runs each phase of
-    RANK_PHASES and puts (rank, phase, results) on ``queue``; a failure
-    puts its traceback and ends the process with exit code 1."""
+    joins the gloo world, loads the kernels, runs each phase of ``phases``
+    (name, function of (mesh, state)) and puts (rank, phase, results) on
+    ``queue``; a failure puts its traceback and ends the process with exit
+    code 1."""
     import os
     import traceback
     os.environ["LOCAL_RANK"] = str(rank)
@@ -6495,7 +6515,7 @@ def sharded_rank(rank, world, port, queue):
         _build.library()
         mesh = make_mesh(n_graph=world, device=dev)
         state = {}
-        for name, phase in RANK_PHASES:
+        for name, phase in phases:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
@@ -6513,12 +6533,12 @@ def sharded_rank(rank, world, port, queue):
         os._exit(1)
 
 
-def run_ranks(on_phase, world=SHARDED_P):
-    """Spawn ``world`` ranks of :func:`sharded_rank` (the ``spawn`` start
-    method: CUDA is initialised here) on a free rendezvous port; as soon
-    as every rank has reported a phase, ``on_phase(phase, [result of rank
-    0, rank 1, …])`` checks it.  A rank that fails or outlives
-    SHARDED_TIMEOUT fails the phase."""
+def run_ranks(on_phase, world=SHARDED_P, phases=RANK_PHASES):
+    """Spawn ``world`` ranks of :func:`sharded_rank` running ``phases``
+    (the ``spawn`` start method: CUDA is initialised here) on a free
+    rendezvous port; as soon as every rank has reported a phase,
+    ``on_phase(phase, [result of rank 0, rank 1, …])`` checks it.  A rank
+    that fails or outlives SHARDED_TIMEOUT fails the phase."""
     import multiprocessing as mp
     import queue as queue_mod
     import socket
@@ -6527,7 +6547,8 @@ def run_ranks(on_phase, world=SHARDED_P):
         port = s.getsockname()[1]
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
-    procs = [ctx.Process(target=sharded_rank, args=(r, world, port, q))
+    procs = [ctx.Process(target=sharded_rank,
+                         args=(r, world, port, q, phases))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -6897,6 +6918,374 @@ def nccl_phase(b, ref, card):
         dist.destroy_process_group()
 
 
+# --- the edges: [profile], [examples], [distributed example], [dryrun] -------
+
+# The kernels the Trainer CLI with --backend onehot launches at babi4's
+# D = 4 (#8 forward, #11 on the legacy grad half), which [profile] finds in
+# its trace.
+PROFILE_KERNELS = ("onehot_segment_scatter_flat", "window_block_spmm_mono")
+# examples/torch_large_graph.py's forms at its defaults (262,144 nodes, 4M
+# logical edges, 8 types, D = 128, T = 5, bf16: the headline's NODES,
+# EDGES, EDGE_TYPES, DIM, STEPS) and the launches of its
+# two forwards (the first and the steady one): the legacy layout and the
+# chunks run #8 and the GRU cell; the window layout #11's window form and
+# its spill's #11
+LARGE_GRAPH_FORMS = {
+    "one layout": ({}, {"onehot_segment_scatter_flat": 2 * STEPS,
+                        "gru_cell_fwd": 2 * STEPS}),
+    "4 chunks": (dict(chunks=4), {"onehot_segment_scatter_flat": 8 * STEPS,
+                                  "gru_cell_fwd": 2 * STEPS}),
+    "512 communities": (dict(communities=512),
+                        {"window_block_spmm_mono": 4 * STEPS,
+                         "gru_cell_fwd": 2 * STEPS})}
+DIST_EXAMPLE_ITERS = 3
+
+
+def repo_file(*parts):
+    import os
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), *parts)
+
+
+def load_example(name):
+    """``examples/<name>.py`` as a module (the examples are scripts)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", repo_file("examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def trace_kernels(path):
+    """{device kernel name: (launches, device µs)} of a Chrome trace that
+    ``torch.profiler`` wrote."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    out = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            n, us = out.get(e["name"], (0, 0.0))
+            out[e["name"]] = (n + 1, us + float(e.get("dur", 0.0)))
+    return out
+
+
+def own_kernels(names):
+    """The kernels of the port's library among trace kernel names (not
+    PyTorch's own, ``at::``)."""
+    return {n for n in names if "at::" not in n}
+
+
+def probe_kernel_names(names, out_dir):
+    """{wrapper: the device kernel names it launches on the onehot
+    Trainer's path}: babi4's first batch through one train step records
+    each wrapper's first call, which then runs again alone under
+    ``torch.profiler``."""
+    import os
+    import torch
+    from ggnn_tpu_torch.ops import legacy as L
+    from ggnn_tpu_torch.ops import scatter as S
+    from ggnn_tpu_torch.ops import window as W
+    from ggnn_tpu_torch.train import Trainer, build_config
+    from ggnn_tpu_torch.train.loop import batch_arrays
+    from ggnn_tpu_torch.train.metrics import MetricsLogger
+    t = Trainer(build_config("babi4", backend="onehot", epochs=1),
+                MetricsLogger(echo=False), device="cuda")
+    batch = next(t.train_loader.epoch_batches(0))
+    wrappers = kernel_wrappers()
+    calls, swaps = {}, []
+
+    def recording(name, fn):
+        # the wrapper counts its launches on its module's name, the shim
+        # while it stands there: it carries the wrapper's attributes
+        @functools.wraps(fn)
+        def shim(*a, **k):
+            calls.setdefault(name, (a, k))
+            return fn(*a, **k)
+        return shim
+    for name in names:
+        fn = wrappers[name]
+        for mod in (L, S, W):
+            if getattr(mod, name, None) is fn:
+                swaps.append((mod, name, fn))
+                setattr(mod, name, recording(name, fn))
+    try:
+        t.train_step(t.params, batch_arrays(batch, "cuda"), t._layout(batch))
+    finally:
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
+    out = {}
+    for name in names:
+        a, k = calls[name]
+        wrappers[name](*a, **k)
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            wrappers[name](*a, **k)
+            torch.cuda.synchronize()
+        path = os.path.join(out_dir, f"probe_{name}.json")
+        prof.export_chrome_trace(path)
+        out[name] = own_kernels(trace_kernels(path))
+    return out
+
+
+def profile_phase():
+    """[profile]: the Trainer CLI with ``--backend onehot --profile DIR``
+    on the card (a child process, 3 epochs of babi4): the trace must exist
+    and name the device kernels of #8 and #11, as a probe of each wrapper
+    alone on the same path names them; prints the five ops of the most
+    device time.  Returns the child's launch counts."""
+    import glob
+    import os
+    import shutil
+    out_dir = repo_file(".chip_scratch", "profile")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    try:
+        launches = run_trainer("onehot", want=PROFILE_KERNELS,
+                               extra=("--profile", out_dir))
+        traces = glob.glob(os.path.join(out_dir, "trace_*.json"))
+        if len(traces) != 1:
+            raise AssertionError(f"[profile]: {len(traces)} traces in "
+                                 f"{out_dir}")
+        size = os.path.getsize(traces[0])
+        kernels = trace_kernels(traces[0])
+        probes = probe_kernel_names(PROFILE_KERNELS, out_dir)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    total = sum(us for _, us in kernels.values())
+    own = own_kernels(kernels)
+    print(f"[profile] trace of {size / 2**20:.1f} MiB: {len(kernels)} device "
+          f"kernels ({len(own)} of the port's library), {total / 1e3:.2f} ms "
+          f"of device time in "
+          f"{sum(n for n, _ in kernels.values())} launches; card "
+          f"{card_line()}", flush=True)
+    for name, (n, us) in sorted(kernels.items(),
+                                key=lambda kv: -kv[1][1])[:5]:
+        print(f"  {us / 1e3:9.3f} ms in {n:6d} launches: {name[:150]}",
+              flush=True)
+    for wrapper, names in probes.items():
+        if not names:
+            raise AssertionError(f"[profile]: {wrapper} alone launched no "
+                                 "kernel the trace could name")
+        missing = names - set(kernels)
+        print(f"[profile] {wrapper} ({launches[wrapper]} launches counted "
+              f"by the child) launches {sorted(names)}: "
+              f"{'in the trace' if not missing else 'MISSING'}", flush=True)
+        if missing:
+            raise AssertionError(f"[profile]: the trace does not name "
+                                 f"{wrapper}'s kernels {sorted(missing)}")
+    # every counted launch shows in the trace (#8 and #11 may share a body:
+    # at D = 4 both run the panel kernel)
+    both = set().union(*probes.values())
+    traced = sum(kernels[k][0] for k in both)
+    counted = sum(launches[w] for w in PROFILE_KERNELS)
+    print(f"[profile] their kernels' launches in the trace {traced}, the "
+          f"wrappers' counted launches {counted}", flush=True)
+    if traced < counted:
+        raise AssertionError("[profile]: the trace holds fewer launches of "
+                             "#8's and #11's kernels than were counted")
+    return launches
+
+
+def examples_phase(log):
+    """[examples]: ``examples/torch_large_graph.py`` at its defaults in its
+    three forms (one legacy layout, 4 chunks, a window layout over 512
+    communities): its printed lines, the launches of its two forwards, and
+    its checksum, final h and first step's h against the same calls with
+    the kernels' plain versions on the card ('flip': the served-score
+    tolerance; the checksum within TOL_FLIP_MEAN per element, the bound the
+    mean error puts on a sum); then ``examples/torch_custom_task.py`` on
+    the card.  Returns the launches."""
+    import torch
+    LG = load_example("torch_large_graph")
+    launched = dict.fromkeys(KERNELS, 0)
+    cdt = torch.bfloat16
+    for form, (kw, want) in LARGE_GRAPH_FORMS.items():
+        tag = f"[examples] large_graph, {form}"
+        g = LG.prepare(nodes=NODES, edges=EDGES, types=EDGE_TYPES, dim=DIM,
+                       steps=STEPS, device="cuda",
+                       log=lambda m: print(f"{tag}: {m}"), **kw)
+        torch.cuda.synchronize()
+        zero_counts()
+        res = LG.measure(g, log=lambda m: print(f"{tag}: {m}"))
+        launches = read_counts()
+        expect_counts(tag, launches, want)
+        for k, v in launches.items():
+            launched[k] += v
+        with plain_versions():
+            h_ref = LG.forward(g)
+        check(f"{tag} h", res["h"], h_ref, "flip", cdt, {})
+        ref_sum = float(h_ref.double().sum())
+        tol = TOL_FLIP_MEAN * h_ref.numel()
+        print(f"  {tag} checksum {res['checksum']:.6e} against the plain "
+              f"path's {ref_sum:.6e} (tol {tol:.3e})", flush=True)
+        if abs(res["checksum"] - ref_sum) > tol:
+            raise AssertionError(f"{tag}: checksum over tolerance")
+        h1 = LG.forward(g, n_steps=1)
+        with plain_versions():
+            h1_ref = LG.forward(g, n_steps=1)
+        check(f"{tag} first step", h1, h1_ref, "flip", cdt, {})
+        print(f"{tag}: layout {res['build_s']:.2f} s on the host, first run "
+              f"{res['first_s']:.3f} s, steady {res['steady_ms']:.2f} ms "
+              f"({res['edges_per_s']:.4e} edges/s); launches "
+              f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+        del g, res, h_ref, h1, h1_ref
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    CT = load_example("torch_custom_task")
+    res = CT.run("cuda", log=lambda m: print(f"[examples] custom_task: {m}"))
+    accs = list(res["accuracies"].values())
+    if not all(0.0 <= a <= 1.0 for a in accs) or not np.isfinite(
+            res["losses"]).all():
+        raise AssertionError("[examples] custom_task: bad losses or "
+                             "accuracies")
+    print(f"[examples] custom_task: {len(res['losses'])} steps in "
+          f"{time.perf_counter() - t0:.1f} s, accuracies {accs}", flush=True)
+    return launched
+
+
+def rank_dist_example(mesh, state):
+    """[distributed example] on this rank: the example's stages
+    (examples/torch_distributed_production.py: partition, halo_window
+    training on grad layouts, q8 serving under ``torch.no_grad``) at D =
+    128 on the community headline's scale (262,144 nodes, 4M logical / 8M
+    directed edges, the example's P communities, 90 % inside), each
+    stage's launches counted."""
+    import torch
+    EX = load_example("torch_distributed_production")
+    dev = None if SHARDED_DEVICE == "cuda" else SHARDED_DEVICE
+    log = (lambda m: print(f"[distributed example] rank 0: {m}",
+                           flush=True)) if mesh.rank == 0 else (
+        lambda m: None)
+    out, runs = {"host_s": {}}, {}
+    t0 = time.perf_counter()
+    st = EX.setup(nodes=NODES, edges=EDGES, dim=DIM, device=dev, log=log)
+    out["host_s"]["batch, partition and train layouts"] = \
+        time.perf_counter() - t0
+    losses, ms, launches = timed(
+        lambda: EX.train(st, DIST_EXAMPLE_ITERS, log))
+    runs["train"] = dict(losses=np.asarray(losses), ms=ms,
+                         launches=launches,
+                         same=params_same_on_ranks(st["prop"],
+                                                   st["mesh"].group))
+    t0 = time.perf_counter()
+    h, ms, launches = timed(lambda: EX.serve(st, log))
+    runs["serve"] = dict(ms=ms, launches=launches,
+                         finite=bool(torch.isfinite(h).all()),
+                         shape=tuple(h.shape), wall_s=time.perf_counter() - t0)
+    return with_runs(out, runs)
+
+
+def check_dist_example(results, card):
+    """[distributed example]'s checks: finite losses, the same on both
+    ranks, the parameters bit-equal, finite served h, no ``emit_res``
+    launch while serving."""
+    for r, res in enumerate(results):
+        tr, sv = res["out"]["train"], res["out"]["serve"]
+        print(f"[distributed example] rank {r}: {DIST_EXAMPLE_ITERS} train "
+              f"iterations {tr['ms']:.1f} ms, losses "
+              f"{[float(x) for x in tr['losses']]}, "
+              f"launches { {k: v for k, v in tr['launches'].items() if v} };"
+              f" q8 serving {sv['ms']:.1f} ms (its layouts included), h "
+              f"{sv['shape']}, launches "
+              f"{ {k: v for k, v in sv['launches'].items() if v} }; card "
+              f"{card}", flush=True)
+        if not np.isfinite(tr["losses"]).all() or not sv["finite"]:
+            raise AssertionError(f"[distributed example] rank {r}: "
+                                 "non-finite losses or h")
+        if not tr["same"]:
+            raise AssertionError(f"[distributed example] rank {r}: the "
+                                 "parameters differ between the ranks")
+        if sv["launches"]["window_step_gru[emit_res]"]:
+            raise AssertionError("[distributed example]: serving launched "
+                                 "#13's emit_res form")
+        must_launch(f"[distributed example] rank {r} serve", sv["launches"],
+                    ("window_step_gru", "node_table_block_major_q8"))
+    if not np.array_equal(results[0]["out"]["train"]["losses"],
+                          results[1]["out"]["train"]["losses"]):
+        raise AssertionError("[distributed example]: the ranks' losses "
+                             "differ")
+    phase_footer("[distributed example]", results)
+
+
+def dist_example_entry():
+    """The example's real entry, ``python -m torch.distributed.run
+    --nproc_per_node 2 examples/torch_distributed_production.py`` at its
+    default size (a child job on this card over gloo)."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+           "--nproc_per_node", "2", "--master_addr", "127.0.0.1",
+           "--master_port", str(port),
+           repo_file("examples", "torch_distributed_production.py")]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    lines = res.stdout.strip().splitlines()
+    print(f"[distributed example] torchrun --nproc_per_node 2 (rc "
+          f"{res.returncode}, {time.perf_counter() - t0:.1f} s):", flush=True)
+    for line in lines:
+        print(f"  {line}", flush=True)
+    if res.returncode != 0 or not lines or \
+            not lines[-1].startswith("served h: (4096, 128)"):
+        raise AssertionError(f"[distributed example] torchrun failed:\n"
+                             f"{res.stderr[-4000:]}")
+
+
+def dist_example_phase():
+    """[distributed example]: the example's body on two ranks on cuda:0
+    over gloo at the community headline's scale, then its real entry
+    through torchrun.  Returns the ranks' launches."""
+    launched = dict.fromkeys(KERNELS, 0)
+    card = card_line()
+
+    def on_phase(name, results):
+        for res in results:
+            for launches in res["launches"].values():
+                for k, v in launches.items():
+                    launched[k] += v
+        check_dist_example(results, card)
+
+    run_ranks(on_phase, phases=(("[distributed example]",
+                                 rank_dist_example),))
+    dist_example_entry()
+    return launched
+
+
+def dryrun_phase():
+    """[dryrun]: ``ggnn_tpu_torch.dryrun.entry("cuda")``'s forward against
+    its plain run (the flagship forward is the xla backend in f32: it
+    launches no kernel, so the two are one path and must agree within
+    TOL_F32), then ``dryrun_multichip(2)`` on the card (two spawned ranks
+    on cuda:0 over gloo, the package's own entry; their launches are not
+    counted here)."""
+    import torch
+    from ggnn_tpu_torch import dryrun
+    fn, args = dryrun.entry("cuda")
+    zero_counts()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    with plain_versions():
+        ref = fn(*args)
+    check("[dryrun] entry forward", out, ref, "flip", torch.float32, {})
+    expect_counts("[dryrun] entry", launches, {})
+    print(f"[dryrun] entry forward {tuple(out.shape)}: finite, no kernel "
+          "launched (xla, f32)", flush=True)
+    t0 = time.perf_counter()
+    res = dryrun.dryrun_multichip(2)
+    if any(r != res[0] for r in res[1:]) or not all(
+            np.isfinite(res[0][k]) for k in (
+                "train_loss_sum", "window_train_loss_sum",
+                "ggsnn_train_loss_sum")) or not res[0]["q8_finite"]:
+        raise AssertionError(f"[dryrun] the ranks disagree or a loss is not "
+                             f"finite: {res}")
+    print(f"[dryrun] dryrun_multichip(2) on the card in "
+          f"{time.perf_counter() - t0:.1f} s: {res[0]}", flush=True)
+
+
 def setup():
     """Print the card and the software, build the port's kernels from the
     checkout (nvcc seconds per source, ptxas's register and spill lines),
@@ -7069,6 +7458,15 @@ def main() -> int:
     clock.mark("[widths]")
     for k, v in ggsnn_phases(log, clock, sharded_phases).items():
         launched[k] += v
+    for tag, phase in (("[profile]", profile_phase),
+                       ("[examples]", lambda: examples_phase(log)),
+                       ("[distributed example]", dist_example_phase)):
+        for k, v in phase().items():
+            if k in launched:
+                launched[k] += v
+        clock.mark(tag)
+    dryrun_phase()
+    clock.mark("[dryrun]")
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     if any(m == "ggnn_tpu" or m.startswith("ggnn_tpu.") for m in sys.modules):

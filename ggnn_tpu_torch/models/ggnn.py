@@ -56,7 +56,7 @@ from ggnn_tpu_torch.ops.scatter import (BLOCK_N, ScatterLayout,
                                         typed_block_step_gru, typed_step_gru)
 from ggnn_tpu_torch.ops import spmm
 from ggnn_tpu_torch.ops.segment import EdgeScore, sddmm, typed_aggregate
-from ggnn_tpu_torch.ops.window import DeviceWindowLayout
+from ggnn_tpu_torch.ops.window import DeviceWindowLayout, takes_grad
 from ggnn_tpu_torch.ops.window_step import aggregate_window, gru_window_step
 
 
@@ -191,24 +191,20 @@ def typed_fused_step(layout: ScatterLayout, h, msg_w, msg_b, w_a, b_all,
 
 class TypedFusedStep(torch.autograd.Function):
     """The fused typed-pack step with the reference's custom backward
-    (``ggnn.py::_typed_fused_step``).
+    (``ggnn.py::_typed_fused_step``), applied only when the call records a
+    gradient (:func:`~ggnn_tpu_torch.ops.window.takes_grad`; serving calls
+    the fused kernel, :func:`typed_fused_step`, directly).
 
-    Serving (no input needs a gradient) launches the fused kernel
-    (:func:`typed_fused_step`).  Under grad the forward is the reference's
-    fwd rule: the aggregation through the typed block kernel, then the
-    PLAIN GRU math with matmul inputs in ``mdt``; it saves the full
-    residuals (h, a, z, r, h̃ narrow) or, with ``lean``, only (h, a) and
-    recomputes the gates in the backward.  The backward is the plain GRU
+    The forward is the reference's fwd rule: the aggregation through the
+    typed block kernel, then the PLAIN GRU math with matmul inputs in
+    ``mdt``; it saves the full residuals (h, a, z, r, h̃ narrow) or, with
+    ``lean``, only (h, a) and recomputes the gates in the backward.  The backward is the plain GRU
     backward plus :func:`aggregate_bwd` (the grad-octet kernel); it never
     runs the GRU-cell kernels."""
 
     @staticmethod
     def forward(ctx, h, msg_w, msg_b, w_a, b_all, u_zr, uh, layout, mdt,
                 lean):
-        if not any(ctx.needs_input_grad[:7]):
-            cdt = msg_w.dtype
-            return typed_fused_step(layout, h, msg_w, msg_b, w_a, b_all,
-                                    u_zr, uh, cdt)
         grad_meta(layout)               # refuse a layout with no grad half
         hc = h.to(msg_w.dtype)
         a = aggregate_forward(hc, layout, msg_w, msg_b)
@@ -356,8 +352,12 @@ def propagate(prop: dict, cfg: ModelConfig, annotations, edge_src, edge_dst,
                 mdt_f = cdt if cdt != torch.float32 else None
 
                 def step(h):
-                    return TypedFusedStep.apply(h, msg_w_c, msg_b_c, *fused,
-                                                uh, layout, mdt_f,
+                    args = (h, msg_w_c, msg_b_c, *fused, uh)
+                    if not takes_grad(*args):
+                        # serving (#2), also under torch.no_grad with
+                        # trainable parameters
+                        return typed_fused_step(layout, *args, cdt)
+                    return TypedFusedStep.apply(*args, layout, mdt_f,
                                                 cfg.lean_residuals)
             else:
                 if cfg.fuse_gru:

@@ -59,7 +59,7 @@ from ggnn_tpu_torch.ops.gru import (KERNEL_WIDTH, _DTYPE_CODE,
                                     host_ints, kernel_width, narrow_width,
                                     pad_width, gru_cell_fwd_reference)
 from ggnn_tpu_torch.ops.window import (cached_per_tensor, split_plan,
-                                       window_block_spmm_mono)
+                                       takes_grad, window_block_spmm_mono)
 
 BLOCK_N = 128                  # destination rows per output block
 SMEM_TILE_CAP = 40960          # the reference's per-call tile cap (chunking)
@@ -1029,14 +1029,16 @@ def aggregate_forward(h, layout: ScatterLayout, msg_w, msg_b):
 
 
 class AggregateOnehot(torch.autograd.Function):
-    """The reference's ``_aggregate_onehot`` custom VJP: the forward is
-    :func:`aggregate_forward` (typed pack or legacy layout); the backward
-    is :func:`aggregate_bwd`.  It saves h (in the compute dtype, as given)
-    and ``msg_w``, not the gathered pack."""
+    """The reference's ``_aggregate_onehot`` custom VJP, applied only when
+    the call records a gradient (:func:`~ggnn_tpu_torch.ops.window.
+    takes_grad`; serving calls :func:`aggregate_forward` directly): the
+    forward is :func:`aggregate_forward` (typed pack or legacy layout); the
+    backward is :func:`aggregate_bwd`.  It saves h (in the compute dtype,
+    as given) and ``msg_w``, not the gathered pack."""
 
     @staticmethod
     def forward(ctx, h, msg_w, msg_b, layout):
-        if any(ctx.needs_input_grad[:3]) and layout.typed:
+        if layout.typed:
             grad_meta(layout)           # refuse a layout with no grad half
         ctx.layout = layout
         ctx.save_for_backward(h, msg_w)
@@ -1055,7 +1057,11 @@ def aggregate_onehot(h, layout: ScatterLayout, msg_w, msg_b):
     :class:`AggregateOnehot` (a typed pack must then be built
     ``with_grad=True``; a legacy layout without its grad half takes the
     reference's segment sum over ``dst_global``).  ``h`` [N, D] and
-    ``msg_w``/``msg_b`` in the compute dtype; returns [N, D] f32."""
+    ``msg_w``/``msg_b`` in the compute dtype; returns [N, D] f32.  Serving
+    (grad mode off, as under ``torch.no_grad``, or no input that requires a
+    gradient) takes any layout and keeps nothing for a backward."""
+    if not takes_grad(h, msg_w, msg_b):
+        return aggregate_forward(h, layout, msg_w, msg_b)
     return AggregateOnehot.apply(h, msg_w, msg_b, layout)
 
 

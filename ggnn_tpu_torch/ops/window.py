@@ -1857,6 +1857,16 @@ def window_bwd_fused_reference(da_t, c_stream, tile_start, block_of_tile,
 _BWD_WALKS: dict = {}
 
 
+def takes_grad(*tensors) -> bool:
+    """Whether a call records a gradient: grad mode on and some input
+    requires one.  The custom autograd functions decide between their
+    serving and training forwards by it before ``.apply``; inside
+    ``forward`` grad mode is always off, and ``ctx.needs_input_grad``
+    stays set under ``torch.no_grad``."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def cached_per_tensor(t, key, make):
     """``make()``, computed once per (tensor ``t``, ``key``) while ``t``
     lives: what a layout's arrays alone decide, such as #14's walk table,

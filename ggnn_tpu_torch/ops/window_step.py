@@ -287,7 +287,9 @@ def gru_window_step(h, layout: DeviceWindowLayout, msg_w, msg_b, gru: dict,
     Trainable (:class:`FusedWindowStep`): under autograd the kernel also
     writes the (a | z | r | h̃) residuals, and the backward is #4 on them
     plus :func:`aggregate_window_bwd` (a layout built ``with_grad=True``,
-    N % 128 == 0 and D % 128 == 0).  Serving launches it without them.
+    N % 128 == 0 and D % 128 == 0).  Serving (grad mode off, as under
+    ``torch.no_grad``, or no input that requires a gradient) launches it
+    without them.
 
     ``quantized``: the q8 table (int8, power-of-2 window scales), forward
     only; its spill is the XW spill (exact, from h) or the legacy one
@@ -307,9 +309,7 @@ def gru_window_step(h, layout: DeviceWindowLayout, msg_w, msg_b, gru: dict,
                          "'src' layout")
     N, D = h.shape
     if quantized:
-        if torch.is_grad_enabled() and any(
-                t is not None and t.requires_grad
-                for t in (h, msg_w, msg_b, extra_init, *gru.values())):
+        if W.takes_grad(h, msg_w, msg_b, extra_init, *gru.values()):
             raise ValueError("quantized=True is a serving mode (a forward-"
                              "only int8 table); train with quantized_table="
                              "False")
@@ -319,8 +319,12 @@ def gru_window_step(h, layout: DeviceWindowLayout, msg_w, msg_b, gru: dict,
     uzr = torch.cat([gru["uz"], gru["ur"]], dim=1)
     if extra_init is None:
         extra_init = torch.zeros(0, D, dtype=torch.float32, device=h.device)
-    return FusedWindowStep.apply(h, msg_w, msg_b, wa, b3, uzr, gru["uh"],
-                                 extra_init, layout)[:N]
+    args = (h, msg_w, msg_b, wa, b3, uzr, gru["uh"], extra_init)
+    if not W.takes_grad(*args):
+        # serving: #13 without residuals, whatever the parameters'
+        # requires_grad says under torch.no_grad
+        return _fused_step_impl(layout, *args, emit_res=False)[:N]
+    return FusedWindowStep.apply(*args, layout)[:N]
 
 
 def _init_stream(init, extra, n_rows, D, device, has_init):
@@ -406,17 +410,16 @@ def _fused_step_impl(layout, h, msg_w, msg_b, wa, b3, uzr, uh, extra,
 
 class FusedWindowStep(torch.autograd.Function):
     """The trainable fused step (the reference's ``_fused_gru_step`` and
-    its VJP).  Serving (no input needs a gradient) launches #13 without
-    residuals.  Under grad the forward launches #13 with ``emit_res`` and
-    saves h in the compute dtype and the residuals; the backward runs #4
-    (``gru_cell_bwd``, da in the compute dtype) on them, then
-    :func:`aggregate_window_bwd`; extra's cotangent is da's leading rows."""
+    its VJP), applied only when the call records a gradient
+    (:func:`~ggnn_tpu_torch.ops.window.takes_grad`; serving calls #13
+    without residuals directly).  The forward launches #13 with
+    ``emit_res`` and saves h in the compute dtype and the residuals; the
+    backward runs #4 (``gru_cell_bwd``, da in the compute dtype) on them,
+    then :func:`aggregate_window_bwd`; extra's cotangent is da's leading
+    rows."""
 
     @staticmethod
     def forward(ctx, h, msg_w, msg_b, wa, b3, uzr, uh, extra, layout):
-        if not any(ctx.needs_input_grad[:8]):
-            return _fused_step_impl(layout, h, msg_w, msg_b, wa, b3, uzr, uh,
-                                    extra, emit_res=False)
         h_new, resid = _fused_step_impl(layout, h, msg_w, msg_b, wa, b3,
                                         uzr, uh, extra, emit_res=True)
         ctx.layout, ctx.dtypes = layout, (h.dtype, wa.dtype, b3.dtype,

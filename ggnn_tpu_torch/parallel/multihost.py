@@ -56,7 +56,9 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
     is the rendezvous' timeout (a missing rank raises
     ``torch.distributed.DistError`` after it).  ``backend`` defaults to
     ``nccl`` on a CUDA ``device`` (:func:`rank_device`) and ``gloo`` on the
-    CPU; the one named is the one used."""
+    CPU or where this host's ranks (``LOCAL_WORLD_SIZE``, else all
+    ``num_processes``) outnumber its cards: NCCL takes one rank per
+    device.  The one named is the one used."""
     if coordinator_address is None and "MASTER_ADDR" in os.environ:
         coordinator_address = (f"{os.environ['MASTER_ADDR']}:"
                                f"{os.environ.get('MASTER_PORT', '29500')}")
@@ -77,7 +79,9 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
     if device.type == "cuda":
         torch.cuda.set_device(device)
     if backend is None:
-        backend = "nccl" if device.type == "cuda" else "gloo"
+        local = int(os.environ.get("LOCAL_WORLD_SIZE", num_processes))
+        backend = ("nccl" if device.type == "cuda"
+                   and local <= torch.cuda.device_count() else "gloo")
     dist.init_process_group(
         backend, init_method=f"tcp://{coordinator_address}",
         world_size=num_processes, rank=process_id,

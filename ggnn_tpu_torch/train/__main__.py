@@ -4,12 +4,14 @@
            [--epochs 100] [--lr 1e-3] [--state_dim 4] [--n_steps 5]
            [--batch_size 10] [--seed 0] [--question_id 0]
            [--data_root babi_data] [--backend xla] [--metrics out.jsonl]
-           [--checkpoint_dir d] [--restore ckpt.npz]
+           [--checkpoint_dir d] [--restore ckpt.npz] [--profile DIR]
 
 Trains on the card by default (``--device cuda``); without a CUDA device
 that raises, and nothing falls back to the CPU: pass ``--device cpu`` to
 train on the CPU.  ``--backend onehot`` batches with the legacy layout
-(``layout_for_batch``) as the reference's Trainer does.  Prints the result
+(``layout_for_batch``) as the reference's Trainer does.  ``--profile DIR``
+records a ``torch.profiler`` trace of the training run (a Chrome trace,
+``DIR/trace_*.json``; :mod:`ggnn_tpu_torch.profiling`).  Prints the result
 record as JSON on stdout.
 """
 
@@ -53,20 +55,24 @@ def main(argv=None) -> int:
                     choices=["cuda", "cpu"],
                     help="where to train (default cuda; without a card it "
                          "raises)")
+    ap.add_argument("--profile", type=str, default=None,
+                    help="record a profiler trace into this directory")
     args = ap.parse_args(argv)
 
     from ggnn_tpu_torch.train.config import build_config
     from ggnn_tpu_torch.train.loop import Trainer
 
     overrides = {k: v for k, v in vars(args).items()
-                 if k not in ("config", "restore", "device")
+                 if k not in ("config", "restore", "device", "profile")
                  and v is not None}
     cfg = build_config(args.config, **overrides)
     print(f"config: {cfg}", file=sys.stderr)
     trainer = Trainer(cfg, device=args.device)
     if args.restore:
         trainer.restore(args.restore)
-    result = trainer.run()
+    from ggnn_tpu_torch.profiling import trace
+    with trace(args.profile, trainer.device):
+        result = trainer.run()
     print(json.dumps(result))
     return 0
 

@@ -33,16 +33,17 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(d, f)
     yield os.path.join(REPO, "chip_smoke.py")
-    scripts = os.path.join(REPO, "scripts")
-    for f in sorted(os.listdir(scripts)):
-        if f.startswith("torch_") and f.endswith(".py"):
-            yield os.path.join(scripts, f)
+    for sub in ("scripts", "examples"):
+        d = os.path.join(REPO, sub)
+        for f in sorted(os.listdir(d)):
+            if f.startswith("torch_") and f.endswith(".py"):
+                yield os.path.join(d, f)
 
 
 def test_port_never_imports_the_jax_package():
     """No module of the port, nothing in chip_smoke.py and no
-    ``scripts/torch_*.py`` imports ``ggnn_tpu`` or ``jax`` (every import
-    statement, at any depth)."""
+    ``scripts/torch_*.py`` or ``examples/torch_*.py`` imports ``ggnn_tpu``
+    or ``jax`` (every import statement, at any depth)."""
     found = []
     for path in _port_sources():
         tree = ast.parse(open(path).read(), path)

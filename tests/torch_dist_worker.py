@@ -172,8 +172,30 @@ def run_ddp(case, mesh):
             **_grads(params), **_values(params)}
 
 
+def run_example(case, mesh):
+    """``examples/torch_distributed_production.py``'s stages on this rank
+    (its own mesh over the whole world): each train iteration's loss, the
+    first iteration's gradients, the trained weights and the q8-served
+    h."""
+    import importlib.util
+    import numpy as np
+    path = os.path.join(ROOT, "examples", "torch_distributed_production.py")
+    spec = importlib.util.spec_from_file_location("dist_example", path)
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    quiet = lambda *a, **k: None    # noqa: E731
+    state = ex.setup(device=mesh.device, params=case["params"], log=quiet,
+                     **case["example"])
+    ex.train(state, 1, quiet)
+    grads = _grads(state["prop"])
+    ex.train(state, case["train_iters"] - 1, quiet)
+    h = ex.serve(state, quiet)
+    return {"losses": np.asarray(state["losses"]), "h": _np(h), **grads,
+            **_values(state["prop"])}
+
+
 RUNNERS = {"propagate": run_propagate, "train": run_train, "task": run_task,
-           "eval": run_eval, "ddp": run_ddp}
+           "eval": run_eval, "ddp": run_ddp, "example": run_example}
 
 
 def mesh_key(case):
