@@ -6419,13 +6419,43 @@ def ggsnn_cell(device):
     return batch, targets
 
 
+# graph counts of the uneven [ddp] steps: parts of 32 and 31 graphs (one
+# empty slot), and one graph (rank 1 all padding)
+DDP_UNEVEN = (63, 1)
+
+
+def ggsnn_sub_cell(n, targets):
+    """The GGS-NN cell's first ``n`` graphs as a batch of ``n`` slots (their
+    rows and edges alone), with the cell's ``targets`` (host arrays) for
+    them in ``batch.targets``."""
+    from ggnn_tpu_torch.graph import PaddingSpec, batch_graphs
+    spec = PaddingSpec(n_graphs=n, n_pad=n * GGSNN_NODES,
+                       e_pad=2 * n * GGSNN_EDGES, n_edge_types=EDGE_TYPES,
+                       annotation_dim=ANN)
+    batch = batch_graphs(ggsnn_graphs(0)[:n], spec)
+    batch.targets = {"seq": targets["seq"][:n],
+                     "seq_nodes": targets["seq_nodes"][:n],
+                     "ann_seq": targets["ann_seq"][:spec.n_pad]}
+    return batch
+
+
+def typed_grad_pack(batch, device):
+    """The typed pack of ``batch`` with its grad half, on ``device``."""
+    from ggnn_tpu_torch.ops.scatter import _rup_block, build_typed_dst_layout
+    return build_typed_dst_layout(
+        batch.edge_src, batch.edge_dst, batch.edge_type, batch.edge_mask,
+        _rup_block(batch.spec.n_pad), n_message_types=2 * EDGE_TYPES,
+        with_grad=True).to(device)
+
+
 def rank_ggsnn(mesh, state):
     """[sharded ggsnn] on this rank: one sharded GGS-NN task step (the
     graph output, annotation supervision) through halo; then [ddp]: one
     data-parallel step of the same cell, each rank with its 32 graphs'
-    typed pack, fused."""
+    typed pack, fused; then one on the cell's first 63 graphs (32 and 31
+    graphs, the second part ending in an empty slot) and one on its first
+    graph (rank 1 all padding)."""
     import torch
-    from ggnn_tpu_torch.ops.scatter import _rup_block, build_typed_dst_layout
     from ggnn_tpu_torch.parallel import make_sharded_task_train_step
     from ggnn_tpu_torch.parallel.partition import partition_batch
     from ggnn_tpu_torch.parallel.train import (make_gspmd_train_step,
@@ -6450,23 +6480,31 @@ def rank_ggsnn(mesh, state):
     del params, opt, step, lp
     torch.cuda.empty_cache()
 
-    t0 = time.perf_counter()
-    sub = split_batch(batch, mesh.size, mesh.rank)
-    lay = build_typed_dst_layout(
-        sub.edge_src, sub.edge_dst, sub.edge_type, sub.edge_mask,
-        _rup_block(sub.spec.n_pad), n_message_types=2 * EDGE_TYPES,
-        with_grad=True).to(dev)
-    arrays = batch_arrays(sub, dev)
-    out["host_s"]["ddp split and typed pack"] = time.perf_counter() - t0
+    # [ddp]: the cell's 64 graphs, then DDP_UNEVEN's counts
     cfg = ggsnn_cfg("graph", fuse_gru=True)
-    params = sharded_params(cfg)
-    opt = make_optimizer(params, SHARDED_LR)
-    step = make_gspmd_train_step(cfg, GGSNN_GRAPHS, opt, mesh)
-    m, ms, launches = timed(lambda: step(params, arrays, lay))
-    runs["ddp"] = dict(loss=float(m["loss_sum"] / m["count"]), ms=ms,
-                       launches=launches,
-                       same=params_same_on_ranks(params, axis.group),
-                       grads=flat_grads(params) if mesh.rank == 0 else None)
+    for tag, n in (("ddp", GGSNN_GRAPHS),
+                   *((f"ddp{n}", n) for n in DDP_UNEVEN)):
+        t0 = time.perf_counter()
+        whole = batch if n == GGSNN_GRAPHS else ggsnn_sub_cell(
+            n, batch.targets)
+        sub = split_batch(whole, mesh.size, mesh.rank)
+        lay = typed_grad_pack(sub, dev)
+        arrays = batch_arrays(sub, dev)
+        out["host_s"][f"{tag} split and typed pack"] = \
+            time.perf_counter() - t0
+        params = sharded_params(cfg)
+        opt = make_optimizer(params, SHARDED_LR)
+        step = make_gspmd_train_step(cfg, n, opt, mesh)
+        m, ms, launches = timed(lambda: step(params, arrays, lay))
+        runs[tag] = dict(loss=float(m["loss_sum"] / m["count"]), ms=ms,
+                         launches=launches,
+                         graphs=int((sub.n_nodes > 0).sum()),
+                         slots=sub.spec.n_graphs, rows=sub.spec.n_pad,
+                         same=params_same_on_ranks(params, axis.group),
+                         grads=flat_grads(params) if mesh.rank == 0
+                         else None)
+        del params, opt, step, lay, arrays, sub, whole
+        torch.cuda.empty_cache()
     return with_runs(out, runs)
 
 
@@ -6586,7 +6624,9 @@ def run_ranks(on_phase, world=SHARDED_P, phases=RANK_PHASES):
 def single_device_refs(b, holder):
     """The single-device path on the card, before the ranks start: the
     first GGS-NN step through the cell's whole typed pack fused (the [ddp]
-    reference; ``holder`` is emptied after it), then on 'xla' with f32 GRU
+    reference; ``holder`` is emptied after it) and through the typed packs
+    of its first 63 graphs and its first graph (the uneven [ddp] steps'),
+    then on 'xla' with f32 GRU
     matmul inputs (the sharded path's cell): the GGS-NN cell's first step,
     the uniform and community headline forwards (``propagate``) and their
     first node_select steps.  The 'xla' steps recompute each propagation
@@ -6610,11 +6650,18 @@ def single_device_refs(b, holder):
     batch, lay = holder
     arrays = batch_arrays(batch, SHARDED_DEVICE)
     arrays["targets"] = ggsnn_targets(batch)
-    refs["ddp"] = first_step(ggsnn_cfg("graph", fuse_gru=True), arrays,
-                             GGSNN_GRAPHS, lay)
+    cfg = ggsnn_cfg("graph", fuse_gru=True)
+    refs["ddp"] = first_step(cfg, arrays, GGSNN_GRAPHS, lay)
     holder.clear()
     del lay
     torch.cuda.empty_cache()
+    host = {k: v.cpu().numpy() for k, v in arrays["targets"].items()}
+    for n in DDP_UNEVEN:
+        sub = ggsnn_sub_cell(n, host)
+        refs[f"ddp{n}"] = first_step(cfg, batch_arrays(sub, SHARDED_DEVICE),
+                                     n, typed_grad_pack(sub, SHARDED_DEVICE))
+        del sub
+        torch.cuda.empty_cache()
     refs["ggsnn"] = first_step(ggsnn_cfg("graph", backend="xla",
                                          gru_matmul_compute=False,
                                          remat=True), arrays, GGSNN_GRAPHS)
@@ -6844,20 +6891,27 @@ def check_sharded_train(train, refs, card):
 
 
 def check_sharded_ggsnn(gg, refs, card):
-    """[sharded ggsnn] and [ddp] against the single-device steps."""
-    for tag, phase in (("ggsnn", "[sharded ggsnn]"), ("ddp", "[ddp]")):
+    """[sharded ggsnn] and [ddp] (the cell's 64 graphs and DDP_UNEVEN's
+    counts) against the single-device steps."""
+    ddp = ["ddp", *(f"ddp{n}" for n in DDP_UNEVEN)]
+    for tag, phase in (("ggsnn", "[sharded ggsnn]"),
+                       *((t, "[ddp]") for t in ddp)):
         err = hold_step(f"{phase} {tag}", gg[0]["out"][tag], refs[tag],
                         TOL_GGSNN)
         for r, res in enumerate(gg):
             out = res["out"][tag]
             if not out["same"]:
-                raise AssertionError(f"{phase}: rank {r}'s parameters "
+                raise AssertionError(f"{phase} {tag}: rank {r}'s parameters "
                                      "differ from rank 0's")
+            part = ("" if tag == "ggsnn" else
+                    f", {out['graphs']} graphs in {out['slots']} slots of "
+                    f"{out['rows']} rows")
             rank_line(phase, r, tag, out, card, err,
-                      f", loss {out['loss']:.6f}, parameters bit-equal on "
-                      "the ranks")
-    must_launch("[ddp]", gg[0]["launches"]["ddp"],
-                ("typed_block_scatter", "typed_grad_octet_scatter"))
+                      f", loss {out['loss']:.6f}{part}, parameters "
+                      "bit-equal on the ranks")
+    for tag in ddp:
+        must_launch(f"[ddp] {tag}", gg[0]["launches"][tag],
+                    ("typed_block_scatter", "typed_grad_octet_scatter"))
     phase_footer("[sharded ggsnn] and [ddp]", gg)
 
 
@@ -7258,9 +7312,11 @@ def dryrun_phase():
     """[dryrun]: ``ggnn_tpu_torch.dryrun.entry("cuda")``'s forward against
     its plain run (the flagship forward is the xla backend in f32: it
     launches no kernel, so the two are one path and must agree within
-    TOL_F32), then ``dryrun_multichip(2)`` on the card (two spawned ranks
-    on cuda:0 over gloo, the package's own entry; their launches are not
-    counted here)."""
+    TOL_F32), then ``dryrun_multichip(2)`` and ``(3)`` on the card (two
+    and three spawned ranks on cuda:0 over gloo, the package's own entry;
+    their launches are not counted here), each on the reference's batch of
+    4 graphs (halo shape (8n, 8); at n = 3 the data-parallel parts hold 2,
+    1 and 1 graphs), and :func:`empty_slot_check`."""
     import torch
     from ggnn_tpu_torch import dryrun
     fn, args = dryrun.entry("cuda")
@@ -7274,16 +7330,65 @@ def dryrun_phase():
     expect_counts("[dryrun] entry", launches, {})
     print(f"[dryrun] entry forward {tuple(out.shape)}: finite, no kernel "
           "launched (xla, f32)", flush=True)
-    t0 = time.perf_counter()
-    res = dryrun.dryrun_multichip(2)
-    if any(r != res[0] for r in res[1:]) or not all(
-            np.isfinite(res[0][k]) for k in (
-                "train_loss_sum", "window_train_loss_sum",
-                "ggsnn_train_loss_sum")) or not res[0]["q8_finite"]:
-        raise AssertionError(f"[dryrun] the ranks disagree or a loss is not "
-                             f"finite: {res}")
-    print(f"[dryrun] dryrun_multichip(2) on the card in "
-          f"{time.perf_counter() - t0:.1f} s: {res[0]}", flush=True)
+    for n in (2, 3):
+        t0 = time.perf_counter()
+        res = dryrun.dryrun_multichip(n)
+        if any(r != res[0] for r in res[1:]) or not all(
+                np.isfinite(res[0][k]) for k in (
+                    "train_loss_sum", "window_train_loss_sum",
+                    "ggsnn_train_loss_sum")) or not res[0]["q8_finite"]:
+            raise AssertionError(f"[dryrun] the ranks disagree or a loss is "
+                                 f"not finite: {res}")
+        # the reference's batch: 4 graphs of 2n nodes
+        if res[0]["halo_shape"] != (8 * n, 8):
+            raise AssertionError(f"[dryrun] dryrun_multichip({n}): halo "
+                                 f"shape {res[0]['halo_shape']}, the "
+                                 f"reference's is {(8 * n, 8)}")
+        print(f"[dryrun] dryrun_multichip({n}) on the card in "
+              f"{time.perf_counter() - t0:.1f} s: {res[0]}", flush=True)
+    empty_slot_check()
+
+
+def empty_slot_check():
+    """node_select's loss on the card on a batch whose one graph of 128
+    nodes fills ``n_pad`` and whose second slot is empty (its node offset
+    one past the last row), against the same call on the CPU: the loss
+    within 1e-5, ``correct`` and ``count`` equal (xla, f32: no kernel)."""
+    import torch
+    from ggnn_tpu_torch.graph import PaddingSpec, batch_graphs
+    from ggnn_tpu_torch.models.api import loss_and_metrics
+    from ggnn_tpu_torch.models.config import ModelConfig
+    from ggnn_tpu_torch.models.init import init_params, params_from_numpy
+    from ggnn_tpu_torch.train.loop import batch_arrays
+    r = np.random.default_rng(0)
+    n, m = 128, 384
+    graph = dict(n_nodes=n, edges=np.stack([
+        r.integers(0, n, m), r.integers(0, 3, m), r.integers(0, n, m)], 1),
+        annotations=(r.random((n, 2)) < 0.4).astype(np.float32),
+        targets={"node": np.asarray(int(r.integers(0, n)), np.int32)})
+    batch = batch_graphs([graph], PaddingSpec(
+        n_graphs=2, n_pad=n, e_pad=2 * m, n_edge_types=3, annotation_dim=2))
+    cfg = ModelConfig(state_dim=8, annotation_dim=2, n_edge_types=3,
+                      n_steps=3, head="node_select")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    got = {}
+    zero_counts()
+    for dev in ("cuda", "cpu"):
+        with torch.no_grad():
+            loss, met = loss_and_metrics(params_from_numpy(params, dev), cfg,
+                                         batch_arrays(batch, dev), 2)
+        got[dev] = [loss.item(), met["correct"].item(), met["count"].item()]
+    expect_counts("[dryrun] node_select, empty slot", read_counts(), {})
+    (lc, cc, nc), (lh, ch, nh) = got["cuda"], got["cpu"]
+    ok = abs(lc - lh) <= 1e-5 * abs(lh) and (cc, nc) == (ch, nh) \
+        and np.isfinite(lc)
+    print(f"[dryrun] node_select on one graph of {n} nodes filling n_pad "
+          f"{n} and an empty slot: loss {lc:.7f} on the card, {lh:.7f} on "
+          f"the CPU (tol 1e-5 relative), correct {cc:.0f} / {ch:.0f}, count "
+          f"{nc:.0f} / {nh:.0f} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("[dryrun] node_select's loss on an empty slot "
+                             "differs between the card and the CPU")
 
 
 def setup():

@@ -10,14 +10,9 @@
   on an ``n_data × n_graph`` mesh, a halo-exchange propagation, a
   halo_window propagation on a community graph, q8 halo_window serving at
   D = 128, the fused halo_window task train step on grad layouts, and the
-  sharded GGS-NN train step through halo_overlap.  Each rank prints
-  nothing; rank 0's line of losses and shapes is printed.
-
-The port's data-parallel step gives each rank whole graphs
-(``parallel/train.py::split_batch``), where the reference shards one
-flattened batch of 4 graphs over any device count: here the batch holds
-``n · ceil(4 / n)`` graphs (4 for n = 1, 2, 4), a count that splits over
-the ranks.
+  sharded GGS-NN train step through halo_overlap; the first, second and
+  last on the reference's batch of 4 graphs of 2n nodes.  Each rank
+  prints nothing; rank 0's line of losses and shapes is printed.
 
     python -m ggnn_tpu_torch.dryrun [--ranks N] [--device cuda|cpu]
 
@@ -28,7 +23,6 @@ over gloo where ranks share a card, else NCCL); without one that raises.
 from __future__ import annotations
 
 import argparse
-import math
 import socket
 import time
 
@@ -62,11 +56,12 @@ def entry(device="cuda"):
 
 
 def _tiny_batch(n):
-    """The reference's tiny batch (``__graft_entry__.py:80-97``), with
-    ``n · ceil(4 / n)`` graphs of 2n nodes."""
+    """The reference's tiny batch (``__graft_entry__.py:80-97``): 4 graphs
+    of 2n nodes (the data-parallel step gives a rank whole graphs, some
+    ranks none where n > 4)."""
     from ggnn_tpu_torch.graph import PaddingSpec, batch_graphs
     rng = np.random.default_rng(0)
-    n_graphs, n_per, n_et, ann_dim = n * math.ceil(4 / n), 2 * n, 4, 2
+    n_graphs, n_per, n_et, ann_dim = 4, 2 * n, 4, 2
     graphs = []
     for _ in range(n_graphs):
         m = 3 * n_per // 2

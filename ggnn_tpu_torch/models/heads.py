@@ -63,12 +63,17 @@ def node_select_loss(scores, node_graph, node_mask, n_nodes, target_local,
     """Per-graph softmax-over-nodes cross-entropy and exact-match accuracy;
     returns (loss, correct [B] bool, graph mask [B]).  ``target_local`` is
     the node id within each graph; the prediction is the FIRST node that
-    reaches its graph's maximum score."""
+    reaches its graph's maximum score.  A graph without nodes adds nothing:
+    its target may point one past the last row, so the gather is clamped
+    (as the reference's) and its term masked."""
+    N = scores.shape[0]
     offs = node_offsets(n_nodes)
     target_global = (offs + target_local).long()
     logp = segment_log_softmax(scores, node_graph, n_graphs + 1, node_mask)
-    graph_mask = (n_nodes > 0).to(scores.dtype)
-    nll = -logp[target_global] * graph_mask
+    real = n_nodes > 0
+    graph_mask = real.to(scores.dtype)
+    nll = -logp[target_global.clamp(0, N - 1)]
+    nll = torch.where(real, nll, torch.zeros_like(nll))
     loss = nll.sum() / graph_mask.sum().clamp_min(1.0)
 
     pred = segment_first_argmax(scores[None], node_graph, node_mask,

@@ -3,15 +3,18 @@ step (``ggnn_tpu/parallel/train.py``).
 
 For a flattened graph batch the reference shards the node and edge axes
 over the whole mesh and lets XLA insert the collectives.  Here each rank of
-the mesh takes a contiguous range of whole graphs (:func:`split_batch`,
-:func:`shard_batch_arrays`), runs the single-device model on them, and the
-ranks sum: every loss is a ratio of sums (the graph count for node_select
-and graph_gated, the labelled nodes for per_node, the valid rounds and the
-supervised annotation weights for GGS-NN), so each rank backprops its
-numerators over the global denominators (all-reduced, no gradient), the
-parameter gradients are summed over the ranks and every rank takes the same
-optimizer step.  The step equals the single-device step on the whole
-batch; its metrics are the whole batch's.
+the mesh takes a contiguous range of whole graphs, cut where the batch's
+real nodes split evenly (:func:`part_bounds`, :func:`split_batch`,
+:func:`shard_batch_arrays`; any graph count over any rank count, a rank
+with fewer graphs padded with empty slots, one with none all padding),
+runs the single-device model on them, and the ranks sum: every loss is a
+ratio of sums (the graphs with nodes for node_select and graph_gated, the
+labelled nodes for per_node, the valid rounds and the supervised
+annotation weights for GGS-NN; an empty slot adds to none of them), so
+each rank backprops its numerators over the global denominators
+(all-reduced, no gradient), the parameter gradients are summed over the
+ranks and every rank takes the same optimizer step.  The step equals the
+single-device step on the whole batch; its metrics are the whole batch's.
 """
 
 from __future__ import annotations
@@ -30,25 +33,45 @@ from ggnn_tpu_torch.train.loop import batch_arrays, param_leaves
 
 # the per-node targets of a batch (node-aligned, leading axis n_pad)
 NODE_TARGETS = ("node_labels", "ann_seq")
+# the per-graph targets whose empty slots say "no round" (GGS-NN's token
+# and path-node sequences); the others pad with 0, as ``batch_graphs`` does
+GRAPH_TARGET_PAD = {"seq": -1, "seq_nodes": -1}
+
+
+def part_bounds(n_nodes, n_parts: int) -> np.ndarray:
+    """The graph ranges of the ``n_parts`` parts of a batch whose graphs
+    have ``n_nodes`` nodes: int64 [n_parts + 1], part p holding graphs
+    ``[bounds[p], bounds[p + 1])``.  Part p ends at the first graph
+    boundary at or past (p + 1)/P of the real nodes, so the parts balance
+    nodes as the reference's even node-axis sharding does (equal graphs
+    that P divides: B/P each); the last part ends at the last slot.  A
+    part may hold no graph."""
+    n_nodes = np.asarray(n_nodes, np.int64)
+    starts = np.concatenate([[0], np.cumsum(n_nodes)])
+    ends = np.searchsorted(starts * n_parts,
+                           np.arange(1, n_parts + 1) * starts[-1])
+    ends[-1] = n_nodes.shape[0]
+    return np.concatenate([[0], ends]).astype(np.int64)
 
 
 def split_batch(batch: GraphBatch, n_parts: int, part: int) -> GraphBatch:
-    """Graphs ``[part·B/P, (part+1)·B/P)`` of ``batch`` as a batch of their
-    own: their nodes (contiguous in the flattened axis) and real edges
-    re-indexed from 0, in the batch's (type, dst, src) order, the per-graph
-    and per-node targets sliced.  Every part gets the same spec: ``B/P``
-    graphs and the largest part's node and edge counts, rounded up to
-    multiples of 128 and 8."""
+    """Part ``part`` of ``n_parts`` of ``batch`` (:func:`part_bounds`:
+    whole, contiguous graphs) as a batch of its own: its graphs' nodes
+    (contiguous in the flattened axis) and real edges re-indexed from 0, in
+    the batch's (type, dst, src) order, the per-graph and per-node targets
+    sliced.  Every part gets the same spec: the largest part's graph count
+    and its node and edge counts, rounded up to multiples of 128 and 8.  A
+    part with fewer graphs ends in empty slots (``n_nodes`` 0, per-graph
+    targets padded with ``GRAPH_TARGET_PAD`` or 0); a part with no graph is
+    all padding."""
     spec = batch.spec
-    B = spec.n_graphs
-    if B % n_parts:
-        raise ValueError(f"{B} graphs do not split into {n_parts} parts")
-    b = B // n_parts
+    bounds = part_bounds(batch.n_nodes, n_parts)
+    b = int(np.diff(bounds).max())
     starts = np.concatenate([[0], np.cumsum(batch.n_nodes)]).astype(np.int64)
     real = batch.edge_mask > 0
 
     def span(p):
-        n0, n1 = starts[p * b], starts[(p + 1) * b]
+        n0, n1 = starts[bounds[p]], starts[bounds[p + 1]]
         sel = real & (batch.edge_dst >= n0) & (batch.edge_dst < n1)
         return n0, n1, sel
 
@@ -58,13 +81,16 @@ def split_batch(batch: GraphBatch, n_parts: int, part: int) -> GraphBatch:
     e_pad = rup(max(int(sel.sum()) for *_, sel in spans), 8)
     sub = dataclasses.replace(spec, n_graphs=b, n_pad=n_pad, e_pad=e_pad)
     n0, n1, sel = spans[part]
+    g0, g1 = int(bounds[part]), int(bounds[part + 1])
     n = int(n1 - n0)
     ann = np.zeros((n_pad, spec.annotation_dim), np.float32)
     ann[:n] = batch.annotations[n0:n1]
     node_graph = np.full(n_pad, b, np.int32)
-    node_graph[:n] = batch.node_graph[n0:n1] - part * b
+    node_graph[:n] = batch.node_graph[n0:n1] - g0
     node_mask = np.zeros(n_pad, np.float32)
     node_mask[:n] = batch.node_mask[n0:n1]
+    n_nodes = np.zeros(b, batch.n_nodes.dtype)
+    n_nodes[:g1 - g0] = batch.n_nodes[g0:g1]
     m = int(sel.sum())
     edges = {}
     for key in ("edge_src", "edge_dst", "edge_type"):
@@ -83,12 +109,14 @@ def split_batch(batch: GraphBatch, n_parts: int, part: int) -> GraphBatch:
             out = np.zeros((n_pad, *val.shape[1:]), val.dtype)
             out[:n] = val[n0:n1]
         else:
-            out = val[part * b:(part + 1) * b]
+            out = np.full((b, *val.shape[1:]), GRAPH_TARGET_PAD.get(key, 0),
+                          val.dtype)
+            out[:g1 - g0] = val[g0:g1]
         targets[key] = out
     return GraphBatch(spec=sub, annotations=ann, node_graph=node_graph,
                       node_mask=node_mask, type_offsets=offsets,
-                      n_nodes=batch.n_nodes[part * b:(part + 1) * b].copy(),
-                      edge_mask=edge_mask, targets=targets, **edges)
+                      n_nodes=n_nodes, edge_mask=edge_mask, targets=targets,
+                      **edges)
 
 
 def shard_batch_arrays(batch: GraphBatch, mesh) -> dict:
@@ -128,8 +156,9 @@ def _loss_terms(params, cfg, arrays, n_graphs, scatter_layout):
 
 def make_gspmd_train_step(model_cfg, n_graphs: int, optimizer, mesh):
     """The data-parallel step over every rank of ``mesh``: ``n_graphs`` is
-    the whole batch's graph count (each rank runs ``n_graphs / P`` of
-    them).  Returns ``train_step(params, arrays, scatter_layout=None) ->
+    the whole batch's graph count, any count over any rank count (each
+    rank runs its part's slots, :func:`split_batch`, the count its arrays
+    hold).  Returns ``train_step(params, arrays, scatter_layout=None) ->
     metrics``: ``arrays`` is this rank's part (:func:`shard_batch_arrays`),
     ``scatter_layout`` a layout of it as ``propagate`` takes one;
     ``optimizer`` holds ``params``' leaves, updated in place identically on
@@ -137,15 +166,14 @@ def make_gspmd_train_step(model_cfg, n_graphs: int, optimizer, mesh):
     and ``count``."""
     if model_cfg.quantized_table:
         raise ValueError("quantized_table=True is a serving mode")
-    P = mesh.size
-    if n_graphs % P:
-        raise ValueError(f"{n_graphs} graphs do not split over {P} ranks")
+    del n_graphs        # the reference's signature; the parts say their own
     group = mesh.group
 
     def train_step(params, arrays, scatter_layout=None):
         optimizer.zero_grad(set_to_none=True)
         terms, correct, count = _loss_terms(params, model_cfg, arrays,
-                                            n_graphs // P, scatter_layout)
+                                            arrays["n_nodes"].shape[0],
+                                            scatter_layout)
         dens = comm.psum(torch.stack([d.detach().float()
                                       for _, _, d in terms]), group)
         objective = sum(c * num / dens[i].clamp_min(1.0)

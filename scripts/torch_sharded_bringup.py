@@ -8,8 +8,10 @@ kernels' build), the GGS-NN cell's batch and typed pack (``ggsnn_batch``),
 then ``sharded_phases``: the single-device references on the card, two
 ranks on cuda:0 over gloo (``[sharded serve]``, ``[sharded train]``,
 ``[sharded ggsnn]``, ``[ddp]``, each against the single-device path), and
-``[sharded nccl]`` (a world of one rank on NCCL).  Prints each phase's
-time, the launches of the sharded paths, then the card's nvidia-smi line.
+``[sharded nccl]`` (a world of one rank on NCCL); then ``[dryrun]`` (the
+entry forward, ``dryrun_multichip(2)`` and ``(3)``, and node_select on a
+batch with an empty slot).  Prints each phase's time, the launches of the
+sharded paths, then the card's nvidia-smi line.
 """
 
 import argparse
@@ -37,6 +39,8 @@ def main() -> int:
     launched = cs.sharded_phases(holder, clock)
     print(f"launches on the sharded paths "
           f"{ {k: v for k, v in launched.items() if v} }", flush=True)
+    cs.dryrun_phase()
+    clock.mark("[dryrun]")
     print(card)
     return 0
 

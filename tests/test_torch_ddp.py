@@ -37,7 +37,8 @@ from ggnn_tpu.parallel import make_mesh as jax_make_mesh
 from ggnn_tpu.parallel.train import (make_gspmd_train_step,
                                      shard_batch_arrays as jax_shard)
 from ggnn_tpu_torch.parallel import multihost
-from ggnn_tpu_torch.parallel.train import split_batch
+from ggnn_tpu_torch.parallel.train import (NODE_TARGETS, part_bounds,
+                                           split_batch)
 
 import torch_dist_cases as C
 from torch_dist_worker import RankJob
@@ -120,7 +121,30 @@ def _configs():
                                    n_graphs=-(-len(graphs) // 4) * 4),
                         dict(g, ggsnn_output="node", ann_supervision=True),
                         ("seq_nodes", "ann_seq"), 1)
+    # any graph count over any rank count: parts of unequal graph counts
+    # (empty slots), ranks with no graph, and a part whose graphs fill its
+    # rows with an empty slot after them (128 | 60 + 60 at P = 2)
+    heads = {"ns": (_node_target, "ns"), "gg": (_cls_target, "gg"),
+             "pn": (_labels, "pn"),
+             "ggsnn": (_seq(3, True), "ggsnn-node-sup")}
+    for name, (head, n_graphs, _) in UNEVEN.items():
+        targets, like = heads[head]
+        sizes = ((128, 60, 60) if name.endswith("tight")
+                 else rng.integers(10, 20, n_graphs))
+        graphs = C.sized_graphs(rng, sizes, targets=targets)
+        out[name] = (C.batch_of(graphs, int(sum(sizes))), *out[like][1:3], 1)
     return out
+
+
+# name -> (head, graphs, ranks) of the uneven data-parallel cases
+UNEVEN = {"ddp-ns-3g-2": ("ns", 3, 2), "ddp-ns-2g-4": ("ns", 2, 4),
+          "ddp-ns-tight": ("ns", 3, 2),
+          "ddp-gg-3g-2": ("gg", 3, 2), "ddp-gg-2g-4": ("gg", 2, 4),
+          "ddp-gg-5g-4": ("gg", 5, 4),
+          "ddp-pn-3g-2": ("pn", 3, 2), "ddp-pn-2g-4": ("pn", 2, 4),
+          "ddp-ggsnn-3g-2": ("ggsnn", 3, 2),
+          "ddp-ggsnn-2g-4": ("ggsnn", 2, 4),
+          "ddp-ggsnn-6g-4": ("ggsnn", 6, 4)}
 
 
 CONFIGS = _configs()
@@ -154,13 +178,14 @@ def _cases():
                 cfg=cfg, params=C.jax_params(3, **cfg),
                 strategy="halo_overlap", n_graphs=b.spec.n_graphs,
                 targets=_targets(b, keys)))
-    for cfg_name in ("ddp-ns", "ddp-ggsnn"):
+    ddp = [(f"{c}-{P}", c, P) for c in ("ddp-ns", "ddp-ggsnn")
+           for P in (2, 4)]
+    ddp += [(name, name, P) for name, (_, _, P) in UNEVEN.items()]
+    for name, cfg_name, P in ddp:
         b, cfg, _, _ = CONFIGS[cfg_name]
-        for P in (2, 4):
-            cases.append(dict(name=f"{cfg_name}-{P}", kind="ddp", P=P,
-                              batch=b, cfg=cfg, lr=LR,
-                              params=C.jax_params(3, **cfg),
-                              n_graphs=b.spec.n_graphs))
+        cases.append(dict(name=name, kind="ddp", P=P, batch=b, cfg=cfg,
+                          lr=LR, params=C.jax_params(3, **cfg),
+                          n_graphs=b.spec.n_graphs))
     return cases
 
 
@@ -221,6 +246,9 @@ def refs(job):
     with ThreadPoolExecutor(max(1, min(3, (os.cpu_count() or 2) - 1))) as ex:
         out = dict(zip(names, ex.map(_jax_curve, names)))
     out["gspmd"] = _jax_gspmd("ddp-ns")
+    with ThreadPoolExecutor(max(1, min(3, (os.cpu_count() or 2) - 1))) as ex:
+        out.update(zip([f"gspmd/{n}" for n in UNEVEN],
+                       ex.map(_jax_gspmd, UNEVEN)))
     return out
 
 
@@ -325,31 +353,88 @@ def test_data_parallel_step_matches_jax(job, refs, cfg_name, P):
         _check_params(out, g_params, 1, cfg_name)
 
 
+@pytest.mark.parametrize("name", sorted(UNEVEN))
+def test_data_parallel_step_on_uneven_parts_matches_jax(job, refs, name):
+    """The data-parallel step on a graph count the rank count does not
+    divide (parts of unequal graph counts padded with empty slots, ranks
+    with no graph, a part whose graphs fill its rows): metrics, every
+    gradient leaf and the Adam step's parameters against the JAX package's
+    single-device step, and against its GSPMD step on the 8-device mesh."""
+    out = _port(job, name)
+    metrics, grads, params = refs[name]
+    np.testing.assert_allclose(out["metrics"][0], metrics[0, 0], rtol=1e-5)
+    np.testing.assert_array_equal(out["metrics"][1:], metrics[0, 1:])
+    _check_grads(out, grads, name)
+    _check_params(out, params, 1, name)
+    g_metrics, g_params = refs[f"gspmd/{name}"]
+    np.testing.assert_allclose(out["metrics"], g_metrics, rtol=1e-4)
+    _check_params(out, g_params, 1, name)
+
+
 def test_split_batch_keeps_whole_graphs():
     """Each part holds its graphs' nodes and every real edge among them,
-    re-indexed from 0; the parts together hold the whole batch."""
-    b = CONFIGS["ddp-ggsnn"][0]
-    P = 4
-    parts = [split_batch(b, P, p) for p in range(P)]
-    assert len({p.spec for p in parts}) == 1
-    assert sum(int(p.edge_mask.sum()) for p in parts) == int(
-        b.edge_mask.sum())
-    np.testing.assert_array_equal(
-        np.concatenate([p.n_nodes for p in parts]), b.n_nodes)
-    np.testing.assert_array_equal(
-        np.concatenate([p.annotations[p.node_mask > 0] for p in parts]),
-        b.annotations[b.node_mask > 0])
-    np.testing.assert_array_equal(
-        np.concatenate([p.targets["ann_seq"][p.node_mask > 0]
-                        for p in parts]),
-        b.targets["ann_seq"][b.node_mask > 0])
-    for p in parts:
-        m = p.edge_mask > 0
-        n = int(p.node_mask.sum())
-        assert (p.edge_src[m] < n).all() and (p.edge_dst[m] < n).all()
-        np.testing.assert_array_equal(np.diff(p.type_offsets),
-                                      np.bincount(p.edge_type[m],
-                                                  minlength=6))
+    re-indexed from 0; the parts together hold the whole batch, every
+    graph once and in order, also where the parts hold unequal graph
+    counts (empty slots at their ends) or none."""
+    for cfg_name, P in (("ddp-ggsnn", 4), ("ddp-ggsnn-6g-4", 4),
+                        ("ddp-ns-2g-4", 4), ("ddp-ns-tight", 2)):
+        b = CONFIGS[cfg_name][0]
+        parts = [split_batch(b, P, p) for p in range(P)]
+        assert len({p.spec for p in parts}) == 1
+        assert sum(int(p.edge_mask.sum()) for p in parts) == int(
+            b.edge_mask.sum())
+        bounds = part_bounds(b.n_nodes, P)
+        assert bounds[-1] == b.spec.n_graphs
+        if cfg_name == "ddp-ns-tight":      # real rows fill part 0's n_pad
+            assert parts[0].node_mask.all() and parts[0].n_nodes[-1] == 0
+        if cfg_name == "ddp-ns-2g-4":       # two ranks without a graph
+            assert sum(not p.node_mask.any() for p in parts) == 2
+        for key, val in [("n_nodes", b.n_nodes), *b.targets.items()]:
+            if key in NODE_TARGETS:
+                continue
+            got = [getattr(p, key) if key == "n_nodes" else p.targets[key]
+                   for p in parts]
+            # every slot once, in order; then the part's empty slots
+            np.testing.assert_array_equal(
+                np.concatenate([g[:k] for g, k in
+                                zip(got, np.diff(bounds))]), val,
+                err_msg=key)
+            for g, k in zip(got, np.diff(bounds)):
+                assert (g[k:] == (-1 if key.startswith("seq")
+                                  else 0)).all(), key
+        np.testing.assert_array_equal(
+            np.concatenate([p.annotations[p.node_mask > 0] for p in parts]),
+            b.annotations[b.node_mask > 0])
+        if "ann_seq" in b.targets:
+            np.testing.assert_array_equal(
+                np.concatenate([p.targets["ann_seq"][p.node_mask > 0]
+                                for p in parts]),
+                b.targets["ann_seq"][b.node_mask > 0])
+        for p, k in zip(parts, np.diff(bounds)):
+            m = p.edge_mask > 0
+            n = int(p.node_mask.sum())
+            assert n == int(p.n_nodes.sum())
+            assert (p.edge_src[m] < n).all() and (p.edge_dst[m] < n).all()
+            assert (p.node_graph[:n] < k).all()
+            assert (p.node_graph[n:] == p.spec.n_graphs).all()
+            np.testing.assert_array_equal(np.diff(p.type_offsets),
+                                          np.bincount(p.edge_type[m],
+                                                      minlength=6))
+
+
+@pytest.mark.parametrize("n_nodes,P,bounds", [
+    ((8,) * 8, 4, (0, 2, 4, 6, 8)),          # equal graphs, P | B: B/P
+    ((6,) * 4, 3, (0, 2, 3, 4)),             # the dry run at n = 3
+    ((16,) * 4, 8, (0, 1, 1, 2, 2, 3, 3, 4, 4)),   # at n = 8: empty ranks
+    ((4096,) * 63, 2, (0, 32, 63)),          # chip_smoke's 63 graphs
+    ((4096,), 2, (0, 1, 1)),                 # one graph: rank 1 empty
+    ((128, 60, 60), 2, (0, 1, 3)),           # the first part fills 128
+    ((5, 0, 5, 0), 2, (0, 1, 4)),            # empty slots in the batch
+])
+def test_part_bounds_cut_at_the_node_balance(n_nodes, P, bounds):
+    """Part p ends at the first graph boundary at or past (p + 1)/P of the
+    real nodes, the last at the last slot."""
+    np.testing.assert_array_equal(part_bounds(n_nodes, P), bounds)
 
 
 def test_multihost_noop_single_process(monkeypatch):

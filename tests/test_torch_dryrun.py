@@ -67,3 +67,24 @@ def test_dryrun_multichip_four_cpu_ranks(monkeypatch, capsys):
     assert r["q8_shape"] == (512, 128) and r["q8_finite"]
     assert capsys.readouterr().out.strip().splitlines()[-1] == \
         dryrun.summary(4, r)
+
+
+def test_dryrun_multichip_three_cpu_ranks_runs_the_reference_batch(
+        monkeypatch, capsys):
+    """Three ranks on the reference's batch of 4 graphs of 6 nodes (the
+    data-parallel step's parts hold 2, 1 and 1 graphs): every stage runs,
+    its losses are finite and the same on every rank, and the halo
+    propagation's global shape is the reference's (24, 8)."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    res = dryrun.dryrun_multichip(3, device="cpu")
+    assert len(res) == 3
+    for r in res[1:]:
+        assert r == res[0]
+    r = res[0]
+    for k in ("train_loss_sum", "window_train_loss_sum",
+              "ggsnn_train_loss_sum"):
+        assert np.isfinite(r[k]) and r[k] > 0, k
+    assert r["halo_shape"] == (24, 8)
+    assert r["q8_finite"]
+    assert capsys.readouterr().out.strip().splitlines()[-1] == \
+        dryrun.summary(3, r)

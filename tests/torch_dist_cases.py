@@ -53,6 +53,22 @@ def random_graphs(rng, n_total, n_lo, n_hi, n_types=3, A=2, deg=3,
     return graphs
 
 
+def sized_graphs(rng, sizes, n_types=3, A=2, deg=3, targets=None):
+    """Random graphs of the node counts ``sizes``, drawn as
+    :func:`random_graphs` draws them."""
+    graphs = []
+    for n in sizes:
+        m = int(rng.integers(max(1, n // 2), deg * n))
+        edges = np.stack([rng.integers(0, n, m), rng.integers(0, n_types, m),
+                          rng.integers(0, n, m)], axis=1)
+        ann = (rng.random((n, A)) < 0.4).astype(np.float32)
+        g = dict(n_nodes=n, edges=edges, annotations=ann, targets={})
+        if targets is not None:
+            g.update(targets(rng, n))
+        graphs.append(g)
+    return graphs
+
+
 def batch_of(graphs, n_pad, n_types=3, A=2, n_graphs=None):
     spec = PaddingSpec(n_graphs=n_graphs or len(graphs), n_pad=n_pad,
                        e_pad=2 * sum(g["edges"].shape[0] for g in graphs) + 8,
