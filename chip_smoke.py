@@ -131,6 +131,18 @@
    ``[window 1m]``: bench.py's window_community_1m (1,000,192 nodes, 20M
    directed edges, a bf16 table, the legacy spill, block_rows 256): one
    5-step fused forward, then each step against the plain step.
+   ``[1m train]``: the reference's two single-device training
+   configurations at 1M nodes (tests/test_perf_thresholds.py:65-69 and
+   :87-89), nothing cut, both under ``remat``: 1m_train_window (the same
+   graph, its layout built ``with_grad``, block_rows 256, W 512, on-demand
+   windows, the XW spill, the fused step: per step #13 ``emit_res`` and
+   the spill's #11 2T, #4, #14 and the spill backward's #11 T) and
+   1m_uniform_train_onehot (1,000,064 nodes, the typed pack fused: #1 2T,
+   #5 T).  For each the batch's and the layout's host seconds, its copy
+   and stats, 3 Adam steps (step ms, peak device memory, the launch
+   counts per step), the first held to the plain path on the card
+   (``TOL_TRAIN``; the plain path's f64 sums fit beside the layout: about
+   50 GiB at its peak).
 11. ``[window train]``: the window backend's training path.  #14
    ``window_bwd_fused`` (exact and int8 ā) and #13's ``emit_res`` form
    against their plain versions, each twice (bit-equal), on fuzz layouts
@@ -3855,6 +3867,120 @@ def window_1m_phase(params, log):
     return launches
 
 
+# --- [1m train]: the reference's two single-device training configurations
+# at 1M nodes (tests/test_perf_thresholds.py:65-69 and :87-89), under remat
+
+TRAIN_1M = ("1m_train_window", "1m_uniform_train_onehot")
+
+
+def batch_1m(name):
+    """The cell's batch: 1,000,000 nodes, 10M logical / 20M directed edges,
+    8 types, seed 0; 1m_train_window in 4,096 communities (95 % of the
+    edges inside), padded to 256 rows (1,000,192), the uniform one to 128
+    (1,000,064)."""
+    from ggnn_tpu_torch.data.synthetic import synthetic_batch
+    if name == "1m_train_window":
+        return synthetic_batch(NODES_W1M, EDGES_W1M, EDGE_TYPES,
+                               annotation_dim=ANN, seed=0, node_mult=256,
+                               n_communities=COMMUNITIES_W1M, p_intra=0.95)
+    return synthetic_batch(NODES_W1M, EDGES_W1M, EDGE_TYPES,
+                           annotation_dim=ANN, seed=0, node_mult=128)
+
+
+def layout_1m(name, b):
+    """The cell's with_grad layout as bench.py builds it: the window one
+    (bench.py:209-244) with block_rows 256, on-demand windows and the XW
+    spill that prefer_xw_spill picks for on-demand; the typed pack
+    (bench.py:277-283) with block mode 'auto'."""
+    if name == "1m_train_window":
+        return bench_window_layout(b, 256, True, True, with_grad=True)
+    from ggnn_tpu_torch.ops.scatter import build_typed_dst_layout
+    return build_typed_dst_layout(b.edge_src, b.edge_dst, b.edge_type,
+                                  b.edge_mask, b.spec.n_pad, 2 * EDGE_TYPES,
+                                  with_grad=True, block_mode="auto")
+
+
+def cell_1m(name, lay):
+    """(config fields, kernel -> launches per Adam step) of the cell's
+    fused remat step.  Under ``torch.utils.checkpoint`` grad mode is on in
+    the first forward, so each step's training forward runs twice (there
+    and in the backward's recompute) and its backward once: window, #13
+    ``emit_res`` and the XW spill's #11 2T, #4, #14 and the spill
+    backward's #11 T; onehot, #1 (#7 where block mode declines) 2T and #5
+    T."""
+    if name == "1m_train_window":
+        if not lay.grad_meta[4] or lay.spill_meta is None \
+                or len(lay.spill_meta) <= 8:
+            raise AssertionError(f"{name}: not the fused backward over the "
+                                 "XW spill")
+        per = {"window_step_gru[emit_res]": 2 * STEPS,
+               "gru_cell_bwd": STEPS, "window_bwd_fused": STEPS}
+        spill = ("window_block_spmm_mono" if lay.spill_meta[6] is not None
+                 else "onehot_segment_scatter_flat")
+        per[spill] = per.get(spill, 0) + 2 * STEPS
+        sb = lay.grad_meta[3]
+        if sb is not None:
+            k = ("window_block_spmm_mono" if sb[6] is not None
+                 else "onehot_segment_scatter_flat")
+            per[k] = per.get(k, 0) + STEPS
+        return dict(backend="window", fuse_gru=True, remat=True), per
+    if lay.meta[5][0] != "octet":
+        raise AssertionError(f"{name}: the grad half is not the octet layout")
+    fwd = ("typed_block_scatter" if lay.block_meta is not None
+           else "typed_onehot_scatter")
+    return (dict(backend="onehot", fuse_gru=True, remat=True),
+            {fwd: 2 * STEPS, "typed_grad_octet_scatter": STEPS})
+
+
+def build_1m(name):
+    """The cell's batch and its layout on the card, with host seconds, copy
+    seconds and the layout's stats printed."""
+    import torch
+    t0 = time.perf_counter()
+    b = batch_1m(name)
+    t1 = time.perf_counter()
+    lay = layout_1m(name, b)
+    t2 = time.perf_counter()
+    lay = lay.to("cuda")
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    if name == "1m_train_window":
+        stats = (f"stats {lay.stats}; grad_meta {lay.grad_meta[:2]} fused "
+                 f"{lay.grad_meta[4]}; spill meta {lay.spill_meta[:2]}")
+    else:
+        stats = (f"tile_e {lay.meta[1]}, {lay.n_blocks} blocks, block mode "
+                 f"{lay.block_meta}, grad_meta {lay.meta[5]}")
+    n_bytes = sum(a.numel() * a.element_size() for a in lay.arrays.values())
+    print(f"[1m train] {name}: batch ({b.spec.n_pad} nodes, "
+          f"{int(b.edge_mask.sum())} directed edges) made in {t1 - t0:.2f} "
+          f"s; with_grad layout built on the host in {t2 - t1:.2f} s and "
+          f"copied in {t3 - t2:.2f} s ({n_bytes / 2 ** 30:.2f} GiB on the "
+          f"card); {stats}", flush=True)
+    return b, lay
+
+
+def train_1m_phase():
+    """[1m train]: the headline model trained at the reference's two 1M
+    configurations, nothing cut: 1m_train_window (on-demand windows, the
+    fused step, block_rows 256, W 512) and 1m_uniform_train_onehot (the
+    typed pack, fused), both with ``remat=True``.  For each, 3 Adam steps
+    through make_train_step (step ms, peak device memory, the launch counts
+    per step), the first held to the plain path on the card.  Returns
+    their launch counts."""
+    import torch
+    launched = dict.fromkeys(KERNELS, 0)
+    for name in TRAIN_1M:
+        b, lay = build_1m(name)
+        fields, per_step = cell_1m(name, lay)
+        got = train_headline(b, lay, {name: (fields, per_step)},
+                             tag="1m train", f32_check=False)
+        for k, v in got.items():
+            launched[k] += v
+        del b, lay
+        torch.cuda.empty_cache()
+    return launched
+
+
 # --- [window train]: the window backend's training path (#13 emit_res, #14) --
 
 def bwd_inputs(lay, dtype, seed, D=DIM, spread=False):
@@ -4119,22 +4245,27 @@ def window_grad_fuzz(params, log):
         check_y_path(name, lay.to("cuda"), log)
 
 
-def window_vjp_check(tag, lay, params, log):
+def window_vjp_check(tag, lay, params, log, prefix="[window train]"):
     """The unfused window step's aggregation VJP (the Y path or #14, the
     spill backward) against its plain version on the card, from a random
     state and cotangent: dh, dW, db within TOL_TRAIN's relative Frobenius
-    bound."""
+    bound.  A typed pack (``lay.meta[0]`` rows) is held so through
+    ``aggregate_onehot`` (#1 or #7, then #5)."""
     import torch
+    from ggnn_tpu_torch.ops import scatter as S
     from ggnn_tpu_torch.ops import window_step as WS
+    typed = isinstance(lay, S.ScatterLayout)
+    agg = S.aggregate_onehot if typed else WS.aggregate_window
+    n = lay.meta[0]
     gen = torch.Generator(device="cuda").manual_seed(45)
     w, b, _ = window_weights(params, torch.bfloat16)
-    h = (torch.rand(lay.n_nodes_pad, DIM, device="cuda", generator=gen) * 2
+    h = (torch.rand(n, DIM, device="cuda", generator=gen) * 2
          - 1).to(torch.bfloat16)
-    da = torch.randn(lay.n_nodes_pad, DIM, device="cuda", generator=gen)
+    da = torch.randn(n, DIM, device="cuda", generator=gen)
 
     def grads():
         xs = [t.detach().requires_grad_(True) for t in (h, w, b)]
-        out = WS.aggregate_window(xs[0], lay, xs[1], xs[2])
+        out = agg(xs[0], lay, xs[1], xs[2])
         return torch.autograd.grad((out * da).sum(), xs)
 
     got = grads()
@@ -4144,7 +4275,7 @@ def window_vjp_check(tag, lay, params, log):
     errs = [(relfro(x, y), k) for k, x, y in zip(("dh", "dW", "db"), got,
                                                   ref)]
     ok = max(errs)[0] <= tol and all(torch.isfinite(x).all() for x in got)
-    print(f"[window train] {tag} the aggregation's VJP vs plain path: "
+    print(f"{prefix} {tag} the aggregation's VJP vs plain path: "
           f"rel_frobenius " + ", ".join(f"{k} {e:.3e}" for e, k in errs)
           + f" (tol {tol:.3e}) {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
@@ -7553,6 +7684,7 @@ def main() -> int:
     for tag, phase in (
             ("[window serve]", lambda: window_serve_phase(params)),
             ("[window 1m]", lambda: window_1m_phase(params, log)),
+            ("[1m train]", train_1m_phase),
             ("[window train]",
              lambda: window_train_phase(params, log, timings))):
         for k, v in phase().items():

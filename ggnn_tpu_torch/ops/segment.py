@@ -116,19 +116,28 @@ def masked_segment_max(scores, segment_ids, num_segments: int, mask):
 def _segment_shift(scores, segment_ids, num_segments: int, mask):
     """(shifted scores, exp of them, normalizer) per segment: padding
     entries sit at the dtype's lowest value and add nothing to the
-    normalizer."""
+    normalizer.
+
+    The normalizer and the shift's gradient are summed in f64 and rounded
+    once: an ``index_add`` in the scores' dtype adds a graph's nodes (10^6
+    in one segment) in whatever order the card's atomics take, so their
+    last bits, the softmax's sum and the shift's gradient (0 where only
+    real entries are read) changed from run to run.  The shifted scores
+    keep their values (the f64 difference of two f32 values, rounded
+    once)."""
     neg = torch.finfo(scores.dtype).min
     valid = mask > 0
     seg = segment_ids.long()
     masked, seg_max = masked_segment_max(scores, seg, num_segments, mask)
     seg_max = torch.where(torch.isfinite(seg_max), seg_max,
                           torch.zeros_like(seg_max))
-    shifted = torch.where(valid, masked - seg_max[seg],
-                          torch.full_like(scores, neg))
+    shifted = torch.where(
+        valid, (masked.double() - seg_max.double()[seg]).to(scores.dtype),
+        torch.full_like(scores, neg))
     expd = torch.exp(shifted) * valid
-    denom = torch.zeros(num_segments, dtype=scores.dtype,
-                        device=scores.device).index_add(0, seg, expd)
-    return shifted, expd, denom.clamp_min(1e-30)
+    denom = torch.zeros(num_segments, dtype=torch.float64,
+                        device=scores.device).index_add(0, seg, expd.double())
+    return shifted, expd, denom.to(scores.dtype).clamp_min(1e-30)
 
 
 def segment_softmax(scores, segment_ids, num_segments: int, mask):

@@ -1961,8 +1961,12 @@ def window_bwd_fused(da_t, c_stream, tile_start, block_of_tile, win_of_tile,
         if t.dtype != torch.int32:
             raise ValueError(f"{name}: {arg} must be int32, got {t.dtype}")
     n_c = c_stream.shape[0] // window
-    t_end = 0
-    if win_of_tile.shape[0]:
+
+    def tile_range():
+        """The tiles' dst blocks and stream tiles against the arguments,
+        and the tiles the windows hold (one copy to the host)."""
+        if not win_of_tile.shape[0]:
+            return 0
         real = win_of_tile >= 0
         zero = torch.zeros_like(win_of_tile)
         b_max, c_max, c_min, t_end = host_ints(
@@ -1975,6 +1979,11 @@ def window_bwd_fused(da_t, c_stream, tile_start, block_of_tile, win_of_tile,
                              f"of {n_dst} and stream tiles [{c_min}, "
                              f"{c_max}] of {n_c}: layout and arguments "
                              f"disagree")
+        return t_end
+    # once per layout and argument shape (no host sync on later calls)
+    t_end = cached_per_tensor(
+        tile_start, ("checks " + name, n_dst, n_c, win_of_tile.data_ptr(),
+                     c_off.data_ptr()), tile_range)
     n_src = N // 128
     dev = h.device
     if h.dtype == torch.bfloat16 and D == 128 and out_rows in (128, 256,

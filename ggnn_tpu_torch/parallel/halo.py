@@ -301,7 +301,10 @@ def _sharded_round_node_nll(head: dict, h, X, node_graph, node_mask,
     # finite exp arguments on padding rows too (0 there)
     shift = torch.where(real, scores - gmax[seg], torch.zeros_like(scores))
     ex = torch.where(real, torch.exp(shift), torch.zeros_like(scores))
-    sumexp = comm.psum(_segment_sum(ex, seg, n_graphs + 1), axis.group)
+    # summed in f64 and rounded once, as the single-device normalizer
+    # (ops/segment.py::_segment_shift)
+    sumexp = comm.psum(_segment_sum(ex.double(), seg, n_graphs + 1),
+                       axis.group).to(ex.dtype)
     in_shard = (tgt_global >= base) & (tgt_global < base + n_local)
     tloc = (tgt_global - base).clamp(0, n_local - 1)
     t_score = comm.psum(torch.where(in_shard, scores[tloc],

@@ -444,3 +444,31 @@ def test_window_bwd_seams_on_card():
     empty windows, int8 scales that differ by block), D = 128, 256, 384,
     exact and int8 ā, bf16 and f32: chip_smoke.window_bwd_seam_fuzz."""
     _card().window_bwd_seam_fuzz({})
+
+
+@pytest.mark.cuda
+def test_window_bwd_fused_syncs_once_per_layout_on_card():
+    """#14's wrapper checks a layout's tiles against its arguments once
+    (``cached_per_tensor``, as its walk table): a later launch on the same
+    layout makes no host sync, as in every backward of a window train
+    step.  The layout is the 1m_train_window cell's at 2,048 nodes (W 512,
+    block_rows 256, on-demand, the XW spill)."""
+    cs = _card()
+    from ggnn_tpu_torch.data.synthetic import synthetic_batch
+    b = synthetic_batch(2048, 8000, 4, seed=0, node_mult=256,
+                        n_communities=16, p_intra=0.95)
+    lay = W.build_window_layout(
+        b.edge_src, b.edge_dst, b.edge_type, b.edge_mask, b.spec.n_pad,
+        window=512, n_message_types=8, block_rows=256, typed_spill=True,
+        on_demand=True, row_major="block", with_grad=True).to("cuda")
+    forms, gt, w, h, kw = cs.bwd_inputs(lay, torch.bfloat16, 48)
+    args = (forms["exact"][0], *gt, w, h)
+    first = W.window_bwd_fused(*args, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = W.window_bwd_fused(*args, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for x, y in zip(first, again):
+        assert torch.equal(x, y)
