@@ -32,8 +32,8 @@
    layout in bf16 also bit-equal to the first body (``gru_cell.cu``).
 3. Serves: a ``Predictor`` for the headline model (node_select head,
    onehot backend, bf16, T = 5 steps, random weights from seed 0) answers
-   two requests of 262,144-node graphs (seeds 0 and 1;
-   ``SERVE_REQUESTS``), fused and unfused.  It checks the kernels' launch
+   one request of a 262,144-node graph (seed 0; ``SERVE_REQUESTS``),
+   fused and unfused.  It checks the kernels' launch
    counts on that path and holds every request's node scores against the
    port's plain path on the card.
 4. Trains the headline model (the same configuration, typed layout built
@@ -184,7 +184,7 @@
    and to a run on copies of the arrays (its plan made anew), then at the
    headline's packed layout (bench.py --backend pallas: 62,516 tiles of
    128), timed, with #17's plan on a new layout.
-   ``[pallas serve]``: three requests through ``Predictor(backend=
+   ``[pallas serve]``: two requests through ``Predictor(backend=
    'pallas')``, ungated and gated, then the headline batch through
    ``run_batch`` (launch counts, device ms, peak memory, each step against
    the plain step).  ``[pallas train]``: 3 Adam steps ungated and gated,
@@ -213,6 +213,30 @@
    stream's printed beside them; #18 and #19 also in f32, beside one f32
    ``index_add_``), #18, #19 and #20 also on a new layout (their checks
    and plans included), and #11's window form beside #20.
+   ``[segment rows]``, on the same batch: the port's fixed-order segment
+   sum (``segment_rows_sum``, ``csrc/segment_rows.cu``; no TPU kernel
+   behind it: the JAX package's ``jax.ops.segment_sum``) at the xla
+   headline's shapes (f32 messages [8M, 128] summed by edge_dst) and on
+   the pallas layout's packed messages (TypedTiled's forward sum),
+   against its plain version per element, twice bit-equal, timed beside
+   the f32 ``index_add_`` it replaces and its plan on a new index tensor;
+   then at its seams (empty rows, padding and negative ids, one row of
+   1,000,192 entries in f64 and f32, n_rows 262,147, Zipf hubs; D = 1, 2,
+   7, 128, 130).  ``[reproducible]``: each case twice from the same state,
+   every output, loss, gradient leaf and Adam moment bit-equal: one
+   headline request through xla, gated pallas and the graph_gated head,
+   the GGS-NN cell's 64 graphs through pallas, one train step through xla
+   and through gated pallas, and the bAbI 4 Trainer on the card (3
+   epochs, save, 3 more; restored, 3 more: the same leaves and Adam state
+   as the uninterrupted run); the sharded halo requests (node_select,
+   graph_gated) run in the ranks of phase 15.  ``[oracle]``: the port's
+   NumPy oracle (``ggnn_tpu_torch/oracle``) in f64 on the host against the
+   card's per-step states and head outputs on every backend through its
+   kernels (xla, pallas with and without the gates, the typed pack in
+   block mode and per tile, the legacy layout, the window table, on-demand
+   and q8), f32 and bf16, every head, GGS-NN's K rounds, on fuzz graphs
+   (self loops, duplicate edges, empty types, isolated nodes) and a graph
+   of 4,096 nodes with a hub.
 
 15. The parallel layer (``ggnn_tpu_torch/parallel``), after ``[ggsnn
    train]``: the single-device references on the card first ('xla' with
@@ -227,6 +251,9 @@
    against single-device ``propagate`` (``TOL_SHARDED``), halo and
    halo_overlap against all_gather and on-demand against the table at the
    [serve] tolerance, q8 against the exact step; the exchange timed alone.
+   ``[reproducible] sharded``: one halo request of the uniform headline
+   with the node_select and the graph_gated head (propagation, head and
+   loss with cross-rank collectives), each twice, bit-equal on each rank.
    ``[sharded train]``: one node_select task step each through halo_onehot
    and halo_window (on-demand, exact and int8 gradients), the loss, every
    gradient leaf and the updated parameters against the single-device
@@ -260,7 +287,7 @@ The typed-pack phases (2-4, 7) hand ``Predictor.run_batch`` the typed pack
 they build; the Predictor's own layout is the legacy one (phase 6).
 
 Any failed check raises, so the exit code is non-zero.  The last three
-lines are the kernels JSON (21 kernels; each kernel's launches on
+lines are the kernels JSON (22 kernels; each kernel's launches on
 the main paths, its largest error against its plain version, its time and
 its plain version's, its bound from the bytes and operations of the timed
 inputs at the card's published peaks, and the time of one PyTorch call computing
@@ -284,10 +311,12 @@ import numpy as np
 NODES, EDGES, EDGE_TYPES, DIM, STEPS, ANN = 262_144, 4_000_000, 8, 128, 5, 8
 ZIPF = 1.2             # the scale-free graph's power law
 # The request seeds of the serving phases before [pallas serve], which
-# serves three: [serve] keeps two, so that one Predictor serving different
-# graphs in a row stays checked on the typed pack; the others serve one
-# each, which keeps the whole run near half its time limit.
-SERVE_REQUESTS = (0, 1)
+# serves two through one Predictor (one Predictor serving different graphs
+# in a row stays checked there, its per-index plans included); the others
+# serve one each, which keeps the whole run in its time budget.  [serve]
+# served two (seeds 0 and 1) and [pallas serve] three until their last
+# requests made room for [segment rows], [reproducible] and [oracle].
+SERVE_REQUESTS = (0,)
 EARLIER_REQUESTS = (0,)
 BF16_ULP = 2.0 ** -7   # one bf16 ulp at 1.0
 
@@ -456,7 +485,15 @@ KERNELS = {
         "ggnn_tpu/ops/scatter_pallas.py:672"),
     "window_block_spmm": ("ggnn_tpu_torch/ops/csrc/window_auto_gather.cu",
                           "ggnn_tpu/ops/window_pallas.py:704"),
+    # the port's fixed-order float segment sums; the JAX package sums them
+    # with jax.ops.segment_sum (no Pallas kernel)
+    "segment_rows_sum": ("ggnn_tpu_torch/ops/csrc/segment_rows.cu",
+                         "ggnn_tpu/ops/segment.py:57"),
 }
+# Kernels of the port with no TPU kernel behind them: expect_counts holds
+# them only where a path names them (they launch on every path that sums
+# floats by segment: xla, pallas, the losses).
+PORT_ONLY = ("segment_rows_sum",)
 
 
 def card_line() -> str:
@@ -1604,6 +1641,7 @@ def kernel_wrappers():
     from ggnn_tpu_torch.ops import gru as G
     from ggnn_tpu_torch.ops import legacy as L
     from ggnn_tpu_torch.ops import scatter as S
+    from ggnn_tpu_torch.ops import segment_rows as SR
     from ggnn_tpu_torch.ops import spmm as SP
     from ggnn_tpu_torch.ops import table as TB
     from ggnn_tpu_torch.ops import window as W
@@ -1626,7 +1664,8 @@ def kernel_wrappers():
             "sddmm_pallas": SP.sddmm_pallas,
             "onehot_segment_scatter_stream": L.onehot_segment_scatter_stream,
             "onehot_segment_scatter_loopT": L.onehot_segment_scatter_loopT,
-            "window_block_spmm": W.window_block_spmm}
+            "window_block_spmm": W.window_block_spmm,
+            "segment_rows_sum": SR.segment_rows_sum}
 
 
 def counter(name):
@@ -1646,8 +1685,11 @@ def read_counts():
 
 def expect_counts(tag, launches, want):
     """Every kernel's launches against ``want`` (kernel -> launches; every
-    other kernel 0)."""
-    full = {k: want.get(k, 0) for k in KERNELS}
+    other TPU kernel 0; a PORT_ONLY kernel only where ``want`` names
+    it)."""
+    full = {k: want.get(k, 0) for k in KERNELS
+            if k in want or k not in PORT_ONLY}
+    launches = {k: v for k, v in launches.items() if k in full}
     if launches != full:
         raise AssertionError(f"{tag}: launches {launches}, expected {full}")
 
@@ -1661,11 +1703,13 @@ def plain_versions(keep=()):
     from ggnn_tpu_torch.ops import gru as G
     from ggnn_tpu_torch.ops import legacy as L
     from ggnn_tpu_torch.ops import scatter as S
+    from ggnn_tpu_torch.ops import segment_rows as SR
     from ggnn_tpu_torch.ops import spmm as SP
     from ggnn_tpu_torch.ops import table as TB
     from ggnn_tpu_torch.ops import window as W
     from ggnn_tpu_torch.ops import window_step as WS
     swaps = [(SP, "packed_messages", SP.packed_messages_reference),
+             (SR, "segment_rows_sum", SR.segment_rows_sum_reference),
              (SP, "sddmm_pallas", SP.sddmm_pallas_reference),
              (L, "onehot_segment_scatter_flat",
               L.onehot_segment_scatter_flat_reference),
@@ -1942,13 +1986,15 @@ sys.argv = ["ggnn_tpu_torch.train"] + sys.argv[1:]
 try:
     runpy.run_module("ggnn_tpu_torch.train", run_name="__main__")
 finally:
-    from ggnn_tpu_torch.ops import gru, legacy, scatter, spmm, table, window
+    from ggnn_tpu_torch.ops import (gru, legacy, scatter, segment_rows, spmm,
+                                    table, window)
     fns = [gru.gru_cell_fwd, gru.gru_cell_bwd, legacy.onehot_segment_scatter,
            legacy.onehot_segment_scatter_flat,
            table.node_table_block_major, window.window_block_spmm_mono,
            scatter.typed_block_scatter, scatter.typed_block_step_gru,
            scatter.typed_grad_octet_scatter, scatter.typed_onehot_scatter,
-           scatter.typed_step_gru, spmm.packed_messages, spmm.sddmm_pallas]
+           scatter.typed_step_gru, spmm.packed_messages, spmm.sddmm_pallas,
+           segment_rows.segment_rows_sum]
     print("LAUNCHES " + json.dumps({f.__name__: f.launches for f in fns}),
           file=sys.stderr)
 """
@@ -4869,7 +4915,7 @@ def pallas_stepwise(tag, cfg, prop, arrays, log):
 
 
 def pallas_serve_phase(b, log):
-    """[pallas serve]: three requests (uniform graphs of the headline size)
+    """[pallas serve]: two requests (uniform graphs of the headline size)
     through ``Predictor(backend='pallas')``, ungated and with the edge
     gates (gate_dim 0: G = 128), the launch counts and the scores against
     the plain path; then the uniform headline batch through ``run_batch``:
@@ -4882,7 +4928,7 @@ def pallas_serve_phase(b, log):
     from ggnn_tpu_torch.models.init import init_params
     from ggnn_tpu_torch.train.loop import batch_arrays
     launched = dict.fromkeys(KERNELS, 0)
-    graphs = [(seed, request_graph(seed)) for seed in (0, 1, 2)]
+    graphs = [(seed, request_graph(seed)) for seed in (0, 1)]
     spec = PaddingSpec(n_graphs=1, n_pad=NODES, e_pad=2 * EDGES,
                        n_edge_types=EDGE_TYPES, annotation_dim=ANN)
     for gated in (False, True):
@@ -6657,7 +6703,80 @@ def tensor_copy(x):
     return torch.from_numpy(x) if isinstance(x, np.ndarray) else x
 
 
+def rank_reproducible(mesh, state):
+    """[reproducible] sharded, on this rank: one halo request of the
+    uniform headline (``make_sharded_eval_step``: propagation, the head and
+    its loss with cross-rank collectives) with the node_select and the
+    graph_gated head, each twice from the same state; the loss and this
+    rank's final states must hold the same bits."""
+    import dataclasses
+    import torch
+    from ggnn_tpu_torch.parallel import sharded_propagate
+    from ggnn_tpu_torch.parallel.halo import make_sharded_eval_step
+    from ggnn_tpu_torch.train.loop import param_leaves
+    dev = mesh.device
+    if "uniform" not in state:
+        from ggnn_tpu_torch.data.synthetic import synthetic_batch
+        from ggnn_tpu_torch.parallel.partition import (partition_batch,
+                                                       split_local_remote)
+        b = synthetic_batch(NODES, EDGES, EDGE_TYPES, annotation_dim=ANN,
+                            seed=0, node_mult=128)
+        parts = split_local_remote(partition_batch(b, mesh.axis(
+            "graph").size))
+        state["uniform"] = (parts.local(mesh.axis("graph").index, dev),
+                            None, None)
+    lp = state["uniform"][0]
+    zero_counts()
+    runs, same = {}, {}
+    for head in ("node_select", "graph_gated"):
+        cfg = dataclasses.replace(sharded_cfg(), head=head,
+                                  n_classes=1 if head == "node_select" else 4)
+        params = sharded_params(cfg)
+        for p in param_leaves(params):
+            p.requires_grad_(False)
+        targets = {"n_nodes": torch.tensor([NODES], dtype=torch.int32,
+                                           device=dev),
+                   "node": torch.tensor([node_target()], dtype=torch.int32,
+                                        device=dev),
+                   "cls": torch.tensor([1], dtype=torch.int32, device=dev)}
+        step = make_sharded_eval_step(cfg, mesh, 1, strategy="halo")
+
+        def run():
+            with torch.inference_mode():
+                m = step(params, lp, targets)
+                h = sharded_propagate(params["prop"], cfg, mesh, lp,
+                                      strategy="halo")
+            return {"loss": m["loss_sum"].float().cpu(), "h": h.cpu()}
+        first, again = run(), run()
+        same[head] = all(torch.equal(first[k], again[k]) for k in first)
+        runs[f"halo {head}"] = dict(loss=first["loss"], same=same[head],
+                                    launches={})
+    launches = read_counts()
+    runs["halo node_select"]["launches"] = launches
+    return with_runs({"same": same}, runs)
+
+
+def check_reproducible_sharded(results, card, strict=True):
+    """Every rank's two sharded runs bit-equal, and the ranks' losses the
+    same replica."""
+    out = {}
+    for head in ("node_select", "graph_gated"):
+        same = all(res["same"][head] for res in results)
+        losses = [float(res["out"][f"halo {head}"]["loss"]) for res in results]
+        out[f"sharded halo {head} request"] = same
+        print(f"[reproducible] sharded halo {head} request, {SHARDED_P} "
+              f"ranks: two runs {'bit-equal' if same else 'DIFFER'} on "
+              f"every rank; the ranks' loss sums {losses} ({card})",
+              flush=True)
+        if strict and not same:
+            raise AssertionError(f"[reproducible] sharded halo {head}: two "
+                                 "runs differ")
+    phase_footer("[reproducible] sharded", results)
+    return out
+
+
 RANK_PHASES = (("[sharded serve]", rank_serve),
+               ("[reproducible] sharded", rank_reproducible),
                ("[sharded train]", rank_train),
                ("[sharded ggsnn] and [ddp]", rank_ggsnn))
 
@@ -6915,6 +7034,8 @@ def sharded_phases(holder, clock):
     clock.mark("[sharded] single-device references")
     launched = dict.fromkeys(KERNELS, 0)
     checks = {"[sharded serve]": check_sharded_serve,
+              "[reproducible] sharded": lambda results, refs, card:
+              check_reproducible_sharded(results, card),
               "[sharded train]": check_sharded_train,
               "[sharded ggsnn] and [ddp]": check_sharded_ggsnn}
 
@@ -7522,6 +7643,635 @@ def empty_slot_check():
                              "differs between the card and the CPU")
 
 
+# --- [segment rows], [reproducible], [oracle] --------------------------------
+
+# segment_rows_sum against its plain version (f64 sums, rounded once): the
+# kernel adds each row's terms in f32 in the plan's order, so each element
+# within 2e-5·Σ|terms| of it (as #7 and #11 are held, 'bound'), the mean
+# within TOL_BOUND_MEAN of that; f64 values within 1e-12·Σ|terms|.
+SEG_BOUND = {"float32": 2e-5, "float64": 1e-12}
+# The seams of its plan: (name, entries, n_rows, D, dtype, ids) with ids
+# 'uniform' (every row about entries / n_rows terms), 'sparse' (terms in a
+# few rows, most rows empty), 'padding' (a third of the ids ≥ n_rows or
+# negative: dropped), 'one_row' (every entry in row 0: cut into chunks of
+# SPLIT, their partials added in chunk order), 'zipf' (hub rows).
+SEG_SEAMS = (("empty rows", 50_000, 100_003, 128, "float32", "sparse"),
+             ("padding ids", 200_000, 30_011, 130, "float32", "padding"),
+             ("one row of 1,000,192", 1_000_192, 1, 1, "float64", "one_row"),
+             ("one row of 1,000,192", 1_000_192, 1, 128, "float32",
+              "one_row"),
+             ("n_rows 262,147", 3_000_000, 262_147, 7, "float32", "uniform"),
+             ("n_rows 262,147", 3_000_000, 262_147, 2, "float64", "uniform"),
+             ("zipf hubs", 2_000_000, 65_537, 128, "float32", "zipf"))
+
+
+def seam_ids(kind, n, n_rows, r):
+    """The segment ids of a seam case, on the card."""
+    import torch
+    if kind == "sparse":
+        ids = r.choice(r.integers(0, n_rows, 40), n)
+    elif kind == "padding":
+        ids = r.integers(0, n_rows, n)
+        drop = r.random(n) < 1 / 3
+        ids[drop] = r.choice([-1, n_rows, n_rows + 5], int(drop.sum()))
+    elif kind == "one_row":
+        ids = np.zeros(n, np.int64)
+    elif kind == "zipf":
+        ids = np.minimum(r.zipf(ZIPF, n) - 1, n_rows - 1)
+    else:
+        ids = r.integers(0, n_rows, n)
+    return torch.tensor(ids, dtype=torch.int32, device="cuda")
+
+
+def check_segment_rows(name, vals, seg, n_rows, log):
+    """The kernel twice (bit-equal) against its plain version, per element
+    within SEG_BOUND·Σ|terms|."""
+    import torch
+    from ggnn_tpu_torch.ops import segment_rows as SR
+    got = SR.segment_rows_sum(vals, seg, n_rows)
+    same_twice("segment_rows_sum", name, got,
+               SR.segment_rows_sum(vals, seg, n_rows))
+    ref = SR.segment_rows_sum_reference(vals, seg, n_rows)
+    mag = SR.segment_rows_sum_reference(vals.abs(), seg, n_rows)
+    bound = SEG_BOUND[str(vals.dtype).split(".")[1]] * mag.double() + 1e-30
+    check(f"segment_rows_sum[{name}]", got.double(), ref.double(), "bound",
+          vals.dtype, log, bound=bound)
+    return got
+
+
+def segment_rows_phase(b, log, timings):
+    """[segment rows]: the port's fixed-order segment sum (csrc/
+    segment_rows.cu) at the xla headline's shapes: the f32 messages [8M,
+    128] of the uniform batch summed by its edge_dst (ScatterRows of the
+    xla backend), then the same sum of the pallas layout's packed messages
+    (TypedTiled's forward sum), each against its plain version, twice
+    bit-equal, timed (kernel, plain version, the f32 ``index_add_`` it
+    replaces: the library call; a new index tensor's first call, its plan
+    included); then the seams of SEG_SEAMS."""
+    import torch
+    from ggnn_tpu_torch.ops import segment_rows as SR
+    from ggnn_tpu_torch.ops import spmm as SP
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    dst = torch.as_tensor(b.edge_dst, device="cuda")
+    vals = torch.randn(dst.shape[0], DIM, generator=gen, device="cuda")
+    check_segment_rows("headline", vals, dst, NODES, log)
+    plan = SR.segment_rows_plan(dst, NODES)
+    print(f"  segment_rows_sum[headline]: {dst.shape[0]} entries into "
+          f"{NODES} rows, {plan['n_items']} work items, {plan['n_split']} "
+          f"rows cut into {plan['n_ws']} chunks", flush=True)
+    out_b = NODES * DIM * 4
+    bound = roofline(nbytes(vals, plan["order"], plan["items"]) + out_b,
+                     [(vals.numel(), F32_FLOPS)])
+
+    def library():
+        return torch.zeros(NODES, DIM, device="cuda").index_add_(
+            0, dst.long(), vals)
+    time_pairs({"segment_rows_sum": (
+        lambda: SR.segment_rows_sum(vals, dst, NODES),
+        lambda: SR.segment_rows_sum_reference(vals, dst, NODES),
+        library, bound)}, timings, what="f32 xla headline (ScatterRows)")
+
+    def first_call():
+        return SR.segment_rows_sum(vals, dst.clone(), NODES)
+    first = [cuda_ms(first_call, 1) for _ in range(3)]
+    print(f"  segment_rows_sum[headline]: a new index tensor's first call, "
+          f"its plan included, {min(first):.3f} ms ({first})", flush=True)
+
+    typ = torch.as_tensor(b.edge_type, device="cuda")
+    mask = torch.as_tensor(b.edge_mask, device="cuda")
+    lay = SP.pack_type_tiles(
+        torch.as_tensor(b.edge_src, device="cuda"), dst, typ, mask,
+        torch.as_tensor(b.type_offsets, device="cuda"), 2 * EDGE_TYPES)
+    msgs = torch.randn(lay["dst"].shape[0], DIM, generator=gen, device="cuda")
+    check_segment_rows("pallas headline", msgs, lay["dst"], NODES, log)
+    t = {}
+    time_pairs({"typed_tiled_sum": (
+        lambda: SR.segment_rows_sum(msgs, lay["dst"], NODES),
+        lambda: SR.segment_rows_sum_reference(msgs, lay["dst"], NODES),
+        lambda: torch.zeros(NODES, DIM, device="cuda").index_add_(
+            0, lay["dst"].long(), msgs),
+        roofline(nbytes(msgs) + out_b, [(msgs.numel(), F32_FLOPS)]))},
+        t, what="TypedTiled's forward sum, f32 pallas headline")
+    del vals, msgs, lay
+    r = np.random.default_rng(22)
+    for name, n, n_rows, D, dt, kind in SEG_SEAMS:
+        seg = seam_ids(kind, n, n_rows, r)
+        v = torch.randn(n, D, generator=gen, device="cuda",
+                        dtype=getattr(torch, dt))
+        check_segment_rows(f"{name} D={D} {dt}", v, seg, n_rows, log)
+    torch.cuda.empty_cache()
+
+
+def host_tree(tree):
+    """A tree of tensors (dicts, lists, tuples) as numpy on the host (bf16
+    as f32, exactly)."""
+    import torch
+    if isinstance(tree, dict):
+        return {k: host_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [host_tree(v) for v in tree]
+    if torch.is_tensor(tree):
+        t = tree.detach().cpu()
+        return t.float().numpy() if t.dtype == torch.bfloat16 else t.numpy()
+    return np.asarray(tree)
+
+
+def bit_equal(a, b) -> bool:
+    """Two host trees (of :func:`host_tree`) hold the same bits."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(bit_equal(a[k], b[k]) for k in a)
+    if isinstance(a, list):
+        return len(a) == len(b) and all(bit_equal(x, y)
+                                        for x, y in zip(a, b))
+    bits = [np.ascontiguousarray(x).reshape(-1).view(np.uint8)
+            for x in (a, b)]
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and np.array_equal(*bits))
+
+
+def repro_case(results, tag, run, strict):
+    """Run ``run()`` (a tree of tensors) twice from the same state; records
+    whether both runs hold the same bits, and raises on a difference when
+    ``strict``."""
+    import torch
+    first = host_tree(run())
+    torch.cuda.synchronize()
+    same = bit_equal(first, host_tree(run()))
+    results[tag] = same
+    print(f"[reproducible] {tag}: two runs "
+          f"{'bit-equal' if same else 'DIFFER'}", flush=True)
+    if strict and not same:
+        raise AssertionError(f"[reproducible] {tag}: two runs differ")
+
+
+def repro_train_step(cfg, batch, targets, n_graphs, layout=None):
+    """One Adam step from the headline's seed-0 parameters: (loss, every
+    gradient leaf, the updated parameters, Adam's moments)."""
+    import torch
+    from ggnn_tpu_torch.train.checkpoint import _flatten
+    from ggnn_tpu_torch.train.loop import (batch_arrays, make_optimizer,
+                                           make_train_step)
+    arrays = batch_arrays(batch, "cuda")
+    arrays["targets"] = targets
+    params = fresh_params(cfg)
+    opt = make_optimizer(params, 1e-3)
+    m = make_train_step(cfg, n_graphs, opt)(params, arrays, layout)
+    flat = dict(_flatten(params))
+    return {"loss": m["loss_sum"],
+            "grads": {k: p.grad for k, p in flat.items()},
+            "params": {k: p.detach() for k, p in flat.items()},
+            "adam": {k: [opt.state[p]["exp_avg"], opt.state[p]["exp_avg_sq"]]
+                     for k, p in flat.items()}}
+
+
+def repro_trainer(results, strict):
+    """The bAbI 4 Trainer on the card (its default xla backend): 3 epochs,
+    save, 3 more; a second Trainer restores the checkpoint and trains 3
+    more: every leaf and Adam's state must match the uninterrupted run bit
+    for bit (tests/test_torch_train_loop.py's CPU check)."""
+    import tempfile
+    import torch
+    from ggnn_tpu_torch.train import Trainer, build_config
+    from ggnn_tpu_torch.train.loop import param_leaves
+    from ggnn_tpu_torch.train.metrics import MetricsLogger
+    cfg = build_config("babi4", epochs=6)
+    t0 = time.perf_counter()
+    t1 = Trainer(cfg, MetricsLogger(echo=False), device="cuda")
+    with tempfile.TemporaryDirectory() as d:
+        for _ in range(3):
+            t1.train_epoch()
+        ckpt = f"{d}/resume.npz"
+        t1.save(ckpt)
+        for _ in range(3):
+            t1.train_epoch()
+        t2 = Trainer(cfg, MetricsLogger(echo=False), device="cuda")
+        t2.restore(ckpt)
+        for _ in range(3):
+            t2.train_epoch()
+    same = True
+    for a, b in zip(param_leaves(t1.params), param_leaves(t2.params)):
+        s1, s2 = t1.optimizer.state[a], t2.optimizer.state[b]
+        same &= (torch.equal(a, b) and torch.equal(s1["exp_avg"],
+                                                   s2["exp_avg"])
+                 and torch.equal(s1["exp_avg_sq"], s2["exp_avg_sq"])
+                 and float(s1["step"]) == float(s2["step"]))
+    results["babi4 Trainer resume"] = bool(same)
+    print(f"[reproducible] babi4 Trainer (xla, the card): 3 epochs, save, 3 "
+          f"more; restored and 3 more: every leaf and Adam's state "
+          f"{'bit-equal' if same else 'DIFFER'} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    if strict and not same:
+        raise AssertionError("[reproducible] the resumed run left the "
+                             "uninterrupted one")
+
+
+def reproducible_phase(b, strict=True, count=True):
+    """[reproducible]: each case twice from the same state, every output,
+    loss, gradient leaf and Adam moment bit-equal: one headline request
+    (``Predictor.run_batch`` of the uniform batch ``b``) through xla, pallas
+    with the edge gates and the graph_gated head (xla); the GGS-NN cell's
+    64 graphs through pallas (outputs and annotations of its 3 rounds);
+    one train step each through xla and gated pallas; then the bAbI 4
+    Trainer's resume (:func:`repro_trainer`).  The sharded halo requests
+    run in the ranks (:func:`rank_reproducible`).  ``strict`` raises on a
+    difference (a parent tree's run records them); ``count`` reads the
+    launch counts (the segment sum must run on these paths).  Returns
+    (results, launches)."""
+    import dataclasses
+    import torch
+    from ggnn_tpu_torch.graph import PaddingSpec, batch_graphs
+    from ggnn_tpu_torch.infer import Predictor
+    from ggnn_tpu_torch.models.ggsnn import ggsnn_forward
+    from ggnn_tpu_torch.train.loop import batch_arrays
+    results = {}
+    if count:
+        zero_counts()
+    spec = PaddingSpec(n_graphs=1, n_pad=NODES, e_pad=2 * EDGES,
+                       n_edge_types=EDGE_TYPES, annotation_dim=ANN)
+    for tag, kw, head in (
+            ("xla request", dict(backend="xla"), "node_select"),
+            ("pallas gated request", dict(backend="pallas", edge_gates=True),
+             "node_select"),
+            ("graph_gated request (xla)", dict(backend="xla"),
+             "graph_gated")):
+        cfg = dataclasses.replace(
+            headline_cfg(compute_dtype="bfloat16", **kw), head=head,
+            n_classes=4 if head == "graph_gated" else 1)
+        pred = Predictor(cfg, spec, params=fresh_params(cfg), device="cuda")
+        with torch.no_grad():
+            repro_case(results, tag, lambda: torch.as_tensor(
+                pred.run_batch(b)), strict)
+        del pred
+    cfg = ggsnn_cfg(backend="pallas")
+    gspec = PaddingSpec(n_graphs=GGSNN_GRAPHS, n_pad=NODES, e_pad=2 * EDGES,
+                        n_edge_types=EDGE_TYPES, annotation_dim=ANN)
+    arrays = batch_arrays(batch_graphs(ggsnn_graphs(0), gspec), "cuda")
+    params = fresh_params(cfg)
+
+    def ggsnn():
+        with torch.no_grad():
+            return ggsnn_forward(
+                params, cfg, arrays["annotations"], arrays["node_graph"],
+                arrays["node_mask"], arrays["edge_src"], arrays["edge_dst"],
+                arrays["edge_type"], arrays["edge_mask"],
+                n_graphs=GGSNN_GRAPHS, type_offsets=arrays["type_offsets"])
+    repro_case(results, "pallas GGS-NN request (64 graphs)", ggsnn, strict)
+    del arrays, params
+    target = {"node": torch.tensor([node_target()], dtype=torch.int32,
+                                   device="cuda")}
+    for tag, kw in (("xla train step", dict(backend="xla")),
+                    ("gated pallas train step", dict(backend="pallas",
+                                                     edge_gates=True))):
+        cfg = headline_cfg(compute_dtype="bfloat16", **kw)
+        repro_case(results, tag,
+                   lambda: repro_train_step(cfg, b, target, 1), strict)
+        torch.cuda.empty_cache()
+    repro_trainer(results, strict)
+    launches = read_counts() if count else {}
+    if count and not launches["segment_rows_sum"]:
+        raise AssertionError("[reproducible]: segment_rows_sum was never "
+                             "launched on these paths")
+    print(f"[reproducible] {sum(results.values())} of {len(results)} cases "
+          f"bit-equal; launches {launches}", flush=True)
+    return results, launches
+
+
+# The [oracle] phase: the port's NumPy oracle (ggnn_tpu_torch/oracle) in
+# f64 on the host against the card's outputs.  Its graphs: 24 fuzz graphs
+# of 2 to 13 nodes (tests/test_fuzz_parity.py's generator; each with a self
+# loop and a duplicate edge, edge types 2 and 3 never drawn, its last node
+# isolated) in one batch of 512 rows, and one graph of 4,096 nodes and
+# 8,000 logical edges, 800 of them into node 7 (a hub); D = 128 (the
+# kernels' width), 4 edge types, T = 3 steps, K = 3 GGS-NN rounds.
+# Tolerances, |card − oracle|:
+# - f32 on the fuzz graphs: tests/test_oracle_parity.py's rtol 2e-5, atol
+#   2e-6 per element (GGS-NN 3e-5, 3e-6);
+# - f32 on the hub graph, whose hub sums 800 messages a step in f32 and
+#   whose state every neighbour reads in the next step: the bounds the
+#   card's f32 paths are held to against their plain versions, max ≤
+#   TOL_F32·max(1, max|oracle|) and the relative Frobenius error ≤
+#   TOL_RELF_F32;
+# - bf16: the card rounds h, W and the messages to bf16 at every step (and
+#   a, before the gate matmuls), the oracle nothing.  The states are held
+#   as [serve] holds a hub's rows ('flip_rows'): each row within
+#   TOL_FLIP_MAX (8 bf16 ulps at 1.0) times max(1, max|a_row|) over the
+#   steps (the oracle's aggregation), the relative Frobenius error within
+#   TOL_TRAIN's bf16 bound (2**-6); the node heads within TOL_FLIP_MAX
+#   times max(1, max|oracle|) and 2**-6; a graph's outputs (graph_gated,
+#   and GGS-NN's K rounds, outputs and annotations), which sum every
+#   node's rounding, within TOL_GGSNN (2**-4) relative Frobenius and
+#   TOL_FLIP_MAX times max(1, max|oracle|) (the CPU's plain versions read
+#   at most 7.5e-3 relative Frobenius there);
+# - q8 (the int8 table): the q8 serving bound TOL_SHARDED_Q8 in place of
+#   TOL_FLIP_MAX and the relative Frobenius bound, its states' rows scaled
+#   by max(1, max|a_row|) as in bf16 (the hub's quantization step grows with
+#   its |a| as its rounding does).
+ORACLE_E, ORACLE_A, ORACLE_T, ORACLE_K = 4, 2, 3, 3
+ORACLE_F32 = (2e-5, 2e-6)
+ORACLE_F32_GGSNN = (3e-5, 3e-6)
+ORACLE_HEADS = ("node_select", "per_node", "graph_gated", "ggsnn_graph",
+                "ggsnn_node")
+
+
+def oracle_fuzz_graphs(seed=0, n_graphs=24):
+    """tests/test_fuzz_parity.py's random graphs, each with a self loop and
+    a duplicate edge, edge types 0 and 1 only (2 and 3 empty), and its last
+    node isolated."""
+    r = np.random.default_rng(1000 + seed)
+    graphs = []
+    for _ in range(n_graphs):
+        n = int(r.integers(2, 14))
+        m = int(r.integers(2, 3 * n))
+        edges = np.stack([r.integers(0, n - 1, m), r.integers(0, 2, m),
+                          r.integers(0, n - 1, m)], axis=1)
+        edges[0, 2] = edges[0, 0]
+        edges[1] = edges[0]
+        ann = (r.random((n, ORACLE_A)) < r.random()).astype(np.float32)
+        graphs.append(dict(n_nodes=n, edges=edges, annotations=ann,
+                           targets={}))
+    return graphs
+
+
+def oracle_hub_graph(seed=0, n=4096, m=8_000, hub=7, into_hub=800):
+    """One graph of ``n`` nodes and ``m`` logical edges, ``into_hub`` of
+    them into node ``hub``."""
+    r = np.random.default_rng(seed)
+    dst = r.integers(0, n, m)
+    dst[r.choice(m, into_hub, replace=False)] = hub
+    edges = np.stack([r.integers(0, n, m), r.integers(0, ORACLE_E, m), dst],
+                     axis=1)
+    ann = (r.random((n, ORACLE_A)) < 0.3).astype(np.float32)
+    return [dict(n_nodes=n, edges=edges, annotations=ann, targets={})]
+
+
+def oracle_batch(graphs, n_pad):
+    from ggnn_tpu_torch.graph import PaddingSpec, batch_graphs
+    spec = PaddingSpec(n_graphs=len(graphs), n_pad=n_pad,
+                       e_pad=2 * sum(g["edges"].shape[0] for g in graphs) + 8,
+                       n_edge_types=ORACLE_E, annotation_dim=ORACLE_A
+                       ).round_up(mult_nodes=128)
+    return batch_graphs(graphs, spec)
+
+
+def oracle_cfg(head, **kw):
+    """The phase's model with head ``head`` (ORACLE_HEADS' names)."""
+    from ggnn_tpu_torch.models.config import ModelConfig
+    ggsnn = head.startswith("ggsnn")
+    return ModelConfig(
+        state_dim=DIM, annotation_dim=ORACLE_A, n_edge_types=ORACLE_E,
+        n_steps=ORACLE_T, head="ggsnn" if ggsnn else head, n_classes=4,
+        n_rounds=ORACLE_K, ggsnn_output=head[6:] if ggsnn else "graph", **kw)
+
+
+def oracle_refs(graphs, p64, head, propagated=None):
+    """The oracle per graph: (the states [h^(1) … h^(T+1)], each row's
+    largest |a| over the steps, the head's output); GGS-NN: (None, None,
+    (round outputs, annotations X^(2) …)).  ``propagated`` (states and
+    a_rows per graph, keyed by the bytes of ``p64["prop"]``) is filled and
+    reused: the node heads share their propagation parameters."""
+    from ggnn_tpu_torch import oracle as O
+    from ggnn_tpu_torch.oracle.numpy_ggnn import aggregate, directed_edges
+    refs = []
+    prop = p64["prop"]
+    key = b"".join(np.ascontiguousarray(v).tobytes() for v in
+                   tree_leaves(prop))
+    known = (propagated if propagated is not None else {}).setdefault(
+        key, {})
+    for gi, g in enumerate(graphs):
+        x = g["annotations"].astype(np.float64)
+        if head.startswith("ggsnn"):
+            outs, _, anns = O.oracle_ggsnn(p64, x, g["edges"], ORACLE_E,
+                                           ORACLE_T, ORACLE_K,
+                                           output=head[6:])
+            refs.append((None, None, (outs, anns[1:])))
+            continue
+        if gi not in known:
+            states = O.oracle_propagate(prop, x, g["edges"], ORACLE_E,
+                                        ORACLE_T)
+            de = directed_edges(g["edges"], ORACLE_E)
+            known[gi] = states, np.max(
+                [np.abs(aggregate(h, de, prop["msg_w"], prop["msg_b"],
+                                  prop.get("gate_p"),
+                                  prop.get("gate_q"))).max(1)
+                 for h in states[:-1]], axis=0)
+        states, a_rows = known[gi]
+        out = {"node_select": O.oracle_node_select,
+               "per_node": O.oracle_per_node,
+               "graph_gated": O.oracle_graph_gated}[head](
+                   p64["head"], states[-1], x)
+        refs.append((states, a_rows, out))
+    return refs
+
+
+def tree_leaves(tree):
+    """The leaves of a nested dict, in key order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    return [tree]
+
+
+def oracle_hold(tag, got, ref, dtype, results, kind, hub=False, a_rows=None,
+                q8=False):
+    """|got − ref| within the phase's tolerance for ``dtype`` and ``kind``
+    ('states' with each row's ``a_rows``, 'node', 'graph', 'ggsnn'); keeps
+    the worst ratio to it, the max and mean error and the relative
+    Frobenius error under ``tag``."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    if got.shape != ref.shape or not np.isfinite(got).all():
+        raise AssertionError(f"[oracle] {tag}: shape {got.shape} vs "
+                             f"{ref.shape} or non-finite")
+    d = np.abs(got - ref)
+    emax = float(d.max(initial=0.0))
+    top = max(1.0, float(np.abs(ref).max(initial=0.0)))
+    rf = float(np.linalg.norm(got - ref) / max(np.linalg.norm(ref), 1e-30))
+    if dtype == "bfloat16":
+        tol, relf = ((TOL_SHARDED_Q8[0], TOL_SHARDED_Q8[1]) if q8 else
+                     (TOL_FLIP_MAX, TOL_GGSNN if kind in ("graph", "ggsnn")
+                      else TOL_TRAIN[dtype][0]))
+        if kind == "states":
+            rows = d.reshape(d.shape[0], -1).max(1, initial=0.0)
+            ratio = float((rows / (tol * np.maximum(1.0, a_rows))
+                           ).max(initial=0.0))
+        else:
+            ratio = emax / (tol * top)
+        ratio = max(ratio, rf / relf)
+    elif hub:
+        ratio = max(emax / (TOL_F32 * top), rf / TOL_RELF_F32)
+    else:
+        rtol, atol = ORACLE_F32_GGSNN if kind == "ggsnn" else ORACLE_F32
+        ratio = float((d / (atol + rtol * np.abs(ref))).max(initial=0.0))
+    prev = results.get(tag, (0.0, 0.0, 0.0, 0.0))
+    results[tag] = (max(prev[0], ratio), max(prev[1], emax),
+                    max(prev[2], float(d.mean()) if d.size else 0.0),
+                    max(prev[3], rf))
+
+
+def oracle_run(cfg, params, b, layout):
+    """The card's outputs on batch ``b``: (the per-step states [T, N, D],
+    the head's outputs); GGS-NN: (None, (outputs, annotations))."""
+    import torch
+    from ggnn_tpu_torch.models.api import forward
+    from ggnn_tpu_torch.models.ggnn import propagate
+    from ggnn_tpu_torch.models.ggsnn import ggsnn_forward
+    from ggnn_tpu_torch.train.loop import batch_arrays
+    arrays = batch_arrays(b, "cuda")
+    with torch.no_grad():
+        if cfg.head == "ggsnn":
+            out = ggsnn_forward(
+                params, cfg, arrays["annotations"], arrays["node_graph"],
+                arrays["node_mask"], arrays["edge_src"], arrays["edge_dst"],
+                arrays["edge_type"], arrays["edge_mask"],
+                n_graphs=b.spec.n_graphs, type_offsets=arrays["type_offsets"],
+                scatter_layout=layout)
+            return None, tuple(x.float().cpu().numpy() for x in out)
+        _, states = propagate(
+            params["prop"], cfg, arrays["annotations"], arrays["edge_src"],
+            arrays["edge_dst"], arrays["edge_type"], arrays["edge_mask"],
+            collect_states=True, type_offsets=arrays["type_offsets"],
+            scatter_layout=layout)
+        out = forward(params, cfg, arrays, b.spec.n_graphs,
+                      scatter_layout=layout)
+    return states.float().cpu().numpy(), out.float().cpu().numpy()
+
+
+def oracle_layout(kind, b):
+    """The layout of a path's ``kind`` for batch ``b``, on the card."""
+    from ggnn_tpu_torch.ops import legacy as L
+    from ggnn_tpu_torch.ops import window as W
+    from ggnn_tpu_torch.ops.scatter import build_typed_dst_layout
+    args = (b.edge_src, b.edge_dst, b.edge_type, b.edge_mask, b.spec.n_pad)
+    if kind in ("typed block", "per-tile"):
+        return build_typed_dst_layout(
+            *args, 2 * ORACLE_E,
+            block_mode="auto" if kind == "typed block" else False).to("cuda")
+    if kind == "legacy":
+        return L.layout_for_batch(b, device="cuda")
+    return W.build_window_layout(
+        *args, window=8 * 128, min_edges_per_tile=4,
+        n_message_types=2 * ORACLE_E, block_rows=128, typed_spill=True,
+        on_demand=kind == "window on-demand", row_major="block").to("cuda")
+
+
+# (path, config, the layout's kind, the kernels it must launch)
+ORACLE_PATHS = (
+    ("xla", dict(backend="xla"), None, ("segment_rows_sum",)),
+    ("pallas", dict(backend="pallas"), None, ("packed_messages",)),
+    ("pallas gated", dict(backend="pallas", edge_gates=True), None,
+     ("packed_messages", "sddmm_pallas")),
+    ("onehot typed block", dict(backend="onehot", fuse_gru=True),
+     "typed block", ("typed_block_step_gru",)),
+    ("onehot per-tile", dict(backend="onehot", fuse_gru=True), "per-tile",
+     ("typed_step_gru",)),
+    ("onehot legacy", dict(backend="onehot"), "legacy",
+     ("node_table_block_major", "onehot_segment_scatter_flat")),
+    ("window table", dict(backend="window", fuse_gru=True), "window table",
+     ("window_step_gru",)),
+    ("window on-demand", dict(backend="window", fuse_gru=True),
+     "window on-demand", ("window_step_gru",)),
+    ("window q8", dict(backend="window", fuse_gru=True,
+                       quantized_table=True), "window table",
+     ("node_table_block_major_q8",)),
+)
+# the paths that also run every head, and GGS-NN (both outputs)
+ORACLE_HEAD_PATHS = ("xla", "onehot typed block", "pallas")
+ORACLE_GGSNN_PATHS = ("xla", "pallas", "onehot typed block")
+
+
+def oracle_cases(path, kw):
+    """(head, compute dtype) of a path: node_select (with its states) in
+    f32 and bf16, q8 in bf16 alone; the other heads on ORACLE_HEAD_PATHS,
+    GGS-NN on ORACLE_GGSNN_PATHS."""
+    heads = ["node_select"]
+    if path in ORACLE_HEAD_PATHS:
+        heads += ["per_node", "graph_gated"]
+    if path in ORACLE_GGSNN_PATHS:
+        heads += ["ggsnn_graph", "ggsnn_node"]
+    dts = ("bfloat16",) if kw.get("quantized_table") else ("float32",
+                                                            "bfloat16")
+    return [(h, dt) for h in heads for dt in dts]
+
+
+def oracle_phase(strict=True):
+    """[oracle]: on every path of ORACLE_PATHS through its kernels (each
+    must launch), the card's per-step states and head outputs on the fuzz
+    batch and the hub graph against the port's NumPy oracle in f64 on the
+    host (:func:`oracle_cases`: f32 and bf16, every head, GGS-NN's K rounds
+    of outputs and annotations).  ``strict`` raises over a tolerance."""
+    import torch
+    from ggnn_tpu_torch.models.init import init_params, params_to_numpy
+    t0 = time.perf_counter()
+    sets = {"fuzz": oracle_fuzz_graphs(), "hub": oracle_hub_graph()}
+    batches = {k: oracle_batch(g, 512 if k == "fuzz" else 4096)
+               for k, g in sets.items()}
+    params, refs, propagated = {}, {}, {k: {} for k in sets}
+    for head in ORACLE_HEADS:
+        for gated in (False, True) if head == "node_select" else (False,):
+            cfg = oracle_cfg(head, edge_gates=gated)
+            prm = init_params(cfg, torch.Generator().manual_seed(5), "cuda")
+            p64 = tree_map_leaves(lambda x: np.asarray(x, np.float64),
+                                  params_to_numpy(prm))
+            params[head, gated] = prm
+            for k, graphs in sets.items():
+                refs[head, gated, k] = oracle_refs(graphs, p64, head,
+                                                   propagated[k])
+    t_ref = time.perf_counter() - t0
+    results = {}
+    for path, kw, kind, must in ORACLE_PATHS:
+        gated = kw.get("edge_gates", False)
+        q8 = bool(kw.get("quantized_table"))
+        for head, dt in oracle_cases(path, kw):
+            cfg = oracle_cfg(head, compute_dtype=dt, **kw)
+            for k, b in batches.items():
+                lay = oracle_layout(kind, b) if kind else None
+                zero_counts()
+                states, out = oracle_run(cfg, params[head, gated], b, lay)
+                counts = read_counts()
+                missing = [x for x in must if not counts[x]]
+                if missing:
+                    raise AssertionError(f"[oracle] {path} {dt} {head}: "
+                                         f"{missing} not launched")
+                hold = functools.partial(oracle_hold, dtype=dt,
+                                         results=results, hub=k == "hub",
+                                         q8=q8)
+                offs = np.concatenate([[0], np.cumsum(b.n_nodes)])[:-1]
+                for gi, g in enumerate(sets[k]):
+                    sl = slice(offs[gi], offs[gi] + g["n_nodes"])
+                    st, a_rows, ref = refs[head, gated, k][gi]
+                    if head.startswith("ggsnn"):
+                        for r_ in range(ORACLE_K):
+                            hold(f"{path} {dt} {head} {k} outputs",
+                                 out[0][r_, sl] if head == "ggsnn_node"
+                                 else out[0][r_, gi], ref[0][r_],
+                                 kind="ggsnn")
+                            hold(f"{path} {dt} {head} {k} annotations",
+                                 out[1][r_, sl], ref[1][r_], kind="ggsnn")
+                        continue
+                    if head == "node_select":
+                        for t in range(ORACLE_T):
+                            hold(f"{path} {dt} states {k}", states[t, sl],
+                                 st[t + 1], kind="states", a_rows=a_rows)
+                    hold(f"{path} {dt} {head} {k}",
+                         out[gi] if head == "graph_gated" else out[sl], ref,
+                         kind="graph" if head == "graph_gated" else "node")
+                del lay
+    torch.cuda.empty_cache()
+    bad = sorted(k for k, v in results.items() if v[0] > 1.0)
+    for tag, (ratio, emax, emean, rf) in sorted(results.items()):
+        print(f"[oracle] {tag}: max_abs_err {emax:.3e} mean_abs_err "
+              f"{emean:.3e} rel_frobenius {rf:.3e}, {ratio:.3e} of its "
+              f"tolerance "
+              f"{'ok' if ratio <= 1.0 else 'FAIL'}", flush=True)
+    worst = max(results.items(), key=lambda kv: kv[1][0])
+    print(f"[oracle] {len(results)} checks against the f64 oracle on the "
+          f"host ({t_ref:.1f} s of its time); the worst, {worst[0]}, at "
+          f"{worst[1][0]:.3e} of its tolerance; {len(bad)} over it; phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if strict and bad:
+        raise AssertionError(f"[oracle] over tolerance: {bad}")
+    return results
+
+
+
 def setup():
     """Print the card and the software, build the port's kernels from the
     checkout (nvcc seconds per source, ptxas's register and spill lines),
@@ -7664,9 +8414,16 @@ def main() -> int:
     clock.mark("[pallas *]")
     for k, v in variants_phase(b, log, timings).items():
         launched[k] += v
+    clock.mark("[variants]")
+    segment_rows_phase(b, log, timings)
+    clock.mark("[segment rows]")
+    for k, v in reproducible_phase(b)[1].items():
+        launched[k] += v
     del b
     torch.cuda.empty_cache()
-    clock.mark("[variants]")
+    clock.mark("[reproducible]")
+    oracle_phase()
+    clock.mark("[oracle]")
 
     for k, v in scalefree_phase(params, log, timings).items():
         launched[k] += v

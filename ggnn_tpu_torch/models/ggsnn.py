@@ -28,6 +28,7 @@ from ggnn_tpu_torch.models.config import ModelConfig
 from ggnn_tpu_torch.models.ggnn import default_layouts, propagate
 from ggnn_tpu_torch.models.heads import (_mlp2, graph_gated_logits,
                                          node_offsets, node_select_scores,
+                                         pick_class, pick_node,
                                          segment_first_argmax)
 from ggnn_tpu_torch.ops.segment import segment_log_softmax
 
@@ -104,7 +105,7 @@ def graph_round_nll(logits, targets, n_nodes):
     valid = (tgt >= 0) & (n_nodes[None, :] > 0)
     safe = tgt.clamp_min(0).long()
     logp = torch.log_softmax(logits, dim=-1)
-    nll = -logp.gather(-1, safe[..., None])[..., 0]
+    nll = -pick_class(logp, safe)
     nll = torch.where(valid, nll, torch.zeros_like(nll))
     step_correct = (logits.argmax(-1) == tgt) | ~valid
     return nll, valid, step_correct
@@ -116,15 +117,16 @@ def node_round_nll(scores, target_nodes, node_graph, node_mask, n_nodes,
     softmax over each graph's nodes against the target path node
     (``target_nodes`` [B, K] LOCAL ids), each round's prediction the first
     node at its graph's maximum (:func:`segment_first_argmax`)."""
-    K, N = scores.shape
     tgt = target_nodes.t()                                     # [K, B] local
     valid = (tgt >= 0) & (n_nodes[None, :] > 0)
     offs = node_offsets(n_nodes)
     tgt_global = (offs[None, :] + tgt.clamp_min(0)).long()
     logp = torch.stack([segment_log_softmax(s, node_graph, n_graphs + 1,
                                             node_mask) for s in scores])
-    # a padding graph's target may point one past the last row: masked
-    nll = -logp.gather(1, tgt_global.clamp_max(N - 1))
+    # a padding graph's target may point one past the last row: it picks
+    # none of its (no) nodes, and its term is masked
+    nll = -torch.stack([pick_node(lp, node_graph, t, n_graphs)
+                        for lp, t in zip(logp, tgt_global)])
     nll = torch.where(valid, nll, torch.zeros_like(nll))
     pred = segment_first_argmax(scores, node_graph, node_mask, n_graphs)
     step_correct = (pred == tgt_global) | ~valid

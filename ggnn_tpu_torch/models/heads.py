@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from ggnn_tpu_torch.ops.segment import segment_log_softmax
+from ggnn_tpu_torch.ops.segment_rows import segment_sum
 
 
 def _mlp2(p, x, w1="w1", b1="b1", w2="w2", b2="b2"):
@@ -32,15 +33,13 @@ def per_node_logits(head: dict, h, annotations):
 def graph_gated_pool(head: dict, h, annotations, node_graph, node_mask,
                      n_graphs: int):
     """h_G = Σ_v σ(i([h;x])) ⊙ tanh(j([h;x])) per graph → [B, G]; padding
-    nodes (graph id B, mask 0) add nothing."""
+    nodes (graph id B, mask 0) add nothing; the sum in a fixed order
+    (``ops/segment_rows.py``)."""
     hx = torch.cat([h.float(), annotations.float()], dim=1)
     gate = torch.sigmoid(hx @ head["gi_w"].float() + head["gi_b"].float())
     val = torch.tanh(hx @ head["gj_w"].float() + head["gj_b"].float())
-    vals = gate * val * node_mask.float()[:, None]
-    pooled = torch.zeros(n_graphs + 1, vals.shape[1], dtype=vals.dtype,
-                         device=vals.device)
-    pooled.index_add_(0, node_graph.long(), vals)
-    return pooled[:n_graphs]
+    return segment_sum(gate * val * node_mask.float()[:, None], node_graph,
+                       n_graphs)
 
 
 def graph_gated_logits(head: dict, h, annotations, node_graph, node_mask,
@@ -49,6 +48,28 @@ def graph_gated_logits(head: dict, h, annotations, node_graph, node_mask,
     hG = graph_gated_pool(head, h, annotations, node_graph, node_mask,
                           n_graphs)
     return _mlp2(head, hG, "c1", "c1b", "c2", "c2b")
+
+
+def pick_class(logp, target):
+    """logp[..., target] along the last axis: the entries at the target
+    class kept, the rest 0, summed (one term a row: exact).  Its backward
+    writes g at the target, where a gather's scatters it."""
+    hit = torch.arange(logp.shape[-1], device=logp.device) == target[..., None]
+    return torch.where(hit, logp, torch.zeros_like(logp)).sum(-1)
+
+
+def pick_node(logp, node_graph, target_global, n_graphs: int):
+    """logp[target_global[b]] for each graph b [n_graphs]: each graph's
+    nodes with the target's entry kept and the rest 0, summed by the
+    fixed-order segment sum (one term a graph; 0 for a graph whose target
+    is none of its nodes, such as an empty slot's).  Its backward is a
+    gather, where ``logp[target]``'s is an accumulating scatter."""
+    seg = node_graph.long()
+    tgt = torch.cat([target_global.long(),
+                     target_global.new_full((1,), -1).long()])
+    hit = torch.arange(logp.shape[0], device=logp.device) == tgt[seg]
+    return segment_sum(torch.where(hit, logp, torch.zeros_like(logp)),
+                       node_graph, n_graphs)
 
 
 def node_offsets(n_nodes):
@@ -64,15 +85,14 @@ def node_select_loss(scores, node_graph, node_mask, n_nodes, target_local,
     returns (loss, correct [B] bool, graph mask [B]).  ``target_local`` is
     the node id within each graph; the prediction is the FIRST node that
     reaches its graph's maximum score.  A graph without nodes adds nothing:
-    its target may point one past the last row, so the gather is clamped
-    (as the reference's) and its term masked."""
-    N = scores.shape[0]
+    its target may point one past the last row, so its term is masked (the
+    reference clamps its gather; :func:`pick_node` reads no row there)."""
     offs = node_offsets(n_nodes)
     target_global = (offs + target_local).long()
     logp = segment_log_softmax(scores, node_graph, n_graphs + 1, node_mask)
     real = n_nodes > 0
     graph_mask = real.to(scores.dtype)
-    nll = -logp[target_global.clamp(0, N - 1)]
+    nll = -pick_node(logp, node_graph, target_global, n_graphs)
     nll = torch.where(real, nll, torch.zeros_like(nll))
     loss = nll.sum() / graph_mask.sum().clamp_min(1.0)
 
@@ -109,7 +129,7 @@ def graph_class_loss(logits, target, n_nodes):
     """[B, C] logits vs [B] int targets; padding graphs masked out."""
     graph_mask = (n_nodes > 0).to(logits.dtype)
     logp = torch.log_softmax(logits, dim=-1)
-    nll = -logp.gather(1, target.long()[:, None])[:, 0] * graph_mask
+    nll = -pick_class(logp, target.long()) * graph_mask
     loss = nll.sum() / graph_mask.sum().clamp_min(1.0)
     correct = (logits.argmax(-1) == target) & (n_nodes > 0)
     return loss, correct, graph_mask
@@ -120,7 +140,7 @@ def per_node_loss(logits, labels, node_mask):
     valid = (labels >= 0) & (node_mask > 0)
     safe = labels.clamp_min(0).long()
     logp = torch.log_softmax(logits, dim=-1)
-    nll = -logp.gather(1, safe[:, None])[:, 0]
+    nll = -pick_class(logp, safe)
     nll = torch.where(valid, nll, torch.zeros_like(nll))
     loss = nll.sum() / valid.sum().clamp_min(1)
     correct = (logits.argmax(-1) == labels) & valid

@@ -145,6 +145,10 @@ _SIGNATURES = {
     # item_first, pbase, ws, out, stream
     "ggnn_window_auto_gather": [_I, _I, _P, _I, _P, _P, _I, _P, _I, _P, _P,
                                 _P, _P, _P],
+    # dtype, vec, vals, D, order, items, n_items, ws, split_row,
+    # split_first, split_n, n_split, out, stream
+    "ggnn_segment_rows": [_I, _I, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I,
+                          _P, _P],
     "ggnn_error_string": [_I],
 }
 

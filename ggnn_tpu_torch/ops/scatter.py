@@ -58,6 +58,7 @@ from ggnn_tpu_torch.ops.gru import (KERNEL_WIDTH, _DTYPE_CODE,
                                     _check_cuda_args, gru_cell_fwd,
                                     host_ints, kernel_width, narrow_width,
                                     pad_width, gru_cell_fwd_reference)
+from ggnn_tpu_torch.ops import segment_rows as SR
 from ggnn_tpu_torch.ops.window import (cached_per_tensor, split_plan,
                                        takes_grad, window_block_spmm_mono)
 
@@ -1190,7 +1191,7 @@ def reverse_scatter(layout: ScatterLayout, da, n_rows: int, out_dtype):
       stream, its dst-local ids (``onehot_segment_scatter``, f32 out);
     - a legacy layout with no grad half sums f32 ``da`` rows over
       ``dst_global`` into ``gather_idx``'s rows (the reference's segment
-      sum; a torch op, no kernel)."""
+      sum, in a fixed order: ``ops/segment_rows.py``)."""
     gm = layout.meta[5]
     arrs = layout.arrays
     if gm is None:
@@ -1198,9 +1199,7 @@ def reverse_scatter(layout: ScatterLayout, da, n_rows: int, out_dtype):
             grad_meta(layout)           # raises: the typed pack needs it
         dg = arrs["dst_global"]
         G = da.index_select(0, dg.clamp_min(0)) * (dg >= 0)[:, None]
-        Y = torch.zeros(n_rows, da.shape[-1], dtype=da.dtype,
-                        device=da.device)
-        return Y.index_add_(0, arrs["gather_idx"], G)
+        return SR.wide_segment_rows_sum(G, arrs["gather_idx"], n_rows)
     G = da.to(out_dtype).index_select(0, arrs["g_gather_idx"])
     if gm[0] == "octet":
         _, _, g_tile, C, R8, span8, n_oct = gm

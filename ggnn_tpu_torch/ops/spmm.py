@@ -26,8 +26,9 @@ Counterpart of ``ggnn_tpu/ops/spmm_pallas.py``:
 - :func:`typed_aggregate_pallas` builds the layout inline.
 
 A wrapper takes its plain version only for CPU tensors; for CUDA tensors it
-launches the kernel or raises.  The segment sums and the backward's scatters
-are glue: ``index_add_`` in f32, as ``ops/segment.py`` sums.
+launches the kernel or raises.  The segment sum and the backward's Y are
+f32 sums in a fixed order (``ops/segment_rows.py``), as ``ops/segment.py``
+sums.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ import torch
 
 from ggnn_tpu_torch.ops import _build
 from ggnn_tpu_torch.ops.gru import _DTYPE_CODE, _check_cuda_args, host_ints
+from ggnn_tpu_torch.ops import segment_rows as SR
 from ggnn_tpu_torch.ops.window import cached_per_tensor, split_plan
 
 DEFAULT_TILE_E = 128
@@ -365,9 +367,7 @@ class TypedTiled(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h, msg_w, msg_b, mask, src, dst, tile_type, tile_e):
         msgs = packed_messages(h, src, mask, tile_type, msg_w, msg_b, tile_e)
-        out = torch.zeros(h.shape[0], h.shape[1], dtype=torch.float32,
-                          device=h.device)
-        out.index_add_(0, dst.long(), msgs)
+        out = SR.segment_rows_sum(msgs, dst, h.shape[0])
         ctx.tile_e = tile_e
         ctx.save_for_backward(h, msg_w, msg_b, mask, src, dst, tile_type)
         return out
@@ -381,10 +381,9 @@ class TypedTiled(torch.autograd.Function):
         g = da.float().index_select(0, dst.long())            # [P, D]
         dh = dW = db = dmask = None
         if any(need[:3]):
-            etype = tile_type.long().repeat_interleave(ctx.tile_e)
-            Y = torch.zeros(T2 * N, D, dtype=torch.float32, device=h.device)
-            Y.index_add_(0, etype * N + src.long(), g * mask.float()[:, None])
-            Y = Y.reshape(T2, N, D)
+            Y = SR.segment_rows_sum(g * mask.float()[:, None],
+                                    tiled_rows(tile_type, src, ctx.tile_e, N),
+                                    T2 * N).reshape(T2, N, D)
             if need[0]:
                 dh = torch.einsum("tnf,tdf->nd", Y,
                                   msg_w.float()).to(h.dtype)
@@ -399,6 +398,16 @@ class TypedTiled(torch.autograd.Function):
                                  msg_w, msg_b, ctx.tile_e)
             dmask = (un * g).sum(-1).to(mask.dtype)
         return dh, dW, db, dmask, None, None, None, None
+
+
+def tiled_rows(tile_type, src, tile_e: int, n: int):
+    """Each packed edge's row type·n + src of the [T2·n, D] Y (int64),
+    made once per layout: the plan of its sum too."""
+    etype = cached_per_tensor(
+        tile_type, ("tile_edge_type", tile_e),
+        lambda: SR._outside_inference(
+            lambda: tile_type.long().repeat_interleave(tile_e)))
+    return SR.pair_rows(etype, src, n)
 
 
 def typed_aggregate_tiled(h, layout: dict, msg_w, msg_b, mask=None):

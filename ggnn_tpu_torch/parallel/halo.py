@@ -47,6 +47,7 @@ from ggnn_tpu_torch.models.ggsnn import annotation_update
 from ggnn_tpu_torch.models.init import torch_dtype
 from ggnn_tpu_torch.ops.scatter import ScatterLayout, aggregate_onehot
 from ggnn_tpu_torch.ops.segment import typed_aggregate
+from ggnn_tpu_torch.ops.segment_rows import gather_rows, segment_sum
 from ggnn_tpu_torch.ops.window import DeviceWindowLayout
 from ggnn_tpu_torch.ops.window_step import aggregate_window, gru_window_step
 from ggnn_tpu_torch.parallel import comm
@@ -149,8 +150,8 @@ def sharded_propagate(prop: dict, cfg: ModelConfig, mesh,
         hc = h_local.to(cdt)
         segs = []
         if Hh > 0:
-            segs.append(comm.all_gather(hc.index_select(0, hot_idx), group))
-        send = hc.index_select(0, send_idx).reshape(P, Hs, -1)
+            segs.append(comm.all_gather(gather_rows(hc, hot_idx), group))
+        send = gather_rows(hc, send_idx).reshape(P, Hs, -1)
         recv = comm.all_to_all(send, group)
         segs += [recv.reshape(-1, hc.shape[-1]), hc]
         return torch.cat(segs)
@@ -275,11 +276,6 @@ def make_sharded_train_step(cfg: ModelConfig, mesh, optimizer,
     return train_step
 
 
-def _segment_sum(x, seg, n):
-    return torch.zeros((n, *x.shape[1:]), dtype=x.dtype,
-                       device=x.device).index_add(0, seg.long(), x)
-
-
 def _sharded_round_node_nll(head: dict, h, X, node_graph, node_mask,
                             tgt_global, valid, n_graphs: int, axis):
     """A node-selection softmax over graphs that may span ranks: the
@@ -303,13 +299,12 @@ def _sharded_round_node_nll(head: dict, h, X, node_graph, node_mask,
     ex = torch.where(real, torch.exp(shift), torch.zeros_like(scores))
     # summed in f64 and rounded once, as the single-device normalizer
     # (ops/segment.py::_segment_shift)
-    sumexp = comm.psum(_segment_sum(ex.double(), seg, n_graphs + 1),
+    sumexp = comm.psum(segment_sum(ex.double(), node_graph, n_graphs + 1),
                        axis.group).to(ex.dtype)
-    in_shard = (tgt_global >= base) & (tgt_global < base + n_local)
-    tloc = (tgt_global - base).clamp(0, n_local - 1)
-    t_score = comm.psum(torch.where(in_shard, scores[tloc],
-                                    torch.zeros_like(scores[tloc])),
-                        axis.group)
+    # the target's score from the rank that holds it (H.pick_node on this
+    # rank's rows: 0 where the target lies elsewhere)
+    t_score = comm.psum(H.pick_node(scores, node_graph, tgt_global - base,
+                                    n_graphs), axis.group)
     logp_t = torch.where(valid, t_score - gmax[:n_graphs] - torch.log(
         sumexp[:n_graphs].clamp_min(1e-30)), torch.zeros_like(t_score))
     idx = base + torch.arange(n_local, device=h.device)
@@ -344,9 +339,8 @@ def _gated_pool(head, h, X, node_graph, node_mask, n_graphs, axis):
     hx = torch.cat([h.float(), X.float()], dim=1)
     gate = torch.sigmoid(hx @ head["gi_w"].float() + head["gi_b"].float())
     val = torch.tanh(hx @ head["gj_w"].float() + head["gj_b"].float())
-    return comm.psum(_segment_sum(gate * val * node_mask.float()[:, None],
-                                  node_graph, n_graphs + 1)[:n_graphs],
-                     axis.group)
+    return comm.psum(segment_sum(gate * val * node_mask.float()[:, None],
+                                 node_graph, n_graphs), axis.group)
 
 
 def sharded_graph_gated_loss(head: dict, h, ann, node_graph, node_mask,
@@ -372,7 +366,7 @@ def sharded_per_node_loss(head: dict, h, ann, node_mask, labels_full, axis):
     logits = H.per_node_logits(head, h, ann)
     valid = (labels >= 0) & (node_mask > 0)
     logp = torch.log_softmax(logits, dim=-1)
-    nll = -logp.gather(1, labels.clamp_min(0)[:, None])[:, 0]
+    nll = -H.pick_class(logp, labels.clamp_min(0))
     nll_sum = comm.psum(torch.where(valid, nll, torch.zeros_like(nll)).sum(),
                         axis.group)
     n_valid = comm.psum(valid.float().sum(), axis.group)
@@ -432,7 +426,7 @@ def sharded_ggsnn_losses(cfg: ModelConfig, run_steps, ann, node_graph,
                                  n_graphs, axis)
             logits = H._mlp2(out_p, pooled, "c1", "c1b", "c2", "c2b")
             logp = torch.log_softmax(logits, dim=-1)
-            nll_k = -logp.gather(1, tgt_k.clamp_min(0).long()[:, None])[:, 0]
+            nll_k = -H.pick_class(logp, tgt_k.clamp_min(0).long())
             nll_k = torch.where(valid_k, nll_k, torch.zeros_like(nll_k))
             step_ok = (logits.argmax(-1) == tgt_k) | ~valid_k
         X_next = annotation_update(ann_p, h, X) * mask[:, None]

@@ -200,8 +200,8 @@ def test_sddmm_pallas_matches_jax(rng, G):
 
 
 def test_sddmm_grads_match_jax(rng):
-    """The score's backward (a regather of the rows, index_add_ over src
-    and dst) against jax.grad of the reference's ``sddmm``."""
+    """The score's backward (a regather of the rows, fixed-order sums over
+    src and dst) against jax.grad of the reference's ``sddmm``."""
     N, E, G = 12, 50, 6
     p = rng.standard_normal((N, G)).astype(np.float32)
     q = rng.standard_normal((N, G)).astype(np.float32)
@@ -223,19 +223,30 @@ def test_sddmm_grads_match_jax(rng):
 
 
 def test_sddmm_mask_takes_no_gradient(rng):
-    """The edge mask is data: p and q still get their gradients, and a mask
-    that asks for one raises instead of reading a silent zero."""
+    """The edge mask takes its gradient, as the reference's ``sddmm``
+    gives it one: dp, dq and dmask_e = ḡ_e·⟨p[src_e], q[dst_e]⟩ (#17
+    with a mask of ones) against jax.grad of ``ggnn_tpu.ops.segment.sddmm``
+    in all three arguments, f32 rtol 1e-5, atol 1e-6; and a mask that asks
+    for none gets none."""
     N, E, G = 6, 20, 4
-    p, q = (torch.tensor(rng.standard_normal((N, G)).astype(np.float32),
-                         requires_grad=True) for _ in range(2))
-    src, dst = (torch.tensor(rng.integers(0, N, E).astype(np.int32))
-                for _ in range(2))
-    mask = torch.ones(E, requires_grad=True)
-    out = SG.sddmm(p, q, src, dst, mask.detach())
-    dp, dq = torch.autograd.grad(out.sum(), (p, q))
+    p, q = (rng.standard_normal((N, G)).astype(np.float32) for _ in range(2))
+    src, dst = (rng.integers(0, N, E).astype(np.int32) for _ in range(2))
+    mask = rng.random(E).astype(np.float32)
+    ct = rng.standard_normal(E).astype(np.float32)
+    ref = jax.grad(lambda a, b, m: jnp.sum(jax_sddmm(
+        a, b, jnp.asarray(src), jnp.asarray(dst), m) * ct),
+        argnums=(0, 1, 2))(*map(jnp.asarray, (p, q, mask)))
+    xs = [torch.tensor(x, requires_grad=True) for x in (p, q, mask)]
+    out = SG.sddmm(xs[0], xs[1], torch.tensor(src), torch.tensor(dst), xs[2])
+    got = torch.autograd.grad((out * torch.tensor(ct)).sum(), xs)
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-5,
+                                   atol=1e-6)
+    out = SG.sddmm(xs[0], xs[1], torch.tensor(src), torch.tensor(dst),
+                   xs[2].detach())
+    dp, dq = torch.autograd.grad(out.sum(), xs[:2])
     assert dp.shape == p.shape and dq.shape == q.shape
-    with pytest.raises(NotImplementedError, match="no gradient"):
-        SG.sddmm(p, q, src, dst, mask).sum().backward()
 
 # --- typed_aggregate_tiled and its VJP ----------------------------------------
 
