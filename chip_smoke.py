@@ -45,7 +45,8 @@
    on the card, and prints step times, peak device memory and the host
    time of the layout.
 5. Runs the ``Trainer`` CLI on bAbI task 4 (``--device cuda``) for a few
-   epochs and checks its loss is finite.
+   epochs and checks its loss is finite; beside it, at once, the CLI with
+   ``--backend onehot`` (phase 9).
 6. The legacy table-gather path (``ops/legacy.py``) of the same headline
    model on the same uniform batch.  ``[legacy kernels]``:
    ``node_table_block_major`` (#10), ``onehot_segment_scatter_flat`` (#8)
@@ -101,8 +102,9 @@
    ``build_chunked_dst_layouts(n_chunks=4, tile_e=2048)``: one forward
    through ``propagate`` (20 launches of #8), then every step against the
    plain step from the same state.
-9. The ``Trainer`` CLI again with ``--backend onehot`` (the legacy layout
-   of ``layout_for_batch``; at D = 4 it launches #8 and #11).
+9. The ``Trainer`` CLI with ``--backend onehot`` (the legacy layout of
+   ``layout_for_batch``; at D = 4 it launches #8 and #11), run with phase
+   5's.
 10. The window backend (``ops/window.py``, ``ops/window_step.py``) on
    community graphs (bench.py:457-523: nodes in communities of 512, each
    edge inside its community with probability 0.95).  ``[window
@@ -247,10 +249,16 @@
    the reference's host does.  ``[sharded serve]``: the uniform headline
    through all_gather, halo, halo_overlap and halo_onehot (#11), the
    community headline through halo_window fused on the bf16 table (#10,
-   #13, the XW spill's #11) and on-demand, and q8 serving (#15); each
-   against single-device ``propagate`` (``TOL_SHARDED``), halo and
-   halo_overlap against all_gather and on-demand against the table at the
-   [serve] tolerance, q8 against the exact step; the exchange timed alone.
+   #13, the XW spill's #11), on-demand and unfused (#10, #11), and q8
+   serving (#15); each against single-device ``propagate``
+   (``TOL_SHARDED``), halo and halo_overlap against all_gather and
+   on-demand against the table at the [serve] tolerance, q8 against the
+   exact step; the exchange timed alone.  ``[overlap]``: one halo_overlap
+   and one unfused halo_window forward traced on each rank
+   (``profiling.trace``), rank 1 holding each all-to-all back
+   ``OVERLAP_HOLD_S`` before it issues it: in every step rank 0's local
+   aggregation's kernels must all end at least half the hold before its
+   wait for the exchange (``halo/wait``) returns.
    ``[reproducible] sharded``: one halo request of the uniform headline
    with the node_select and the graph_gated head (propagation, head and
    loss with cross-rank collectives), each twice, bit-equal on each rank.
@@ -261,27 +269,35 @@
    GGS-NN task step on the [ggsnn *] cell (64 graphs of 4,096 nodes, K = 3)
    through halo; ``[ddp]``: one data-parallel step on its 64 graphs (32 a
    rank, each with its typed pack, #1 and #5).  ``[sharded nccl]``: a
-   world of one rank on NCCL in this process, one halo propagate and one
+   world of one rank on NCCL in this process (the asynchronous exchange
+   on NCCL's stream), one halo and one halo_overlap propagate and one
    task step.  Each rank's launches, step ms, error and peak memory are
-   printed; two ranks on one card give no scaling number.
+   printed; two ranks on one card give no scaling number.  ``[scaling]``:
+   ``bench_scaling_gpu.py`` through ``torch.distributed.run``, at its
+   defaults on one rank (halo_overlap), then on two ranks sharing the card
+   (``--shards 1 2 --iters 2``): the reference's JSON keys, P = 1's
+   efficiency 1.0.
 16. The edges, after the sharded phases and ``[native]``.
    ``[profile]``: the Trainer CLI with ``--backend onehot --profile DIR``
-   (a child process); the trace must name the device kernels that #8's
+   (a child process, beside the two bAbI 19 CLIs, ``BABI19_RUNS``); the
+   trace must name the device kernels that #8's
    and #11's wrappers launch on that path (a probe runs each alone on the
    CLI's first batch under ``torch.profiler``); the five ops of the most
    device time are printed.  ``[examples]``: ``examples/torch_large_graph.
    py`` at its defaults (the headline's size) in its three forms (one
    legacy layout, 4 chunks, a window layout over 512 communities), the
    launches of its two forwards, its checksum, final h and first step's h
-   against the plain path ('flip'); then ``examples/torch_custom_task.py``.
+   against the plain path ('flip'); then ``examples/torch_custom_task.py``
+   (``CUSTOM_TASK_EPOCHS``).
    ``[distributed example]``: the distributed example's body on two ranks
-   on cuda:0 over gloo at the community headline's scale (3 train
-   iterations, then q8 serving under ``torch.no_grad``: finite losses and
-   h, the parameters bit-equal on the ranks, no ``emit_res`` launch while
-   serving), then its entry through ``torch.distributed.run
-   --nproc_per_node 2`` at its default size.  ``[dryrun]``:
-   ``ggnn_tpu_torch.dryrun.entry("cuda")`` against its plain run and
-   ``dryrun_multichip(2)`` (its spawned ranks' launches are not counted).
+   on cuda:0 over gloo at the community headline's scale
+   (``DIST_EXAMPLE_ITERS`` train iterations, then q8 serving under
+   ``torch.no_grad``: finite losses and h, the parameters bit-equal on the
+   ranks, no ``emit_res`` launch while serving).  ``[dryrun]``:
+   ``ggnn_tpu_torch.dryrun.entry("cuda")`` against its plain run, then
+   ``dryrun_multichip(2)`` and ``(3)`` and the distributed example's entry
+   (``torch.distributed.run --nproc_per_node 2`` at its default size),
+   all three at once (the spawned ranks' launches are not counted).
 
 The typed-pack phases (2-4, 7) hand ``Predictor.run_batch`` the typed pack
 they build; the Predictor's own layout is the legacy one (phase 6).
@@ -298,6 +314,7 @@ before printing any result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import functools
 import json
@@ -2000,35 +2017,62 @@ finally:
 """
 
 
+def run_trainers(*runs):
+    """Each of ``runs`` (keyword dicts of :func:`run_trainer`) in its own
+    child process, all started together (bAbI's small batches leave the
+    card mostly idle); returns their launch counts, in order."""
+    started = []
+    for kw in runs:
+        backend = kw.get("backend", "xla")
+        args = ["--config", kw.get("config", "babi4"), "--device", "cuda",
+                "--epochs", "3"]
+        if backend != "xla":
+            args += ["--backend", backend]
+        args += list(kw.get("extra", ()))
+        proc = subprocess.Popen([sys.executable, "-c", TRAINER_CHILD, *args],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        started.append((proc, args, backend, kw.get("want", ()),
+                        time.perf_counter()))
+    out = []
+    try:
+        for proc, args, backend, want, t0 in started:
+            stdout, stderr = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"Trainer CLI failed ({proc.returncode})"
+                                     f":\n{stderr[-4000:]}")
+            result = json.loads(stdout.strip().splitlines()[-1])
+            launches = json.loads(next(
+                line for line in stderr.splitlines()
+                if line.startswith("LAUNCHES "))[len("LAUNCHES "):])
+            print(f"[trainer] python -m ggnn_tpu_torch.train "
+                  f"{' '.join(args)}: {result} in "
+                  f"{time.perf_counter() - t0:.1f} s"
+                  f"{'' if len(runs) == 1 else f' (one of {len(runs)} at once)'}"
+                  f"; launches { {k: v for k, v in launches.items() if v} }",
+                  flush=True)
+            if not np.isfinite(result["test_loss"]):
+                raise AssertionError("Trainer: non-finite test loss")
+            for k in want:
+                if not launches[k]:
+                    raise AssertionError(f"Trainer --backend {backend}: {k} "
+                                         "was never launched")
+            out.append(launches)
+    finally:
+        for proc, *_ in started:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
 def run_trainer(backend="xla", want=(), config="babi4", extra=()):
     """``python -m ggnn_tpu_torch.train --config babi4 --device cuda
     --epochs 3 [--backend ...] [extra ...]`` in a child process (on bAbI
     task 4, or the task of ``config``, as a user runs it); ``want``: the
     kernels it must have launched.  Returns the child's launch counts."""
-    args = ["--config", config, "--device", "cuda", "--epochs", "3"]
-    if backend != "xla":
-        args += ["--backend", backend]
-    args += list(extra)
-    t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, "-c", TRAINER_CHILD, *args],
-                         capture_output=True, text=True, timeout=600)
-    if res.returncode != 0:
-        raise AssertionError(f"Trainer CLI failed ({res.returncode}):\n"
-                             f"{res.stderr[-4000:]}")
-    result = json.loads(res.stdout.strip().splitlines()[-1])
-    launches = json.loads(next(
-        line for line in res.stderr.splitlines()
-        if line.startswith("LAUNCHES "))[len("LAUNCHES "):])
-    print(f"[trainer] python -m ggnn_tpu_torch.train {' '.join(args)}: "
-          f"{result} in {time.perf_counter() - t0:.1f} s; launches "
-          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
-    if not np.isfinite(result["test_loss"]):
-        raise AssertionError("Trainer: non-finite test loss")
-    for k in want:
-        if not launches[k]:
-            raise AssertionError(f"Trainer --backend {backend}: {k} was "
-                                 "never launched")
-    return launches
+    return run_trainers(dict(backend=backend, want=want, config=config,
+                             extra=extra))[0]
 
 
 def scalefree_phase(params, log, timings):
@@ -6244,12 +6288,15 @@ def ggsnn_train_phase(batch, lay):
     return launched
 
 
+# The Trainer CLI on bAbI task 19 from ``babi_data/``: ``babi19_small``
+# (the node output) and ``babi19`` (the graph output), 3 epochs each
+BABI19_RUNS = (dict(config="babi19_small"), dict(config="babi19"))
+
+
 def babi19_trainers():
-    """The Trainer CLI on bAbI task 19 from ``babi_data/`` on the card:
-    ``babi19_small`` (the node output) and ``babi19`` (the graph output),
-    3 epochs each; prints their test loss and accuracy."""
-    for config in ("babi19_small", "babi19"):
-        run_trainer(config=config)
+    """The BABI19_RUNS on the card, both at once; prints their test loss
+    and accuracy."""
+    run_trainers(*BABI19_RUNS)
 
 
 def native_phase():
@@ -6306,11 +6353,13 @@ def native_phase():
           f"{len(a.arrays)} arrays equal", flush=True)
 
 
-def ggsnn_phases(log, clock, sharded=None):
-    """The GGS-NN phases and [native]; returns the launches of the serving
-    and training paths.  ``sharded(holder, clock)`` (the sharded phases)
-    runs after [ggsnn train] on ``holder = [batch, typed pack]``, which it
-    empties once it no longer needs them; its launches are added."""
+def ggsnn_phases(log, clock, sharded=None, babi19=True):
+    """The GGS-NN phases, the bAbI 19 Trainer CLIs (unless ``babi19`` is
+    False: the caller runs BABI19_RUNS) and [native]; returns the launches
+    of the serving and training paths.  ``sharded(holder, clock)`` (the
+    sharded phases) runs after [ggsnn train] on ``holder = [batch, typed
+    pack]``, which it empties once it no longer needs them; its launches
+    are added."""
     import torch
     graphs, batch, lay = ggsnn_batch()
     launched = ggsnn_serve_phase(graphs, batch, lay, log)
@@ -6327,8 +6376,9 @@ def ggsnn_phases(log, clock, sharded=None):
             launched[k] += v
     del holder
     torch.cuda.empty_cache()
-    babi19_trainers()
-    clock.mark("the Trainer CLI, bAbI 19")
+    if babi19:
+        babi19_trainers()
+        clock.mark("the Trainer CLI, bAbI 19")
     native_phase()
     clock.mark("[native]")
     return launched
@@ -6498,6 +6548,9 @@ def rank_serve(mesh, state):
              for s in ("all_gather", "halo", "halo_overlap", "halo_onehot")]
     paths += [("halo_window table", wcfg, clp, wl[False][0]),
               ("halo_window on-demand", wcfg, clp, wl[True][0]),
+              ("halo_window unfused", dataclasses.replace(wcfg,
+                                                          fuse_gru=False),
+               clp, wl[False][0]),
               ("halo_window q8", dataclasses.replace(wcfg,
                                                      quantized_table=True),
                clp, wl[False][0])]
@@ -6510,6 +6563,9 @@ def rank_serve(mesh, state):
         run()
         h, ms, launches = timed(run)
         runs[tag] = dict(h=h.float().cpu(), ms=ms, launches=launches)
+        if tag in OVERLAP_PATHS:
+            out.setdefault("overlap", {})[tag] = traced_overlap(run, dev,
+                                                                r)
 
     # the exchange alone: the send rows gathered, the all-to-all (staged
     # through pinned host buffers: gloo), the pool concatenated
@@ -6528,6 +6584,107 @@ def rank_serve(mesh, state):
     out["gather_ms"] = cuda_ms(gather, 5)
     out["exchange_mb"] = 2 * P * lp.halo_size * DIM * 2 / 2 ** 20
     return with_runs(out, runs)
+
+
+# The forwards whose exchange must overlap their local aggregation on the
+# card ([overlap] in [sharded serve]).  In the traced forward rank 1 holds
+# each all-to-all back OVERLAP_HOLD_S before it issues it, so rank 0's
+# collective cannot complete before then: rank 0's local kernels must all
+# end at least half the hold before its wait for the exchange returns.
+# Had the issue waited for the collective, they would start after it.
+OVERLAP_PATHS = ("halo_overlap", "halo_window unfused")
+OVERLAP_HOLD_S = 0.2
+
+
+def overlap_steps(path):
+    """Per step of a traced sharded forward (a Chrome trace of
+    ``profiling.trace``), in ms: (the device time of the kernels launched
+    inside the step's ``halo/local`` span, the part of it inside the
+    ``halo/wait`` span, the time from the last of them to the wait's end,
+    the ``halo/exchange`` span).  A kernel is tied to its launch by the
+    trace's correlation id; device and host times share the trace's
+    clock."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    spans = {n: sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                       if e.get("cat") == "user_annotation"
+                       and e.get("name") == n)
+             for n in ("halo/exchange", "halo/local", "halo/wait")}
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    kernels = [(launched[e["args"]["correlation"]], e["ts"],
+                e["ts"] + e["dur"]) for e in events
+               if e.get("cat") == "kernel"
+               and e.get("args", {}).get("correlation") in launched]
+    if len({len(v) for v in spans.values()}) != 1:
+        raise AssertionError(f"[overlap] unpaired spans: "
+                             f"{ {k: len(v) for k, v in spans.items()} }")
+    steps = []
+    for (x0, x1), (l0, l1), (w0, w1) in zip(*spans.values()):
+        mine = [(a, b) for t, a, b in kernels if l0 <= t <= l1]
+        inside = sum(max(0.0, min(b, w1) - max(a, w0)) for a, b in mine)
+        last = max((b for _, b in mine), default=w1)
+        steps.append((sum(b - a for a, b in mine) / 1e3, inside / 1e3,
+                      (w1 - last) / 1e3, (x1 - x0) / 1e3))
+    return steps
+
+
+def traced_overlap(run, dev, rank):
+    """:func:`overlap_steps` of one ``run()`` traced on this rank, rank 1
+    holding each all-to-all back OVERLAP_HOLD_S."""
+    import os
+    import shutil
+    from ggnn_tpu_torch import profiling
+    from ggnn_tpu_torch.parallel import comm
+    start = comm.all_to_all_start
+
+    def held(x, group):
+        time.sleep(OVERLAP_HOLD_S)
+        return start(x, group)
+
+    out_dir = repo_file(".chip_scratch", f"overlap_{os.getpid()}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    if rank == 1:
+        comm.all_to_all_start = held
+    try:
+        with profiling.trace(out_dir, dev):
+            run()
+    finally:
+        comm.all_to_all_start = start
+    (name,) = os.listdir(out_dir)
+    steps = overlap_steps(os.path.join(out_dir, name))
+    shutil.rmtree(out_dir)
+    return steps
+
+
+def check_overlap(serve, card):
+    """[overlap]: in every step of each traced forward, rank 0's local
+    aggregation's kernels all ended at least half of rank 1's hold before
+    rank 0's wait for the exchange returned."""
+    margin = OVERLAP_HOLD_S * 1e3 / 2
+    for tag in OVERLAP_PATHS:
+        for r, res in enumerate(serve):
+            steps = res["overlap"][tag]
+            if len(steps) != STEPS:
+                raise AssertionError(f"[overlap] {tag} rank {r}: "
+                                     f"{len(steps)} traced steps, not "
+                                     f"{STEPS}")
+            print(f"[overlap] rank {r} {tag} (rank 1 held "
+                  f"{OVERLAP_HOLD_S} s a step): per step, the local "
+                  f"aggregation's kernels (ms) "
+                  f"{[round(x[0], 3) for x in steps]}, of which inside the "
+                  f"wait for the exchange {[round(x[1], 3) for x in steps]}; "
+                  "the last of them ended before the wait returned by "
+                  f"{[round(x[2], 3) for x in steps]}; the exchange span "
+                  f"{[round(x[3], 3) for x in steps]} (traced); card "
+                  f"{card}", flush=True)
+            if r == 0 and not all(x[0] > 0 and x[2] >= margin
+                                  for x in steps):
+                raise AssertionError(f"[overlap] {tag} rank 0: a step's "
+                                     "local aggregation did not end "
+                                     f"{margin} ms before its exchange "
+                                     "completed")
 
 
 def with_runs(out, runs):
@@ -7015,14 +7172,16 @@ def must_launch(tag, launches, names):
             raise AssertionError(f"{tag}: {n} was never launched")
 
 
-def sharded_phases(holder, clock):
+def sharded_phases(holder, clock, extra=()):
     """The parallel layer on the card (``ggnn_tpu_torch/parallel``), two
     ranks on cuda:0 over gloo (NCCL takes one rank per device), at the
-    headline width: [sharded serve], [sharded train], [sharded ggsnn],
-    [ddp], each against the single-device path; then [sharded nccl].
+    headline width: [sharded serve] (with [overlap]), [sharded train],
+    [sharded ggsnn], [ddp], each against the single-device path; then
+    [sharded nccl] and [scaling].
     ``holder`` = [the GGS-NN cell's batch, its typed pack] (emptied once the
-    [ddp] reference is made).  Returns the ranks' launches on the sharded
-    main paths."""
+    [ddp] reference is made); ``extra``: more rank phases, (name, function
+    of (mesh, state), check of (results, refs, card)), run after
+    RANK_PHASES.  Returns the ranks' launches on the sharded main paths."""
     import torch
     from ggnn_tpu_torch.data.synthetic import synthetic_batch
     t_start = time.perf_counter()
@@ -7037,7 +7196,8 @@ def sharded_phases(holder, clock):
               "[reproducible] sharded": lambda results, refs, card:
               check_reproducible_sharded(results, card),
               "[sharded train]": check_sharded_train,
-              "[sharded ggsnn] and [ddp]": check_sharded_ggsnn}
+              "[sharded ggsnn] and [ddp]": check_sharded_ggsnn,
+              **{name: check for name, _, check in extra}}
 
     def on_phase(name, results):
         for res in results:
@@ -7047,14 +7207,59 @@ def sharded_phases(holder, clock):
         checks[name](results, refs, card)
         clock.mark(f"{name} ({SHARDED_P} ranks, their set-up included)")
 
-    run_ranks(on_phase)
+    run_ranks(on_phase, phases=RANK_PHASES + tuple(
+        (name, fn) for name, fn, _ in extra))
     nccl_phase(b, refs["uniform"], card)
     clock.mark("[sharded nccl]")
+    del b, refs
+    torch.cuda.empty_cache()
+    scaling_phase()
+    clock.mark("[scaling]")
     print(f"[sharded] the sharded phases took "
           f"{time.perf_counter() - t_start:.1f} s of wall time; two ranks "
           "share one card over a host-staged transport, so their times are "
           "no scaling number", flush=True)
     return launched
+
+
+# bench_scaling_gpu.py's runs in [scaling]: (ranks, arguments)
+SCALING_RUNS = ((1, ("--strategy", "halo_overlap")),
+                (2, ("--strategy", "halo_overlap", "--shards", "1", "2",
+                     "--iters", "2")))
+SCALING_KEYS = {"metric", "value", "unit", "vs_baseline", "strategy",
+                "shards", "device"}
+
+
+def scaling_phase():
+    """[scaling]: ``bench_scaling_gpu.py`` (the port of bench_scaling.py)
+    through ``torch.distributed.run`` for each of SCALING_RUNS: exit 0, its
+    per-P lines, the card's line and its JSON line, which must hold the
+    reference's keys with P = 1's efficiency 1.0."""
+    for n, extra in SCALING_RUNS:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", str(n),
+               repo_file("bench_scaling_gpu.py"), *extra]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True,
+                             timeout=600)
+        print(f"[scaling] torchrun --nproc_per_node {n} bench_scaling_gpu.py "
+              f"{' '.join(extra)} (rc {res.returncode}, "
+              f"{time.perf_counter() - t0:.1f} s):", flush=True)
+        for line in res.stderr.splitlines():
+            if line.startswith("# "):
+                print(f"  {line}", flush=True)
+        lines = res.stdout.strip().splitlines()
+        for line in lines:
+            print(f"  {line}", flush=True)
+        if res.returncode != 0 or not lines:
+            raise AssertionError(f"[scaling] bench_scaling_gpu.py failed:\n"
+                                 f"{res.stderr[-4000:]}")
+        rec = json.loads(lines[-1])
+        if set(rec) != SCALING_KEYS or \
+                rec["unit"] != "frac_of_1chip_per_chip_throughput" or \
+                rec["shards"]["1"]["efficiency"] != 1.0:
+            raise AssertionError(f"[scaling] not the reference's record: "
+                                 f"{rec}")
 
 
 def phase_footer(phase, results):
@@ -7077,7 +7282,7 @@ def check_sharded_serve(serve, refs, card):
               f"{res['gather_ms']:.3f} ms", flush=True)
     for tag in ("all_gather", "halo", "halo_overlap", "halo_onehot",
                 "halo_window table", "halo_window on-demand",
-                "halo_window q8"):
+                "halo_window unfused", "halo_window q8"):
         ref = refs["community" if "window" in tag else "uniform"]["h"]
         h = torch.cat([res["out"][tag]["h"] for res in serve])
         if tag == "halo_window q8":
@@ -7112,10 +7317,13 @@ def check_sharded_serve(serve, refs, card):
     for tag, names in (("halo_onehot", ("window_block_spmm_mono",)),
                        ("halo_window table", ("node_table_block_major",
                                               "window_step_gru")),
+                       ("halo_window unfused", ("node_table_block_major",
+                                                "window_block_spmm_mono")),
                        ("halo_window q8", ("node_table_block_major_q8",
                                            "window_step_gru"))):
         must_launch(f"[sharded serve] {tag}", serve[0]["launches"][tag],
                     names)
+    check_overlap(serve, card)
     phase_footer("[sharded serve]", serve)
 
 
@@ -7169,8 +7377,9 @@ def check_sharded_ggsnn(gg, refs, card):
 
 def nccl_phase(b, ref, card):
     """[sharded nccl]: a world of one rank on NCCL in this process (the
-    transport the caller names: nccl, with the device tensors): one halo
-    propagate and one node_select task step, each against the
+    transport the caller names: nccl, with the device tensors; the
+    exchange issued asynchronously on NCCL's stream): one halo and one
+    halo_overlap propagate and one node_select task step, each against the
     single-device path; the group is destroyed after."""
     import socket
     import torch
@@ -7179,6 +7388,7 @@ def nccl_phase(b, ref, card):
                                          make_sharded_task_train_step,
                                          partition_batch, sharded_propagate)
     from ggnn_tpu_torch.parallel.multihost import initialize_multihost
+    from ggnn_tpu_torch.parallel.partition import split_local_remote
     from ggnn_tpu_torch.train.loop import make_optimizer
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -7191,21 +7401,20 @@ def nccl_phase(b, ref, card):
         if dist.get_backend() != NCCL:
             raise AssertionError("[sharded nccl]: not an NCCL group")
         mesh = make_mesh(n_graph=1, device=dev)
-        lp = partition_batch(b, 1).local(0, mesh.device)
+        lp = split_local_remote(partition_batch(b, 1)).local(0, mesh.device)
         cfg = sharded_cfg()
         params = sharded_params(cfg)
-
-        def run():
-            with torch.inference_mode():
-                return sharded_propagate(params["prop"], cfg, mesh, lp,
-                                         strategy="halo")
-        run()
-        h, ms, launches = timed(run)
-        err = hold("[sharded nccl] halo against single-device propagate",
-                   h.float().cpu(), ref["h"], *TOL_SHARDED)
-        rank_line("[sharded nccl]", 0, "halo", dict(ms=ms,
-                                                    launches=launches),
-                  card, err)
+        for strategy in ("halo", "halo_overlap"):
+            def run():
+                with torch.inference_mode():
+                    return sharded_propagate(params["prop"], cfg, mesh, lp,
+                                             strategy=strategy)
+            run()
+            h, ms, launches = timed(run)
+            err = hold(f"[sharded nccl] {strategy} against single-device "
+                       "propagate", h.float().cpu(), ref["h"], *TOL_SHARDED)
+            rank_line("[sharded nccl]", 0, strategy,
+                      dict(ms=ms, launches=launches), card, err)
         targets = {"n_nodes": torch.tensor([NODES], dtype=torch.int32,
                                            device=mesh.device),
                    "node": torch.tensor([node_target()], dtype=torch.int32,
@@ -7244,7 +7453,10 @@ LARGE_GRAPH_FORMS = {
     "512 communities": (dict(communities=512),
                         {"window_block_spmm_mono": 4 * STEPS,
                          "gru_cell_fwd": 2 * STEPS})}
-DIST_EXAMPLE_ITERS = 3
+# The distributed example's train iterations and the custom task's epochs
+# (cut from 3 and 60 to make room for [scaling] in the time limit)
+DIST_EXAMPLE_ITERS = 1
+CUSTOM_TASK_EPOCHS = 20
 
 
 def repo_file(*parts):
@@ -7337,7 +7549,8 @@ def probe_kernel_names(names, out_dir):
 
 def profile_phase():
     """[profile]: the Trainer CLI with ``--backend onehot --profile DIR``
-    on the card (a child process, 3 epochs of babi4): the trace must exist
+    on the card (a child process, 3 epochs of babi4, started with the
+    BABI19_RUNS beside it): the trace must exist
     and name the device kernels of #8 and #11, as a probe of each wrapper
     alone on the same path names them; prints the five ops of the most
     device time.  Returns the child's launch counts."""
@@ -7348,8 +7561,9 @@ def profile_phase():
     shutil.rmtree(out_dir, ignore_errors=True)
     os.makedirs(out_dir)
     try:
-        launches = run_trainer("onehot", want=PROFILE_KERNELS,
-                               extra=("--profile", out_dir))
+        launches = run_trainers(dict(backend="onehot", want=PROFILE_KERNELS,
+                                     extra=("--profile", out_dir)),
+                                *BABI19_RUNS)[0]
         traces = glob.glob(os.path.join(out_dir, "trace_*.json"))
         if len(traces) != 1:
             raise AssertionError(f"[profile]: {len(traces)} traces in "
@@ -7440,7 +7654,8 @@ def examples_phase(log):
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
     CT = load_example("torch_custom_task")
-    res = CT.run("cuda", log=lambda m: print(f"[examples] custom_task: {m}"))
+    res = CT.run("cuda", epochs=CUSTOM_TASK_EPOCHS,
+                 log=lambda m: print(f"[examples] custom_task: {m}"))
     accs = list(res["accuracies"].values())
     if not all(0.0 <= a <= 1.0 for a in accs) or not np.isfinite(
             res["losses"]).all():
@@ -7542,8 +7757,8 @@ def dist_example_entry():
 
 def dist_example_phase():
     """[distributed example]: the example's body on two ranks on cuda:0
-    over gloo at the community headline's scale, then its real entry
-    through torchrun.  Returns the ranks' launches."""
+    over gloo at the community headline's scale (its real entry through
+    torchrun runs beside [dryrun]).  Returns the ranks' launches."""
     launched = dict.fromkeys(KERNELS, 0)
     card = card_line()
 
@@ -7556,11 +7771,10 @@ def dist_example_phase():
 
     run_ranks(on_phase, phases=(("[distributed example]",
                                  rank_dist_example),))
-    dist_example_entry()
     return launched
 
 
-def dryrun_phase():
+def dryrun_phase(beside=None):
     """[dryrun]: ``ggnn_tpu_torch.dryrun.entry("cuda")``'s forward against
     its plain run (the flagship forward is the xla backend in f32: it
     launches no kernel, so the two are one path and must agree within
@@ -7568,7 +7782,8 @@ def dryrun_phase():
     and three spawned ranks on cuda:0 over gloo, the package's own entry;
     their launches are not counted here), each on the reference's batch of
     4 graphs (halo shape (8n, 8); at n = 3 the data-parallel parts hold 2,
-    1 and 1 graphs), and :func:`empty_slot_check`."""
+    1 and 1 graphs), and :func:`empty_slot_check`; ``beside()`` (another
+    small check) runs with the two dry runs, at once."""
     import torch
     from ggnn_tpu_torch import dryrun
     fn, args = dryrun.entry("cuda")
@@ -7582,9 +7797,16 @@ def dryrun_phase():
     expect_counts("[dryrun] entry", launches, {})
     print(f"[dryrun] entry forward {tuple(out.shape)}: finite, no kernel "
           "launched (xla, f32)", flush=True)
-    for n in (2, 3):
-        t0 = time.perf_counter()
-        res = dryrun.dryrun_multichip(n)
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(3) as ex:
+        # both worlds at once: their ranks' start-up dominates, the card
+        # is mostly idle at these shapes
+        runs = {n: ex.submit(dryrun.dryrun_multichip, n) for n in (2, 3)}
+        other = None if beside is None else ex.submit(beside)
+        results = {n: f.result() for n, f in runs.items()}
+        if other is not None:
+            other.result()
+    for n, res in results.items():
         if any(r != res[0] for r in res[1:]) or not all(
                 np.isfinite(res[0][k]) for k in (
                     "train_loss_sum", "window_train_loss_sum",
@@ -7596,8 +7818,9 @@ def dryrun_phase():
             raise AssertionError(f"[dryrun] dryrun_multichip({n}): halo "
                                  f"shape {res[0]['halo_shape']}, the "
                                  f"reference's is {(8 * n, 8)}")
-        print(f"[dryrun] dryrun_multichip({n}) on the card in "
-              f"{time.perf_counter() - t0:.1f} s: {res[0]}", flush=True)
+        print(f"[dryrun] dryrun_multichip({n}) on the card (2 and 3 at "
+              f"once, {time.perf_counter() - t0:.1f} s): {res[0]}",
+              flush=True)
     empty_slot_check()
 
 
@@ -8402,8 +8625,11 @@ def main() -> int:
     for k, v in trained.items():
         launched[k] += v
     clock.mark("[train]")
-    run_trainer()
-    clock.mark("the Trainer CLI")
+    for launches in run_trainers(dict(), dict(backend="onehot", want=(
+            "onehot_segment_scatter_flat", "window_block_spmm_mono"))):
+        for k, v in launches.items():
+            launched[k] += v
+    clock.mark("the Trainer CLI, xla and onehot")
 
     for k, v in legacy_phase(params, b, log, timings).items():
         launched[k] += v
@@ -8431,11 +8657,6 @@ def main() -> int:
     for k, v in chunked_phase(params, log).items():
         launched[k] += v
     clock.mark("[chunked 1M]")
-    for k, v in run_trainer("onehot", want=(
-            "onehot_segment_scatter_flat",
-            "window_block_spmm_mono")).items():
-        launched[k] += v
-    clock.mark("the Trainer CLI, onehot")
     window_kernels_phase(params, log, timings)
     clock.mark("[window kernels]")
     for tag, phase in (
@@ -8450,17 +8671,21 @@ def main() -> int:
     widths_phase(log)
     predictor_widths()
     clock.mark("[widths]")
-    for k, v in ggsnn_phases(log, clock, sharded_phases).items():
+    for k, v in ggsnn_phases(log, clock, sharded_phases,
+                             babi19=False).items():
         launched[k] += v
-    for tag, phase in (("[profile]", profile_phase),
+    # the small child processes run beside each other: [profile]'s CLI with
+    # the bAbI 19 CLIs, the distributed example's entry with the dry runs
+    for tag, phase in (("[profile] and the Trainer CLI, bAbI 19",
+                        profile_phase),
                        ("[examples]", lambda: examples_phase(log)),
                        ("[distributed example]", dist_example_phase)):
         for k, v in phase().items():
             if k in launched:
                 launched[k] += v
         clock.mark(tag)
-    dryrun_phase()
-    clock.mark("[dryrun]")
+    dryrun_phase(beside=dist_example_entry)
+    clock.mark("[dryrun] and the distributed example's entry")
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     if any(m == "ggnn_tpu" or m.startswith("ggnn_tpu.") for m in sys.modules):

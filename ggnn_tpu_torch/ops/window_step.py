@@ -26,6 +26,8 @@ for rounding point:
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 import torch.nn.functional as F
 
@@ -276,8 +278,69 @@ def _gru_weights(gru: dict, cdt):
     return wa, b3, uzr, gru["uh"].to(cdt)
 
 
+@dataclasses.dataclass
+class WindowStepPrep:
+    """What :func:`gru_window_step` computes before ``extra_init`` is read:
+    the table in the layout's row order (h in the compute dtype on-demand;
+    int8 with q8 and its window ``scales``) and the spill's partial
+    (None without a spill).  Values without autograd history: the fused
+    step's backward reaches them through the layout."""
+
+    layout: DeviceWindowLayout
+    quantized: bool
+    table: torch.Tensor
+    scales: torch.Tensor | None
+    spill: torch.Tensor | None
+
+
+def window_step_prep(h, layout: DeviceWindowLayout, msg_w, msg_b,
+                     quantized: bool = False) -> WindowStepPrep:
+    """The part of :func:`gru_window_step` that reads no ``extra_init``
+    (#10 or the 'src' einsum, #15 with ``quantized``, and the spill), to
+    run while an external partial is still being made; pass it back as
+    ``prep=``.  The same values as the step computes without it."""
+    if layout.on_demand and quantized:
+        raise ValueError("on_demand and quantized_table are mutually "
+                         "exclusive serving modes")
+    if layout.row_major not in ("block", "src"):
+        raise ValueError("gru_window_step needs a row_major='block' or "
+                         "'src' layout")
+    arrs, spill_meta = layout.arrays, layout.spill_meta
+    with torch.no_grad():
+        hc = h.to(msg_w.dtype)
+        scales = None
+        if quantized:
+            if layout.row_major != "block":
+                raise ValueError("quantized serving needs row_major='block'")
+            if layout.packed[0]:
+                raise ValueError("quantized serving is incompatible with "
+                                 "pack_counts (int8 MXU consumes raw "
+                                 "counts)")
+            table, scales = TB.node_table_block_major_q8(
+                hc, msg_w, msg_b, window=layout.window)
+            scales = scales[:, 0]
+        elif layout.on_demand:
+            table = hc
+        else:
+            table = _table_for(hc, layout, msg_w, msg_b)
+        if spill_meta is None:
+            spill = None
+        elif len(spill_meta) > 8 or not quantized:
+            spill = _spill_partial(hc, table, arrs, spill_meta, msg_w, msg_b)
+        else:
+            # the legacy spill over the q8 table: the gathered int8 rows
+            # dequantized by scales[row // W]
+            idx = arrs["s_gather_idx"]
+            msgs = (table.index_select(0, idx).float()
+                    * scales[idx.long() // layout.window][:, None]
+                    ).to(msg_w.dtype)
+            spill = _spill_scatter_msgs(msgs, arrs, spill_meta)
+    return WindowStepPrep(layout, quantized, table, scales, spill)
+
+
 def gru_window_step(h, layout: DeviceWindowLayout, msg_w, msg_b, gru: dict,
-                    quantized: bool = False, extra_init=None):
+                    quantized: bool = False, extra_init=None,
+                    prep: WindowStepPrep | None = None):
     """One propagation step h → h' [N, D] f32 through the fused kernel #13
     (the reference's ``gru_window_step``): the table (#10 or the einsum for
     'src' rows; #15 with ``quantized``; none on-demand), the spill's
@@ -295,25 +358,25 @@ def gru_window_step(h, layout: DeviceWindowLayout, msg_w, msg_b, gru: dict,
     only; its spill is the XW spill (exact, from h) or the legacy one
     dequantizing the gathered int8 rows by ``scales[row // W]``.
     ``extra_init`` [R ≤ N, D]: an external partial aggregation added to
-    the init (differentiable: its cotangent is da's leading rows)."""
+    the init (differentiable: its cotangent is da's leading rows).
+    ``prep``: :func:`window_step_prep` of the same h, layout, weights and
+    ``quantized``, made beforehand (None: made here)."""
     if extra_init is not None and extra_init.shape[0] > h.shape[0]:
         raise ValueError(
             f"extra_init has {extra_init.shape[0]} rows > h's "
             f"{h.shape[0]}; the fused step's cotangent for extra_init "
             "is a leading slice of da [N, D]")
-    if layout.on_demand and quantized:
-        raise ValueError("on_demand and quantized_table are mutually "
-                         "exclusive serving modes")
-    if layout.row_major not in ("block", "src"):
-        raise ValueError("gru_window_step needs a row_major='block' or "
-                         "'src' layout")
+    if quantized and W.takes_grad(h, msg_w, msg_b, extra_init,
+                                  *gru.values()):
+        raise ValueError("quantized=True is a serving mode (a forward-only "
+                         "int8 table); train with quantized_table=False")
+    if prep is None:
+        prep = window_step_prep(h, layout, msg_w, msg_b, quantized)
+    elif prep.layout is not layout or prep.quantized != quantized:
+        raise ValueError("prep was made for another layout or quantization")
     N, D = h.shape
     if quantized:
-        if W.takes_grad(h, msg_w, msg_b, extra_init, *gru.values()):
-            raise ValueError("quantized=True is a serving mode (a forward-"
-                             "only int8 table); train with quantized_table="
-                             "False")
-        return _quantized_step(h, layout, msg_w, msg_b, gru, extra_init)
+        return _quantized_step(h, prep, msg_w, gru, extra_init)
     wa = torch.cat([gru["wz"], gru["wr"], gru["wh"]], dim=1)
     b3 = torch.cat([gru["bz"], gru["br"], gru["bh"]])[None, :]
     uzr = torch.cat([gru["uz"], gru["ur"]], dim=1)
@@ -323,8 +386,8 @@ def gru_window_step(h, layout: DeviceWindowLayout, msg_w, msg_b, gru: dict,
     if not W.takes_grad(*args):
         # serving: #13 without residuals, whatever the parameters'
         # requires_grad says under torch.no_grad
-        return _fused_step_impl(layout, *args, emit_res=False)[:N]
-    return FusedWindowStep.apply(*args, layout)[:N]
+        return _fused_step_impl(prep, *args, emit_res=False)[:N]
+    return FusedWindowStep.apply(*args, prep)[:N]
 
 
 def _init_stream(init, extra, n_rows, D, device, has_init):
@@ -339,70 +402,46 @@ def _init_stream(init, extra, n_rows, D, device, has_init):
     return init + F.pad(extra.float(), (0, 0, 0, n_rows - extra.shape[0]))
 
 
-def _quantized_step(h, layout, msg_w, msg_b, gru, extra_init):
+def _quantized_step(h, prep, msg_w, gru, extra_init):
     """The q8 serving step (int8 table, #15, then #13's q8 form)."""
-    W_, n_blocks, spill_meta = layout.window, layout.n_blocks, \
-        layout.spill_meta
-    if layout.row_major != "block":
-        raise ValueError("quantized serving needs row_major='block'")
-    if layout.packed[0]:
-        raise ValueError("quantized serving is incompatible with "
-                         "pack_counts (int8 MXU consumes raw counts)")
+    layout = prep.layout
     arrs = layout.arrays
     N, D = h.shape
-    cdt = msg_w.dtype
-    wa, b3, uzr, uh = _gru_weights(gru, cdt)
-    n_rows = n_blocks * layout.block_rows
-    hc = h.to(cdt)
-    table, scales = TB.node_table_block_major_q8(hc, msg_w, msg_b, window=W_)
-    scales = scales[:, 0]
-    if spill_meta is not None and len(spill_meta) > 8:
-        init = _spill_partial(hc, None, arrs, spill_meta, msg_w, msg_b)
-    elif spill_meta is not None:
-        idx = arrs["s_gather_idx"]
-        msgs = (table.index_select(0, idx).float()
-                * scales[idx.long() // W_][:, None]).to(cdt)
-        init = _spill_scatter_msgs(msgs, arrs, spill_meta)
-    else:
-        init = None
-    has_init = spill_meta is not None or (
+    wa, b3, uzr, uh = _gru_weights(gru, msg_w.dtype)
+    n_rows = layout.n_blocks * layout.block_rows
+    has_init = layout.spill_meta is not None or (
         extra_init is not None and extra_init.shape[0] > 0)
-    init = _init_stream(init, extra_init, n_rows, D, h.device, has_init)
+    init = _init_stream(prep.spill, extra_init, n_rows, D, h.device,
+                        has_init)
     h_pad = F.pad(h.float(), (0, 0, 0, n_rows - N))
     h_new = W.window_step_gru(
-        table, arrs["c_stream"], arrs["tile_start"], arrs["block_of_tile"],
-        arrs["win_of_tile"], init, h_pad, wa, b3, uzr, uh,
-        n_blocks=n_blocks, window=W_, out_rows=layout.block_rows,
-        packed=False, has_init=has_init, scales=scales,
-        c_off=arrs.get("c_off"))
+        prep.table, arrs["c_stream"], arrs["tile_start"],
+        arrs["block_of_tile"], arrs["win_of_tile"], init, h_pad, wa, b3, uzr,
+        uh, n_blocks=layout.n_blocks, window=layout.window,
+        out_rows=layout.block_rows, packed=False, has_init=has_init,
+        scales=prep.scales, c_off=arrs.get("c_off"))
     return h_new[:N]
 
 
-def _fused_step_impl(layout, h, msg_w, msg_b, wa, b3, uzr, uh, extra,
+def _fused_step_impl(prep, h, msg_w, msg_b, wa, b3, uzr, uh, extra,
                      emit_res):
-    """#13 over the layout's table (or on-demand windows) with the spill's
+    """#13 over the prepared table (or on-demand windows) with the spill's
     partial plus ``extra`` as init → h' [n_rows, D] (and the residuals)."""
-    arrs, W_ = layout.arrays, layout.window
+    layout = prep.layout
+    arrs = layout.arrays
     N, D = h.shape
     cdt = msg_w.dtype
-    hc = h.to(cdt)
-    if layout.on_demand:
-        table, step_w, step_b = hc, msg_w, msg_b
-    else:
-        table, step_w, step_b = _table_for(hc, layout, msg_w, msg_b), None, \
-            None
+    step_w, step_b = (msg_w, msg_b) if layout.on_demand else (None, None)
     n_rows = layout.n_blocks * layout.block_rows
-    spill_meta = layout.spill_meta
-    has_init = spill_meta is not None or extra.shape[0] > 0
-    init = (_spill_partial(hc, table, arrs, spill_meta, msg_w, msg_b)
-            if spill_meta is not None else None)
-    init = _init_stream(init, extra, n_rows, D, h.device, has_init)
+    has_init = layout.spill_meta is not None or extra.shape[0] > 0
+    init = _init_stream(prep.spill, extra, n_rows, D, h.device, has_init)
     h_pad = F.pad(h.float(), (0, 0, 0, n_rows - N))
     return W.window_step_gru(
-        table, arrs["c_stream"], arrs["tile_start"], arrs["block_of_tile"],
-        arrs["win_of_tile"], init, h_pad, wa.to(cdt).contiguous(),
-        b3.float().contiguous(), uzr.to(cdt).contiguous(),
-        uh.to(cdt).contiguous(), n_blocks=layout.n_blocks, window=W_,
+        prep.table, arrs["c_stream"], arrs["tile_start"],
+        arrs["block_of_tile"], arrs["win_of_tile"], init, h_pad,
+        wa.to(cdt).contiguous(), b3.float().contiguous(),
+        uzr.to(cdt).contiguous(), uh.to(cdt).contiguous(),
+        n_blocks=layout.n_blocks, window=layout.window,
         out_rows=layout.block_rows, packed=layout.packed[0],
         has_init=has_init, emit_res=emit_res, c_off=arrs.get("c_off"),
         msg_w=step_w, msg_b=step_b)
@@ -419,10 +458,10 @@ class FusedWindowStep(torch.autograd.Function):
     rows."""
 
     @staticmethod
-    def forward(ctx, h, msg_w, msg_b, wa, b3, uzr, uh, extra, layout):
-        h_new, resid = _fused_step_impl(layout, h, msg_w, msg_b, wa, b3,
+    def forward(ctx, h, msg_w, msg_b, wa, b3, uzr, uh, extra, prep):
+        h_new, resid = _fused_step_impl(prep, h, msg_w, msg_b, wa, b3,
                                         uzr, uh, extra, emit_res=True)
-        ctx.layout, ctx.dtypes = layout, (h.dtype, wa.dtype, b3.dtype,
+        ctx.layout, ctx.dtypes = prep.layout, (h.dtype, wa.dtype, b3.dtype,
                                           uzr.dtype, uh.dtype, extra.dtype)
         ctx.n_extra = extra.shape[0]
         ctx.save_for_backward(h.to(msg_w.dtype), msg_w, wa, uzr, uh, resid)

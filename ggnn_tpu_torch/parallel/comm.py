@@ -10,10 +10,13 @@ all P replicas is then summed to the true one, and a parameter used after
 a psum (whose gradient each replica computes whole, times 1/P) sums to its
 true gradient as well.
 
-- :func:`all_to_all`: equal ``[P, H, D]`` chunks; its backward is the
-  reverse all-to-all (the same exchange of the cotangents);
-- :func:`all_gather`: tiled on the leading axis; its backward is a
-  reduce-scatter (sum);
+- :func:`all_to_all_start` / :func:`finish`: equal ``[P, H, D]`` chunks,
+  issued asynchronously so that work queued between the two runs while the
+  exchange is in flight; the backward is the reverse all-to-all (the same
+  exchange of the cotangents, synchronous); :func:`all_to_all` is the two
+  back to back;
+- :func:`all_gather_start` / :func:`finish`: tiled on the leading axis;
+  the backward is a reduce-scatter (sum); :func:`all_gather` back to back;
 - :func:`psum`: all-reduce (sum), backward all-reduce (sum);
 - :func:`pmax` / :func:`pmin`: forward only, on values that take no
   gradient (the reference stops the gradient before them);
@@ -23,7 +26,16 @@ true gradient as well.
 The transport is the group's backend, never a fallback: ``nccl`` gets the
 device tensors; ``gloo`` with CUDA tensors gets them staged through pinned
 host buffers explicitly (gloo moves host memory), and with CPU tensors the
-tensors themselves.
+tensors themselves.  The asynchronous forms: on ``nccl`` the collective
+runs with ``async_op=True`` on NCCL's stream, which waits only for the work
+queued before it (the send rows' gather), and :func:`finish` makes the
+current stream wait for it (the host does not); on ``gloo`` with CUDA
+tensors the send rows are copied into a pinned buffer without blocking,
+the host waits for that copy's event alone (queued before the local work,
+so the card has only the gather and the copy left), the collective runs
+with ``async_op=True`` on gloo's threads, and :func:`finish` waits for it
+and copies the received rows back without blocking; on ``gloo`` with CPU
+tensors ``async_op=True``.  Any other pairing raises.
 """
 
 from __future__ import annotations
@@ -43,40 +55,10 @@ def _to_host(x):
     return buf
 
 
-def _run(group, fn, out_shape, x):
-    """``fn(out, inp)`` on ``x`` (contiguous), on the group's transport;
-    returns ``out`` on ``x``'s device."""
-    x = x.contiguous()
-    if _staged(group, x):
-        out = torch.empty(out_shape, dtype=x.dtype, pin_memory=True)
-        fn(out, _to_host(x))
-        return out.to(x.device)
-    out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
-    fn(out, x)
-    return out
-
-
-def _all_to_all(group, x):
-    return _run(group, lambda o, i: dist.all_to_all_single(o, i, group=group),
-                x.shape, x)
-
-
 _gather_into = getattr(dist, "all_gather_single", None) \
     or dist.all_gather_into_tensor
 _reduce_scatter = getattr(dist, "reduce_scatter_single", None) \
     or dist.reduce_scatter_tensor
-
-
-def _all_gather(group, x):
-    P = dist.get_world_size(group)
-    return _run(group, lambda o, i: _gather_into(o, i, group=group),
-                (P * x.shape[0], *x.shape[1:]), x)
-
-
-def _reduce_scatter_sum(group, x):
-    P = dist.get_world_size(group)
-    return _run(group, lambda o, i: _reduce_scatter(o, i, group=group),
-                (x.shape[0] // P, *x.shape[1:]), x)
 
 
 def _all_reduce(group, x, op=dist.ReduceOp.SUM):
@@ -91,26 +73,105 @@ def _all_reduce(group, x, op=dist.ReduceOp.SUM):
     return out
 
 
-class AllToAll(torch.autograd.Function):
+class Pending:
+    """A collective in flight (:func:`all_to_all_start`,
+    :func:`all_gather_start`); :func:`finish` waits for it once."""
+
+    def __init__(self, kind, x, group, work, out, keep):
+        self.kind, self.x, self.group = kind, x, group
+        self._work, self._out, self._keep = work, out, keep
+
+    def _wait(self):
+        if self._work is None:
+            raise RuntimeError(f"this {self.kind} was finished already")
+        self._work.wait()
+        out = self._out
+        if out.device != self.x.device:     # gloo staged: back to the card
+            out = out.to(self.x.device, non_blocking=True)
+        self._work = self._out = self._keep = None
+        return out
+
+
+def _start(kind, group, fn, out_shape, x) -> Pending:
+    """``fn(out, inp)`` (a collective with ``async_op=True``) issued on the
+    group's transport; see the module's docstring."""
+    backend = dist.get_backend(group)
+    src = x.detach().contiguous()
+    keep = src
+    if backend == dist.Backend.NCCL and src.is_cuda:
+        out = torch.empty(out_shape, dtype=src.dtype, device=src.device)
+    elif backend == dist.Backend.GLOO and src.is_cuda:
+        keep = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+        keep.copy_(src, non_blocking=True)
+        copied = torch.cuda.Event()
+        copied.record(torch.cuda.current_stream(src.device))
+        copied.synchronize()
+        out = torch.empty(out_shape, dtype=src.dtype, pin_memory=True)
+    elif backend == dist.Backend.GLOO and src.device.type == "cpu":
+        out = torch.empty(out_shape, dtype=src.dtype)
+    else:
+        raise ValueError(f"no asynchronous {kind} on backend {backend!r} "
+                         f"for {src.device.type} tensors")
+    work = fn(out, keep)
+    return Pending(kind, x, group, work, out, keep)
+
+
+class _Finish(torch.autograd.Function):
+    """The received tensor of a :class:`Pending` as a function of the sent
+    ``x``: the backward is the reverse all-to-all, or the all_gather's
+    reduce-scatter (sum), both synchronous."""
+
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return _all_to_all(group, x)
+    def forward(ctx, x, pending):
+        ctx.kind, ctx.group = pending.kind, pending.group
+        return pending._wait()
 
     @staticmethod
     def backward(ctx, g):
-        return _all_to_all(ctx.group, g), None
+        return _backward(ctx.kind, ctx.group, g), None
 
 
-class AllGather(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return _all_gather(group, x)
+def _backward(kind, group, g):
+    """The cotangent of a ``kind`` collective's sent tensor from ``g``,
+    through :func:`_start` and waited on at once: the reverse all-to-all,
+    or the all_gather's reduce-scatter (sum)."""
+    if kind == "all_to_all":
+        return _start(kind, group, lambda o, i: dist.all_to_all_single(
+            o, i, group=group, async_op=True), g.shape, g)._wait()
+    P = dist.get_world_size(group)
+    return _start("reduce_scatter", group, lambda o, i: _reduce_scatter(
+        o, i, group=group, async_op=True),
+        (g.shape[0] // P, *g.shape[1:]), g)._wait()
 
-    @staticmethod
-    def backward(ctx, g):
-        return _reduce_scatter_sum(ctx.group, g), None
+
+def all_to_all_start(x, group) -> Pending:
+    """Issue the all-to-all of x [P, H, …] (chunk j goes to rank j);
+    :func:`finish` returns [P, H, …] whose chunk j came from rank j (the
+    reference's ``all_to_all(split_axis=0, concat_axis=0, tiled=False)``).
+    ``x`` must not change before :func:`finish`."""
+    if x.shape[0] != dist.get_world_size(group):
+        raise ValueError(f"all_to_all needs [P, …] chunks, got {x.shape} for "
+                         f"P = {dist.get_world_size(group)}")
+    return _start("all_to_all", group,
+                  lambda o, i: dist.all_to_all_single(o, i, group=group,
+                                                      async_op=True),
+                  x.shape, x)
+
+
+def all_gather_start(x, group) -> Pending:
+    """Issue the all_gather of x [n, …]; :func:`finish` returns [P·n, …],
+    rank r's rows at r·n (tiled)."""
+    P = dist.get_world_size(group)
+    return _start("all_gather", group,
+                  lambda o, i: _gather_into(o, i, group=group, async_op=True),
+                  (P * x.shape[0], *x.shape[1:]), x)
+
+
+def finish(pending: Pending):
+    """Wait for a collective issued by :func:`all_to_all_start` or
+    :func:`all_gather_start`; returns what it received, on the sent
+    tensor's device, differentiable with respect to the sent tensor."""
+    return _Finish.apply(pending.x, pending)
 
 
 class PSum(torch.autograd.Function):
@@ -125,18 +186,14 @@ class PSum(torch.autograd.Function):
 
 
 def all_to_all(x, group):
-    """x [P, H, …]: chunk j goes to rank j; returns [P, H, …] whose chunk j
-    came from rank j (the reference's ``all_to_all(split_axis=0,
-    concat_axis=0, tiled=False)``)."""
-    if x.shape[0] != dist.get_world_size(group):
-        raise ValueError(f"all_to_all needs [P, …] chunks, got {x.shape} for "
-                         f"P = {dist.get_world_size(group)}")
-    return AllToAll.apply(x, group)
+    """:func:`all_to_all_start` and :func:`finish` back to back."""
+    return finish(all_to_all_start(x, group))
 
 
 def all_gather(x, group):
-    """[n, …] on each rank → [P·n, …], rank r's rows at r·n (tiled)."""
-    return AllGather.apply(x, group)
+    """[n, …] on each rank → [P·n, …], rank r's rows at r·n (tiled):
+    :func:`all_gather_start` and :func:`finish` back to back."""
+    return finish(all_gather_start(x, group))
 
 
 def psum(x, group):

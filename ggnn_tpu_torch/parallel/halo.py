@@ -14,8 +14,8 @@ dtype.  Five strategies:
   ``P·Hh + P·H``); the hot segment (``partition_batch(hot_thresh=…)``)
   rides one all_gather;
 - ``halo_overlap``: local edges read ``h_local`` alone, remote ones the
-  pool (the reference's split, so that the exchange can overlap the local
-  aggregation);
+  pool (the reference's split): the local aggregation runs while the
+  exchange is in flight;
 - ``halo_onehot``: the pool through the legacy one-hot scatter layouts of
   :func:`~ggnn_tpu_torch.parallel.partition.build_halo_scatter_layouts`
   (``ops/legacy.py``: the pool's 'type'-order table, its gather, then the
@@ -26,6 +26,21 @@ dtype.  Five strategies:
   partial enters kernel #13 as ``extra_init`` and its cotangent goes back
   through the typed aggregation and the reverse all-to-all; q8 serving
   with ``cfg.quantized_table``.
+
+What runs while the exchange is in flight (issued by
+:func:`~ggnn_tpu_torch.parallel.comm.all_to_all_start` before the local
+work is queued, waited on by :func:`~ggnn_tpu_torch.parallel.comm.finish`
+after it): halo_overlap's local typed aggregation; unfused halo_window's
+window aggregation (``aggregate_window``); fused halo_window's node table
+(#10, or #15 with q8) and its spill's partial (on-demand: the spill's
+partial alone), since #13 takes the remote partial as its init.  halo and
+halo_onehot issue the hot rows' all_gather and the all-to-all together and
+wait for both; all_gather has no work that reads no gathered row.  The
+spans ``halo/exchange`` (issue to wait), ``halo/local`` and ``halo/wait``
+(inside it: the local work's launch, then the wait for the exchange
+alone) and ``halo/remote`` (the remote edges' aggregation) name each
+step's parts in a :mod:`~ggnn_tpu_torch.profiling` trace.  The backward's reverse
+exchange is synchronous.
 
 The GRU cell is the reference's sharded one: ``gru_update`` without a
 matmul dtype (f32 matmul inputs), so the halo strategies do not reach the
@@ -44,12 +59,15 @@ from ggnn_tpu_torch.models import heads as H
 from ggnn_tpu_torch.models.config import ModelConfig
 from ggnn_tpu_torch.models.ggnn import fuse_gru, gru_update, init_state
 from ggnn_tpu_torch.models.ggsnn import annotation_update
+from ggnn_tpu_torch import profiling
 from ggnn_tpu_torch.models.init import torch_dtype
 from ggnn_tpu_torch.ops.scatter import ScatterLayout, aggregate_onehot
 from ggnn_tpu_torch.ops.segment import typed_aggregate
 from ggnn_tpu_torch.ops.segment_rows import gather_rows, segment_sum
 from ggnn_tpu_torch.ops.window import DeviceWindowLayout
-from ggnn_tpu_torch.ops.window_step import aggregate_window, gru_window_step
+from ggnn_tpu_torch.ops.window_step import (aggregate_window,
+                                            gru_window_step,
+                                            window_step_prep)
 from ggnn_tpu_torch.parallel import comm
 from ggnn_tpu_torch.parallel.partition import (PartitionedBatch,
                                                build_halo_scatter_layouts,
@@ -144,17 +162,37 @@ def sharded_propagate(prop: dict, cfg: ModelConfig, mesh,
     edges_g = dict(common, src=lp.edge_src_global)   # global source ids
     edges_h = dict(common, src=lp.edge_src_halo)     # pool coordinates
 
-    def exchange(h_local):
+    def start_exchange(hc):
+        """Issue this step's exchange of the compute-dtype states ``hc``:
+        the hot rows' all_gather, then the all-to-all of the send rows."""
+        hot = (comm.all_gather_start(gather_rows(hc, hot_idx), group)
+               if Hh > 0 else None)
+        send = gather_rows(hc, send_idx).reshape(P, Hs, -1)
+        return hc, hot, comm.all_to_all_start(send, group)
+
+    def finish_exchange(pending):
         """The pool [hot (P·Hh) ∥ recv (P·H) ∥ h_local] in the compute
         dtype."""
-        hc = h_local.to(cdt)
-        segs = []
-        if Hh > 0:
-            segs.append(comm.all_gather(gather_rows(hc, hot_idx), group))
-        send = gather_rows(hc, send_idx).reshape(P, Hs, -1)
-        recv = comm.all_to_all(send, group)
-        segs += [recv.reshape(-1, hc.shape[-1]), hc]
+        hc, hot, a2a = pending
+        segs = [] if hot is None else [comm.finish(hot)]
+        segs += [comm.finish(a2a).reshape(-1, hc.shape[-1]), hc]
         return torch.cat(segs)
+
+    def exchange(hc):
+        """The pool, both collectives issued before either is waited on."""
+        with profiling.annotate("halo/exchange"):
+            return finish_exchange(start_exchange(hc))
+
+    def overlapped(hc, local):
+        """``local()`` (work that reads no halo row) queued while the
+        exchange is in flight; returns (its result, the pool).  The
+        ``halo/wait`` span is the wait for the exchange alone."""
+        with profiling.annotate("halo/exchange"):
+            pending = start_exchange(hc)
+            with profiling.annotate("halo/local"):
+                out = local()
+            with profiling.annotate("halo/wait"):
+                return out, finish_exchange(pending)
 
     def typed(pool, e):
         """The plain typed aggregation of edges ``e`` from ``pool``, with
@@ -163,29 +201,43 @@ def sharded_propagate(prop: dict, cfg: ModelConfig, mesh,
                                e["mask"], prop["msg_w"], prop["msg_b"],
                                strategy=cfg.agg_strategy)[:n_local]
 
+    def remote(pool):
+        with profiling.annotate("halo/remote"):
+            return typed(pool, rem)
+
     def step(h_local):
+        hc = h_local.to(cdt)
         if strategy == "all_gather":
-            a = typed(comm.all_gather(h_local.to(cdt), group), edges_g)
+            a = typed(comm.all_gather(hc, group), edges_g)
         elif strategy == "halo":
-            a = typed(exchange(h_local), edges_h)
+            a = typed(exchange(hc), edges_h)
         elif strategy == "halo_overlap":
-            a = typed(h_local.to(cdt), loc) + typed(exchange(h_local), rem)
+            # the local edges read h_local alone: aggregated while the
+            # exchange is in flight (the reference's overlap)
+            a_loc, pool = overlapped(hc, lambda: typed(hc, loc))
+            a = a_loc + remote(pool)
         elif strategy == "halo_onehot":
             # every edge (local ones by their self-coordinates) through the
             # one-hot layout over the pool
-            a = aggregate_onehot(exchange(h_local), layout, msg_w_c,
+            a = aggregate_onehot(exchange(hc), layout, msg_w_c,
                                  msg_b_c)[:n_local]
-        else:   # halo_window
-            a_rem = typed(exchange(h_local), rem)
-            if cfg.fuse_gru:
-                # the remote partial rides the fused step's init, so its
-                # epilogue sees the whole a; q8 quantizes each rank's own
-                # table windows (serving only)
-                return gru_window_step(h_local, layout, msg_w_c, msg_b_c,
-                                       prop["gru"], extra_init=a_rem,
-                                       quantized=cfg.quantized_table)
-            a = aggregate_window(h_local.to(cdt), layout, msg_w_c,
-                                 msg_b_c)[:n_local] + a_rem
+        elif cfg.fuse_gru:   # halo_window, fused
+            # the remote partial rides #13's init, so #13 waits for the
+            # exchange; the table (#10, #15 with q8) and the spill's
+            # partial read h_local alone and run while it is in flight
+            # (on-demand builds its windows inside #13: only its spill
+            # overlaps).  q8 quantizes each rank's own table windows
+            # (serving only)
+            prep, pool = overlapped(hc, lambda: window_step_prep(
+                h_local, layout, msg_w_c, msg_b_c,
+                quantized=cfg.quantized_table))
+            return gru_window_step(h_local, layout, msg_w_c, msg_b_c,
+                                   prop["gru"], extra_init=remote(pool),
+                                   quantized=cfg.quantized_table, prep=prep)
+        else:                # halo_window, unfused
+            a_loc, pool = overlapped(hc, lambda: aggregate_window(
+                hc, layout, msg_w_c, msg_b_c)[:n_local])
+            a = a_loc + remote(pool)
         return gru_update(prop["gru"], h_local, a, fused)
 
     def run_steps(h):

@@ -33,6 +33,7 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(d, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "bench_scaling_gpu.py")
     for sub in ("scripts", "examples"):
         d = os.path.join(REPO, sub)
         for f in sorted(os.listdir(d)):
@@ -41,9 +42,10 @@ def _port_sources():
 
 
 def test_port_never_imports_the_jax_package():
-    """No module of the port, nothing in chip_smoke.py and no
-    ``scripts/torch_*.py`` or ``examples/torch_*.py`` imports ``ggnn_tpu``
-    or ``jax`` (every import statement, at any depth)."""
+    """No module of the port, nothing in chip_smoke.py or
+    bench_scaling_gpu.py and no ``scripts/torch_*.py`` or
+    ``examples/torch_*.py`` imports ``ggnn_tpu`` or ``jax`` (every import
+    statement, at any depth)."""
     found = []
     for path in _port_sources():
         tree = ast.parse(open(path).read(), path)

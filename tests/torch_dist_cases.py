@@ -118,3 +118,20 @@ def flat_tree(tree, prefix=""):
             out.update(flat_tree(tree[k], f"{prefix}{k}/"))
         return out
     return {prefix[:-1]: np.asarray(tree)}
+
+
+def overlap_cases(batch, cfg, layouts, hold_s, seed=0,
+                  strategies=("halo_overlap", "halo_window"),
+                  dtypes=("float32", "bfloat16")):
+    """The worker's ``overlap`` cases: each strategy (its P = 2 layout from
+    ``layouts``) in each compute dtype on ``batch``, graph index 1 holding
+    its exchange back ``hold_s`` seconds each step."""
+    cases = []
+    for dt in dtypes:
+        c = dict(cfg, compute_dtype=dt)
+        params = jax_params(seed, **c)
+        for s in strategies:
+            cases.append(dict(name=f"{s}-{dt}", kind="overlap", P=2,
+                              batch=batch, params=params, cfg=c, strategy=s,
+                              layout=layouts.get((s, 2)), hold_s=hold_s))
+    return cases

@@ -194,8 +194,100 @@ def run_example(case, mesh):
             **_values(state["prop"])}
 
 
+def _serial_propagate(prop, cfg, lp, layout, axis):
+    """The serial composition of a halo_overlap (``layout`` None) or
+    unfused halo_window step: the synchronous all-to-all, then the local
+    and remote aggregations, summed local first."""
+    import torch
+    from ggnn_tpu_torch.models.ggnn import fuse_gru, gru_update, init_state
+    from ggnn_tpu_torch.models.init import torch_dtype
+    from ggnn_tpu_torch.ops.segment import typed_aggregate
+    from ggnn_tpu_torch.ops.segment_rows import gather_rows
+    from ggnn_tpu_torch.ops.window_step import aggregate_window
+    from ggnn_tpu_torch.parallel import comm
+    if lp.hot_size:
+        raise AssertionError("the serial composition takes no hot set")
+    cdt, n = torch_dtype(cfg.compute_dtype), lp.n_local
+
+    def typed(pool, e):
+        return typed_aggregate(pool, e["src"], e["dst"], e["type"],
+                               e["mask"], prop["msg_w"], prop["msg_b"],
+                               strategy=cfg.agg_strategy)[:n]
+
+    h = init_state(lp.annotations, cfg.state_dim)
+    for _ in range(cfg.n_steps):
+        hc = h.to(cdt)
+        send = gather_rows(hc, lp.send_idx.reshape(-1).long())
+        recv = comm.all_to_all(send.reshape(axis.size, lp.halo_size, -1),
+                               axis.group)
+        pool = torch.cat([recv.reshape(-1, hc.shape[-1]), hc])
+        if layout is None:
+            a_loc = typed(hc, lp.local_edges)
+        else:
+            a_loc = aggregate_window(hc, layout, prop["msg_w"].to(cdt),
+                                     prop["msg_b"].to(cdt))[:n]
+        a = a_loc + typed(pool, lp.remote_edges)
+        h = gru_update(prop["gru"], h, a, fuse_gru(prop["gru"]))
+    return h
+
+
+def run_overlap(case, mesh):
+    """``sharded_propagate`` (halo_overlap, or unfused halo_window) with
+    the ``time.time()`` stamps of its spans (enter, exit) and of each
+    all-to-all's issue, the issue held back ``hold_s`` on graph index 1;
+    beside it :func:`_serial_propagate` of the same rows."""
+    import contextlib
+    import time
+    import numpy as np
+    import torch
+    from ggnn_tpu_torch import profiling
+    from ggnn_tpu_torch.parallel import comm, sharded_propagate
+    from ggnn_tpu_torch.parallel.partition import (local_halo_layout,
+                                                   split_local_remote)
+    prop = _params(case)["prop"]
+    parts, lay = _parts(case)
+    split_local_remote(parts)
+    axis = mesh.axis("graph")
+    lp = parts.local(axis.index, mesh.device)
+    layout = None if lay is None else local_halo_layout(lay, axis.index,
+                                                        mesh.device)
+    stamps = {"halo/exchange": [], "halo/local": [], "halo/wait": [],
+              "halo/remote": [], "issue": []}
+    annotate, start = profiling.annotate, comm.all_to_all_start
+
+    @contextlib.contextmanager
+    def stamped(name):
+        t0 = time.time()
+        yield
+        stamps[name].append((t0, time.time()))
+
+    def held_start(x, group):
+        if axis.index == 1:
+            time.sleep(case["hold_s"])
+        t = time.time()
+        stamps["issue"].append((t, t))
+        return start(x, group)
+
+    # the ranks set out together: the hold alone separates them
+    torch.distributed.barrier(group=axis.group)
+    profiling.annotate, comm.all_to_all_start = stamped, held_start
+    try:
+        with torch.no_grad():
+            h = sharded_propagate(prop, _cfg(case), mesh, lp,
+                                  strategy=case["strategy"],
+                                  halo_layouts=layout)
+    finally:
+        profiling.annotate, comm.all_to_all_start = annotate, start
+    with torch.no_grad():
+        serial = _serial_propagate(prop, _cfg(case), lp, layout, axis)
+    return {"h": _np(h), "serial": _np(serial),
+            **{f"t/{k}": np.asarray(v, np.float64).reshape(-1, 2)
+               for k, v in stamps.items()}}
+
+
 RUNNERS = {"propagate": run_propagate, "train": run_train, "task": run_task,
-           "eval": run_eval, "ddp": run_ddp, "example": run_example}
+           "eval": run_eval, "ddp": run_ddp, "example": run_example,
+           "overlap": run_overlap}
 
 
 def mesh_key(case):
