@@ -256,9 +256,19 @@
    exact step; the exchange timed alone.  ``[overlap]``: one halo_overlap
    and one unfused halo_window forward traced on each rank
    (``profiling.trace``), rank 1 holding each all-to-all back
-   ``OVERLAP_HOLD_S`` before it issues it: in every step rank 0's local
+   ``OVERLAP_HOLD_S`` before it issues it (the ranks meet at a barrier
+   just before each issue, so the hold counts from a common start, and
+   Python's cyclic collector is off during the trace): in every step
+   rank 0's local
    aggregation's kernels must all end at least half the hold before its
-   wait for the exchange (``halo/wait``) returns.
+   wait for the exchange (``halo/wait``) returns; in ``[sharded train]``
+   its mirror: one traced node_select train step through halo_overlap
+   and one through fused halo_window (on-demand), rank 1 holding each
+   reverse all-to-all back as long: in every step with a reverse
+   exchange rank 0's local backward kernels (launched between the
+   reverse issue and ``halo/bwd_wait``: the local typed aggregation's
+   backward; #14 and the spill backward) must end as long before that
+   wait returns.
    ``[reproducible] sharded``: one halo request of the uniform headline
    with the node_select and the graph_gated head (propagation, head and
    loss with cross-rank collectives), each twice, bit-equal on each rank.
@@ -6564,8 +6574,8 @@ def rank_serve(mesh, state):
         h, ms, launches = timed(run)
         runs[tag] = dict(h=h.float().cpu(), ms=ms, launches=launches)
         if tag in OVERLAP_PATHS:
-            out.setdefault("overlap", {})[tag] = traced_overlap(run, dev,
-                                                                r)
+            out.setdefault("overlap", {})[tag] = traced_held(
+                run, dev, r, overlap_steps)
 
     # the exchange alone: the send rows gathered, the all-to-all (staged
     # through pinned host buffers: gloo), the pool concatenated
@@ -6592,24 +6602,27 @@ def rank_serve(mesh, state):
 # collective cannot complete before then: rank 0's local kernels must all
 # end at least half the hold before its wait for the exchange returns.
 # Had the issue waited for the collective, they would start after it.
+# The backward's mirror ([overlap] in [sharded train]): traced train steps
+# of OVERLAP_BWD_PATHS, rank 1 holding each reverse all-to-all back
+# OVERLAP_HOLD_S; rank 0's local backward kernels (launched between its
+# reverse issue and its wait) must end as long before its wait returns.
 OVERLAP_PATHS = ("halo_overlap", "halo_window unfused")
+OVERLAP_BWD_PATHS = ("halo_overlap", "halo_window")
 OVERLAP_HOLD_S = 0.2
 
 
-def overlap_steps(path):
-    """Per step of a traced sharded forward (a Chrome trace of
-    ``profiling.trace``), in ms: (the device time of the kernels launched
-    inside the step's ``halo/local`` span, the part of it inside the
-    ``halo/wait`` span, the time from the last of them to the wait's end,
-    the ``halo/exchange`` span).  A kernel is tied to its launch by the
-    trace's correlation id; device and host times share the trace's
-    clock."""
+def trace_spans(path, names):
+    """A Chrome trace of ``profiling.trace``: ({name: its spans (start,
+    end), in time order} for ``names``, which must pair up; the kernels
+    as (launch, start, end)).  A kernel is tied to its launch by the
+    trace's correlation id; device and host times share the trace's clock
+    (µs)."""
     with open(path) as f:
         events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
     spans = {n: sorted((e["ts"], e["ts"] + e["dur"]) for e in events
                        if e.get("cat") == "user_annotation"
                        and e.get("name") == n)
-             for n in ("halo/exchange", "halo/local", "halo/wait")}
+             for n in names}
     launched = {e["args"]["correlation"]: e["ts"] for e in events
                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
                 and "correlation" in e.get("args", {})}
@@ -6620,6 +6633,16 @@ def overlap_steps(path):
     if len({len(v) for v in spans.values()}) != 1:
         raise AssertionError(f"[overlap] unpaired spans: "
                              f"{ {k: len(v) for k, v in spans.items()} }")
+    return spans, kernels
+
+
+def overlap_steps(path):
+    """Per step of a traced sharded forward, in ms: (the device time of
+    the kernels launched inside the step's ``halo/local`` span, the part of
+    it inside the ``halo/wait`` span, the time from the last of them to the
+    wait's end, the ``halo/exchange`` span)."""
+    spans, kernels = trace_spans(path, ("halo/exchange", "halo/local",
+                                        "halo/wait"))
     steps = []
     for (x0, x1), (l0, l1), (w0, w1) in zip(*spans.values()):
         mine = [(a, b) for t, a, b in kernels if l0 <= t <= l1]
@@ -6630,30 +6653,68 @@ def overlap_steps(path):
     return steps
 
 
-def traced_overlap(run, dev, rank):
-    """:func:`overlap_steps` of one ``run()`` traced on this rank, rank 1
-    holding each all-to-all back OVERLAP_HOLD_S."""
+def overlap_bwd_steps(path):
+    """Per step with a reverse exchange of a traced sharded train step, in
+    ms: (the device time of the kernels launched between the reverse
+    all-to-all's issue and its wait, i.e. from the start of
+    ``halo/bwd_exchange`` to that of ``halo/bwd_wait``: the local
+    backward; the time from the last of them to the wait's end; the
+    ``halo/bwd_exchange`` span; the ``halo/bwd_wait`` span)."""
+    spans, kernels = trace_spans(path, ("halo/bwd_exchange",
+                                        "halo/bwd_wait"))
+    steps = []
+    for (x0, x1), (w0, w1) in zip(*spans.values()):
+        mine = [(a, b) for t, a, b in kernels if x0 <= t <= w0]
+        last = max((b for _, b in mine), default=w1)
+        steps.append((sum(b - a for a, b in mine) / 1e3, (w1 - last) / 1e3,
+                      (x1 - x0) / 1e3, (w1 - w0) / 1e3))
+    return steps
+
+
+def traced_held(run, dev, rank, parse, backward=False):
+    """``parse`` of the trace of one ``run()`` on this rank, rank 1 holding
+    each all-to-all (``backward``: each reverse all-to-all) back
+    OVERLAP_HOLD_S before it issues it.  The ranks meet at a barrier (a
+    gloo group of their own) just before each such issue, so the hold
+    counts from a common start on every rank: how far apart the ranks
+    arrive (the profiler's start takes each process its own time) does
+    not eat into it.  Python's cyclic collector is run before the trace
+    and kept off during it: a rank's full collection takes 150-200 ms on
+    the card's host, and one that fell between rank 0's issue and its
+    local launches would eat the margin that the check reads."""
+    import gc
     import os
     import shutil
+    import torch.distributed as dist
     from ggnn_tpu_torch import profiling
     from ggnn_tpu_torch.parallel import comm
-    start = comm.all_to_all_start
+    name = "_backward" if backward else "all_to_all_start"
+    own = getattr(comm, name)
+    sync = dist.new_group(backend="gloo")
 
-    def held(x, group):
-        time.sleep(OVERLAP_HOLD_S)
-        return start(x, group)
+    def held(*args, **kw):
+        if not backward or args[0] == "all_to_all":
+            dist.barrier(group=sync)
+            if rank == 1:
+                time.sleep(OVERLAP_HOLD_S)
+        return own(*args, **kw)
 
     out_dir = repo_file(".chip_scratch", f"overlap_{os.getpid()}")
     shutil.rmtree(out_dir, ignore_errors=True)
-    if rank == 1:
-        comm.all_to_all_start = held
+    setattr(comm, name, held)
+    collecting = gc.isenabled()
+    gc.collect()
+    gc.disable()
     try:
         with profiling.trace(out_dir, dev):
             run()
     finally:
-        comm.all_to_all_start = start
-    (name,) = os.listdir(out_dir)
-    steps = overlap_steps(os.path.join(out_dir, name))
+        if collecting:
+            gc.enable()
+        setattr(comm, name, own)
+        dist.destroy_process_group(sync)
+    (trace,) = os.listdir(out_dir)
+    steps = parse(os.path.join(out_dir, trace))
     shutil.rmtree(out_dir)
     return steps
 
@@ -6684,7 +6745,41 @@ def check_overlap(serve, card):
                 raise AssertionError(f"[overlap] {tag} rank 0: a step's "
                                      "local aggregation did not end "
                                      f"{margin} ms before its exchange "
-                                     "completed")
+                                     "completed: per step (kernels ms, of "
+                                     "which in the wait, margin, exchange "
+                                     f"span) {steps}")
+
+
+def check_overlap_bwd(train, card):
+    """[overlap], the backward: in every step with a reverse exchange (the
+    first step's sent rows take no gradient) of each traced train step,
+    rank 0's local backward kernels all ended at least half of rank 1's
+    hold before rank 0's wait for the reverse all-to-all returned."""
+    margin = OVERLAP_HOLD_S * 1e3 / 2
+    for tag in OVERLAP_BWD_PATHS:
+        for r, res in enumerate(train):
+            steps = res["overlap"][tag]
+            if len(steps) != STEPS - 1:
+                raise AssertionError(f"[overlap] backward {tag} rank {r}: "
+                                     f"{len(steps)} traced reverse "
+                                     f"exchanges, not {STEPS - 1}")
+            print(f"[overlap] backward rank {r} {tag} train step (rank 1 "
+                  f"held each reverse all-to-all {OVERLAP_HOLD_S} s): per "
+                  "step, the local backward's kernels (ms) "
+                  f"{[round(x[0], 3) for x in steps]}; the last of them "
+                  "ended before the wait returned by "
+                  f"{[round(x[1], 3) for x in steps]}; the reverse exchange "
+                  f"span {[round(x[2], 3) for x in steps]}, its wait "
+                  f"{[round(x[3], 3) for x in steps]} (traced); card {card}",
+                  flush=True)
+            if r == 0 and not all(x[0] > 0 and x[1] >= margin
+                                  for x in steps):
+                raise AssertionError(f"[overlap] backward {tag} rank 0: a "
+                                     "step's local backward did not end "
+                                     f"{margin} ms before its reverse "
+                                     "exchange completed: per step "
+                                     "(kernels ms, margin, exchange span, "
+                                     f"wait) {steps}")
 
 
 def with_runs(out, runs):
@@ -6698,7 +6793,8 @@ def with_runs(out, runs):
 def rank_train(mesh, state):
     """[sharded train] on this rank: one node_select task step each
     through halo_onehot (the uniform headline) and halo_window (the
-    community headline, on-demand, exact and with int8 gradients)."""
+    community headline, on-demand, exact and with int8 gradients); then
+    [overlap]'s traced train steps (:func:`overlap_bwd_steps`)."""
     import dataclasses
     import torch
     from ggnn_tpu_torch.parallel import make_sharded_task_train_step
@@ -6735,7 +6831,23 @@ def rank_train(mesh, state):
                         else None)
         del params, opt, step
         torch.cuda.empty_cache()
-    return with_runs({}, runs)
+    # [overlap], the backward: one traced step each (after one untraced,
+    # which makes the per-layout plans)
+    out = {"overlap": {}}
+    for tag, cfg, parts_, lay, meta in (
+            ("halo_overlap", sharded_cfg(), lp, None, None),
+            ("halo_window", wcfg, clp, wlay, wmeta)):
+        params = sharded_params(cfg)
+        opt = make_optimizer(params, SHARDED_LR)
+        step = make_sharded_task_train_step(cfg, mesh, opt, 1, strategy=tag,
+                                            halo_meta=meta)
+        step(params, parts_, targets, lay)
+        out["overlap"][tag] = traced_held(
+            lambda: step(params, parts_, targets, lay), dev, axis.index,
+            overlap_bwd_steps, backward=True)
+        del params, opt, step
+        torch.cuda.empty_cache()
+    return with_runs(out, runs)
 
 
 def ggsnn_cell(device):
@@ -7347,6 +7459,7 @@ def check_sharded_train(train, refs, card):
                 train[0]["launches"]["halo_window"],
                 ("window_step_gru[emit_res]", "window_bwd_fused",
                  "gru_cell_bwd"))
+    check_overlap_bwd(train, card)
     phase_footer("[sharded train]", train)
 
 

@@ -21,7 +21,10 @@ for rounding point:
   transposed stream and the row order's einsums; plus the spill backward
   (:func:`_spill_backward`).  The fused step's VJP (:class:`FusedWindowStep`)
   runs #13 with ``emit_res`` under autograd, then #4 on its residuals and
-  :func:`aggregate_window_bwd`.
+  :func:`aggregate_window_bwd`; split (``window_step_prep(split_grad=
+  True)``), #4 gives the external partial's cotangent at once and
+  :func:`aggregate_window_bwd` runs in a node of its own
+  (:class:`_SplitAggregateBwd`), recorded where the prep ran.
 """
 
 from __future__ import annotations
@@ -284,21 +287,59 @@ class WindowStepPrep:
     the table in the layout's row order (h in the compute dtype on-demand;
     int8 with q8 and its window ``scales``) and the spill's partial
     (None without a spill).  Values without autograd history: the fused
-    step's backward reaches them through the layout."""
+    step's backward reaches them through the layout.  ``token`` and
+    ``handoff``: the split backward's node (:class:`_SplitAggregateBwd`)
+    and what the fused step's node hands it, or None."""
 
     layout: DeviceWindowLayout
     quantized: bool
     table: torch.Tensor
     scales: torch.Tensor | None
     spill: torch.Tensor | None
+    token: torch.Tensor | None = None
+    handoff: list | None = None
+
+
+class _SplitAggregateBwd(torch.autograd.Function):
+    """The fused step's aggregation backward as a node of its own, recorded
+    by ``window_step_prep(split_grad=True)`` on (h, msg_w, msg_b); its
+    output, an empty token, is an input of the step's
+    :class:`FusedWindowStep`, whose backward runs #4 alone and hands (dh1,
+    da) over through ``handoff``.  This node's backward then runs
+    :func:`aggregate_window_bwd` (#14, the spill backward) and returns dh
+    = dh1 + dh2 (the unsplit step's one f32 add), dW and db.  The engine
+    runs it where the prep stood in the forward: after the backward of all
+    that was recorded later (the external partial's, and the reverse
+    collective its cotangent feeds), as the reference's graph lets XLA
+    schedule ``_aggregate_window_bwd`` beside the reverse all-to-all."""
+
+    @staticmethod
+    def forward(ctx, h, msg_w, msg_b, layout, handoff):
+        ctx.layout, ctx.handoff, ctx.h_dtype = layout, handoff, h.dtype
+        ctx.save_for_backward(h.to(msg_w.dtype), msg_w)
+        return h.new_empty(0, dtype=msg_w.dtype)
+
+    @staticmethod
+    def backward(ctx, _):
+        hc, msg_w = ctx.saved_tensors
+        dh1, da = ctx.handoff.pop()
+        dh2, dW, dbm = aggregate_window_bwd(ctx.layout, hc, msg_w, da)
+        return ((dh1 + dh2.float()).to(ctx.h_dtype), dW, dbm, None, None)
 
 
 def window_step_prep(h, layout: DeviceWindowLayout, msg_w, msg_b,
-                     quantized: bool = False) -> WindowStepPrep:
+                     quantized: bool = False,
+                     split_grad: bool = False) -> WindowStepPrep:
     """The part of :func:`gru_window_step` that reads no ``extra_init``
     (#10 or the 'src' einsum, #15 with ``quantized``, and the spill), to
     run while an external partial is still being made; pass it back as
-    ``prep=``.  The same values as the step computes without it."""
+    ``prep=``.  The same values as the step computes without it.
+
+    ``split_grad`` (where the call records a gradient): the step's
+    aggregation backward becomes a node recorded here
+    (:class:`_SplitAggregateBwd`), so that it runs while the backward of
+    what is recorded between this call and the step (a collective's
+    reverse) is in flight; the same values."""
     if layout.on_demand and quantized:
         raise ValueError("on_demand and quantized_table are mutually "
                          "exclusive serving modes")
@@ -335,7 +376,12 @@ def window_step_prep(h, layout: DeviceWindowLayout, msg_w, msg_b,
                     * scales[idx.long() // layout.window][:, None]
                     ).to(msg_w.dtype)
             spill = _spill_scatter_msgs(msgs, arrs, spill_meta)
-    return WindowStepPrep(layout, quantized, table, scales, spill)
+    prep = WindowStepPrep(layout, quantized, table, scales, spill)
+    if split_grad and not quantized and W.takes_grad(h, msg_w, msg_b):
+        prep.handoff = []
+        prep.token = _SplitAggregateBwd.apply(h, msg_w, msg_b, layout,
+                                              prep.handoff)
+    return prep
 
 
 def gru_window_step(h, layout: DeviceWindowLayout, msg_w, msg_b, gru: dict,
@@ -387,7 +433,7 @@ def gru_window_step(h, layout: DeviceWindowLayout, msg_w, msg_b, gru: dict,
         # serving: #13 without residuals, whatever the parameters'
         # requires_grad says under torch.no_grad
         return _fused_step_impl(prep, *args, emit_res=False)[:N]
-    return FusedWindowStep.apply(*args, prep)[:N]
+    return FusedWindowStep.apply(*args, prep.token, prep)[:N]
 
 
 def _init_stream(init, extra, n_rows, D, device, has_init):
@@ -455,14 +501,17 @@ class FusedWindowStep(torch.autograd.Function):
     ``emit_res`` and saves h in the compute dtype and the residuals; the
     backward runs #4 (``gru_cell_bwd``, da in the compute dtype) on them,
     then :func:`aggregate_window_bwd`; extra's cotangent is da's leading
-    rows."""
+    rows.  With the prep's ``token`` (split), the backward hands (dh1, da)
+    to :class:`_SplitAggregateBwd` and returns no gradient for h, msg_w
+    and msg_b: that node returns them."""
 
     @staticmethod
-    def forward(ctx, h, msg_w, msg_b, wa, b3, uzr, uh, extra, prep):
+    def forward(ctx, h, msg_w, msg_b, wa, b3, uzr, uh, extra, token, prep):
         h_new, resid = _fused_step_impl(prep, h, msg_w, msg_b, wa, b3,
                                         uzr, uh, extra, emit_res=True)
         ctx.layout, ctx.dtypes = prep.layout, (h.dtype, wa.dtype, b3.dtype,
                                           uzr.dtype, uh.dtype, extra.dtype)
+        ctx.handoff = None if token is None else prep.handoff
         ctx.n_extra = extra.shape[0]
         ctx.save_for_backward(h.to(msg_w.dtype), msg_w, wa, uzr, uh, resid)
         return h_new
@@ -482,9 +531,15 @@ class FusedWindowStep(torch.autograd.Function):
         dh1, da, dwa, db3, duzr, duh = gru_cell_bwd(
             g[:N].float().contiguous(), hc, a, z, r, htil, wa, uzr, uh,
             mdt=cdt, da_dtype=cdt)
-        dh2, dW, dbm = aggregate_window_bwd(ctx.layout, hc, msg_w, da)
         h_dt, wa_dt, b3_dt, uzr_dt, uh_dt, e_dt = ctx.dtypes
-        dh = (dh1 + dh2.float()).to(h_dt)
+        if ctx.handoff is not None:
+            ctx.handoff.append((dh1, da))
+            dh = dW = dbm = None
+            d_token = da.new_empty(0)
+        else:
+            dh2, dW, dbm = aggregate_window_bwd(ctx.layout, hc, msg_w, da)
+            dh = (dh1 + dh2.float()).to(h_dt)
+            d_token = None
         d_extra = da[:ctx.n_extra].to(e_dt)
         return (dh, dW, dbm, dwa.to(wa_dt), db3.reshape(1, -1).to(b3_dt),
-                duzr.to(uzr_dt), duh.to(uh_dt), d_extra, None)
+                duzr.to(uzr_dt), duh.to(uh_dt), d_extra, d_token, None)

@@ -13,8 +13,8 @@ true gradient as well.
 - :func:`all_to_all_start` / :func:`finish`: equal ``[P, H, D]`` chunks,
   issued asynchronously so that work queued between the two runs while the
   exchange is in flight; the backward is the reverse all-to-all (the same
-  exchange of the cotangents, synchronous); :func:`all_to_all` is the two
-  back to back;
+  exchange of the cotangents), asynchronous too (below);
+  :func:`all_to_all` is the two back to back;
 - :func:`all_gather_start` / :func:`finish`: tiled on the leading axis;
   the backward is a reduce-scatter (sum); :func:`all_gather` back to back;
 - :func:`psum`: all-reduce (sum), backward all-reduce (sum);
@@ -36,12 +36,28 @@ so the card has only the gather and the copy left), the collective runs
 with ``async_op=True`` on gloo's threads, and :func:`finish` waits for it
 and copies the received rows back without blocking; on ``gloo`` with CPU
 tensors ``async_op=True``.  Any other pairing raises.
+
+The backward mirrors the forward.  A collective that records a gradient
+(grad mode on, the sent tensor requiring one) is two autograd nodes: one
+recorded at the issue, on the sent tensor, and the finish's, which takes
+the first's output (an empty token) as its input.  The finish's backward
+issues the reverse collective through the same transports without waiting
+for it; the issue's node waits and returns the sent tensor's cotangent.
+The engine runs the ready node of the highest sequence number first, so
+the backward of the work recorded between the issue and the finish (the
+local work queued while the exchange was in flight) runs while the
+reverse collective is in flight, as XLA may schedule the reference's
+transposed collectives.  ``spans`` names the reverse exchange (its issue
+to its wait's return) and its wait alone in a
+:mod:`~ggnn_tpu_torch.profiling` trace.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+
+from ggnn_tpu_torch import profiling
 
 
 def _staged(group, x) -> bool:
@@ -75,11 +91,14 @@ def _all_reduce(group, x, op=dist.ReduceOp.SUM):
 
 class Pending:
     """A collective in flight (:func:`all_to_all_start`,
-    :func:`all_gather_start`); :func:`finish` waits for it once."""
+    :func:`all_gather_start`); :func:`finish` waits for it once.
+    ``reverse`` is its backward's :class:`_Reverse` where it records a
+    gradient (``token`` then the issue node's output), else None."""
 
     def __init__(self, kind, x, group, work, out, keep):
         self.kind, self.x, self.group = kind, x, group
         self._work, self._out, self._keep = work, out, keep
+        self.token = self.reverse = None
 
     def _wait(self):
         if self._work is None:
@@ -116,62 +135,119 @@ def _start(kind, group, fn, out_shape, x) -> Pending:
     return Pending(kind, x, group, work, out, keep)
 
 
-class _Finish(torch.autograd.Function):
-    """The received tensor of a :class:`Pending` as a function of the sent
-    ``x``: the backward is the reverse all-to-all, or the all_gather's
-    reduce-scatter (sum), both synchronous."""
+def _backward(kind, group, g) -> Pending:
+    """The reverse of a ``kind`` collective on the cotangent ``g``, issued
+    through :func:`_start` (not waited on): the reverse all-to-all, or the
+    all_gather's reduce-scatter (sum)."""
+    if kind == "all_to_all":
+        return _start(kind, group, lambda o, i: dist.all_to_all_single(
+            o, i, group=group, async_op=True), g.shape, g)
+    P = dist.get_world_size(group)
+    return _start("reduce_scatter", group, lambda o, i: _reduce_scatter(
+        o, i, group=group, async_op=True),
+        (g.shape[0] // P, *g.shape[1:]), g)
+
+
+class _Reverse:
+    """A collective's reverse between its two nodes: issued by
+    :class:`_Finish`'s backward, waited on by :class:`_Issue`'s, inside
+    the spans ``spans`` = (issue to wait's return, the wait alone) or
+    None."""
+
+    def __init__(self, kind, group, spans):
+        self.kind, self.group, self.spans = kind, group, spans
+        self._pending = self._span = None
+
+    def issue(self, g):
+        if self.spans is not None:
+            self._span = profiling.annotate(self.spans[0])
+            self._span.__enter__()
+        self._pending = _backward(self.kind, self.group, g)
+
+    def wait(self):
+        pending, span = self._pending, self._span
+        self._pending = self._span = None
+        if span is None:
+            return pending._wait()
+        with profiling.annotate(self.spans[1]):
+            out = pending._wait()
+        span.__exit__(None, None, None)
+        return out
+
+
+class _Issue(torch.autograd.Function):
+    """Recorded on the sent ``x`` when a collective is issued; returns an
+    empty token for :class:`_Finish`.  The backward waits for the reverse
+    collective that :class:`_Finish`'s backward issued and returns x's
+    cotangent."""
 
     @staticmethod
-    def forward(ctx, x, pending):
-        ctx.kind, ctx.group = pending.kind, pending.group
+    def forward(ctx, x, reverse):
+        ctx.reverse = reverse
+        return x.new_empty(0)
+
+    @staticmethod
+    def backward(ctx, _):
+        return ctx.reverse.wait(), None
+
+
+class _Finish(torch.autograd.Function):
+    """The received tensor of a :class:`Pending` as a function of its
+    issue's token: the backward issues the reverse all-to-all, or the
+    all_gather's reduce-scatter (sum), and does not wait for it."""
+
+    @staticmethod
+    def forward(ctx, token, pending):
+        ctx.reverse = pending.reverse
         return pending._wait()
 
     @staticmethod
     def backward(ctx, g):
-        return _backward(ctx.kind, ctx.group, g), None
+        ctx.reverse.issue(g)
+        return g.new_empty(0), None
 
 
-def _backward(kind, group, g):
-    """The cotangent of a ``kind`` collective's sent tensor from ``g``,
-    through :func:`_start` and waited on at once: the reverse all-to-all,
-    or the all_gather's reduce-scatter (sum)."""
-    if kind == "all_to_all":
-        return _start(kind, group, lambda o, i: dist.all_to_all_single(
-            o, i, group=group, async_op=True), g.shape, g)._wait()
-    P = dist.get_world_size(group)
-    return _start("reduce_scatter", group, lambda o, i: _reduce_scatter(
-        o, i, group=group, async_op=True),
-        (g.shape[0] // P, *g.shape[1:]), g)._wait()
+def _record(pending, spans=None) -> Pending:
+    """Record the issue node of ``pending`` where it takes a gradient."""
+    if torch.is_grad_enabled() and pending.x.requires_grad:
+        pending.reverse = _Reverse(pending.kind, pending.group, spans)
+        pending.token = _Issue.apply(pending.x, pending.reverse)
+    return pending
 
 
-def all_to_all_start(x, group) -> Pending:
+def all_to_all_start(x, group, spans=None) -> Pending:
     """Issue the all-to-all of x [P, H, …] (chunk j goes to rank j);
     :func:`finish` returns [P, H, …] whose chunk j came from rank j (the
     reference's ``all_to_all(split_axis=0, concat_axis=0, tiled=False)``).
-    ``x`` must not change before :func:`finish`."""
+    ``x`` must not change before :func:`finish`.  ``spans``: the names of
+    the backward's reverse exchange and of its wait (module docstring)."""
     if x.shape[0] != dist.get_world_size(group):
         raise ValueError(f"all_to_all needs [P, …] chunks, got {x.shape} for "
                          f"P = {dist.get_world_size(group)}")
-    return _start("all_to_all", group,
-                  lambda o, i: dist.all_to_all_single(o, i, group=group,
-                                                      async_op=True),
-                  x.shape, x)
+    return _record(_start("all_to_all", group,
+                          lambda o, i: dist.all_to_all_single(
+                              o, i, group=group, async_op=True),
+                          x.shape, x), spans)
 
 
 def all_gather_start(x, group) -> Pending:
     """Issue the all_gather of x [n, …]; :func:`finish` returns [P·n, …],
     rank r's rows at r·n (tiled)."""
     P = dist.get_world_size(group)
-    return _start("all_gather", group,
-                  lambda o, i: _gather_into(o, i, group=group, async_op=True),
-                  (P * x.shape[0], *x.shape[1:]), x)
+    return _record(_start("all_gather", group,
+                          lambda o, i: _gather_into(o, i, group=group,
+                                                    async_op=True),
+                          (P * x.shape[0], *x.shape[1:]), x))
 
 
 def finish(pending: Pending):
     """Wait for a collective issued by :func:`all_to_all_start` or
     :func:`all_gather_start`; returns what it received, on the sent
-    tensor's device, differentiable with respect to the sent tensor."""
-    return _Finish.apply(pending.x, pending)
+    tensor's device, differentiable with respect to the sent tensor where
+    the issue recorded a gradient."""
+    if pending.token is None:
+        return pending._wait()
+    return _Finish.apply(pending.token, pending)
 
 
 class PSum(torch.autograd.Function):

@@ -39,8 +39,20 @@ wait for both; all_gather has no work that reads no gathered row.  The
 spans ``halo/exchange`` (issue to wait), ``halo/local`` and ``halo/wait``
 (inside it: the local work's launch, then the wait for the exchange
 alone) and ``halo/remote`` (the remote edges' aggregation) name each
-step's parts in a :mod:`~ggnn_tpu_torch.profiling` trace.  The backward's reverse
-exchange is synchronous.
+step's parts in a :mod:`~ggnn_tpu_torch.profiling` trace.
+
+The backward mirrors it (:mod:`~ggnn_tpu_torch.parallel.comm`): each
+reverse collective is issued as soon as its cotangent exists, the
+backward of what the forward queued while the exchange was in flight runs
+beside it, and the wait comes where its cotangent is consumed.  So the
+reverse all-to-all overlaps halo_overlap's local typed aggregation's
+backward; unfused halo_window's ``AggregateWindow`` backward; fused
+halo_window's #14 and spill backward (``window_step_prep(split_grad=
+True)``: #4 gives the remote partial's cotangent first).  halo and
+halo_onehot issue the hot rows' reduce-scatter and the reverse all-to-all
+together, then wait for both; all_gather's reduce-scatter is alone.  The
+spans ``halo/bwd_exchange`` (the reverse all-to-all's issue to its wait's
+return) and ``halo/bwd_wait`` (the wait alone) name them in a trace.
 
 The GRU cell is the reference's sharded one: ``gru_update`` without a
 matmul dtype (f32 matmul inputs), so the halo strategies do not reach the
@@ -80,6 +92,9 @@ STRATEGIES = ("halo", "all_gather", "halo_onehot", "halo_overlap",
               "halo_window")
 _KERNEL = ("halo_onehot", "halo_window")
 _SPLIT = ("halo_overlap", "halo_window")
+# the backward's spans of the reverse all-to-all: its issue to its wait's
+# return, and the wait alone
+_BWD_SPANS = ("halo/bwd_exchange", "halo/bwd_wait")
 
 
 def _resolve_layout(strategy, parts, cfg, halo_layouts, scatter_tile_e,
@@ -168,7 +183,7 @@ def sharded_propagate(prop: dict, cfg: ModelConfig, mesh,
         hot = (comm.all_gather_start(gather_rows(hc, hot_idx), group)
                if Hh > 0 else None)
         send = gather_rows(hc, send_idx).reshape(P, Hs, -1)
-        return hc, hot, comm.all_to_all_start(send, group)
+        return hc, hot, comm.all_to_all_start(send, group, spans=_BWD_SPANS)
 
     def finish_exchange(pending):
         """The pool [hot (P·Hh) ∥ recv (P·H) ∥ h_local] in the compute
@@ -227,10 +242,12 @@ def sharded_propagate(prop: dict, cfg: ModelConfig, mesh,
             # partial read h_local alone and run while it is in flight
             # (on-demand builds its windows inside #13: only its spill
             # overlaps).  q8 quantizes each rank's own table windows
-            # (serving only)
+            # (serving only).  Trained, the aggregation's backward (#14,
+            # the spill's) is a node recorded here: it runs while the
+            # reverse all-to-all is in flight
             prep, pool = overlapped(hc, lambda: window_step_prep(
                 h_local, layout, msg_w_c, msg_b_c,
-                quantized=cfg.quantized_table))
+                quantized=cfg.quantized_table, split_grad=True))
             return gru_window_step(h_local, layout, msg_w_c, msg_b_c,
                                    prop["gru"], extra_init=remote(pool),
                                    quantized=cfg.quantized_table, prep=prep)

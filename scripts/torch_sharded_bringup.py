@@ -21,10 +21,14 @@ archive HEAD | tar -x -C .chip_scratch/parent``) the two ranks also run
 tree's package, everything else shared) and this tree's, in turns in each
 rank (parent, change, change, parent, AB_ROUNDS times), on the
 halo_overlap forward of the uniform headline and the unfused halo_window
-forward of the community one, each timed by CUDA events; each
-forward's h bit-equal between the two.  Then each rank's share of a
-node_select train step (halo_onehot, halo_window) that the backward's
-reverse all-to-alls take (synchronous; each timed alone).
+forward of the community one, then on one node_select train step (as
+``[sharded train]``) through halo_overlap and halo_onehot (the uniform
+headline) and fused halo_window (the community one, on-demand), each
+timed by CUDA events; each forward's h and each step's loss and gradient
+leaves bit-equal between the two.  Then, for the three train steps, the
+host time from each reverse all-to-all's issue to its wait's return (the
+``halo/bwd_exchange`` span) and of the wait alone (``halo/bwd_wait``),
+summed over a step, beside the step's time (no synchronisation added).
 """
 
 import argparse
@@ -36,7 +40,7 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
-AB_ROUNDS = 2
+AB_ROUNDS = 5
 
 
 def load_parent_halo(parent):
@@ -94,75 +98,118 @@ def rank_ab(parent, mesh, state):
                 ms[who].append(t)
         out["ms"][tag] = ms
         out["same"][tag] = bool(torch.equal(hs["parent"], hs["change"]))
+    for tag, (cfg, parts, lay, meta) in train_paths(state).items():
+        ms = {k: [] for k in trees}
+        runs = {}
+        for _ in range(AB_ROUNDS):
+            for who in ("parent", "change", "change", "parent"):
+                if who not in runs:
+                    train_step(trees[who], mesh, tag, cfg, parts, lay, meta)
+                runs[who], t = train_step(trees[who], mesh, tag, cfg, parts,
+                                          lay, meta)
+                ms[who].append(t)
+        out["ms"][f"{tag} train step"] = ms
+        out["same"][f"{tag} train step"] = all(
+            torch.equal(runs["parent"][k], runs["change"][k])
+            for k in runs["change"]) and runs["parent"].keys() == \
+            runs["change"].keys()
+        del runs
+        torch.cuda.empty_cache()
     out["reverse"] = reverse_exchange_share(mesh, state)
     out["launches"] = {}
     return out
 
 
-def reverse_exchange_share(mesh, state):
-    """{path: (the train step's ms, the ms of its backward's reverse
-    all-to-alls)}: one node_select task step (as [sharded train]) through
-    halo_onehot and halo_window, warmed up, then one with each reverse
-    all-to-all (``comm._backward``, synchronous) timed on the host
-    between two device synchronisations."""
-    import time
-    import torch
+def train_paths(state):
+    """{tag: (cfg, the rank's parts, layout, halo_meta)} of the train steps
+    timed here: halo_overlap and halo_onehot on the uniform headline,
+    fused halo_window on-demand on the community one."""
     import chip_smoke as cs
-    from ggnn_tpu_torch.parallel import comm, make_sharded_task_train_step
-    from ggnn_tpu_torch.train.loop import make_optimizer
     lp, slay, smeta = state["uniform"]
     clp, wl = state["community"]
+    return {"halo_overlap": (cs.sharded_cfg(), lp, None, None),
+            "halo_onehot": (cs.sharded_cfg(), lp, slay, smeta),
+            "halo_window": (cs.sharded_cfg(backend="window", fuse_gru=True),
+                            clp, *wl[True])}
+
+
+def train_step(tree, mesh, tag, cfg, parts, lay, meta):
+    """One node_select task step of ``tree``'s ``halo`` module from fresh
+    parameters (as [sharded train]): ({"loss", every gradient leaf}, its
+    ms by CUDA events)."""
+    import torch
+    import chip_smoke as cs
+    from ggnn_tpu_torch.train.loop import make_optimizer
     targets = {"n_nodes": torch.tensor([cs.NODES], dtype=torch.int32,
                                        device=mesh.device),
                "node": torch.tensor([cs.node_target()], dtype=torch.int32,
                                     device=mesh.device)}
-    wcfg = cs.sharded_cfg(backend="window", fuse_gru=True)
-    own, spent, out = comm._backward, [], {}
+    params = cs.sharded_params(cfg)
+    opt = make_optimizer(params, cs.SHARDED_LR)
+    step = tree.make_sharded_task_train_step(cfg, mesh, opt, 1,
+                                             strategy=tag, halo_meta=meta)
+    m, ms, _ = cs.timed(lambda: step(params, parts, targets, lay))
+    out = {"loss": m["loss_sum"].detach().cpu()}
+    out.update({k: v.detach().cpu()
+                for k, v in cs.flat_grads(params).items()})
+    return out, ms
 
-    def timed_a2a(kind, group, x):
+
+def reverse_exchange_share(mesh, state):
+    """{path: (the step's ms, the summed host ms from each reverse
+    all-to-all's issue to its wait's return, of the waits alone, their
+    count)}: one node_select task step (as [sharded train]) of each of
+    :func:`train_paths`, warmed up, then one with the reverse all-to-alls'
+    issues (``comm._backward``) and waits stamped on the host, with no
+    synchronisation added."""
+    import time
+    from ggnn_tpu_torch.parallel import comm, halo
+    own, spans, out = comm._backward, [], {}
+
+    def stamped(kind, group, x):
         if kind != "all_to_all":
             return own(kind, group, x)
-        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        y = own(kind, group, x)
-        torch.cuda.synchronize()
-        spent.append((time.perf_counter() - t0) * 1e3)
-        return y
+        pending = own(kind, group, x)
+        wait = pending._wait
 
-    for tag, cfg, parts, lay, meta in (
-            ("halo_onehot", cs.sharded_cfg(), lp, slay, smeta),
-            ("halo_window", wcfg, clp, *wl[True])):
-        params = cs.sharded_params(cfg)
-        opt = make_optimizer(params, cs.SHARDED_LR)
-        step = make_sharded_task_train_step(
-            cfg, mesh, opt, 1, strategy=tag, halo_meta=meta)
-        step(params, parts, targets, lay)
-        _, plain_ms, _ = cs.timed(lambda: step(params, parts, targets, lay))
-        spent.clear()
-        comm._backward = timed_a2a
+        def stamped_wait():
+            t1 = time.perf_counter()
+            y = wait()
+            t2 = time.perf_counter()
+            spans.append(((t2 - t0) * 1e3, (t2 - t1) * 1e3))
+            return y
+        pending._wait = stamped_wait
+        return pending
+
+    for tag, (cfg, parts, lay, meta) in train_paths(state).items():
+        train_step(halo, mesh, tag, cfg, parts, lay, meta)
+        spans.clear()
+        comm._backward = stamped
         try:
-            _, ms, _ = cs.timed(lambda: step(params, parts, targets, lay))
+            _, ms = train_step(halo, mesh, tag, cfg, parts, lay, meta)
         finally:
             comm._backward = own
-        out[tag] = (plain_ms, ms, sum(spent), len(spent))
-        del params, opt, step
-        torch.cuda.empty_cache()
+        out[tag] = (ms, sum(x for x, _ in spans), sum(w for _, w in spans),
+                    len(spans))
     return out
 
 
 def check_ab(results, refs, card):
     for r, res in enumerate(results):
         for tag, ms in res["ms"].items():
+            what = "loss and gradients" if "train" in tag else "h"
             print(f"[overlap a/b] rank {r} {tag}: parent "
                   f"{[round(x, 2) for x in ms['parent']]} ms, change "
                   f"{[round(x, 2) for x in ms['change']]} ms (CUDA events, "
-                  "in turns); h bit-equal to the parent's: "
+                  f"in turns); {what} bit-equal to the parent's: "
                   f"{res['same'][tag]}; card {card}", flush=True)
-        for tag, (plain, ms, rev, n) in res["reverse"].items():
-            print(f"[overlap a/b] rank {r} {tag} train step: {plain:.2f} ms; "
-                  f"with its {n} reverse all-to-alls timed alone "
-                  f"{ms:.2f} ms, of which they took {rev:.2f} "
-                  f"({rev / ms:.1%}); card {card}", flush=True)
+        for tag, (ms, rev, wait, n) in res["reverse"].items():
+            print(f"[overlap a/b] rank {r} {tag} train step: {ms:.2f} ms; "
+                  f"its {n} reverse all-to-alls from issue to wait's return "
+                  f"{rev:.2f} ms on the host ({rev / ms:.1%} of the step), "
+                  f"of which the waits {wait:.2f} ({wait / ms:.1%}); card "
+                  f"{card}", flush=True)
 
 
 def main() -> int:

@@ -261,12 +261,12 @@ def run_overlap(case, mesh):
         yield
         stamps[name].append((t0, time.time()))
 
-    def held_start(x, group):
+    def held_start(x, group, **kw):
         if axis.index == 1:
             time.sleep(case["hold_s"])
         t = time.time()
         stamps["issue"].append((t, t))
-        return start(x, group)
+        return start(x, group, **kw)
 
     # the ranks set out together: the hold alone separates them
     torch.distributed.barrier(group=axis.group)
@@ -285,9 +285,140 @@ def run_overlap(case, mesh):
                for k, v in stamps.items()}}
 
 
+class _Waited:
+    """A reverse collective waited on at its issue (the synchronous
+    order)."""
+
+    def __init__(self, out):
+        self.out = out
+
+    def _wait(self):
+        return self.out
+
+
+def _seq():
+    """The sequence number of a node recorded now on this thread (the
+    autograd engine runs the ready node of the highest number first)."""
+    import torch
+    with torch.enable_grad():
+        return torch.zeros((), requires_grad=True).neg().grad_fn._sequence_nr()
+
+
+def _hook_windows(root, windows, log):
+    """On every node of the graph under ``root`` whose sequence number lies
+    inside ``windows[k]`` = (lo, hi), a pre-hook and a hook that append
+    ``time.time()`` to ``log[k][0]`` (its backward begins) and
+    ``log[k][1]`` (it ends)."""
+    import time
+    seen, stack = {}, [root]
+    while stack:
+        node = stack.pop()
+        if node is None or id(node) in seen:
+            continue
+        seen[id(node)] = node
+        n = node._sequence_nr()
+        for k, (lo, hi) in enumerate(windows):
+            if lo < n < hi:
+                node.register_prehook(
+                    lambda g, k=k: log[k][0].append(time.time()))
+                node.register_hook(
+                    lambda gi, go, k=k: log[k][1].append(time.time()))
+        stack.extend(f for f, _ in node.next_functions)
+
+
+def run_bwd_overlap(case, mesh):
+    """One ``make_sharded_train_step`` (Adam) with graph index 1 holding
+    each reverse all-to-all back ``hold_s``: the ``time.time()`` stamps of
+    each reverse collective's issue and wait (``t/rev``: time, kind — 0 the
+    all-to-all, 1 another — and 0 issue, 1 wait), of the spans
+    ``halo/bwd_exchange`` and ``halo/bwd_wait``, and, per step, the first
+    begin and last end of the backward of the nodes recorded inside the
+    step's ``halo/local`` span (``t/local``, forward order); then the same
+    step from the same parameters with each reverse collective waited on
+    at its issue (``sync/``).  The gradients and updated parameters of
+    both."""
+    import contextlib
+    import time
+    import numpy as np
+    import torch
+    from ggnn_tpu_torch import profiling
+    from ggnn_tpu_torch.parallel import comm, halo, make_sharded_train_step
+    from ggnn_tpu_torch.train.loop import make_optimizer
+    parts, lay = _parts(case)
+    axis = mesh.axis("graph")
+    own = (profiling.annotate, comm._backward, halo._sum_grads_and_step)
+    windows, local, rev = [], [], []
+    stamps = {"halo/bwd_exchange": [], "halo/bwd_wait": []}
+
+    @contextlib.contextmanager
+    def stamped(name):
+        lo = _seq() if name == "halo/local" else None
+        t0 = time.time()
+        yield
+        if name in stamps:
+            stamps[name].append((t0, time.time()))
+        if lo is not None:
+            windows.append((lo, _seq()))
+
+    def held(kind, group, g):
+        a2a = kind == "all_to_all"
+        if a2a and axis.index == 1:
+            time.sleep(case["hold_s"])
+        rev.append((time.time(), 1 - a2a, 0))
+        out = own[1](kind, group, g)
+        if hasattr(out, "_wait"):
+            wait = out._wait
+
+            def stamped_wait():
+                rev.append((time.time(), 1 - a2a, 1))
+                return wait()
+            out._wait = stamped_wait
+        return out
+
+    def hooked(params, loss, optimizer, axis_):
+        local.extend(([], []) for _ in windows)
+        _hook_windows(loss.grad_fn, windows, local)
+        return own[2](params, loss, optimizer, axis_)
+
+    def waited(kind, group, g):
+        out = own[1](kind, group, g)
+        # a reverse that returns its result was waited on at its issue
+        return _Waited(out._wait()) if hasattr(out, "_wait") else out
+
+    def step():
+        prop = _params(case)["prop"]
+        opt = make_optimizer(prop, case["lr"])
+        train = make_sharded_train_step(
+            _cfg(case), mesh, opt, strategy=case["strategy"],
+            halo_meta=None if lay is None else lay[1])
+        loss = train(prop, parts, None if lay is None else lay[0])
+        return {"loss": _np(loss), **_grads(prop), **_values(prop)}
+
+    # the ranks set out together: the hold alone separates them
+    torch.distributed.barrier(group=axis.group)
+    profiling.annotate, comm._backward, halo._sum_grads_and_step = \
+        stamped, held, hooked
+    try:
+        out = step()
+    finally:
+        profiling.annotate, comm._backward, halo._sum_grads_and_step = own
+    comm._backward = waited
+    try:
+        sync = step()
+    finally:
+        comm._backward = own[1]
+    span = [[min(b, default=np.nan), max(e, default=np.nan)]
+            for b, e in local]
+    return {**out, **{f"sync/{k}": v for k, v in sync.items()},
+            "t/local": np.asarray(span, np.float64).reshape(-1, 2),
+            "t/rev": np.asarray(rev, np.float64).reshape(-1, 3),
+            **{f"t/{k}": np.asarray(v, np.float64).reshape(-1, 2)
+               for k, v in stamps.items()}}
+
+
 RUNNERS = {"propagate": run_propagate, "train": run_train, "task": run_task,
            "eval": run_eval, "ddp": run_ddp, "example": run_example,
-           "overlap": run_overlap}
+           "overlap": run_overlap, "bwd_overlap": run_bwd_overlap}
 
 
 def mesh_key(case):
